@@ -13,3 +13,8 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)")
