@@ -12,23 +12,33 @@ Phases (any failure exits non-zero; nothing is caught):
 2. Build: compiles every CUDA kernel from ``rten_tpu_torch/csrc`` (parallel
    nvcc) and prints the build time and ptxas reports.
 3. Kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (GPT-2-small, batch 256, capacity 512, tail
-   window 16), with CUDA-event timings (cold L2, warm median) of the
-   kernel, the plain version and, where one PyTorch call computes the same
-   function, that call; plus each kernel's lower bound from its bytes and
-   operations.
-4. Main path: GPT-2-small with int8 weights (``init_params(0)``), an int8
-   KV cache with the 16-token bf16 tail, ``ServingEngine`` at batch 256,
-   capacity 512, 64-token prompts, greedy; 320 requests of 48 new tokens
-   in bursts of 21, so slots are recycled and the 64 leftover requests are
-   admitted as one group. Every kernel's launch count must be > 0. Then
-   decode at a full batch: one burst timed on the host clock and one
-   traced by torch.profiler (time by kernel, the card's busy share).
-5. Card against CPU: the same weights, 8 requests of 8 tokens x 16 new
-   tokens, on the card and with ``device="cpu"`` (plain versions), with
-   the fused argmax head and with recorded logits; logits must agree
-   within a stated tolerance and greedy tokens must match except after a
-   near-tie step.
+   the serving paths' shapes (GPT-2-small, batch 256, capacity 512, tail
+   window 16, live lengths 65-176), with CUDA-event timings (cold L2, warm
+   median) of the kernel, the plain version and, where one PyTorch call
+   computes the same function, that call; plus each kernel's lower bound
+   from its bytes and operations.
+4. Serving paths, each ``ServingEngine`` at batch 256, capacity 512,
+   64-token prompts, greedy, bursts of 21, after a warm-up serve; launch
+   counts are set to 0 before each measured run and every kernel of the
+   path must have launched:
+   - int8 + tail: int8 weights (``init_params(0)``), an int8 KV cache with
+     the 16-token bf16 tail; 320 requests of 48 new tokens, so slots are
+     recycled and the 64 leftover requests are admitted as one group.
+   - (A) f32: the same weights unquantized, an f32 cache (the baseline of
+     ``bench.py``); 320 requests of 48 new tokens.
+   - (B) int8 without a tail: int8 weights, ``tail_window=0``; 320
+     requests of 48 new tokens.
+   - (C) bf16 cache: int8 weights, ``cache_dtype="bfloat16"``; 288
+     requests of 24 new tokens.
+   For int8 + tail and (A): decode at a full batch, one burst timed on the
+   host clock and one traced by torch.profiler (time by kernel, the card's
+   busy share); for (B) and (C) the timed burst only. Then one line with
+   the int8 + tail and f32 decode tokens/s of this run and their ratio.
+5. Card against CPU, for int8 + tail and for (A): the same weights, 8
+   requests of 8 tokens x 16 new tokens, on the card and with
+   ``device="cpu"`` (plain versions), with the fused argmax head and with
+   recorded logits; logits must agree within a stated tolerance and greedy
+   tokens must match except after a near-tie step.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.
@@ -41,6 +51,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -57,6 +68,7 @@ from rten_tpu_torch.models import (QuantWeight, TransformerConfig,
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the lower bounds.
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
+PEAK_F32_FLOP_S = 67e12            # outside the tensor cores
 REPS = 20
 
 # Tolerances (kernel against its plain version on the same inputs):
@@ -80,6 +92,16 @@ K4_REL_TOL = 2.0 ** -8
 # batch; that regime is held to exact int32 agreement by
 # check_int8_matmul.)
 PATH_LOGIT_TOL = 5e-2
+# K5 and K7: bit for bit. K6: both sum in f32 (an online softmax per warp
+# against an exact two-pass softmax), so they differ by a few f32 roundings
+# of outputs of order 1: 1e-5 of max |out|. K1' (the no-tail mode of K1):
+# K1's tolerance.
+K6_REL_TOL = 1e-5
+# Path (A) card against CPU: f32 weights, f32 cache, TF32 off, so the two
+# devices differ only in f32 summation order (about 1e-6 relative per
+# layer); logits must agree to 1e-3, and a token may differ only after a
+# step whose CPU top-2 margin is below twice that.
+F32_PATH_LOGIT_TOL = 1e-3
 
 
 def check(ok, what):
@@ -88,9 +110,9 @@ def check(ok, what):
         raise RuntimeError(what)
 
 
-def bound_ms(n_bytes, flops=0.0):
+def bound_ms(n_bytes, flops=0.0, peak_flop_s=PEAK_BF16_FLOP_S):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
+    t_ops = flops / peak_flop_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -275,6 +297,173 @@ def check_tail_flush(timer):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def _decode_rows(g, b, kvh, d):
+    """New K/V [B, KVH, 1, D] as the model hands them over: strided views
+    into a fused [B, 1, 3F] projection output."""
+    f = kvh * d
+    qkv = torch.randn((b, 1, 3 * f), device="cuda", generator=g)
+    return tuple(qkv[..., i * f:(i + 1) * f].reshape(b, 1, kvh, d)
+                 .transpose(1, 2) for i in (1, 2))
+
+
+def _live_lengths(g, b):
+    """Attention lengths of the serving paths (cache lengths + 1): prompt
+    64 up to 64 + 112 decoded tokens."""
+    return torch.randint(65, 177, (b,), device="cuda", generator=g,
+                         dtype=torch.int32)
+
+
+def check_kv_append(timer):
+    """K5 at path (A)'s shapes on an f32 cache (the entry) and path (C)'s
+    bf16 cache (printed): bit-exact against the plain version."""
+    b, cap, kvh, d = 256, 512, 12, 64
+    f = kvh * d
+    g = torch.Generator(device="cuda").manual_seed(7)
+    k, v = _decode_rows(g, b, kvh, d)
+    lengths = _live_lengths(g, b) - 1
+    lengths[1] = cap + 7           # a finished slot past capacity: clamps
+    entry = None
+    for dtype in (torch.float32, torch.bfloat16):
+        kv = torch.randn((b, cap, 2, f), device="cuda",
+                         generator=g).to(dtype)
+        kv1, kv2 = kv.clone(), kv.clone()
+        kc.kv_append(kv1, k, v, lengths)
+        kc.kv_append_plain(kv2, k, v, lengths)
+        torch.cuda.synchronize()
+        err = (kv1.float() - kv2.float()).abs().max().item()
+        print(f"kv_append ({dtype}): max_abs_err {err} (bit-exact "
+              f"required)")
+        check(torch.equal(kv1, kv2), f"K5 not bit-exact on {dtype}")
+        item = kv.element_size()
+        bms, by = bound_ms(2 * b * f * 4 + b * 2 * f * item + b * 4)
+        rows = torch.stack([k.reshape(b, f), v.reshape(b, f)],
+                           dim=1).to(dtype)
+        idx = (torch.arange(b, device="cuda"),
+               lengths.clamp(0, cap - 1).long())
+        r = dict(name="kv_append", source="rten_tpu_torch/csrc/kv_append.cu",
+                 replaces="rten_tpu/kernels/cache.py:32", max_abs_err=err,
+                 ms=timer(lambda: kc.kv_append(kv1, k, v, lengths)),
+                 plain_ms=timer(lambda: kc.kv_append_plain(kv2, k, v,
+                                                           lengths)),
+                 bound_ms=bms, bound_by=by,
+                 library_ms=timer(lambda: kv1.index_put_(idx, rows)))
+        print(f"kv_append ({dtype}): kernel_ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {bms:.4f} library_ms "
+              f"{r['library_ms']:.4f} (index_put_)")
+        entry = entry or r
+    return entry
+
+
+def check_kv_append_int8(timer):
+    """K7 at path (B)'s shapes: bit-exact against the plain version."""
+    b, cap, kvh, d = 256, 512, 12, 64
+    f = kvh * d
+    g = torch.Generator(device="cuda").manual_seed(8)
+    k, v = _decode_rows(g, b, kvh, d)
+    k[0, 0] = 0                    # an all-zero head takes scale 1.0
+    lengths = _live_lengths(g, b) - 1
+    lengths[1] = cap + 7
+    kv = torch.randint(-127, 128, (b, cap, 2, f), device="cuda",
+                       dtype=torch.int8, generator=g)
+    scales = torch.rand((b, cap, 2, kvh), device="cuda",
+                        generator=g).to(torch.bfloat16)
+    kv1, s1, kv2, s2 = kv.clone(), scales.clone(), kv.clone(), scales.clone()
+    kc.kv_append_int8(kv1, s1, k, v, lengths)
+    kc.kv_append_int8_plain(kv2, s2, k, v, lengths)
+    torch.cuda.synchronize()
+    err = max((kv1.int() - kv2.int()).abs().max().item(),
+              (s1.float() - s2.float()).abs().max().item())
+    print(f"kv_append_int8: max_abs_err {err} (bit-exact required)")
+    check(torch.equal(kv1, kv2) and torch.equal(s1, s2), "K7 not bit-exact")
+    bms, by = bound_ms(2 * b * f * 4 + 2 * b * f + 2 * b * kvh * 2 + b * 4)
+    return dict(name="kv_append_int8",
+                source="rten_tpu_torch/csrc/kv_append_int8.cu",
+                replaces="rten_tpu/kernels/cache.py:148", max_abs_err=err,
+                ms=timer(lambda: kc.kv_append_int8(kv1, s1, k, v, lengths)),
+                plain_ms=timer(lambda: kc.kv_append_int8_plain(
+                    kv2, s2, k, v, lengths)),
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def check_decode_attn_float(timer):
+    """K6 at path (A)'s shapes on an f32 cache (the entry, with
+    scaled_dot_product_attention as the library yardstick) and path (C)'s
+    bf16 cache (printed)."""
+    b, h, d, cap = 256, 12, 64, 512
+    f = h * d
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    lengths = _live_lengths(g, b)
+    live = lengths.clamp(max=cap).to(torch.float64).sum().item()
+    mask = (torch.arange(cap, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    entry = None
+    for dtype in (torch.float32, torch.bfloat16):
+        kv = torch.randn((b, cap, 2, f), device="cuda",
+                         generator=g).to(dtype)
+        out = at.decode_attn_float(q, kv, lengths)
+        ref = at.decode_attn_float_plain(q, kv, lengths)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = K6_REL_TOL * ref.abs().max().item()
+        print(f"decode_attn_float ({dtype}): max_abs_err {err:.3e} (tol "
+              f"{tol:.3e})")
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              f"K6 disagrees on {dtype}")
+        n_bytes = live * 2 * f * kv.element_size() + 2 * q.numel() * 4 + b * 4
+        bms, by = bound_ms(n_bytes, 4.0 * live * h * d, PEAK_F32_FLOP_S)
+        library = None
+        if dtype == torch.float32:
+            k4 = kv[:, :, 0].view(b, cap, h, d).transpose(1, 2)
+            v4 = kv[:, :, 1].view(b, cap, h, d).transpose(1, 2)
+            library = timer(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k4, v4, attn_mask=mask))
+        r = dict(name="decode_attn_float",
+                 source="rten_tpu_torch/csrc/decode_attn_float.cu",
+                 replaces="rten_tpu/kernels/attention.py:1039,318",
+                 max_abs_err=err,
+                 ms=timer(lambda: at.decode_attn_float(q, kv, lengths)),
+                 plain_ms=timer(lambda: at.decode_attn_float_plain(
+                     q, kv, lengths)),
+                 bound_ms=bms, bound_by=by, library_ms=library)
+        print(f"decode_attn_float ({dtype}): kernel_ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} bound_ms {bms:.4f} ({by}) "
+              f"library_ms {library}")
+        entry = entry or r
+    return entry
+
+
+def check_decode_attn_int8(timer):
+    """K1' (the no-tail mode of K1) at path (B)'s shapes."""
+    b, h, d, cap = 256, 12, 64, 512
+    f = h * d
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    kv = torch.randint(-127, 128, (b, cap, 2, f), device="cuda",
+                       dtype=torch.int8, generator=g)
+    scales = (0.002 + 0.01 * torch.rand((b, cap, 2, h), device="cuda",
+                                        generator=g)).to(torch.bfloat16)
+    lengths = _live_lengths(g, b)
+    args = (q, kv, scales, lengths)
+    out = at.decode_attn_int8(*args)
+    ref = at.decode_attn_int8_plain(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = K1_REL_TOL * ref.abs().max().item()
+    print(f"decode_attn_int8: max_abs_err {err:.3e} (tol {tol:.3e})")
+    check(bool(torch.isfinite(out).all()) and err <= tol, "K1' disagrees")
+    live = lengths.clamp(max=cap).to(torch.float64).sum().item()
+    n_bytes = live * (2 * f + 2 * h * 2) + 2 * q.numel() * 4 + b * 4
+    bms, by = bound_ms(n_bytes, 4.0 * live * h * d)
+    return dict(name="decode_attn_int8",
+                source="rten_tpu_torch/csrc/decode_attn_int8_tail.cu",
+                replaces="rten_tpu/kernels/attention.py:1715",
+                max_abs_err=err,
+                ms=timer(lambda: at.decode_attn_int8(*args)),
+                plain_ms=timer(lambda: at.decode_attn_int8_plain(*args)),
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
 def to_device(params, device):
     """The parameter tree (tensors and int8 QuantWeights) on ``device``."""
     if isinstance(params, dict):
@@ -287,14 +476,41 @@ def to_device(params, device):
     return params.to(device)
 
 
-def main_path(model, params, n_requests, new_tokens, burst,
-              device="cuda"):
+# The serving paths: the weights each takes, its ServingEngine options, the
+# tail window its engine must pick, the requests of its measured run
+# (count, new tokens) and the kernels it must launch.
+PATHS = {
+    "int8_tail": dict(weights="int8", engine=dict(quantized_cache=True),
+                      tail=16, requests=(320, 48),
+                      kernels=("decode_attn_int8_tail", "head_argmax_int8",
+                               "tail_flush_int8", "matmul_int8_wo")),
+    "f32": dict(weights="f32", engine=dict(), tail=0, requests=(320, 48),
+                kernels=("kv_append", "decode_attn_float")),
+    "int8_no_tail": dict(weights="int8",
+                         engine=dict(quantized_cache=True, tail_window=0),
+                         tail=0, requests=(320, 48),
+                         kernels=("kv_append_int8", "decode_attn_int8",
+                                  "head_argmax_int8", "matmul_int8_wo")),
+    "bf16": dict(weights="int8", engine=dict(cache_dtype="bfloat16"),
+                 tail=0, requests=(288, 24),
+                 kernels=("kv_append", "decode_attn_float",
+                          "head_argmax_int8", "matmul_int8_wo")),
+}
+
+
+def new_engine(model, params, path, device="cuda", **kw):
+    engine = ServingEngine(model, params, max_batch=256, capacity=512,
+                           prefill_buckets=(64,), device=device,
+                           **PATHS[path]["engine"], **kw)
+    check(engine._tail_flush == PATHS[path]["tail"],
+          f"{path}: the engine picked tail window {engine._tail_flush}")
+    return engine
+
+
+def main_path(model, params, path, n_requests, new_tokens, burst=21):
     """Serve ``n_requests`` random 64-token prompts at batch 256 / capacity
     512 and return (engine, requests, wall seconds)."""
-    engine = ServingEngine(model, params, max_batch=256, capacity=512,
-                           prefill_buckets=(64,), quantized_cache=True,
-                           device=device)
-    check(engine._tail_flush == 16, "the tail window is off")
+    engine = new_engine(model, params, path)
     rng = np.random.RandomState(0)
     reqs = [engine.submit(rng.randint(0, model.config.vocab_size, 64),
                           max_new_tokens=new_tokens)
@@ -306,14 +522,44 @@ def main_path(model, params, n_requests, new_tokens, burst,
     return engine, reqs, time.perf_counter() - t0
 
 
-def profile_decode(model, params, steps=16):
+def serve_path(model, params, path):
+    """A warm-up serve, then the measured run with every launch count set
+    to 0 just before it and read just after. Checks that every request
+    completed with in-vocabulary tokens and that every kernel of the path
+    launched. Returns (decode tokens/s with admissions, launch counts)."""
+    n_requests, new_tokens = PATHS[path]["requests"]
+    main_path(model, params, path, 256, 4)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    engine, reqs, wall = main_path(model, params, path, n_requests,
+                                   new_tokens)
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    st = engine.stats()
+    check(all(len(r.tokens) == new_tokens and r.done for r in reqs),
+          f"{path}: a request did not complete with {new_tokens} tokens")
+    check(all(0 <= t < model.config.vocab_size for r in reqs
+              for t in r.tokens), f"{path}: a token outside the vocabulary")
+    rate = st["tokens"] / wall
+    print(f"path {path}: {len(reqs)} requests, {st['decode_steps']} decode "
+          f"steps, {st['tokens']} decode tokens in {wall:.3f} s = "
+          f"{rate:.1f} decode tokens/s; p50 TTFT {st.get('ttft_p50_ms')} ms; "
+          f"launches {launches}")
+    missing = [k for k in PATHS[path]["kernels"] if launches[k] == 0]
+    check(not missing, f"{path}: kernels of the path never launched: "
+          f"{missing}")
+    del engine
+    torch.cuda.empty_cache()
+    return rate, launches
+
+
+def steady_decode(model, params, path, steps=16, trace=False):
     """Decode at a full batch of 256 (after an admission and a warm-up
-    burst): one burst of ``steps`` steps timed on the host clock, then one
-    more traced by torch.profiler for the card's busy share (the sum of
-    its kernels' time over the traced wall time) and the kernels that
-    take the most device time."""
-    engine = ServingEngine(model, params, max_batch=256, capacity=512,
-                           prefill_buckets=(64,), quantized_cache=True)
+    burst): one burst of ``steps`` steps timed on the host clock and, with
+    ``trace``, one more traced by torch.profiler for the card's busy share
+    (the sum of its kernels' time over the traced wall time) and the
+    kernels that take the most device time. Returns the untraced decode
+    tokens/s."""
+    engine = new_engine(model, params, path)
     rng = np.random.RandomState(2)
     for _ in range(256):
         engine.submit(rng.randint(0, model.config.vocab_size, 64),
@@ -324,30 +570,37 @@ def profile_decode(model, params, steps=16):
     engine.step_burst(steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    print(f"decode at batch 256: {1e3 * wall / steps:.3f} ms per step, "
-          f"{256 * steps / wall:.1f} tokens/s")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.step_burst(steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    on_card = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    busy_s = sum(e.self_device_time_total for e in on_card) / 1e6
-    print(f"decode at batch 256 under the profiler: "
-          f"{1e3 * wall / steps:.3f} ms per step; card busy {busy_s:.4f} s "
-          f"of {wall:.4f} s ({100 * busy_s / wall:.1f}%)")
-    for e in on_card[:20]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
-              f"{e.key[:90]}")
+    rate = 256 * steps / wall
+    print(f"path {path}, decode at batch 256: {1e3 * wall / steps:.3f} ms "
+          f"per step, {rate:.1f} tokens/s")
+    if trace:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.step_burst(steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        on_card = sorted((e for e in events
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        busy_s = sum(e.self_device_time_total for e in on_card) / 1e6
+        print(f"path {path}, decode at batch 256 under the profiler: "
+              f"{1e3 * wall / steps:.3f} ms per step; card busy "
+              f"{busy_s:.4f} s of {wall:.4f} s ({100 * busy_s / wall:.1f}%)")
+        for e in on_card[:15]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"{e.count:5d}x  {e.key[:90]}")
+    del engine
+    torch.cuda.empty_cache()
+    return rate
 
 
-def card_against_cpu(model, params_gpu, device="cuda"):
-    """Greedy tokens of 8 requests on the card and on the CPU, each with
-    the fused argmax head and with logits + argmax (recording the logits),
-    compared step by step."""
+def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda"):
+    """Greedy tokens of 8 requests of ``path`` on the card and on the CPU,
+    each with the fused argmax head and with logits + argmax (recording
+    the logits), compared step by step: logits within ``logit_tol``,
+    tokens identical except after a CPU top-2 margin below twice that."""
 
     class Recorder(ArgMaxSampler):
         """Greedy, keeping every call's logits rows."""
@@ -367,8 +620,8 @@ def card_against_cpu(model, params_gpu, device="cuda"):
     def serve(params, dev, recorder=None):
         kw = dict(sampler=recorder, fused_head=False) if recorder else {}
         eng = ServingEngine(model, params, max_batch=8, capacity=512,
-                            prefill_buckets=(8,), quantized_cache=True,
-                            device=dev, **kw)
+                            prefill_buckets=(8,), device=dev,
+                            **PATHS[path]["engine"], **kw)
         return eng.generate(prompts, max_new_tokens=16, burst=6)
 
     card_fused, cpu_fused = serve(params_gpu, device), serve(params_cpu,
@@ -397,19 +650,20 @@ def card_against_cpu(model, params_gpu, device="cuda"):
         return first
 
     compare(card_fused, card, rec_card, K2_MARGIN_TOL,
-            "card fused head vs logits head")
+            f"{path}: card fused head vs logits head")
     compare(cpu_fused, cpu, rec_cpu, K2_MARGIN_TOL,
-            "cpu fused head vs logits head")
-    first = compare(card, cpu, rec_cpu, 2 * PATH_LOGIT_TOL, "card vs cpu")
+            f"{path}: cpu fused head vs logits head")
+    first = compare(card, cpu, rec_cpu, 2 * logit_tol,
+                    f"{path}: card vs cpu")
     # Logits rows computed from identical histories on both devices.
     dev = max(float(np.abs(rec_card.logits[c][i] - rec_cpu.logits[c][i])
                     .max())
               for i in range(len(card)) for c in range(min(first[i] + 1,
                                                              16)))
-    print(f"card vs cpu: {sum(len(t) for t in card)} tokens, "
+    print(f"{path}: card vs cpu: {sum(len(t) for t in card)} tokens, "
           f"{sum(f < 16 for f in first)} near-tie divergences, max logit "
-          f"difference {dev:.3e} (tol {PATH_LOGIT_TOL:.1e})")
-    check(dev < PATH_LOGIT_TOL, "card and cpu logits disagree")
+          f"difference {dev:.3e} (tol {logit_tol:.1e})")
+    check(dev < logit_tol, f"{path}: card and cpu logits disagree")
 
 
 def main():
@@ -437,7 +691,11 @@ def main():
     results = [check_decode_attn(timer),
                check_head_argmax(timer, w, s, w_dq, n_vocab),
                check_tail_flush(timer),
-               check_matmul_wo(timer, w, s, w_dq, n_vocab)]
+               check_matmul_wo(timer, w, s, w_dq, n_vocab),
+               check_kv_append(timer),
+               check_decode_attn_float(timer),
+               check_kv_append_int8(timer),
+               check_decode_attn_int8(timer)]
     del w, s, w_dq
     for r in results:
         print(f"{r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
@@ -446,35 +704,38 @@ def main():
 
     model = TransformerLM(TransformerConfig.gpt2())
     t0 = time.perf_counter()
-    params = quantize_weights(model.init_params(0, device="cuda"))
-    print(f"GPT-2-small int8 weights: {time.perf_counter() - t0:.1f} s")
-    # Warm-up serve (allocator, cuBLAS handles), then the measured run.
-    main_path(model, params, 256, 4, 21)
-    torch.cuda.empty_cache()
-    kernels.reset_launch_counts()
-    engine, reqs, wall = main_path(model, params, 320, 48, 21)
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
-    st = engine.stats()
-    check(all(len(r.tokens) == 48 and r.done for r in reqs),
-          "a request did not complete with 48 tokens")
-    check(all(0 <= t < model.config.vocab_size for r in reqs
-              for t in r.tokens), "a token lies outside the vocabulary")
-    print(f"main path: {len(reqs)} requests, {st['decode_steps']} decode "
-          f"steps, {st['tokens']} decode tokens in {wall:.3f} s = "
-          f"{st['tokens'] / wall:.1f} decode tokens/s; p50 TTFT "
-          f"{st.get('ttft_p50_ms')} ms; launches {launches}")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the path never launched: {launches}")
-    del engine
-    profile_decode(model, params)
+    weights = {"f32": model.init_params(0, device="cuda")}
+    weights["int8"] = quantize_weights(weights["f32"])
+    print(f"GPT-2-small f32 and int8 weights: {time.perf_counter() - t0:.1f}"
+          f" s")
+    rates, steady, launches = {}, {}, {}
+    for path in PATHS:
+        params = weights[PATHS[path]["weights"]]
+        rates[path], launches[path] = serve_path(model, params, path)
+        steady[path] = steady_decode(model, params, path,
+                                     trace=path in ("int8_tail", "f32"))
+    print(f"same-run decode tokens/s at batch 256, int8 + tail against the "
+          f"f32 baseline: with admissions {rates['int8_tail']:.1f} / "
+          f"{rates['f32']:.1f} = {rates['int8_tail'] / rates['f32']:.3f}; "
+          f"steady burst {steady['int8_tail']:.1f} / {steady['f32']:.1f} = "
+          f"{steady['int8_tail'] / steady['f32']:.3f}")
+    print(f"same-run decode tokens/s with admissions: "
+          + ", ".join(f"{p} {r:.1f}" for p, r in rates.items())
+          + "; steady burst: "
+          + ", ".join(f"{p} {r:.1f}" for p, r in steady.items()))
 
-    card_against_cpu(model, params)
+    card_against_cpu(model, weights["int8"], "int8_tail", PATH_LOGIT_TOL)
+    card_against_cpu(model, weights["f32"], "f32", F32_PATH_LOGIT_TOL)
 
+    # Each kernel reports its launches on the path it was ported for.
+    home = {k: p for p in reversed(PATHS) for k in PATHS[p]["kernels"]}
     for r in results:
         r["route"] = "cuda"
-        r["launches"] = launches[r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        r["path"] = home[r["name"]]
+        r["launches"] = launches[r["path"]][r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in results]}))
     print(smi)

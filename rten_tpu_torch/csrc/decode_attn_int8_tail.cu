@@ -1,12 +1,13 @@
-// Single-query decode attention over the int8 KV cache plus the bf16 tail
-// window.
+// Single-query decode attention over the int8 KV cache, with or without
+// the bf16 tail window.
 //
-// Replaces: rten_tpu/kernels/attention.py::flash_decode_flat in its
-// int8 + tail mode (body _decode_flat_quant_kernel, tail round at
-// attention.py:1600-1626). The TPU kernel's one-hot E-matrix head
-// expansion, token-packed int32 rows and packed scale rows exist for the
-// TPU's matrix unit and DMA rules; here each block simply indexes its
-// head's bytes.
+// Replaces: rten_tpu/kernels/attention.py::flash_decode_flat in its int8
+// modes with q_bf16 (body _decode_flat_quant_kernel, tail round at
+// attention.py:1600-1626): int8 + tail, and int8 without a tail
+// (tail = nullptr, rows = tail_count = 0; the tail pointer is then never
+// read). The TPU kernel's one-hot E-matrix head expansion, token-packed
+// int32 rows and packed scale rows exist for the TPU's matrix unit and DMA
+// rules; here each block simply indexes its head's bytes.
 //
 // Contract: for sequence b and query head h (kv head h / (H / KVH)):
 //   packed tokens [0, min(lengths[b] - tail_count, cap)) are read from kv
@@ -17,8 +18,9 @@
 //
 // Bound on the H100: bytes. At batch 256, 12 heads of 64 and a live length
 // L it reads B*L*(2*768 + 48) bytes of int8 rows and scales plus the
-// 12.6 MB tail window per layer (about 64 MB, 19 us, at L = 128); the
-// arithmetic is 4 flops per byte. Design: one block of 128 threads per
+// 12.6 MB tail window per layer (about 64 MB, 19 us, at L = 128; without
+// the tail, about 52 MB, 15 us); the arithmetic is 4 flops per byte.
+// Design: one block of 128 threads per
 // (sequence, head). Pass 1: each thread scores whole tokens (16-byte row
 // loads, q broadcast from shared memory) into a shared score row. Pass 2:
 // block max and exp-sum. Pass 3: threads split as (dim, token group) so a

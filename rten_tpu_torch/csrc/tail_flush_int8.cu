@@ -16,14 +16,9 @@
 // warp reads one contiguous bf16 row, reduces its absmax with shuffles and
 // writes one contiguous int8 row; no shared memory, no second pass.
 //
-// Numerics, bit for bit with kv_cache.py::_quantize_tokens:
-//   scale = bf16_rn(absmax / 127) (1.0 where absmax == 0),
-//   q = clamp(rint(x / f32(scale)), -127, 127)
-// with IEEE division (__fdiv_rn) and round-half-even (rintf). The file must
-// not be compiled with -use_fast_math.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Numerics: kv_quant.cuh, bit for bit with kv_cache.py::_quantize_tokens.
+// The file must not be compiled with -use_fast_math.
+#include "kv_quant.cuh"
 
 __global__ void tail_flush_int8_kernel(
     const __nv_bfloat16* __restrict__ tail, int8_t* __restrict__ kv,
@@ -31,7 +26,6 @@ __global__ void tail_flush_int8_kernel(
     int batch, int rows, int cap, int kvh, int d, int t) {
   const long long warp =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
   const long long n_warps = (long long)batch * t * 2 * kvh;
   if (warp >= n_warps) return;
   const int h = (int)(warp % kvh);
@@ -44,25 +38,11 @@ __global__ void tail_flush_int8_kernel(
 
   const __nv_bfloat16* src =
       tail + (((long long)b * rows + j) * 2 + plane) * f + (long long)h * d;
-  float amax = 0.0f;
-  for (int i = lane; i < d; i += 32)
-    amax = fmaxf(amax, fabsf(__bfloat162float(src[i])));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const __nv_bfloat16 sb =
-      __float2bfloat16_rn(amax == 0.0f ? 1.0f : __fdiv_rn(amax, 127.0f));
-  const float sf = __bfloat162float(sb);
-
   // Offsets clamp exactly as kv_cache.py:667: clip(lengths - t, 0, cap - t).
   const int off = min(max(lengths[b] - t, 0), cap - t);
   const long long row = ((long long)b * cap + off + j) * 2 + plane;
-  int8_t* dst = kv + row * f + (long long)h * d;
-  for (int i = lane; i < d; i += 32) {
-    float q = rintf(__fdiv_rn(__bfloat162float(src[i]), sf));
-    dst[i] = (int8_t)fminf(fmaxf(q, -127.0f), 127.0f);
-  }
-  if (lane == 0) scales[row * kvh + h] = sb;
+  kvquant::quantize_row(src, kv + row * f + (long long)h * d,
+                        scales + row * kvh + h, d);
 }
 
 extern "C" int tail_flush_int8(const void* tail, void* kv, void* scales,

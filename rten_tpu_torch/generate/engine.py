@@ -10,7 +10,10 @@ With an int8 cache the bf16 tail window is on by default where the
 reference's gate allows it: each decode step appends one bf16 row per layer
 to the window, the tail kernel reads it, and the window is quantized into
 the cache every ``_tail_flush`` steps inside a burst and before any
-admission (``_host_flush``).
+admission (``_host_flush``). Float (f32 or bf16) caches and int8 caches
+without the window append one row per layer and step into the cache
+itself; a configuration whose decode kernel is not ported yet raises from
+the model, on the card and on the CPU alike.
 
 PyTorch runs eagerly, so a burst is a Python loop of decode steps whose
 tokens stay on the device until the burst ends (one host sync per burst).
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.attention import fits_shared_memory
+from ..kernels.attention import fits_shared_memory, flat_group_for
 from .metrics import Metrics
 from .sampler import ArgMaxSampler, Sampler
 
@@ -39,14 +42,6 @@ def _bucket(n, buckets):
         if n <= b:
             return b
     return buckets[-1]
-
-
-def flat_group_for(batch):
-    """The reference's decode group width for a quantized batch
-    (transformer.py:355-360); 0 means the batch has no valid group and the
-    tail window stays off, as in the reference's gate."""
-    return next((g for g in (16, 8, 4, 2)
-                 if batch % g == 0 and batch >= 2 * g), 0)
 
 
 @dataclass
@@ -118,11 +113,6 @@ class ServingEngine:
         elif (quantized_cache and cfg.use_pallas
               and cfg.decode_attn in ("auto", "flat") and tail_shape_ok()):
             self._tail_flush = 16
-        if self.device.type == "cuda" and not self._tail_flush:
-            raise NotImplementedError(
-                "decode without the tail window is not ported to CUDA yet "
-                "(ROADMAP.md Queue 1 items 5 and 6: the f32/bf16-cache "
-                "path and the no-tail int8 path)")
         self.cache = model.new_cache(max_batch, capacity,
                                      quantized=quantized_cache,
                                      cache_dtype=cache_dtype,

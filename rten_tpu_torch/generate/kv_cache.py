@@ -26,7 +26,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from ..kernels.cache import tail_flush_int8
+from ..kernels.cache import kv_append, kv_append_int8, tail_flush_int8
 from ..kernels.quant import quantize_tokens
 
 
@@ -87,45 +87,48 @@ class KVCache:
         """Write k/v [B, KVH, T, D] into layer ``layer``.
 
         ``position``: an int → the same offset for every sequence
-        (prefill); None → per-sequence offsets from ``lengths``, clamped so
-        a finished slot that keeps decoding writes inside the buffer
-        (``min(lengths, cap - T)``, as kv_cache.py:188,537). A tail cache
-        takes single-token decode appends into the window at slot
-        ``tail_count`` instead."""
+        (prefill, a tensor write, as the reference leaves it to XLA);
+        None → a single-token decode append at per-sequence offsets from
+        ``lengths``, clamped so a finished slot that keeps decoding writes
+        inside the buffer (``min(lengths, cap - 1)``, as
+        kv_cache.py:188,537): into the window at slot ``tail_count`` for a
+        tail cache, else through ``kv_append`` (float caches) or
+        ``kv_append_int8``. Multi-token appends at per-sequence offsets
+        (chunked verify) are not ported yet."""
         b, kvh, t, d = k_new.shape
+        buf = self.kv[layer]
+        if position is None:
+            if t != 1:
+                raise NotImplementedError(
+                    "multi-token appends at per-sequence depths (chunked "
+                    "verify) are not ported yet (ROADMAP.md Queue 1 item 11, "
+                    "speculative decoding)")
+            if self.tail is not None:
+                if self.tail_count >= self.tail[layer].shape[1]:
+                    raise RuntimeError("tail window full: flush_tail first")
+                row = torch.stack([k_new.reshape(b, kvh * d),
+                                   v_new.reshape(b, kvh * d)], dim=1)
+                self.tail[layer][:, self.tail_count] = row.to(torch.bfloat16)
+            elif self.quantized:
+                kv_append_int8(buf, self.scales[layer], k_new, v_new,
+                               self.lengths)
+            else:
+                kv_append(buf, k_new, v_new, self.lengths)
+            return self
         k_t = k_new.transpose(1, 2)                     # [B, T, KVH, D]
         v_t = v_new.transpose(1, 2)
-        if self.tail is not None and position is None and t == 1:
-            if self.tail_count >= self.tail[layer].shape[1]:
-                raise RuntimeError("tail window full: flush_tail first")
-            row = torch.stack([k_t.reshape(b, kvh * d),
-                               v_t.reshape(b, kvh * d)], dim=1)
-            self.tail[layer][:, self.tail_count] = row.to(torch.bfloat16)
-            return self
-        buf = self.kv[layer]
-        cap = buf.shape[1]
         if self.quantized:
             kq, ks = quantize_tokens(k_t)
             vq, vs = quantize_tokens(v_t)
             rows = torch.stack([kq.reshape(b, t, kvh * d),
                                 vq.reshape(b, t, kvh * d)], dim=2)
-            srows = torch.stack([ks, vs], dim=2)        # [B, T, 2, KVH]
+            self.scales[layer][:, position:position + t] = torch.stack(
+                [ks, vs], dim=2)                        # [B, T, 2, KVH]
         else:
             rows = torch.stack([k_t.reshape(b, t, kvh * d),
                                 v_t.reshape(b, t, kvh * d)],
                                dim=2).to(buf.dtype)
-            srows = None
-        if position is not None:
-            buf[:, position:position + t] = rows
-            if srows is not None:
-                self.scales[layer][:, position:position + t] = srows
-            return self
-        offs = torch.clamp(self.lengths.to(torch.int64), max=cap - t)
-        idx = offs[:, None] + torch.arange(t, device=buf.device)[None, :]
-        bidx = torch.arange(b, device=buf.device)[:, None]
-        buf[bidx, idx] = rows
-        if srows is not None:
-            self.scales[layer][bidx, idx] = srows
+        buf[:, position:position + t] = rows
         return self
 
     def insert_group(self, other: "KVCache", slots, lengths):

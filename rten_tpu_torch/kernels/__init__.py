@@ -1,14 +1,18 @@
 """Kernels of the port. Each hand-written CUDA kernel (``csrc/*.cu``) has a
 wrapper with a launch counter (``wrapper.launches``) and a plain PyTorch
 version of the same contract (``<name>_plain``): CPU tensors take the plain
-version, CUDA tensors launch the kernel or raise."""
+version, CUDA tensors launch the kernel or raise. ``decode_attn_int8``
+launches the kernel of ``decode_attn_int8_tail`` without a tail window and
+counts its own launches."""
 
-from .attention import decode_attn_int8_tail
-from .cache import tail_flush_int8
+from .attention import (decode_attn_float, decode_attn_int8,
+                        decode_attn_int8_tail)
+from .cache import kv_append, kv_append_int8, tail_flush_int8
 from .gemm import head_argmax_int8, matmul_int8_wo
 
 KERNELS = (decode_attn_int8_tail, head_argmax_int8, tail_flush_int8,
-           matmul_int8_wo)
+           matmul_int8_wo, kv_append, decode_attn_float, kv_append_int8,
+           decode_attn_int8)
 
 
 def reset_launch_counts():
@@ -16,5 +20,7 @@ def reset_launch_counts():
         k.launches = 0
 
 
-__all__ = ["KERNELS", "decode_attn_int8_tail", "head_argmax_int8",
-           "matmul_int8_wo", "reset_launch_counts", "tail_flush_int8"]
+__all__ = ["KERNELS", "decode_attn_float", "decode_attn_int8",
+           "decode_attn_int8_tail", "head_argmax_int8", "kv_append",
+           "kv_append_int8", "matmul_int8_wo", "reset_launch_counts",
+           "tail_flush_int8"]

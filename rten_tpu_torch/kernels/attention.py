@@ -8,6 +8,13 @@
   replaces ``flash_decode_flat`` (:1715) in its int8 + tail mode with
   ``q_bf16=True``: packed int8 tokens dequantized by per-(token, head)
   bf16 scales, then the bf16 tail window, q and the output rounded to bf16.
+* ``decode_attn_int8`` launches the same kernel without a tail: it
+  replaces ``flash_decode_flat`` in its int8 mode without a tail
+  (``tail=None, q_bf16=True``). It has a launch count of its own.
+* ``decode_attn_float`` (CUDA, ``csrc/decode_attn_float.cu``) replaces
+  ``flash_decode_grouped`` (:1039) and ``flash_decode_fused`` (:318) on
+  float caches: f32 q, an f32 or bf16 cache read as f32, f32 sums and
+  output.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import math
 import torch
 
 from . import _build
+from .cache import FLOAT_CACHE_DTYPES
 
 NEG_INF = -1e30
 
@@ -45,8 +53,18 @@ def fits_shared_memory(head_dim, capacity, window):
     return 4 * (head_dim + capacity + window + 128) <= 48 * 1024
 
 
-def _check(q, kv, scales, lengths, tail, tail_count):
-    name = "decode_attn_int8_tail"
+def flat_group_for(batch):
+    """The reference's flat-kernel group width for an int8 batch
+    (``rten_tpu/models/transformer.py:355-360``); 0 means the batch has no
+    group, so the reference takes neither the tail window nor the flat
+    kernel."""
+    return next((g for g in (16, 8, 4, 2)
+                 if batch % g == 0 and batch >= 2 * g), 0)
+
+
+def _check(name, q, kv, scales, lengths, tail, tail_count):
+    """Shapes of the int8 kernel's arguments; ``tail`` None is the no-tail
+    mode (``tail_count`` 0, no window rows)."""
     b, h, d = q.shape
     _build.require(q.dtype == torch.float32, name, "q must be f32 [B, H, D]")
     _build.require(kv.dim() == 4 and kv.shape[0] == b and kv.shape[2] == 2
@@ -59,12 +77,15 @@ def _check(q, kv, scales, lengths, tail, tail_count):
     _build.require(scales.shape == (b, cap, 2, kvh)
                    and scales.dtype == torch.bfloat16, name,
                    "scales must be bf16 [B, cap, 2, KVH]")
+    _build.require(lengths.shape == (b,) and lengths.dtype == torch.int32,
+                   name, "lengths must be int32 [B]")
+    if tail is None:
+        _build.require(tail_count == 0, name, "no tail: tail_count must be 0")
+        return b, h, d, kvh, cap, 0
     _build.require(tail.dim() == 4 and tail.shape[0] == b
                    and tail.shape[2:] == (2, f)
                    and tail.dtype == torch.bfloat16, name,
                    "tail must be bf16 [B, R, 2, KVH*D]")
-    _build.require(lengths.shape == (b,) and lengths.dtype == torch.int32,
-                   name, "lengths must be int32 [B]")
     # The model passes the window fill + 1 (the current token is in the
     # window), so every sequence has a token to attend to.
     _build.require(1 <= tail_count <= tail.shape[1], name,
@@ -72,11 +93,12 @@ def _check(q, kv, scales, lengths, tail, tail_count):
     return b, h, d, kvh, cap, tail.shape[1]
 
 
-def decode_attn_int8_tail_plain(q, kv, scales, lengths, tail, tail_count,
-                                scale=None):
-    """Plain PyTorch version of the kernel (same contract)."""
-    b, h, d, kvh, cap, rows = _check(q, kv, scales, lengths, tail,
-                                     tail_count)
+def decode_attn_int8_tail_plain(q, kv, scales, lengths, tail=None,
+                                tail_count=0, scale=None):
+    """Plain PyTorch version of the kernel (same contract); ``tail`` None
+    is the no-tail mode of ``decode_attn_int8``."""
+    b, h, d, kvh, cap, rows = _check("decode_attn_int8_tail", q, kv, scales,
+                                     lengths, tail, tail_count)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     rep = h // kvh
@@ -87,8 +109,9 @@ def decode_attn_int8_tail_plain(q, kv, scales, lengths, tail, tail_count,
     vf = kq[:, :, 1].repeat_interleave(rep, dim=2)
     ks = sf[:, :, 0].repeat_interleave(rep, dim=2)         # [B, cap, H]
     vs = sf[:, :, 1].repeat_interleave(rep, dim=2)
-    tl = tail[:, :tail_count].to(torch.float32).reshape(
-        b, tail_count, 2, kvh, d).repeat_interleave(rep, dim=3)
+    tl = (torch.zeros((b, 0, 2, kvh, d), device=q.device) if tail is None
+          else tail[:, :tail_count].to(torch.float32).reshape(
+              b, tail_count, 2, kvh, d)).repeat_interleave(rep, dim=3)
     s_p = torch.einsum("bhd,bchd->bhc", qb, kf) * scale * ks.transpose(1, 2)
     s_t = torch.einsum("bhd,bthd->bht", qb, tl[:, :, 0]) * scale
     n_packed = torch.clamp(lengths.to(torch.int64) - tail_count, 0, cap)
@@ -97,6 +120,7 @@ def decode_attn_int8_tail_plain(q, kv, scales, lengths, tail, tail_count,
     s_p = s_p.masked_fill(~valid[:, None, :], -math.inf)
     scores = torch.cat([s_p, s_t], dim=-1)
     m = scores.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # no token
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
     p_p = p[..., :cap] * vs.transpose(1, 2)
@@ -104,6 +128,33 @@ def decode_attn_int8_tail_plain(q, kv, scales, lengths, tail, tail_count,
            + torch.einsum("bht,bthd->bhd", p[..., cap:], tl[:, :, 1]))
     out = acc / torch.clamp(l, min=1e-30)
     return out.to(torch.bfloat16).to(torch.float32)
+
+
+def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale):
+    """The int8 kernel on CUDA tensors for both modes; counts the launch
+    on ``wrapper``."""
+    name = wrapper.__name__
+    b, h, d, kvh, cap, rows = _check(name, q, kv, scales, lengths, tail,
+                                     tail_count)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d % 16 == 0 and 128 % d == 0, name,
+                   f"head_dim {d} must divide 128 and be a multiple of 16")
+    _build.require(fits_shared_memory(d, cap, rows), name,
+                   f"capacity {cap} + window {rows} exceed shared memory")
+    tensors = (q, kv, scales, lengths) + (() if tail is None else (tail,))
+    _build.require(all(x.is_contiguous() for x in tensors), name,
+                   "tensors must be contiguous")
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_int8_tail", "decode_attn_int8_tail",
+                         "ppppppiiiiiiifp")
+    err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
+             lengths.data_ptr(), None if tail is None else tail.data_ptr(),
+             out.data_ptr(), b, h, kvh, d, cap, rows, tail_count,
+             float(scale), _build.stream())
+    _build.check(err, name)
+    wrapper.launches += 1
+    return out
 
 
 def decode_attn_int8_tail(q, kv, scales, lengths, tail, tail_count,
@@ -119,29 +170,99 @@ def decode_attn_int8_tail(q, kv, scales, lengths, tail, tail_count,
     Returns f32 [B, H, D] holding bf16 values. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""
     tail_count = int(tail_count)
-    name = "decode_attn_int8_tail"
-    if _build.on_cpu(name, q, kv, scales, lengths, tail):
+    if _build.on_cpu("decode_attn_int8_tail", q, kv, scales, lengths, tail):
         return decode_attn_int8_tail_plain(q, kv, scales, lengths, tail,
                                            tail_count, scale)
-    b, h, d, kvh, cap, rows = _check(q, kv, scales, lengths, tail,
-                                     tail_count)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    _build.require(d % 16 == 0 and 128 % d == 0, name,
-                   f"head_dim {d} must divide 128 and be a multiple of 16")
-    _build.require(fits_shared_memory(d, cap, rows), name,
-                   f"capacity {cap} + window {rows} exceed shared memory")
-    _build.require(all(x.is_contiguous() for x in (q, kv, scales, lengths,
-                                                   tail)), name,
-                   "tensors must be contiguous")
-    out = torch.empty_like(q)
-    fn = _build.function(name, name, "ppppppiiiiiiifp")
-    err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
-             lengths.data_ptr(), tail.data_ptr(), out.data_ptr(), b, h, kvh,
-             d, cap, rows, tail_count, float(scale), _build.stream())
-    _build.check(err, name)
-    decode_attn_int8_tail.launches += 1
-    return out
+    return _launch_int8(decode_attn_int8_tail, q, kv, scales, lengths, tail,
+                        tail_count, scale)
 
 
 decode_attn_int8_tail.launches = 0
+
+
+def decode_attn_int8_plain(q, kv, scales, lengths, scale=None):
+    """Plain PyTorch version of ``decode_attn_int8`` (same contract)."""
+    return decode_attn_int8_tail_plain(q, kv, scales, lengths, None, 0,
+                                       scale)
+
+
+def decode_attn_int8(q, kv, scales, lengths, scale=None):
+    """Decode attention over an int8 cache without a tail window: the
+    tail kernel's contract with no window rows. Reads tokens
+    ``[0, min(lengths, cap))``; q and the output are rounded to bf16.
+    Returns f32 [B, H, D]. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    if _build.on_cpu("decode_attn_int8", q, kv, scales, lengths):
+        return decode_attn_int8_plain(q, kv, scales, lengths, scale)
+    return _launch_int8(decode_attn_int8, q, kv, scales, lengths, None, 0,
+                        scale)
+
+
+decode_attn_int8.launches = 0
+
+
+def _check_float(q, kv, lengths):
+    name = "decode_attn_float"
+    b, h, d = q.shape
+    _build.require(q.dtype == torch.float32, name, "q must be f32 [B, H, D]")
+    _build.require(kv.dim() == 4 and kv.shape[0] == b and kv.shape[2] == 2
+                   and kv.dtype in FLOAT_CACHE_DTYPES, name,
+                   "kv must be f32 or bf16 [B, cap, 2, KVH*D]")
+    cap, f = kv.shape[1], kv.shape[3]
+    _build.require(f % d == 0 and h % (f // d) == 0, name,
+                   "kv row width must be KVH*D with H a multiple of KVH")
+    _build.require(lengths.shape == (b,) and lengths.dtype == torch.int32,
+                   name, "lengths must be int32 [B]")
+    return b, h, d, f // d, cap
+
+
+def decode_attn_float_plain(q, kv, lengths, scale=None):
+    """Plain PyTorch version of ``decode_attn_float`` (same contract): an
+    exact two-pass softmax in f32."""
+    b, h, d, kvh, cap = _check_float(q, kv, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    rep = h // kvh
+    x = kv.reshape(b, cap, 2, kvh, d).to(torch.float32)
+    k = x[:, :, 0].repeat_interleave(rep, dim=2)           # [B, cap, H, D]
+    v = x[:, :, 1].repeat_interleave(rep, dim=2)
+    s = torch.einsum("bhd,bchd->bhc", q, k) * scale
+    valid = (torch.arange(cap, device=q.device)[None, :]
+             < lengths.to(torch.int64)[:, None])          # [B, cap]
+    s = s.masked_fill(~valid[:, None, :], -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # n = 0
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhc,bchd->bhd", p, v) / torch.clamp(l, min=1e-30)
+
+
+def decode_attn_float(q, kv, lengths, scale=None):
+    """Decode attention for one query per sequence over a float cache.
+
+    q f32 [B, H, D]; kv f32 or bf16 [B, cap, 2, KVH*D] (plane 0 K, plane 1
+    V); lengths int32 [B]. Reads tokens ``[0, min(lengths, cap))``; scores,
+    softmax and sums in f32. Returns f32 [B, H, D] (zeros where a length is
+    0). CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise."""
+    name = "decode_attn_float"
+    if _build.on_cpu(name, q, kv, lengths):
+        return decode_attn_float_plain(q, kv, lengths, scale)
+    b, h, d, kvh, cap = _check_float(q, kv, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d % 64 == 0 and d <= 256, name,
+                   f"head_dim {d} must be a multiple of 64 up to 256")
+    _build.require(all(x.is_contiguous() for x in (q, kv, lengths)), name,
+                   "tensors must be contiguous")
+    out = torch.empty_like(q)
+    fn = _build.function(name, name, "ppppiiiiiifp")
+    err = fn(q.data_ptr(), kv.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             b, h, kvh, d, cap, int(kv.dtype == torch.bfloat16),
+             float(scale), _build.stream())
+    _build.check(err, name)
+    decode_attn_float.launches += 1
+    return out
+
+
+decode_attn_float.launches = 0

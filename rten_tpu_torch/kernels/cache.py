@@ -1,12 +1,20 @@
 """KV-cache write kernels.
 
-``tail_flush_int8`` (CUDA, ``csrc/tail_flush_int8.cu``) stands in for both
-``rten_tpu/kernels/cache.py::cache_flush_rows`` (:511) and
-``::cache_flush_quant`` (:370) together with the quantization that
-``rten_tpu/generate/kv_cache.py::flush_tail`` runs in XLA before them.
+* ``tail_flush_int8`` (CUDA, ``csrc/tail_flush_int8.cu``) stands in for
+  both ``rten_tpu/kernels/cache.py::cache_flush_rows`` (:511) and
+  ``::cache_flush_quant`` (:370) together with the quantization that
+  ``rten_tpu/generate/kv_cache.py::flush_tail`` runs in XLA before them.
+* ``kv_append`` (CUDA, ``csrc/kv_append.cu``) replaces ``cache_append``
+  (:32): the float-cache decode append.
+* ``kv_append_int8`` (CUDA, ``csrc/kv_append_int8.cu``) replaces
+  ``cache_append_quant`` (:148) together with the XLA quantization before
+  it (``kv_cache.py::_quantize_tokens``): the int8 decode append without a
+  tail window.
+
 The cache layout is the port's byte-addressable one (int8
-``[B, cap, 2, KVH*D]``, bf16 scales ``[B, cap, 2, KVH]``), so one kernel
-writes any depth t in 1..R: there are no packed rows to merge into.
+``[B, cap, 2, KVH*D]``, bf16 scales ``[B, cap, 2, KVH]``), so the flush
+writes any depth t in 1..R and the int8 append stores single bytes: there
+are no packed rows to merge into. Every writer updates the cache in place.
 """
 
 from __future__ import annotations
@@ -72,3 +80,117 @@ def tail_flush_int8(tail, kv, scales, lengths, t):
 
 
 tail_flush_int8.launches = 0
+
+
+def _rows(x, b, f):
+    """k or v [B, KVH, 1, D] as f32 rows [B, F] with unit inner stride (a
+    view of the model's fused QKV output where possible)."""
+    x = x.reshape(b, f)
+    return x if x.stride(1) == 1 else x.contiguous()
+
+
+def _check_append(name, kv, k, v, lengths, dtypes):
+    b, kvh, t, d = k.shape
+    _build.require(t == 1 and v.shape == k.shape
+                   and k.dtype == v.dtype == torch.float32, name,
+                   "k and v must be f32 [B, KVH, 1, D]")
+    _build.require(kv.dim() == 4 and kv.shape[0] == b and kv.shape[2] == 2
+                   and kv.shape[3] == kvh * d and kv.dtype in dtypes, name,
+                   f"kv must be {dtypes} [B, cap, 2, KVH*D]")
+    _build.require(lengths.shape == (b,) and lengths.dtype == torch.int32,
+                   name, "lengths must be int32 [B]")
+    return b, kv.shape[1], kvh, d
+
+
+FLOAT_CACHE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kv_append_plain(kv, k, v, lengths):
+    """Plain PyTorch version of the float append (same contract, in
+    place)."""
+    b, cap, kvh, d = _check_append("kv_append", kv, k, v, lengths,
+                                   FLOAT_CACHE_DTYPES)
+    rows = torch.stack([k.reshape(b, kvh * d), v.reshape(b, kvh * d)],
+                       dim=1).to(kv.dtype)
+    pos = torch.clamp(lengths.to(torch.int64), 0, cap - 1)
+    kv[torch.arange(b, device=kv.device), pos] = rows
+
+
+def kv_append(kv, k, v, lengths):
+    """Write each sequence's new K/V as one token row into a float cache,
+    in place, at ``clamp(lengths, 0, cap - 1)`` (finished slots keep
+    decoding past capacity).
+
+    kv f32 or bf16 [B, cap, 2, KVH*D]; k, v f32 [B, KVH, 1, D] (strided
+    views are fine); lengths int32 [B]. A bf16 cache rounds to nearest
+    even, as ``Tensor.to(torch.bfloat16)`` does. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    name = "kv_append"
+    if _build.on_cpu(name, kv, k, v, lengths):
+        return kv_append_plain(kv, k, v, lengths)
+    b, cap, kvh, d = _check_append(name, kv, k, v, lengths,
+                                   FLOAT_CACHE_DTYPES)
+    _build.require(kv.is_contiguous() and lengths.is_contiguous(), name,
+                   "kv and lengths must be contiguous")
+    kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
+    fn = _build.function(name, name, "ppiippiiiip")
+    err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
+             kv.data_ptr(), lengths.data_ptr(), b, cap, kvh * d,
+             int(kv.dtype == torch.bfloat16), _build.stream())
+    _build.check(err, name)
+    kv_append.launches += 1
+
+
+kv_append.launches = 0
+
+
+def _check_append_int8(kv, scales, k, v, pos):
+    name = "kv_append_int8"
+    b, cap, kvh, d = _check_append(name, kv, k, v, pos, (torch.int8,))
+    _build.require(scales.shape == (b, cap, 2, kvh)
+                   and scales.dtype == torch.bfloat16, name,
+                   "scales must be bf16 [B, cap, 2, KVH]")
+    return b, cap, kvh, d
+
+
+def kv_append_int8_plain(kv, scales, k, v, pos, masked=False):
+    """Plain PyTorch version of the int8 append (same contract, in
+    place)."""
+    b, cap, kvh, d = _check_append_int8(kv, scales, k, v, pos)
+    x = torch.stack([k[:, :, 0], v[:, :, 0]], dim=1)        # [B, 2, KVH, D]
+    q, s = quantize_tokens(x)
+    p = pos.to(torch.int64)
+    keep = p >= 0 if masked else torch.ones_like(p, dtype=torch.bool)
+    bidx = torch.arange(b, device=kv.device)[keep]
+    p = torch.clamp(p[keep], 0, cap - 1)
+    kv[bidx, p] = q[keep].reshape(-1, 2, kvh * d)
+    scales[bidx, p] = s[keep]
+
+
+def kv_append_int8(kv, scales, k, v, pos, masked=False):
+    """Quantize each sequence's new K/V per (plane, head) and write the
+    int8 bytes and bf16 scales into the int8 cache, in place, at
+    ``min(pos, cap - 1)`` — the quantizer of ``_quantize_tokens`` bit for
+    bit. With ``masked`` a sequence whose ``pos`` is negative writes
+    nothing; without it ``pos`` also clamps to >= 0.
+
+    kv int8 [B, cap, 2, KVH*D]; scales bf16 [B, cap, 2, KVH]; k, v f32
+    [B, KVH, 1, D] (strided views are fine); pos int32 [B] (the cache
+    lengths). CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    name = "kv_append_int8"
+    if _build.on_cpu(name, kv, scales, k, v, pos):
+        return kv_append_int8_plain(kv, scales, k, v, pos, masked)
+    b, cap, kvh, d = _check_append_int8(kv, scales, k, v, pos)
+    _build.require(all(x.is_contiguous() for x in (kv, scales, pos)), name,
+                   "kv, scales and pos must be contiguous")
+    kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
+    fn = _build.function(name, name, "ppiipppiiiiip")
+    err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
+             kv.data_ptr(), scales.data_ptr(), pos.data_ptr(), b, cap, kvh,
+             d, int(bool(masked)), _build.stream())
+    _build.check(err, name)
+    kv_append_int8.launches += 1
+
+
+kv_append_int8.launches = 0

@@ -7,11 +7,18 @@ the reference, so the same weights (converted with
 :func:`rten_tpu_torch.models.convert.params_from_numpy` or drawn by
 :meth:`TransformerLM.init_params`) run through both packages.
 
+Decode attention follows the reference's automatic choice
+(``_pallas_decode_attn``, transformer.py:366-492): an int8 cache with the
+tail window reads through ``decode_attn_int8_tail``; a float (f32 or bf16)
+cache through ``decode_attn_float``; an int8 cache without a tail, at a
+batch with a flat group, through ``decode_attn_int8``.
+
 Not ported yet, and raising ``NotImplementedError``: RoPE, RMSNorm,
 SwiGLU, bf16 compute, ``scan_layers``, int4 weights, paged caches and
 chunked verify (ROADMAP.md Queue 1 item 11), MoE (item 13), meshes (item
-14), and decode on a cache without a tail window on CUDA (the f32/bf16-cache
-and no-tail int8 paths, items 5 and 6).
+14), and the grouped/fused int8 decode kernels that the reference takes
+for an int8 cache without a tail at a batch with no flat group, or when
+``decode_attn`` asks for them (ROADMAP.md Queue 2 items 9 and 10).
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ import torch
 
 from ..device import resolve_device
 from ..generate.kv_cache import KVCache
-from ..kernels.attention import attn_reference, decode_attn_int8_tail
+from ..kernels.attention import (attn_reference, decode_attn_float,
+                                 decode_attn_int8, decode_attn_int8_tail,
+                                 flat_group_for)
 from ..kernels.gemm import (head_argmax_int8, matmul_int8, matmul_int8_wo,
                             pad_cols)
 from ..kernels.quant import abs_max_quantize_int8
@@ -51,7 +60,7 @@ class TransformerConfig:
     use_pallas: bool = True        # read only by the engine's tail gate
     scan_layers: bool = False
     n_experts: int = 0
-    decode_attn: str = "auto"      # read only by the engine's tail gate
+    decode_attn: str = "auto"      # the tail gate and int8 decode dispatch
     fused_append: bool = False
 
     @property
@@ -242,19 +251,14 @@ class TransformerLM:
     # -- forward -----------------------------------------------------------
 
     def _decode_attn(self, q3, cache, layer_idx):
-        """Single-query attention over the cache. A tail cache is read by
-        the tail kernel only; q3 [B, H, D] → [B, H, D]."""
+        """Single-query attention over the cache; q3 [B, H, D] → [B, H, D].
+        A tail cache is read by the tail kernel only."""
         if cache.tail is not None:
             return decode_attn_int8_tail(
                 q3, cache.kv[layer_idx], cache.scales[layer_idx],
                 cache.lengths + 1, cache.tail[layer_idx],
                 cache.tail_count + 1)
-        if q3.device.type != "cpu":
-            raise NotImplementedError(
-                "decode on a cache without a tail window is not ported to "
-                "CUDA yet (ROADMAP.md Queue 1 items 5 and 6: the "
-                "f32/bf16-cache path and the no-tail int8 path)")
-        return _plain_decode_attn(q3, cache, layer_idx)
+        return _cache_decode_attn(self.config, q3, cache, layer_idx)
 
     def _attention(self, layer_params, x, cache, layer_idx):
         cfg = self.config
@@ -374,21 +378,33 @@ class TransformerLM:
                               device=resolve_device(device))
 
 
-def _plain_decode_attn(q3, cache, layer_idx):
-    """Decode attention on dequantized cache views (CPU only). A tail
-    cache must never get here: its newest tokens live in the window, which
-    only the tail kernel reads (the reference raises the same way,
+def _cache_decode_attn(cfg, q3, cache, layer_idx):
+    """Decode attention on a cache without a tail window, chosen as the
+    reference's automatic dispatch chooses (transformer.py:396-417): a
+    float cache → ``decode_attn_float`` (the reference's grouped or fused
+    float kernel, one function); an int8 cache at a batch with a flat
+    group → ``decode_attn_int8`` (``flash_decode_flat``, ``q_bf16``). The
+    reference's other int8 choices are unported kernel modes and raise.
+    A tail cache must never get here: its newest tokens live in the window,
+    which only the tail kernel reads (the reference raises the same way,
     transformer.py:426-431)."""
     if cache.tail is not None:
         raise ValueError("KV cache has a tail write-buffer but decode "
-                         "attention picked the plain reader — only the "
-                         "tail kernel reads the window")
-    kc, vc = cache.layer_kv(layer_idx)
-    h, kvh = q3.shape[1], cache.kv_heads
-    if kvh != h:
-        kc = kc.repeat_interleave(h // kvh, dim=1)
-        vc = vc.repeat_interleave(h // kvh, dim=1)
-    out = attn_reference(q3[:, :, None, :], kc.to(q3.dtype),
-                         vc.to(q3.dtype), False,
-                         1.0 / math.sqrt(cache.head_dim), cache.lengths + 1)
-    return out[:, :, 0]
+                         "attention picked a reader without the window — "
+                         "only the tail kernel reads it")
+    lengths = cache.lengths + 1
+    if not cache.quantized:
+        return decode_attn_float(q3, cache.kv[layer_idx], lengths)
+    cap = cache.capacity
+    flat = (cfg.decode_attn in ("auto", "flat")
+            and flat_group_for(q3.shape[0])
+            and (cap < 2048 or cap % 128 == 0))
+    if not flat:
+        raise NotImplementedError(
+            f"decode on an int8 cache without a tail window at batch "
+            f"{q3.shape[0]}, capacity {cap}, decode_attn="
+            f"{cfg.decode_attn!r} takes the reference's grouped/fused int8 "
+            f"kernel, which is not ported yet (ROADMAP.md Queue 2 items 9 "
+            f"and 10)")
+    return decode_attn_int8(q3, cache.kv[layer_idx], cache.scales[layer_idx],
+                            lengths)

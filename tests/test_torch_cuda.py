@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes (chip_smoke.py holds them at the serving path's
-shapes). Marked ``cuda``; without a card every test skips.
+shapes). Marked ``cuda``; without a card every test skips. The stress
+cases of tests/test_numerics.py live here too (``numerics_case``), so the
+CPU parity tests and the card tests share them.
 
 This file imports no jax, so it also runs where jax is not installed:
 
@@ -17,6 +19,8 @@ from rten_tpu_torch.kernels import gemm as pg
 from rten_tpu_torch.kernels.quant import abs_max_quantize_int8
 from rten_tpu_torch.models import (TransformerConfig, TransformerLM,
                                    quantize_weights)
+
+NUMERICS_CASES = ("extreme_exponents", "score_ties", "underflow_tail")
 
 pytestmark = pytest.mark.cuda
 
@@ -163,3 +167,229 @@ def test_decode_steps_on_the_card_match_the_cpu(gen):
         for got in (nxt["cuda"], nxt["cpu"]):
             assert ((got == logits["cpu"].argmax(-1)) | near).all(), step
         tok = logits["cpu"].argmax(-1)
+
+
+# -- float-cache and no-tail int8 decode --------------------------------------
+
+def numerics_case(name):
+    """The three decode cases of tests/test_numerics.py, with their bounds:
+    (q, k, v [B, H, cap, D] in f64, lengths, max ULP, relative escape)."""
+    b, h, cap, d = 4, 2, 128, 64
+    if name == "extreme_exponents":
+        rng = np.random.RandomState(1)
+        mags = 2.0 ** rng.uniform(-24, 24, (b, h, cap, 1))
+        k = rng.randn(b, h, cap, d) * mags
+        v = rng.randn(b, h, cap, d)
+        q = rng.randn(b, h, d).astype(np.float32)
+        return q, k, v, np.array([1, 31, 32, cap]), 512, 1e-4
+    if name == "score_ties":
+        rng = np.random.RandomState(2)
+        k = np.tile(rng.randn(b, h, 1, d), (1, 1, cap, 1))
+        v = rng.randn(b, h, cap, d)
+        q = rng.randn(b, h, d)
+        return q, k, v, np.array([cap, cap - 1, 33, 2]), 512, 1e-4
+    assert name == "underflow_tail"
+    rng = np.random.RandomState(3)
+    k = rng.randn(b, h, cap, d) * 0.01
+    dom = rng.randint(0, 30, b)
+    q = rng.randn(b, h, d)
+    for i in range(b):
+        k[i, :, dom[i]] = 40 * q[i] / np.linalg.norm(q[i], axis=-1,
+                                                     keepdims=True)
+    v = rng.randn(b, h, cap, d)
+    return q, k, v, np.full(b, 31), 64, 1e-4
+
+
+def fused_kv(k, v):
+    """[B, H, cap, D] K and V → the token-major f32 [B, cap, 2, H*D]
+    cache."""
+    b, h, cap, d = k.shape
+    return np.stack([k.transpose(0, 2, 1, 3).reshape(b, cap, h * d),
+                     v.transpose(0, 2, 1, 3).reshape(b, cap, h * d)],
+                    axis=2).astype(np.float32)
+
+
+def numerics_ok(got, q, k, v, lengths, max_ulp, rel):
+    """Assert tests/test_numerics.py's bound: per element, within
+    ``max_ulp`` f32 ULPs of the fp64 attention or within ``rel`` of it."""
+    q, k, v = (np.asarray(x, np.float64) for x in (q, k, v))
+    want = np.zeros(q.shape)
+    for i in range(q.shape[0]):
+        sc = (np.einsum("hd,hkd->hk", q[i], k[i, :, :lengths[i]])
+              / np.sqrt(q.shape[-1]))
+        p = np.exp(sc - sc.max(axis=1, keepdims=True))
+        want[i] = np.einsum("hk,hkd->hd", p / p.sum(axis=1, keepdims=True),
+                            v[i, :, :lengths[i]])
+
+    def key(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    got = np.asarray(got, np.float32)
+    assert np.isfinite(got).all()
+    ulp = np.abs(key(got) - key(want.astype(np.float32)))
+    relerr = np.abs(got - want) / (np.abs(want) + 1e-300)
+    assert ((ulp <= max_ulp) | (relerr <= rel)).all(), (ulp.max(),
+                                                         relerr.max())
+
+
+def rows_view(x):
+    """x [B, KVH, 1, D] as the model hands it over: a strided view into a
+    fused [B, 1, 3F] projection output."""
+    b, kvh, _, d = x.shape
+    f = kvh * d
+    qkv = torch.zeros((b, 1, 3 * f), device=x.device)
+    qkv[:, 0, f:2 * f] = x.reshape(b, f)
+    return qkv[..., f:2 * f].reshape(b, 1, kvh, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_append_kernel_bit_exact(gen, dtype):
+    b, cap, kvh, d = 6, 64, 3, 64
+    kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
+                     generator=gen).to(dtype)
+    k = rows_view(torch.randn((b, kvh, 1, d), device="cuda", generator=gen))
+    v = rows_view(torch.randn((b, kvh, 1, d), device="cuda", generator=gen))
+    lengths = torch.tensor([0, 1, 17, cap - 1, cap, cap + 9],
+                           dtype=torch.int32, device="cuda")
+    kv1, kv2 = kv.clone(), kv.clone()
+    before = kc.kv_append.launches
+    kc.kv_append(kv1, k, v, lengths)
+    kc.kv_append_plain(kv2, k, v, lengths)
+    torch.cuda.synchronize()
+    assert kc.kv_append.launches == before + 1
+    assert torch.equal(kv1, kv2)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_kv_append_int8_kernel_bit_exact(gen, masked):
+    b, cap, kvh, d = 8, 64, 2, 64
+    kv, scales, _ = _cache(gen, b, cap, 1, kvh, d)
+    x = torch.randn((b, kvh, 1, d), device="cuda", generator=gen)
+    x = x * torch.exp(4 * torch.rand((b, kvh, 1, 1), device="cuda",
+                                     generator=gen) - 3)
+    x[0, 1] = 0                            # all-zero head: scale 1.0
+    x[1, 0] = 1e-30                        # tiny absmax
+    k, v = rows_view(x), rows_view(x.flip(0))
+    pos = torch.tensor([-1 if masked else 0, 1, 5, 31, cap - 1, cap,
+                        cap + 5, 2 * cap], dtype=torch.int32, device="cuda")
+    kv1, s1, kv2, s2 = kv.clone(), scales.clone(), kv.clone(), scales.clone()
+    kc.kv_append_int8(kv1, s1, k, v, pos, masked=masked)
+    kc.kv_append_int8_plain(kv2, s2, k, v, pos, masked=masked)
+    torch.cuda.synchronize()
+    assert torch.equal(kv1, kv2) and torch.equal(s1, s2)
+    if masked:
+        assert torch.equal(kv1[0], kv[0]) and torch.equal(s1[0], scales[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,d,cap", [
+    (6, 4, 2, 64, 64), (1, 12, 12, 64, 512), (3, 8, 2, 128, 96),
+    (5, 2, 1, 256, 40), (4, 4, 4, 64, 2048)])
+def test_decode_attn_float_kernel_matches_plain(gen, dtype, b, h, kvh, d,
+                                                cap):
+    """GQA and plain heads, head_dim 64-256, batch 1 and odd batches (no
+    block layout assumes a group), lengths 0 through past capacity, and a
+    2048-token cache (no shared-memory limit on capacity)."""
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
+                     generator=gen).to(dtype)
+    lengths = torch.tensor([1, cap, 0, 37, cap + 9, cap - 1][:b],
+                           dtype=torch.int32, device="cuda")
+    before = at.decode_attn_float.launches
+    out = at.decode_attn_float(q, kv, lengths)
+    ref = at.decode_attn_float_plain(q, kv, lengths)
+    torch.cuda.synchronize()
+    assert at.decode_attn_float.launches == before + 1
+    assert torch.isfinite(out).all()
+    # f32 sums in other orders (online softmax per warp against an exact
+    # two-pass softmax): 1e-5 of the largest output.
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("name", NUMERICS_CASES)
+def test_decode_attn_float_kernel_numerics(gen, name):
+    """tests/test_numerics.py's online-softmax stress cases on the card, at
+    the reference's own bounds against fp64."""
+    q, k, v, lengths, max_ulp, rel = numerics_case(name)
+    got = at.decode_attn_float(
+        torch.from_numpy(np.asarray(q, np.float32)).cuda(),
+        torch.from_numpy(fused_kv(k, v)).cuda(),
+        torch.from_numpy(lengths.astype(np.int32)).cuda())
+    numerics_ok(got.cpu().numpy(), q, k, v, lengths, max_ulp, rel)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_attn_int8_kernel_matches_plain(gen, d):
+    """The no-tail mode of the int8 kernel: GQA, lengths 1 through past
+    capacity, its own launch count."""
+    b, h, kvh, cap = 6, 4, 2, 64
+    kv, scales, _ = _cache(gen, b, cap, 1, kvh, d)
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    lengths = torch.tensor([1, 2, 17, 40, cap, cap + 30],
+                           dtype=torch.int32, device="cuda")
+    before = (at.decode_attn_int8.launches,
+              at.decode_attn_int8_tail.launches)
+    out = at.decode_attn_int8(q, kv, scales, lengths)
+    ref = at.decode_attn_int8_plain(q, kv, scales, lengths)
+    torch.cuda.synchronize()
+    assert (at.decode_attn_int8.launches,
+            at.decode_attn_int8_tail.launches) == (before[0] + 1, before[1])
+    assert torch.isfinite(out).all()
+    tol = 2.0 ** -6 * ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("cache,tol", [
+    ("f32", 1e-4), ("bf16", 1e-4), ("int8_no_tail", 1e-2)])
+def test_decode_steps_without_tail_match_the_cpu(gen, cache, tol):
+    """Teacher-forced decode through K5/K6 (f32 weights on an f32 or bf16
+    cache) and K7/K1' (int8 weights on an int8 cache without a tail) on
+    the card against the same model on the CPU. f32 throughout (TF32
+    off) agrees to 1e-4; int8 weights carry bf16 roundings that may flip,
+    1e-2 as on the tail path."""
+    model = TransformerLM(TransformerConfig.tiny_test(n_heads=2,
+                                                      d_model=128))
+    kw = {"f32": {}, "bf16": dict(cache_dtype="bfloat16"),
+          "int8_no_tail": dict(quantized=True)}[cache]
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(1, 128, (4, 5)))
+    params, caches = {}, {}
+    for dev in ("cpu", "cuda"):
+        params[dev] = model.init_params(3, device=dev)
+        if cache == "int8_no_tail":
+            params[dev] = quantize_weights(params[dev])
+        c = model.new_cache(4, 64, device=dev, **kw)
+        _, c = model.prefill(params[dev], prompt.to(dev), c)
+        caches[dev] = c.with_lengths([5, 3, 1, 5])
+    tok = torch.from_numpy(rng.integers(1, 128, 4))
+    for step in range(12):
+        logits = {}
+        for dev in ("cpu", "cuda"):
+            lg, caches[dev] = model.decode_step(params[dev], tok.to(dev),
+                                                caches[dev])
+            logits[dev] = lg.cpu()
+        assert (logits["cuda"] - logits["cpu"]).abs().max() < tol, step
+        tok = logits["cpu"].argmax(-1)
+
+
+def test_int8_cache_without_a_flat_group_raises_on_the_card(gen):
+    """On the card an int8 cache without a tail decodes through K7 and K1'
+    at a batch with a flat group (4); at batch 3 it would take the
+    reference's unported grouped/fused int8 kernel, so it raises naming
+    ROADMAP instead of falling back to a plain version or the CPU."""
+    model = TransformerLM(TransformerConfig.tiny_test(n_heads=2,
+                                                      d_model=128))
+    params = quantize_weights(model.init_params(3, device="cuda"))
+    n_layers = model.config.n_layers
+    before = (kc.kv_append_int8.launches, at.decode_attn_int8.launches)
+    cache = model.new_cache(4, 64, quantized=True, device="cuda")
+    model.decode_step(params, torch.ones(4, dtype=torch.int64,
+                                         device="cuda"), cache)
+    assert (kc.kv_append_int8.launches, at.decode_attn_int8.launches) == (
+        before[0] + n_layers, before[1] + n_layers)
+    cache = model.new_cache(3, 64, quantized=True, device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.decode_step(params, torch.ones(3, dtype=torch.int64,
+                                             device="cuda"), cache)
+    assert at.decode_attn_int8.launches == before[1] + n_layers

@@ -76,11 +76,16 @@ def _kernel_args():
     x = torch.zeros((4, 32))
     w = torch.zeros((32, 16), dtype=torch.int8)
     s = torch.ones(16)
-    return {"decode_attn_int8_tail": (torch.zeros((b, 4, d)), kv, scales,
-                                      lengths, tail, 1),
+    q = torch.zeros((b, 4, d))
+    k = torch.zeros((b, kvh, 1, d))
+    return {"decode_attn_int8_tail": (q, kv, scales, lengths, tail, 1),
             "head_argmax_int8": (x, w, s),
             "tail_flush_int8": (tail, kv, scales, lengths, 1),
-            "matmul_int8_wo": (x, w, s)}
+            "matmul_int8_wo": (x, w, s),
+            "kv_append": (torch.zeros((b, cap, 2, f)), k, k, lengths),
+            "decode_attn_float": (q, torch.zeros((b, cap, 2, f)), lengths),
+            "kv_append_int8": (kv, scales, k, k, lengths),
+            "decode_attn_int8": (q, kv, scales, lengths)}
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.__name__)

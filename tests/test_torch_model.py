@@ -246,7 +246,7 @@ def test_tail_cache_refuses_other_readers(models):
                          device="cpu")
     q = torch.zeros((2, 2, 64))
     with pytest.raises(ValueError, match="tail"):
-        ptr._plain_decode_attn(q, cache, 0)
+        ptr._cache_decode_attn(pm.config, q, cache, 0)
 
 
 # -- the engine ---------------------------------------------------------------
