@@ -30,15 +30,25 @@ Phases (any failure exits non-zero; nothing is caught):
      requests of 48 new tokens.
    - (C) bf16 cache: int8 weights, ``cache_dtype="bfloat16"``; 288
      requests of 24 new tokens.
-   For int8 + tail and (A): decode at a full batch, one burst timed on the
-   host clock and one traced by torch.profiler (time by kernel, the card's
-   busy share); for (B) and (C) the timed burst only. Then one line with
-   the int8 + tail and f32 decode tokens/s of this run and their ratio.
-5. Card against CPU, for int8 + tail and for (A): the same weights, 8
+   - (D) paged int8: int8 weights, ``paged=True, page_size=64`` with an
+     int8 page pool; 320 requests of 48 new tokens.
+   - (E) paged f32: f32 weights, ``paged=True, page_size=64`` with an f32
+     page pool; 320 requests of 48 new tokens.
+   For int8 + tail, (A), (D) and (E): decode at a full batch, one burst
+   timed on the host clock and one traced by torch.profiler (time by
+   kernel, the card's busy share); for (B) and (C) the timed burst only;
+   for (D) and (E) also the host time of the allocator's pass before a
+   burst. Then one line with the int8 + tail and f32 decode tokens/s of
+   this run and their ratio, and each paged path's steady burst against
+   its contiguous counterpart in three rounds of turns ((A), (E), (E),
+   (A) and (B), (D), (D), (B)).
+5. Card against CPU, for int8 + tail, (A) and (D): the same weights, 8
    requests of 8 tokens x 16 new tokens, on the card and with
    ``device="cpu"`` (plain versions), with the fused argmax head and with
    recorded logits; logits must agree within a stated tolerance and greedy
-   tokens must match except after a near-tie step.
+   tokens must match except after a near-tie step. For (E) the same at
+   ``max_batch=3`` with 3 requests, a batch with no group, where the paged
+   decode takes the grid kernel, which must launch there.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.
@@ -70,6 +80,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
 PEAK_F32_FLOP_S = 67e12            # outside the tensor cores
 REPS = 20
+TURN_ROUNDS = 3                    # rounds of paged-against-contiguous turns
 
 # Tolerances (kernel against its plain version on the same inputs):
 # K1 rounds its output to bf16 like the plain version, and the two sum in
@@ -102,6 +113,12 @@ K6_REL_TOL = 1e-5
 # layer); logits must agree to 1e-3, and a token may differ only after a
 # step whose CPU top-2 margin is below twice that.
 F32_PATH_LOGIT_TOL = 1e-3
+# P1 and P2 (the paged appends): bit for bit. P3, its grid mode and P3i
+# (paged attention) sum in f32 throughout like K6 (an int8 pool's bytes and
+# bf16 scales are exact in f32, and no bf16 rounding follows), so K6's
+# tolerance: 1e-5 of max |out|.
+
+PAGE = 64                          # tokens per page on the paged paths
 
 
 def check(ok, what):
@@ -464,6 +481,128 @@ def check_decode_attn_int8(timer):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def _paged_pool(g, b, lengths, dtype):
+    """A pool at the paged paths' shapes (page 64, capacity 512, 12 heads
+    of 64), one page per slot and page of the table plus the garbage page
+    0, random contents; the table maps ceil(lengths / 64) scrambled pages
+    per row and -1 past them."""
+    max_pages, f, kvh = 512 // PAGE, 768, 12
+    n_pages = b * max_pages + 1
+    if dtype == torch.int8:
+        pool = torch.randint(-127, 128, (n_pages, PAGE, 2, f), device="cuda",
+                             dtype=torch.int8, generator=g)
+        scales = (0.002 + 0.01 * torch.rand((n_pages, PAGE, 2, kvh),
+                                            device="cuda", generator=g)
+                  ).to(torch.bfloat16)
+    else:
+        pool = torch.randn((n_pages, PAGE, 2, f), device="cuda",
+                           generator=g)
+        scales = None
+    ids = 1 + torch.randperm(n_pages - 1, device="cuda", generator=g)
+    table = ids[:b * max_pages].reshape(b, max_pages).to(torch.int32)
+    n_mapped = (lengths.clamp(min=1).to(torch.int64) + PAGE - 1) // PAGE
+    unmapped = (torch.arange(max_pages, device="cuda")[None, :]
+                >= n_mapped[:, None])
+    table[unmapped] = -1
+    return pool, scales, table.contiguous()
+
+
+def check_kv_append_paged(timer, quantized):
+    """P1 (f32 pool, path E) or P2 (int8 pool, path D) at B 256: bit-exact
+    against the plain version, with one slot past capacity (its last page)
+    and one released slot (table row -1: the garbage page)."""
+    b, kvh, d = 256, 12, 64
+    f = kvh * d
+    g = torch.Generator(device="cuda").manual_seed(11 + quantized)
+    k, v = _decode_rows(g, b, kvh, d)
+    k[0, 0] = 0                    # an all-zero head takes scale 1.0
+    lengths = _live_lengths(g, b) - 1
+    lengths[1] = 512 + 7           # a finished slot past capacity
+    pool, scales, table = _paged_pool(
+        g, b, (lengths + 2).clamp(max=512),
+        torch.int8 if quantized else torch.float32)
+    table[2] = -1                  # a released slot
+    p1, p2 = pool.clone(), pool.clone()
+    if quantized:
+        s1, s2 = scales.clone(), scales.clone()
+        kc.kv_append_paged_int8(p1, s1, k, v, table, lengths)
+        kc.kv_append_paged_int8_plain(p2, s2, k, v, table, lengths)
+        torch.cuda.synchronize()
+        err = max((p1.int() - p2.int()).abs().max().item(),
+                  (s1.float() - s2.float()).abs().max().item())
+        exact = torch.equal(p1, p2) and torch.equal(s1, s2)
+        n_bytes = 2 * b * f * 4 + 2 * b * f + 2 * b * kvh * 2 + 2 * b * 4
+        entry = dict(
+            name="kv_append_paged_int8",
+            replaces="rten_tpu/kernels/cache.py:280",
+            ms=timer(lambda: kc.kv_append_paged_int8(p1, s1, k, v, table,
+                                                     lengths)),
+            plain_ms=timer(lambda: kc.kv_append_paged_int8_plain(
+                p2, s2, k, v, table, lengths)), library_ms=None)
+    else:
+        kc.kv_append_paged(p1, k, v, table, lengths)
+        kc.kv_append_paged_plain(p2, k, v, table, lengths)
+        torch.cuda.synchronize()
+        err = (p1 - p2).abs().max().item()
+        exact = torch.equal(p1, p2)
+        n_bytes = 2 * b * f * 4 + b * 2 * f * 4 + 2 * b * 4
+        ids, offs = kc.paged_slots(table, lengths, PAGE)
+        rows = torch.stack([k.reshape(b, f), v.reshape(b, f)], dim=1)
+        entry = dict(
+            name="kv_append_paged", replaces="rten_tpu/kernels/cache.py:94",
+            ms=timer(lambda: kc.kv_append_paged(p1, k, v, table, lengths)),
+            plain_ms=timer(lambda: kc.kv_append_paged_plain(
+                p2, k, v, table, lengths)),
+            library_ms=timer(lambda: p1.index_put_((ids, offs), rows)))
+    print(f"{entry['name']}: max_abs_err {err} (bit-exact required)")
+    check(exact, f"{entry['name']} not bit-exact")
+    bms, by = bound_ms(n_bytes)
+    return dict(entry, source="rten_tpu_torch/csrc/kv_append_paged.cu",
+                max_abs_err=err, bound_ms=bms, bound_by=by)
+
+
+def check_decode_attn_paged(timer, mode):
+    """P3 (``decode_attn_paged``, path E), P3i (``decode_attn_paged_int8``,
+    path D) at B 256 and the grid mode (``decode_attn_paged_grid``) at the
+    batch of 3 where path E takes it; live lengths 65-176 over scrambled
+    pages."""
+    b = 3 if mode == "grid" else 256
+    h, d = 12, 64
+    f = h * d
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    lengths = _live_lengths(g, b)
+    pool, scales, table = _paged_pool(
+        g, b, lengths, torch.int8 if mode == "int8" else torch.float32)
+    wrapper = {"grouped": at.decode_attn_paged,
+               "grid": at.decode_attn_paged_grid,
+               "int8": at.decode_attn_paged_int8}[mode]
+    plain = getattr(at, wrapper.__name__ + "_plain")
+    args = (q, pool, table, lengths) if scales is None else (
+        q, pool, scales, table, lengths)
+    out = wrapper(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = K6_REL_TOL * ref.abs().max().item()
+    print(f"{wrapper.__name__}: max_abs_err {err:.3e} (tol {tol:.3e})")
+    check(bool(torch.isfinite(out).all()) and err <= tol,
+          f"{wrapper.__name__} disagrees")
+    live = lengths.to(torch.float64).sum().item()
+    row = 2 * f * 4 if scales is None else 2 * f + 2 * h * 2
+    n_bytes = (live * row + 2 * q.numel() * 4 + b * 4
+               + table.numel() * 4)
+    bms, by = bound_ms(n_bytes, 4.0 * live * h * d, PEAK_F32_FLOP_S)
+    return dict(name=wrapper.__name__,
+                source="rten_tpu_torch/csrc/decode_attn_paged.cu",
+                replaces=("rten_tpu/kernels/attention.py:2573"
+                          if mode == "grid" else
+                          "rten_tpu/kernels/attention.py:2272"),
+                max_abs_err=err, ms=timer(lambda: wrapper(*args)),
+                plain_ms=timer(lambda: plain(*args)),
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
 def to_device(params, device):
     """The parameter tree (tensors and int8 QuantWeights) on ``device``."""
     if isinstance(params, dict):
@@ -495,7 +634,20 @@ PATHS = {
                  tail=0, requests=(288, 24),
                  kernels=("kv_append", "decode_attn_float",
                           "head_argmax_int8", "matmul_int8_wo")),
+    "paged_int8": dict(weights="int8",
+                       engine=dict(paged=True, page_size=PAGE,
+                                   quantized_cache=True),
+                       tail=0, requests=(320, 48),
+                       kernels=("kv_append_paged_int8",
+                                "decode_attn_paged_int8", "head_argmax_int8",
+                                "matmul_int8_wo")),
+    "paged_f32": dict(weights="f32", engine=dict(paged=True, page_size=PAGE),
+                      tail=0, requests=(320, 48),
+                      kernels=("kv_append_paged", "decode_attn_paged")),
 }
+# The paged grid kernel serves batches with no group: its launches are
+# counted in path (E)'s card-against-CPU phase at max_batch 3.
+GRID_PHASE = "paged_f32_batch3"
 
 
 def new_engine(model, params, path, device="cuda", **kw):
@@ -573,6 +725,16 @@ def steady_decode(model, params, path, steps=16, trace=False):
     rate = 256 * steps / wall
     print(f"path {path}, decode at batch 256: {1e3 * wall / steps:.3f} ms "
           f"per step, {rate:.1f} tokens/s")
+    if engine.paged:
+        # The host work a paged burst adds: map every active slot's pages
+        # for the burst on the host table, upload the table if it changed.
+        active = engine._active()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            engine._map_decode(active, engine._host_lengths, steps + 1)
+        torch.cuda.synchronize()
+        print(f"path {path}: allocator pass over {len(active)} slots before "
+              f"a burst {1e2 * (time.perf_counter() - t0):.3f} ms")
     if trace:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -596,11 +758,13 @@ def steady_decode(model, params, path, steps=16, trace=False):
     return rate
 
 
-def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda"):
-    """Greedy tokens of 8 requests of ``path`` on the card and on the CPU,
-    each with the fused argmax head and with logits + argmax (recording
-    the logits), compared step by step: logits within ``logit_tol``,
-    tokens identical except after a CPU top-2 margin below twice that."""
+def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
+                     max_batch=8):
+    """Greedy tokens of ``max_batch`` requests of ``path`` on the card and
+    on the CPU, each with the fused argmax head and with logits + argmax
+    (recording the logits), compared step by step: logits within
+    ``logit_tol``, tokens identical except after a CPU top-2 margin below
+    twice that. Returns the launch counts of the card's runs."""
 
     class Recorder(ArgMaxSampler):
         """Greedy, keeping every call's logits rows."""
@@ -614,16 +778,17 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda"):
 
     rng = np.random.RandomState(1)
     prompts = [list(rng.randint(0, model.config.vocab_size, 8))
-               for _ in range(8)]
+               for _ in range(max_batch)]
     params_cpu = to_device(params_gpu, "cpu")
 
     def serve(params, dev, recorder=None):
         kw = dict(sampler=recorder, fused_head=False) if recorder else {}
-        eng = ServingEngine(model, params, max_batch=8, capacity=512,
+        eng = ServingEngine(model, params, max_batch=max_batch, capacity=512,
                             prefill_buckets=(8,), device=dev,
                             **PATHS[path]["engine"], **kw)
         return eng.generate(prompts, max_new_tokens=16, burst=6)
 
+    kernels.reset_launch_counts()
     card_fused, cpu_fused = serve(params_gpu, device), serve(params_cpu,
                                                              "cpu")
     rec_card, rec_cpu = Recorder(), Recorder()
@@ -635,8 +800,9 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda"):
     def compare(a_runs, b_runs, rec, tol, what):
         """Index of the first differing token per request; a difference
         must follow a step whose recorded top-2 margin is below ``tol``.
-        One admission group of 8 in request order and 8 decode slots, so
-        rec.logits[c][i] is the step that produced request i's token c."""
+        One admission group in request order and one decode slot per
+        request, so rec.logits[c][i] is the step that produced request i's
+        token c."""
         first = []
         for i, (a, b) in enumerate(zip(a_runs, b_runs)):
             c = next((c for c in range(len(a)) if a[c] != b[c]), len(a))
@@ -664,6 +830,7 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda"):
           f"{sum(f < 16 for f in first)} near-tie divergences, max logit "
           f"difference {dev:.3e} (tol {logit_tol:.1e})")
     check(dev < logit_tol, f"{path}: card and cpu logits disagree")
+    return {k.__name__: k.launches for k in kernels.KERNELS}
 
 
 def main():
@@ -695,7 +862,12 @@ def main():
                check_kv_append(timer),
                check_decode_attn_float(timer),
                check_kv_append_int8(timer),
-               check_decode_attn_int8(timer)]
+               check_decode_attn_int8(timer),
+               check_kv_append_paged(timer, quantized=False),
+               check_kv_append_paged(timer, quantized=True),
+               check_decode_attn_paged(timer, "grouped"),
+               check_decode_attn_paged(timer, "int8"),
+               check_decode_attn_paged(timer, "grid")]
     del w, s, w_dq
     for r in results:
         print(f"{r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
@@ -712,8 +884,9 @@ def main():
     for path in PATHS:
         params = weights[PATHS[path]["weights"]]
         rates[path], launches[path] = serve_path(model, params, path)
-        steady[path] = steady_decode(model, params, path,
-                                     trace=path in ("int8_tail", "f32"))
+        steady[path] = steady_decode(
+            model, params, path,
+            trace=path in ("int8_tail", "f32", "paged_int8", "paged_f32"))
     print(f"same-run decode tokens/s at batch 256, int8 + tail against the "
           f"f32 baseline: with admissions {rates['int8_tail']:.1f} / "
           f"{rates['f32']:.1f} = {rates['int8_tail'] / rates['f32']:.3f}; "
@@ -723,12 +896,37 @@ def main():
           + ", ".join(f"{p} {r:.1f}" for p, r in rates.items())
           + "; steady burst: "
           + ", ".join(f"{p} {r:.1f}" for p, r in steady.items()))
+    # Each paged path against its contiguous counterpart in turns
+    # (contiguous, paged, paged, contiguous), TURN_ROUNDS rounds:
+    # host-bound steps drift within a run, so only turns give the same-run
+    # spread.
+    for base, paged in (("f32", "paged_f32"), ("int8_no_tail", "paged_int8")):
+        params = weights[PATHS[base]["weights"]]
+        ratios = []
+        for _ in range(TURN_ROUNDS):
+            turns = [steady_decode(model, params, p)
+                     for p in (base, paged, paged, base)]
+            ratios.append((turns[1] + turns[2]) / (turns[0] + turns[3]))
+            print(f"in turns, decode tokens/s at batch 256, {base} / "
+                  f"{paged} / {paged} / {base}: "
+                  + " / ".join(f"{r:.1f}" for r in turns))
+        print(f"in turns, {paged} / {base} decode tokens/s by round: "
+              + ", ".join(f"{r:.3f}" for r in ratios)
+              + f"; median {sorted(ratios)[len(ratios) // 2]:.3f}")
 
     card_against_cpu(model, weights["int8"], "int8_tail", PATH_LOGIT_TOL)
     card_against_cpu(model, weights["f32"], "f32", F32_PATH_LOGIT_TOL)
+    card_against_cpu(model, weights["int8"], "paged_int8", PATH_LOGIT_TOL)
+    launches[GRID_PHASE] = card_against_cpu(
+        model, weights["f32"], "paged_f32", F32_PATH_LOGIT_TOL, max_batch=3)
+    print(f"paged_f32 at max_batch 3, card runs: launches "
+          f"{launches[GRID_PHASE]}")
+    check(launches[GRID_PHASE]["decode_attn_paged_grid"] > 0,
+          "paged_f32 at max_batch 3 never launched decode_attn_paged_grid")
 
     # Each kernel reports its launches on the path it was ported for.
     home = {k: p for p in reversed(PATHS) for k in PATHS[p]["kernels"]}
+    home["decode_attn_paged_grid"] = GRID_PHASE
     for r in results:
         r["route"] = "cuda"
         r["path"] = home[r["name"]]

@@ -1,0 +1,200 @@
+// Single-query decode attention, one block of four warps per (sequence,
+// head), shared by decode_attn_float.cu (K6: a contiguous float cache) and
+// decode_attn_paged.cu (P3 and P3i: a block-paged float or int8 pool).
+//
+// Contract: for sequence b and query head h (kv head h / (H / KVH)),
+// n = min(lengths[b], capacity) tokens are read, token t from the row that
+// the addressing gives (Contiguous: [b, t] of a [B, cap, 2, KVH*D] cache;
+// Paged: [table[b, t / page], t % page] of a [n_pages, page, 2, KVH*D]
+// pool). A float cache is read as f32; score_t = (q . k_t) * scale,
+// out = sum_t p_t v_t / max(sum_t p_t, 1e-30). An int8 pool (kQuant) with
+// bf16 scales [.., 2, KVH] per (token, plane, head) follows the reference's
+// int8 paged kernel: score_t = ((q . k_t) * scale) * k_scale_t, the sum
+// l takes the unscaled p_t and V is weighted by p_t * v_scale_t; q and the
+// output stay f32. A token whose row is masked (Paged with mask_unmapped,
+// an unmapped page) takes no weight; a sequence with no live token gets
+// zeros.
+//
+// Design: a warp owns every fourth tile of 4 tokens; each lane holds two
+// adjacent dims of every 64, so a warp reads a head's K and V rows as
+// contiguous segments and the 8 row loads of a tile are in flight together.
+// Each warp keeps an online softmax (running max, sum and accumulator in
+// registers), so the score row never needs shared memory and capacity is
+// unlimited; the four warp states merge once at the end through shared
+// memory.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace decode_attn {
+
+constexpr int kWarps = 4, kThreads = 32 * kWarps;
+constexpr int kTok = 4;            // tokens per warp tile
+constexpr int kMaxJ = 4;           // head_dim <= 64 * kMaxJ
+constexpr int kMaxD = 64 * kMaxJ;
+
+__device__ inline float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ inline float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ inline float2 load2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
+}
+
+// Token rows of a contiguous [B, cap, 2, KVH*D] cache.
+struct Contiguous {
+  static constexpr bool kMasks = false;
+  int cap;
+  __device__ int capacity() const { return cap; }
+  __device__ long long row(int b, int t) const {
+    return (long long)b * cap + t;
+  }
+};
+
+// Token rows of a block-paged pool [n_pages, page, 2, KVH*D] through the
+// page table [B, max_pages] (-1 = unmapped). An unmapped page inside the
+// length is masked (mask_unmapped, the reference's grid kernel) or read
+// from pool page 0 (the reference's grouped kernels).
+struct Paged {
+  static constexpr bool kMasks = true;
+  const int* table;
+  int page, max_pages, mask_unmapped;
+  __device__ int capacity() const { return page * max_pages; }
+  __device__ long long row(int b, int t) const {
+    int id = table[(long long)b * max_pages + t / page];
+    if (id < 0) {
+      if (mask_unmapped) return -1;
+      id = 0;
+    }
+    return (long long)id * page + t % page;
+  }
+};
+
+template <typename T, typename Addr, bool kQuant>
+__global__ void kernel(const float* __restrict__ q, const T* __restrict__ kv,
+                       const __nv_bfloat16* __restrict__ scales,
+                       const int* __restrict__ lengths,
+                       float* __restrict__ out, int heads, int kvh, int d,
+                       Addr addr, float scale) {
+  __shared__ float m_s[kWarps], l_s[kWarps];
+  __shared__ float acc_s[kWarps][kMaxD];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kh = h / (heads / kvh);
+  const int nj = d / 64;
+  const long long f = (long long)kvh * d;
+  const int n = min(max(lengths[b], 0), addr.capacity());
+
+  const float* qrow = q + ((long long)b * heads + h) * d + 2 * lane;
+  float2 qv[kMaxJ];
+#pragma unroll
+  for (int j = 0; j < kMaxJ; ++j)
+    qv[j] = j < nj ? load2(qrow + 64 * j) : make_float2(0.0f, 0.0f);
+
+  float m = -INFINITY, l = 0.0f;
+  float2 acc[kMaxJ];
+#pragma unroll
+  for (int j = 0; j < kMaxJ; ++j) acc[j] = make_float2(0.0f, 0.0f);
+
+  const T* base = kv + (long long)kh * d + 2 * lane;
+  for (int t0 = warp * kTok; t0 < n; t0 += kWarps * kTok) {
+    float s[kTok], ks[kTok], vs[kTok];
+    bool live[kTok];
+    float2 vv[kTok][kMaxJ];
+#pragma unroll
+    for (int u = 0; u < kTok; ++u) {
+      const int t = t0 + u;
+      const long long r = t < n ? addr.row(b, t) : -1;
+      live[u] = r >= 0;
+      ks[u] = vs[u] = 0.0f;
+      if (kQuant && live[u]) {
+        const __nv_bfloat16* sr = scales + r * 2 * kvh + kh;
+        ks[u] = __bfloat162float(sr[0]);
+        vs[u] = __bfloat162float(sr[kvh]);
+      }
+      float dot = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kMaxJ; ++j) {
+        vv[u][j] = make_float2(0.0f, 0.0f);
+        if (j < nj && live[u]) {
+          const T* krow = base + r * 2 * f + 64 * j;
+          const float2 kk = load2(krow);
+          vv[u][j] = load2(krow + f);
+          dot += qv[j].x * kk.x + qv[j].y * kk.y;
+        }
+      }
+      s[u] = dot;
+    }
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kTok; ++u) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+      if (kQuant)
+        s[u] = live[u] ? s[u] * scale * ks[u] : -INFINITY;
+      else
+        s[u] = live[u] ? s[u] * scale : -INFINITY;
+      tile_max = fmaxf(tile_max, s[u]);
+    }
+    // Without masking, token t0 < n is live, so tile_max is finite and the
+    // first tile's alpha is exp(-inf) = 0. With masking, a warp may not
+    // have seen a live token yet: skip, keeping m = -inf.
+    const float m_new = fmaxf(m, tile_max);
+    if (Addr::kMasks && m_new == -INFINITY) continue;
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int j = 0; j < kMaxJ; ++j) {
+      acc[j].x *= alpha;
+      acc[j].y *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < kTok; ++u) {
+      const float p = expf(s[u] - m_new);
+      l += p;
+      const float pv = kQuant ? p * vs[u] : p;
+#pragma unroll
+      for (int j = 0; j < kMaxJ; ++j) {
+        acc[j].x += pv * vv[u][j].x;
+        acc[j].y += pv * vv[u][j].y;
+      }
+    }
+    m = m_new;
+  }
+
+  if (lane == 0) {
+    m_s[warp] = m;
+    l_s[warp] = l;
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxJ; ++j) {
+    if (j < nj) {
+      acc_s[warp][64 * j + 2 * lane] = acc[j].x;
+      acc_s[warp][64 * j + 2 * lane + 1] = acc[j].y;
+    }
+  }
+  __syncthreads();
+  // Merge the warps' online-softmax states; a warp that saw no live token
+  // has m = -inf and weighs exp(-inf) = 0.
+  float mx = -INFINITY;
+  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w]);
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    float sum = 0.0f, o = 0.0f;
+    if (mx != -INFINITY) {
+      for (int w = 0; w < kWarps; ++w) {
+        const float c = expf(m_s[w] - mx);
+        sum += l_s[w] * c;
+        o += acc_s[w][i] * c;
+      }
+    }
+    out[((long long)b * heads + h) * d + i] = o / fmaxf(sum, 1e-30f);
+  }
+}
+
+}  // namespace decode_attn

@@ -1,0 +1,117 @@
+// Decode appends into a block-paged KV pool: each sequence's new K and V
+// rows go to the pool page that its table maps at its length.
+//
+// Replaces: rten_tpu/kernels/cache.py::paged_append (P1, one row DMA per
+// sequence into a float pool) and ::paged_append_quant (P2, a read-modify-
+// write of one token-packed int32 row and one bf16-pair-packed scale row
+// per sequence) together with the XLA quantization before it
+// (rten_tpu/generate/kv_cache.py::_quantize_tokens). The reference resolves
+// (page id, offset) in XLA before the call
+// (rten_tpu/generate/paged_cache.py:177-187); here each thread resolves
+// them from the table and the lengths itself, so an append is one launch.
+//
+// Contract: for sequence b with len = max(lengths[b], 0), the page index
+// min(len / page, max_pages - 1) (finished slots keep decoding past
+// capacity), page id max(table[b, index], 0) (an unmapped entry writes
+// into page 0, the allocator's reserved garbage page) and offset
+// len % page: pool[id, off, 0, :] = k[b, :], pool[id, off, 1, :] = v[b, :].
+// k and v are f32 rows [B, KVH*D] with row strides k_stride / v_stride
+// (elements). P1: an f32 pool. P2: an int8 pool [n_pages, page, 2, KVH*D]
+// and bf16 scales [n_pages, page, 2, KVH], quantized per (plane, head) by
+// kv_quant.cuh, bit for bit with the reference's quantizer. Two sequences
+// that resolve to the same row (dead slots in page 0) race; only garbage
+// is written there.
+//
+// Bound on the H100: bytes. At batch 256, KVH*D = 768 it reads 1.6 MB of
+// f32 rows and writes 1.6 MB (P1) or 0.4 MB and 12 KB of scales (P2), about
+// 1 us at 3.35 TB/s; launch latency dominates. Design: K5's (one thread per
+// element, coalesced) and K7's (one warp per (sequence, plane, head)) with
+// page addressing. The file must not be compiled with -use_fast_math.
+#include "kv_quant.cuh"
+
+namespace {
+
+__device__ inline long long paged_row(const int* table, const int* lengths,
+                                      int b, int page, int max_pages) {
+  const int len = max(lengths[b], 0);
+  const int idx = min(len / page, max_pages - 1);
+  const int id = max(table[(long long)b * max_pages + idx], 0);
+  return (long long)id * page + len % page;
+}
+
+__global__ void kv_append_paged_kernel(const float* __restrict__ k,
+                                       const float* __restrict__ v,
+                                       int k_stride, int v_stride,
+                                       float* __restrict__ pool,
+                                       const int* __restrict__ table,
+                                       const int* __restrict__ lengths,
+                                       int batch, int page, int max_pages,
+                                       int f) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)batch * 2 * f) return;
+  const int c = (int)(i % f);
+  const int plane = (int)((i / f) % 2);
+  const int b = (int)(i / (2LL * f));
+  const long long r = paged_row(table, lengths, b, page, max_pages);
+  pool[(r * 2 + plane) * f + c] = plane == 0 ? k[(long long)b * k_stride + c]
+                                             : v[(long long)b * v_stride + c];
+}
+
+__global__ void kv_append_paged_int8_kernel(
+    const float* __restrict__ k, const float* __restrict__ v, int k_stride,
+    int v_stride, int8_t* __restrict__ pool,
+    __nv_bfloat16* __restrict__ scales, const int* __restrict__ table,
+    const int* __restrict__ lengths, int batch, int page, int max_pages,
+    int kvh, int d) {
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (warp >= (long long)batch * 2 * kvh) return;
+  const int h = (int)(warp % kvh);
+  const int plane = (int)((warp / kvh) % 2);
+  const int b = (int)(warp / (2 * kvh));
+  const long long f = (long long)kvh * d;
+  const float* src = plane == 0 ? k + (long long)b * k_stride
+                                : v + (long long)b * v_stride;
+  const long long row =
+      paged_row(table, lengths, b, page, max_pages) * 2 + plane;
+  kvquant::quantize_row(src + (long long)h * d,
+                        pool + row * f + (long long)h * d,
+                        scales + row * kvh + h, d);
+}
+
+}  // namespace
+
+extern "C" int kv_append_paged(const void* k, const void* v, int k_stride,
+                               int v_stride, void* pool, const void* table,
+                               const void* lengths, int batch, int page,
+                               int max_pages, int f, void* stream) {
+  const long long n = (long long)batch * 2 * f;
+  const int block = 256;
+  const long long grid = (n + block - 1) / block;
+  if (grid > 0) {
+    kv_append_paged_kernel<<<(unsigned)grid, block, 0,
+                             (cudaStream_t)stream>>>(
+        (const float*)k, (const float*)v, k_stride, v_stride, (float*)pool,
+        (const int*)table, (const int*)lengths, batch, page, max_pages, f);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kv_append_paged_int8(const void* k, const void* v,
+                                    int k_stride, int v_stride, void* pool,
+                                    void* scales, const void* table,
+                                    const void* lengths, int batch, int page,
+                                    int max_pages, int kvh, int d,
+                                    void* stream) {
+  const long long threads = (long long)batch * 2 * kvh * 32;
+  const int block = 256;
+  const long long grid = (threads + block - 1) / block;
+  if (grid > 0) {
+    kv_append_paged_int8_kernel<<<(unsigned)grid, block, 0,
+                                  (cudaStream_t)stream>>>(
+        (const float*)k, (const float*)v, k_stride, v_stride, (int8_t*)pool,
+        (__nv_bfloat16*)scales, (const int*)table, (const int*)lengths,
+        batch, page, max_pages, kvh, d);
+  }
+  return (int)cudaGetLastError();
+}

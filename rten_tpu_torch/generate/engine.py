@@ -15,6 +15,14 @@ without the window append one row per layer and step into the cache
 itself; a configuration whose decode kernel is not ported yet raises from
 the model, on the card and on the CPU alike.
 
+With ``paged=True`` the cache is block-paged (``paged_cache.py``): a pool
+of ``page_size``-token pages shared by every slot, mapped through a page
+table by a host allocator. Admission maps each slot's prefill pages before
+the prefill, every decode step or burst first maps the pages its tokens
+will need, and a finished or cancelled slot returns its pages; the table
+is uploaded once per admission group and once per step or burst, and only
+when it changed. Paged caches have no tail window.
+
 PyTorch runs eagerly, so a burst is a Python loop of decode steps whose
 tokens stay on the device until the burst ends (one host sync per burst).
 Slot bookkeeping is the reference's Python path; the ``native/scheduler``
@@ -34,6 +42,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.attention import fits_shared_memory, flat_group_for
 from .metrics import Metrics
+from .paged_cache import PagedKVCache
 from .sampler import ArgMaxSampler, Sampler
 
 
@@ -61,14 +70,16 @@ class ServingEngine:
                  sampler: Optional[Sampler] = None, quantized_cache=False,
                  prefill_buckets=(64, 128, 256, 512, 1024),
                  cache_dtype=None, fused_head=None, tail_window=None,
-                 device="cuda", mesh=None, paged=False, spec_draft=0):
+                 device="cuda", mesh=None, paged=False, page_size=64,
+                 pool_pages=None, spec_draft=0):
         """``tail_window``: None picks the window by the reference's gate
         (16 for an int8 cache where it applies), 0 disables it, n > 0
-        forces depth n (int8 caches only). ``device``: "cuda" (default) or
-        "cpu"; ``params`` must lie on it."""
+        forces depth n (int8 caches only). ``paged``: a block-paged cache
+        of ``page_size``-token pages, ``pool_pages`` of them (default one
+        slot's worth per slot plus the garbage page). ``device``: "cuda"
+        (default) or "cpu"; ``params`` must lie on it."""
         for value, what, item in (
                 (mesh, "meshes", "Queue 1 item 14, parallel/"),
-                (paged, "paged caches", "Queue 1 item 11"),
                 (spec_draft, "speculative decoding", "Queue 1 item 11")):
             if value:
                 raise NotImplementedError(
@@ -88,6 +99,8 @@ class ServingEngine:
         self.capacity = capacity
         self.quantized_cache = quantized_cache
         self.cache_dtype = cache_dtype
+        self.paged = bool(paged)
+        self.page_size = page_size
         self.prefill_buckets = tuple(
             b for b in prefill_buckets if b <= capacity) or (capacity,)
 
@@ -106,18 +119,31 @@ class ServingEngine:
                     and fits_shared_memory(cfg.head_dim, capacity, 16))
 
         self._tail_flush = 0
-        if tail_window is not None:
-            if tail_window and not quantized_cache:
-                raise ValueError("tail_window requires a quantized cache")
-            self._tail_flush = int(tail_window)
-        elif (quantized_cache and cfg.use_pallas
-              and cfg.decode_attn in ("auto", "flat") and tail_shape_ok()):
-            self._tail_flush = 16
-        self.cache = model.new_cache(max_batch, capacity,
-                                     quantized=quantized_cache,
-                                     cache_dtype=cache_dtype,
-                                     tail_window=self._tail_flush,
-                                     device=self.device)
+        if self.paged:
+            if tail_window:
+                raise ValueError("paged caches have no tail window")
+            n_pages = pool_pages or (max_batch * -(-capacity // page_size)
+                                     + 1)
+            self.cache = model.new_paged_cache(max_batch, capacity,
+                                               page_size, n_pages,
+                                               quantized=quantized_cache,
+                                               device=self.device)
+            self.allocator = PagedKVCache.make_allocator(n_pages)
+        else:
+            if tail_window is not None:
+                if tail_window and not quantized_cache:
+                    raise ValueError("tail_window requires a quantized "
+                                     "cache")
+                self._tail_flush = int(tail_window)
+            elif (quantized_cache and cfg.use_pallas
+                  and cfg.decode_attn in ("auto", "flat")
+                  and tail_shape_ok()):
+                self._tail_flush = 16
+            self.cache = model.new_cache(max_batch, capacity,
+                                         quantized=quantized_cache,
+                                         cache_dtype=cache_dtype,
+                                         tail_window=self._tail_flush,
+                                         device=self.device)
         # Host mirror of cache.tail_count (+1 per decode step, 0 after a
         # flush).
         self._tail_fill = 0
@@ -134,8 +160,8 @@ class ServingEngine:
         # Device-resident last tokens: consecutive bursts chain on the
         # device without a host round trip.
         self._device_tokens = None
-        self.counters = {"submitted": 0, "completed": 0, "tokens": 0,
-                         "bursts": 0, "decode_steps": 0}
+        self.counters = {"submitted": 0, "completed": 0, "cancelled": 0,
+                         "tokens": 0, "bursts": 0, "decode_steps": 0}
         self._t_start = time.perf_counter()
         self._ttfts = deque(maxlen=2048)
         self._itls = deque(maxlen=8192)
@@ -148,10 +174,20 @@ class ServingEngine:
         lengths [G] (numpy). Returns (last-token logits [G, V], the group
         cache of capacity ``cap``)."""
         group = tokens.shape[0]
-        cache = self.model.new_cache(group, cap,
-                                     quantized=self.quantized_cache,
-                                     cache_dtype=self.cache_dtype,
-                                     device=self.device)
+        if self.paged:
+            # A group cache with an identity table: each sequence owns
+            # ceil(bucket / page) pages, adopted into the serving pool by
+            # the insert.
+            bucket = tokens.shape[1]
+            cache = self.model.new_paged_cache(
+                group, bucket, self.page_size,
+                group * -(-bucket // self.page_size), identity_table=True,
+                quantized=self.quantized_cache, device=self.device)
+        else:
+            cache = self.model.new_cache(group, cap,
+                                         quantized=self.quantized_cache,
+                                         cache_dtype=self.cache_dtype,
+                                         device=self.device)
         tok = torch.from_numpy(tokens).to(self.device)
         lens = torch.from_numpy(lengths).to(self.device)
         last, cache = self.model.prefill_last(self.params, tok, cache,
@@ -234,10 +270,32 @@ class ServingEngine:
             for gi, (req, _) in enumerate(group_pairs):
                 tokens[gi, :len(req.prompt_ids)] = req.prompt_ids
                 lengths[gi] = len(req.prompt_ids)
+            if self.paged:
+                self._map_admission(group_pairs, bucket)
             last_logits, prefilled = self._prefill(
                 tokens, lengths, min(bucket, self.capacity))
             self._finish_admission(group_pairs, lengths, last_logits,
                                    prefilled)
+
+    def _map_admission(self, group_pairs, bucket):
+        """Map the pages an admitted slot's insert copies
+        (ceil(bucket / page)) plus the first decode token's, clamped to the
+        capacity (engine.py:829-842), and upload the table once."""
+        pages = -(-bucket // self.page_size)
+        for _, slot in group_pairs:
+            self.allocator.ensure_capacity(
+                self.cache, slot,
+                min(pages * self.page_size + 1, self.capacity), 0)
+        self.allocator.upload(self.cache)
+
+    def _map_decode(self, active, lengths_np, tokens_ahead):
+        """Map the pages every active slot needs for ``tokens_ahead`` more
+        tokens (engine.py:1068-1071,1102-1105) from the host lengths, and
+        upload the table once if it changed (or a slot was released)."""
+        for slot in active:
+            self.allocator.ensure_capacity(self.cache, slot, tokens_ahead,
+                                           int(lengths_np[slot]))
+        self.allocator.upload(self.cache)
 
     def _finish_admission(self, group_pairs, lengths, last_logits,
                           prefilled):
@@ -269,6 +327,27 @@ class ServingEngine:
             self._itls.extend(req.metrics.step_times[1:])
         self.counters["completed"] += 1
         self.slot_request[slot] = None
+        if self.paged:
+            self.allocator.release_slot(self.cache, slot)
+
+    def cancel(self, req) -> bool:
+        """Abort a request: drop it from the queue if waiting, free its slot
+        (and its pages) if decoding. The slot is re-admitted by the next
+        step; its column of an earlier burst is rejected by the snapshot
+        identity check."""
+        if req.done:
+            return False
+        req.done = True
+        self.counters["cancelled"] += 1
+        if req in self.queue:
+            self.queue.remove(req)
+        for slot, r in enumerate(self.slot_request):
+            if r is req:
+                self.slot_request[slot] = None
+                if self.paged:
+                    self.allocator.release_slot(self.cache, slot)
+                break
+        return True
 
     def _finish_if_done(self, slot, token, length):
         req = self.slot_request[slot]
@@ -310,6 +389,8 @@ class ServingEngine:
         if not active:
             return 0
         lengths_np = self._host_lengths.copy()
+        if self.paged:
+            self._map_decode(active, lengths_np, 2)
         nxt = self._decode_one(torch.from_numpy(self.current_tokens).to(
             self.device))
         self._host_lengths += 1
@@ -337,6 +418,8 @@ class ServingEngine:
         headroom = self.capacity - 1 - max(int(lengths_np[s])
                                            for s in active)
         n = min(n, max(1, headroom))
+        if self.paged:
+            self._map_decode(active, lengths_np, n + 1)
         if self._tail_flush and self._tail_fill:
             self._host_flush()
         if self._device_tokens is None:

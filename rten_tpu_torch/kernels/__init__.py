@@ -2,17 +2,21 @@
 wrapper with a launch counter (``wrapper.launches``) and a plain PyTorch
 version of the same contract (``<name>_plain``): CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise. ``decode_attn_int8``
-launches the kernel of ``decode_attn_int8_tail`` without a tail window and
-counts its own launches."""
+launches the kernel of ``decode_attn_int8_tail`` without a tail window, and
+``decode_attn_paged_grid`` and ``decode_attn_paged_int8`` the kernel of
+``decode_attn_paged`` in other modes; each counts its own launches."""
 
 from .attention import (decode_attn_float, decode_attn_int8,
-                        decode_attn_int8_tail)
-from .cache import kv_append, kv_append_int8, tail_flush_int8
+                        decode_attn_int8_tail, decode_attn_paged,
+                        decode_attn_paged_grid, decode_attn_paged_int8)
+from .cache import (kv_append, kv_append_int8, kv_append_paged,
+                    kv_append_paged_int8, tail_flush_int8)
 from .gemm import head_argmax_int8, matmul_int8_wo
 
 KERNELS = (decode_attn_int8_tail, head_argmax_int8, tail_flush_int8,
            matmul_int8_wo, kv_append, decode_attn_float, kv_append_int8,
-           decode_attn_int8)
+           decode_attn_int8, kv_append_paged, kv_append_paged_int8,
+           decode_attn_paged, decode_attn_paged_int8, decode_attn_paged_grid)
 
 
 def reset_launch_counts():
@@ -21,6 +25,8 @@ def reset_launch_counts():
 
 
 __all__ = ["KERNELS", "decode_attn_float", "decode_attn_int8",
-           "decode_attn_int8_tail", "head_argmax_int8", "kv_append",
-           "kv_append_int8", "matmul_int8_wo", "reset_launch_counts",
-           "tail_flush_int8"]
+           "decode_attn_int8_tail", "decode_attn_paged",
+           "decode_attn_paged_grid", "decode_attn_paged_int8",
+           "head_argmax_int8", "kv_append", "kv_append_int8",
+           "kv_append_paged", "kv_append_paged_int8", "matmul_int8_wo",
+           "reset_launch_counts", "tail_flush_int8"]

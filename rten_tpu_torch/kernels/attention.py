@@ -15,6 +15,11 @@
   ``flash_decode_grouped`` (:1039) and ``flash_decode_fused`` (:318) on
   float caches: f32 q, an f32 or bf16 cache read as f32, f32 sums and
   output.
+* ``decode_attn_paged``, ``decode_attn_paged_int8`` and
+  ``decode_attn_paged_grid`` (CUDA, ``csrc/decode_attn_paged.cu``, K6's
+  kernel on paged addressing) replace ``flash_decode_paged_grouped``
+  (:2272) in its float and int8 modes and ``flash_decode_paged`` (:2573):
+  decode attention over a block-paged pool through the page table.
 """
 
 from __future__ import annotations
@@ -216,6 +221,31 @@ def _check_float(q, kv, lengths):
     return b, h, d, f // d, cap
 
 
+def _softmax_attend(q, k, v, valid, scale, ks=None, vs=None):
+    """One query per sequence, an exact two-pass softmax in f32: q
+    [B, H, D], k/v [B, cap, H, D], valid bool [B, cap]. With int8 scales
+    ks/vs [B, H, cap] the scores are multiplied by ks and p by vs after
+    the sum l (the reference's int8 paged numerics). Zeros where no token
+    is valid."""
+    s = torch.einsum("bhd,bchd->bhc", q, k) * scale
+    if ks is not None:
+        s = s * ks
+    s = s.masked_fill(~valid[:, None, :], -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # no token
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if vs is not None:
+        p = p * vs
+    return torch.einsum("bhc,bchd->bhd", p, v) / torch.clamp(l, min=1e-30)
+
+
+def _live(lengths, cap):
+    """bool [B, cap]: token t of sequence b is below its length."""
+    return (torch.arange(cap, device=lengths.device)[None, :]
+            < lengths.to(torch.int64)[:, None])
+
+
 def decode_attn_float_plain(q, kv, lengths, scale=None):
     """Plain PyTorch version of ``decode_attn_float`` (same contract): an
     exact two-pass softmax in f32."""
@@ -226,15 +256,7 @@ def decode_attn_float_plain(q, kv, lengths, scale=None):
     x = kv.reshape(b, cap, 2, kvh, d).to(torch.float32)
     k = x[:, :, 0].repeat_interleave(rep, dim=2)           # [B, cap, H, D]
     v = x[:, :, 1].repeat_interleave(rep, dim=2)
-    s = torch.einsum("bhd,bchd->bhc", q, k) * scale
-    valid = (torch.arange(cap, device=q.device)[None, :]
-             < lengths.to(torch.int64)[:, None])          # [B, cap]
-    s = s.masked_fill(~valid[:, None, :], -math.inf)
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # n = 0
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhc,bchd->bhd", p, v) / torch.clamp(l, min=1e-30)
+    return _softmax_attend(q, k, v, _live(lengths, cap), scale)
 
 
 def decode_attn_float(q, kv, lengths, scale=None):
@@ -266,3 +288,171 @@ def decode_attn_float(q, kv, lengths, scale=None):
 
 
 decode_attn_float.launches = 0
+
+
+def paged_group_for(batch):
+    """The reference's group width for paged decode
+    (``rten_tpu/models/transformer.py:504-505``); 0 means the batch has no
+    group."""
+    return next((g for g in (8, 4, 2) if batch % g == 0 and batch >= 2 * g),
+                0)
+
+
+def _check_paged(name, q, pool, scales, table, lengths):
+    """Shapes of the paged kernels' arguments; ``scales`` None is a float
+    pool."""
+    b, h, d = q.shape
+    _build.require(q.dtype == torch.float32, name, "q must be f32 [B, H, D]")
+    dtype = torch.float32 if scales is None else torch.int8
+    _build.require(pool.dim() == 4 and pool.shape[2] == 2
+                   and pool.dtype == dtype, name,
+                   f"pool must be {dtype} [n_pages, page, 2, KVH*D]")
+    n_pages, page, _, f = pool.shape
+    _build.require(f % d == 0 and h % (f // d) == 0, name,
+                   "pool row width must be KVH*D with H a multiple of KVH")
+    kvh = f // d
+    if scales is not None:
+        _build.require(scales.shape == (n_pages, page, 2, kvh)
+                       and scales.dtype == torch.bfloat16, name,
+                       "scales must be bf16 [n_pages, page, 2, KVH]")
+    _build.require(table.dim() == 2 and table.shape[0] == b
+                   and table.dtype == torch.int32, name,
+                   "table must be int32 [B, max_pages]")
+    _build.require(lengths.shape == (b,) and lengths.dtype == torch.int32,
+                   name, "lengths must be int32 [B]")
+    return b, h, d, kvh, page, table.shape[1]
+
+
+def _paged_plain(name, q, pool, scales, table, lengths, scale,
+                 mask_unmapped):
+    """The paged kernels' contract in plain PyTorch: the pages gathered
+    into [B, P*page] token rows (unmapped ids read page 0), then
+    :func:`_softmax_attend` over tokens ``[0, min(lengths, P*page))``;
+    ``mask_unmapped`` also masks the tokens of unmapped pages."""
+    b, h, d, kvh, page, n_p = _check_paged(name, q, pool, scales, table,
+                                           lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    rep, cap = h // kvh, n_p * page
+    ids = table.to(torch.int64)
+    safe = ids.clamp(min=0)
+    x = pool[safe].reshape(b, cap, 2, kvh, d).to(torch.float32)
+    k = x[:, :, 0].repeat_interleave(rep, dim=2)           # [B, cap, H, D]
+    v = x[:, :, 1].repeat_interleave(rep, dim=2)
+    ks = vs = None
+    if scales is not None:
+        sf = scales[safe].reshape(b, cap, 2, kvh).to(torch.float32)
+        ks = sf[:, :, 0].repeat_interleave(rep, dim=2).transpose(1, 2)
+        vs = sf[:, :, 1].repeat_interleave(rep, dim=2).transpose(1, 2)
+    valid = _live(lengths, cap)
+    if mask_unmapped:
+        valid &= (ids >= 0).repeat_interleave(page, dim=1)
+    return _softmax_attend(q, k, v, valid, scale, ks, vs)
+
+
+def _launch_paged(wrapper, q, pool, scales, table, lengths, scale,
+                  mask_unmapped):
+    """The paged kernel on CUDA tensors for every mode; counts the launch
+    on ``wrapper``."""
+    name = wrapper.__name__
+    b, h, d, kvh, page, n_p = _check_paged(name, q, pool, scales, table,
+                                           lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d % 64 == 0 and d <= 256, name,
+                   f"head_dim {d} must be a multiple of 64 up to 256")
+    tensors = (q, pool, table, lengths) + (() if scales is None
+                                           else (scales,))
+    _build.require(all(x.is_contiguous() for x in tensors), name,
+                   "tensors must be contiguous")
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_paged", "decode_attn_paged",
+                         "ppppppiiiiiiiifp")
+    err = fn(q.data_ptr(), pool.data_ptr(),
+             None if scales is None else scales.data_ptr(),
+             table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, kvh,
+             d, page, n_p, int(scales is not None), int(mask_unmapped),
+             float(scale), _build.stream())
+    _build.check(err, name)
+    wrapper.launches += 1
+    return out
+
+
+def decode_attn_paged_plain(q, pool, table, lengths, scale=None):
+    """Plain PyTorch version of ``decode_attn_paged`` (same contract)."""
+    return _paged_plain("decode_attn_paged", q, pool, None, table, lengths,
+                        scale, False)
+
+
+def decode_attn_paged(q, pool, table, lengths, scale=None):
+    """Decode attention for one query per sequence over an f32 block-paged
+    pool — the contract of ``flash_decode_paged_grouped``'s float mode.
+
+    q f32 [B, H, D]; pool f32 [n_pages, page, 2, KVH*D]; table int32
+    [B, P] page ids; lengths int32 [B]. Token t of sequence b is read at
+    ``pool[table[b, t // page], t % page]`` for t < min(lengths, P*page);
+    like the reference's grouped kernel, an unmapped (-1) page inside the
+    length reads pool page 0 (only a released slot has one, and the engine
+    discards its rows). Returns f32 [B, H, D]. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    name = "decode_attn_paged"
+    if _build.on_cpu(name, q, pool, table, lengths):
+        return decode_attn_paged_plain(q, pool, table, lengths, scale)
+    return _launch_paged(decode_attn_paged, q, pool, None, table, lengths,
+                         scale, False)
+
+
+decode_attn_paged.launches = 0
+
+
+def decode_attn_paged_grid_plain(q, pool, table, lengths, scale=None):
+    """Plain PyTorch version of ``decode_attn_paged_grid`` (same
+    contract)."""
+    return _paged_plain("decode_attn_paged_grid", q, pool, None, table,
+                        lengths, scale, True)
+
+
+def decode_attn_paged_grid(q, pool, table, lengths, scale=None):
+    """``decode_attn_paged`` with ``flash_decode_paged``'s rule for an
+    unmapped page inside the length: its tokens are masked (a sequence
+    with no mapped token gets zeros). The kernel of ``decode_attn_paged``,
+    with a launch count of its own. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    name = "decode_attn_paged_grid"
+    if _build.on_cpu(name, q, pool, table, lengths):
+        return decode_attn_paged_grid_plain(q, pool, table, lengths, scale)
+    return _launch_paged(decode_attn_paged_grid, q, pool, None, table,
+                         lengths, scale, True)
+
+
+decode_attn_paged_grid.launches = 0
+
+
+def decode_attn_paged_int8_plain(q, pool, scales, table, lengths,
+                                 scale=None):
+    """Plain PyTorch version of ``decode_attn_paged_int8`` (same
+    contract)."""
+    return _paged_plain("decode_attn_paged_int8", q, pool, scales, table,
+                        lengths, scale, False)
+
+
+def decode_attn_paged_int8(q, pool, scales, table, lengths, scale=None):
+    """Decode attention over an int8 block-paged pool — the contract of
+    ``flash_decode_paged_grouped``'s int8 mode (attention.py:2157-2255):
+    score = ((q . k_int8) * scale) * k_scale, the softmax sum over the
+    unscaled p, V weighted by p * v_scale; q and the output stay f32 (no
+    bf16 rounding, unlike ``decode_attn_int8``). Addressing as
+    ``decode_attn_paged``.
+
+    pool int8 [n_pages, page, 2, KVH*D]; scales bf16 [n_pages, page, 2,
+    KVH]; the rest as ``decode_attn_paged``. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    name = "decode_attn_paged_int8"
+    if _build.on_cpu(name, q, pool, scales, table, lengths):
+        return decode_attn_paged_int8_plain(q, pool, scales, table, lengths,
+                                            scale)
+    return _launch_paged(decode_attn_paged_int8, q, pool, scales, table,
+                         lengths, scale, False)
+
+
+decode_attn_paged_int8.launches = 0

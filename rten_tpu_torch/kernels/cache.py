@@ -10,11 +10,17 @@
   ``cache_append_quant`` (:148) together with the XLA quantization before
   it (``kv_cache.py::_quantize_tokens``): the int8 decode append without a
   tail window.
+* ``kv_append_paged`` and ``kv_append_paged_int8`` (CUDA,
+  ``csrc/kv_append_paged.cu``) replace ``paged_append`` (:94) and
+  ``paged_append_quant`` (:280, with the quantization before it): the
+  decode appends into a block-paged pool, page and offset resolved from
+  the page table inside the kernel.
 
 The cache layout is the port's byte-addressable one (int8
-``[B, cap, 2, KVH*D]``, bf16 scales ``[B, cap, 2, KVH]``), so the flush
-writes any depth t in 1..R and the int8 append stores single bytes: there
-are no packed rows to merge into. Every writer updates the cache in place.
+``[B, cap, 2, KVH*D]``, bf16 scales ``[B, cap, 2, KVH]``; pools
+``[n_pages, page, ...]`` alike), so the flush writes any depth t in 1..R
+and the int8 appends store single bytes: there are no packed rows to merge
+into. Every writer updates the cache in place.
 """
 
 from __future__ import annotations
@@ -194,3 +200,120 @@ def kv_append_int8(kv, scales, k, v, pos, masked=False):
 
 
 kv_append_int8.launches = 0
+
+
+def paged_slots(table, lengths, page):
+    """Where each sequence's decode append lands in a block-paged pool
+    (``rten_tpu/generate/paged_cache.py:177-187``): page id
+    ``max(table[b, min(len // page, P - 1)], 0)`` (an unmapped entry
+    writes into page 0, the allocator's garbage page) and offset
+    ``len % page``, with ``len = max(lengths[b], 0)``. Returns int64
+    (ids, offsets) [B]."""
+    lens = lengths.to(torch.int64).clamp(min=0)
+    idx = torch.clamp(lens // page, max=table.shape[1] - 1)
+    ids = table.to(torch.int64).gather(1, idx[:, None])[:, 0].clamp(min=0)
+    return ids, lens % page
+
+
+def _check_paged(name, pool, k, v, table, lengths, dtype):
+    b, kvh, t, d = k.shape
+    _build.require(t == 1 and v.shape == k.shape
+                   and k.dtype == v.dtype == torch.float32, name,
+                   "k and v must be f32 [B, KVH, 1, D]")
+    _build.require(pool.dim() == 4 and pool.shape[2] == 2
+                   and pool.shape[3] == kvh * d and pool.dtype == dtype,
+                   name, f"pool must be {dtype} [n_pages, page, 2, KVH*D]")
+    _build.require(table.dim() == 2 and table.shape[0] == b
+                   and table.dtype == torch.int32, name,
+                   "table must be int32 [B, max_pages]")
+    _build.require(lengths.shape == (b,) and lengths.dtype == torch.int32,
+                   name, "lengths must be int32 [B]")
+    return b, pool.shape[1], table.shape[1], kvh, d
+
+
+def kv_append_paged_plain(pool, k, v, table, lengths):
+    """Plain PyTorch version of the paged float append (same contract, in
+    place)."""
+    b, page, _, kvh, d = _check_paged("kv_append_paged", pool, k, v, table,
+                                      lengths, torch.float32)
+    ids, offs = paged_slots(table, lengths, page)
+    pool[ids, offs] = torch.stack([k.reshape(b, kvh * d),
+                                   v.reshape(b, kvh * d)], dim=1)
+
+
+def kv_append_paged(pool, k, v, table, lengths):
+    """Write each sequence's new K/V as one token row into an f32 block-
+    paged pool, in place, at the page and offset of :func:`paged_slots`.
+
+    pool f32 [n_pages, page, 2, KVH*D]; k, v f32 [B, KVH, 1, D] (strided
+    views are fine); table int32 [B, P] (-1 = unmapped); lengths int32
+    [B]. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    name = "kv_append_paged"
+    if _build.on_cpu(name, pool, k, v, table, lengths):
+        return kv_append_paged_plain(pool, k, v, table, lengths)
+    b, page, n_p, kvh, d = _check_paged(name, pool, k, v, table, lengths,
+                                        torch.float32)
+    _build.require(all(x.is_contiguous() for x in (pool, table, lengths)),
+                   name, "pool, table and lengths must be contiguous")
+    kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
+    fn = _build.function(name, name, "ppiipppiiiip")
+    err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
+             pool.data_ptr(), table.data_ptr(), lengths.data_ptr(), b, page,
+             n_p, kvh * d, _build.stream())
+    _build.check(err, name)
+    kv_append_paged.launches += 1
+
+
+kv_append_paged.launches = 0
+
+
+def _check_paged_int8(pool, scales, k, v, table, lengths):
+    name = "kv_append_paged_int8"
+    b, page, n_p, kvh, d = _check_paged(name, pool, k, v, table, lengths,
+                                        torch.int8)
+    _build.require(scales.shape == (pool.shape[0], page, 2, kvh)
+                   and scales.dtype == torch.bfloat16, name,
+                   "scales must be bf16 [n_pages, page, 2, KVH]")
+    return b, page, n_p, kvh, d
+
+
+def kv_append_paged_int8_plain(pool, scales, k, v, table, lengths):
+    """Plain PyTorch version of the paged int8 append (same contract, in
+    place)."""
+    b, page, _, kvh, d = _check_paged_int8(pool, scales, k, v, table,
+                                           lengths)
+    q, s = quantize_tokens(torch.stack([k[:, :, 0], v[:, :, 0]], dim=1))
+    ids, offs = paged_slots(table, lengths, page)
+    pool[ids, offs] = q.reshape(b, 2, kvh * d)
+    scales[ids, offs] = s
+
+
+def kv_append_paged_int8(pool, scales, k, v, table, lengths):
+    """Quantize each sequence's new K/V per (plane, head) and write the
+    int8 bytes and bf16 scales into a block-paged int8 pool, in place, at
+    the page and offset of :func:`paged_slots` — the quantizer of
+    ``_quantize_tokens`` bit for bit.
+
+    pool int8 [n_pages, page, 2, KVH*D]; scales bf16 [n_pages, page, 2,
+    KVH]; k, v f32 [B, KVH, 1, D] (strided views are fine); table int32
+    [B, P]; lengths int32 [B]. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    name = "kv_append_paged_int8"
+    if _build.on_cpu(name, pool, scales, k, v, table, lengths):
+        return kv_append_paged_int8_plain(pool, scales, k, v, table, lengths)
+    b, page, n_p, kvh, d = _check_paged_int8(pool, scales, k, v, table,
+                                             lengths)
+    _build.require(all(x.is_contiguous()
+                       for x in (pool, scales, table, lengths)), name,
+                   "pool, scales, table and lengths must be contiguous")
+    kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
+    fn = _build.function("kv_append_paged", name, "ppiippppiiiiip")
+    err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
+             pool.data_ptr(), scales.data_ptr(), table.data_ptr(),
+             lengths.data_ptr(), b, page, n_p, kvh, d, _build.stream())
+    _build.check(err, name)
+    kv_append_paged_int8.launches += 1
+
+
+kv_append_paged_int8.launches = 0

@@ -11,14 +11,17 @@ Decode attention follows the reference's automatic choice
 (``_pallas_decode_attn``, transformer.py:366-492): an int8 cache with the
 tail window reads through ``decode_attn_int8_tail``; a float (f32 or bf16)
 cache through ``decode_attn_float``; an int8 cache without a tail, at a
-batch with a flat group, through ``decode_attn_int8``.
+batch with a flat group, through ``decode_attn_int8``. A block-paged cache
+(:meth:`TransformerLM.new_paged_cache`) follows
+``_pallas_paged_decode_attn`` (transformer.py:495-524): see
+:func:`_paged_decode_attn`.
 
 Not ported yet, and raising ``NotImplementedError``: RoPE, RMSNorm,
-SwiGLU, bf16 compute, ``scan_layers``, int4 weights, paged caches and
-chunked verify (ROADMAP.md Queue 1 item 11), MoE (item 13), meshes (item
-14), and the grouped/fused int8 decode kernels that the reference takes
-for an int8 cache without a tail at a batch with no flat group, or when
-``decode_attn`` asks for them (ROADMAP.md Queue 2 items 9 and 10).
+SwiGLU, bf16 compute, ``scan_layers``, int4 weights and chunked verify
+(ROADMAP.md Queue 1 item 11), MoE (item 13), meshes (item 14), and the
+grouped/fused int8 decode kernels that the reference takes for a
+contiguous int8 cache without a tail at a batch with no flat group, or
+when ``decode_attn`` asks for them (ROADMAP.md Queue 2 items 9 and 10).
 """
 
 from __future__ import annotations
@@ -31,9 +34,12 @@ import torch
 
 from ..device import resolve_device
 from ..generate.kv_cache import KVCache
+from ..generate.paged_cache import PagedKVCache
 from ..kernels.attention import (attn_reference, decode_attn_float,
                                  decode_attn_int8, decode_attn_int8_tail,
-                                 flat_group_for)
+                                 decode_attn_paged, decode_attn_paged_grid,
+                                 decode_attn_paged_int8, flat_group_for,
+                                 paged_group_for)
 from ..kernels.gemm import (head_argmax_int8, matmul_int8, matmul_int8_wo,
                             pad_cols)
 from ..kernels.quant import abs_max_quantize_int8
@@ -253,6 +259,8 @@ class TransformerLM:
     def _decode_attn(self, q3, cache, layer_idx):
         """Single-query attention over the cache; q3 [B, H, D] → [B, H, D].
         A tail cache is read by the tail kernel only."""
+        if getattr(cache, "paged", False):
+            return _paged_decode_attn(self.config, q3, cache, layer_idx)
         if cache.tail is not None:
             return decode_attn_int8_tail(
                 q3, cache.kv[layer_idx], cache.scales[layer_idx],
@@ -376,6 +384,61 @@ class TransformerLM:
                               dtype=dtype, quantized=quantized,
                               tail_window=tail_window,
                               device=resolve_device(device))
+
+    def new_paged_cache(self, batch, capacity, page_size, n_pages,
+                        identity_table=False, quantized=False,
+                        device="cuda"):
+        """A block-paged cache (``generate/paged_cache.py``) of ``n_pages``
+        pages for ``batch`` sequences of up to ``capacity`` tokens. The
+        float pool's dtype follows ``config.dtype`` (f32; the reference
+        never reads ``cache_dtype`` for a paged cache). With
+        ``identity_table`` the table maps pages ``0..B*P-1`` in order — the
+        prefill group caches, where every sequence owns its pages."""
+        cfg = self.config
+        dev = resolve_device(device)
+        max_pages = -(-capacity // page_size)
+        cache = PagedKVCache.create(cfg.n_layers, n_pages, page_size,
+                                    cfg.n_kv_heads, cfg.head_dim, batch,
+                                    max_pages, dtype=torch.float32,
+                                    quantized=quantized, device=dev)
+        if identity_table:
+            if n_pages < batch * max_pages:
+                raise ValueError(f"an identity table needs {batch} x "
+                                 f"{max_pages} pages, the pool has "
+                                 f"{n_pages}")
+            cache.page_table.copy_(torch.arange(
+                batch * max_pages, dtype=torch.int32,
+                device=dev).reshape(batch, max_pages))
+        return cache
+
+
+def _paged_decode_attn(cfg, q3, cache, layer_idx):
+    """Decode attention on a block-paged cache, chosen as the reference's
+    ``_pallas_paged_decode_attn`` chooses (transformer.py:495-524): a batch
+    with a group in (8, 4, 2) and ``decode_attn`` "auto" or "grouped" →
+    the grouped kernel (``decode_attn_paged`` or ``decode_attn_paged_int8``);
+    otherwise an int8 pool → the pages gathered and dequantized, then
+    :func:`attn_reference` (the reference's own XLA path, no Pallas kernel
+    there either); a float pool → the grid kernel
+    (``decode_attn_paged_grid``)."""
+    lengths = cache.lengths + 1
+    pool, table = cache.fused_layer(layer_idx), cache.page_table
+    if (paged_group_for(q3.shape[0])
+            and cfg.decode_attn in ("auto", "grouped")):
+        if cache.quantized:
+            return decode_attn_paged_int8(q3, pool, cache.scales[layer_idx],
+                                          table, lengths)
+        return decode_attn_paged(q3, pool, table, lengths)
+    if cache.quantized:
+        h, kvh = q3.shape[1], cache.kv_heads
+        kc, vc = cache.layer_kv(layer_idx)
+        if kvh != h:
+            kc = kc.repeat_interleave(h // kvh, dim=1)
+            vc = vc.repeat_interleave(h // kvh, dim=1)
+        return attn_reference(q3[:, :, None, :], kc, vc, False,
+                              1.0 / math.sqrt(cache.head_dim),
+                              lengths)[:, :, 0]
+    return decode_attn_paged_grid(q3, pool, table, lengths)
 
 
 def _cache_decode_attn(cfg, q3, cache, layer_idx):

@@ -393,3 +393,151 @@ def test_int8_cache_without_a_flat_group_raises_on_the_card(gen):
         model.decode_step(params, torch.ones(3, dtype=torch.int64,
                                              device="cuda"), cache)
     assert at.decode_attn_int8.launches == before[1] + n_layers
+
+
+# -- block-paged pools --------------------------------------------------------
+
+PAGE = 8
+
+
+def _paged_table(b, max_pages, mapped, n_pages, seed=0):
+    """int32 [B, max_pages] on the card: ``mapped[i]`` scrambled pages for
+    row i (drawn without replacement from 1..n_pages-1), the rest -1."""
+    ids = list(np.random.default_rng(seed).permutation(np.arange(1, n_pages)))
+    table = np.full((b, max_pages), -1, np.int32)
+    for i, n in enumerate(mapped):
+        table[i, :n] = [ids.pop() for _ in range(n)]
+    return torch.from_numpy(table).cuda()
+
+
+# Rows: mid-page, at a page boundary, at a page's last row, past capacity
+# (the last page), past its mapped pages (an unmapped entry: page 0,
+# offset 2) and released (table row -1: page 0, offset 5).
+APPEND_LENGTHS = [3, PAGE, 2 * PAGE - 1, 4 * PAGE + 1, 3 * PAGE + 2, 5]
+APPEND_MAPPED = [1, 2, 2, 4, 2, 0]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_kv_append_paged_kernels_bit_exact(gen, quantized):
+    b, kvh, d, n_pages, max_pages = 6, 3, 64, 20, 4
+    table = _paged_table(b, max_pages, APPEND_MAPPED, n_pages)
+    lengths = torch.tensor(APPEND_LENGTHS, dtype=torch.int32, device="cuda")
+    x = torch.randn((b, kvh, 1, d), device="cuda", generator=gen)
+    x = x * torch.exp(4 * torch.rand((b, kvh, 1, 1), device="cuda",
+                                     generator=gen) - 3)
+    x[0, 1] = 0                            # all-zero head: scale 1.0
+    k, v = rows_view(x), rows_view(x.flip(0))
+    if quantized:
+        pool = torch.randint(-127, 128, (n_pages, PAGE, 2, kvh * d),
+                             device="cuda", dtype=torch.int8, generator=gen)
+        scales = torch.rand((n_pages, PAGE, 2, kvh), device="cuda",
+                            generator=gen).to(torch.bfloat16)
+        p1, s1, p2, s2 = pool.clone(), scales.clone(), pool.clone(), \
+            scales.clone()
+        before = kc.kv_append_paged_int8.launches
+        kc.kv_append_paged_int8(p1, s1, k, v, table, lengths)
+        kc.kv_append_paged_int8_plain(p2, s2, k, v, table, lengths)
+        torch.cuda.synchronize()
+        assert kc.kv_append_paged_int8.launches == before + 1
+        assert torch.equal(p1, p2) and torch.equal(s1, s2)
+    else:
+        pool = torch.randn((n_pages, PAGE, 2, kvh * d), device="cuda",
+                           generator=gen)
+        p1, p2 = pool.clone(), pool.clone()
+        before = kc.kv_append_paged.launches
+        kc.kv_append_paged(p1, k, v, table, lengths)
+        kc.kv_append_paged_plain(p2, k, v, table, lengths)
+        torch.cuda.synchronize()
+        assert kc.kv_append_paged.launches == before + 1
+        assert torch.equal(p1, p2)
+        assert torch.equal(p1[0, 5, 0], k[5].reshape(-1))   # released row
+        assert torch.equal(p1[0, 2, 1], v[4].reshape(-1))   # past its pages
+
+
+# Rows: one token, a whole page, three pages less one, past its two mapped
+# pages (an unmapped page inside the length: the grouped modes read page 0,
+# the grid masks it), released (no mapped page), and empty.
+ATTN_LENGTHS = [1, PAGE, 3 * PAGE - 1, 3 * PAGE + 4, 5, 0]
+ATTN_MAPPED = [1, 1, 3, 2, 0, 0]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mode", ["grouped", "grid", "int8"])
+def test_decode_attn_paged_kernels_match_plain(gen, mode, d):
+    b, h, kvh, n_pages, max_pages = 6, 4, 2, 24, 4
+    f = kvh * d
+    table = _paged_table(b, max_pages, ATTN_MAPPED, n_pages, seed=1)
+    lengths = torch.tensor(ATTN_LENGTHS, dtype=torch.int32, device="cuda")
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    wrapper = {"grouped": at.decode_attn_paged,
+               "grid": at.decode_attn_paged_grid,
+               "int8": at.decode_attn_paged_int8}[mode]
+    if mode == "int8":
+        pool, scales, _ = _cache(gen, n_pages, PAGE, 1, kvh, d)
+        args = (q, pool, scales, table, lengths)
+    else:
+        pool = torch.randn((n_pages, PAGE, 2, f), device="cuda",
+                           generator=gen)
+        args = (q, pool, table, lengths)
+    plain = getattr(at, wrapper.__name__ + "_plain")
+    before = {w: w.launches for w in (at.decode_attn_paged,
+                                      at.decode_attn_paged_grid,
+                                      at.decode_attn_paged_int8)}
+    out = wrapper(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert {w: w.launches - n for w, n in before.items()} == {
+        w: int(w is wrapper) for w in before}
+    assert torch.isfinite(out).all()
+    # f32 throughout (an online softmax per warp against an exact
+    # two-pass softmax): 1e-5 of the largest output, as K6.
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert (out[5] == 0).all()
+    if mode == "grid":
+        assert (out[4] == 0).all()
+
+
+@pytest.mark.parametrize("weights,b", [("f32", 4), ("f32", 3),
+                                       ("int8", 4), ("int8", 3)])
+def test_paged_decode_steps_match_the_cpu(gen, weights, b):
+    """Teacher-forced decode on a paged cache through P1/P3 (f32 weights,
+    batch 4 grouped, batch 3 grid) and P2/P3i (int8 weights, batch 4; at
+    batch 3 the gathered reference) on the card against the same model on
+    the CPU: f32 agrees to 1e-4, int8 weights to 1e-2."""
+    model = TransformerLM(TransformerConfig.tiny_test(n_heads=2,
+                                                      d_model=128))
+    quantized, tol = weights == "int8", (1e-2 if weights == "int8"
+                                         else 1e-4)
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(1, 128, (b, 5)))
+    params, caches = {}, {}
+    n_layers = model.config.n_layers
+    for dev in ("cpu", "cuda"):
+        params[dev] = model.init_params(3, device=dev)
+        if quantized:
+            params[dev] = quantize_weights(params[dev])
+        c = model.new_paged_cache(b, 32, PAGE, 4 * b, identity_table=True,
+                                  quantized=quantized, device=dev)
+        _, c = model.prefill(params[dev], prompt.to(dev), c)
+        caches[dev] = c.with_lengths([5, 3, 1, 5][:b])
+    before = {w: w.launches for w in (kc.kv_append_paged,
+                                      kc.kv_append_paged_int8,
+                                      at.decode_attn_paged,
+                                      at.decode_attn_paged_grid,
+                                      at.decode_attn_paged_int8)}
+    tok = torch.from_numpy(rng.integers(1, 128, b))
+    for step in range(12):
+        logits = {}
+        for dev in ("cpu", "cuda"):
+            lg, caches[dev] = model.decode_step(params[dev], tok.to(dev),
+                                                caches[dev])
+            logits[dev] = lg.cpu()
+        assert (logits["cuda"] - logits["cpu"]).abs().max() < tol, step
+        tok = logits["cpu"].argmax(-1)
+    attn = {("f32", 4): at.decode_attn_paged,
+            ("f32", 3): at.decode_attn_paged_grid,
+            ("int8", 4): at.decode_attn_paged_int8}.get((weights, b))
+    append = kc.kv_append_paged_int8 if quantized else kc.kv_append_paged
+    launched = {w: w.launches - n for w, n in before.items()}
+    assert launched == {w: 12 * n_layers * (w in (attn, append))
+                        for w in before}

@@ -214,6 +214,31 @@ def test_decode_attn_int8_plain_matches_flash_decode_flat():
         torch.zeros((B, 4, D)), torch.zeros((B, CAP, 2, F), dtype=torch.int8),
         torch.ones((B, CAP, 2, KVH), dtype=torch.bfloat16),
         torch.ones(B, dtype=torch.int32))),
+    # The paged kernels: a pool of 9 pages of 8 tokens, 2 pages per row.
+    (kc.kv_append_paged, lambda: (
+        torch.zeros((9, 8, 2, F)), torch.zeros((B, KVH, 1, D)),
+        torch.zeros((B, KVH, 1, D)),
+        torch.arange(1, 2 * B + 1, dtype=torch.int32).reshape(B, 2),
+        torch.ones(B, dtype=torch.int32))),
+    (kc.kv_append_paged_int8, lambda: (
+        torch.zeros((9, 8, 2, F), dtype=torch.int8),
+        torch.ones((9, 8, 2, KVH), dtype=torch.bfloat16),
+        torch.zeros((B, KVH, 1, D)), torch.zeros((B, KVH, 1, D)),
+        torch.arange(1, 2 * B + 1, dtype=torch.int32).reshape(B, 2),
+        torch.ones(B, dtype=torch.int32))),
+    (at.decode_attn_paged, lambda: (
+        torch.zeros((B, 4, D)), torch.zeros((9, 8, 2, F)),
+        torch.arange(1, 2 * B + 1, dtype=torch.int32).reshape(B, 2),
+        torch.ones(B, dtype=torch.int32))),
+    (at.decode_attn_paged_grid, lambda: (
+        torch.zeros((B, 4, D)), torch.zeros((9, 8, 2, F)),
+        torch.arange(1, 2 * B + 1, dtype=torch.int32).reshape(B, 2),
+        torch.ones(B, dtype=torch.int32))),
+    (at.decode_attn_paged_int8, lambda: (
+        torch.zeros((B, 4, D)), torch.zeros((9, 8, 2, F), dtype=torch.int8),
+        torch.ones((9, 8, 2, KVH), dtype=torch.bfloat16),
+        torch.arange(1, 2 * B + 1, dtype=torch.int32).reshape(B, 2),
+        torch.ones(B, dtype=torch.int32))),
 ])
 def test_new_wrappers_never_fall_back_off_the_cpu(wrapper, args):
     """A wrapper runs its plain version only for CPU tensors: tensors on

@@ -57,11 +57,15 @@ def test_entry_points_default_to_cuda_and_raise_without_card(no_card):
             lambda: resolve_device(),
             lambda: model.init_params(0),
             lambda: model.new_cache(4, 64, quantized=True, tail_window=8),
+            lambda: model.new_paged_cache(4, 64, 8, 33, quantized=True),
             lambda: params_from_numpy({"w": np.zeros((2, 2), np.float32)}),
             lambda: ServingEngine(model, params, max_batch=4, capacity=64,
                                   quantized_cache=True),
             lambda: ServingEngine(model, params, max_batch=4, capacity=64,
-                                  quantized_cache=True, device="cuda")):
+                                  quantized_cache=True, device="cuda"),
+            lambda: ServingEngine(model, params, max_batch=4, capacity=64,
+                                  quantized_cache=True, paged=True,
+                                  page_size=8)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
@@ -78,6 +82,9 @@ def _kernel_args():
     s = torch.ones(16)
     q = torch.zeros((b, 4, d))
     k = torch.zeros((b, kvh, 1, d))
+    pool = torch.zeros((5, 8, 2, f), dtype=torch.int8)
+    pscales = torch.ones((5, 8, 2, kvh), dtype=torch.bfloat16)
+    table = torch.arange(1, 5, dtype=torch.int32).reshape(b, 2)
     return {"decode_attn_int8_tail": (q, kv, scales, lengths, tail, 1),
             "head_argmax_int8": (x, w, s),
             "tail_flush_int8": (tail, kv, scales, lengths, 1),
@@ -85,7 +92,16 @@ def _kernel_args():
             "kv_append": (torch.zeros((b, cap, 2, f)), k, k, lengths),
             "decode_attn_float": (q, torch.zeros((b, cap, 2, f)), lengths),
             "kv_append_int8": (kv, scales, k, k, lengths),
-            "decode_attn_int8": (q, kv, scales, lengths)}
+            "decode_attn_int8": (q, kv, scales, lengths),
+            # Paged pools of b * 2 + 1 pages of 8 tokens, 2 pages per row.
+            "kv_append_paged": (torch.zeros((5, 8, 2, f)), k, k, table,
+                                lengths),
+            "kv_append_paged_int8": (pool, pscales, k, k, table, lengths),
+            "decode_attn_paged": (q, torch.zeros((5, 8, 2, f)), table,
+                                  lengths),
+            "decode_attn_paged_grid": (q, torch.zeros((5, 8, 2, f)), table,
+                                       lengths),
+            "decode_attn_paged_int8": (q, pool, pscales, table, lengths)}
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.__name__)

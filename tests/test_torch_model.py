@@ -11,7 +11,7 @@ import torch
 
 from rten_tpu.generate.engine import ServingEngine as JServingEngine
 from rten_tpu.models import transformer as jtr
-from rten_tpu_torch.generate import ServingEngine
+from rten_tpu_torch.generate import PagedKVCache, ServingEngine
 from rten_tpu_torch.models import (QuantWeight, TransformerConfig,
                                    TransformerLM, linear, params_from_numpy,
                                    quantize_weights)
@@ -319,10 +319,13 @@ def test_unported_features_raise(models):
                dict(scan_layers=True), dict(dtype="bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TransformerLM(TransformerConfig.tiny_test(**kw))
-    for kw in (dict(mesh=object()), dict(paged=True), dict(spec_draft=2)):
+    for kw in (dict(mesh=object()), dict(spec_draft=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(pm, pp, max_batch=4, capacity=64, device="cpu",
                           **kw)
+    # Paged caches are ported; page pools partitioned over a mesh are not.
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PagedKVCache.make_allocator(8, partitions=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         quantize_weights({"w": torch.zeros(4, 4)}, "int4")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
