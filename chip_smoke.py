@@ -16,7 +16,13 @@ Phases (any failure exits non-zero; nothing is caught):
    window 16, live lengths 65-176), with CUDA-event timings (cold L2, warm
    median) of the kernel, the plain version and, where one PyTorch call
    computes the same function, that call; plus each kernel's lower bound
-   from its bytes and operations.
+   from its bytes and operations. The int4 GEMMs (Q1 ``matmul_int4_words``,
+   Q1' ``matmul_int4_words_int8``, Q2 ``matmul_int4``) at every TinyLlama
+   weight shape at decode M = 16 and at one prefill M = 1024, each entry
+   summed over the calls of one decode step of path (F) that reach it
+   (111 for Q1 and Q1', 67 for Q2: under the byte layout wqkv and wo run
+   as a bf16 dot on their dequantized copy); K1 and K3 again at TinyLlama's
+   shapes (batch 16, 32 heads over 4 KV heads, capacity 2048).
 4. Serving paths, each ``ServingEngine`` at batch 256, capacity 512,
    64-token prompts, greedy, bursts of 21, after a warm-up serve; launch
    counts are set to 0 before each measured run and every kernel of the
@@ -42,19 +48,29 @@ Phases (any failure exits non-zero; nothing is caught):
    this run and their ratio, and each paged path's steady burst against
    its contiguous counterpart in three rounds of turns ((A), (E), (E),
    (A) and (B), (D), (D), (B)).
+   Then path (F), TinyLlama-1.1B at full width (``init_params(0)``, int4
+   words weights) through ``ServingEngine(max_batch=16, capacity=2048,
+   quantized_cache=True)`` (tail window 16): 24 requests of 64-token
+   prompts x 64 new tokens (slots recycle), a timed and a traced steady
+   burst at batch 16, and two short serves of 16 requests x 16 tokens, one
+   with the byte-packed weights (``matmul_int4`` must launch) and one with
+   ``RTEN_INT4_DOT=int8`` (``matmul_int4_words_int8`` must launch).
 5. Card against CPU, for int8 + tail, (A) and (D): the same weights, 8
    requests of 8 tokens x 16 new tokens, on the card and with
    ``device="cpu"`` (plain versions), with the fused argmax head and with
    recorded logits; logits must agree within a stated tolerance and greedy
    tokens must match except after a near-tie step. For (E) the same at
    ``max_batch=3`` with 3 requests, a batch with no group, where the paged
-   decode takes the grid kernel, which must launch there.
+   decode takes the grid kernel, which must launch there. For (F) at
+   TinyLlama's width with 2 layers: 4 requests of 8 tokens x 16 new tokens,
+   logits + argmax (the int4 head has no fused argmax).
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -71,15 +87,19 @@ from rten_tpu_torch.kernels import _build
 from rten_tpu_torch.kernels import attention as at
 from rten_tpu_torch.kernels import cache as kc
 from rten_tpu_torch.kernels import gemm
+from rten_tpu_torch.kernels import quant as qt
 from rten_tpu_torch.kernels.quant import abs_max_quantize_int8
 from rten_tpu_torch.models import (QuantWeight, TransformerConfig,
                                    TransformerLM, quantize_weights)
+from rten_tpu_torch.models.transformer import int4_takes_kernel
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the lower bounds.
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
 PEAK_F32_FLOP_S = 67e12            # outside the tensor cores
+PEAK_INT8_OP_S = 1979e12
 REPS = 20
+SLEEP_CYCLES = 2_000_000           # about 1 ms at the H100's clocks
 TURN_ROUNDS = 3                    # rounds of paged-against-contiguous turns
 
 # Tolerances (kernel against its plain version on the same inputs):
@@ -113,6 +133,23 @@ K6_REL_TOL = 1e-5
 # layer); logits must agree to 1e-3, and a token may differ only after a
 # step whose CPU top-2 margin is below twice that.
 F32_PATH_LOGIT_TOL = 1e-3
+# Q1, Q1' and Q2 (the int4 GEMMs) against their plain versions: the same
+# formula on the same bf16 / int8 operands, f32 sums in other orders (split
+# K, WMMA tiles): |Δ| <= 2^-16 x the sum of the magnitudes of every term
+# (int8 mode in integer units times the row scale), per element; that is
+# 2^8 roundings of 2^-24 each, for K <= 5632 terms.
+INT4_REL_TOL = 2.0 ** -16
+# Path (F) card against CPU (int4 words weights, 2 layers at TinyLlama's
+# width, every linear through Q1 on the card and its plain version on the
+# CPU, which agree on identical inputs): the word formula does not cancel
+# a bf16 rounding of an activation that flips between the devices' f32
+# sums; the flip moves every output of its row the same way, by
+# 2^-8 |x| bf16(u s) with u = q + 8 >= 0, the RMSNorms magnify it, and
+# each later linear's input holds more flips (tests/test_torch_llama.py
+# localizes this chain against the JAX package: 0.03 at width 256, 6-11x
+# the byte layout's gap). The split order of Q1 is fixed, so the gap is
+# the same in every run on one card: 0.0863 on an H100. Tolerance 0.1.
+LLAMA_PATH_LOGIT_TOL = 0.1
 # P1 and P2 (the paged appends): bit for bit. P3, its grid mode and P3i
 # (paged attention) sum in f32 throughout like K6 (an int8 pool's bytes and
 # bf16 scales are exact in f32, and no bf16 rounding follows), so K6's
@@ -135,9 +172,12 @@ def bound_ms(n_bytes, flops=0.0, peak_flop_s=PEAK_BF16_FLOP_S):
 
 
 class Timer:
-    """Median time of single calls with CUDA events, after warm-up, with
-    the 50 MB L2 evicted before each call (the serving path reaches each
-    kernel with the rest of a decode step in between)."""
+    """Median device time of single calls with CUDA events, after warm-up,
+    with the 50 MB L2 evicted before each call (the serving path reaches
+    each kernel with the rest of a decode step in between). The card
+    sleeps about a millisecond before the start event, so the host has
+    enqueued the whole call by the time the card reaches it: the events
+    bracket device time, not the wrapper's Python."""
 
     def __init__(self):
         self.scrub = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
@@ -151,6 +191,7 @@ class Timer:
             self.scrub.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
             start.record()
             fn()
             end.record()
@@ -159,20 +200,22 @@ class Timer:
         return sorted(times)[len(times) // 2]
 
 
-def check_decode_attn(timer):
-    b, h, d, cap, rows, tc = 256, 12, 64, 512, 16, 9
-    f = h * d
+def check_decode_attn(timer, b=256, h=12, kvh=12, cap=512, live=(64, 160)):
+    """K1 with the window at 9 of 16 rows and packed lives ``live``; GQA
+    when ``kvh`` < ``h``."""
+    d, rows, tc = 64, 16, 9
+    f = kvh * d
     g = torch.Generator(device="cuda").manual_seed(1)
     q = torch.randn((b, h, d), device="cuda", generator=g)
     kv = torch.randint(-127, 128, (b, cap, 2, f), device="cuda",
                        dtype=torch.int8, generator=g)
-    scales = (0.002 + 0.01 * torch.rand((b, cap, 2, h), device="cuda",
+    scales = (0.002 + 0.01 * torch.rand((b, cap, 2, kvh), device="cuda",
                                         generator=g)).to(torch.bfloat16)
     tail = torch.randn((b, rows, 2, f), device="cuda",
                        generator=g).to(torch.bfloat16)
     # Lengths as the model passes them (cache lengths + 1, window fill
-    # + 1) at live lengths of the main path, prompt 64 up to 64 + 96.
-    lengths = torch.randint(64 + tc, 160 + tc, (b,), device="cuda",
+    # + 1) at the path's live lengths (GPT-2's: prompt 64 up to 64 + 96).
+    lengths = torch.randint(live[0] + tc, live[1] + tc, (b,), device="cuda",
                             generator=g, dtype=torch.int32)
     args = (q, kv, scales, lengths, tail, tc)
     out = at.decode_attn_int8_tail(*args)
@@ -180,10 +223,11 @@ def check_decode_attn(timer):
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     tol = K1_REL_TOL * ref.abs().max().item()
-    print(f"decode_attn_int8_tail: max_abs_err {err:.3e} (tol {tol:.3e})")
+    print(f"decode_attn_int8_tail (B {b}, H {h} over {kvh}, cap {cap}): "
+          f"max_abs_err {err:.3e} (tol {tol:.3e})")
     check(bool(torch.isfinite(out).all()) and err <= tol, "K1 disagrees")
     n_packed = (lengths - tc).clamp(0, cap).to(torch.float64).sum().item()
-    n_bytes = (n_packed * (2 * f + 2 * h * 2) + b * tc * 2 * f * 2
+    n_bytes = (n_packed * (2 * f + 2 * kvh * 2) + b * tc * 2 * f * 2
                + 2 * q.numel() * 4 + b * 4)
     flops = 4.0 * (n_packed + b * tc) * h * d
     bms, by = bound_ms(n_bytes, flops)
@@ -279,8 +323,8 @@ def check_matmul_wo(timer, w, s, w_dq, n):
                 library_ms=timer(lambda: torch.matmul(xb, w_dq)))
 
 
-def check_tail_flush(timer):
-    b, rows, cap, kvh, d, t = 256, 16, 512, 12, 64, 16
+def check_tail_flush(timer, b=256, kvh=12, cap=512, live=(16, 160)):
+    rows, d, t = 16, 64, 16
     f = kvh * d
     g = torch.Generator(device="cuda").manual_seed(5)
     tail = torch.randn((b, rows, 2, f), device="cuda",
@@ -290,8 +334,8 @@ def check_tail_flush(timer):
                        dtype=torch.int8, generator=g)
     scales = torch.rand((b, cap, 2, kvh), device="cuda",
                         generator=g).to(torch.bfloat16)
-    lengths = torch.randint(t, 160, (b,), device="cuda", generator=g,
-                            dtype=torch.int32)
+    lengths = torch.randint(live[0], live[1], (b,), device="cuda",
+                            generator=g, dtype=torch.int32)
     lengths[1] = cap + 7           # a finished slot past capacity: clamps
     kv1, s1, kv2, s2 = kv.clone(), scales.clone(), kv.clone(), scales.clone()
     kc.tail_flush_int8(tail, kv1, s1, lengths, t)
@@ -299,7 +343,8 @@ def check_tail_flush(timer):
     torch.cuda.synchronize()
     err = max((kv1.int() - kv2.int()).abs().max().item(),
               (s1.float() - s2.float()).abs().max().item())
-    print(f"tail_flush_int8: max_abs_err {err} (bit-exact required)")
+    print(f"tail_flush_int8 (B {b}, KVH {kvh}, cap {cap}): max_abs_err "
+          f"{err} (bit-exact required)")
     check(torch.equal(kv1, kv2) and torch.equal(s1, s2), "K3 not bit-exact")
     n_bytes = b * t * 2 * f * 2 + b * t * 2 * f + b * t * 2 * kvh * 2 + b * 4
     bms, by = bound_ms(n_bytes)
@@ -603,6 +648,143 @@ def check_decode_attn_paged(timer, mode):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+# TinyLlama's int4 weights [K, N] (name, K, N, calls per decode step of
+# path (F): 22 layers, w_gate and w_up share a shape, one head).
+INT4_SHAPES = (("wqkv", 2048, 2560, 22), ("wo", 2048, 2048, 22),
+               ("w_gate/w_up", 2048, 5632, 44), ("w_down", 5632, 2048, 22),
+               ("head", 2048, 32000, 1))
+INT4_KERNELS = (("matmul_int4_words", "words", "bf16"),
+                ("matmul_int4_words_int8", "words", "int8"),
+                ("matmul_int4", "bytes", None))
+
+
+def _int4_bound(x, packed, scales, dot):
+    """INT4_REL_TOL x the magnitude of every f32 term of the formula."""
+    group = x.shape[1] // scales.shape[0]
+    s_rows = scales.repeat_interleave(group, dim=0)
+    if dot is None:
+        q = qt.unpack_int4(packed).float()
+        return INT4_REL_TOL * (x.abs() @ (q.abs() * s_rows))
+    u = qt.unpack_int4_words(packed).float() + 8
+    if dot == "int8":
+        absmax = x.abs().amax(dim=1, keepdim=True)
+        xscale = torch.where(absmax == 0, torch.ones_like(absmax),
+                             absmax / 127.0)
+        xq = torch.clamp(torch.round(x / xscale), -127, 127)
+    else:
+        xq, xscale = x, 1.0
+    gsum = xq.reshape(x.shape[0], -1, group).sum(-1).abs()
+    return INT4_REL_TOL * (xq.abs() @ (u * s_rows) + 8 * gsum @ scales) \
+        * xscale
+
+
+def check_int4(timer):
+    """Q1, Q1' and Q2 against their plain versions at every TinyLlama
+    weight shape at decode M = 16 and at the prefill M = 1024 of w_gate
+    (an admission group of 16 x 64 tokens). Prints each shape's times;
+    returns one entry per kernel summed over the calls of one decode step
+    of path (F) that reach it (under the byte layout wqkv and wo run as a
+    bf16 dot on their dequantized copy instead, as in the model's linear;
+    the prefill shape printed only). The library calls, timed
+    once per shape: a bf16 matmul on the bf16-dequantized weight, and
+    torch._weight_int4pack_mm (bf16 x, PyTorch's own int4 layout, zero
+    points 0) where this PyTorch has it."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    step = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                       int4pack_ms=0.0, bytes=0.0, flops=0.0, err=0.0,
+                       calls=0, shapes=[])
+            for name, _, _ in INT4_KERNELS}
+    int4pack = hasattr(torch, "_weight_int4pack_mm")
+    shapes = [(name, 16, k, n, calls) for name, k, n, calls in INT4_SHAPES]
+    shapes.append(("prefill w_gate", 1024, 2048, 5632, 0))
+    for name, m, k, n, calls in shapes:
+        w = 0.02 * torch.randn((k, n), device="cuda", generator=g)
+        x = torch.randn((m, k), device="cuda", generator=g)
+        layouts = {"words": qt.quantize_int4_words(w),
+                   "bytes": qt.quantize_int4_groupwise(w)}
+        del w
+        words, scales = layouts["words"]
+        w_dq = qt.dequantize_int4_words(words, scales).to(torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        lib = timer(lambda: torch.matmul(xb, w_dq))
+        del w_dq
+        lib4 = None
+        if int4pack:
+            u = (qt.unpack_int4_words(words).to(torch.int32) + 8).t()
+            packed4 = torch._convert_weight_to_int4pack(
+                ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8).contiguous(),
+                8)
+            del u
+            sz = torch.stack([scales, torch.zeros_like(scales)],
+                             dim=-1).to(torch.bfloat16)
+            lib4 = timer(lambda: torch._weight_int4pack_mm(xb, packed4, 128,
+                                                            sz))
+            del packed4
+        for kname, layout, dot in INT4_KERNELS:
+            wrapper = getattr(gemm, kname)
+            packed, sc = layouts[layout]
+            n_calls = calls if int4_takes_kernel(
+                m, QuantWeight("int4", packed, sc, n)) else 0
+            if dot is None:
+                plain = lambda: gemm.matmul_int4_plain(x, packed, sc)  # noqa
+            else:
+                plain = lambda: gemm.matmul_int4_words_plain(  # noqa: E731
+                    x, packed, sc, dot_mode=dot)
+            out = wrapper(x, packed, sc)
+            ref = plain()
+            bound = _int4_bound(x, packed, sc, dot)
+            torch.cuda.synchronize()
+            diff = (out - ref).abs()
+            err, worst = diff.max().item(), (diff / bound).max().item()
+            print(f"{kname} ({name}, M {m}, K {k}, N {n}): max_abs_err "
+                  f"{err:.3e}, worst |err| / bound {worst:.3f}")
+            check(bool(torch.isfinite(out).all()) and worst <= 1.0,
+                  f"{kname} disagrees at {name}")
+            n_bytes = k * n // 2 + scales.numel() * 4 + 4 * m * k + 4 * m * n
+            flops = 2.0 * m * k * n
+            bms, by = bound_ms(n_bytes, flops, PEAK_INT8_OP_S if dot == "int8"
+                               else PEAK_BF16_FLOP_S)
+            ms, plain_ms = timer(lambda: wrapper(x, packed, sc)), timer(plain)
+            print(f"{kname} ({name}, M {m}): kernel_ms {ms:.4f} plain_ms "
+                  f"{plain_ms:.4f} bound_ms {bms:.4f} ({by}) library_ms "
+                  f"{lib:.4f} (bf16 matmul) int4pack_ms {lib4}; calls per "
+                  f"(F) decode step {n_calls}")
+            acc = step[kname]
+            for key, value in (("ms", ms), ("plain_ms", plain_ms),
+                               ("bound_ms", bms), ("library_ms", lib),
+                               ("int4pack_ms", lib4 or 0.0),
+                               ("bytes", n_bytes), ("flops", flops)):
+                acc[key] += n_calls * value
+            if n_calls:
+                acc["err"] = max(acc["err"], err)
+                acc["calls"] += n_calls
+                acc["shapes"].append(f"{n_calls} x {name}")
+        del layouts, words, scales, x, xb
+        torch.cuda.empty_cache()
+    entries = []
+    for kname, _, dot in INT4_KERNELS:
+        acc = step[kname]
+        _, by = bound_ms(acc["bytes"], acc["flops"],
+                         PEAK_INT8_OP_S if dot == "int8" else PEAK_BF16_FLOP_S)
+        print(f"{kname}: one decode step of (F) ({acc['calls']} calls): "
+              f"kernel_ms "
+              f"{acc['ms']:.4f} plain_ms {acc['plain_ms']:.4f} bound_ms "
+              f"{acc['bound_ms']:.4f} ({by}, {acc['bytes'] / 1e6:.1f} MB) "
+              f"library_ms {acc['library_ms']:.4f} (bf16 matmul) "
+              f"int4pack_ms {acc['int4pack_ms'] if int4pack else None}")
+        entries.append(dict(
+            name=kname, source="rten_tpu_torch/csrc/matmul_int4.cu",
+            replaces=("rten_tpu/kernels/gemm.py:517" if dot is None
+                      else "rten_tpu/kernels/gemm.py:430"),
+            shape=(f"one decode step of (F), {acc['calls']} calls at M 16 "
+                   f"summed: " + ", ".join(acc["shapes"])),
+            max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain_ms"],
+            bound_ms=acc["bound_ms"], bound_by=by,
+            library_ms=acc["library_ms"],
+            int4pack_ms=acc["int4pack_ms"] if int4pack else None))
+    return entries
+
+
 def to_device(params, device):
     """The parameter tree (tensors and int8 QuantWeights) on ``device``."""
     if isinstance(params, dict):
@@ -611,13 +793,15 @@ def to_device(params, device):
         return [to_device(v, device) for v in params]
     if isinstance(params, QuantWeight):
         return QuantWeight(params.kind, params.data.to(device),
-                           params.scales.to(device), params.n)
+                           params.scales.to(device), params.n, params.group)
     return params.to(device)
 
 
 # The serving paths: the weights each takes, its ServingEngine options, the
 # tail window its engine must pick, the requests of its measured run
-# (count, new tokens) and the kernels it must launch.
+# (count, new tokens) and the kernels it must launch. GPT-2-small paths
+# serve at batch 256 / capacity 512; the TinyLlama paths (``llama``) at
+# batch 16 / capacity 2048, with ``env`` set while they serve.
 PATHS = {
     "int8_tail": dict(weights="int8", engine=dict(quantized_cache=True),
                       tail=16, requests=(320, 48),
@@ -644,15 +828,53 @@ PATHS = {
     "paged_f32": dict(weights="f32", engine=dict(paged=True, page_size=PAGE),
                       tail=0, requests=(320, 48),
                       kernels=("kv_append_paged", "decode_attn_paged")),
+    "tinyllama_int4": dict(weights="int4", engine=dict(quantized_cache=True),
+                           tail=16, requests=(24, 64), llama=True,
+                           kernels=("matmul_int4_words",
+                                    "decode_attn_int8_tail",
+                                    "tail_flush_int8")),
+    "tinyllama_int4_bytes": dict(weights="int4_bytes",
+                                 engine=dict(quantized_cache=True), tail=16,
+                                 requests=(16, 16), llama=True,
+                                 kernels=("matmul_int4",)),
+    "tinyllama_int4_dot_int8": dict(weights="int4",
+                                    engine=dict(quantized_cache=True),
+                                    tail=16, requests=(16, 16), llama=True,
+                                    env={"RTEN_INT4_DOT": "int8"},
+                                    kernels=("matmul_int4_words_int8",)),
 }
+GPT2_PATHS = [p for p in PATHS if not PATHS[p].get("llama")]
 # The paged grid kernel serves batches with no group: its launches are
 # counted in path (E)'s card-against-CPU phase at max_batch 3.
 GRID_PHASE = "paged_f32_batch3"
 
 
+def batch_of(path):
+    return 16 if PATHS[path].get("llama") else 256
+
+
+class path_env:
+    """The path's environment variables, set while it serves."""
+
+    def __init__(self, path):
+        self.env = PATHS[path].get("env", {})
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def new_engine(model, params, path, device="cuda", **kw):
-    engine = ServingEngine(model, params, max_batch=256, capacity=512,
-                           prefill_buckets=(64,), device=device,
+    cap = 2048 if PATHS[path].get("llama") else 512
+    engine = ServingEngine(model, params, max_batch=batch_of(path),
+                           capacity=cap, prefill_buckets=(64,), device=device,
                            **PATHS[path]["engine"], **kw)
     check(engine._tail_flush == PATHS[path]["tail"],
           f"{path}: the engine picked tail window {engine._tail_flush}")
@@ -660,8 +882,8 @@ def new_engine(model, params, path, device="cuda", **kw):
 
 
 def main_path(model, params, path, n_requests, new_tokens, burst=21):
-    """Serve ``n_requests`` random 64-token prompts at batch 256 / capacity
-    512 and return (engine, requests, wall seconds)."""
+    """Serve ``n_requests`` random 64-token prompts at the path's batch and
+    capacity and return (engine, requests, wall seconds)."""
     engine = new_engine(model, params, path)
     rng = np.random.RandomState(0)
     reqs = [engine.submit(rng.randint(0, model.config.vocab_size, 64),
@@ -669,7 +891,8 @@ def main_path(model, params, path, n_requests, new_tokens, burst=21):
             for _ in range(n_requests)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.run(burst=burst)
+    with path_env(path):
+        engine.run(burst=burst)
     torch.cuda.synchronize()
     return engine, reqs, time.perf_counter() - t0
 
@@ -680,7 +903,7 @@ def serve_path(model, params, path):
     completed with in-vocabulary tokens and that every kernel of the path
     launched. Returns (decode tokens/s with admissions, launch counts)."""
     n_requests, new_tokens = PATHS[path]["requests"]
-    main_path(model, params, path, 256, 4)
+    main_path(model, params, path, batch_of(path), 4)
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     engine, reqs, wall = main_path(model, params, path, n_requests,
@@ -705,26 +928,30 @@ def serve_path(model, params, path):
 
 
 def steady_decode(model, params, path, steps=16, trace=False):
-    """Decode at a full batch of 256 (after an admission and a warm-up
-    burst): one burst of ``steps`` steps timed on the host clock and, with
-    ``trace``, one more traced by torch.profiler for the card's busy share
-    (the sum of its kernels' time over the traced wall time) and the
-    kernels that take the most device time. Returns the untraced decode
-    tokens/s."""
+    """Decode at a full batch (after an admission and a warm-up burst): one
+    burst of ``steps`` steps timed on the host clock, with the launches per
+    step of each kernel, and, with ``trace``, one more traced by
+    torch.profiler for the card's busy share (the sum of its kernels' time
+    over the traced wall time) and the kernels that take the most device
+    time. Returns the untraced decode tokens/s."""
     engine = new_engine(model, params, path)
+    batch = batch_of(path)
     rng = np.random.RandomState(2)
-    for _ in range(256):
+    for _ in range(batch):
         engine.submit(rng.randint(0, model.config.vocab_size, 64),
                       max_new_tokens=5 + 2 * steps)
     engine.step_burst(5)
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     engine.step_burst(steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rate = 256 * steps / wall
-    print(f"path {path}, decode at batch 256: {1e3 * wall / steps:.3f} ms "
-          f"per step, {rate:.1f} tokens/s")
+    rate = batch * steps / wall
+    per_step = {k.__name__: k.launches / steps for k in kernels.KERNELS
+                if k.launches}
+    print(f"path {path}, decode at batch {batch}: {1e3 * wall / steps:.3f} "
+          f"ms per step, {rate:.1f} tokens/s; launches per step {per_step}")
     if engine.paged:
         # The host work a paged burst adds: map every active slot's pages
         # for the burst on the host table, upload the table if it changed.
@@ -747,7 +974,7 @@ def steady_decode(model, params, path, steps=16, trace=False):
                           if e.device_type == DeviceType.CUDA),
                          key=lambda e: -e.self_device_time_total)
         busy_s = sum(e.self_device_time_total for e in on_card) / 1e6
-        print(f"path {path}, decode at batch 256 under the profiler: "
+        print(f"path {path}, decode at batch {batch} under the profiler: "
               f"{1e3 * wall / steps:.3f} ms per step; card busy "
               f"{busy_s:.4f} s of {wall:.4f} s ({100 * busy_s / wall:.1f}%)")
         for e in on_card[:15]:
@@ -759,12 +986,13 @@ def steady_decode(model, params, path, steps=16, trace=False):
 
 
 def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
-                     max_batch=8):
+                     max_batch=8, fused=True):
     """Greedy tokens of ``max_batch`` requests of ``path`` on the card and
-    on the CPU, each with the fused argmax head and with logits + argmax
-    (recording the logits), compared step by step: logits within
-    ``logit_tol``, tokens identical except after a CPU top-2 margin below
-    twice that. Returns the launch counts of the card's runs."""
+    on the CPU, each with the fused argmax head (unless ``fused`` is False:
+    an int4 head has none) and with logits + argmax (recording the logits),
+    compared step by step: logits within ``logit_tol``, tokens identical
+    except after a CPU top-2 margin below twice that. Returns the launch
+    counts of the card's runs."""
 
     class Recorder(ArgMaxSampler):
         """Greedy, keeping every call's logits rows."""
@@ -786,11 +1014,17 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
         eng = ServingEngine(model, params, max_batch=max_batch, capacity=512,
                             prefill_buckets=(8,), device=dev,
                             **PATHS[path]["engine"], **kw)
-        return eng.generate(prompts, max_new_tokens=16, burst=6)
+        check(eng._tail_flush == PATHS[path]["tail"],
+              f"{path} at max_batch {max_batch}: the engine picked tail "
+              f"window {eng._tail_flush}")
+        with path_env(path):
+            return eng.generate(prompts, max_new_tokens=16, burst=6)
 
     kernels.reset_launch_counts()
-    card_fused, cpu_fused = serve(params_gpu, device), serve(params_cpu,
-                                                             "cpu")
+    card_fused = cpu_fused = []
+    if fused:
+        card_fused, cpu_fused = serve(params_gpu, device), serve(params_cpu,
+                                                                 "cpu")
     rec_card, rec_cpu = Recorder(), Recorder()
     card, cpu = serve(params_gpu, device, rec_card), serve(params_cpu, "cpu",
                                                            rec_cpu)
@@ -815,10 +1049,11 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
                 check(margin < tol, f"{what}: differ above the tolerance")
         return first
 
-    compare(card_fused, card, rec_card, K2_MARGIN_TOL,
-            f"{path}: card fused head vs logits head")
-    compare(cpu_fused, cpu, rec_cpu, K2_MARGIN_TOL,
-            f"{path}: cpu fused head vs logits head")
+    if fused:
+        compare(card_fused, card, rec_card, K2_MARGIN_TOL,
+                f"{path}: card fused head vs logits head")
+        compare(cpu_fused, cpu, rec_cpu, K2_MARGIN_TOL,
+                f"{path}: cpu fused head vs logits head")
     first = compare(card, cpu, rec_cpu, 2 * logit_tol,
                     f"{path}: card vs cpu")
     # Logits rows computed from identical histories on both devices.
@@ -869,10 +1104,19 @@ def main():
                check_decode_attn_paged(timer, "int8"),
                check_decode_attn_paged(timer, "grid")]
     del w, s, w_dq
-    for r in results:
+    results += check_int4(timer)
+    # K1 and K3 at path (F)'s shapes (GQA: 32 query heads over 4 KV heads),
+    # printed beside their GPT-2 entries.
+    llama_attn = [check_decode_attn(timer, b=16, h=32, kvh=4, cap=2048,
+                                    live=(56, 1991)),
+                  check_tail_flush(timer, b=16, kvh=4, cap=2048,
+                                   live=(16, 2000))]
+    for r in results + llama_attn:
         print(f"{r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
               f"({r['bound_by']}) library_ms {r['library_ms']}")
+    print("(the last two lines: K1 and K3 at TinyLlama shapes, B 16, "
+          "32 heads over 4 KV heads, capacity 2048)")
 
     model = TransformerLM(TransformerConfig.gpt2())
     t0 = time.perf_counter()
@@ -881,7 +1125,7 @@ def main():
     print(f"GPT-2-small f32 and int8 weights: {time.perf_counter() - t0:.1f}"
           f" s")
     rates, steady, launches = {}, {}, {}
-    for path in PATHS:
+    for path in GPT2_PATHS:
         params = weights[PATHS[path]["weights"]]
         rates[path], launches[path] = serve_path(model, params, path)
         steady[path] = steady_decode(
@@ -923,6 +1167,53 @@ def main():
           f"{launches[GRID_PHASE]}")
     check(launches[GRID_PHASE]["decode_attn_paged_grid"] > 0,
           "paged_f32 at max_batch 3 never launched decode_attn_paged_grid")
+    del weights
+    torch.cuda.empty_cache()
+
+    # Path (F): TinyLlama-1.1B at full width with int4 weights, drawn on
+    # the host in the reference's order; the f32 weights are freed once
+    # both packings are quantized.
+    llama = TransformerLM(TransformerConfig.tiny_llama())
+    t0 = time.perf_counter()
+    f32 = llama.init_params(0, device="cuda")
+    weights = {"int4": quantize_weights(f32, "int4"),
+               "int4_bytes": quantize_weights(f32, "int4",
+                                              int4_packing="bytes")}
+    del f32
+    torch.cuda.empty_cache()
+    print(f"TinyLlama-1.1B int4 weights (words and bytes): "
+          f"{time.perf_counter() - t0:.1f} s; card memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    path = "tinyllama_int4"
+    rates[path], launches[path] = serve_path(llama, weights["int4"], path)
+    steady[path] = steady_decode(llama, weights["int4"], path, trace=True)
+    for path in ("tinyllama_int4_bytes", "tinyllama_int4_dot_int8"):
+        n_requests, new_tokens = PATHS[path]["requests"]
+        kernels.reset_launch_counts()
+        engine, reqs, wall = main_path(llama, weights[PATHS[path]["weights"]],
+                                       path, n_requests, new_tokens)
+        launches[path] = {k.__name__: k.launches for k in kernels.KERNELS}
+        check(all(len(r.tokens) == new_tokens and r.done for r in reqs),
+              f"{path}: a request did not complete")
+        print(f"path {path}: {len(reqs)} requests x {new_tokens} tokens in "
+              f"{wall:.3f} s; launches {launches[path]}")
+        missing = [k for k in PATHS[path]["kernels"]
+                   if launches[path][k] == 0]
+        check(not missing, f"{path}: kernels never launched: {missing}")
+        del engine
+    del weights
+    torch.cuda.empty_cache()
+    # (F) card against CPU at TinyLlama's width with 2 layers.
+    llama2 = TransformerLM(TransformerConfig.tiny_llama(n_layers=2))
+    counts = card_against_cpu(llama2, quantize_weights(llama2.init_params(
+        0, device="cuda"), "int4"), "tinyllama_int4", LLAMA_PATH_LOGIT_TOL,
+        max_batch=4, fused=False)
+    print(f"tinyllama_int4 (2 layers) card against CPU, card runs: launches "
+          f"{counts}")
+    missing = [k for k in PATHS["tinyllama_int4"]["kernels"]
+               if counts[k] == 0]
+    check(not missing, f"tinyllama_int4 card against CPU: kernels never "
+          f"launched: {missing}")
 
     # Each kernel reports its launches on the path it was ported for.
     home = {k: p for p in reversed(PATHS) for k in PATHS[p]["kernels"]}
@@ -934,8 +1225,10 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in results]}))
+    extra = ("shape", "int4pack_ms")
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
+        for r in results]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,19 +4,23 @@ version of the same contract (``<name>_plain``): CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise. ``decode_attn_int8``
 launches the kernel of ``decode_attn_int8_tail`` without a tail window, and
 ``decode_attn_paged_grid`` and ``decode_attn_paged_int8`` the kernel of
-``decode_attn_paged`` in other modes; each counts its own launches."""
+``decode_attn_paged`` in other modes, and ``matmul_int4_words_int8`` and
+``matmul_int4`` the kernel of ``matmul_int4_words`` in other modes; each
+counts its own launches."""
 
 from .attention import (decode_attn_float, decode_attn_int8,
                         decode_attn_int8_tail, decode_attn_paged,
                         decode_attn_paged_grid, decode_attn_paged_int8)
 from .cache import (kv_append, kv_append_int8, kv_append_paged,
                     kv_append_paged_int8, tail_flush_int8)
-from .gemm import head_argmax_int8, matmul_int8_wo
+from .gemm import (head_argmax_int8, matmul_int4, matmul_int4_words,
+                   matmul_int4_words_int8, matmul_int8_wo)
 
 KERNELS = (decode_attn_int8_tail, head_argmax_int8, tail_flush_int8,
            matmul_int8_wo, kv_append, decode_attn_float, kv_append_int8,
            decode_attn_int8, kv_append_paged, kv_append_paged_int8,
-           decode_attn_paged, decode_attn_paged_int8, decode_attn_paged_grid)
+           decode_attn_paged, decode_attn_paged_int8, decode_attn_paged_grid,
+           matmul_int4_words, matmul_int4_words_int8, matmul_int4)
 
 
 def reset_launch_counts():
@@ -28,5 +32,6 @@ __all__ = ["KERNELS", "decode_attn_float", "decode_attn_int8",
            "decode_attn_int8_tail", "decode_attn_paged",
            "decode_attn_paged_grid", "decode_attn_paged_int8",
            "head_argmax_int8", "kv_append", "kv_append_int8",
-           "kv_append_paged", "kv_append_paged_int8", "matmul_int8_wo",
+           "kv_append_paged", "kv_append_paged_int8", "matmul_int4",
+           "matmul_int4_words", "matmul_int4_words_int8", "matmul_int8_wo",
            "reset_launch_counts", "tail_flush_int8"]

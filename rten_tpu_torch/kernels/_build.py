@@ -22,14 +22,16 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("decode_attn_int8_tail", "head_argmax_int8", "tail_flush_int8",
            "matmul_int8_wo", "kv_append", "decode_attn_float",
-           "kv_append_int8", "kv_append_paged", "decode_attn_paged")
+           "kv_append_int8", "kv_append_paged", "decode_attn_paged",
+           "matmul_int4")
 # No -use_fast_math: the int8 writers (tail_flush_int8, kv_append_int8,
-# kv_append_paged) must reproduce IEEE division and round-half-even bit
-# for bit.
+# kv_append_paged) and matmul_int4's int8 activations must reproduce IEEE
+# division and round-half-even bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+_FUNCS: dict = {}
 
 
 def _nvcc() -> str:
@@ -86,6 +88,9 @@ def function(lib_name: str, symbol: str, argtypes: str):
     letter per argument: ``p`` a pointer or the stream (``c_void_p``, so
     no 64-bit value is cut to an int), ``i`` an int, ``f`` a float. The C
     function returns ``cudaGetLastError()``."""
+    key = (lib_name, symbol, argtypes)
+    if key in _FUNCS:
+        return _FUNCS[key]
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device")
     if lib_name not in _LIBS:
@@ -95,6 +100,7 @@ def function(lib_name: str, symbol: str, argtypes: str):
     kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
     fn.argtypes = [kinds[c] for c in argtypes]
     fn.restype = ctypes.c_int
+    _FUNCS[key] = fn
     return fn
 
 

@@ -8,6 +8,11 @@
   ``matmul_int8_weight_only`` (:173).
 * ``head_argmax_int8`` (CUDA, ``csrc/head_argmax_int8.cu``) replaces
   ``matmul_argmax_int8`` (:268).
+* ``matmul_int4_words`` and ``matmul_int4_words_int8`` (CUDA,
+  ``csrc/matmul_int4.cu``) replace ``matmul_int4_words`` (:430) in its bf16
+  and int8 dot modes; ``matmul_int4`` (the same source) replaces
+  ``matmul_int4`` (:517). Each computes the reference's formula on its
+  packed layout, not ``x @ dequant(w)``: see the plain versions.
 
 The two kernels read W as 8-byte vectors, so their weights have N % 8 == 0;
 ``pad_cols`` pads an int8 weight's columns once, at quantize time, and the
@@ -19,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .quant import INT4_GROUP, unpack_int4, unpack_int4_words
 
 
 def pad_cols(q, scales, multiple=8):
@@ -135,3 +141,180 @@ def head_argmax_int8(x, w, scales, n_valid=None):
 
 
 head_argmax_int8.launches = 0
+
+
+# -- group-wise int4 weights --------------------------------------------------
+
+_INT4_MODES = {"matmul_int4_words": 0, "matmul_int4_words_int8": 1,
+               "matmul_int4": 2}
+_INT4_BN = 64            # output columns per block of the kernel
+_INT4_BM = 64            # rows per block
+_INT4_BK = 64            # K rows per step: the group must be a multiple
+_SM_COUNT: dict = {}
+
+
+def _check_int4(name, x, w, scales, group):
+    """Shapes of the int4 GEMMs: x f32 [M, K]; w int32 words [K/4, N/2]
+    (``matmul_int4_words*``) or uint8 tile-planar bytes [K, N/2]
+    (``matmul_int4``); scales f32 [K / group, N]; N a multiple of 256."""
+    words = name != "matmul_int4"
+    _build.require(x.dim() == 2 and x.dtype == torch.float32, name,
+                   "x must be f32 [M, K]")
+    dtype = torch.int32 if words else torch.uint8
+    _build.require(w.dim() == 2 and w.dtype == dtype, name,
+                   f"w must be {dtype} [K{'/4' if words else ''}, N/2]")
+    m = x.shape[0]
+    k, n = w.shape[0] * (4 if words else 1), 2 * w.shape[1]
+    _build.require(x.shape[1] == k, name,
+                   f"contraction mismatch {x.shape[1]} vs {k}")
+    _build.require(n % 256 == 0, name, f"N = {n} must be a multiple of 256")
+    _build.require(group > 0 and k % group == 0, name,
+                   f"K = {k} must be a multiple of the group {group}")
+    _build.require(scales.shape == (k // group, n)
+                   and scales.dtype == torch.float32, name,
+                   "scales must be f32 [K / group, N]")
+    return m, k, n
+
+
+def _grouped_bf16(q, scales, group):
+    """bf16(bf16(q) * bf16(scale)) per (K-group, column): the reference
+    kernels' weight tile, q [K, N] exact in bf16 (gemm.py:349-350,405-406),
+    returned in f32."""
+    k, n = q.shape
+    w = (q.to(torch.bfloat16).reshape(k // group, group, n)
+         * scales.to(torch.bfloat16)[:, None, :])
+    return w.reshape(k, n).to(torch.float32)
+
+
+def _offset_correction(xsum, scales):
+    """The zero-point term -8 * sum_g xsum[m, g] * scales[g, n] of the
+    offset-binary word layout (gemm.py:384-386)."""
+    return (xsum @ scales) * -8.0
+
+
+def matmul_int4_words_plain(x, words, scales, group=INT4_GROUP,
+                            dot_mode="bf16"):
+    """Plain PyTorch version of the word-packed int4 GEMM, the reference's
+    formula (gemm.py:378-425,457-478,510-511) with u = q + 8 in [0, 15]:
+
+    * ``"bf16"``: sum_k bf16(x) * bf16(bf16(u) * bf16(s)) in f32, plus the
+      correction of the group sums of the unrounded f32 x;
+    * ``"int8"``: x row-quantized (scale absmax / 127, 1 where 0; xq =
+      clamp(round_half_even(x / scale), -127, 127)), one exact integer dot
+      of xq with u per group times the f32 s, summed over groups in f32,
+      plus the correction of the quantized group sums, times the row
+      scale.
+
+    Integer dots are taken in f32, exact: every partial sum is an integer
+    below 127 * 15 * group < 2^24."""
+    name = ("matmul_int4_words" if dot_mode == "bf16"
+            else "matmul_int4_words_int8")
+    _build.require(dot_mode in ("bf16", "int8"), name,
+                   f"dot_mode must be 'bf16' or 'int8', got {dot_mode!r}")
+    m, k, n = _check_int4(name, x, words, scales, group)
+    g = k // group
+    u = unpack_int4_words(words).to(torch.float32) + 8.0
+    if dot_mode == "bf16":
+        main = x.to(torch.bfloat16).to(torch.float32) @ _grouped_bf16(
+            u, scales, group)
+        return _offset_correction(x.reshape(m, g, group).sum(-1),
+                                  scales) + main
+    absmax = x.abs().amax(dim=1, keepdim=True)
+    xscale = torch.where(absmax == 0, torch.ones_like(absmax),
+                         absmax / 127.0)
+    xq = torch.clamp(torch.round(x / xscale), -127, 127).reshape(m, g, group)
+    acc = torch.bmm(xq.transpose(0, 1), u.reshape(g, group, n))  # [G, M, N]
+    main = (acc * scales[:, None, :]).sum(0)
+    return (_offset_correction(xq.sum(-1), scales) + main) * xscale
+
+
+def matmul_int4_plain(x, packed, scales, group=INT4_GROUP):
+    """Plain PyTorch version of ``matmul_int4``: signed q = nibble - 8 of
+    the tile-planar bytes, sum_k bf16(x) * bf16(bf16(q) * bf16(s)) in f32
+    (gemm.py:319-357)."""
+    _check_int4("matmul_int4", x, packed, scales, group)
+    q = unpack_int4(packed).to(torch.float32)
+    return x.to(torch.bfloat16).to(torch.float32) @ _grouped_bf16(
+        q, scales, group)
+
+
+def _int4_splits(device, m, k, n, group):
+    """K splits of the kernel: enough blocks for about four per SM, each
+    split a whole number of groups."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    tiles = (n // _INT4_BN) * -(-m // _INT4_BM)
+    return max(1, min(k // group, -(-4 * _SM_COUNT[idx] // tiles)))
+
+
+def _launch_int4(wrapper, x, w, scales, group):
+    """The int4 kernel on CUDA tensors in the wrapper's mode; counts the
+    launch on ``wrapper``."""
+    name = wrapper.__name__
+    m, k, n = _check_int4(name, x, w, scales, group)
+    _build.require(group % _INT4_BK == 0, name,
+                   f"the group must be a multiple of {_INT4_BK}")
+    _build.require(all(t.is_contiguous() for t in (x, w, scales))
+                   and w.data_ptr() % 16 == 0, name,
+                   "tensors must be contiguous and w 16-byte aligned")
+    fn = _build.function("matmul_int4", "matmul_int4", "ppppppppiiiiiip")
+    mode = _INT4_MODES[name]
+    splits = _int4_splits(x.device, m, k, n, group)
+    # One scratch allocation: the kernel's activations (bf16 or int8), the
+    # f32 group sums, row scales and per-split partial tiles.
+    sizes = (m * k * (1 if mode == 1 else 2), 4 * m * (k // group), 4 * m,
+             4 * splits * m * n)
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + -(-size // 16) * 16)
+    scratch = torch.empty(offsets[-1], dtype=torch.uint8, device=x.device)
+    xa, xsum, xscale, ws = (scratch.data_ptr() + o for o in offsets[:4])
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    err = fn(x.data_ptr(), w.data_ptr(), scales.data_ptr(), xa, xsum, xscale,
+             ws, out.data_ptr(), m, k, n, group, splits, mode,
+             _build.stream())
+    _build.check(err, name)
+    wrapper.launches += 1
+    return out
+
+
+def matmul_int4_words(x, words, scales, group=INT4_GROUP):
+    """f32 ``x`` [M, K] × word-packed group-wise int4 ``words`` int32
+    [K/4, N/2] with ``scales`` f32 [K / group, N] → f32 [M, N], in the bf16
+    dot mode (see :func:`matmul_int4_words_plain`). CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    if _build.on_cpu("matmul_int4_words", x, words, scales):
+        return matmul_int4_words_plain(x, words, scales, group, "bf16")
+    return _launch_int4(matmul_int4_words, x, words, scales, group)
+
+
+matmul_int4_words.launches = 0
+
+
+def matmul_int4_words_int8(x, words, scales, group=INT4_GROUP):
+    """:func:`matmul_int4_words` in the int8 dot mode (the reference's
+    ``dot_mode="int8"``): the same kernel, with a launch count of its own.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if _build.on_cpu("matmul_int4_words_int8", x, words, scales):
+        return matmul_int4_words_plain(x, words, scales, group, "int8")
+    return _launch_int4(matmul_int4_words_int8, x, words, scales, group)
+
+
+matmul_int4_words_int8.launches = 0
+
+
+def matmul_int4(x, packed, scales, group=INT4_GROUP):
+    """f32 ``x`` [M, K] × tile-planar byte-packed group-wise int4
+    ``packed`` uint8 [K, N/2] with ``scales`` f32 [K / group, N] → f32
+    [M, N] (see :func:`matmul_int4_plain`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if _build.on_cpu("matmul_int4", x, packed, scales):
+        return matmul_int4_plain(x, packed, scales, group)
+    return _launch_int4(matmul_int4, x, packed, scales, group)
+
+
+matmul_int4.launches = 0

@@ -1,5 +1,5 @@
-"""Int8 quantization math (the int8 half of ``rten_tpu/kernels/quant.py``)
-plus the per-(token, head) KV quantizer of
+"""Quantization math of ``rten_tpu/kernels/quant.py`` (int8 and the
+group-wise int4 layouts) plus the per-(token, head) KV quantizer of
 ``rten_tpu/generate/kv_cache.py::_quantize_tokens``.
 
 Every division here is an IEEE float32 division (never a multiply by a
@@ -88,3 +88,106 @@ def quantize_tokens(x):
     q = torch.clamp(torch.round(x / scale.to(torch.float32)[..., None]),
                     -127, 127).to(torch.int8)
     return q, scale
+
+
+INT4_GROUP = 128       # default K-group of the group-wise int4 scales
+INT4_PACK_TILE = 256   # column tile of the tile-planar nibble packing
+
+
+def pack_int4(q, tile=INT4_PACK_TILE):
+    """Tile-planar bytes: int values in [-8, 7] along the last axis (a
+    multiple of ``tile``) stored offset-binary (q + 8); within each tile,
+    byte j holds column j in its low nibble and column j + tile/2 in its
+    high nibble. Returns uint8 [..., N/2]."""
+    q = torch.as_tensor(q)
+    n = q.shape[-1]
+    if n % tile:
+        raise ValueError(f"last dim {n} must be a multiple of {tile}")
+    u = (q.to(torch.int32) + 8).reshape(*q.shape[:-1], n // tile, tile)
+    packed = u[..., :tile // 2] | (u[..., tile // 2:] << 4)
+    return packed.reshape(*q.shape[:-1], n // 2).to(torch.uint8)
+
+
+def unpack_int4(packed, tile=INT4_PACK_TILE):
+    """Inverse of :func:`pack_int4`: int8 values in [-8, 7], last axis
+    doubled."""
+    p = torch.as_tensor(packed).to(torch.int32)
+    half = tile // 2
+    n_half = p.shape[-1]
+    p = p.reshape(*p.shape[:-1], n_half // half, half)
+    out = torch.cat([(p & 0xF) - 8, (p >> 4) - 8], dim=-1)
+    return out.reshape(*out.shape[:-2], n_half * 2).to(torch.int8)
+
+
+def _int4_groupwise(w, group, k_multiple):
+    """Pad w [K, N] (K to ``k_multiple``, N to the pack tile) and quantize
+    per (K-group, column): scale = absmax / 7 (1.0 where absmax is 0),
+    q = clamp(round_half_even(w / scale), -8, 7). Returns (q int8 [Kp, Np],
+    scales f32 [Kp / group, Np])."""
+    w = torch.as_tensor(w).to(torch.float32)
+    k, n = w.shape
+    k_pad, n_pad = (-k) % k_multiple, (-n) % INT4_PACK_TILE
+    if k_pad or n_pad:
+        w = torch.nn.functional.pad(w, (0, n_pad, 0, k_pad))
+        k, n = w.shape
+    grouped = w.reshape(k // group, group, n)
+    absmax = grouped.abs().amax(dim=1, keepdim=True)
+    scales = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
+    q = torch.clamp(torch.round(grouped / scales), -8, 7).to(torch.int8)
+    return q.reshape(k, n), scales[:, 0, :]
+
+
+def quantize_int4_groupwise(w, group=INT4_GROUP):
+    """Group-wise symmetric int4 of a weight [K, N] in the tile-planar byte
+    layout; K pads to a multiple of ``group``, N to the pack tile. Returns
+    (packed uint8 [K, N/2], scales f32 [K / group, N])."""
+    q, scales = _int4_groupwise(w, group, group)
+    return pack_int4(q), scales
+
+
+def dequantize_int4_groupwise(packed, scales, group=INT4_GROUP):
+    """q * scale in f32 for the byte layout: [K, N]."""
+    q = unpack_int4(packed).to(torch.float32)
+    return q * torch.as_tensor(scales).repeat_interleave(group, dim=0)
+
+
+def pack_int4_words(q, tile=INT4_PACK_TILE):
+    """Word layout: the tile-planar bytes of :func:`pack_int4`, four
+    consecutive K rows little-endian in one int32 (byte i of word r holds
+    K row 4r + i). q [K, N] with K % 4 == 0 and N % tile == 0. Returns
+    int32 [K/4, N/2]."""
+    q = torch.as_tensor(q)
+    k, n = q.shape
+    if k % 4:
+        raise ValueError(f"K = {k} must be a multiple of 4")
+    byte = pack_int4(q, tile).to(torch.int64).reshape(k // 4, 4, n // 2)
+    words = (byte[:, 0] | (byte[:, 1] << 8) | (byte[:, 2] << 16)
+             | (byte[:, 3] << 24))
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.to(torch.int32)
+
+
+def unpack_int4_words(words, tile=INT4_PACK_TILE):
+    """Inverse of :func:`pack_int4_words`: int8 values in [-8, 7],
+    [K, N]."""
+    w = torch.as_tensor(words).to(torch.int32)
+    r, n_half = w.shape
+    bytes_ = torch.stack([(w >> (8 * i)) & 0xFF for i in range(4)],
+                         dim=1).reshape(4 * r, n_half)
+    return unpack_int4(bytes_, tile)
+
+
+def quantize_int4_words(w, group=INT4_GROUP):
+    """Group-wise symmetric int4 of a weight [K, N] in the word layout; K
+    pads to a multiple of ``group`` (and of 4), N to the pack tile. Returns
+    (words int32 [K/4, N/2], scales f32 [K / group, N])."""
+    q, scales = _int4_groupwise(w, group, max(group, 4))
+    return pack_int4_words(q), scales
+
+
+def dequantize_int4_words(words, scales, group=INT4_GROUP):
+    """q * scale in f32 for the word layout: [K, N]."""
+    q = unpack_int4_words(words).to(torch.float32)
+    k, n = q.shape
+    return (q.reshape(k // group, group, n)
+            * torch.as_tensor(scales)[:, None, :]).reshape(k, n)

@@ -2,9 +2,11 @@
 
 The port never imports the JAX ``QuantWeight``: a quantized entry is any
 object with ``kind``, ``data``, ``scales`` and ``n`` attributes (duck
-typing), whose int8 data and scales become the port's
-:class:`~rten_tpu_torch.models.transformer.QuantWeight`, columns padded to
-a multiple of 8 as the port's kernels require.
+typing) and becomes the port's
+:class:`~rten_tpu_torch.models.transformer.QuantWeight`: int8 data with
+its columns padded to a multiple of 8 as the port's kernels require, or
+group-wise int4 (int32 words or uint8 bytes, f32 scales, ``group``) as it
+is, its N already a multiple of 256.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ def _is_quant(obj) -> bool:
 
 def params_from_numpy(tree, device="cuda"):
     """Dicts and lists are walked; numpy arrays become tensors on
-    ``device``; quantized records become int8 ``QuantWeight``s. Anything
-    else passes through unchanged."""
+    ``device``; quantized records become ``QuantWeight``s. Anything else
+    passes through unchanged."""
     dev = resolve_device(device)
 
     def tensor(a):
@@ -36,10 +38,17 @@ def params_from_numpy(tree, device="cuda"):
         if isinstance(obj, list):
             return [walk(v) for v in obj]
         if _is_quant(obj):
+            if obj.kind == "int4":
+                data = np.asarray(obj.data)
+                if data.dtype not in (np.int32, np.uint8):
+                    raise ValueError(f"int4 data must be int32 words or "
+                                     f"uint8 bytes, got {data.dtype}")
+                return QuantWeight(
+                    "int4", tensor(data),
+                    tensor(np.asarray(obj.scales, dtype=np.float32)),
+                    int(obj.n) or 2 * data.shape[1], int(obj.group))
             if obj.kind != "int8":
-                raise NotImplementedError(
-                    f"{obj.kind} weights are not ported yet (ROADMAP.md "
-                    f"Queue 1 item 11)")
+                raise ValueError(f"unknown quantized kind {obj.kind!r}")
             data = tensor(np.asarray(obj.data, dtype=np.int8))
             scales = tensor(np.asarray(obj.scales, dtype=np.float32))
             data, scales = pad_cols(data, scales)

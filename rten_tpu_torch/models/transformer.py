@@ -1,11 +1,14 @@
-"""Decoder-only transformer LM, GPT-2 family (port of
-``rten_tpu/models/transformer.py``: learned positions, LayerNorm,
-exact-erf GELU, fused QKV).
+"""Decoder-only transformer LM (port of ``rten_tpu/models/transformer.py``):
+the GPT-2 family (learned positions, LayerNorm, exact-erf GELU) and the
+Llama family (RoPE, RMSNorm, SwiGLU, grouped-query attention, untied head),
+with a fused QKV projection in both.
 
 The model is a plain class whose methods take the parameter dict, as in
 the reference, so the same weights (converted with
 :func:`rten_tpu_torch.models.convert.params_from_numpy` or drawn by
-:meth:`TransformerLM.init_params`) run through both packages.
+:meth:`TransformerLM.init_params`) run through both packages. Weights may
+be float, int8 per channel or group-wise int4 (word- or byte-packed); see
+:func:`linear`.
 
 Decode attention follows the reference's automatic choice
 (``_pallas_decode_attn``, transformer.py:366-492): an int8 cache with the
@@ -16,17 +19,18 @@ batch with a flat group, through ``decode_attn_int8``. A block-paged cache
 ``_pallas_paged_decode_attn`` (transformer.py:495-524): see
 :func:`_paged_decode_attn`.
 
-Not ported yet, and raising ``NotImplementedError``: RoPE, RMSNorm,
-SwiGLU, bf16 compute, ``scan_layers``, int4 weights and chunked verify
-(ROADMAP.md Queue 1 item 11), MoE (item 13), meshes (item 14), and the
-grouped/fused int8 decode kernels that the reference takes for a
-contiguous int8 cache without a tail at a batch with no flat group, or
-when ``decode_attn`` asks for them (ROADMAP.md Queue 2 items 9 and 10).
+Not ported yet, and raising ``NotImplementedError``: bf16 compute,
+``scan_layers``, ``fused_append`` and chunked verify (ROADMAP.md Queue 1
+item 11), MoE (item 13), meshes (item 14), and the grouped/fused int8
+decode kernels that the reference takes for a contiguous int8 cache
+without a tail at a batch with no flat group, or when ``decode_attn`` asks
+for them (ROADMAP.md Queue 2 items 9 and 10).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,15 +44,18 @@ from ..kernels.attention import (attn_reference, decode_attn_float,
                                  decode_attn_paged, decode_attn_paged_grid,
                                  decode_attn_paged_int8, flat_group_for,
                                  paged_group_for)
-from ..kernels.gemm import (head_argmax_int8, matmul_int8, matmul_int8_wo,
-                            pad_cols)
-from ..kernels.quant import abs_max_quantize_int8
+from ..kernels.gemm import (head_argmax_int8, matmul_int4, matmul_int4_words,
+                            matmul_int4_words_int8, matmul_int8,
+                            matmul_int8_wo, pad_cols)
+from ..kernels.quant import (INT4_GROUP, abs_max_quantize_int8,
+                             dequantize_int4_groupwise, dequantize_int4_words,
+                             quantize_int4_groupwise, quantize_int4_words)
 
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's config fields that this slice reads, so a config
-    builds identically in both packages; values outside the GPT-2 family
+    """The reference's config fields that the port reads, so a config
+    builds identically in both packages; the features that are not ported
     raise when a model is built."""
     vocab_size: int = 50257
     n_layers: int = 12
@@ -60,6 +67,7 @@ class TransformerConfig:
     pos: str = "learned"
     norm: str = "layernorm"
     act: str = "gelu"
+    rope_theta: float = 10000.0
     layer_norm_eps: float = 1e-5
     tie_embeddings: bool = True
     dtype: str = "float32"
@@ -68,6 +76,7 @@ class TransformerConfig:
     n_experts: int = 0
     decode_attn: str = "auto"      # the tail gate and int8 decode dispatch
     fused_append: bool = False
+    quant_int8_scores: bool = True  # only True: see _check_supported
 
     @property
     def head_dim(self):
@@ -85,6 +94,14 @@ class TransformerConfig:
             act="gelu"), **kw})
 
     @staticmethod
+    def tiny_llama(**kw):
+        return TransformerConfig(**{**dict(
+            vocab_size=32000, n_layers=22, n_heads=32, kv_heads=4,
+            d_model=2048, d_ff=5632, max_seq_len=2048, pos="rope",
+            norm="rmsnorm", act="swiglu", tie_embeddings=False,
+            rope_theta=10000.0), **kw})
+
+    @staticmethod
     def tiny_test(**kw):
         """Small config for tests."""
         return TransformerConfig(**{**dict(
@@ -95,14 +112,13 @@ class TransformerConfig:
 
 def _check_supported(cfg: TransformerConfig):
     unported = [
-        (cfg.pos != "learned", "RoPE", "Queue 1 item 11, Llama family"),
-        (cfg.norm != "layernorm", "RMSNorm",
-         "Queue 1 item 11, Llama family"),
-        (cfg.act != "gelu", "SwiGLU", "Queue 1 item 11, Llama family"),
         (cfg.n_experts > 0, "MoE", "Queue 1 item 13, moe.py"),
         (cfg.scan_layers, "scan_layers", "Queue 1 item 11"),
         (cfg.dtype != "float32", "bf16 compute", "Queue 1 item 11"),
         (cfg.fused_append, "fused_append", "Queue 1 item 11"),
+        # The reference reads it only in the int8 grouped decode modes.
+        (not cfg.quant_int8_scores, "quant_int8_scores=False",
+         "Queue 2 item 9"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -112,50 +128,93 @@ def _check_supported(cfg: TransformerConfig):
 
 @dataclass
 class QuantWeight:
-    """A linear weight in int8 per-output-channel storage: ``data`` int8
-    [K, N_pad] (columns padded to a multiple of 8, see
-    :func:`rten_tpu_torch.kernels.gemm.pad_cols`), ``scales`` f32 [N_pad],
-    ``n`` the logical N."""
+    """A linear weight in quantized storage. ``kind`` "int8": ``data`` int8
+    [K, N_pad] per output channel (columns padded to a multiple of 8, see
+    :func:`rten_tpu_torch.kernels.gemm.pad_cols`), ``scales`` f32 [N_pad].
+    ``kind`` "int4": group-wise, ``data`` int32 words [K/4, N_pad/2] or
+    uint8 tile-planar bytes [K, N_pad/2] (N padded to 256), ``scales`` f32
+    [K / group, N_pad]. ``n`` is the logical N."""
     kind: str
     data: torch.Tensor
     scales: torch.Tensor
     n: int = 0
+    group: int = INT4_GROUP
 
 
 # Below this many weight elements, decode-size (M <= 64) int8 linears run
 # as a bf16 dot; at or above it they take the weight-only kernel — the
 # reference's dispatch (transformer.py:162-182), kept so both packages take
-# the same numerics at the same shapes.
+# the same numerics at the same shapes. Word-packed int4 weights take their
+# kernel from a quarter of it (transformer.py:202-206).
 WO_KERNEL_MIN_ELEMENTS = 8 * 1024 * 1024
+
+
+def _bf16_dot(x2, w):
+    """x2 [M, K] f32 rounded to bf16 times a weight holding bf16 values,
+    accumulated in f32 (products of bf16 values are exact in f32)."""
+    return x2.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
+
+
+def _linear_int8(x2, w):
+    m = x2.shape[0]
+    if m <= 64 and w.data.shape[0] * w.n < WO_KERNEL_MIN_ELEMENTS:
+        return _bf16_dot(x2, w.data) * w.scales[None, :]
+    if m <= 64:
+        return matmul_int8_wo(x2.contiguous(), w.data, w.scales)
+    # Per-tensor dynamic activation quantization over the whole (padded)
+    # group, then the int8 x int8 product.
+    absmax = x2.abs().amax()
+    x_scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                          absmax / 127.0)
+    xq = torch.clamp(torch.round(x2 / x_scale), -127, 127).to(torch.int8)
+    return matmul_int8(xq, w.data, x_scale, w.scales)
+
+
+def int4_takes_kernel(m, w):
+    """Whether an int4 linear of ``m`` rows runs its layout's kernel: at
+    M <= 64 a weight under the size threshold runs as a bf16 dot on its
+    dequantized copy instead (transformer.py:202-206)."""
+    words = w.data.dtype == torch.int32
+    min_elems = (WO_KERNEL_MIN_ELEMENTS // 4 if words
+                 else WO_KERNEL_MIN_ELEMENTS)
+    return m > 64 or w.data.numel() * (8 if words else 2) >= min_elems
+
+
+def _linear_int4(x2, w):
+    """The reference's int4 branch (transformer.py:191-221): x zero-padded
+    to the packed K, then a bf16 dot on the dequantized weight or the
+    kernel of its layout (:func:`int4_takes_kernel`; the word kernel's dot
+    mode from ``RTEN_INT4_DOT``, read at call time)."""
+    words = w.data.dtype == torch.int32
+    k_packed = w.data.shape[0] * (4 if words else 1)
+    if x2.shape[1] < k_packed:
+        x2 = torch.nn.functional.pad(x2, (0, k_packed - x2.shape[1]))
+    if not int4_takes_kernel(x2.shape[0], w):
+        deq = dequantize_int4_words if words else dequantize_int4_groupwise
+        return _bf16_dot(x2, deq(w.data, w.scales, w.group).to(
+            torch.bfloat16))
+    x2 = x2.contiguous()
+    if not words:
+        return matmul_int4(x2, w.data, w.scales, w.group)
+    mode = os.environ.get("RTEN_INT4_DOT", "bf16")
+    kernel = {"bf16": matmul_int4_words, "int8": matmul_int4_words_int8}
+    if mode not in kernel:
+        raise ValueError(f"RTEN_INT4_DOT={mode!r}: expected 'bf16' or 'int8'")
+    return kernel[mode](x2, w.data, w.scales, w.group)
 
 
 def linear(x, w, bias=None):
     """x @ w (+ bias), dispatching on weight storage like
     ``rten_tpu.models.transformer.linear`` (:165-230)."""
     if isinstance(w, QuantWeight):
-        if w.kind != "int8":
-            raise NotImplementedError(
-                f"{w.kind} weights are not ported yet (ROADMAP.md Queue 1 "
-                f"item 11, int4-words weights)")
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        m = x2.shape[0]
-        if m <= 64 and w.data.shape[0] * w.n < WO_KERNEL_MIN_ELEMENTS:
-            # bf16 dot: products of bf16 values are exact in f32.
-            acc = x2.to(torch.bfloat16).to(torch.float32) @ \
-                w.data.to(torch.float32)
-            out = acc * w.scales[None, :]
-        elif m <= 64:
-            out = matmul_int8_wo(x2.contiguous(), w.data, w.scales)
+        if w.kind == "int8":
+            out = _linear_int8(x2, w)
+        elif w.kind == "int4":
+            out = _linear_int4(x2, w)
         else:
-            # Per-tensor dynamic activation quantization over the whole
-            # (padded) group, then the int8 x int8 product.
-            absmax = x2.abs().amax()
-            x_scale = torch.where(absmax == 0, torch.ones_like(absmax),
-                                  absmax / 127.0)
-            xq = torch.clamp(torch.round(x2 / x_scale), -127,
-                             127).to(torch.int8)
-            out = matmul_int8(xq, w.data, x_scale, w.scales)
+            raise ValueError(w.kind)
         out = out[:, :w.n].reshape(*lead, -1).to(x.dtype)
     else:
         out = torch.matmul(x, w).to(x.dtype)
@@ -171,13 +230,26 @@ def _quant_int8(w):
     return QuantWeight("int8", q, scales, n)
 
 
-def quantize_weights(params, kind="int8"):
-    """Convert every 2-D projection weight to int8 per-channel storage;
-    embeddings and norms stay float. A tied model gets a separate int8
-    ``lm_head`` built from ``embed.T`` (transformer.py:290-296)."""
-    if kind != "int8":
-        raise NotImplementedError(
-            f"{kind} weights are not ported yet (ROADMAP.md Queue 1 item 11)")
+def quantize_weights(params, kind="int8", group=INT4_GROUP,
+                     int4_packing="words"):
+    """Convert every 2-D projection weight to quantized storage
+    (transformer.py:233-296): int8 per channel, or group-wise int4 in the
+    word (default) or byte layout. Embeddings and norms stay float. A tied
+    model gets a separate int8 ``lm_head`` built from ``embed.T``, whatever
+    ``kind`` (transformer.py:290-296)."""
+    if kind not in ("int8", "int4"):
+        raise ValueError(f"kind must be 'int8' or 'int4', got {kind!r}")
+    if int4_packing not in ("words", "bytes"):
+        raise ValueError(f"int4_packing must be 'words' or 'bytes', got "
+                         f"{int4_packing!r}")
+
+    def convert(w):
+        if kind == "int8":
+            return _quant_int8(w)
+        quant = (quantize_int4_words if int4_packing == "words"
+                 else quantize_int4_groupwise)
+        packed, scales = quant(w, group)
+        return QuantWeight("int4", packed, scales, w.shape[1], group)
 
     def walk(obj, name):
         if isinstance(obj, dict):
@@ -187,7 +259,7 @@ def quantize_weights(params, kind="int8"):
         if (isinstance(obj, torch.Tensor) and obj.dim() == 2
                 and "embed" not in name and "pos" not in name
                 and name != "router"):
-            return _quant_int8(obj)
+            return convert(obj)
         return obj
 
     out = walk(params, "")
@@ -199,12 +271,34 @@ def quantize_weights(params, kind="int8"):
 def _norm(cfg, x, scale, bias):
     # Statistics in f32 (the reference's rule under any compute dtype).
     xf = x.to(torch.float32)
+    if cfg.norm == "rmsnorm":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + cfg.layer_norm_eps) * scale).to(
+            x.dtype)
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     out = (xf - mean) * torch.rsqrt(var + cfg.layer_norm_eps) * scale
     if bias is not None:
         out = out + bias
     return out.to(x.dtype)
+
+
+def _rope_tables(positions, d, theta):
+    """cos and sin [B, 1, S, D/2] of the rotary angles for positions
+    [B, S]: freqs = theta^(-i / (D/2)) in f32 (transformer.py:325-336)."""
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    angles = positions.to(torch.float32)[:, None, :, None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rope(x, cos, sin):
+    """Half-split rotary embedding of x [B, H, S, D] (not interleaved)."""
+    d = x.shape[-1]
+    x1, x2 = x[..., :d // 2], x[..., d // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
 
 
 class TransformerLM:
@@ -231,27 +325,31 @@ class TransformerLM:
 
         d, dff = cfg.d_model, cfg.d_ff
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        layernorm = cfg.norm == "layernorm"
         params = {"embed": dense((cfg.vocab_size, d)),
-                  "ln_f_scale": const(1.0, d), "layers": [],
-                  "ln_f_bias": const(0.0, d),
-                  "pos_embed": dense((cfg.max_seq_len, d))}
+                  "ln_f_scale": const(1.0, d), "layers": []}
+        if layernorm:
+            params["ln_f_bias"] = const(0.0, d)
+        if cfg.pos == "learned":
+            params["pos_embed"] = dense((cfg.max_seq_len, d))
         if not cfg.tie_embeddings:
             params["lm_head"] = dense((d, cfg.vocab_size))
         for _ in range(cfg.n_layers):
-            params["layers"].append({
-                "ln1_scale": const(1.0, d),
-                "wqkv": dense((d, (h + 2 * kvh) * hd)),
-                "wo": dense((h * hd, d)),
-                "ln2_scale": const(1.0, d),
-                "ln1_bias": const(0.0, d),
-                "ln2_bias": const(0.0, d),
-                "bqkv": const(0.0, (h + 2 * kvh) * hd),
-                "bo": const(0.0, d),
-                "w_up": dense((d, dff)),
-                "b_up": const(0.0, dff),
-                "w_down": dense((dff, d)),
-                "b_down": const(0.0, d),
-            })
+            layer = {"ln1_scale": const(1.0, d),
+                     "wqkv": dense((d, (h + 2 * kvh) * hd)),
+                     "wo": dense((h * hd, d)),
+                     "ln2_scale": const(1.0, d)}
+            if layernorm:
+                layer.update(ln1_bias=const(0.0, d), ln2_bias=const(0.0, d),
+                             bqkv=const(0.0, (h + 2 * kvh) * hd),
+                             bo=const(0.0, d))
+            if cfg.act == "swiglu":
+                layer.update(w_gate=dense((d, dff)), w_up=dense((d, dff)),
+                             w_down=dense((dff, d)))
+            else:
+                layer.update(w_up=dense((d, dff)), b_up=const(0.0, dff),
+                             w_down=dense((dff, d)), b_down=const(0.0, d))
+            params["layers"].append(layer)
         return params
 
     # -- forward -----------------------------------------------------------
@@ -268,7 +366,9 @@ class TransformerLM:
                 cache.tail_count + 1)
         return _cache_decode_attn(self.config, q3, cache, layer_idx)
 
-    def _attention(self, layer_params, x, cache, layer_idx):
+    def _attention(self, layer_params, x, cache, layer_idx, rope=None):
+        """``rope``: the (cos, sin) tables of :func:`_rope_tables`, applied
+        to q and k after the QKV split (transformer.py:626-628)."""
         cfg = self.config
         b, s, _ = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -277,6 +377,8 @@ class TransformerLM:
         k = qkv[..., h * hd:(h + kvh) * hd].reshape(b, s, kvh,
                                                     hd).transpose(1, 2)
         v = qkv[..., (h + kvh) * hd:].reshape(b, s, kvh, hd).transpose(1, 2)
+        if rope is not None:
+            q, k = _rope(q, *rope), _rope(k, *rope)
         if cache is not None:
             cache = cache.append(layer_idx, k, v,
                                  position=None if s == 1 else 0)
@@ -292,6 +394,11 @@ class TransformerLM:
         return linear(out, layer_params["wo"], layer_params.get("bo")), cache
 
     def _mlp(self, layer_params, x):
+        if self.config.act == "swiglu":
+            gate = linear(x, layer_params["w_gate"])
+            up = linear(x, layer_params["w_up"])
+            return linear(torch.nn.functional.silu(gate) * up,
+                          layer_params["w_down"])
         hidden = linear(x, layer_params["w_up"], layer_params.get("b_up"))
         hidden = torch.nn.functional.gelu(hidden, approximate="none")
         return linear(hidden, layer_params["w_down"],
@@ -307,13 +414,20 @@ class TransformerLM:
             positions = cache.lengths[:, None].to(torch.int64)
         else:
             positions = torch.arange(s, device=tokens.device)[None, :]
-        # Finished slots keep decoding past the table; clamp the gather.
-        positions = positions.clamp(max=cfg.max_seq_len - 1)
-        x = params["embed"][tokens] + params["pos_embed"][positions]
+        x = params["embed"][tokens]
+        rope = None
+        if cfg.pos == "learned":
+            # Finished slots keep decoding past the table; clamp the gather.
+            x = x + params["pos_embed"][positions.clamp(
+                max=cfg.max_seq_len - 1)]
+        else:
+            # RoPE takes the positions unclamped, as the reference does.
+            rope = _rope_tables(positions.expand(b, s), cfg.head_dim,
+                                cfg.rope_theta)
         x = x.to(torch.float32)
         for i, layer in enumerate(params["layers"]):
             attn_in = _norm(cfg, x, layer["ln1_scale"], layer.get("ln1_bias"))
-            attn_out, cache = self._attention(layer, attn_in, cache, i)
+            attn_out, cache = self._attention(layer, attn_in, cache, i, rope)
             x = x + attn_out
             mlp_in = _norm(cfg, x, layer["ln2_scale"], layer.get("ln2_bias"))
             x = x + self._mlp(layer, mlp_in)
@@ -362,8 +476,9 @@ class TransformerLM:
 
     def decode_step_argmax(self, params, tokens, cache):
         """Greedy decode step through the fused int8 head + argmax kernel
-        (no [B, V] logits); a float head takes exact logits + argmax.
-        Returns (tokens int32 [B], cache)."""
+        (no [B, V] logits); a float or int4 head takes its logits + argmax,
+        as the reference does (transformer.py:1312-1315). Returns (tokens
+        int32 [B], cache)."""
         head = params.get("lm_head")
         if not (isinstance(head, QuantWeight) and head.kind == "int8"):
             logits, cache = self.decode_step(params, tokens, cache)

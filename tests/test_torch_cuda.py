@@ -16,7 +16,10 @@ import torch
 from rten_tpu_torch.kernels import attention as at
 from rten_tpu_torch.kernels import cache as kc
 from rten_tpu_torch.kernels import gemm as pg
-from rten_tpu_torch.kernels.quant import abs_max_quantize_int8
+from rten_tpu_torch.kernels.quant import (abs_max_quantize_int8,
+                                          quantize_int4_groupwise,
+                                          quantize_int4_words, unpack_int4,
+                                          unpack_int4_words)
 from rten_tpu_torch.models import (TransformerConfig, TransformerLM,
                                    quantize_weights)
 
@@ -541,3 +544,81 @@ def test_paged_decode_steps_match_the_cpu(gen, weights, b):
     launched = {w: w.launches - n for w, n in before.items()}
     assert launched == {w: 12 * n_layers * (w in (attn, append))
                         for w in before}
+
+
+# -- group-wise int4 GEMMs ----------------------------------------------------
+
+INT4_KERNELS = {"words": (pg.matmul_int4_words, "bf16"),
+                "words_int8": (pg.matmul_int4_words_int8, "int8"),
+                "bytes": (pg.matmul_int4, None)}
+
+
+def int4_case(make, mode, m, k, n):
+    """x [M, K] and a quantized 0.02-scale weight [K, N] in ``mode``'s
+    layout, on the device of ``make`` (a torch.Generator), as the kernel's
+    arguments."""
+    dev = make.device
+    x = torch.randn((m, k), device=dev, generator=make)
+    w = 0.02 * torch.randn((k, n), device=dev, generator=make)
+    if mode == "bytes":
+        packed, scales = quantize_int4_groupwise(w)
+    else:
+        packed, scales = quantize_int4_words(w)
+    return x, packed, scales
+
+
+def int4_bound(x, packed, scales, mode):
+    """The bound of the kernel's and the plain version's difference: 2^-16
+    of the sum of the magnitudes of every f32 term (2^8 roundings of 2^-24
+    each, for K up to 2048 terms), in integer units times the row scale
+    for the int8 mode."""
+    k = x.shape[1]
+    group = k // scales.shape[0]
+    s_rows = scales.repeat_interleave(group, dim=0)
+    if mode == "bytes":
+        q = unpack_int4(packed).float()
+        return 2.0 ** -16 * (x.abs() @ (q.abs() * s_rows))
+    u = unpack_int4_words(packed).float() + 8
+    xs = x.reshape(x.shape[0], -1, group).sum(-1).abs()
+    if mode == "words":
+        return 2.0 ** -16 * (x.abs() @ (u * s_rows) + 8 * xs @ scales)
+    absmax = x.abs().amax(dim=1, keepdim=True)
+    xscale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127)
+    xq = torch.clamp(torch.round(x / xscale), -127, 127)
+    xqs = xq.reshape(x.shape[0], -1, group).sum(-1).abs()
+    return 2.0 ** -16 * (xq.abs() @ (u * s_rows) + 8 * xqs @ scales) * xscale
+
+
+@pytest.mark.parametrize("mode", list(INT4_KERNELS))
+@pytest.mark.parametrize("m,k,n", [(1, 128, 256), (7, 640, 512),
+                                   (16, 2048, 2560), (100, 384, 768),
+                                   (130, 2048, 1024)])
+def test_int4_kernels_match_plain(gen, mode, m, k, n):
+    """Q1 (words, bf16 dot), Q1' (words, int8 dot) and Q2 (bytes) against
+    their plain versions: one group and many, M from 1 to past one row
+    tile, several K splits. Both sum f32 terms in different orders."""
+    wrapper, dot = INT4_KERNELS[mode]
+    x, packed, scales = int4_case(gen, mode, m, k, n)
+    before = wrapper.launches
+    out = wrapper(x, packed, scales)
+    if mode == "bytes":
+        ref = pg.matmul_int4_plain(x, packed, scales)
+    else:
+        ref = pg.matmul_int4_words_plain(x, packed, scales, dot_mode=dot)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.shape == (m, n) and torch.isfinite(out).all()
+    bound = int4_bound(x, packed, scales, mode)
+    assert ((out - ref).abs() <= bound + 1e-30).all(), \
+        ((out - ref).abs() / bound).max().item()
+
+
+@pytest.mark.parametrize("mode", list(INT4_KERNELS))
+def test_int4_kernels_refuse_mixed_devices(gen, mode):
+    """CUDA activations with CPU weights raise; nothing falls back."""
+    wrapper, _ = INT4_KERNELS[mode]
+    x, packed, scales = int4_case(gen, mode, 4, 128, 256)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="all on"):
+        wrapper(x, packed.cpu(), scales.cpu())
+    assert wrapper.launches == before

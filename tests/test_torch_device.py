@@ -85,6 +85,9 @@ def _kernel_args():
     pool = torch.zeros((5, 8, 2, f), dtype=torch.int8)
     pscales = torch.ones((5, 8, 2, kvh), dtype=torch.bfloat16)
     table = torch.arange(1, 5, dtype=torch.int32).reshape(b, 2)
+    # Group-wise int4: K 128 (one group), N 256 (one pack tile).
+    x4, s4 = torch.zeros((4, 128)), torch.ones((1, 256))
+    words = torch.zeros((32, 128), dtype=torch.int32)
     return {"decode_attn_int8_tail": (q, kv, scales, lengths, tail, 1),
             "head_argmax_int8": (x, w, s),
             "tail_flush_int8": (tail, kv, scales, lengths, 1),
@@ -101,7 +104,11 @@ def _kernel_args():
                                   lengths),
             "decode_attn_paged_grid": (q, torch.zeros((5, 8, 2, f)), table,
                                        lengths),
-            "decode_attn_paged_int8": (q, pool, pscales, table, lengths)}
+            "decode_attn_paged_int8": (q, pool, pscales, table, lengths),
+            "matmul_int4_words": (x4, words, s4),
+            "matmul_int4_words_int8": (x4, words, s4),
+            "matmul_int4": (x4, torch.zeros((128, 128), dtype=torch.uint8),
+                            s4)}
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.__name__)

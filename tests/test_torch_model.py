@@ -315,8 +315,9 @@ def test_engine_tail_gate_matches_reference(models):
 
 def test_unported_features_raise(models):
     _, _, pm, pp = models
-    for kw in (dict(pos="rope"), dict(act="swiglu"), dict(n_experts=4),
-               dict(scan_layers=True), dict(dtype="bfloat16")):
+    for kw in (dict(n_experts=4), dict(scan_layers=True),
+               dict(dtype="bfloat16"), dict(fused_append=True),
+               dict(quant_int8_scores=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TransformerLM(TransformerConfig.tiny_test(**kw))
     for kw in (dict(mesh=object()), dict(spec_draft=2)):
@@ -326,8 +327,6 @@ def test_unported_features_raise(models):
     # Paged caches are ported; page pools partitioned over a mesh are not.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PagedKVCache.make_allocator(8, partitions=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize_weights({"w": torch.zeros(4, 4)}, "int4")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pm.verify_step(pp, torch.zeros((2, 3), dtype=torch.int64),
                        pm.new_cache(2, 64, device="cpu"))
