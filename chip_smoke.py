@@ -21,8 +21,15 @@ Phases (any failure exits non-zero; nothing is caught):
    weight shape at decode M = 16 and at one prefill M = 1024, each entry
    summed over the calls of one decode step of path (F) that reach it
    (111 for Q1 and Q1', 67 for Q2: under the byte layout wqkv and wo run
-   as a bf16 dot on their dequantized copy); K1 and K3 again at TinyLlama's
-   shapes (batch 16, 32 heads over 4 KV heads, capacity 2048).
+   as a bf16 dot on their dequantized copy); V1 (``verify_attn_grouped``
+   at batch 8 and ``verify_attn_fused`` at batch 3, capacity 2048, S 4,
+   lives 64-320, each in its float mode on a bf16 cache, with
+   ``scaled_dot_product_attention`` as the library call, and its int8
+   mode), V1 again at K6's shapes (batch 256, capacity 512, printed), each
+   beside one decode query per sequence through K6 or K1' on the same
+   cache; K1, K1' and K3 again at TinyLlama's shapes (batch 16, 32 heads
+   over 4 KV heads, capacity 2048); K1 at capacity 16384 and K1' at 12288
+   (batch 4, lives past 12,100 tokens).
 4. Serving paths, each ``ServingEngine`` at batch 256, capacity 512,
    64-token prompts, greedy, bursts of 21, after a warm-up serve; launch
    counts are set to 0 before each measured run and every kernel of the
@@ -48,6 +55,21 @@ Phases (any failure exits non-zero; nothing is caught):
    this run and their ratio, and each paged path's steady burst against
    its contiguous counterpart in three rounds of turns ((A), (E), (E),
    (A) and (B), (D), (D), (B)).
+   Then path (G), speculative serving at ``tools/profile_spec.py``'s
+   defaults: GPT-2-small with int8 weights, ``ServingEngine(max_batch=8,
+   capacity=2048, prefill_buckets=(64,), cache_dtype="bfloat16",
+   spec_draft=3, spec_ngram=3, spec_adaptive=False)``, bursts of 16, 16
+   requests x 256 new tokens on repetitive (one 8-token period tiled) and
+   on random 64-token prompts, in turns with the plain engine at the same
+   settings (plain, spec, spec, plain; ``verify_attn_grouped`` in its float
+   mode and ``matmul_int8_wo`` must launch); (G-int8), the same
+   speculative serve on an int8 cache (``verify_attn_grouped`` in its int8
+   mode must launch); and (G) card against CPU at ``max_batch=3`` (no
+   group: ``verify_attn_fused`` must launch in each mode), 3 requests of 8
+   tokens x 16 new tokens: f32 weights on an f32 cache give the CPU's
+   tokens and the card's plain engine's; int8 weights on an int8 cache give
+   logits within a stated tolerance and tokens apart only after a
+   near-tie.
    Then path (F), TinyLlama-1.1B at full width (``init_params(0)``, int4
    words weights) through ``ServingEngine(max_batch=16, capacity=2048,
    quantized_cache=True)`` (tail window 16): 24 requests of 64-token
@@ -65,8 +87,8 @@ Phases (any failure exits non-zero; nothing is caught):
    TinyLlama's width with 2 layers: 4 requests of 8 tokens x 16 new tokens,
    logits + argmax (the int4 head has no fused argmax).
 
-Prints a ``{"kernels": [...]}`` JSON line, then as the last line
-``{"ok": true, "device": {...}}``.
+Prints a ``{"kernels": [...]}`` JSON line (V1 with one entry per entry
+point and mode), then as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -102,7 +124,8 @@ REPS = 20
 SLEEP_CYCLES = 2_000_000           # about 1 ms at the H100's clocks
 TURN_ROUNDS = 3                    # rounds of paged-against-contiguous turns
 
-# Tolerances (kernel against its plain version on the same inputs):
+# Tolerances (kernel against its plain version on the same inputs; V1 in
+# both modes sums in f32 with nothing rounded to bf16, so K6's, below):
 # K1 rounds its output to bf16 like the plain version, and the two sum in
 # different orders in f32, so they may land one bf16 step apart; allow two
 # steps of the largest output (2^-6 relative to max |out|).
@@ -162,6 +185,10 @@ def check(ok, what):
     """Fail the run (an exception, so no later phase and no result line)."""
     if not ok:
         raise RuntimeError(what)
+
+
+def nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
 
 
 def bound_ms(n_bytes, flops=0.0, peak_flop_s=PEAK_BF16_FLOP_S):
@@ -495,27 +522,31 @@ def check_decode_attn_float(timer):
     return entry
 
 
-def check_decode_attn_int8(timer):
-    """K1' (the no-tail mode of K1) at path (B)'s shapes."""
-    b, h, d, cap = 256, 12, 64, 512
-    f = h * d
+def check_decode_attn_int8(timer, b=256, h=12, kvh=12, cap=512,
+                           live=(65, 177)):
+    """K1' (the no-tail mode of K1) at path (B)'s shapes, attention
+    lengths ``live``; GQA when ``kvh`` < ``h``."""
+    d = 64
+    f = kvh * d
     g = torch.Generator(device="cuda").manual_seed(10)
     q = torch.randn((b, h, d), device="cuda", generator=g)
     kv = torch.randint(-127, 128, (b, cap, 2, f), device="cuda",
                        dtype=torch.int8, generator=g)
-    scales = (0.002 + 0.01 * torch.rand((b, cap, 2, h), device="cuda",
+    scales = (0.002 + 0.01 * torch.rand((b, cap, 2, kvh), device="cuda",
                                         generator=g)).to(torch.bfloat16)
-    lengths = _live_lengths(g, b)
+    lengths = torch.randint(live[0], live[1], (b,), device="cuda",
+                            generator=g, dtype=torch.int32)
     args = (q, kv, scales, lengths)
     out = at.decode_attn_int8(*args)
     ref = at.decode_attn_int8_plain(*args)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     tol = K1_REL_TOL * ref.abs().max().item()
-    print(f"decode_attn_int8: max_abs_err {err:.3e} (tol {tol:.3e})")
+    print(f"decode_attn_int8 (B {b}, H {h} over {kvh}, cap {cap}): "
+          f"max_abs_err {err:.3e} (tol {tol:.3e})")
     check(bool(torch.isfinite(out).all()) and err <= tol, "K1' disagrees")
     live = lengths.clamp(max=cap).to(torch.float64).sum().item()
-    n_bytes = live * (2 * f + 2 * h * 2) + 2 * q.numel() * 4 + b * 4
+    n_bytes = live * (2 * f + 2 * kvh * 2) + 2 * q.numel() * 4 + b * 4
     bms, by = bound_ms(n_bytes, 4.0 * live * h * d)
     return dict(name="decode_attn_int8",
                 source="rten_tpu_torch/csrc/decode_attn_int8_tail.cu",
@@ -646,6 +677,95 @@ def check_decode_attn_paged(timer, mode):
                 max_abs_err=err, ms=timer(lambda: wrapper(*args)),
                 plain_ms=timer(lambda: plain(*args)),
                 bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def _verify_inputs(g, b, s, h, d, cap, live, mode):
+    """Verify-attention inputs: q [B, S, H, D], a bf16 or int8 cache of
+    capacity ``cap`` (12 heads, no GQA, as GPT-2's) and pre-chunk lengths
+    drawn from ``live``."""
+    f = h * d
+    q = torch.randn((b, s, h, d), device="cuda", generator=g)
+    lengths = torch.randint(live[0], live[1], (b,), device="cuda",
+                            generator=g, dtype=torch.int32)
+    if mode == "int8":
+        kv = torch.randint(-127, 128, (b, cap, 2, f), device="cuda",
+                           dtype=torch.int8, generator=g)
+        scales = (0.002 + 0.01 * torch.rand((b, cap, 2, h), device="cuda",
+                                            generator=g)).to(torch.bfloat16)
+    else:
+        kv = torch.randn((b, cap, 2, f), device="cuda",
+                         generator=g).to(torch.bfloat16)
+        scales = None
+    return q, kv, lengths, scales
+
+
+def check_verify_attn(timer, entry, b, cap, live, s=4, h=12, d=64):
+    """V1 through ``verify_attn_<entry>`` in its float mode (on a bf16
+    cache, path (G)'s) and its int8 mode against the plain version, with
+    the bound from the rows the chunk's queries read (each row once), the
+    library's ``scaled_dot_product_attention`` (bf16, a boolean mask over
+    the capacity; float mode only) and, at the same shapes, one decode
+    query per sequence through K6 (float) or K1' (int8): a verify step
+    should cost about one decode step. Returns one entry per mode."""
+    wrapper = getattr(at, f"verify_attn_{entry}")
+    plain = getattr(at, f"verify_attn_{entry}_plain")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    entries = []
+    for mode in ("float", "int8"):
+        q, kv, lengths, scales = _verify_inputs(g, b, s, h, d, cap, live,
+                                                mode)
+        args = (q, kv, lengths, scales)
+        out = wrapper(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = K6_REL_TOL * ref.abs().max().item()
+        label = (f"{wrapper.__name__} ({mode}, B {b}, S {s}, cap {cap}, "
+                 f"lives {live[0]}-{live[1] - 1})")
+        print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})")
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              f"{label} disagrees")
+        ahead = torch.arange(s, device="cuda")[None, :]
+        reads = (lengths[:, None] + ahead + 1).clamp(max=cap)    # [B, S]
+        rows = reads[:, -1].to(torch.float64).sum().item()
+        row_bytes = 2 * h * d * kv.element_size() + (
+            0 if scales is None else 2 * h * 2)
+        n_bytes = rows * row_bytes + 2 * q.numel() * 4 + b * 4
+        flops = 4.0 * h * d * reads.to(torch.float64).sum().item()
+        bms, by = bound_ms(n_bytes, flops, PEAK_F32_FLOP_S)
+        ms = timer(lambda: wrapper(*args))
+        plain_ms = timer(lambda: plain(*args))
+        q1 = q[:, 0].contiguous()
+        library = None
+        if scales is None:
+            mask = (torch.arange(cap, device="cuda")[None, None, :]
+                    < reads[:, :, None])[:, None]               # [B,1,S,cap]
+            qb = q.transpose(1, 2).to(torch.bfloat16)
+            k4 = kv[:, :, 0].view(b, cap, h, d).transpose(1, 2)
+            v4 = kv[:, :, 1].view(b, cap, h, d).transpose(1, 2)
+            library = timer(lambda: F.scaled_dot_product_attention(
+                qb, k4, v4, attn_mask=mask))
+            decode = timer(lambda: at.decode_attn_float(q1, kv, lengths + 1))
+            decode_name = "decode_attn_float (K6)"
+        else:
+            decode = timer(lambda: at.decode_attn_int8(q1, kv, scales,
+                                                       lengths + 1))
+            decode_name = "decode_attn_int8 (K1')"
+        print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bms:.4f} ({by}) library_ms {library}; one decode "
+              f"query per sequence through {decode_name} {decode:.4f} ms, "
+              f"verify / decode {ms / decode:.2f}")
+        entries.append(dict(
+            name=wrapper.__name__, mode=mode,
+            source="rten_tpu_torch/csrc/verify_attn.cu",
+            replaces=("rten_tpu/kernels/attention.py:1957" if entry ==
+                      "grouped" else "rten_tpu/kernels/attention.py:2394"),
+            shape=(f"B {b}, S {s}, {h} heads of {d}, capacity {cap}, "
+                   f"lives {live[0]}-{live[1] - 1}, "
+                   f"{'bf16' if scales is None else 'int8'} cache"),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=library, decode_ms=decode))
+    return entries
 
 
 # TinyLlama's int4 weights [K, N] (name, K, N, calls per decode step of
@@ -908,7 +1028,7 @@ def serve_path(model, params, path):
     kernels.reset_launch_counts()
     engine, reqs, wall = main_path(model, params, path, n_requests,
                                    new_tokens)
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    launches = kernels.launch_counts()
     st = engine.stats()
     check(all(len(r.tokens) == new_tokens and r.done for r in reqs),
           f"{path}: a request did not complete with {new_tokens} tokens")
@@ -1065,7 +1185,223 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
           f"{sum(f < 16 for f in first)} near-tie divergences, max logit "
           f"difference {dev:.3e} (tol {logit_tol:.1e})")
     check(dev < logit_tol, f"{path}: card and cpu logits disagree")
-    return {k.__name__: k.launches for k in kernels.KERNELS}
+    return kernels.launch_counts()
+
+
+# Path (G): speculative serving at tools/profile_spec.py's defaults
+# (GPT-2-small, int8 weights, bf16 cache, draft 3, 3-grams, bursts of 16);
+# 16 requests of 256 new tokens through 8 slots, so slots recycle.
+SPEC_ENGINE = dict(max_batch=8, capacity=2048, prefill_buckets=(64,),
+                   cache_dtype="bfloat16")
+SPEC_OPTS = dict(spec_draft=3, spec_ngram=3, spec_adaptive=False)
+SPEC_BURST = 16
+SPEC_REQUESTS = (16, 256)
+
+
+def spec_prompts(kind, n, vocab):
+    """64-token prompts: random, or one 8-token period tiled
+    (tools/profile_spec.py:130-137)."""
+    rng = np.random.RandomState(0)
+    if kind == "random":
+        return [list(rng.randint(0, vocab, 64)) for _ in range(n)]
+    period = rng.randint(0, vocab, 8)
+    return [list(np.tile(period, 8)) for _ in range(n)]
+
+
+def serve_spec(model, params, prompts, new_tokens, spec, **kw):
+    """One serve of ``prompts`` at path (G)'s settings, speculative or
+    plain; returns (decode tokens/s, decode steps, engine stats)."""
+    engine = ServingEngine(model, params, device="cuda", **SPEC_ENGINE,
+                           **kw, **(SPEC_OPTS if spec else {}))
+    check(engine._tail_flush == 0, "a speculative path picked a tail")
+    reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(burst=SPEC_BURST)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(r.done and len(r.tokens) == new_tokens for r in reqs),
+          "a speculative-path request did not complete")
+    check(all(0 <= t < model.config.vocab_size for r in reqs
+              for t in r.tokens), "a token outside the vocabulary")
+    st = engine.stats()
+    del engine
+    return st["tokens"] / wall, st["decode_steps"], st
+
+
+def spec_paths(model, weights):
+    """Path (G) on repetitive and random prompts, plain and speculative in
+    turns (plain, spec, spec, plain), launch counts read over the first
+    speculative serve of each kind; then (G-int8), the same speculative
+    serve on an int8 cache. Returns the launch counts by path."""
+    params = weights["int8"]
+    vocab = model.config.vocab_size
+    n_requests, new_tokens = SPEC_REQUESTS
+    warm = spec_prompts("random", 8, vocab)
+    serve_spec(model, params, warm, 8, False)
+    serve_spec(model, params, warm, 8, True)
+    launches = {}
+    for kind in ("repetitive", "random"):
+        prompts = spec_prompts(kind, n_requests, vocab)
+        turns = []
+        for spec in (False, True, True, False):
+            if spec and len(turns) == 1:
+                kernels.reset_launch_counts()
+            rate, steps, st = serve_spec(model, params, prompts, new_tokens,
+                                         spec)
+            if spec and len(turns) == 1:
+                launches[f"spec_{kind}"] = kernels.launch_counts()
+            turns.append((rate, steps, st))
+        (p1, plain_steps, _), (s1, spec_steps, st), (s2, _, _), (p2, _, _) \
+            = turns
+        print(f"path (G) {kind}: {n_requests} requests x {new_tokens} "
+              f"tokens; decode steps plain {plain_steps}, speculative "
+              f"{spec_steps}: {plain_steps / spec_steps:.2f} tokens per "
+              f"step per sequence (last burst's EMA "
+              f"{st.get('spec_tokens_per_step')}, draft length "
+              f"{st['spec_k']}); decode tokens/s in turns plain / spec / "
+              f"spec / plain: {p1:.1f} / {s1:.1f} / {s2:.1f} / {p2:.1f}; "
+              f"spec / plain {(s1 + s2) / (p1 + p2):.3f}")
+        print(f"path (G) {kind}: launches "
+              f"{nonzero(launches[f'spec_{kind}'])}")
+    trace_spec_burst(model, params, spec_prompts("repetitive", 8, vocab))
+    for kind in ("repetitive", "random"):
+        counts = launches[f"spec_{kind}"]
+        missing = [k for k in ("verify_attn_grouped.float", "matmul_int8_wo")
+                   if counts[k] == 0]
+        check(not missing, f"path (G) {kind}: never launched {missing}")
+    kernels.reset_launch_counts()
+    rate, steps, st = serve_spec(model, params,
+                                 spec_prompts("repetitive", n_requests,
+                                              vocab), new_tokens, True,
+                                 quantized_cache=True)
+    launches["spec_int8"] = kernels.launch_counts()
+    print(f"path (G-int8) repetitive, int8 cache: {steps} decode steps, "
+          f"{rate:.1f} decode tokens/s; launches "
+          f"{nonzero(launches['spec_int8'])}")
+    check(launches["spec_int8"]["verify_attn_grouped.int8"] > 0,
+          "path (G-int8) never launched verify_attn_grouped in int8 mode")
+    return launches
+
+
+def trace_spec_burst(model, params, prompts, steps=8):
+    """One speculative burst of path (G) at a full batch of 8 under
+    torch.profiler, after an admission and a warm-up burst: ms per step,
+    the card's busy share and the kernels that take the most device
+    time."""
+    engine = ServingEngine(model, params, device="cuda", **SPEC_ENGINE,
+                           **SPEC_OPTS)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=10 ** 6)
+    engine.step_spec_burst(4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step_spec_burst(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_s = sum(e.self_device_time_total for e in on_card) / 1e6
+    print(f"path (G), a speculative burst at batch 8 under the profiler: "
+          f"{1e3 * wall / steps:.3f} ms per step (draft length "
+          f"{engine._spec_k}); card busy {busy_s:.4f} s of {wall:.4f} s "
+          f"({100 * busy_s / wall:.1f}%)")
+    for e in on_card[:10]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"{e.count:5d}x  {e.key[:90]}")
+    del engine
+
+
+class LogitsRecorder:
+    """The model with the logits of every admission prefill and verify
+    step recorded in order (host copies)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.logits = []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def prefill_last(self, params, tokens, cache, last_idx):
+        logits, cache = self.model.prefill_last(params, tokens, cache,
+                                                last_idx)
+        self.logits.append(logits.cpu().numpy())
+        return logits, cache
+
+    def verify_step(self, params, tokens, cache):
+        logits, cache = self.model.verify_step(params, tokens, cache)
+        self.logits.append(logits.cpu().numpy())
+        return logits, cache
+
+
+def spec_card_against_cpu(model, weights):
+    """Path (G) at ``max_batch=3`` (no group: the fused entry) on the card
+    and on the CPU, 3 requests of 8 tokens x 16 new tokens. f32 weights on
+    an f32 cache: the card's speculative tokens equal the CPU's and the
+    card's plain engine's. int8 weights on an int8 cache: every verify
+    step's logits agree within PATH_LOGIT_TOL while both devices have
+    emitted the same tokens, and their greedy rows part only where the CPU's
+    top-2 margin is below twice that. Returns the card runs' launch
+    counts by mode."""
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(3)
+    prompts = [list(np.tile(rng.randint(0, vocab, 4), 2)),
+               list(rng.randint(0, vocab, 8)), list(rng.randint(0, vocab, 8))]
+    kw = dict(max_batch=3, capacity=512, prefill_buckets=(8,))
+
+    def serve(mdl, params, dev, spec=True, **extra):
+        eng = ServingEngine(mdl, params, device=dev, **kw, **extra,
+                            **(SPEC_OPTS if spec else {}))
+        return eng.generate(prompts, max_new_tokens=16, burst=6)
+
+    launches = {}
+    kernels.reset_launch_counts()
+    card = serve(model, weights["f32"], "cuda")
+    launches["float"] = kernels.launch_counts()
+    cpu = serve(model, to_device(weights["f32"], "cpu"), "cpu")
+    plain = serve(model, weights["f32"], "cuda", spec=False)
+    print(f"path (G) at max_batch 3, f32: card == cpu {card == cpu}, card "
+          f"== card plain {card == plain}; launches "
+          f"{nonzero(launches['float'])}")
+    check(card == cpu == plain, "path (G) f32: tokens differ")
+    check(launches["float"]["verify_attn_fused.float"] > 0,
+          "path (G) at max_batch 3 never launched verify_attn_fused")
+
+    rec = {"cuda": LogitsRecorder(model), "cpu": LogitsRecorder(model)}
+    kernels.reset_launch_counts()
+    serve(rec["cuda"], weights["int8"], "cuda", quantized_cache=True)
+    launches["int8"] = kernels.launch_counts()
+    serve(rec["cpu"], to_device(weights["int8"], "cpu"), "cpu",
+          quantized_cache=True)
+    # Event 0 is the admission prefill, then one per verify step; while
+    # every earlier argmax agrees, both devices saw the same inputs.
+    worst, parted = 0.0, None
+    for event, (a, b) in enumerate(zip(rec["cuda"].logits,
+                                       rec["cpu"].logits)):
+        worst = max(worst, float(np.abs(a - b).max()))
+        apart = np.argwhere(a.argmax(-1) != b.argmax(-1))
+        if len(apart):
+            top = np.sort(b, axis=-1)[..., -2:]
+            margins = [float(top[tuple(ix)][1] - top[tuple(ix)][0])
+                       for ix in apart]
+            print(f"path (G) at max_batch 3, int8: argmax parts at event "
+                  f"{event} (0 = prefill), CPU top-2 margins {margins}")
+            check(max(margins) < 2 * PATH_LOGIT_TOL,
+                  "path (G) int8: tokens apart above the tolerance")
+            parted = event
+            break
+    print(f"path (G) at max_batch 3, int8: {len(rec['cuda'].logits) - 1} "
+          f"verify steps on the card, max logit difference {worst:.3e} (tol "
+          f"{PATH_LOGIT_TOL:.1e}) before the devices part (at event "
+          f"{parted}); launches {nonzero(launches['int8'])}")
+    check(worst < PATH_LOGIT_TOL, "path (G) int8: logits disagree")
+    check(launches["int8"]["verify_attn_fused.int8"] > 0,
+          "path (G) int8 at max_batch 3 never launched verify_attn_fused")
+    return launches
 
 
 def main():
@@ -1105,18 +1441,35 @@ def main():
                check_decode_attn_paged(timer, "grid")]
     del w, s, w_dq
     results += check_int4(timer)
+    # V1 at path (G)'s shapes (batch 8: the grouped entry; batch 3: the
+    # fused one), then at K6's serving shapes (printed only).
+    results += check_verify_attn(timer, "grouped", b=8, cap=2048,
+                                 live=(64, 321))
+    results += check_verify_attn(timer, "fused", b=3, cap=2048,
+                                 live=(64, 321))
+    check_verify_attn(timer, "grouped", b=256, cap=512, live=(65, 177))
     # K1 and K3 at path (F)'s shapes (GQA: 32 query heads over 4 KV heads),
-    # printed beside their GPT-2 entries.
-    llama_attn = [check_decode_attn(timer, b=16, h=32, kvh=4, cap=2048,
-                                    live=(56, 1991)),
-                  check_tail_flush(timer, b=16, kvh=4, cap=2048,
-                                   live=(16, 2000))]
-    for r in results + llama_attn:
-        print(f"{r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
-              f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-              f"({r['bound_by']}) library_ms {r['library_ms']}")
-    print("(the last two lines: K1 and K3 at TinyLlama shapes, B 16, "
-          "32 heads over 4 KV heads, capacity 2048)")
+    # K1' there too, and K1 and K1' past the 12,080 tokens that one
+    # shared-memory score row allowed, printed beside their entries.
+    printed = [check_decode_attn(timer, b=16, h=32, kvh=4, cap=2048,
+                                 live=(56, 1991)),
+               check_tail_flush(timer, b=16, kvh=4, cap=2048,
+                                live=(16, 2000)),
+               check_decode_attn_int8(timer, b=16, h=32, kvh=4, cap=2048,
+                                      live=(65, 2000)),
+               check_decode_attn(timer, b=4, cap=16384,
+                                 live=(12100, 16369)),
+               check_decode_attn_int8(timer, b=4, cap=12288,
+                                      live=(12100, 12289))]
+    for r in results + printed:
+        print(f"{r['name']}{' (' + r['mode'] + ')' if 'mode' in r else ''}: "
+              f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) library_ms "
+              f"{r['library_ms']}")
+    print("(the last five lines: K1, K3 and K1' at TinyLlama shapes, B 16, "
+          "32 heads over 4 KV heads, capacity 2048; K1 at B 4, capacity "
+          "16384, lives 12100-16368; K1' at B 4, capacity 12288, lives "
+          "12100-12288)")
 
     model = TransformerLM(TransformerConfig.gpt2())
     t0 = time.perf_counter()
@@ -1158,6 +1511,8 @@ def main():
               + ", ".join(f"{r:.3f}" for r in ratios)
               + f"; median {sorted(ratios)[len(ratios) // 2]:.3f}")
 
+    launches.update(spec_paths(model, weights))
+    spec_cpu = spec_card_against_cpu(model, weights)
     card_against_cpu(model, weights["int8"], "int8_tail", PATH_LOGIT_TOL)
     card_against_cpu(model, weights["f32"], "f32", F32_PATH_LOGIT_TOL)
     card_against_cpu(model, weights["int8"], "paged_int8", PATH_LOGIT_TOL)
@@ -1192,7 +1547,7 @@ def main():
         kernels.reset_launch_counts()
         engine, reqs, wall = main_path(llama, weights[PATHS[path]["weights"]],
                                        path, n_requests, new_tokens)
-        launches[path] = {k.__name__: k.launches for k in kernels.KERNELS}
+        launches[path] = kernels.launch_counts()
         check(all(len(r.tokens) == new_tokens and r.done for r in reqs),
               f"{path}: a request did not complete")
         print(f"path {path}: {len(reqs)} requests x {new_tokens} tokens in "
@@ -1215,17 +1570,30 @@ def main():
     check(not missing, f"tinyllama_int4 card against CPU: kernels never "
           f"launched: {missing}")
 
-    # Each kernel reports its launches on the path it was ported for.
+    # Each kernel reports its launches on the path it was ported for; V1's
+    # entries per mode: path (G) for the grouped entry (float on the bf16
+    # cache, int8 on G-int8's), its batch-3 card-against-CPU phase for the
+    # fused one.
+    launches["spec_batch3_float"] = spec_cpu["float"]
+    launches["spec_batch3_int8"] = spec_cpu["int8"]
     home = {k: p for p in reversed(PATHS) for k in PATHS[p]["kernels"]}
     home["decode_attn_paged_grid"] = GRID_PHASE
+    spec_home = {("verify_attn_grouped", "float"): "spec_repetitive",
+                 ("verify_attn_grouped", "int8"): "spec_int8",
+                 ("verify_attn_fused", "float"): "spec_batch3_float",
+                 ("verify_attn_fused", "int8"): "spec_batch3_int8"}
     for r in results:
         r["route"] = "cuda"
-        r["path"] = home[r["name"]]
-        r["launches"] = launches[r["path"]][r["name"]]
+        if "mode" in r:
+            r["path"] = spec_home[(r["name"], r["mode"])]
+            r["launches"] = launches[r["path"]][f"{r['name']}.{r['mode']}"]
+        else:
+            r["path"] = home[r["name"]]
+            r["launches"] = launches[r["path"]][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("shape", "int4pack_ms")
+    extra = ("mode", "shape", "int4pack_ms", "decode_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results]}))

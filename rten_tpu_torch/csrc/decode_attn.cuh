@@ -46,6 +46,52 @@ __device__ inline float2 load2(const int8_t* p) {
   return make_float2((float)c.x, (float)c.y);
 }
 
+// The row layout of the int8 kernel (decode_attn_int8_tail.cu) and the
+// verify kernel (verify_attn.cu): eight lanes share a token row, each
+// holding kDpl = d / 8 values (8 or 16), so one warp load covers four rows.
+constexpr int kLanesPerTok = 8;
+constexpr int kTokPerLoad = 32 / kLanesPerTok;
+
+// kDpl consecutive values of a row as f32, in 8- to 64-byte vector loads.
+template <int kDpl>
+__device__ inline void load_row(const int8_t* p, float* x) {
+  static_assert(kDpl == 8 || kDpl == 16, "8 or 16 values a lane");
+  if constexpr (kDpl == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = (float)v[i];
+  } else {
+    const int4 raw = *reinterpret_cast<const int4*>(p);
+    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) x[i] = (float)v[i];
+  }
+}
+
+template <int kDpl>
+__device__ inline void load_row(const __nv_bfloat16* p, float* x) {
+#pragma unroll
+  for (int c = 0; c < kDpl / 8; ++c) {
+    const int4 raw = *reinterpret_cast<const int4*>(p + 8 * c);
+    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[8 * c + i] = __bfloat162float(v[i]);
+  }
+}
+
+template <int kDpl>
+__device__ inline void load_row(const float* p, float* x) {
+#pragma unroll
+  for (int c = 0; c < kDpl / 4; ++c) {
+    const float4 v = *reinterpret_cast<const float4*>(p + 4 * c);
+    x[4 * c] = v.x;
+    x[4 * c + 1] = v.y;
+    x[4 * c + 2] = v.z;
+    x[4 * c + 3] = v.w;
+  }
+}
+
 // Token rows of a contiguous [B, cap, 2, KVH*D] cache.
 struct Contiguous {
   static constexpr bool kMasks = false;

@@ -13,158 +13,231 @@
 //   packed tokens [0, min(lengths[b] - tail_count, cap)) are read from kv
 //   (int8) dequantized by the per-(token, head) bf16 scales, then tail
 //   rows [0, tail_count) from the bf16 window;
-//   score = (bf16(q) . k) * scale * k_scale, softmax in f32,
+//   score = (bf16(q) . k) * scale * k_scale, softmax in f32 (l sums the
+//   unscaled p, V is weighted by p * v_scale),
 //   out = bf16(sum p * v_scale * v / sum p), returned as f32.
 //
 // Bound on the H100: bytes. At batch 256, 12 heads of 64 and a live length
 // L it reads B*L*(2*768 + 48) bytes of int8 rows and scales plus the
 // 12.6 MB tail window per layer (about 64 MB, 19 us, at L = 128; without
 // the tail, about 52 MB, 15 us); the arithmetic is 4 flops per byte.
-// Design: one block of 128 threads per
-// (sequence, head). Pass 1: each thread scores whole tokens (16-byte row
-// loads, q broadcast from shared memory) into a shared score row. Pass 2:
-// block max and exp-sum. Pass 3: threads split as (dim, token group) so a
-// warp reads a contiguous V row segment; partial sums meet in shared
-// memory. Exact two-pass softmax instead of the TPU's online softmax: the
-// whole score row (cap + R floats) fits in shared memory.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// Design: a block of four warps per (head, sequence, chunk). Eight lanes
+// share a token row, each holding d / 8 dims (one 8- or 16-byte load of
+// int8, 16 or 32 bytes of the bf16 window), so one warp load covers four
+// tokens and a warp pass sixteen; the dot reduces over the eight lanes.
+// Each warp keeps an online softmax (running max, sum and accumulator in
+// registers), so no score row sits in shared memory and capacity is
+// unlimited; the warps' states merge once at the end. A sequence's tokens
+// (packed, then window) split into ``splits`` chunks, one block per
+// (head, sequence, chunk), so a long sequence is read by many SMs at once:
+// with one chunk the block writes the output, otherwise it writes its
+// state (acc, m, l) and a second launch merges the chunks and rounds to
+// bf16.
+#include "decode_attn.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using decode_attn::kLanesPerTok;
+using decode_attn::kThreads;
+using decode_attn::kTokPerLoad;
+using decode_attn::kWarps;
+using decode_attn::load_row;
 
-__device__ float block_reduce(float v, bool is_max, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    float other = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? fmaxf(v, other) : v + other;
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < kThreads / 32; ++w)
-    v = is_max ? fmaxf(v, red[w]) : v + red[w];
-  return v;
+constexpr int kUnroll = 4;                        // loads per warp pass
+constexpr int kWarpTok = kTokPerLoad * kUnroll;   // tokens per warp pass
+
+__device__ inline float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+template <int kDpl>
 __global__ void decode_attn_int8_tail_kernel(
     const float* __restrict__ q, const int8_t* __restrict__ kv,
     const __nv_bfloat16* __restrict__ scales, const int* __restrict__ lengths,
     const __nv_bfloat16* __restrict__ tail, float* __restrict__ out,
-    int heads, int kvh, int d, int cap, int rows, int tail_count,
-    float scale) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads / 32];
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+    float* __restrict__ part, int heads, int kvh, int cap, int rows,
+    int tail_count, float scale, int chunk) {
+  constexpr int d = kLanesPerTok * kDpl;
+  __shared__ float m_s[kWarps], l_s[kWarps];
+  __shared__ float acc_s[kWarps][d];
+  const int h = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int splits = gridDim.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane / kLanesPerTok, col = (lane % kLanesPerTok) * kDpl;
   const int kh = h / (heads / kvh);
   const long long f = (long long)kvh * d;
-  float* q_s = smem;               // [d] bf16-rounded q
-  float* p_s = smem + d;           // [cap + rows] scores, then weights
-  float* acc_s = p_s + cap + rows; // [kThreads] partial outputs
-
-  const float* qrow = q + ((long long)b * heads + h) * d;
-  for (int i = tid; i < d; i += kThreads)
-    q_s[i] = __bfloat162float(__float2bfloat16_rn(qrow[i]));
   const int n_packed = min(max(lengths[b] - tail_count, 0), cap);
-  const int n_tail = min(max(tail_count, 0), rows);
-  const int n = n_packed + n_tail;
-  __syncthreads();
+  const int n = n_packed + min(max(tail_count, 0), rows);
+  const int start = sp * chunk, end = min(n, start + chunk);
 
-  // Pass 1: scores, one token per thread.
-  for (int t = tid; t < n; t += kThreads) {
-    float dot = 0.0f;
-    if (t < n_packed) {
-      const long long row = ((long long)b * cap + t) * 2;  // plane 0 = K
-      const int4* kr = reinterpret_cast<const int4*>(kv + row * f + kh * d);
-      for (int c = 0; c < d / 16; ++c) {
-        const int4 raw = kr[c];
-        const int8_t* bytes = reinterpret_cast<const int8_t*>(&raw);
+  float qv[kDpl], acc[kDpl];
+  const float* qrow = q + ((long long)b * heads + h) * d + col;
 #pragma unroll
-        for (int e = 0; e < 16; ++e) dot += q_s[c * 16 + e] * (float)bytes[e];
-      }
-      dot = dot * scale * __bfloat162float(scales[row * kvh + kh]);
-    } else {
-      const long long row = ((long long)b * rows + (t - n_packed)) * 2;
-      const int4* tr =
-          reinterpret_cast<const int4*>(tail + row * f + kh * d);
-      for (int c = 0; c < d / 8; ++c) {
-        const int4 raw = tr[c];
-        const __nv_bfloat16* vals =
-            reinterpret_cast<const __nv_bfloat16*>(&raw);
+  for (int i = 0; i < kDpl; ++i) {
+    qv[i] = bf16_round(qrow[i]);
+    acc[i] = 0.0f;
+  }
+  float m = -INFINITY, l = 0.0f;
+
+  const int8_t* kbase = kv + (long long)kh * d + col;
+  const __nv_bfloat16* tbase =
+      tail == nullptr ? nullptr : tail + (long long)kh * d + col;
+  for (int t0 = start + warp * kWarpTok; t0 < end;
+       t0 += kWarps * kWarpTok) {
+    float s[kUnroll], ks[kUnroll], vs[kUnroll];
+    float vv[kUnroll][kDpl];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dot += q_s[c * 8 + e] * __bfloat162float(vals[e]);
-      }
-      dot = dot * scale;
-    }
-    p_s[t] = dot;
-  }
-  __syncthreads();
-
-  // Pass 2: softmax weights; packed tokens fold in their V scale.
-  float m = -INFINITY;
-  for (int t = tid; t < n; t += kThreads) m = fmaxf(m, p_s[t]);
-  m = block_reduce(m, true, red);
-  float l = 0.0f;
-  for (int t = tid; t < n; t += kThreads) {
-    const float p = expf(p_s[t] - m);
-    l += p;
-    p_s[t] = t < n_packed
-        ? p * __bfloat162float(
-                  scales[(((long long)b * cap + t) * 2 + 1) * kvh + kh])
-        : p;
-  }
-  l = block_reduce(l, false, red);  // its barriers also publish p_s
-
-  // Pass 3: out[i] = sum_t p_s[t] * v[t][i], threads as (dim, group).
-  const int groups = kThreads / d;
-  const int i = tid % d, g = tid / d;
-  float acc = 0.0f;
-  if (g < groups) {
-    for (int t = g; t < n; t += groups) {
-      float v;
-      if (t < n_packed) {
-        v = (float)kv[(((long long)b * cap + t) * 2 + 1) * f + kh * d + i];
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = t0 + u * kTokPerLoad + grp;
+      float kk[kDpl];
+      // Window rows take no scale: multiplying by 1.0 is exact.
+      ks[u] = vs[u] = 1.0f;
+      if (t < end && t < n_packed) {
+        const long long r = (long long)b * cap + t;
+        const __nv_bfloat16* sr = scales + r * 2 * kvh + kh;
+        ks[u] = __bfloat162float(sr[0]);
+        vs[u] = __bfloat162float(sr[kvh]);
+        load_row<kDpl>(kbase + r * 2 * f, kk);
+        load_row<kDpl>(kbase + r * 2 * f + f, vv[u]);
+      } else if (t < end) {
+        const long long r = (long long)b * rows + (t - n_packed);
+        load_row<kDpl>(tbase + r * 2 * f, kk);
+        load_row<kDpl>(tbase + r * 2 * f + f, vv[u]);
       } else {
-        v = __bfloat162float(
-            tail[(((long long)b * rows + (t - n_packed)) * 2 + 1) * f +
-                 kh * d + i]);
+#pragma unroll
+        for (int i = 0; i < kDpl; ++i) kk[i] = vv[u][i] = 0.0f;
       }
-      acc += p_s[t] * v;
+      float dot = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kDpl; ++i) dot += qv[i] * kk[i];
+      s[u] = dot;
+    }
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int o = 1; o < kLanesPerTok; o <<= 1)
+        s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+      s[u] = t0 + u * kTokPerLoad + grp < end ? s[u] * scale * ks[u]
+                                               : -INFINITY;
+      tile_max = fmaxf(tile_max, s[u]);
+    }
+    // The max over the warp's four token groups; token t0 < end is live,
+    // so it is finite and the first pass's alpha is exp(-inf) = 0.
+#pragma unroll
+    for (int o = kLanesPerTok; o < 32; o <<= 1)
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, o));
+    const float m_new = fmaxf(m, tile_max);
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const float p = expf(s[u] - m_new);
+      l += p;
+      const float pv = p * vs[u];
+#pragma unroll
+      for (int i = 0; i < kDpl; ++i) acc[i] += pv * vv[u][i];
+    }
+    m = m_new;
+  }
+  // Sum the four token groups' partial l and acc (m is warp-uniform).
+#pragma unroll
+  for (int o = kLanesPerTok; o < 32; o <<= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, o);
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+  }
+  if (lane == 0) {
+    m_s[warp] = m;
+    l_s[warp] = l;
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i) acc_s[warp][col + i] = acc[i];
+  }
+  __syncthreads();
+  // Merge the warps' states; a warp that saw no token has m = -inf and
+  // weighs exp(-inf) = 0 (a chunk with no token keeps m = -inf, l = 0).
+  float mx = -INFINITY;
+  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w]);
+  float sum = 0.0f;
+  if (mx != -INFINITY)
+    for (int w = 0; w < kWarps; ++w) sum += l_s[w] * expf(m_s[w] - mx);
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    float o = 0.0f;
+    if (mx != -INFINITY)
+      for (int w = 0; w < kWarps; ++w) o += acc_s[w][i] * expf(m_s[w] - mx);
+    if (splits == 1) {
+      out[((long long)b * heads + h) * d + i] =
+          bf16_round(o / fmaxf(sum, 1e-30f));
+    } else {
+      float* pr = part + (((long long)b * heads + h) * splits + sp) * (d + 2);
+      pr[i] = o;
+      if (i == 0) {
+        pr[d] = mx;
+        pr[d + 1] = sum;
+      }
     }
   }
-  acc_s[tid] = acc;
-  __syncthreads();
-  if (tid < d) {
-    float sum = 0.0f;
-    for (int gg = 0; gg < groups; ++gg) sum += acc_s[gg * d + tid];
-    const float o = sum / fmaxf(l, 1e-30f);
-    out[((long long)b * heads + h) * d + tid] =
-        __bfloat162float(__float2bfloat16_rn(o));
+}
+
+// Merges the chunks' states of one (head, sequence) and rounds to bf16.
+__global__ void merge_chunks_kernel(const float* __restrict__ part,
+                                    float* __restrict__ out, int heads,
+                                    int d, int splits) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const float* pr = part + ((long long)b * heads + h) * splits * (d + 2);
+  float mx = -INFINITY;
+  for (int c = 0; c < splits; ++c) mx = fmaxf(mx, pr[c * (d + 2) + d]);
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    float sum = 0.0f, o = 0.0f;
+    if (mx != -INFINITY) {
+      for (int c = 0; c < splits; ++c) {
+        const float* pc = pr + c * (d + 2);
+        const float w = expf(pc[d] - mx);
+        sum += pc[d + 1] * w;
+        o += pc[i] * w;
+      }
+    }
+    out[((long long)b * heads + h) * d + i] =
+        bf16_round(o / fmaxf(sum, 1e-30f));
   }
 }
 
 }  // namespace
 
+// ``part``: f32 scratch [B, H, splits, D + 2] when splits > 1 (else
+// unused); ``chunk``: tokens per split. The wrapper checks d in {64, 128}.
 extern "C" int decode_attn_int8_tail(const void* q, const void* kv,
                                      const void* scales, const void* lengths,
-                                     const void* tail, void* out, int batch,
-                                     int heads, int kvh, int d, int cap,
-                                     int rows, int tail_count, float scale,
+                                     const void* tail, void* out, void* part,
+                                     int batch, int heads, int kvh, int d,
+                                     int cap, int rows, int tail_count,
+                                     int chunk, int splits, float scale,
                                      void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)d + cap + rows + kThreads);
-  dim3 grid(heads, batch);
+  cudaStream_t st = (cudaStream_t)stream;
   if (batch > 0) {
-    decode_attn_int8_tail_kernel<<<grid, kThreads, smem,
-                                   (cudaStream_t)stream>>>(
-        (const float*)q, (const int8_t*)kv, (const __nv_bfloat16*)scales,
-        (const int*)lengths, (const __nv_bfloat16*)tail, (float*)out, heads,
-        kvh, d, cap, rows, tail_count, scale);
+    const dim3 grid(heads, batch, splits);
+    if (d == 64) {
+      decode_attn_int8_tail_kernel<8><<<grid, kThreads, 0, st>>>(
+          (const float*)q, (const int8_t*)kv, (const __nv_bfloat16*)scales,
+          (const int*)lengths, (const __nv_bfloat16*)tail, (float*)out,
+          (float*)part, heads, kvh, cap, rows, tail_count, scale, chunk);
+    } else {
+      decode_attn_int8_tail_kernel<16><<<grid, kThreads, 0, st>>>(
+          (const float*)q, (const int8_t*)kv, (const __nv_bfloat16*)scales,
+          (const int*)lengths, (const __nv_bfloat16*)tail, (float*)out,
+          (float*)part, heads, kvh, cap, rows, tail_count, scale, chunk);
+    }
+    if (splits > 1) {
+      const int err = (int)cudaGetLastError();
+      if (err) return err;
+      merge_chunks_kernel<<<dim3(heads, batch), d, 0, st>>>(
+          (const float*)part, (float*)out, heads, d, splits);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,12 @@ will need, and a finished or cancelled slot returns its pages; the table
 is uploaded once per admission group and once per step or burst, and only
 when it changed. Paged caches have no tail window.
 
+With ``spec_draft=k`` (speculative decoding, ``speculative.py``) every
+step drafts k tokens per slot by n-gram lookup in the slot's token history,
+verifies them in one chunked forward, and commits the agreeing prefix plus
+the model's next token, so greedy output is plain decoding's with fewer
+steps. Only ``spec_adaptive=False`` (always draft) is ported.
+
 PyTorch runs eagerly, so a burst is a Python loop of decode steps whose
 tokens stay on the device until the burst ends (one host sync per burst).
 Slot bookkeeping is the reference's Python path; the ``native/scheduler``
@@ -40,10 +46,31 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.attention import fits_shared_memory, flat_group_for
+from ..kernels.attention import flat_group_for
 from .metrics import Metrics
 from .paged_cache import PagedKVCache
 from .sampler import ArgMaxSampler, Sampler
+from .speculative import make_spec_burst
+
+# The reference's tail gate models its flat kernel's TPU buffers
+# (transformer.py:339-363, engine.py:241-279); the port copies that
+# arithmetic as a rule, so both packages give a configuration the same
+# tail and so the same numerics. It is no limit of the port's kernel.
+FLAT_VMEM_BUDGET = 13 * 1024 * 1024
+E_MATRIX_BUDGET = 4 * 1024 * 1024
+
+
+def flat_vmem_bytes(heads, head_dim, kvh, group, block_k, window):
+    """The reference's ``flat_vmem_bytes`` with ``q_bf16``
+    (transformer.py:339-352)."""
+    f_tot = kvh * head_dim
+    hp8 = -(-heads // 8) * 8
+    return (2 * group * (block_k // 4) * 2 * f_tot * 4
+            + 2 * group * (block_k // 2) * 128 * 4
+            + group * hp8 * f_tot * 4
+            + group * window * 2 * f_tot * 2
+            + 2 * hp8 * group * 128 * 4
+            + hp8 * head_dim * f_tot * 2)
 
 
 def _bucket(n, buckets):
@@ -71,24 +98,42 @@ class ServingEngine:
                  prefill_buckets=(64, 128, 256, 512, 1024),
                  cache_dtype=None, fused_head=None, tail_window=None,
                  device="cuda", mesh=None, paged=False, page_size=64,
-                 pool_pages=None, spec_draft=0):
+                 pool_pages=None, spec_draft=0, spec_ngram=3,
+                 spec_adaptive="auto", spec_k_adaptive=True):
         """``tail_window``: None picks the window by the reference's gate
         (16 for an int8 cache where it applies), 0 disables it, n > 0
         forces depth n (int8 caches only). ``paged``: a block-paged cache
         of ``page_size``-token pages, ``pool_pages`` of them (default one
         slot's worth per slot plus the garbage page). ``device``: "cuda"
-        (default) or "cpu"; ``params`` must lie on it."""
-        for value, what, item in (
-                (mesh, "meshes", "Queue 1 item 14, parallel/"),
-                (spec_draft, "speculative decoding", "Queue 1 item 11")):
-            if value:
-                raise NotImplementedError(
-                    f"{what} are not ported yet (ROADMAP.md {item})")
+        (default) or "cpu"; ``params`` must lie on it.
+
+        ``spec_draft`` > 0: speculative decoding, drafting ``spec_draft``
+        tokens by ``spec_ngram``-gram lookup, greedy only, on a contiguous
+        cache without a tail window; with ``spec_k_adaptive`` the draft
+        length follows the acceptance (:meth:`_adapt_k`). Only
+        ``spec_adaptive=False`` (draft at every step) is ported. The
+        reference's default ``"auto"`` and ``True`` (the acceptance gate,
+        its probe budget and estimator) raise ``NotImplementedError``, so
+        a caller who does not ask for always-draft never gets a policy
+        other than the reference's."""
+        if mesh:
+            raise NotImplementedError(
+                "meshes are not ported yet (ROADMAP.md Queue 1, parallel/)")
         self.sampler = sampler or ArgMaxSampler()
         if not isinstance(self.sampler, ArgMaxSampler):
             raise NotImplementedError(
-                "only greedy sampling is ported (ROADMAP.md Queue 1 item 11, "
-                "per-request samplers)")
+                "only greedy sampling is ported (ROADMAP.md Queue 1, serving "
+                "breadth: samplers)")
+        if spec_draft:
+            if spec_adaptive is not False:
+                raise NotImplementedError(
+                    f"spec_adaptive={spec_adaptive!r}: the speculation gate "
+                    f"is not ported yet (ROADMAP.md Queue 1, speculative "
+                    f"gate); pass spec_adaptive=False to draft at every "
+                    f"step")
+            if paged:
+                raise ValueError("speculative mode needs a contiguous cache "
+                                 "(the reference's is unpaged too)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "
@@ -106,17 +151,22 @@ class ServingEngine:
 
         cfg = model.config
 
-        def tail_shape_ok():
-            # The reference's gate (engine.py:241-303) minus its TPU VMEM
-            # terms; the port's own limit is the tail kernel's shared
-            # memory (one score row of capacity + window floats).
-            if not flat_group_for(max_batch):
+        def tail_shape_ok(window=16):
+            # The reference's gate (engine.py:241-279) on one device.
+            h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            group = flat_group_for(max_batch)
+            if not group:
                 return False
-            if capacity >= 2048 and capacity % 128:
-                return False
-            return (capacity % 64 == 0
-                    and (cfg.n_kv_heads * cfg.head_dim) % 128 == 0
-                    and fits_shared_memory(cfg.head_dim, capacity, 16))
+            if capacity >= 2048:
+                if max_batch % 8 == 0 and max_batch >= 16:
+                    group = 8
+                if (capacity % 128
+                        or flat_vmem_bytes(h, d, kvh, group, 128, window)
+                        > FLAT_VMEM_BUDGET):
+                    return False
+            return (capacity % 64 == 0 and (kvh * d) % 128 == 0
+                    and (-(-h // 8) * 8) * d * kvh * d * 4
+                    <= E_MATRIX_BUDGET)
 
         self._tail_flush = 0
         if self.paged:
@@ -131,11 +181,11 @@ class ServingEngine:
             self.allocator = PagedKVCache.make_allocator(n_pages)
         else:
             if tail_window is not None:
-                if tail_window and not quantized_cache:
+                if tail_window and (not quantized_cache or spec_draft):
                     raise ValueError("tail_window requires a quantized "
-                                     "cache")
+                                     "cache and spec_draft == 0")
                 self._tail_flush = int(tail_window)
-            elif (quantized_cache and cfg.use_pallas
+            elif (quantized_cache and not spec_draft and cfg.use_pallas
                   and cfg.decode_attn in ("auto", "flat")
                   and tail_shape_ok()):
                 self._tail_flush = 16
@@ -166,6 +216,19 @@ class ServingEngine:
         self._ttfts = deque(maxlen=2048)
         self._itls = deque(maxlen=8192)
         self._admit_stalls = deque(maxlen=2048)
+
+        # Speculative decoding (engine.py:540-583): each slot's committed
+        # tokens, written at admission and by every step or burst.
+        self.spec_draft = spec_draft
+        self.spec_ngram = spec_ngram
+        if spec_draft:
+            self.spec_adaptive = spec_adaptive
+            self._spec_history = torch.zeros((max_batch, capacity),
+                                             dtype=torch.int32,
+                                             device=self.device)
+            self._k_adaptive = bool(spec_k_adaptive)
+            self._spec_k = spec_draft
+            self._spec_tps = None      # EMA of tokens per step and slot
 
     # -- device programs -----------------------------------------------------
 
@@ -310,6 +373,16 @@ class ServingEngine:
             self._device_tokens[torch.as_tensor(
                 slots, device=self.device)] = firsts
         firsts_np = firsts.cpu().numpy()
+        if self.spec_draft:
+            # Each admitted slot's history: the prompt, then its first
+            # token (engine.py:896-903).
+            rows = np.zeros((g_n, self.capacity), np.int32)
+            for gi, (req, _) in enumerate(group_pairs):
+                rows[gi, :len(req.prompt_ids)] = req.prompt_ids
+                rows[gi, len(req.prompt_ids)] = firsts_np[gi]
+            self._spec_history[torch.as_tensor(
+                slots, device=self.device)] = torch.from_numpy(rows).to(
+                    self.device)
         for gi, (req, slot) in enumerate(group_pairs):
             first = int(firsts_np[gi])
             req.tokens.append(first)
@@ -399,6 +472,8 @@ class ServingEngine:
             if self._tail_fill >= self._tail_flush:
                 self._host_flush()
         self._device_tokens = None
+        if self.spec_draft:
+            self._hist_write(nxt[None, :], lengths_np)
         emitted = self._commit_tokens(nxt.cpu().numpy()[None, :],
                                       lengths_np,
                                       [(s, self.slot_request[s])
@@ -433,11 +508,26 @@ class ServingEngine:
             if fl and (i + 1) % fl == 0:
                 self.cache = self.cache.flush_tail(fl)
         self._device_tokens = tokens
+        outs = torch.stack(outs)
+        if self.spec_draft:
+            self._hist_write(outs, lengths_np)
         self._host_lengths += n
         if fl:
             self._tail_fill = n % fl
         snapshot = [(s, self.slot_request[s]) for s in active]
-        return torch.stack(outs), snapshot, lengths_np, n
+        return outs, snapshot, lengths_np, n
+
+    def _hist_write(self, toks, lengths_np):
+        """Write a plain step's or burst's tokens [n, B] into the
+        speculative history after each slot's pre-burst depth
+        (engine.py:585-593), so a later speculative burst drafts from, and
+        verifies after, the committed stream."""
+        n, b = toks.shape
+        start = torch.clamp(torch.from_numpy(lengths_np + 1), 0,
+                            self.capacity - n).to(self.device)
+        cols = start[:, None] + torch.arange(n, device=self.device)[None, :]
+        self._spec_history[torch.arange(b, device=self.device)[:, None],
+                           cols] = toks.T.to(torch.int32)
 
     def step_burst(self, n: int) -> int:
         """Admit, run ``n`` decode steps on the device, then do the host
@@ -451,6 +541,88 @@ class ServingEngine:
                                       snapshot)
         self._count(emitted, n)
         return emitted
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _commit_spec(self, toks_np, counts_np, lengths_np, snapshot) -> int:
+        """Deliver a speculative burst (engine.py:1198-1225): ``toks_np``
+        [n, B, k+1] greedy rows, ``counts_np`` [n, B] accepted counts with
+        the bonus token; each step commits the first ``counts`` entries of
+        its row."""
+        emitted = 0
+        for slot, req in snapshot:
+            if self.slot_request[slot] is not req:
+                continue
+            base, off = int(lengths_np[slot]), 0
+            for i in range(toks_np.shape[0]):
+                c = int(counts_np[i, slot])
+                for j in range(c):
+                    token = int(toks_np[i, slot, j])
+                    req.tokens.append(token)
+                    req.metrics.step()
+                    emitted += 1
+                    self.current_tokens[slot] = token
+                    self._finish_if_done(slot, token,
+                                         length=base + off + j + 1)
+                    if self.slot_request[slot] is None:
+                        break
+                off += c
+                if self.slot_request[slot] is None:
+                    break
+        return emitted
+
+    def step_spec_burst(self, n: int) -> int:
+        """Admit, then run ``n`` speculative steps on the device (each
+        emits 1..k+1 tokens per slot) with one host sync
+        (engine.py:1227-1293). Returns the tokens emitted to live
+        requests."""
+        self._admit()
+        active = self._active()
+        if not active:
+            return 0
+        lengths_np = self._host_lengths.copy()
+        k = self._spec_k if self._k_adaptive else self.spec_draft
+        # Every step may accept everything: keep (k + 1) * n inside the
+        # cache (the chunk append clamps, so tokens past it are garbage).
+        headroom = self.capacity - 1 - max(int(lengths_np[s])
+                                           for s in active)
+        n = min(n, max(1, headroom // (k + 1)))
+        burst = make_spec_burst(self.model, self.spec_ngram, k)
+        t0 = time.perf_counter()
+        self._spec_history, self.cache, toks, counts, last = burst(
+            self.params, self._spec_history, self.cache, n)
+        self._device_tokens = last
+        counts_np = counts.cpu().numpy()
+        toks_np = toks.cpu().numpy()
+        wall = time.perf_counter() - t0
+        c = self.counters
+        c["spec_bursts"] = c.get("spec_bursts", 0) + 1
+        c["spec_steps"] = c.get("spec_steps", 0) + n
+        c["spec_wall_s"] = round(c.get("spec_wall_s", 0.0) + wall, 4)
+        self._host_lengths += counts_np.sum(axis=0)
+        emitted = self._commit_spec(toks_np, counts_np, lengths_np,
+                                    [(s, self.slot_request[s])
+                                     for s in active])
+        # Acceptance from live emissions only: a finished slot keeps
+        # accepting its own stale drafts.
+        tps = emitted / (n * len(active))
+        self._spec_tps = (tps if self._spec_tps is None
+                          else 0.6 * self._spec_tps + 0.4 * tps)
+        self._adapt_k()
+        self._count(emitted, n)
+        return emitted
+
+    def _adapt_k(self):
+        """The draft-length ladder (engine.py:1463-1477): shrink below 35%
+        of the drafts accepted, regrow above 70%."""
+        if not (self._k_adaptive and self.spec_draft > 1) \
+                or self._spec_tps is None:
+            return
+        frac = (self._spec_tps - 1.0) / max(self._spec_k, 1)
+        if frac < 0.35 and self._spec_k > 1:
+            self._spec_k -= 1
+        elif frac > 0.70 and self._spec_k < self.spec_draft:
+            self._spec_k += 1
 
     def _count(self, emitted, steps):
         c = self.counters
@@ -484,6 +656,12 @@ class ServingEngine:
         if self._admit_stalls:
             out["admit_stall_max_ms"] = round(
                 1000 * max(self._admit_stalls), 2)
+        if self.spec_draft:
+            out["spec_on"] = True       # always-draft: no gate turns it off
+            out["spec_adaptive"] = self.spec_adaptive
+            out["spec_k"] = self._spec_k
+            if self._spec_tps is not None:
+                out["spec_tokens_per_step"] = round(self._spec_tps, 2)
         return out
 
     def _pending(self) -> bool:
@@ -492,13 +670,17 @@ class ServingEngine:
 
     def run(self, requests=None, max_steps=100000, burst=1):
         """Drive the engine until every request completes; ``burst`` > 1
-        decodes that many tokens per host sync."""
+        decodes that many tokens per host sync. A speculative engine runs
+        speculative bursts of ``burst`` steps (engine.py:1556-1606 with
+        ``spec_adaptive=False``)."""
         for req in requests or ():
             if req not in self.queue and not req.done:
                 self.queue.append(req)
         steps = 0
         while self._pending() and steps < max_steps:
-            if burst > 1:
+            if self.spec_draft:
+                self.step_spec_burst(max(burst, 1))
+            elif burst > 1:
                 self.step_burst(burst)
             else:
                 self.step()

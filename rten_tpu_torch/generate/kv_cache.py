@@ -88,21 +88,23 @@ class KVCache:
 
         ``position``: an int → the same offset for every sequence
         (prefill, a tensor write, as the reference leaves it to XLA);
-        None → a single-token decode append at per-sequence offsets from
+        None with T == 1 → a decode append at per-sequence offsets from
         ``lengths``, clamped so a finished slot that keeps decoding writes
         inside the buffer (``min(lengths, cap - 1)``, as
         kv_cache.py:188,537): into the window at slot ``tail_count`` for a
         tail cache, else through ``kv_append`` (float caches) or
-        ``kv_append_int8``. Multi-token appends at per-sequence offsets
-        (chunked verify) are not ported yet."""
+        ``kv_append_int8``; None with T > 1 → a chunk (speculative verify)
+        at per-sequence offsets ``min(lengths, cap - T)``, where the
+        reference's ``dynamic_update_slice`` clamps (kv_cache.py:194,
+        539-543), written into the cache itself, a tail cache's too."""
         b, kvh, t, d = k_new.shape
         buf = self.kv[layer]
-        if position is None:
-            if t != 1:
-                raise NotImplementedError(
-                    "multi-token appends at per-sequence depths (chunked "
-                    "verify) are not ported yet (ROADMAP.md Queue 1 item 11, "
-                    "speculative decoding)")
+        if position is None and t > 1:
+            start = torch.clamp(self.lengths.to(torch.int64), 0,
+                                buf.shape[1] - t)
+            position = (torch.arange(b, device=buf.device)[:, None],
+                        start[:, None] + torch.arange(t, device=buf.device))
+        elif position is None:
             if self.tail is not None:
                 if self.tail_count >= self.tail[layer].shape[1]:
                     raise RuntimeError("tail window full: flush_tail first")
@@ -115,6 +117,10 @@ class KVCache:
             else:
                 kv_append(buf, k_new, v_new, self.lengths)
             return self
+        # ``position``: an int, or the (sequence, token) index pair of a
+        # chunk at per-sequence depths.
+        where = ((slice(None), slice(position, position + t))
+                 if isinstance(position, int) else position)
         k_t = k_new.transpose(1, 2)                     # [B, T, KVH, D]
         v_t = v_new.transpose(1, 2)
         if self.quantized:
@@ -122,13 +128,12 @@ class KVCache:
             vq, vs = quantize_tokens(v_t)
             rows = torch.stack([kq.reshape(b, t, kvh * d),
                                 vq.reshape(b, t, kvh * d)], dim=2)
-            self.scales[layer][:, position:position + t] = torch.stack(
-                [ks, vs], dim=2)                        # [B, T, 2, KVH]
+            self.scales[layer][where] = torch.stack([ks, vs], dim=2)
         else:
             rows = torch.stack([k_t.reshape(b, t, kvh * d),
                                 v_t.reshape(b, t, kvh * d)],
                                dim=2).to(buf.dtype)
-        buf[:, position:position + t] = rows
+        buf[where] = rows
         return self
 
     def insert_group(self, other: "KVCache", slots, lengths):

@@ -117,8 +117,9 @@ class PagedKVCache:
             if t != 1:
                 raise NotImplementedError(
                     "multi-token appends at per-sequence depths (chunked "
-                    "verify) are not ported yet (ROADMAP.md Queue 1 item "
-                    "11, speculative decoding)")
+                    "verify) on a paged cache are not ported yet "
+                    "(ROADMAP.md Queue 1, serving breadth: chunked verify "
+                    "on paged caches)")
             if self.quantized:
                 kv_append_paged_int8(pool, self.scales[layer], k_new, v_new,
                                      self.page_table, self.lengths)
@@ -231,7 +232,7 @@ class _PageAllocator:
         if partitions != 1:
             raise NotImplementedError(
                 "partitioned page pools (meshes) are not ported yet "
-                "(ROADMAP.md Queue 1 item 14, parallel/)")
+                "(ROADMAP.md Queue 1, parallel/)")
         if n_pages < 2:
             raise ValueError("the pool needs its reserved garbage page and "
                              "a data page")

@@ -1,6 +1,6 @@
 """Token samplers (port of ``rten_tpu/generate/sampler.py``). This slice is
-greedy-only; the per-request samplers come with ROADMAP.md Queue 1 item 11
-(serving breadth) and will take explicit ``torch.Generator``s."""
+greedy-only; the per-request samplers come with ROADMAP.md Queue 1, serving
+breadth: samplers, and will take explicit ``torch.Generator``s."""
 
 from __future__ import annotations
 

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("decode_attn_int8_tail", "head_argmax_int8", "tail_flush_int8",
            "matmul_int8_wo", "kv_append", "decode_attn_float",
            "kv_append_int8", "kv_append_paged", "decode_attn_paged",
-           "matmul_int4")
+           "matmul_int4", "verify_attn")
 # No -use_fast_math: the int8 writers (tail_flush_int8, kv_append_int8,
 # kv_append_paged) and matmul_int4's int8 activations must reproduce IEEE
 # division and round-half-even bit for bit.

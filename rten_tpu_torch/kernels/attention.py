@@ -20,6 +20,10 @@
   kernel on paged addressing) replace ``flash_decode_paged_grouped``
   (:2272) in its float and int8 modes and ``flash_decode_paged`` (:2573):
   decode attention over a block-paged pool through the page table.
+* ``verify_attn_grouped`` and ``verify_attn_fused`` (CUDA,
+  ``csrc/verify_attn.cu``, one kernel, V1) replace ``flash_verify_grouped``
+  (:1957) and ``flash_verify_fused`` (:2394): S speculative-verify queries
+  per sequence, causal within the chunk, over a float or int8 cache.
 """
 
 from __future__ import annotations
@@ -51,11 +55,24 @@ def attn_reference(q, k, v, causal, scale, lengths=None):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-def fits_shared_memory(head_dim, capacity, window):
-    """Whether the kernel's shared memory (q, one score per cached and
-    window token, one partial per thread, all f32) fits the 48 KB a block
-    gets without opting in to more."""
-    return 4 * (head_dim + capacity + window + 128) <= 48 * 1024
+# The int8 kernel aims for this many blocks: with fewer (head, sequence)
+# pairs, each sequence's tokens split into chunks of about INT8_MIN_CHUNK
+# or more that blocks of their own read, merged by a second launch.
+INT8_TARGET_BLOCKS = 4096
+INT8_MIN_CHUNK = 128
+
+
+def int8_chunks(batch, heads, n_max):
+    """(chunk, splits) of the int8 kernel for sequences of up to ``n_max``
+    tokens (capacity plus window rows): the tokens of a sequence split
+    into ``splits`` chunks of ``chunk`` tokens, a multiple of the 64 that
+    one pass of the block's four warps covers."""
+    n_max = max(n_max, 1)
+    splits = max(1, min(-(-n_max // INT8_MIN_CHUNK),
+                        INT8_TARGET_BLOCKS // max(batch * heads, 1)))
+    per_split = -(-n_max // splits)
+    chunk = -(-per_split // 64) * 64
+    return chunk, -(-n_max // chunk)
 
 
 def flat_group_for(batch):
@@ -143,20 +160,21 @@ def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale):
                                      tail_count)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    _build.require(d % 16 == 0 and 128 % d == 0, name,
-                   f"head_dim {d} must divide 128 and be a multiple of 16")
-    _build.require(fits_shared_memory(d, cap, rows), name,
-                   f"capacity {cap} + window {rows} exceed shared memory")
+    _build.require(d in (64, 128), name, f"head_dim {d} must be 64 or 128")
     tensors = (q, kv, scales, lengths) + (() if tail is None else (tail,))
     _build.require(all(x.is_contiguous() for x in tensors), name,
                    "tensors must be contiguous")
     out = torch.empty_like(q)
+    chunk, splits = int8_chunks(b, h, cap + rows)
+    part = (torch.empty((b, h, splits, d + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     fn = _build.function("decode_attn_int8_tail", "decode_attn_int8_tail",
-                         "ppppppiiiiiiifp")
+                         "pppppppiiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
              lengths.data_ptr(), None if tail is None else tail.data_ptr(),
-             out.data_ptr(), b, h, kvh, d, cap, rows, tail_count,
-             float(scale), _build.stream())
+             out.data_ptr(), None if part is None else part.data_ptr(), b,
+             h, kvh, d, cap, rows, tail_count, chunk, splits, float(scale),
+             _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
     return out
@@ -290,9 +308,10 @@ def decode_attn_float(q, kv, lengths, scale=None):
 decode_attn_float.launches = 0
 
 
-def paged_group_for(batch):
-    """The reference's group width for paged decode
-    (``rten_tpu/models/transformer.py:504-505``); 0 means the batch has no
+def group_for(batch):
+    """The reference's group width in (8, 4, 2) for a batch: paged decode
+    (``rten_tpu/models/transformer.py:504-505``), chunked verify (:757-758)
+    and the float mode of the flat kernel (:358); 0 means the batch has no
     group."""
     return next((g for g in (8, 4, 2) if batch % g == 0 and batch >= 2 * g),
                 0)
@@ -456,3 +475,136 @@ def decode_attn_paged_int8(q, pool, scales, table, lengths, scale=None):
 
 
 decode_attn_paged_int8.launches = 0
+
+
+VERIFY_MAX_S = 8                   # verify chunk: the last token + 7 drafts
+
+
+def _check_verify(name, q, kv, scales, lengths):
+    """Shapes of the verify kernel's arguments; ``scales`` None is a float
+    cache."""
+    _build.require(q.dim() == 4 and q.dtype == torch.float32, name,
+                   "q must be f32 [B, S, H, D]")
+    b, s, h, d = q.shape
+    _build.require(1 <= s <= VERIFY_MAX_S, name,
+                   f"S={s} outside 1..{VERIFY_MAX_S}")
+    dtypes = FLOAT_CACHE_DTYPES if scales is None else (torch.int8,)
+    _build.require(kv.dim() == 4 and kv.shape[0] == b and kv.shape[2] == 2
+                   and kv.dtype in dtypes, name,
+                   "kv must be [B, cap, 2, KVH*D], f32 or bf16 (int8 with "
+                   "scales)")
+    cap, f = kv.shape[1], kv.shape[3]
+    _build.require(f % d == 0 and h % (f // d) == 0, name,
+                   "kv row width must be KVH*D with H a multiple of KVH")
+    kvh = f // d
+    if scales is not None:
+        _build.require(scales.shape == (b, cap, 2, kvh)
+                       and scales.dtype == torch.bfloat16, name,
+                       "scales must be bf16 [B, cap, 2, KVH]")
+    _build.require(lengths.shape == (b,) and lengths.dtype == torch.int32,
+                   name, "lengths must be int32 [B]")
+    return b, s, h, d, kvh, cap
+
+
+def _verify_plain(name, q, kv, scales, lengths, scale):
+    """The verify contract in plain PyTorch (the reference's
+    ``_chunk_reference`` with the int8 rule): query i of sequence b reads
+    rows ``t < lengths[b] + i + 1``; an exact two-pass softmax in f32."""
+    b, s, h, d, kvh, cap = _check_verify(name, q, kv, scales, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    rep = h // kvh
+    x = kv.reshape(b, cap, 2, kvh, d).to(torch.float32)
+    k = x[:, :, 0].repeat_interleave(rep, dim=2)           # [B, cap, H, D]
+    v = x[:, :, 1].repeat_interleave(rep, dim=2)
+    sc = torch.einsum("bshd,bchd->bhsc", q, k) * scale
+    if scales is not None:
+        sf = scales.to(torch.float32).repeat_interleave(rep, dim=3)
+        sc = sc * sf[:, :, 0].transpose(1, 2)[:, :, None, :]
+    limit = (lengths.to(torch.int64)[:, None] + 1
+             + torch.arange(s, device=q.device)[None, :])   # [B, S]
+    valid = torch.arange(cap, device=q.device)[None, None, :] < limit[..., None]
+    sc = sc.masked_fill(~valid[:, None], -math.inf)
+    m = sc.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # no row
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if scales is not None:
+        p = p * sf[:, :, 1].transpose(1, 2)[:, :, None, :]
+    out = torch.einsum("bhsc,bchd->bhsd", p, v) / torch.clamp(l, min=1e-30)
+    return out.transpose(1, 2).contiguous()
+
+
+def _launch_verify(wrapper, q, kv, scales, lengths, scale):
+    """The verify kernel on CUDA tensors in both modes; counts the launch
+    on ``wrapper`` and in its mode."""
+    name = wrapper.__name__
+    b, s, h, d, kvh, cap = _check_verify(name, q, kv, scales, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d in (64, 128), name, f"head_dim {d} must be 64 or 128")
+    tensors = (q, kv, lengths) + (() if scales is None else (scales,))
+    _build.require(all(x.is_contiguous() for x in tensors), name,
+                   "tensors must be contiguous")
+    out = torch.empty_like(q)
+    kind = 2 if scales is not None else int(kv.dtype == torch.bfloat16)
+    fn = _build.function("verify_attn", "verify_attn", "pppppiiiiiiifp")
+    err = fn(q.data_ptr(), kv.data_ptr(),
+             None if scales is None else scales.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), b, s, h, kvh, d, cap, kind,
+             float(scale), _build.stream())
+    _build.check(err, name)
+    wrapper.launches += 1
+    wrapper.mode_launches["float" if scales is None else "int8"] += 1
+    return out
+
+
+def verify_attn_grouped_plain(q, kv, lengths, scales=None, scale=None):
+    """Plain PyTorch version of ``verify_attn_grouped`` (same contract)."""
+    return _verify_plain("verify_attn_grouped", q, kv, scales, lengths,
+                         scale)
+
+
+def verify_attn_grouped(q, kv, lengths, scales=None, scale=None):
+    """Chunked-verify attention, the contract of ``flash_verify_grouped``
+    (the reference takes it for a batch with a group in (8, 4, 2)).
+
+    q f32 [B, S, H, D], S <= 8, at positions ``lengths .. lengths + S - 1``
+    (the chunk is already appended); kv [B, cap, 2, KVH*D] f32 or bf16, or
+    int8 with ``scales`` bf16 [B, cap, 2, KVH] (the int8 mode: score =
+    ((q . k_int8) * scale) * k_scale, the softmax sum over the unscaled p,
+    V weighted by p * v_scale); lengths int32 [B], the counts before the
+    chunk. Query i reads rows ``t < min(lengths + i + 1, cap)``; scores,
+    softmax and sums in f32, no bf16 rounding. Returns f32 [B, S, H, D].
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. Launches count in ``launches`` and per mode in
+    ``mode_launches``."""
+    name = "verify_attn_grouped"
+    extra = () if scales is None else (scales,)
+    if _build.on_cpu(name, q, kv, lengths, *extra):
+        return verify_attn_grouped_plain(q, kv, lengths, scales, scale)
+    return _launch_verify(verify_attn_grouped, q, kv, scales, lengths, scale)
+
+
+verify_attn_grouped.launches = 0
+verify_attn_grouped.mode_launches = {"float": 0, "int8": 0}
+
+
+def verify_attn_fused_plain(q, kv, lengths, scales=None, scale=None):
+    """Plain PyTorch version of ``verify_attn_fused`` (same contract)."""
+    return _verify_plain("verify_attn_fused", q, kv, scales, lengths, scale)
+
+
+def verify_attn_fused(q, kv, lengths, scales=None, scale=None):
+    """``verify_attn_grouped``'s contract for the batches the reference
+    sends to ``flash_verify_fused`` (no group: 1-3 and odd). The kernel of
+    ``verify_attn_grouped``, with launch counts of its own."""
+    name = "verify_attn_fused"
+    extra = () if scales is None else (scales,)
+    if _build.on_cpu(name, q, kv, lengths, *extra):
+        return verify_attn_fused_plain(q, kv, lengths, scales, scale)
+    return _launch_verify(verify_attn_fused, q, kv, scales, lengths, scale)
+
+
+verify_attn_fused.launches = 0
+verify_attn_fused.mode_launches = {"float": 0, "int8": 0}

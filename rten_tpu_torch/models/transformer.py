@@ -17,14 +17,16 @@ cache through ``decode_attn_float``; an int8 cache without a tail, at a
 batch with a flat group, through ``decode_attn_int8``. A block-paged cache
 (:meth:`TransformerLM.new_paged_cache`) follows
 ``_pallas_paged_decode_attn`` (transformer.py:495-524): see
-:func:`_paged_decode_attn`.
+:func:`_paged_decode_attn`. Chunked verify (:meth:`TransformerLM.
+verify_step`, speculative decoding) follows transformer.py:741-772: see
+:func:`_verify_attn`.
 
-Not ported yet, and raising ``NotImplementedError``: bf16 compute,
-``scan_layers``, ``fused_append`` and chunked verify (ROADMAP.md Queue 1
-item 11), MoE (item 13), meshes (item 14), and the grouped/fused int8
-decode kernels that the reference takes for a contiguous int8 cache
-without a tail at a batch with no flat group, or when ``decode_attn`` asks
-for them (ROADMAP.md Queue 2 items 9 and 10).
+Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP.md
+item: bf16 compute, ``scan_layers``, MoE, ``fused_append``, the float mode
+of ``flash_decode_flat`` (``decode_attn="flat"`` on a float cache), and the
+grouped/fused int8 decode kernels that the reference takes for a
+contiguous int8 cache without a tail at a batch with no flat group, or
+when ``decode_attn`` asks for them.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ from ..kernels.attention import (attn_reference, decode_attn_float,
                                  decode_attn_int8, decode_attn_int8_tail,
                                  decode_attn_paged, decode_attn_paged_grid,
                                  decode_attn_paged_int8, flat_group_for,
-                                 paged_group_for)
+                                 group_for, verify_attn_fused,
+                                 verify_attn_grouped)
 from ..kernels.gemm import (head_argmax_int8, matmul_int4, matmul_int4_words,
                             matmul_int4_words_int8, matmul_int8,
                             matmul_int8_wo, pad_cols)
@@ -112,13 +115,17 @@ class TransformerConfig:
 
 def _check_supported(cfg: TransformerConfig):
     unported = [
-        (cfg.n_experts > 0, "MoE", "Queue 1 item 13, moe.py"),
-        (cfg.scan_layers, "scan_layers", "Queue 1 item 11"),
-        (cfg.dtype != "float32", "bf16 compute", "Queue 1 item 11"),
-        (cfg.fused_append, "fused_append", "Queue 1 item 11"),
+        (cfg.n_experts > 0, "MoE", "Queue 1, serving breadth: MoE"),
+        (cfg.scan_layers, "scan_layers",
+         "Queue 1, serving breadth: bf16 compute and scan_layers"),
+        (cfg.dtype != "float32", "bf16 compute",
+         "Queue 1, serving breadth: bf16 compute and scan_layers"),
+        (cfg.fused_append, "fused_append",
+         "Queue 2, flash_decode_grouped_append"),
         # The reference reads it only in the int8 grouped decode modes.
         (not cfg.quant_int8_scores, "quant_int8_scores=False",
-         "Queue 2 item 9"),
+         "Queue 2, int8 modes of flash_decode_grouped and "
+         "flash_decode_fused"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -366,9 +373,13 @@ class TransformerLM:
                 cache.tail_count + 1)
         return _cache_decode_attn(self.config, q3, cache, layer_idx)
 
-    def _attention(self, layer_params, x, cache, layer_idx, rope=None):
+    def _attention(self, layer_params, x, cache, layer_idx, rope=None,
+                   chunk=False):
         """``rope``: the (cos, sin) tables of :func:`_rope_tables`, applied
-        to q and k after the QKV split (transformer.py:626-628)."""
+        to q and k after the QKV split (transformer.py:626-628). ``chunk``:
+        the S tokens are a verify chunk appended at each sequence's depth
+        and attending to the whole cache (transformer.py:664-671,741-772);
+        a one-token chunk is a decode step, as in the reference."""
         cfg = self.config
         b, s, _ = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -381,10 +392,12 @@ class TransformerLM:
             q, k = _rope(q, *rope), _rope(k, *rope)
         if cache is not None:
             cache = cache.append(layer_idx, k, v,
-                                 position=None if s == 1 else 0)
+                                 position=None if chunk or s == 1 else 0)
         if s == 1 and cache is not None:
             out = self._decode_attn(q[:, :, 0].contiguous(), cache,
                                     layer_idx)[:, :, None]
+        elif chunk and cache is not None:
+            out = _verify_attn(cfg, q, cache, layer_idx)
         else:
             if kvh != h:
                 k = k.repeat_interleave(h // kvh, dim=1)
@@ -404,14 +417,16 @@ class TransformerLM:
         return linear(hidden, layer_params["w_down"],
                       layer_params.get("b_down"))
 
-    def _hidden_states(self, params, tokens, cache=None):
+    def _hidden_states(self, params, tokens, cache=None, chunk=False):
         """The stack through the final norm. Returns (hidden [B, S, D],
-        advanced cache)."""
+        the cache advanced by S, or with its lengths unchanged for a
+        ``chunk`` of S > 1)."""
         cfg = self.config
         tokens = tokens.to(torch.int64)
         b, s = tokens.shape
-        if cache is not None and s == 1:
-            positions = cache.lengths[:, None].to(torch.int64)
+        if cache is not None and (s == 1 or chunk):
+            positions = (cache.lengths[:, None].to(torch.int64)
+                         + torch.arange(s, device=tokens.device)[None, :])
         else:
             positions = torch.arange(s, device=tokens.device)[None, :]
         x = params["embed"][tokens]
@@ -427,13 +442,14 @@ class TransformerLM:
         x = x.to(torch.float32)
         for i, layer in enumerate(params["layers"]):
             attn_in = _norm(cfg, x, layer["ln1_scale"], layer.get("ln1_bias"))
-            attn_out, cache = self._attention(layer, attn_in, cache, i, rope)
+            attn_out, cache = self._attention(layer, attn_in, cache, i, rope,
+                                              chunk)
             x = x + attn_out
             mlp_in = _norm(cfg, x, layer["ln2_scale"], layer.get("ln2_bias"))
             x = x + self._mlp(layer, mlp_in)
         x = _norm(cfg, x, params["ln_f_scale"], params.get("ln_f_bias"))
-        if cache is not None:
-            cache = cache.advance(1 if s == 1 else s)
+        if cache is not None and (s == 1 or not chunk):
+            cache = cache.advance(s)
         return x, cache
 
     def _head(self, params, x):
@@ -444,15 +460,19 @@ class TransformerLM:
         return logits.to(torch.float32)
 
     def forward(self, params, tokens, cache=None, chunk=False):
-        """tokens [B, S] int64/int32. Returns (logits [B, S, V], cache)."""
-        if chunk:
-            raise NotImplementedError(
-                "chunked verify is not ported yet (ROADMAP.md Queue 1 "
-                "item 11, speculative decoding)")
-        x, cache = self._hidden_states(params, tokens, cache)
+        """tokens [B, S] int64/int32. Returns (logits [B, S, V], cache);
+        ``chunk``: see :meth:`verify_step`."""
+        x, cache = self._hidden_states(params, tokens, cache, chunk)
         return self._head(params, x), cache
 
     def verify_step(self, params, tokens, cache):
+        """Speculative-decoding verification (transformer.py:1293-1302):
+        ``tokens`` [B, S], each row the last committed token and S - 1
+        drafts, appended at each sequence's depth; the S queries attend to
+        the whole cache. Returns (logits [B, S, V], the cache with its
+        lengths unchanged): the caller advances each sequence by its
+        accepted count, and rows past it are overwritten by later appends
+        and masked until then."""
         return self.forward(params, tokens, cache, chunk=True)
 
     # -- serving entry points ---------------------------------------------
@@ -538,7 +558,7 @@ def _paged_decode_attn(cfg, q3, cache, layer_idx):
     (``decode_attn_paged_grid``)."""
     lengths = cache.lengths + 1
     pool, table = cache.fused_layer(layer_idx), cache.page_table
-    if (paged_group_for(q3.shape[0])
+    if (group_for(q3.shape[0])
             and cfg.decode_attn in ("auto", "grouped")):
         if cache.quantized:
             return decode_attn_paged_int8(q3, pool, cache.scales[layer_idx],
@@ -571,7 +591,17 @@ def _cache_decode_attn(cfg, q3, cache, layer_idx):
                          "attention picked a reader without the window — "
                          "only the tail kernel reads it")
     lengths = cache.lengths + 1
+    b = q3.shape[0]
     if not cache.quantized:
+        # decode_attn "flat" at a batch with a float group takes the float
+        # mode of flash_decode_flat (q rounded to bf16), which is not
+        # ported; "stream" (flash_decode_stream) has K6's numerics and is
+        # held against it by tests/test_torch_decode_paths.py.
+        if cfg.decode_attn == "flat" and group_for(b):
+            raise NotImplementedError(
+                f"decode_attn='flat' on a float cache at batch {b} takes "
+                f"the float mode of flash_decode_flat, which is not ported "
+                f"yet (ROADMAP.md Queue 2, flash_decode_flat float mode)")
         return decode_attn_float(q3, cache.kv[layer_idx], lengths)
     cap = cache.capacity
     flat = (cfg.decode_attn in ("auto", "flat")
@@ -582,7 +612,28 @@ def _cache_decode_attn(cfg, q3, cache, layer_idx):
             f"decode on an int8 cache without a tail window at batch "
             f"{q3.shape[0]}, capacity {cap}, decode_attn="
             f"{cfg.decode_attn!r} takes the reference's grouped/fused int8 "
-            f"kernel, which is not ported yet (ROADMAP.md Queue 2 items 9 "
-            f"and 10)")
+            f"kernel, which is not ported yet (ROADMAP.md Queue 2, int8 "
+            f"modes of flash_decode_grouped and flash_decode_fused)")
     return decode_attn_int8(q3, cache.kv[layer_idx], cache.scales[layer_idx],
                             lengths)
+
+
+def _verify_attn(cfg, q, cache, layer_idx):
+    """Chunked-verify attention, chosen as the reference chooses
+    (transformer.py:741-772): a batch with a group in (8, 4, 2) and
+    ``decode_attn`` "auto" or "grouped" → ``verify_attn_grouped``, every
+    other batch → ``verify_attn_fused``; an int8 cache reads through the
+    int8 mode. q [B, H, S, D] → [B, H, S, D]. A paged cache raises from
+    its append before this runs; a tail cache raises here (its newest
+    tokens live in the window, which no verify kernel reads; the
+    reference's engine never builds one for speculation)."""
+    if cache.tail is not None:
+        raise ValueError("chunked verify on a cache with a tail window: "
+                         "the verify kernels do not read the window")
+    grouped = (group_for(q.shape[0])
+               and cfg.decode_attn in ("auto", "grouped"))
+    attend = verify_attn_grouped if grouped else verify_attn_fused
+    scales = cache.scales[layer_idx] if cache.quantized else None
+    out = attend(q.transpose(1, 2).contiguous(), cache.kv[layer_idx],
+                 cache.lengths, scales)
+    return out.transpose(1, 2)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from rten_tpu_torch.generate import ServingEngine
 from rten_tpu_torch.kernels import attention as at
 from rten_tpu_torch.kernels import cache as kc
 from rten_tpu_torch.kernels import gemm as pg
@@ -622,3 +623,101 @@ def test_int4_kernels_refuse_mixed_devices(gen, mode):
     with pytest.raises(ValueError, match="all on"):
         wrapper(x, packed.cpu(), scales.cpu())
     assert wrapper.launches == before
+
+
+# -- the int8 kernel at long capacities, chunked verify -----------------------
+
+@pytest.mark.parametrize("tail_count", [0, 5])
+@pytest.mark.parametrize("b,h,kvh,cap", [(4, 12, 12, 12288),
+                                         (4, 4, 4, 16384),
+                                         (2, 4, 2, 512)])
+def test_int8_kernel_past_the_old_capacity_limit(gen, b, h, kvh, cap,
+                                                 tail_count):
+    """K1 (with a window) and K1' (``tail_count`` 0) against their plain
+    versions at capacities above the 12,080 tokens that one shared-memory
+    score row allowed, where each sequence splits into chunks read by
+    blocks of their own (and at capacity 512, batch 2, where it splits
+    too); lengths 0 through past capacity."""
+    d, rows = 64, 8
+    kv, scales, tail = _cache(gen, b, cap, rows, kvh, d)
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    lengths = torch.tensor([cap + tail_count, 12200 % cap + tail_count, 0,
+                            cap - 1][:b], dtype=torch.int32, device="cuda")
+    chunk, splits = at.int8_chunks(b, h, cap + (rows if tail_count else 0))
+    assert splits > 1
+    if tail_count:
+        wrapper, args = at.decode_attn_int8_tail, (q, kv, scales, lengths,
+                                                   tail, tail_count)
+    else:
+        wrapper, args = at.decode_attn_int8, (q, kv, scales, lengths)
+    before = wrapper.launches
+    out = wrapper(*args)
+    ref = getattr(at, wrapper.__name__ + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.isfinite(out).all()
+    tol = 2.0 ** -6 * ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+
+
+def _verify_case(gen, b, s, h, kvh, d, cap, mode):
+    q = torch.randn((b, s, h, d), device="cuda", generator=gen)
+    if mode == "int8":
+        kv, scales, _ = _cache(gen, b, cap, 1, kvh, d)
+    else:
+        kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
+                         generator=gen).to(getattr(torch, mode))
+        scales = None
+    lengths = torch.tensor([cap - s, 0, 5, 37, 3, 61, 62, 64][:b],
+                           dtype=torch.int32, device="cuda")
+    return q, kv, lengths, scales
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b,s,h,kvh,d,cap", [
+    (8, 4, 12, 12, 64, 128), (3, 1, 4, 2, 64, 96), (1, 8, 4, 2, 128, 64),
+    (5, 5, 8, 2, 128, 2048), (2, 2, 2, 1, 64, 40)])
+def test_verify_attn_kernels_match_plain(gen, b, s, h, kvh, d, cap, mode):
+    """V1 through both entries against the plain version: S 1 to 8, GQA
+    and plain heads, head_dim 64 and 128, a chunk that ends at the
+    capacity, lengths 0 and ragged, f32, bf16 and int8 caches. Each entry
+    counts its launches in its mode."""
+    q, kv, lengths, scales = _verify_case(gen, b, s, h, kvh, d, cap, mode)
+    ref = at.verify_attn_grouped_plain(q, kv, lengths, scales)
+    key = "float" if scales is None else "int8"
+    for wrapper in (at.verify_attn_grouped, at.verify_attn_fused):
+        before = (wrapper.launches, dict(wrapper.mode_launches))
+        out = wrapper(q, kv, lengths, scales)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before[0] + 1
+        assert wrapper.mode_launches[key] == before[1][key] + 1
+        assert out.shape == (b, s, h, d) and torch.isfinite(out).all()
+        # f32 sums in other orders (S online softmaxes per warp against an
+        # exact two-pass softmax), nothing rounded to bf16: K6's 1e-5.
+        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b", [4, 3])
+def test_speculative_engine_on_the_card_matches_the_cpu(gen, b):
+    """The speculative engine (f32 weights, f32 cache) on the card gives
+    the CPU's tokens and the card's plain greedy tokens; batch 4 verifies
+    through verify_attn_grouped, batch 3 through verify_attn_fused."""
+    model = TransformerLM(TransformerConfig.tiny_test(n_heads=2,
+                                                      d_model=128))
+    prompts = [[1, 2, 3, 1, 2, 3, 1], [4, 5, 6, 7], [9, 10, 9, 10], [8]][:b]
+    outs = {}
+    before = (at.verify_attn_grouped.launches, at.verify_attn_fused.launches)
+    for dev in ("cpu", "cuda"):
+        params = model.init_params(3, device=dev)
+        kw = dict(max_batch=b, capacity=64, prefill_buckets=(16,),
+                  device=dev)
+        outs[dev] = ServingEngine(model, params, spec_draft=3,
+                                  spec_adaptive=False, **kw).generate(
+            prompts, max_new_tokens=12, burst=3)
+        if dev == "cuda":
+            outs["plain"] = ServingEngine(model, params, **kw).generate(
+                prompts, max_new_tokens=12)
+    assert outs["cuda"] == outs["cpu"] == outs["plain"]
+    grouped = at.verify_attn_grouped.launches - before[0]
+    fused = at.verify_attn_fused.launches - before[1]
+    assert (grouped > 0, fused > 0) == (b == 4, b == 3)

@@ -19,7 +19,8 @@ from rten_tpu.generate.engine import ServingEngine as JServingEngine
 from rten_tpu.generate.kv_cache import KVCache as JKVCache
 from rten_tpu.kernels.attention import (flash_decode_flat,
                                         flash_decode_fused,
-                                        flash_decode_grouped)
+                                        flash_decode_grouped,
+                                        flash_decode_stream)
 from rten_tpu.kernels.cache import cache_append, cache_append_quant
 from rten_tpu.models import transformer as jtr
 from rten_tpu_torch.generate import ServingEngine
@@ -160,6 +161,25 @@ def test_decode_attn_float_plain_matches_reference(kind, b, group, h, kvh,
     ref = np.asarray(ref)
     out = at.decode_attn_float(_t(q), pkv, _t(lengths))
     assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=FLOAT_ATTN_REL_TOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kvh", [(4, 4, 2), (3, 2, 2)])
+def test_decode_attn_float_plain_matches_flash_decode_stream(b, h, kvh,
+                                                             dtype):
+    """decode_attn="stream" on a float cache reaches K6: the plain K6
+    against flash_decode_stream (one program per sequence, blocks of 64
+    streamed) holds at K6's tolerance, with GQA and lengths 1 through
+    cap, on f32 and bf16 caches, so the route stays."""
+    rng = np.random.default_rng(70 + b + h)
+    cap = 128
+    q, jkv, lengths, pkv = _float_case(rng, b, h, kvh, cap, dtype)
+    ref = np.asarray(flash_decode_stream(jnp.asarray(q), jkv,
+                                         jnp.asarray(lengths), kvh,
+                                         block_k=64))
+    out = at.decode_attn_float(_t(q), pkv, _t(lengths))
     np.testing.assert_allclose(out.numpy(), ref, rtol=0,
                                atol=FLOAT_ATTN_REL_TOL * np.abs(ref).max())
 
@@ -312,10 +332,13 @@ def test_decode_step_logits_match_reference(models, cache):
 
 def test_decode_dispatch_follows_the_reference(models, monkeypatch):
     """Which wrapper a decode step reaches: a float cache → K6 at any
-    batch; an int8 cache without a tail at a batch with a flat group →
-    K1'; with no flat group, or decode_attn asking for the grouped, fused
-    or stream kernel, an int8 cache raises naming ROADMAP (no plain
-    fallback)."""
+    batch, with decode_attn "auto" or "stream"; with "flat" at a batch with
+    a group in (8, 4, 2) it raises naming ROADMAP (the reference takes the
+    unported float mode of flash_decode_flat there) and takes K6 at the
+    other batches (the reference's grouped/fused float kernels); an int8
+    cache without a tail at a batch with a flat group → K1'; with no flat
+    group, or decode_attn asking for the grouped, fused or stream kernel,
+    an int8 cache raises naming ROADMAP (no plain fallback)."""
     _, _, _, pps = models
     calls = []
     for name in ("decode_attn_float", "decode_attn_int8"):
@@ -345,6 +368,18 @@ def test_decode_dispatch_follows_the_reference(models, monkeypatch):
                                                        **CFG))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             step(pk, "int8", 4, quantized=True)
+    stream = TransformerLM(TransformerConfig.tiny_test(decode_attn="stream",
+                                                       **CFG))
+    flat = TransformerLM(TransformerConfig.tiny_test(decode_attn="flat",
+                                                     **CFG))
+    for b in (1, 3, 4):
+        assert step(stream, "f32", b) == {"decode_attn_float"}
+    for b in (1, 3):
+        assert step(flat, "f32", b) == {"decode_attn_float"}
+    for kw in (dict(), dict(cache_dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            step(flat, "f32", 4, **kw)
+    assert step(flat, "int8", 4, quantized=True) == {"decode_attn_int8"}
 
 
 # -- the engine ---------------------------------------------------------------

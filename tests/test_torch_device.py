@@ -108,7 +108,12 @@ def _kernel_args():
             "matmul_int4_words": (x4, words, s4),
             "matmul_int4_words_int8": (x4, words, s4),
             "matmul_int4": (x4, torch.zeros((128, 128), dtype=torch.uint8),
-                            s4)}
+                            s4),
+            # Chunked verify: 3 queries per sequence, int8 mode.
+            "verify_attn_grouped": (torch.zeros((b, 3, 4, d)), kv, lengths,
+                                    scales),
+            "verify_attn_fused": (torch.zeros((b, 3, 4, d)), kv, lengths,
+                                  scales)}
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.__name__)

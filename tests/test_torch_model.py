@@ -313,6 +313,37 @@ def test_engine_tail_gate_matches_reference(models):
                              device="cpu")._tail_flush == 0)
 
 
+# Configurations where the reference gate's E-matrix and long-capacity
+# terms decide (engine.py:260-279): (config, max_batch, capacity, whether
+# the reference serves a tail).
+GATE_CASES = {
+    # E = 24 * 64 * 1280 * 4 B = 7.9 MB > 4 MB: no tail.
+    "e_matrix": (dict(n_heads=20, d_model=1280, d_ff=64, n_layers=1), 4, 64,
+                 False),
+    # Capacity 12,288 at d 64, batch 16: a multiple of 128, the modeled
+    # buffers fit, so a tail (beyond the old kernel's shared-memory row).
+    "long_capacity": (dict(n_layers=1, **CFG), 16, 12288, True),
+}
+
+
+@pytest.mark.parametrize("case", list(GATE_CASES))
+def test_engine_tail_gate_long_capacity_and_e_matrix(case):
+    """The gate's E-matrix limit and its long-capacity terms give the
+    reference's outcome: both engines built side by side pick the same
+    tail window (random weights, one layer, vocabulary 128)."""
+    kw, batch, cap, tail = GATE_CASES[case]
+    jm = jtr.TransformerLM(jtr.TransformerConfig.tiny_test(**kw))
+    jp = jtr.quantize_weights(jm.init_params(jax.random.PRNGKey(0)))
+    pm = TransformerLM(TransformerConfig.tiny_test(**kw))
+    pp = params_from_numpy(_np_tree(jp), device="cpu")
+    engine_kw = dict(max_batch=batch, capacity=cap, prefill_buckets=(16,),
+                     quantized_cache=True)
+    ref = JServingEngine(jm, jp, **engine_kw)._tail_flush
+    got = ServingEngine(pm, pp, device="cpu", **engine_kw)._tail_flush
+    assert ref == (16 if tail else 0)
+    assert got == ref
+
+
 def test_unported_features_raise(models):
     _, _, pm, pp = models
     for kw in (dict(n_experts=4), dict(scan_layers=True),
@@ -327,6 +358,7 @@ def test_unported_features_raise(models):
     # Paged caches are ported; page pools partitioned over a mesh are not.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PagedKVCache.make_allocator(8, partitions=2)
+    # Chunked verify is ported on contiguous caches, not on paged ones.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pm.verify_step(pp, torch.zeros((2, 3), dtype=torch.int64),
-                       pm.new_cache(2, 64, device="cpu"))
+                       pm.new_paged_cache(2, 64, 16, 9, device="cpu"))
