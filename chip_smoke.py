@@ -29,7 +29,14 @@ Phases (any failure exits non-zero; nothing is caught):
    beside one decode query per sequence through K6 or K1' on the same
    cache; K1, K1' and K3 again at TinyLlama's shapes (batch 16, 32 heads
    over 4 KV heads, capacity 2048); K1 at capacity 16384 and K1' at 12288
-   (batch 4, lives past 12,100 tokens).
+   (batch 4, lives past 12,100 tokens). At path (H)'s shapes (32 query
+   heads over 8 KV heads of 128): F1 (``flash_attention``, B 16, S 512,
+   causal, f32; the library call f32 ``scaled_dot_product_attention(
+   is_causal=True)``), G1 (``decode_attn_grouped_int8``) with exact q at
+   capacity 4096 and with int8 scores at 1024 (its int32 dots held bit for
+   bit), G2 (``decode_attn_fused_int8``) at batch 3, and A1
+   (``decode_attn_grouped_append``) on a bf16 and an f32 cache (the write
+   held bit for bit against K5), lives 512-576.
 4. Serving paths, each ``ServingEngine`` at batch 256, capacity 512,
    64-token prompts, greedy, bursts of 21, after a warm-up serve; launch
    counts are set to 0 before each measured run and every kernel of the
@@ -77,6 +84,18 @@ Phases (any failure exits non-zero; nothing is caught):
    burst at batch 16, and two short serves of 16 requests x 16 tokens, one
    with the byte-packed weights (``matmul_int4`` must launch) and one with
    ``RTEN_INT4_DOT=int8`` (``matmul_int4_words_int8`` must launch).
+   Then path (H), Mistral-7B's shape (``TransformerConfig.mixtral(
+   n_experts=0)``: 32 layers, d_model 4096, 32 query heads over 8 KV
+   heads of 128) with random int4 words weights drawn and quantized on the
+   card layer by layer (``TransformerLM.init_int4_params``), through
+   ``ServingEngine(max_batch=16, capacity=4096, quantized_cache=True,
+   prefill_buckets=(512,))``: 24 requests of 512-token prompts x 64 new
+   tokens (two admission groups), F1 once per layer and prefill, G1 with
+   exact q and K7 once per layer and decode step, K1, K1' and K3 never;
+   a timed and a traced steady burst. Its variants at 4 layers: (H-fused)
+   ``max_batch=3`` (G2), (H-scores) ``decode_attn="grouped"`` at capacity
+   1024 (G1 with int8 scores) and (H-append) a bf16 cache with
+   ``fused_append=True`` (A1; K5 and K6 never).
 5. Card against CPU, for int8 + tail, (A) and (D): the same weights, 8
    requests of 8 tokens x 16 new tokens, on the card and with
    ``device="cpu"`` (plain versions), with the fused argmax head and with
@@ -85,7 +104,9 @@ Phases (any failure exits non-zero; nothing is caught):
    ``max_batch=3`` with 3 requests, a batch with no group, where the paged
    decode takes the grid kernel, which must launch there. For (F) at
    TinyLlama's width with 2 layers: 4 requests of 8 tokens x 16 new tokens,
-   logits + argmax (the int4 head has no fused argmax).
+   logits + argmax (the int4 head has no fused argmax). For (H) with 1
+   layer at full width: 4 requests of 128-token prompts (F1 on the card) x
+   9 new tokens (G1 each decode step), logits + argmax.
 
 Prints a ``{"kernels": [...]}`` JSON line (V1 with one entry per entry
 point and mode), then as the last line ``{"ok": true, "device": {...}}``.
@@ -177,6 +198,14 @@ LLAMA_PATH_LOGIT_TOL = 0.1
 # (paged attention) sum in f32 throughout like K6 (an int8 pool's bytes and
 # bf16 scales are exact in f32, and no bf16 rounding follows), so K6's
 # tolerance: 1e-5 of max |out|.
+
+# Path (H) card against CPU (int4 words weights at Mistral-7B's width with
+# one layer, 128-token prompts): (F)'s chain of flipped bf16 activation
+# roundings at width 4096. One f32 rounding of every quantized linear's
+# input moves the CPU's logits by up to 0.121 at this width against 0.061
+# at TinyLlama's (python -m rten_tpu_torch.tools.int4_flip_sensitivity),
+# so (F)'s 0.1 doubled: 0.2 (an H100 measured 0.1398).
+MISTRAL_PATH_LOGIT_TOL = 2 * LLAMA_PATH_LOGIT_TOL
 
 PAGE = 64                          # tokens per page on the paged paths
 
@@ -905,6 +934,233 @@ def check_int4(timer):
     return entries
 
 
+# Path (H), Mistral-7B's shape: batch 16, 32 query heads over 8 KV heads of
+# 128, 512-token prompts, so decode reads lives 512-576.
+H_HEADS, H_KVH, H_D = 32, 8, 128
+H_LIVES = (512, 577)
+
+
+def check_flash_attention(timer, b=16, h=H_HEADS, s=512, d=H_D):
+    """F1 against its plain version at path (H)'s prefill (an admission
+    group of 16 prompts of 512 tokens, k and v repeated to 32 heads),
+    causal; the library call is ``scaled_dot_product_attention(is_causal=
+    True)`` on the same f32 tensors. Bound: 2*B*H*S^2*D causal FLOPs at the
+    f32 peak outside the tensor cores, against each input read and the
+    output written once."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn((b, h, s, d), device="cuda", generator=g)
+               for _ in range(3))
+    out = at.flash_attention(q, k, v)
+    ref = at.flash_attention_plain(q, k, v)
+    lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = K6_REL_TOL * ref.abs().max().item()
+    label = f"flash_attention (B {b}, {h} heads of {d}, S {s}, causal)"
+    print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e}); "
+          f"scaled_dot_product_attention against the plain version "
+          f"{(lib_out - ref).abs().max().item():.3e}")
+    check(bool(torch.isfinite(out).all()) and err <= tol,
+          f"{label} disagrees")
+    del lib_out
+    flops = 2.0 * b * h * s * s * d
+    bms, by = bound_ms(4 * q.numel() * 4, flops, PEAK_F32_FLOP_S)
+    ms = timer(lambda: at.flash_attention(q, k, v))
+    plain_ms = timer(lambda: at.flash_attention_plain(q, k, v))
+    lib = timer(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True))
+    print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bms:.4f} ({by}, {flops / 1e9:.1f} GFLOP) library_ms {lib:.4f} "
+          f"(f32 scaled_dot_product_attention); {flops / ms / 1e9:.1f} "
+          f"TFLOP/s")
+    return dict(name="flash_attention",
+                source="rten_tpu_torch/csrc/prefill_attn.cu",
+                replaces="rten_tpu/kernels/attention.py:118",
+                shape=f"B {b}, {h} heads of {d}, S {s}, causal, f32",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+def _decode_lengths(g, b, lives):
+    return torch.randint(lives[0], lives[1], (b,), device="cuda",
+                         generator=g, dtype=torch.int32)
+
+
+def _decode_bound(q, lengths, cap, row_bytes, extra_bytes=0):
+    """Bytes of the live rows (each read once), q, the output and the
+    lengths, plus ``extra_bytes``; 4 f32 operations per (head, dim, row)."""
+    rows = lengths.clamp(max=cap).to(torch.float64).sum().item()
+    b, h, d = q.shape
+    n_bytes = rows * row_bytes + 2 * q.numel() * 4 + b * 4 + extra_bytes
+    return bound_ms(n_bytes, 4.0 * h * d * rows, PEAK_F32_FLOP_S)
+
+
+def check_int8_decode(timer, entry, b, cap, lives=H_LIVES, h=H_HEADS,
+                      kvh=H_KVH, d=H_D):
+    """G1 (``entry`` "exact" or "int8_scores") or G2 ("fused") against its
+    plain version on an int8 cache at path (H)'s shapes; with int8 scores
+    the kernel's int32 dots must equal the plain ones bit for bit. Bound:
+    the live rows' int8 bytes and bf16 scales, each read once."""
+    g = torch.Generator(device="cuda").manual_seed(22)
+    kv = torch.randint(-127, 128, (b, cap, 2, kvh * d), device="cuda",
+                       dtype=torch.int8, generator=g)
+    scales = (0.002 + 0.01 * torch.rand((b, cap, 2, kvh), device="cuda",
+                                        generator=g)).to(torch.bfloat16)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    lengths = _decode_lengths(g, b, lives)
+    scores = entry == "int8_scores"
+    if entry == "fused":
+        wrapper, plain = at.decode_attn_fused_int8, \
+            at.decode_attn_fused_int8_plain
+        args, kw = (q, kv, scales, lengths), {}
+    else:
+        wrapper, plain = at.decode_attn_grouped_int8, \
+            at.decode_attn_grouped_int8_plain
+        args, kw = (q, kv, scales, lengths), dict(int8_scores=scores)
+    dots = torch.zeros((b, h, cap), dtype=torch.int32, device="cuda")
+    out = wrapper(*args, **kw, **(dict(dots=dots) if scores else {}))
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = K6_REL_TOL * ref.abs().max().item()
+    label = (f"{wrapper.__name__} ({entry}, B {b}, {h} heads over {kvh} of "
+             f"{d}, capacity {cap}, lives {lives[0]}-{lives[1] - 1})")
+    exact = ""
+    if scores:
+        same = torch.equal(dots, at.int8_score_dots_plain(q, kv, lengths))
+        exact = f"; int32 dots bit-exact {same}"
+        check(same, f"{label}: int32 dots differ from the plain version's")
+    print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e}){exact}")
+    check(bool(torch.isfinite(out).all()) and err <= tol,
+          f"{label} disagrees")
+    bms, by = _decode_bound(q, lengths, cap, 2 * kvh * d + 2 * kvh * 2)
+    ms = timer(lambda: wrapper(*args, **kw))
+    plain_ms = timer(lambda: plain(*args, **kw))
+    print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bms:.4f} ({by}) library_ms None")
+    entry_kw = {} if entry == "fused" else dict(mode=entry)
+    return dict(name=wrapper.__name__, **entry_kw,
+                source="rten_tpu_torch/csrc/decode_attn_grouped_int8.cu",
+                replaces=("rten_tpu/kernels/attention.py:318"
+                          if entry == "fused"
+                          else "rten_tpu/kernels/attention.py:1039"),
+                shape=(f"B {b}, {h} heads over {kvh} of {d}, int8 cache of "
+                       f"capacity {cap}, lives {lives[0]}-{lives[1] - 1}"),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def check_grouped_append(timer, b=16, cap=4096, lives=H_LIVES, h=H_HEADS,
+                         kvh=H_KVH, d=H_D):
+    """A1 against its plain version (K5's write, then K6's contract) on a
+    bf16 cache, path (H-append)'s, and on an f32 one (printed, and kept in
+    the entry's ``f32_*`` keys): the written cache must equal the plain
+    version's and K5's bit for bit. k and v are strided views of one qkv
+    row, as the model passes them. Bound: the live rows read once, the new
+    f32 rows read and written once in the cache dtype."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    qkv = torch.randn((b, 1, 3 * kvh * d), device="cuda", generator=g)
+    k = qkv[..., :kvh * d].reshape(b, 1, kvh, d).transpose(1, 2)
+    v = qkv[..., kvh * d:2 * kvh * d].reshape(b, 1, kvh, d).transpose(1, 2)
+    lengths = _decode_lengths(g, b, lives)
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
+                         generator=g).to(dtype)
+        kv_plain, kv_k5 = kv.clone(), kv.clone()
+        out = at.decode_attn_grouped_append(q, kv, k, v, lengths)
+        ref = at.decode_attn_grouped_append_plain(q, kv_plain, k, v,
+                                                  lengths)
+        kc.kv_append(kv_k5, k, v, lengths - 1)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = K6_REL_TOL * ref.abs().max().item()
+        same = torch.equal(kv, kv_plain) and torch.equal(kv, kv_k5)
+        name = str(dtype).split(".")[-1]
+        label = (f"decode_attn_grouped_append ({name} cache, B {b}, {h} "
+                 f"heads over {kvh} of {d}, capacity {cap}, lives "
+                 f"{lives[0]}-{lives[1] - 1})")
+        print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e}); cache "
+              f"write bit-exact against the plain version and K5 {same}")
+        check(bool(torch.isfinite(out).all()) and err <= tol and same,
+              f"{label} disagrees")
+        elt = kv.element_size()
+        bms, by = _decode_bound(q, lengths - 1, cap, 2 * kvh * d * elt,
+                                b * 2 * kvh * d * (4 + elt))
+        ms = timer(lambda: at.decode_attn_grouped_append(q, kv, k, v,
+                                                         lengths))
+        plain_ms = timer(lambda: at.decode_attn_grouped_append_plain(
+            q, kv_plain, k, v, lengths))
+        print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bms:.4f} ({by}) library_ms None")
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by)
+        del kv, kv_plain, kv_k5
+    f32 = res["float32"]
+    return dict(name="decode_attn_grouped_append",
+                source="rten_tpu_torch/csrc/decode_attn_append.cu",
+                replaces="rten_tpu/kernels/attention.py:976",
+                shape=(f"B {b}, {h} heads over {kvh} of {d}, bf16 cache of "
+                       f"capacity {cap}, lives {lives[0]}-{lives[1] - 1}"),
+                **res["bfloat16"], library_ms=None,
+                **{f"f32_{key}": f32[key] for key in
+                   ("max_abs_err", "ms", "plain_ms", "bound_ms")})
+
+
+def mistral_model(path, n_layers):
+    return TransformerLM(TransformerConfig.mixtral(
+        n_experts=0, n_layers=n_layers, **PATHS[path].get("config", {})))
+
+
+def mistral_paths(launches, rates, steady):
+    """Path (H) at full width and depth, its three variants at 4 layers,
+    and (H) card against CPU at 1 layer; fills ``launches``, ``rates`` and
+    ``steady``."""
+    path = "mistral_int8"
+    model = mistral_model(path, 32)
+    t0 = time.perf_counter()
+    params = model.init_int4_params(0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"Mistral-7B int4 weights drawn and quantized on the card, layer "
+          f"by layer: {time.perf_counter() - t0:.1f} s; card memory "
+          f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rates[path], launches[path] = serve_path(model, params, path)
+    steady[path] = steady_decode(model, params, path, trace=True)
+    params4 = {**params, "layers": params["layers"][:4]}
+    for path in ("mistral_fused", "mistral_scores", "mistral_append"):
+        model4 = mistral_model(path, 4)
+        n_requests, new_tokens = PATHS[path]["requests"]
+        kernels.reset_launch_counts()
+        engine, reqs, wall = main_path(model4, params4, path, n_requests,
+                                       new_tokens)
+        launches[path] = kernels.launch_counts()
+        st = engine.stats()
+        check(all(len(r.tokens) == new_tokens and r.done for r in reqs),
+              f"{path}: a request did not complete")
+        print(f"path {path} (4 layers): {len(reqs)} requests x "
+              f"{new_tokens} tokens at batch {batch_of(path)}, capacity "
+              f"{capacity_of(path)}, {st['decode_steps']} decode steps in "
+              f"{wall:.3f} s; launches {nonzero(launches[path])}")
+        check_launches(path, launches[path], 4, st["decode_steps"],
+                       engine.model.prefills)
+        del engine
+    params1 = {**params, "layers": params["layers"][:1]}
+    del params, params4
+    torch.cuda.empty_cache()
+    counts = card_against_cpu(
+        mistral_model("mistral_int8", 1), params1, "mistral_int8",
+        MISTRAL_PATH_LOGIT_TOL, max_batch=4, fused=False, prompt=128,
+        new_tokens=9)
+    print(f"mistral_int8 (1 layer) card against CPU, card runs: launches "
+          f"{nonzero(counts)}")
+    check(counts["flash_attention"] > 0
+          and counts["decode_attn_grouped_int8.exact"] > 0,
+          "mistral_int8 card against CPU: F1 or G1 never launched")
+    del params1
+    torch.cuda.empty_cache()
+
+
 def to_device(params, device):
     """The parameter tree (tensors and int8 QuantWeights) on ``device``."""
     if isinstance(params, dict):
@@ -919,9 +1175,14 @@ def to_device(params, device):
 
 # The serving paths: the weights each takes, its ServingEngine options, the
 # tail window its engine must pick, the requests of its measured run
-# (count, new tokens) and the kernels it must launch. GPT-2-small paths
-# serve at batch 256 / capacity 512; the TinyLlama paths (``llama``) at
-# batch 16 / capacity 2048, with ``env`` set while they serve.
+# (count, new tokens) and the kernels it must launch (``name.mode`` for a
+# mode of a wrapper) and must not (``absent``). GPT-2-small paths serve at
+# batch 256 / capacity 512; the TinyLlama paths (``llama``) at batch 16 /
+# capacity 2048, with ``env`` set while they serve; the Mistral-7B paths
+# (``mistral``) at their own ``batch``, ``capacity`` and ``prompt`` length,
+# with ``config`` overrides of ``TransformerConfig.mixtral(n_experts=0)``;
+# on (H) the kernels of ``per_step`` launch once per layer and decode step,
+# those of ``per_prefill`` once per layer and admission group.
 PATHS = {
     "int8_tail": dict(weights="int8", engine=dict(quantized_cache=True),
                       tail=16, requests=(320, 48),
@@ -962,15 +1223,62 @@ PATHS = {
                                     tail=16, requests=(16, 16), llama=True,
                                     env={"RTEN_INT4_DOT": "int8"},
                                     kernels=("matmul_int4_words_int8",)),
+    "mistral_int8": dict(weights="mistral", engine=dict(quantized_cache=True),
+                         tail=0, requests=(24, 64), mistral=True, batch=16,
+                         capacity=4096, prompt=512,
+                         kernels=("flash_attention",
+                                  "decode_attn_grouped_int8.exact",
+                                  "kv_append_int8", "matmul_int4_words"),
+                         per_step=("decode_attn_grouped_int8.exact",
+                                   "kv_append_int8"),
+                         per_prefill=("flash_attention",),
+                         absent=("decode_attn_int8", "decode_attn_int8_tail",
+                                 "tail_flush_int8", "decode_attn_fused_int8",
+                                 "decode_attn_grouped_int8.int8_scores")),
+    "mistral_fused": dict(weights="mistral4",
+                          engine=dict(quantized_cache=True), tail=0,
+                          requests=(6, 16), mistral=True, batch=3,
+                          capacity=4096, prompt=512,
+                          kernels=("flash_attention",
+                                   "decode_attn_fused_int8"),
+                          absent=("decode_attn_grouped_int8",
+                                  "decode_attn_int8")),
+    "mistral_scores": dict(weights="mistral4",
+                           engine=dict(quantized_cache=True),
+                           config=dict(decode_attn="grouped"), tail=0,
+                           requests=(16, 16), mistral=True, batch=16,
+                           capacity=1024, prompt=512,
+                           kernels=("flash_attention",
+                                    "decode_attn_grouped_int8.int8_scores"),
+                           absent=("decode_attn_grouped_int8.exact",
+                                   "decode_attn_int8")),
+    "mistral_append": dict(weights="mistral4",
+                           engine=dict(cache_dtype="bfloat16"),
+                           config=dict(fused_append=True), tail=0,
+                           requests=(16, 16), mistral=True, batch=16,
+                           capacity=4096, prompt=512,
+                           kernels=("flash_attention",
+                                    "decode_attn_grouped_append"),
+                           absent=("kv_append", "decode_attn_float")),
 }
-GPT2_PATHS = [p for p in PATHS if not PATHS[p].get("llama")]
+GPT2_PATHS = [p for p in PATHS
+              if not (PATHS[p].get("llama") or PATHS[p].get("mistral"))]
 # The paged grid kernel serves batches with no group: its launches are
 # counted in path (E)'s card-against-CPU phase at max_batch 3.
 GRID_PHASE = "paged_f32_batch3"
 
 
 def batch_of(path):
-    return 16 if PATHS[path].get("llama") else 256
+    return PATHS[path].get("batch", 16 if PATHS[path].get("llama") else 256)
+
+
+def capacity_of(path):
+    return PATHS[path].get("capacity",
+                           2048 if PATHS[path].get("llama") else 512)
+
+
+def prompt_of(path):
+    return PATHS[path].get("prompt", 64)
 
 
 class path_env:
@@ -991,10 +1299,30 @@ class path_env:
                 os.environ[k] = v
 
 
+class PrefillCounter:
+    """The model, counting the engine's prefills of admission groups
+    (``prefills``); it holds no reference to the engine, so a deleted
+    engine frees its cache at once."""
+
+    def __init__(self, model):
+        self.model = model
+        self.prefills = 0
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def prefill_last(self, *args):
+        self.prefills += 1
+        return self.model.prefill_last(*args)
+
+
 def new_engine(model, params, path, device="cuda", **kw):
-    cap = 2048 if PATHS[path].get("llama") else 512
-    engine = ServingEngine(model, params, max_batch=batch_of(path),
-                           capacity=cap, prefill_buckets=(64,), device=device,
+    """The path's engine; ``engine.model.prefills`` counts its
+    prefills."""
+    engine = ServingEngine(PrefillCounter(model), params,
+                           max_batch=batch_of(path),
+                           capacity=capacity_of(path),
+                           prefill_buckets=(prompt_of(path),), device=device,
                            **PATHS[path]["engine"], **kw)
     check(engine._tail_flush == PATHS[path]["tail"],
           f"{path}: the engine picked tail window {engine._tail_flush}")
@@ -1002,11 +1330,12 @@ def new_engine(model, params, path, device="cuda", **kw):
 
 
 def main_path(model, params, path, n_requests, new_tokens, burst=21):
-    """Serve ``n_requests`` random 64-token prompts at the path's batch and
-    capacity and return (engine, requests, wall seconds)."""
+    """Serve ``n_requests`` random prompts of the path's length at its
+    batch and capacity and return (engine, requests, wall seconds)."""
     engine = new_engine(model, params, path)
     rng = np.random.RandomState(0)
-    reqs = [engine.submit(rng.randint(0, model.config.vocab_size, 64),
+    reqs = [engine.submit(rng.randint(0, model.config.vocab_size,
+                                      prompt_of(path)),
                           max_new_tokens=new_tokens)
             for _ in range(n_requests)]
     torch.cuda.synchronize()
@@ -1039,12 +1368,34 @@ def serve_path(model, params, path):
           f"steps, {st['tokens']} decode tokens in {wall:.3f} s = "
           f"{rate:.1f} decode tokens/s; p50 TTFT {st.get('ttft_p50_ms')} ms; "
           f"launches {launches}")
-    missing = [k for k in PATHS[path]["kernels"] if launches[k] == 0]
-    check(not missing, f"{path}: kernels of the path never launched: "
-          f"{missing}")
+    check_launches(path, launches, model.config.n_layers,
+                   st["decode_steps"], engine.model.prefills)
     del engine
     torch.cuda.empty_cache()
     return rate, launches
+
+
+def check_launches(path, launches, n_layers, steps, prefills):
+    """Every kernel of the path launched, none of its ``absent`` ones did,
+    and those of ``per_step`` / ``per_prefill`` launched once per layer and
+    decode step / admission group."""
+    spec = PATHS[path]
+    missing = [k for k in spec["kernels"] if launches[k] == 0]
+    check(not missing, f"{path}: kernels of the path never launched: "
+          f"{missing}")
+    stray = [k for k in spec.get("absent", ()) if launches[k]]
+    check(not stray, f"{path}: kernels off the path launched: {stray}")
+    for keys, n, what in ((spec.get("per_step", ()), steps, "decode step"),
+                          (spec.get("per_prefill", ()), prefills,
+                           "prefill")):
+        for k in keys:
+            check(launches[k] == n_layers * n,
+                  f"{path}: {k} launched {launches[k]} times, not once per "
+                  f"layer and {what} ({n_layers} x {n})")
+    if spec.get("per_step"):
+        print(f"path {path}: {', '.join(spec['per_step'] + spec['per_prefill'])}"
+              f" launched once per layer and decode step / prefill "
+              f"({steps} steps, {prefills} prefills, {n_layers} layers)")
 
 
 def steady_decode(model, params, path, steps=16, trace=False):
@@ -1058,7 +1409,8 @@ def steady_decode(model, params, path, steps=16, trace=False):
     batch = batch_of(path)
     rng = np.random.RandomState(2)
     for _ in range(batch):
-        engine.submit(rng.randint(0, model.config.vocab_size, 64),
+        engine.submit(rng.randint(0, model.config.vocab_size,
+                                  prompt_of(path)),
                       max_new_tokens=5 + 2 * steps)
     engine.step_burst(5)
     torch.cuda.synchronize()
@@ -1106,13 +1458,15 @@ def steady_decode(model, params, path, steps=16, trace=False):
 
 
 def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
-                     max_batch=8, fused=True):
-    """Greedy tokens of ``max_batch`` requests of ``path`` on the card and
-    on the CPU, each with the fused argmax head (unless ``fused`` is False:
-    an int4 head has none) and with logits + argmax (recording the logits),
-    compared step by step: logits within ``logit_tol``, tokens identical
-    except after a CPU top-2 margin below twice that. Returns the launch
-    counts of the card's runs."""
+                     max_batch=8, fused=True, prompt=8, new_tokens=16,
+                     capacity=512):
+    """Greedy tokens of ``max_batch`` requests of ``prompt`` tokens x
+    ``new_tokens`` of ``path`` on the card and on the CPU, each with the
+    fused argmax head (unless ``fused`` is False: an int4 head has none)
+    and with logits + argmax (recording the logits), compared step by step:
+    logits within ``logit_tol``, tokens identical except after a CPU top-2
+    margin below twice that. Returns the launch counts of the card's
+    runs."""
 
     class Recorder(ArgMaxSampler):
         """Greedy, keeping every call's logits rows."""
@@ -1125,20 +1479,20 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
             return super().sample(logits)
 
     rng = np.random.RandomState(1)
-    prompts = [list(rng.randint(0, model.config.vocab_size, 8))
+    prompts = [list(rng.randint(0, model.config.vocab_size, prompt))
                for _ in range(max_batch)]
     params_cpu = to_device(params_gpu, "cpu")
 
     def serve(params, dev, recorder=None):
         kw = dict(sampler=recorder, fused_head=False) if recorder else {}
-        eng = ServingEngine(model, params, max_batch=max_batch, capacity=512,
-                            prefill_buckets=(8,), device=dev,
-                            **PATHS[path]["engine"], **kw)
+        eng = ServingEngine(model, params, max_batch=max_batch,
+                            capacity=capacity, prefill_buckets=(prompt,),
+                            device=dev, **PATHS[path]["engine"], **kw)
         check(eng._tail_flush == PATHS[path]["tail"],
               f"{path} at max_batch {max_batch}: the engine picked tail "
               f"window {eng._tail_flush}")
         with path_env(path):
-            return eng.generate(prompts, max_new_tokens=16, burst=6)
+            return eng.generate(prompts, max_new_tokens=new_tokens, burst=6)
 
     kernels.reset_launch_counts()
     card_fused = cpu_fused = []
@@ -1148,7 +1502,8 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
     rec_card, rec_cpu = Recorder(), Recorder()
     card, cpu = serve(params_gpu, device, rec_card), serve(params_cpu, "cpu",
                                                            rec_cpu)
-    check(all(len(t) == 16 for t in card_fused + cpu_fused + card + cpu),
+    check(all(len(t) == new_tokens
+              for t in card_fused + cpu_fused + card + cpu),
           "a request got the wrong number of tokens")
 
     def compare(a_runs, b_runs, rec, tol, what):
@@ -1179,11 +1534,13 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
     # Logits rows computed from identical histories on both devices.
     dev = max(float(np.abs(rec_card.logits[c][i] - rec_cpu.logits[c][i])
                     .max())
-              for i in range(len(card)) for c in range(min(first[i] + 1,
-                                                             16)))
+              for i in range(len(card))
+              for c in range(min(first[i] + 1, new_tokens)))
+    scale = max(float(np.abs(x).max()) for x in rec_cpu.logits)
     print(f"{path}: card vs cpu: {sum(len(t) for t in card)} tokens, "
-          f"{sum(f < 16 for f in first)} near-tie divergences, max logit "
-          f"difference {dev:.3e} (tol {logit_tol:.1e})")
+          f"{sum(f < new_tokens for f in first)} near-tie divergences, max "
+          f"logit difference {dev:.3e} (tol {logit_tol:.1e}; max |logit| "
+          f"{scale:.3f})")
     check(dev < logit_tol, f"{path}: card and cpu logits disagree")
     return kernels.launch_counts()
 
@@ -1448,6 +1805,12 @@ def main():
     results += check_verify_attn(timer, "fused", b=3, cap=2048,
                                  live=(64, 321))
     check_verify_attn(timer, "grouped", b=256, cap=512, live=(65, 177))
+    # F1, G1 in both score modes, G2 and A1 at path (H)'s shapes.
+    results += [check_flash_attention(timer),
+                check_int8_decode(timer, "exact", b=16, cap=4096),
+                check_int8_decode(timer, "int8_scores", b=16, cap=1024),
+                check_int8_decode(timer, "fused", b=3, cap=4096),
+                check_grouped_append(timer)]
     # K1 and K3 at path (F)'s shapes (GQA: 32 query heads over 4 KV heads),
     # K1' there too, and K1 and K1' past the 12,080 tokens that one
     # shared-memory score row allowed, printed beside their entries.
@@ -1569,6 +1932,10 @@ def main():
                if counts[k] == 0]
     check(not missing, f"tinyllama_int4 card against CPU: kernels never "
           f"launched: {missing}")
+    del llama2
+    torch.cuda.empty_cache()
+
+    mistral_paths(launches, rates, steady)
 
     # Each kernel reports its launches on the path it was ported for; V1's
     # entries per mode: path (G) for the grouped entry (float on the bf16
@@ -1581,7 +1948,10 @@ def main():
     spec_home = {("verify_attn_grouped", "float"): "spec_repetitive",
                  ("verify_attn_grouped", "int8"): "spec_int8",
                  ("verify_attn_fused", "float"): "spec_batch3_float",
-                 ("verify_attn_fused", "int8"): "spec_batch3_int8"}
+                 ("verify_attn_fused", "int8"): "spec_batch3_int8",
+                 ("decode_attn_grouped_int8", "exact"): "mistral_int8",
+                 ("decode_attn_grouped_int8", "int8_scores"):
+                     "mistral_scores"}
     for r in results:
         r["route"] = "cuda"
         if "mode" in r:
@@ -1593,7 +1963,8 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("mode", "shape", "int4pack_ms", "decode_ms")
+    extra = ("mode", "shape", "int4pack_ms", "decode_ms", "f32_max_abs_err",
+             "f32_ms", "f32_plain_ms", "f32_bound_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results]}))

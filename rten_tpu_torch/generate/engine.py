@@ -46,31 +46,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.attention import flat_group_for
+from ..kernels.attention import (E_MATRIX_BUDGET, FLAT_VMEM_BUDGET,
+                                 flat_group_for, flat_vmem_bytes)
 from .metrics import Metrics
 from .paged_cache import PagedKVCache
 from .sampler import ArgMaxSampler, Sampler
 from .speculative import make_spec_burst
-
-# The reference's tail gate models its flat kernel's TPU buffers
-# (transformer.py:339-363, engine.py:241-279); the port copies that
-# arithmetic as a rule, so both packages give a configuration the same
-# tail and so the same numerics. It is no limit of the port's kernel.
-FLAT_VMEM_BUDGET = 13 * 1024 * 1024
-E_MATRIX_BUDGET = 4 * 1024 * 1024
-
-
-def flat_vmem_bytes(heads, head_dim, kvh, group, block_k, window):
-    """The reference's ``flat_vmem_bytes`` with ``q_bf16``
-    (transformer.py:339-352)."""
-    f_tot = kvh * head_dim
-    hp8 = -(-heads // 8) * 8
-    return (2 * group * (block_k // 4) * 2 * f_tot * 4
-            + 2 * group * (block_k // 2) * 128 * 4
-            + group * hp8 * f_tot * 4
-            + group * window * 2 * f_tot * 2
-            + 2 * hp8 * group * 128 * 4
-            + hp8 * head_dim * f_tot * 2)
 
 
 def _bucket(n, buckets):

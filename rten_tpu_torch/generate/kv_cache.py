@@ -26,6 +26,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..device import resolve_device
 from ..kernels.cache import kv_append, kv_append_int8, tail_flush_int8
 from ..kernels.quant import quantize_tokens
 
@@ -43,7 +44,10 @@ class KVCache:
     @staticmethod
     def create(batch, n_layers, kv_heads, capacity, head_dim,
                dtype=torch.float32, quantized=False, tail_window=0,
-               device="cpu"):
+               device="cuda"):
+        """The cache's buffers on ``device``: the card by default, the CPU
+        only when asked (``resolve_device`` raises without a card)."""
+        device = resolve_device(device)
         f = kv_heads * head_dim
         lengths = torch.zeros(batch, dtype=torch.int32, device=device)
         if not quantized:

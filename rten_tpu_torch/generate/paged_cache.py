@@ -33,6 +33,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels.cache import kv_append_paged, kv_append_paged_int8
 from ..kernels.quant import quantize_tokens
 
@@ -52,7 +53,10 @@ class PagedKVCache:
     @staticmethod
     def create(n_layers, n_pages, page_size, kv_heads, head_dim, batch,
                max_pages_per_seq, dtype=torch.float32, quantized=False,
-               device="cpu"):
+               device="cuda"):
+        """The pool's buffers on ``device``: the card by default, the CPU
+        only when asked (``resolve_device`` raises without a card)."""
+        device = resolve_device(device)
         f = kv_heads * head_dim
         table = torch.full((batch, max_pages_per_seq), -1, dtype=torch.int32,
                            device=device)

@@ -1,9 +1,12 @@
 """Attention for the serving path.
 
 * ``attn_reference`` ports ``rten_tpu/kernels/attention.py::_attn_reference``
-  (:58-69). GPT-2 prefill (head_dim 64) never reaches the Pallas
-  ``flash_attention`` there (``attention.py:125`` sends d % 128 != 0 to the
-  reference), so plain matmul + softmax is the faithful port.
+  (:58-69): the prefill attention of every shape that the reference's
+  ``flash_attention`` sends to its plain path (``attention.py:125-131``;
+  :func:`flash_attention_takes`), head_dim 64 among them.
+* ``flash_attention`` (CUDA, ``csrc/prefill_attn.cu``, F1) replaces
+  ``flash_attention`` (:118): blockwise attention with an online softmax
+  in f32, at head_dim 128.
 * ``decode_attn_int8_tail`` (CUDA, ``csrc/decode_attn_int8_tail.cu``)
   replaces ``flash_decode_flat`` (:1715) in its int8 + tail mode with
   ``q_bf16=True``: packed int8 tokens dequantized by per-(token, head)
@@ -24,6 +27,17 @@
   ``csrc/verify_attn.cu``, one kernel, V1) replace ``flash_verify_grouped``
   (:1957) and ``flash_verify_fused`` (:2394): S speculative-verify queries
   per sequence, causal within the chunk, over a float or int8 cache.
+* ``decode_attn_grouped_int8`` and ``decode_attn_fused_int8`` (CUDA,
+  ``csrc/decode_attn_grouped_int8.cu``, one kernel, G1) replace the int8
+  modes of ``flash_decode_grouped`` (:1039; exact q, and ``int8_scores``)
+  and ``flash_decode_fused`` (:318): one query per sequence over an int8
+  cache, q and the output in f32.
+* ``decode_attn_grouped_append`` (CUDA, ``csrc/decode_attn_append.cu``, A1)
+  replaces ``flash_decode_grouped_append`` (:976): the float-cache decode
+  append and the grouped float decode in one launch.
+
+:func:`int8_decode_kernel` is the reference's choice among K1', G1 and G2
+for an int8 cache without a tail window.
 """
 
 from __future__ import annotations
@@ -33,7 +47,7 @@ import math
 import torch
 
 from . import _build
-from .cache import FLOAT_CACHE_DTYPES
+from .cache import FLOAT_CACHE_DTYPES, _rows
 
 NEG_INF = -1e30
 
@@ -82,6 +96,85 @@ def flat_group_for(batch):
     kernel."""
     return next((g for g in (16, 8, 4, 2)
                  if batch % g == 0 and batch >= 2 * g), 0)
+
+
+# The reference's flat kernel fits its buffers to a TPU core's memory
+# (transformer.py:339-363, attention.py:1752-1773, engine.py:241-279); the
+# port copies that arithmetic as a rule, so both packages pick the same
+# kernel, and so the same numerics, for a configuration. It is no limit of
+# the port's kernels.
+FLAT_VMEM_BUDGET = 13 * 1024 * 1024
+E_MATRIX_BUDGET = 4 * 1024 * 1024
+
+
+def flat_vmem_bytes(heads, head_dim, kvh, group, block_k, window):
+    """The reference's ``flat_vmem_bytes`` with ``q_bf16``
+    (transformer.py:339-352)."""
+    f_tot = kvh * head_dim
+    hp8 = -(-heads // 8) * 8
+    return (2 * group * (block_k // 4) * 2 * f_tot * 4
+            + 2 * group * (block_k // 2) * 128 * 4
+            + group * hp8 * f_tot * 4
+            + group * window * 2 * f_tot * 2
+            + 2 * hp8 * group * 128 * 4
+            + hp8 * head_dim * f_tot * 2)
+
+
+def _grouped_or_fused(batch, group, cap, block_k, int8_scores):
+    """``flash_decode_grouped``'s own fallback (attention.py:1062-1065):
+    the fused kernel when the batch does not divide by the group or the
+    capacity by the block (or the block by 4)."""
+    block_k = min(block_k, cap)
+    if batch % group or cap % block_k or block_k % 4:
+        return "fused", 0
+    return ("grouped_scores" if int8_scores else "grouped"), group
+
+
+def int8_decode_kernel(batch, heads, head_dim, kvh, cap, decode_attn="auto",
+                       quant_int8_scores=True):
+    """The kernel that the reference's decode dispatch runs for one query
+    per sequence over an int8 cache without a tail window, and its group:
+    ("flat", g) → K1' (``flash_decode_flat``, q rounded to bf16);
+    ("grouped", g) → G1 with exact q and ("grouped_scores", g) → G1 with
+    ``int8_scores`` (``flash_decode_grouped``); ("fused", 0) → G2
+    (``flash_decode_fused``). The port's kernels have no group: it is
+    returned so tests can hold the choice to the reference's."""
+    kind = decode_attn
+    if kind == "stream":
+        kind = "fused"                  # transformer.py:379-380
+    long_ctx = cap >= 2048              # :381
+    group = flat_group_for(batch)       # :382
+    blk = 128 if long_ctx else 64       # :383
+    if kind == "auto":
+        # :396-417, at the defaults of RTEN_FLAT_LONGCTX / RTEN_FLAT_QBF16.
+        flat_long = long_ctx and cap % blk == 0
+        kind = ("flat" if group and (not long_ctx or flat_long)
+                else "grouped" if group else "fused")
+    if kind == "flat" and long_ctx and batch % 8 == 0 and batch >= 16:
+        group = 8                       # :418-425
+    if kind == "flat" and group:
+        # :440-451: widen to 32 where the modeled buffers fit (no window).
+        if batch % 32 == 0 and batch >= 64 and group < 32 and \
+                flat_vmem_bytes(heads, head_dim, kvh, 32, blk, 0) \
+                <= FLAT_VMEM_BUDGET:
+            group = 32
+        # flash_decode_flat (attention.py:1752-1773) with q_bf16: the bf16
+        # E matrix round8(H)·D·KVH·D·2 bytes must fit 4 MB, the batch divide
+        # by the group, the capacity by the block and the block by 4;
+        # otherwise grouped with exact q (int8_scores off), whose own
+        # fallback is fused.
+        block_k = min(blk, cap)
+        e_bytes = -(-heads // 8) * 8 * head_dim * kvh * head_dim * 2
+        if (batch % group == 0 and cap % block_k == 0 and block_k % 4 == 0
+                and e_bytes <= E_MATRIX_BUDGET):
+            return "flat", group
+        return _grouped_or_fused(batch, group, cap, block_k, False)
+    if kind in ("grouped", "flat"):
+        # :480-486: int8_scores below group 16 at short capacities.
+        return _grouped_or_fused(
+            batch, group or 8, cap, blk,
+            group < 16 and not long_ctx and quant_int8_scores)
+    return "fused", 0                   # :491-492
 
 
 def _check(name, q, kv, scales, lengths, tail, tail_count):
@@ -608,3 +701,330 @@ def verify_attn_fused(q, kv, lengths, scales=None, scale=None):
 
 verify_attn_fused.launches = 0
 verify_attn_fused.mode_launches = {"float": 0, "int8": 0}
+
+
+# -- F1: prefill attention ----------------------------------------------------
+
+FLASH_BLOCK = 128                  # the reference's block_q and block_k
+
+
+def flash_attention_takes(s_q, s_k, d):
+    """Whether the reference's ``flash_attention`` runs its kernel at these
+    shapes (attention.py:125-131): d % 128 == 0, s_q >= 8, s_k >= 128 and
+    both lengths divide by their block, min(128, s). Every other shape
+    takes ``attn_reference``."""
+    return (s_q >= 8 and s_k >= FLASH_BLOCK and d % 128 == 0
+            and s_q % min(FLASH_BLOCK, s_q) == 0
+            and s_k % min(FLASH_BLOCK, s_k) == 0)
+
+
+def _check_flash(q, k, v):
+    name = "flash_attention"
+    _build.require(q.dim() == 4 and q.dtype == torch.float32, name,
+                   "q must be f32 [B, H, S, D]")
+    _build.require(k.shape == q.shape and v.shape == q.shape
+                   and k.dtype == v.dtype == torch.float32, name,
+                   "k and v must be f32 of q's shape [B, H, S, D]")
+    _build.require(flash_attention_takes(q.shape[2], k.shape[2],
+                                         q.shape[3]), name,
+                   f"shape {tuple(q.shape)} is one the reference sends to "
+                   f"attn_reference (flash_attention_takes)")
+    return q.shape
+
+
+def flash_attention_plain(q, k, v, causal=True, scale=None):
+    """Plain PyTorch version of ``flash_attention`` (same contract): the
+    reference's ``_attn_reference`` arithmetic."""
+    d = _check_flash(q, k, v)[3]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    return attn_reference(q, k, v, causal, scale)
+
+
+def flash_attention(q, k, v, causal=True, scale=None):
+    """Self-attention of S queries over S keys, the contract of the
+    reference's ``flash_attention`` kernel: q, k, v f32 [B, H, S, D] (k and
+    v already repeated to H heads), query i reads keys j <= i when
+    ``causal``; scores, online softmax and sums in f32, out = acc /
+    max(l, 1e-30). Only at the shapes of :func:`flash_attention_takes`;
+    the kernel takes d = 128. Returns f32 [B, H, S, D]. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
+    name = "flash_attention"
+    if _build.on_cpu(name, q, k, v):
+        return flash_attention_plain(q, k, v, causal, scale)
+    b, h, s, d = _check_flash(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d == 128, name, f"head_dim {d}: the kernel takes 128")
+    _build.require(all(x.is_contiguous() for x in (q, k, v)), name,
+                   "tensors must be contiguous")
+    out = torch.empty_like(q)
+    fn = _build.function("prefill_attn", "prefill_attn", "ppppiiiiifp")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+             s, d, int(bool(causal)), float(scale), _build.stream())
+    _build.check(err, name)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+# -- G1 and G2: single-query decode over an int8 cache ------------------------
+
+def quantize_q_rows(q):
+    """The reference's row quantization of q for ``int8_scores``
+    (attention.py:1102-1106): per (sequence, head) absmax / 127, 1.0 where
+    the row is 0, q8 = clip(round_half_even(q / scale), -127, 127).
+    q f32 [..., D] → (q8 f32 [..., D] holding integers, scale f32 [...])."""
+    absmax = q.abs().amax(dim=-1)
+    qs = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    return torch.clamp(torch.round(q / qs[..., None]), -127, 127), qs
+
+
+def _check_int8_decode(name, q, kv, scales, lengths):
+    b, h, d = q.shape
+    _build.require(q.dtype == torch.float32, name, "q must be f32 [B, H, D]")
+    _build.require(kv.dim() == 4 and kv.shape[0] == b and kv.shape[2] == 2
+                   and kv.dtype == torch.int8, name,
+                   "kv must be int8 [B, cap, 2, KVH*D]")
+    cap, f = kv.shape[1], kv.shape[3]
+    _build.require(f % d == 0 and h % (f // d) == 0, name,
+                   "kv row width must be KVH*D with H a multiple of KVH")
+    kvh = f // d
+    _build.require(scales.shape == (b, cap, 2, kvh)
+                   and scales.dtype == torch.bfloat16, name,
+                   "scales must be bf16 [B, cap, 2, KVH]")
+    _build.require(lengths.shape == (b,) and lengths.dtype == torch.int32,
+                   name, "lengths must be int32 [B]")
+    return b, h, d, kvh, cap
+
+
+def _live_rows(lengths, cap):
+    """The rows any sequence reads, min(max(lengths), cap) (a host read;
+    the plain versions read no more of the cache than that)."""
+    return min(max(int(lengths.max()), 0), cap) if lengths.numel() else 0
+
+
+def int8_score_dots_plain(q, kv, lengths):
+    """The integer score dots of ``int8_scores``: sum_d q8[b, h, d] *
+    k8[b, t, kv head of h, d] as int32 [B, H, cap] for t < min(lengths,
+    cap), 0 elsewhere. Taken in f32 and exact: every partial sum is an
+    integer of magnitude below 127 * 127 * D < 2^24 (D <= 1024)."""
+    b, h, d = q.shape
+    cap, kvh = kv.shape[1], kv.shape[3] // d
+    n = _live_rows(lengths, cap)
+    q8, _ = quantize_q_rows(q)
+    k8 = kv[:, :n, 0].reshape(b, n, kvh, d).to(torch.float32)
+    dots = torch.einsum("bgrd,bngd->bgrn", q8.reshape(b, kvh, h // kvh, d),
+                        k8).reshape(b, h, n)
+    dots = dots.masked_fill(~_live(lengths, n)[:, None, :], 0)
+    out = torch.zeros((b, h, cap), dtype=torch.int32, device=q.device)
+    out[:, :, :n] = dots.to(torch.int32)
+    return out
+
+
+def _attend_live(s, v, lengths, v_scale=None):
+    """An exact two-pass softmax in f32 over the live rows, grouped by KV
+    head (no repeated K/V): scores s [B, KVH, rep, n], V rows v [B, n, KVH,
+    D]; with int8 scales v_scale [B, KVH, 1, n] weighs p after the sum l.
+    Returns [B, KVH * rep, D], zeros where a length is 0."""
+    b, kvh, rep, n = s.shape
+    s = s.masked_fill(~_live(lengths, n)[:, None, None, :], -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # no token
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale
+    out = torch.einsum("bgrn,bngd->bgrd", p, v)
+    return (out / torch.clamp(l, min=1e-30)).reshape(b, kvh * rep, -1)
+
+
+def _int8_decode_plain(name, q, kv, scales, lengths, scale, int8_scores):
+    """The int8 decode contract of G1 and G2 in plain PyTorch, over the
+    live rows only: exact q, s = ((q . k8) * scale) * k_scale, or with
+    ``int8_scores`` s = (f32(q8 . k8) * (q_scale * scale)) * k_scale; then
+    :func:`_attend_live` with V weighted by p * v_scale."""
+    b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    rep, n = h // kvh, _live_rows(lengths, cap)
+    x = kv[:, :n].reshape(b, n, 2, kvh, d).to(torch.float32)
+    sf = scales[:, :n].to(torch.float32).permute(0, 3, 2, 1)  # [B,KVH,2,n]
+    if int8_scores:
+        q8, qs = quantize_q_rows(q)
+        s = torch.einsum("bgrd,bngd->bgrn", q8.reshape(b, kvh, rep, d),
+                         x[:, :, 0])
+        s = s * (qs * scale).reshape(b, kvh, rep, 1)
+    else:
+        s = torch.einsum("bgrd,bngd->bgrn", q.reshape(b, kvh, rep, d),
+                         x[:, :, 0]) * scale
+    return _attend_live(s * sf[:, :, None, 0], x[:, :, 1], lengths,
+                        sf[:, :, None, 1])
+
+
+def _launch_int8_decode(wrapper, q, kv, scales, lengths, int8_scores, scale,
+                        dots=None):
+    """G1's kernel on CUDA tensors for both entries and score modes; counts
+    the launch on ``wrapper`` and, where it has them, in its modes.
+    ``dots`` (int32 [B, H, cap], tests only) receives the integer score
+    dots of ``int8_scores``."""
+    name = wrapper.__name__
+    b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d in (64, 128), name, f"head_dim {d} must be 64 or 128")
+    _build.require(all(x.is_contiguous() for x in (q, kv, scales, lengths)),
+                   name, "tensors must be contiguous")
+    if dots is not None:
+        _build.require(int8_scores and dots.shape == (b, h, cap)
+                       and dots.dtype == torch.int32
+                       and dots.is_contiguous(), name,
+                       "dots must be int32 [B, H, cap], int8_scores only")
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_grouped_int8",
+                         "decode_attn_grouped_int8", "ppppppiiiiiifp")
+    err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(),
+             None if dots is None else dots.data_ptr(), b, h, kvh, d, cap,
+             int(bool(int8_scores)), float(scale), _build.stream())
+    _build.check(err, name)
+    wrapper.launches += 1
+    if hasattr(wrapper, "mode_launches"):
+        wrapper.mode_launches["int8_scores" if int8_scores else "exact"] += 1
+    return out
+
+
+def decode_attn_grouped_int8_plain(q, kv, scales, lengths, int8_scores=False,
+                                   scale=None):
+    """Plain PyTorch version of ``decode_attn_grouped_int8`` (same
+    contract)."""
+    return _int8_decode_plain("decode_attn_grouped_int8", q, kv, scales,
+                              lengths, scale, int8_scores)
+
+
+def decode_attn_grouped_int8(q, kv, scales, lengths, int8_scores=False,
+                             scale=None, dots=None):
+    """Decode attention for one query per sequence over an int8 cache, the
+    contract of ``flash_decode_grouped``'s int8 modes
+    (``_decode_grouped_quant_kernel``, attention.py:710).
+
+    q f32 [B, H, D]; kv int8 [B, cap, 2, KVH*D] (plane 0 K, plane 1 V);
+    scales bf16 [B, cap, 2, KVH] per (token, plane, head); lengths int32 [B]
+    counting the current token. Reads rows ``[0, min(lengths, cap))``.
+    Exact q: score = ((q . k8) * scale) * k_scale. ``int8_scores``: q
+    row-quantized per (sequence, head) (:func:`quantize_q_rows`) and score =
+    (f32(int32 q8 . k8) * (q_scale * scale)) * k_scale. Then an f32
+    softmax whose sum l takes the unscaled p, V weighted by p * v_scale;
+    out = acc / max(l, 1e-30), f32 [B, H, D]. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise. Launches count in
+    ``launches`` and per score mode in ``mode_launches``."""
+    name = "decode_attn_grouped_int8"
+    if _build.on_cpu(name, q, kv, scales, lengths):
+        return decode_attn_grouped_int8_plain(q, kv, scales, lengths,
+                                              int8_scores, scale)
+    return _launch_int8_decode(decode_attn_grouped_int8, q, kv, scales,
+                               lengths, int8_scores, scale, dots)
+
+
+decode_attn_grouped_int8.launches = 0
+decode_attn_grouped_int8.mode_launches = {"exact": 0, "int8_scores": 0}
+
+
+def decode_attn_fused_int8_plain(q, kv, scales, lengths, scale=None):
+    """Plain PyTorch version of ``decode_attn_fused_int8`` (same
+    contract)."""
+    return _int8_decode_plain("decode_attn_fused_int8", q, kv, scales,
+                              lengths, scale, False)
+
+
+def decode_attn_fused_int8(q, kv, scales, lengths, scale=None):
+    """``decode_attn_grouped_int8``'s exact-q contract for the batches and
+    capacities the reference sends to ``flash_decode_fused``'s int8 mode
+    (attention.py:318; no group, or a capacity that does not divide by the
+    block). The kernel of ``decode_attn_grouped_int8``, with a launch count
+    of its own. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    name = "decode_attn_fused_int8"
+    if _build.on_cpu(name, q, kv, scales, lengths):
+        return decode_attn_fused_int8_plain(q, kv, scales, lengths, scale)
+    return _launch_int8_decode(decode_attn_fused_int8, q, kv, scales,
+                               lengths, False, scale)
+
+
+decode_attn_fused_int8.launches = 0
+
+
+# -- A1: float decode with the cache append fused -----------------------------
+
+def _check_append_attn(q, kv, k, v, lengths):
+    name = "decode_attn_grouped_append"
+    b, h, d = q.shape
+    _build.require(q.dtype == torch.float32, name, "q must be f32 [B, H, D]")
+    _build.require(kv.dim() == 4 and kv.shape[0] == b and kv.shape[2] == 2
+                   and kv.dtype in FLOAT_CACHE_DTYPES, name,
+                   "kv must be f32 or bf16 [B, cap, 2, KVH*D]")
+    cap, f = kv.shape[1], kv.shape[3]
+    _build.require(f % d == 0 and h % (f // d) == 0, name,
+                   "kv row width must be KVH*D with H a multiple of KVH")
+    kvh = f // d
+    _build.require(k.shape == v.shape == (b, kvh, 1, d)
+                   and k.dtype == v.dtype == torch.float32, name,
+                   "k and v must be f32 [B, KVH, 1, D]")
+    _build.require(lengths.shape == (b,) and lengths.dtype == torch.int32,
+                   name, "lengths must be int32 [B]")
+    return b, h, d, kvh, cap
+
+
+def decode_attn_grouped_append_plain(q, kv, k, v, lengths, scale=None):
+    """Plain PyTorch version of ``decode_attn_grouped_append`` (same
+    contract, the cache written in place): K5's write, then K6's contract
+    over the live rows (:func:`_attend_live`)."""
+    b, h, d, kvh, cap = _check_append_attn(q, kv, k, v, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    rows = torch.stack([k.reshape(b, kvh * d), v.reshape(b, kvh * d)],
+                       dim=1).to(kv.dtype)
+    pos = torch.clamp(lengths.to(torch.int64) - 1, 0, cap - 1)
+    kv[torch.arange(b, device=kv.device), pos] = rows
+    n = _live_rows(lengths, cap)
+    x = kv[:, :n].reshape(b, n, 2, kvh, d).to(torch.float32)
+    s = torch.einsum("bgrd,bngd->bgrn", q.reshape(b, kvh, h // kvh, d),
+                     x[:, :, 0]) * scale
+    return _attend_live(s, x[:, :, 1], lengths)
+
+
+def decode_attn_grouped_append(q, kv, k, v, lengths, scale=None):
+    """The contract of ``flash_decode_grouped_append`` (attention.py:976):
+    write each sequence's new K/V row, cast to the cache dtype (bf16 by
+    round to nearest even), in place at ``clip(lengths - 1, 0, cap - 1)``,
+    then decode attention over the updated cache as ``decode_attn_float``.
+
+    q f32 [B, H, D]; kv f32 or bf16 [B, cap, 2, KVH*D]; k, v f32
+    [B, KVH, 1, D] (strided views are fine); lengths int32 [B] counting the
+    new token. Returns f32 [B, H, D]. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    name = "decode_attn_grouped_append"
+    if _build.on_cpu(name, q, kv, k, v, lengths):
+        return decode_attn_grouped_append_plain(q, kv, k, v, lengths, scale)
+    b, h, d, kvh, cap = _check_append_attn(q, kv, k, v, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d in (64, 128), name, f"head_dim {d} must be 64 or 128")
+    _build.require(all(x.is_contiguous() for x in (q, kv, lengths)), name,
+                   "q, kv and lengths must be contiguous")
+    kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_append", "decode_attn_append",
+                         "ppppiippiiiiiifp")
+    err = fn(q.data_ptr(), kv.data_ptr(), kr.data_ptr(), vr.data_ptr(),
+             kr.stride(0), vr.stride(0), lengths.data_ptr(), out.data_ptr(),
+             b, h, kvh, d, cap, int(kv.dtype == torch.bfloat16),
+             float(scale), _build.stream())
+    _build.check(err, name)
+    decode_attn_grouped_append.launches += 1
+    return out
+
+
+decode_attn_grouped_append.launches = 0

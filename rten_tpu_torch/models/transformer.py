@@ -10,23 +10,27 @@ the reference, so the same weights (converted with
 be float, int8 per channel or group-wise int4 (word- or byte-packed); see
 :func:`linear`.
 
-Decode attention follows the reference's automatic choice
-(``_pallas_decode_attn``, transformer.py:366-492): an int8 cache with the
-tail window reads through ``decode_attn_int8_tail``; a float (f32 or bf16)
-cache through ``decode_attn_float``; an int8 cache without a tail, at a
-batch with a flat group, through ``decode_attn_int8``. A block-paged cache
-(:meth:`TransformerLM.new_paged_cache`) follows
+Prefill attention takes ``flash_attention`` where the reference's does
+(head_dim 128 and prompts of 128 tokens or more, transformer.py:792-800;
+:func:`~rten_tpu_torch.kernels.attention.flash_attention_takes`) and
+``attn_reference`` elsewhere. Decode attention follows the reference's
+automatic choice (``_pallas_decode_attn``, transformer.py:366-492): an int8
+cache with the tail window reads through ``decode_attn_int8_tail``; a float
+(f32 or bf16) cache through ``decode_attn_float``, or, with
+``fused_append`` where the reference fuses it (transformer.py:650-663),
+through ``decode_attn_grouped_append``, which also writes the new row; an
+int8 cache without a tail through ``decode_attn_int8``,
+``decode_attn_grouped_int8`` or ``decode_attn_fused_int8``, as
+:func:`~rten_tpu_torch.kernels.attention.int8_decode_kernel` chooses. A
+block-paged cache (:meth:`TransformerLM.new_paged_cache`) follows
 ``_pallas_paged_decode_attn`` (transformer.py:495-524): see
 :func:`_paged_decode_attn`. Chunked verify (:meth:`TransformerLM.
 verify_step`, speculative decoding) follows transformer.py:741-772: see
 :func:`_verify_attn`.
 
 Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP.md
-item: bf16 compute, ``scan_layers``, MoE, ``fused_append``, the float mode
-of ``flash_decode_flat`` (``decode_attn="flat"`` on a float cache), and the
-grouped/fused int8 decode kernels that the reference takes for a
-contiguous int8 cache without a tail at a batch with no flat group, or
-when ``decode_attn`` asks for them.
+item: bf16 compute, ``scan_layers``, MoE and the float mode of
+``flash_decode_flat`` (``decode_attn="flat"`` on a float cache).
 """
 
 from __future__ import annotations
@@ -42,10 +46,14 @@ from ..device import resolve_device
 from ..generate.kv_cache import KVCache
 from ..generate.paged_cache import PagedKVCache
 from ..kernels.attention import (attn_reference, decode_attn_float,
-                                 decode_attn_int8, decode_attn_int8_tail,
-                                 decode_attn_paged, decode_attn_paged_grid,
-                                 decode_attn_paged_int8, flat_group_for,
-                                 group_for, verify_attn_fused,
+                                 decode_attn_fused_int8,
+                                 decode_attn_grouped_append,
+                                 decode_attn_grouped_int8, decode_attn_int8,
+                                 decode_attn_int8_tail, decode_attn_paged,
+                                 decode_attn_paged_grid,
+                                 decode_attn_paged_int8, flash_attention,
+                                 flash_attention_takes, group_for,
+                                 int8_decode_kernel, verify_attn_fused,
                                  verify_attn_grouped)
 from ..kernels.gemm import (head_argmax_int8, matmul_int4, matmul_int4_words,
                             matmul_int4_words_int8, matmul_int8,
@@ -74,12 +82,12 @@ class TransformerConfig:
     layer_norm_eps: float = 1e-5
     tie_embeddings: bool = True
     dtype: str = "float32"
-    use_pallas: bool = True        # read only by the engine's tail gate
+    use_pallas: bool = True        # the tail gate, fused_append
     scan_layers: bool = False
     n_experts: int = 0
-    decode_attn: str = "auto"      # the tail gate and int8 decode dispatch
+    decode_attn: str = "auto"      # the tail gate and decode dispatch
     fused_append: bool = False
-    quant_int8_scores: bool = True  # only True: see _check_supported
+    quant_int8_scores: bool = True
 
     @property
     def head_dim(self):
@@ -105,6 +113,17 @@ class TransformerConfig:
             rope_theta=10000.0), **kw})
 
     @staticmethod
+    def mixtral(**kw):
+        """Mixtral-8x7B's shape; with ``n_experts=0`` it is
+        Mistral-7B-v0.2's (head_dim 128, 32 query heads over 8 KV
+        heads). MoE raises: it is not ported."""
+        return TransformerConfig(**{**dict(
+            vocab_size=32000, n_layers=32, n_heads=32, kv_heads=8,
+            d_model=4096, d_ff=14336, max_seq_len=4096, pos="rope",
+            norm="rmsnorm", act="swiglu", tie_embeddings=False,
+            rope_theta=1e6, n_experts=8), **kw})
+
+    @staticmethod
     def tiny_test(**kw):
         """Small config for tests."""
         return TransformerConfig(**{**dict(
@@ -120,12 +139,6 @@ def _check_supported(cfg: TransformerConfig):
          "Queue 1, serving breadth: bf16 compute and scan_layers"),
         (cfg.dtype != "float32", "bf16 compute",
          "Queue 1, serving breadth: bf16 compute and scan_layers"),
-        (cfg.fused_append, "fused_append",
-         "Queue 2, flash_decode_grouped_append"),
-        # The reference reads it only in the int8 grouped decode modes.
-        (not cfg.quant_int8_scores, "quant_int8_scores=False",
-         "Queue 2, int8 modes of flash_decode_grouped and "
-         "flash_decode_fused"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -359,6 +372,45 @@ class TransformerLM:
             params["layers"].append(layer)
         return params
 
+    def init_int4_params(self, seed=0, device="cuda") -> dict:
+        """Random weights of a Llama-family model with every projection in
+        int4 words, drawn on ``device`` with a seeded torch.Generator:
+        N(0, 0.02^2) as :meth:`init_params` draws them and norms at 1, each
+        projection quantized as soon as it is drawn, so no more than one
+        f32 matrix exists at a time (a 7B model draws in seconds on the
+        card). Not the reference's numpy order: seed s does not give
+        :meth:`init_params`'s weights."""
+        cfg = self.config
+        if not (cfg.norm == "rmsnorm" and cfg.act == "swiglu"
+                and cfg.pos == "rope" and not cfg.tie_embeddings):
+            raise ValueError("init_int4_params draws Llama-family weights "
+                             "(rmsnorm, swiglu, rope, untied lm_head)")
+        dev = resolve_device(device)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        d, hd = cfg.d_model, cfg.head_dim
+
+        def dense(k, n):
+            return 0.02 * torch.randn((k, n), device=dev, generator=g)
+
+        def int4(k, n):
+            packed, scales = quantize_int4_words(dense(k, n))
+            return QuantWeight("int4", packed, scales, n, INT4_GROUP)
+
+        def ones():
+            return torch.ones(d, device=dev)
+
+        params = {"embed": dense(cfg.vocab_size, d), "ln_f_scale": ones(),
+                  "layers": []}
+        for _ in range(cfg.n_layers):
+            params["layers"].append({
+                "ln1_scale": ones(),
+                "wqkv": int4(d, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
+                "wo": int4(cfg.n_heads * hd, d), "ln2_scale": ones(),
+                "w_gate": int4(d, cfg.d_ff), "w_up": int4(d, cfg.d_ff),
+                "w_down": int4(cfg.d_ff, d)})
+        params["lm_head"] = int4(d, cfg.vocab_size)
+        return params
+
     # -- forward -----------------------------------------------------------
 
     def _decode_attn(self, q3, cache, layer_idx):
@@ -390,10 +442,16 @@ class TransformerLM:
         v = qkv[..., (h + kvh) * hd:].reshape(b, s, kvh, hd).transpose(1, 2)
         if rope is not None:
             q, k = _rope(q, *rope), _rope(k, *rope)
-        if cache is not None:
+        fuse_app = _fused_append_takes(cfg, cache, b, s, chunk)
+        if cache is not None and not fuse_app:
             cache = cache.append(layer_idx, k, v,
                                  position=None if chunk or s == 1 else 0)
-        if s == 1 and cache is not None:
+        if fuse_app:
+            # The kernel writes the new row itself (transformer.py:714-725).
+            out = decode_attn_grouped_append(
+                q[:, :, 0].contiguous(), cache.kv[layer_idx], k, v,
+                cache.lengths + 1)[:, :, None]
+        elif s == 1 and cache is not None:
             out = self._decode_attn(q[:, :, 0].contiguous(), cache,
                                     layer_idx)[:, :, None]
         elif chunk and cache is not None:
@@ -402,7 +460,14 @@ class TransformerLM:
             if kvh != h:
                 k = k.repeat_interleave(h // kvh, dim=1)
                 v = v.repeat_interleave(h // kvh, dim=1)
-            out = attn_reference(q, k, v, True, 1.0 / math.sqrt(hd))
+            # transformer.py:792-800: flash_attention, whose own fallback
+            # sends the shapes it does not take to the plain reference.
+            if flash_attention_takes(s, k.shape[2], hd):
+                out = flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), True,
+                                      1.0 / math.sqrt(hd))
+            else:
+                out = attn_reference(q, k, v, True, 1.0 / math.sqrt(hd))
         out = out.transpose(1, 2).reshape(b, s, h * hd)
         return linear(out, layer_params["wo"], layer_params.get("bo")), cache
 
@@ -576,15 +641,33 @@ def _paged_decode_attn(cfg, q3, cache, layer_idx):
     return decode_attn_paged_grid(q3, pool, table, lengths)
 
 
+def _fused_append_takes(cfg, cache, b, s, chunk):
+    """The reference's fused-append eligibility, to the letter
+    (transformer.py:650-663): a single-token decode step on a contiguous
+    float cache with ``fused_append`` and Pallas on, ``decode_attn`` "auto"
+    or "grouped", a batch with a group in (8, 4, 2), rows of a multiple of
+    128 values and a capacity that divides by the grouped block."""
+    if not (cfg.fused_append and s == 1 and cache is not None and not chunk
+            and cfg.use_pallas):
+        return False
+    if getattr(cache, "paged", False) or cache.quantized:
+        return False
+    cap = cache.capacity
+    return bool(cfg.decode_attn in ("auto", "grouped") and group_for(b)
+                and (cfg.n_kv_heads * cfg.head_dim) % 128 == 0
+                and cap % min(128 if cap >= 2048 else 64, cap) == 0)
+
+
 def _cache_decode_attn(cfg, q3, cache, layer_idx):
     """Decode attention on a cache without a tail window, chosen as the
-    reference's automatic dispatch chooses (transformer.py:396-417): a
+    reference's automatic dispatch chooses (transformer.py:366-492): a
     float cache → ``decode_attn_float`` (the reference's grouped or fused
-    float kernel, one function); an int8 cache at a batch with a flat
-    group → ``decode_attn_int8`` (``flash_decode_flat``, ``q_bf16``). The
-    reference's other int8 choices are unported kernel modes and raise.
-    A tail cache must never get here: its newest tokens live in the window,
-    which only the tail kernel reads (the reference raises the same way,
+    float kernel, one function); an int8 cache → the kernel that
+    :func:`int8_decode_kernel` names: ``decode_attn_int8``
+    (``flash_decode_flat``, ``q_bf16``), ``decode_attn_grouped_int8`` (exact
+    q or ``int8_scores``) or ``decode_attn_fused_int8``. A tail cache must
+    never get here: its newest tokens live in the window, which only the
+    tail kernel reads (the reference raises the same way,
     transformer.py:426-431)."""
     if cache.tail is not None:
         raise ValueError("KV cache has a tail write-buffer but decode "
@@ -603,19 +686,16 @@ def _cache_decode_attn(cfg, q3, cache, layer_idx):
                 f"the float mode of flash_decode_flat, which is not ported "
                 f"yet (ROADMAP.md Queue 2, flash_decode_flat float mode)")
         return decode_attn_float(q3, cache.kv[layer_idx], lengths)
-    cap = cache.capacity
-    flat = (cfg.decode_attn in ("auto", "flat")
-            and flat_group_for(q3.shape[0])
-            and (cap < 2048 or cap % 128 == 0))
-    if not flat:
-        raise NotImplementedError(
-            f"decode on an int8 cache without a tail window at batch "
-            f"{q3.shape[0]}, capacity {cap}, decode_attn="
-            f"{cfg.decode_attn!r} takes the reference's grouped/fused int8 "
-            f"kernel, which is not ported yet (ROADMAP.md Queue 2, int8 "
-            f"modes of flash_decode_grouped and flash_decode_fused)")
-    return decode_attn_int8(q3, cache.kv[layer_idx], cache.scales[layer_idx],
-                            lengths)
+    kind, _ = int8_decode_kernel(b, q3.shape[1], cache.head_dim,
+                                 cache.kv_heads, cache.capacity,
+                                 cfg.decode_attn, cfg.quant_int8_scores)
+    kv, scales = cache.kv[layer_idx], cache.scales[layer_idx]
+    if kind == "flat":
+        return decode_attn_int8(q3, kv, scales, lengths)
+    if kind == "fused":
+        return decode_attn_fused_int8(q3, kv, scales, lengths)
+    return decode_attn_grouped_int8(q3, kv, scales, lengths,
+                                    int8_scores=kind == "grouped_scores")
 
 
 def _verify_attn(cfg, q, cache, layer_idx):

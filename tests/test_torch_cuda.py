@@ -379,24 +379,31 @@ def test_decode_steps_without_tail_match_the_cpu(gen, cache, tol):
 
 def test_int8_cache_without_a_flat_group_raises_on_the_card(gen):
     """On the card an int8 cache without a tail decodes through K7 and K1'
-    at a batch with a flat group (4); at batch 3 it would take the
-    reference's unported grouped/fused int8 kernel, so it raises naming
-    ROADMAP instead of falling back to a plain version or the CPU."""
+    at a batch with a flat group (4); at batch 3, where it used to raise,
+    it now takes the reference's fused int8 kernel, G2, and its logits
+    match the CPU's plain versions."""
     model = TransformerLM(TransformerConfig.tiny_test(n_heads=2,
                                                       d_model=128))
     params = quantize_weights(model.init_params(3, device="cuda"))
     n_layers = model.config.n_layers
-    before = (kc.kv_append_int8.launches, at.decode_attn_int8.launches)
+    before = (kc.kv_append_int8.launches, at.decode_attn_int8.launches,
+              at.decode_attn_fused_int8.launches)
     cache = model.new_cache(4, 64, quantized=True, device="cuda")
     model.decode_step(params, torch.ones(4, dtype=torch.int64,
                                          device="cuda"), cache)
     assert (kc.kv_append_int8.launches, at.decode_attn_int8.launches) == (
         before[0] + n_layers, before[1] + n_layers)
-    cache = model.new_cache(3, 64, quantized=True, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.decode_step(params, torch.ones(3, dtype=torch.int64,
-                                             device="cuda"), cache)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else quantize_weights(
+            model.init_params(3, device="cpu"))
+        cache = model.new_cache(3, 64, quantized=True, device=dev)
+        logits[dev], _ = model.decode_step(
+            p, torch.ones(3, dtype=torch.int64, device=dev), cache)
     assert at.decode_attn_int8.launches == before[1] + n_layers
+    assert at.decode_attn_fused_int8.launches == before[2] + n_layers
+    # int8 weights: bf16 roundings of activations may flip (as above).
+    assert (logits["cuda"].cpu() - logits["cpu"]).abs().max() < 1e-2
 
 
 # -- block-paged pools --------------------------------------------------------
@@ -721,3 +728,113 @@ def test_speculative_engine_on_the_card_matches_the_cpu(gen, b):
     grouped = at.verify_attn_grouped.launches - before[0]
     fused = at.verify_attn_fused.launches - before[1]
     assert (grouped > 0, fused > 0) == (b == 4, b == 3)
+
+
+# -- F1, G1, G2 and A1 (head_dim 128, Mistral-7B's path) ----------------------
+
+# F1, G1, G2 and A1 sum in f32 with nothing rounded to bf16, as K6: a few f32
+# roundings of outputs of order 1, 1e-5 of max |out|.
+F32_REL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,s", [(2, 4, 128), (1, 2, 384),
+                                   (16, 32, 512)])
+def test_flash_attention_kernel_matches_plain(gen, b, h, s, causal):
+    """F1 against attn_reference's arithmetic, one to eight query tiles,
+    at the prefill shape of Mistral-7B's path (B 16, 32 heads, S 512)."""
+    q, k, v = (torch.randn((b, h, s, 128), device="cuda", generator=gen)
+               for _ in range(3))
+    before = at.flash_attention.launches
+    out = at.flash_attention(q, k, v, causal=causal)
+    ref = at.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert at.flash_attention.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= (
+        F32_REL_TOL * ref.abs().max().item())
+
+
+def _int8_cache(gen, b, cap, kvh, d):
+    kv = torch.randint(-127, 128, (b, cap, 2, kvh * d), device="cuda",
+                       dtype=torch.int8, generator=gen)
+    scales = (0.01 + 0.02 * torch.rand((b, cap, 2, kvh), device="cuda",
+                                       generator=gen)).to(torch.bfloat16)
+    return kv, scales
+
+
+# (batch, heads, kv heads, head_dim, capacity, lengths): ragged small
+# shapes (a length 0, one past capacity) and the path's (Mistral-7B, B 16
+# at capacity 4096 and 1024, B 3; lives 512-576).
+INT8_DECODE_CASES = [
+    (4, 8, 2, 128, 96, [0, 1, 96, 140]),
+    (3, 4, 4, 64, 64, [5, 64, 33]),
+    (16, 32, 8, 128, 4096, list(range(512, 576, 4))),
+    (16, 32, 8, 128, 1024, list(range(512, 576, 4))),
+    (3, 32, 8, 128, 4096, [512, 544, 576]),
+]
+
+
+@pytest.mark.parametrize("case", INT8_DECODE_CASES, ids=str)
+@pytest.mark.parametrize("entry", ["exact", "int8_scores", "fused"])
+def test_int8_decode_kernels_match_plain(gen, entry, case):
+    """G1 in both score modes and G2 against their plain versions; with
+    int8 scores the kernel's int32 dots equal the plain ones bit for
+    bit."""
+    b, h, kvh, d, cap, lens = case
+    kv, scales = _int8_cache(gen, b, cap, kvh, d)
+    q = torch.randn((b, h, d), device="cuda", generator=gen) * 2
+    q[0, 0] = 0                                     # an all-zero q row
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scores = entry == "int8_scores"
+    if entry == "fused":
+        wrapper = at.decode_attn_fused_int8
+        out = wrapper(q, kv, scales, lengths)
+        ref = at.decode_attn_fused_int8_plain(q, kv, scales, lengths)
+    else:
+        wrapper = at.decode_attn_grouped_int8
+        dots = torch.full((b, h, cap), -1, dtype=torch.int32, device="cuda")
+        before = wrapper.mode_launches[entry]
+        out = wrapper(q, kv, scales, lengths, int8_scores=scores,
+                      dots=dots if scores else None)
+        ref = at.decode_attn_grouped_int8_plain(q, kv, scales, lengths,
+                                                int8_scores=scores)
+        assert wrapper.mode_launches[entry] == before + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= (
+        F32_REL_TOL * ref.abs().max().item())
+    if scores:
+        want = at.int8_score_dots_plain(q, kv, lengths)
+        live = (torch.arange(cap, device="cuda")[None, None, :]
+                < lengths.clamp(max=cap)[:, None, None])
+        assert torch.equal(torch.where(live, dots, 0), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,d,cap,lens", [
+    (4, 8, 2, 128, 64, [0, 1, 64, 90]),
+    (3, 4, 4, 64, 128, [7, 128, 1]),
+    (16, 32, 8, 128, 4096, list(range(512, 576, 4)))])
+def test_grouped_append_kernel_matches_plain(gen, dtype, b, h, kvh, d, cap,
+                                             lens):
+    """A1 against K5 + K6's contract: the written cache bit for bit (K5's
+    write too), the output within 1e-5 of max |out|; lengths count the new
+    token, from 0 (row 0 written, zeros out) to past capacity (the last
+    row); k and v are strided views, as the model passes them."""
+    kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
+                     generator=gen).to(dtype)
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    qkv = torch.randn((b, 1, 3 * kvh * d), device="cuda", generator=gen)
+    k = qkv[..., :kvh * d].reshape(b, 1, kvh, d).transpose(1, 2)
+    v = qkv[..., kvh * d:2 * kvh * d].reshape(b, 1, kvh, d).transpose(1, 2)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kv1, kv2, kv3 = kv.clone(), kv.clone(), kv.clone()
+    out = at.decode_attn_grouped_append(q, kv1, k, v, lengths)
+    ref = at.decode_attn_grouped_append_plain(q, kv2, k, v, lengths)
+    kc.kv_append(kv3, k, v, lengths - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(kv1, kv2) and torch.equal(kv1, kv3)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= (
+        F32_REL_TOL * ref.abs().max().item())

@@ -337,16 +337,20 @@ def test_decode_dispatch_follows_the_reference(models, monkeypatch):
     unported float mode of flash_decode_flat there) and takes K6 at the
     other batches (the reference's grouped/fused float kernels); an int8
     cache without a tail at a batch with a flat group → K1'; with no flat
-    group, or decode_attn asking for the grouped, fused or stream kernel,
-    an int8 cache raises naming ROADMAP (no plain fallback)."""
+    group → G2 (flash_decode_fused); decode_attn "grouped" → G1 with int8
+    scores at this short capacity, "fused" and "stream" → G2
+    (tests/test_torch_mistral.py holds the whole rule against the
+    reference's)."""
     _, _, _, pps = models
     calls = []
-    for name in ("decode_attn_float", "decode_attn_int8"):
+    for name in ("decode_attn_float", "decode_attn_int8",
+                 "decode_attn_grouped_int8", "decode_attn_fused_int8"):
         real = getattr(ptr, name)
 
-        def spy(*a, _real=real, _name=name):
-            calls.append(_name)
-            return _real(*a)
+        def spy(*a, _real=real, _name=name, **kw):
+            calls.append(_name + (".scores" if kw.get("int8_scores")
+                                  else ""))
+            return _real(*a, **kw)
         monkeypatch.setattr(ptr, name, spy)
 
     def step(pm, weights, b, **kw):
@@ -361,13 +365,13 @@ def test_decode_dispatch_follows_the_reference(models, monkeypatch):
         assert step(pm, "f32", b, cache_dtype="bfloat16") == {
             "decode_attn_float"}
     assert step(pm, "int8", 4, quantized=True) == {"decode_attn_int8"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step(pm, "int8", 3, quantized=True)
-    for kind in ("grouped", "fused", "stream"):
+    assert step(pm, "int8", 3, quantized=True) == {"decode_attn_fused_int8"}
+    for kind, want in (("grouped", "decode_attn_grouped_int8.scores"),
+                       ("fused", "decode_attn_fused_int8"),
+                       ("stream", "decode_attn_fused_int8")):
         pk = TransformerLM(TransformerConfig.tiny_test(decode_attn=kind,
                                                        **CFG))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step(pk, "int8", 4, quantized=True)
+        assert step(pk, "int8", 4, quantized=True) == {want}
     stream = TransformerLM(TransformerConfig.tiny_test(decode_attn="stream",
                                                        **CFG))
     flat = TransformerLM(TransformerConfig.tiny_test(decode_attn="flat",

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from rten_tpu_torch import resolve_device
-from rten_tpu_torch.generate import ServingEngine
+from rten_tpu_torch.generate import KVCache, PagedKVCache, ServingEngine
 from rten_tpu_torch.kernels import KERNELS, _build
 from rten_tpu_torch.models import (TransformerConfig, TransformerLM,
                                    params_from_numpy, quantize_weights)
@@ -70,6 +70,20 @@ def test_entry_points_default_to_cuda_and_raise_without_card(no_card):
             call()
 
 
+def test_cache_constructors_default_to_cuda_and_raise_without_card(
+        no_card):
+    """KVCache.create and PagedKVCache.create put their buffers on the
+    card unless asked for the CPU: without a card the default raises
+    instead of running on the CPU, and device="cpu" builds there."""
+    for create, args in ((KVCache.create, (2, 1, 2, 16, 64)),
+                         (PagedKVCache.create, (1, 5, 8, 2, 64, 2, 2))):
+        for quantized in (False, True):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                create(*args, quantized=quantized)
+            cache = create(*args, quantized=quantized, device="cpu")
+            assert cache.lengths.device.type == "cpu"
+
+
 def _kernel_args():
     b, cap, rows, kvh, d = 2, 64, 8, 2, 64
     f = kvh * d
@@ -113,7 +127,14 @@ def _kernel_args():
             "verify_attn_grouped": (torch.zeros((b, 3, 4, d)), kv, lengths,
                                     scales),
             "verify_attn_fused": (torch.zeros((b, 3, 4, d)), kv, lengths,
-                                  scales)}
+                                  scales),
+            # Prefill attention at a shape its kernel takes (d 128, S 128).
+            "flash_attention": tuple(torch.zeros((1, 2, 128, 128))
+                                     for _ in range(3)),
+            "decode_attn_grouped_int8": (q, kv, scales, lengths),
+            "decode_attn_fused_int8": (q, kv, scales, lengths),
+            "decode_attn_grouped_append": (q, torch.zeros((b, cap, 2, f)),
+                                           k, k, lengths)}
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.__name__)

@@ -46,7 +46,8 @@ def _prefilled(rng, prompt_lens, rows, n_layers=1):
     rows are initialised by that insert)."""
     t = max(prompt_lens)
     jg = JKVCache.create(B, n_layers, KVH, CAP, D, quantized=True)
-    pg_ = KVCache.create(B, n_layers, KVH, CAP, D, quantized=True)
+    pg_ = KVCache.create(B, n_layers, KVH, CAP, D, quantized=True,
+                         device="cpu")
     for layer in range(n_layers):
         k = rng.standard_normal((B, KVH, t, D)).astype(np.float32)
         v = rng.standard_normal((B, KVH, t, D)).astype(np.float32)
@@ -55,7 +56,7 @@ def _prefilled(rng, prompt_lens, rows, n_layers=1):
     jc = JKVCache.create(B, n_layers, KVH, CAP, D, quantized=True,
                          tail_window=rows)
     pc = KVCache.create(B, n_layers, KVH, CAP, D, quantized=True,
-                        tail_window=rows)
+                        tail_window=rows, device="cpu")
     for b, n in enumerate(prompt_lens):
         jc = jc.insert_sequence(jg, b, n, src_slot=b)
         pc = pc.insert_sequence(pg_, b, n, src_slot=b)

@@ -282,7 +282,7 @@ def test_ensure_capacity_and_release_slot():
     device table changes on upload only; exhaustion and outgrowing the
     table raise MemoryError; ``release_slot`` returns the pages, unmaps
     the row and sets the slot's length to 0."""
-    cache = PagedKVCache.create(1, 6, PAGE, KVH, D, 2, 4)
+    cache = PagedKVCache.create(1, 6, PAGE, KVH, D, 2, 4, device="cpu")
     alloc = PagedKVCache.make_allocator(cache.n_pages)
     alloc.ensure_capacity(cache, 0, PAGE + 1, 0)
     assert (cache.page_table.numpy() == -1).all()

@@ -157,7 +157,8 @@ def test_chunked_append_bit_exact_against_reference(kind, t):
     kw = dict(quantized=True) if quant else dict(dtype=dtype)
     jc = JKVCache.create(b, 1, KVH, CAP, D, **kw)
     pc = KVCache.create(b, 1, KVH, CAP, D, quantized=quant,
-                        dtype=torch.float32 if quant else TDTYPES[kind])
+                        dtype=torch.float32 if quant else TDTYPES[kind],
+                        device="cpu")
     pre = [rng.standard_normal((b, KVH, CAP, D)).astype(np.float32)
            for _ in range(2)]
     jc = jc.append(0, jnp.asarray(pre[0]), jnp.asarray(pre[1]), position=0)
