@@ -36,7 +36,25 @@ Phases (any failure exits non-zero; nothing is caught):
    capacity 4096 and with int8 scores at 1024 (its int32 dots held bit for
    bit), G2 (``decode_attn_fused_int8``) at batch 3, and A1
    (``decode_attn_grouped_append``) on a bf16 and an f32 cache (the write
-   held bit for bit against K5), lives 512-576.
+   held bit for bit against K5), lives 512-576. The kernels of the last
+   four TPU functions: K8 (``decode_attn_flat_float``) at path (I)'s
+   shapes on an f32 and a bf16 cache (the library calls f32 and bf16
+   ``scaled_dot_product_attention``) and at TinyLlama's (printed); the
+   partials mode of K1' (``decode_attn_int8_partials``, q_bf16 on and off)
+   at path (B)'s shapes and at TinyLlama's (printed, chunks merged by the
+   second launch); K9 (``decode_attn_split_kv``, separate f32 K and V of
+   S 4096) at path (H)'s head shape (f32 SDPA with ``enable_gqa``);
+   ``decode_attn_native_dots`` at path (C)'s bf16 shapes (bf16 SDPA); G1's
+   ``pv_int8`` mode at path (H)'s shapes in both score modes; M1
+   (``matmul_int8_tiled``) bit for bit at GPT-2-small's four linears at
+   M 256 and 4096 (``torch._int_mm`` and the epilogue). No path reaches
+   the last five: their entries carry ``"path": null``. The kernels whose
+   job is a rounding are held to criteria that the kernel without it
+   misses, and the script checks that it does: K8 (and the partials
+   mode's acc) to one bf16 step of each element and 99.9% of the elements
+   within 2e-5 of max |out| (K6 at K8's inputs must miss it), native_dots
+   and pv_int8 to 99% within 1e-5 (K6, and G1 without pv_int8, must
+   miss it).
 4. Serving paths, each ``ServingEngine`` at batch 256, capacity 512,
    64-token prompts, greedy, bursts of 21, after a warm-up serve; launch
    counts are set to 0 before each measured run and every kernel of the
@@ -54,6 +72,9 @@ Phases (any failure exits non-zero; nothing is caught):
      int8 page pool; 320 requests of 48 new tokens.
    - (E) paged f32: f32 weights, ``paged=True, page_size=64`` with an f32
      page pool; 320 requests of 48 new tokens.
+   - (I) flat f32: f32 weights and cache with ``decode_attn="flat"``: K8
+     once per layer and decode step, K6 never; 320 requests of 48 new
+     tokens. (I-bf16): int8 weights on a bf16 cache, 256 requests of 16.
    For int8 + tail, (A), (D) and (E): decode at a full batch, one burst
    timed on the host clock and one traced by torch.profiler (time by
    kernel, the card's busy share); for (B) and (C) the timed burst only;
@@ -100,7 +121,8 @@ Phases (any failure exits non-zero; nothing is caught):
    requests of 8 tokens x 16 new tokens, on the card and with
    ``device="cpu"`` (plain versions), with the fused argmax head and with
    recorded logits; logits must agree within a stated tolerance and greedy
-   tokens must match except after a near-tie step. For (E) the same at
+   tokens must match except after a near-tie step; the same for (I) (K8
+   must launch, K6 not). For (E) the same at
    ``max_batch=3`` with 3 requests, a batch with no group, where the paged
    decode takes the grid kernel, which must launch there. For (F) at
    TinyLlama's width with 2 layers: 4 requests of 8 tokens x 16 new tokens,
@@ -109,7 +131,8 @@ Phases (any failure exits non-zero; nothing is caught):
    9 new tokens (G1 each decode step), logits + argmax.
 
 Prints a ``{"kernels": [...]}`` JSON line (V1 with one entry per entry
-point and mode), then as the last line ``{"ok": true, "device": {...}}``.
+point and mode, G1 per mode), then as the last line ``{"ok": true,
+"device": {...}}``.
 """
 
 import json
@@ -206,14 +229,69 @@ LLAMA_PATH_LOGIT_TOL = 0.1
 # at TinyLlama's (python -m rten_tpu_torch.tools.int4_flip_sensitivity),
 # so (F)'s 0.1 doubled: 0.2 (an H100 measured 0.1398).
 MISTRAL_PATH_LOGIT_TOL = 2 * LLAMA_PATH_LOGIT_TOL
+# K8 and the partials mode with q_bf16 do the sums of K6 and of K1' and then
+# round the output to bf16. The two versions' f32 sums differ by K6's
+# tolerance, so an element whose sums straddle a rounding boundary lands
+# one bf16 step apart: every element within one step of its own value,
+# 2^-7 |ref|, plus K6's 1e-5 of max |out| for the sums. Elsewhere both
+# round to the same value, so at least 99.9% of the elements agree within
+# 2e-5 of max |out| (the CPU tests' criterion against the JAX package); the
+# unrounded kernel misses that share (K6 at K8's inputs is checked to).
+BF16_STEP = 2.0 ** -7
+ROUND_ELEM_TOL = 2e-5
+ROUND_SHARE = 0.999
+# native_dots and pv_int8 round every probability (to bf16, or to an int8
+# step of its block's largest scale-folded value; see NATIVE_STEP below),
+# so a rounding flips between the versions in a few heads only: at least
+# 99% of the elements agree within K6's 1e-5 of max |out|. The kernel
+# without the mode (K6, or G1 without pv_int8) misses that share, and is
+# checked to.
+FLIP_SHARE = 0.99
+# Path (I) card against CPU: K8 rounds q, K and its output to bf16, so a
+# rounding that flips between the devices' f32 sums travels through 12
+# layers; an H100 measured 1.595e-3 against max |logit| 2.989. Tolerance
+# 1e-2, 6x that reading and 5x tighter than the int8 paths'.
+FLAT_PATH_LOGIT_TOL = 1e-2
 
 PAGE = 64                          # tokens per page on the paged paths
+
+
+T0 = time.perf_counter()
+
+
+def stamp(what):
+    """The wall seconds since the script started, after a phase."""
+    print(f"[{time.perf_counter() - T0:.1f} s] {what}", flush=True)
 
 
 def check(ok, what):
     """Fail the run (an exception, so no later phase and no result line)."""
     if not ok:
         raise RuntimeError(what)
+
+
+def share_within(out, ref, rel):
+    """The share of elements of ``out`` within ``rel`` x max |ref| of
+    ``ref``."""
+    return (out - ref).abs().le(rel * ref.abs().max()).float().mean().item()
+
+
+def check_rounded(out, ref, label):
+    """Hold a kernel that rounds its output to bf16 against its plain
+    version (BF16_STEP, K6_REL_TOL, ROUND_ELEM_TOL and ROUND_SHARE above);
+    returns (max abs error, share within ROUND_ELEM_TOL)."""
+    err = (out - ref).abs()
+    share = share_within(out, ref, ROUND_ELEM_TOL)
+    over = (err - BF16_STEP * ref.abs()).max().item()
+    print(f"{label}: max_abs_err {err.max().item():.3e}; max of |err| - "
+          f"2^-7 |ref| {over:.3e} (tol "
+          f"{K6_REL_TOL * ref.abs().max().item():.3e}); share within "
+          f"{ROUND_ELEM_TOL:.0e} of max |out| {share:.6f} (min "
+          f"{ROUND_SHARE})")
+    check(bool(torch.isfinite(out).all())
+          and over <= K6_REL_TOL * ref.abs().max().item()
+          and share >= ROUND_SHARE, f"{label} disagrees")
+    return err.max().item(), share
 
 
 def nonzero(counts):
@@ -1108,6 +1186,358 @@ def check_grouped_append(timer, b=16, cap=4096, lives=H_LIVES, h=H_HEADS,
                    ("max_abs_err", "ms", "plain_ms", "bound_ms")})
 
 
+# -- K8, the partials mode, K9, native_dots, pv_int8 and M1 -------------------
+
+def _sdpa_mask(lengths, cap):
+    return (torch.arange(cap, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+
+
+def check_flat_float(timer, b=256, h=12, kvh=12, cap=512, lives=(65, 177),
+                     entry=True):
+    """K8 (``decode_attn_flat_float``) against its plain version at path
+    (I)'s shapes on an f32 cache (the entry, its library call f32
+    ``scaled_dot_product_attention`` over the capacity with the length
+    mask) and (I-bf16)'s bf16 cache (kept in the entry's ``bf16_*`` keys,
+    with bf16 SDPA); or, with ``entry`` False, printed only (TinyLlama's
+    B 16, 32 heads over 4 KV heads, capacity 2048). Both versions round
+    the output to bf16: :func:`check_rounded`; K6 at the same inputs must
+    miss its share. Bound: the live rows read once in the cache dtype, 4
+    f32 operations per (head, dim, row)."""
+    d = 64
+    f = kvh * d
+    g = torch.Generator(device="cuda").manual_seed(31)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    lengths = _decode_lengths(g, b, lives)
+    mask = _sdpa_mask(lengths, cap)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        kv = torch.randn((b, cap, 2, f), device="cuda",
+                         generator=g).to(dtype)
+        out = at.decode_attn_flat_float(q, kv, lengths)
+        ref = at.decode_attn_flat_float_plain(q, kv, lengths)
+        k6 = at.decode_attn_float(q, kv, lengths)
+        torch.cuda.synchronize()
+        label = (f"decode_attn_flat_float ({str(dtype)[6:]} cache, B {b}, "
+                 f"H {h} over {kvh}, capacity {cap}, lives {lives[0]}-"
+                 f"{lives[1] - 1})")
+        err, share = check_rounded(out, ref, label)
+        k6_share = share_within(k6, ref, ROUND_ELEM_TOL)
+        print(f"{label}: K6 (decode_attn_float) at the same inputs: share "
+              f"within {ROUND_ELEM_TOL:.0e} of max |out| {k6_share:.6f} "
+              f"(must miss {ROUND_SHARE})")
+        check(k6_share < ROUND_SHARE, f"{label}: K6 meets K8's criterion")
+        bms, by = _decode_bound(q, lengths, cap, 2 * f * kv.element_size())
+        rep = h // kvh
+        k4 = kv[:, :, 0].view(b, cap, kvh, d).transpose(1, 2)
+        v4 = kv[:, :, 1].view(b, cap, kvh, d).transpose(1, 2)
+        qs = q[:, :, None].to(dtype)
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            qs, k4, v4, attn_mask=mask, enable_gqa=rep > 1))
+        ms = timer(lambda: at.decode_attn_flat_float(q, kv, lengths))
+        plain_ms = timer(lambda: at.decode_attn_flat_float_plain(q, kv,
+                                                                 lengths))
+        print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+              f"{bms:.4f} ({by}) library_ms {lib:.4f} ({str(dtype)[6:]} "
+              f"scaled_dot_product_attention)")
+        res[dtype] = dict(max_abs_err=err, share=share, k6_share=k6_share,
+                          ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=by, library_ms=lib)
+        del kv
+    if not entry:
+        return None
+    bf = res[torch.bfloat16]
+    return dict(name="decode_attn_flat_float",
+                source="rten_tpu_torch/csrc/decode_attn_float.cu",
+                replaces="rten_tpu/kernels/attention.py:1715",
+                shape=(f"B {b}, {h} heads of {d}, f32 cache of capacity "
+                       f"{cap}, lives {lives[0]}-{lives[1] - 1}"),
+                **res[torch.float32],
+                **{f"bf16_{key}": bf[key] for key in
+                   ("max_abs_err", "share", "k6_share", "ms", "plain_ms",
+                    "bound_ms", "library_ms")})
+
+
+def check_partials(timer, b=256, h=12, kvh=12, cap=512, lives=(65, 177),
+                   entry=True):
+    """The partials mode of K1' (``decode_attn_int8_partials``) against
+    its plain version, q_bf16 on (the entry) and off (printed): acc held
+    by :func:`check_rounded` (on: rounded to bf16) or within K6's
+    tolerance (off), m and l within K6's relative tolerance. At path (B)'s
+    shapes one block covers a sequence; with ``entry`` False at
+    TinyLlama's (B 16, 32 heads over 4, capacity 2048), where a sequence
+    splits into chunks that the second launch merges. Bound as K1'."""
+    d = 64
+    f = kvh * d
+    g = torch.Generator(device="cuda").manual_seed(32)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    kv = torch.randint(-127, 128, (b, cap, 2, f), device="cuda",
+                       dtype=torch.int8, generator=g)
+    scales = (0.002 + 0.01 * torch.rand((b, cap, 2, kvh), device="cuda",
+                                        generator=g)).to(torch.bfloat16)
+    lengths = _decode_lengths(g, b, lives)
+    chunk, splits = at.int8_chunks(b, h, cap)
+    res = {}
+    for q_bf16 in (True, False):
+        args = (q, kv, scales, lengths, q_bf16)
+        out = at.decode_attn_int8_partials(*args)
+        ref = at.decode_attn_int8_partials_plain(*args)
+        torch.cuda.synchronize()
+        errs = [(out[..., sl] - ref[..., sl]).abs().max().item()
+                / ref[..., sl].abs().max().item()
+                for sl in (slice(0, d), d, d + 1)]
+        label = (f"decode_attn_int8_partials (q_bf16 {q_bf16}, B {b}, H {h} "
+                 f"over {kvh}, capacity {cap}, {splits} chunk(s))")
+        print(f"{label}: relative max errors acc {errs[0]:.3e}, m "
+              f"{errs[1]:.3e}, l {errs[2]:.3e} (tol {K6_REL_TOL:.1e}"
+              f"{', acc: below' if q_bf16 else ''})")
+        check(bool(torch.isfinite(out).all())
+              and max(errs[1:] if q_bf16 else errs) <= K6_REL_TOL,
+              f"{label} disagrees")
+        if q_bf16:
+            check_rounded(out[..., :d], ref[..., :d], f"{label}, acc")
+        bms, by = _decode_bound(q, lengths, cap, 2 * f + 2 * kvh * 2,
+                                b * h * 2 * 4)
+        ms = timer(lambda: at.decode_attn_int8_partials(*args))
+        plain_ms = timer(lambda: at.decode_attn_int8_partials_plain(*args))
+        print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+              f"{bms:.4f} ({by}) library_ms None")
+        res[q_bf16] = dict(max_abs_err=errs[0] * ref[..., :d].abs().max()
+                           .item(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by)
+    if not entry:
+        return None
+    return dict(name="decode_attn_int8_partials",
+                source="rten_tpu_torch/csrc/decode_attn_int8_tail.cu",
+                replaces="rten_tpu/kernels/attention.py:1715",
+                shape=(f"B {b}, {h} heads of {d}, int8 cache of capacity "
+                       f"{cap}, lives {lives[0]}-{lives[1] - 1}, q_bf16"),
+                **res[True], library_ms=None,
+                **{f"exact_q_{key}": res[False][key] for key in
+                   ("max_abs_err", "ms", "plain_ms")})
+
+
+def check_split_kv(timer, b=16, h=H_HEADS, kvh=H_KVH, d=H_D, s=4096,
+                   lives=H_LIVES):
+    """K9 (``decode_attn_split_kv``) against its plain version on separate
+    f32 K and V planes at path (H)'s head shape (the reference's kernel
+    shape: d 128, S a multiple of 256); the library call f32
+    ``scaled_dot_product_attention(enable_gqa=True)`` over S with the
+    length mask. Bound: the live rows of K and V read once."""
+    g = torch.Generator(device="cuda").manual_seed(33)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    k, v = (torch.randn((b, kvh, s, d), device="cuda", generator=g)
+            for _ in range(2))
+    lengths = _decode_lengths(g, b, lives)
+    check(at.split_kv_takes_kernel(s, d), "K9's phase shape is not one the "
+          "reference sends to its kernel")
+    out = at.decode_attn_split_kv(q, k, v, lengths)
+    ref = at.decode_attn_split_kv_plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = K6_REL_TOL * ref.abs().max().item()
+    label = (f"decode_attn_split_kv (B {b}, {h} heads over {kvh} of {d}, "
+             f"f32 planes of S {s}, lives {lives[0]}-{lives[1] - 1})")
+    print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})")
+    check(bool(torch.isfinite(out).all()) and err <= tol,
+          f"{label} disagrees")
+    bms, by = _decode_bound(q, lengths, s, 2 * kvh * d * 4)
+    mask = _sdpa_mask(lengths, s)
+    lib = timer(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
+    ms = timer(lambda: at.decode_attn_split_kv(q, k, v, lengths))
+    plain_ms = timer(lambda: at.decode_attn_split_kv_plain(q, k, v,
+                                                           lengths))
+    print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bms:.4f} ({by}) library_ms {lib:.4f} (f32 "
+          f"scaled_dot_product_attention, enable_gqa)")
+    return dict(name="decode_attn_split_kv",
+                source="rten_tpu_torch/csrc/decode_attn_split.cu",
+                replaces="rten_tpu/kernels/attention.py:2647",
+                shape=(f"B {b}, {h} heads over {kvh} of {d}, f32 K and V of "
+                       f"S {s}, lives {lives[0]}-{lives[1] - 1}"),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+# native_dots and pv_int8 round a probability (to bf16, or to an int8 step
+# of its block's largest scale-folded value) that the kernel and the plain
+# version compute in f32 in other orders, so a rounding may flip between
+# them: one flip moves an output by at most one such step of one
+# probability, whose weight in the output is at most 1. native_dots: a bf16
+# step is at most 2^-7 of p <= 1, times max |V|; pv_int8: 1/127 of the
+# block's largest p * v_scale <= max v_scale, times max |v8| = 127.
+NATIVE_STEP = 2.0 ** -7
+PV_INT8_STEP = 1.0 / 127
+
+
+def check_flips(out, ref, tol, label, other, other_label):
+    """Hold a kernel that rounds every probability against its plain
+    version: no element past ``tol`` (one flipped rounding) and FLIP_SHARE
+    of the elements within K6's tolerance, which ``other`` (the kernel
+    without the rounding, at the same inputs) must miss. Returns (max abs
+    error, share)."""
+    err = (out - ref).abs().max().item()
+    share = share_within(out, ref, K6_REL_TOL)
+    other_share = share_within(other, ref, K6_REL_TOL)
+    print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e}); share within "
+          f"K6's 1e-5 of max |out| {share:.6f} (min {FLIP_SHARE}); "
+          f"{other_label} at the same inputs {other_share:.6f} (must miss)")
+    check(bool(torch.isfinite(out).all()) and err <= tol
+          and share >= FLIP_SHARE, f"{label} disagrees")
+    check(other_share < FLIP_SHARE,
+          f"{label}: {other_label} meets the criterion")
+    return err, share
+
+
+def check_native_dots(timer, b=256, h=12, kvh=12, cap=512, lives=(65, 177)):
+    """``decode_attn_native_dots`` against its plain version on a bf16
+    cache at path (C)'s shapes (block 64, group 8): FLIP_SHARE of the
+    elements within K6's tolerance, none past one bf16 step of one
+    probability (NATIVE_STEP x max |V|), and K6 at the same inputs missing
+    that share; the library call bf16 ``scaled_dot_product_attention``
+    over the capacity with the length mask. Bound: K6's on bf16 rows."""
+    d = 64
+    f = kvh * d
+    g = torch.Generator(device="cuda").manual_seed(34)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    kv = torch.randn((b, cap, 2, f), device="cuda",
+                     generator=g).to(torch.bfloat16)
+    lengths = _decode_lengths(g, b, lives)
+    before = at.decode_attn_native_dots.launches
+    out = at.decode_attn_native_dots(q, kv, lengths)
+    ref = at.decode_attn_native_dots_plain(q, kv, lengths)
+    k6 = at.decode_attn_float(q, kv, lengths)
+    torch.cuda.synchronize()
+    check(at.decode_attn_native_dots.launches == before + 1,
+          "native_dots fell back")
+    label = (f"decode_attn_native_dots (bf16 cache, B {b}, H {h} over {kvh}, "
+             f"capacity {cap}, lives {lives[0]}-{lives[1] - 1})")
+    err, share = check_flips(out, ref, NATIVE_STEP
+                             * kv[:, :, 1].abs().max().item(), label, k6,
+                             "K6 (decode_attn_float)")
+    bms, by = _decode_bound(q, lengths, cap, 2 * f * 2)
+    mask = _sdpa_mask(lengths, cap)
+    k4 = kv[:, :, 0].view(b, cap, h, d).transpose(1, 2)
+    v4 = kv[:, :, 1].view(b, cap, h, d).transpose(1, 2)
+    qs = q[:, :, None].to(torch.bfloat16)
+    lib = timer(lambda: F.scaled_dot_product_attention(qs, k4, v4,
+                                                       attn_mask=mask))
+    ms = timer(lambda: at.decode_attn_native_dots(q, kv, lengths))
+    plain_ms = timer(lambda: at.decode_attn_native_dots_plain(q, kv,
+                                                              lengths))
+    print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bms:.4f} ({by}) library_ms {lib:.4f} (bf16 "
+          f"scaled_dot_product_attention)")
+    return dict(name="decode_attn_native_dots",
+                source="rten_tpu_torch/csrc/decode_attn_float.cu",
+                replaces="rten_tpu/kernels/attention.py:1039",
+                shape=(f"B {b}, {h} heads of {d}, bf16 cache of capacity "
+                       f"{cap}, lives {lives[0]}-{lives[1] - 1}, block 64"),
+                max_abs_err=err, share=share, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib)
+
+
+def check_pv_int8(timer, int8_scores, b=16, cap=4096, lives=H_LIVES,
+                  h=H_HEADS, kvh=H_KVH, d=H_D):
+    """G1's pv_int8 mode (``decode_attn_grouped_int8(pv_int8=True)``,
+    block 64, group 8) against its plain version at path (H)'s shapes,
+    with exact q or int8 scores: FLIP_SHARE of the elements within K6's
+    tolerance, none past one int8 step of one probability (PV_INT8_STEP x
+    max v_scale x 127), and G1 without pv_int8 at the same inputs missing
+    that share. Bound as G1."""
+    g = torch.Generator(device="cuda").manual_seed(35)
+    kv = torch.randint(-127, 128, (b, cap, 2, kvh * d), device="cuda",
+                       dtype=torch.int8, generator=g)
+    scales = (0.002 + 0.01 * torch.rand((b, cap, 2, kvh), device="cuda",
+                                        generator=g)).to(torch.bfloat16)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    lengths = _decode_lengths(g, b, lives)
+    kw = dict(int8_scores=int8_scores, pv_int8=True)
+    args = (q, kv, scales, lengths)
+    before = at.decode_attn_grouped_int8.launches
+    out = at.decode_attn_grouped_int8(*args, **kw)
+    ref = at.decode_attn_grouped_int8_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(at.decode_attn_grouped_int8.launches == before + 1,
+          "pv_int8 fell back")
+    g1 = at.decode_attn_grouped_int8(*args, int8_scores=int8_scores)
+    mode = "int8_scores" if int8_scores else "exact"
+    label = (f"decode_attn_grouped_int8 (pv_int8, {mode}, B {b}, {h} heads "
+             f"over {kvh} of {d}, capacity {cap}, lives {lives[0]}-"
+             f"{lives[1] - 1})")
+    err, share = check_flips(out, ref, PV_INT8_STEP * scales[:, :, 1].float()
+                             .max().item() * 127, label, g1,
+                             "G1 without pv_int8")
+    bms, by = _decode_bound(q, lengths, cap, 2 * kvh * d + 2 * kvh * 2)
+    ms = timer(lambda: at.decode_attn_grouped_int8(*args, **kw))
+    plain_ms = timer(lambda: at.decode_attn_grouped_int8_plain(*args, **kw))
+    print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bms:.4f} ({by}) library_ms None")
+    return dict(name="decode_attn_grouped_int8", mode=f"pv_int8.{mode}",
+                source="rten_tpu_torch/csrc/decode_attn_grouped_int8.cu",
+                replaces="rten_tpu/kernels/attention.py:1039",
+                shape=(f"B {b}, {h} heads over {kvh} of {d}, int8 cache of "
+                       f"capacity {cap}, lives {lives[0]}-{lives[1] - 1}, "
+                       f"block 64"),
+                max_abs_err=err, share=share, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
+# GPT-2-small's linears (K, N): QKV, O, MLP up, MLP down.
+GPT2_LINEARS = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+
+
+def check_int8_tiled(timer):
+    """M1 (``matmul_int8_tiled``) bit for bit against its plain version
+    (the int32 sums taken exactly in f64) at GPT-2-small's four linears
+    at M 256 (a decode step at batch 256: the entry sums one layer's four)
+    and M 4096 (an admission of 64 prompts of 64 tokens, printed). The
+    library call: ``torch._int_mm`` and the same epilogue, (f32(acc) *
+    x_scale) * w_scales. Bound: 2 M N K int8 operations at the int8 peak
+    against x, w and the scales read and the f32 output written once."""
+    g = torch.Generator(device="cuda").manual_seed(36)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    n_bytes = flops = 0.0
+    for m in (256, 4096):
+        for k, n in GPT2_LINEARS:
+            x = torch.randint(-127, 128, (m, k), device="cuda",
+                              dtype=torch.int8, generator=g)
+            w = torch.randint(-127, 128, (k, n), device="cuda",
+                              dtype=torch.int8, generator=g)
+            ws = 0.001 + 0.01 * torch.rand(n, device="cuda", generator=g)
+            xs = torch.tensor([0.0173], device="cuda")
+            out = gemm.matmul_int8_tiled(x, w, xs, ws)
+            ref = gemm.matmul_int8_tiled_plain(x, w, xs, ws)
+            torch.cuda.synchronize()
+            same = torch.equal(out, ref)
+            label = f"matmul_int8_tiled (M {m}, K {k}, N {n})"
+            check(same, f"{label}: not bit-exact against its plain version")
+            shape_bytes = m * k + k * n + 4 * (m * n + n + 1)
+            bms, by = bound_ms(shape_bytes, 2.0 * m * n * k, PEAK_INT8_OP_S)
+            ms = timer(lambda: gemm.matmul_int8_tiled(x, w, xs, ws))
+            plain_ms = timer(lambda: gemm.matmul_int8_tiled_plain(x, w, xs,
+                                                                  ws))
+            lib = timer(lambda: torch._int_mm(x, w).to(torch.float32)
+                        * xs * ws[None, :])
+            print(f"{label}: bit-exact {same}; kernel_ms {ms:.4f} plain_ms "
+                  f"{plain_ms:.4f} bound_ms {bms:.4f} ({by}) library_ms "
+                  f"{lib:.4f} (torch._int_mm + epilogue); "
+                  f"{2.0 * m * n * k / ms / 1e9:.1f} TOP/s")
+            if m == 256:
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", lib)):
+                    total[key] += val
+                n_bytes += shape_bytes
+                flops += 2.0 * m * n * k
+    total["bound_ms"], total["bound_by"] = bound_ms(n_bytes, flops,
+                                                    PEAK_INT8_OP_S)
+    return dict(name="matmul_int8_tiled", source="rten_tpu_torch/csrc/"
+                "matmul_int8.cu", replaces="rten_tpu/kernels/gemm.py:93",
+                shape=("GPT-2-small's QKV, O, up and down linears at M 256, "
+                       "summed"), max_abs_err=0.0, **total)
+
+
 def mistral_model(path, n_layers):
     return TransformerLM(TransformerConfig.mixtral(
         n_experts=0, n_layers=n_layers, **PATHS[path].get("config", {})))
@@ -1175,14 +1605,17 @@ def to_device(params, device):
 
 # The serving paths: the weights each takes, its ServingEngine options, the
 # tail window its engine must pick, the requests of its measured run
-# (count, new tokens) and the kernels it must launch (``name.mode`` for a
+# (count, new tokens), whether a steady burst is timed after it
+# (``steady``, default True) and the kernels it must launch (``name.mode``
+# for a
 # mode of a wrapper) and must not (``absent``). GPT-2-small paths serve at
-# batch 256 / capacity 512; the TinyLlama paths (``llama``) at batch 16 /
+# batch 256 / capacity 512, with ``config`` overrides of
+# ``TransformerConfig.gpt2()``; the TinyLlama paths (``llama``) at batch 16 /
 # capacity 2048, with ``env`` set while they serve; the Mistral-7B paths
 # (``mistral``) at their own ``batch``, ``capacity`` and ``prompt`` length,
 # with ``config`` overrides of ``TransformerConfig.mixtral(n_experts=0)``;
-# on (H) the kernels of ``per_step`` launch once per layer and decode step,
-# those of ``per_prefill`` once per layer and admission group.
+# on (H) and (I) the kernels of ``per_step`` launch once per layer and decode
+# step, those of ``per_prefill`` once per layer and admission group.
 PATHS = {
     "int8_tail": dict(weights="int8", engine=dict(quantized_cache=True),
                       tail=16, requests=(320, 48),
@@ -1209,6 +1642,20 @@ PATHS = {
     "paged_f32": dict(weights="f32", engine=dict(paged=True, page_size=PAGE),
                       tail=0, requests=(320, 48),
                       kernels=("kv_append_paged", "decode_attn_paged")),
+    # (I): decode_attn="flat" on float caches takes K8, 12 launches a step.
+    "flat_f32": dict(weights="f32", engine=dict(),
+                     config=dict(decode_attn="flat"), tail=0,
+                     requests=(320, 48),
+                     kernels=("kv_append", "decode_attn_flat_float"),
+                     per_step=("decode_attn_flat_float",),
+                     absent=("decode_attn_float",)),
+    "flat_bf16": dict(weights="int8", engine=dict(cache_dtype="bfloat16"),
+                      config=dict(decode_attn="flat"), tail=0,
+                      requests=(256, 16),
+                      kernels=("kv_append", "decode_attn_flat_float",
+                               "head_argmax_int8"),
+                      per_step=("decode_attn_flat_float",),
+                      absent=("decode_attn_float",), steady=False),
     "tinyllama_int4": dict(weights="int4", engine=dict(quantized_cache=True),
                            tail=16, requests=(24, 64), llama=True,
                            kernels=("matmul_int4_words",
@@ -1263,9 +1710,19 @@ PATHS = {
 }
 GPT2_PATHS = [p for p in PATHS
               if not (PATHS[p].get("llama") or PATHS[p].get("mistral"))]
+# Kernels that no serving path reaches (``name`` or ``name.mode``).
+KERNEL_LEVEL = ("decode_attn_int8_partials", "decode_attn_split_kv",
+                "decode_attn_native_dots", "matmul_int8_tiled",
+                "decode_attn_grouped_int8.pv_int8.exact",
+                "decode_attn_grouped_int8.pv_int8.int8_scores")
 # The paged grid kernel serves batches with no group: its launches are
 # counted in path (E)'s card-against-CPU phase at max_batch 3.
 GRID_PHASE = "paged_f32_batch3"
+
+
+def gpt2_model(path):
+    return TransformerLM(TransformerConfig.gpt2(
+        **PATHS[path].get("config", {})))
 
 
 def batch_of(path):
@@ -1393,7 +1850,8 @@ def check_launches(path, launches, n_layers, steps, prefills):
                   f"{path}: {k} launched {launches[k]} times, not once per "
                   f"layer and {what} ({n_layers} x {n})")
     if spec.get("per_step"):
-        print(f"path {path}: {', '.join(spec['per_step'] + spec['per_prefill'])}"
+        names = spec["per_step"] + spec.get("per_prefill", ())
+        print(f"path {path}: {', '.join(names)}"
               f" launched once per layer and decode step / prefill "
               f"({steps} steps, {prefills} prefills, {n_layers} layers)")
 
@@ -1778,6 +2236,7 @@ def main():
 
     build_s = _build.build_all(verbose=True)
     print(f"build: {build_s:.1f} s")
+    stamp("build")
 
     check_int8_matmul()
     timer = Timer()
@@ -1811,6 +2270,18 @@ def main():
                 check_int8_decode(timer, "int8_scores", b=16, cap=1024),
                 check_int8_decode(timer, "fused", b=3, cap=4096),
                 check_grouped_append(timer)]
+    # K8 at path (I)'s shapes and TinyLlama's (printed), the partials mode
+    # at path (B)'s and TinyLlama's (printed: chunks merged), K9 at (H)'s
+    # head shape, native_dots at (C)'s, pv_int8 at (H)'s in both score
+    # modes, M1 at GPT-2's linears: the kernel-level entries.
+    results += [check_flat_float(timer), check_partials(timer),
+                check_split_kv(timer), check_native_dots(timer),
+                check_pv_int8(timer, False), check_pv_int8(timer, True),
+                check_int8_tiled(timer)]
+    check_flat_float(timer, b=16, h=32, kvh=4, cap=2048, lives=(65, 2000),
+                     entry=False)
+    check_partials(timer, b=16, h=32, kvh=4, cap=2048, lives=(65, 2000),
+                   entry=False)
     # K1 and K3 at path (F)'s shapes (GQA: 32 query heads over 4 KV heads),
     # K1' there too, and K1 and K1' past the 12,080 tokens that one
     # shared-memory score row allowed, printed beside their entries.
@@ -1833,8 +2304,9 @@ def main():
           "32 heads over 4 KV heads, capacity 2048; K1 at B 4, capacity "
           "16384, lives 12100-16368; K1' at B 4, capacity 12288, lives "
           "12100-12288)")
+    stamp("kernel phases")
 
-    model = TransformerLM(TransformerConfig.gpt2())
+    model = gpt2_model("f32")
     t0 = time.perf_counter()
     weights = {"f32": model.init_params(0, device="cuda")}
     weights["int8"] = quantize_weights(weights["f32"])
@@ -1843,10 +2315,13 @@ def main():
     rates, steady, launches = {}, {}, {}
     for path in GPT2_PATHS:
         params = weights[PATHS[path]["weights"]]
-        rates[path], launches[path] = serve_path(model, params, path)
-        steady[path] = steady_decode(
-            model, params, path,
-            trace=path in ("int8_tail", "f32", "paged_int8", "paged_f32"))
+        rates[path], launches[path] = serve_path(gpt2_model(path), params,
+                                                 path)
+        if PATHS[path].get("steady", True):
+            steady[path] = steady_decode(
+                gpt2_model(path), params, path,
+                trace=path in ("int8_tail", "f32", "paged_int8",
+                               "paged_f32"))
     print(f"same-run decode tokens/s at batch 256, int8 + tail against the "
           f"f32 baseline: with admissions {rates['int8_tail']:.1f} / "
           f"{rates['f32']:.1f} = {rates['int8_tail'] / rates['f32']:.3f}; "
@@ -1874,6 +2349,7 @@ def main():
               + ", ".join(f"{r:.3f}" for r in ratios)
               + f"; median {sorted(ratios)[len(ratios) // 2]:.3f}")
 
+    stamp("GPT-2 paths")
     launches.update(spec_paths(model, weights))
     spec_cpu = spec_card_against_cpu(model, weights)
     card_against_cpu(model, weights["int8"], "int8_tail", PATH_LOGIT_TOL)
@@ -1885,8 +2361,16 @@ def main():
           f"{launches[GRID_PHASE]}")
     check(launches[GRID_PHASE]["decode_attn_paged_grid"] > 0,
           "paged_f32 at max_batch 3 never launched decode_attn_paged_grid")
+    counts = card_against_cpu(gpt2_model("flat_f32"), weights["f32"],
+                              "flat_f32", FLAT_PATH_LOGIT_TOL)
+    print(f"flat_f32 card against CPU, card runs: launches "
+          f"{nonzero(counts)}")
+    check(counts["decode_attn_flat_float"] > 0
+          and counts["decode_attn_float"] == 0,
+          "flat_f32 card against CPU: decode did not run through K8")
     del weights
     torch.cuda.empty_cache()
+    stamp("speculative paths and card against CPU")
 
     # Path (F): TinyLlama-1.1B at full width with int4 weights, drawn on
     # the host in the reference's order; the f32 weights are freed once
@@ -1935,7 +2419,9 @@ def main():
     del llama2
     torch.cuda.empty_cache()
 
+    stamp("TinyLlama paths")
     mistral_paths(launches, rates, steady)
+    stamp("Mistral paths")
 
     # Each kernel reports its launches on the path it was ported for; V1's
     # entries per mode: path (G) for the grouped entry (float on the bf16
@@ -1954,17 +2440,24 @@ def main():
                      "mistral_scores"}
     for r in results:
         r["route"] = "cuda"
-        if "mode" in r:
+        key = f"{r['name']}.{r['mode']}" if "mode" in r else r["name"]
+        if key in KERNEL_LEVEL:
+            # No path runs it: its launches summed over every path's run.
+            r["path"] = None
+            r["launches"] = sum(c.get(key, 0) for c in launches.values())
+        elif "mode" in r:
             r["path"] = spec_home[(r["name"], r["mode"])]
-            r["launches"] = launches[r["path"]][f"{r['name']}.{r['mode']}"]
+            r["launches"] = launches[r["path"]][key]
         else:
             r["path"] = home[r["name"]]
-            r["launches"] = launches[r["path"]][r["name"]]
+            r["launches"] = launches[r["path"]][key]
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("mode", "shape", "int4pack_ms", "decode_ms", "f32_max_abs_err",
-             "f32_ms", "f32_plain_ms", "f32_bound_ms")
+             "f32_ms", "f32_plain_ms", "f32_bound_ms", "bf16_max_abs_err",
+             "bf16_ms", "bf16_plain_ms", "bf16_bound_ms", "bf16_library_ms",
+             "exact_q_max_abs_err", "exact_q_ms", "exact_q_plain_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results]}))

@@ -1,19 +1,24 @@
 // Single-query decode attention, one block of four warps per (sequence,
-// head), shared by decode_attn_float.cu (K6: a contiguous float cache) and
-// decode_attn_paged.cu (P3 and P3i: a block-paged float or int8 pool).
+// head), shared by decode_attn_float.cu (K6 and its flat mode K8: a
+// contiguous float cache), decode_attn_split.cu (K9: separate K and V
+// planes) and decode_attn_paged.cu (P3 and P3i: a block-paged float or int8
+// pool).
 //
 // Contract: for sequence b and query head h (kv head h / (H / KVH)),
 // n = min(lengths[b], capacity) tokens are read, token t from the row that
 // the addressing gives (Contiguous: [b, t] of a [B, cap, 2, KVH*D] cache;
-// Paged: [table[b, t / page], t % page] of a [n_pages, page, 2, KVH*D]
-// pool). A float cache is read as f32; score_t = (q . k_t) * scale,
+// Split: [b, kv head, t] of separate [B, KVH, S, D] K and V planes; Paged:
+// [table[b, t / page], t % page] of a [n_pages, page, 2, KVH*D] pool). A
+// float cache is read as f32; score_t = (q . k_t) * scale,
 // out = sum_t p_t v_t / max(sum_t p_t, 1e-30). An int8 pool (kQuant) with
 // bf16 scales [.., 2, KVH] per (token, plane, head) follows the reference's
 // int8 paged kernel: score_t = ((q . k_t) * scale) * k_scale_t, the sum
 // l takes the unscaled p_t and V is weighted by p_t * v_scale_t; q and the
 // output stay f32. A token whose row is masked (Paged with mask_unmapped,
 // an unmapped page) takes no weight; a sequence with no live token gets
-// zeros.
+// zeros. kFlat (flash_decode_flat's float mode with q_bf16) rounds where
+// the reference's kernel casts: q and every K element to bf16 before the
+// score dot, the output to bf16.
 //
 // Design: a warp owns every fourth tile of 4 tokens; each lane holds two
 // adjacent dims of every 64, so a warp reads a head's K and V rows as
@@ -34,6 +39,13 @@ constexpr int kWarps = 4, kThreads = 32 * kWarps;
 constexpr int kTok = 4;            // tokens per warp tile
 constexpr int kMaxJ = 4;           // head_dim <= 64 * kMaxJ
 constexpr int kMaxD = 64 * kMaxJ;
+
+// Roundings of the float modes (kQuant false).
+enum Round { kNone = 0, kFlat = 1 };
+
+__device__ inline float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __device__ inline float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -92,14 +104,29 @@ __device__ inline void load_row(const float* p, float* x) {
   }
 }
 
-// Token rows of a contiguous [B, cap, 2, KVH*D] cache.
+// Each addressing gives token t of sequence b a row r; kv head kh of that
+// row starts r * row_stride + kh * head_stride elements into the K plane's
+// pointer, and at the same offset into the V plane's.
+
+// Token rows of a contiguous [B, cap, 2, KVH*D] cache (V = K + KVH*D).
 struct Contiguous {
   static constexpr bool kMasks = false;
   int cap;
+  long long row_stride, head_stride;  // 2 * KVH * D, D
   __device__ int capacity() const { return cap; }
   __device__ long long row(int b, int t) const {
     return (long long)b * cap + t;
   }
+};
+
+// Token rows of separate K and V planes [B, KVH, S, D].
+struct Split {
+  static constexpr bool kMasks = false;
+  int cap;                            // S
+  long long row_stride, head_stride;  // D, S * D
+  long long seq_rows;                 // KVH * S
+  __device__ int capacity() const { return cap; }
+  __device__ long long row(int b, int t) const { return b * seq_rows + t; }
 };
 
 // Token rows of a block-paged pool [n_pages, page, 2, KVH*D] through the
@@ -110,6 +137,7 @@ struct Paged {
   static constexpr bool kMasks = true;
   const int* table;
   int page, max_pages, mask_unmapped;
+  long long row_stride, head_stride;  // 2 * KVH * D, D
   __device__ int capacity() const { return page * max_pages; }
   __device__ long long row(int b, int t) const {
     int id = table[(long long)b * max_pages + t / page];
@@ -121,8 +149,9 @@ struct Paged {
   }
 };
 
-template <typename T, typename Addr, bool kQuant>
-__global__ void kernel(const float* __restrict__ q, const T* __restrict__ kv,
+template <typename T, typename Addr, bool kQuant, int kRound = kNone>
+__global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
                        const __nv_bfloat16* __restrict__ scales,
                        const int* __restrict__ lengths,
                        float* __restrict__ out, int heads, int kvh, int d,
@@ -133,7 +162,6 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ kv,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kh = h / (heads / kvh);
   const int nj = d / 64;
-  const long long f = (long long)kvh * d;
   const int n = min(max(lengths[b], 0), addr.capacity());
 
   const float* qrow = q + ((long long)b * heads + h) * d + 2 * lane;
@@ -141,13 +169,18 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j)
     qv[j] = j < nj ? load2(qrow + 64 * j) : make_float2(0.0f, 0.0f);
+  if constexpr (kRound == kFlat) {
+#pragma unroll
+    for (int j = 0; j < kMaxJ; ++j)
+      qv[j] = make_float2(bf16_round(qv[j].x), bf16_round(qv[j].y));
+  }
 
   float m = -INFINITY, l = 0.0f;
   float2 acc[kMaxJ];
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j) acc[j] = make_float2(0.0f, 0.0f);
 
-  const T* base = kv + (long long)kh * d + 2 * lane;
+  const long long head = (long long)kh * addr.head_stride + 2 * lane;
   for (int t0 = warp * kTok; t0 < n; t0 += kWarps * kTok) {
     float s[kTok], ks[kTok], vs[kTok];
     bool live[kTok];
@@ -168,9 +201,11 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ kv,
       for (int j = 0; j < kMaxJ; ++j) {
         vv[u][j] = make_float2(0.0f, 0.0f);
         if (j < nj && live[u]) {
-          const T* krow = base + r * 2 * f + 64 * j;
-          const float2 kk = load2(krow);
-          vv[u][j] = load2(krow + f);
+          const long long o = r * addr.row_stride + head + 64 * j;
+          float2 kk = load2(k + o);
+          vv[u][j] = load2(v + o);
+          if (kRound == kFlat) kk = make_float2(bf16_round(kk.x),
+                                                bf16_round(kk.y));
           dot += qv[j].x * kk.x + qv[j].y * kk.y;
         }
       }
@@ -239,7 +274,9 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ kv,
         o += acc_s[w][i] * c;
       }
     }
-    out[((long long)b * heads + h) * d + i] = o / fmaxf(sum, 1e-30f);
+    const float y = o / fmaxf(sum, 1e-30f);
+    out[((long long)b * heads + h) * d + i] =
+        kRound == kFlat ? bf16_round(y) : y;
   }
 }
 

@@ -38,19 +38,22 @@ extern "C" int decode_attn_paged(const void* q, const void* pool,
   using decode_attn::kernel;
   using decode_attn::Paged;
   dim3 grid(heads, batch);
-  const Paged addr{(const int*)table, page, max_pages, mask_unmapped};
+  const long long f = (long long)kvh * d;
+  const Paged addr{(const int*)table, page, max_pages, mask_unmapped, 2 * f,
+                   d};
   if (batch > 0) {
     if (quant) {
+      const int8_t* rows = (const int8_t*)pool;
       kernel<int8_t, Paged, true>
           <<<grid, decode_attn::kThreads, 0, (cudaStream_t)stream>>>(
-              (const float*)q, (const int8_t*)pool,
-              (const __nv_bfloat16*)scales, (const int*)lengths,
-              (float*)out, heads, kvh, d, addr, scale);
+              (const float*)q, rows, rows + f, (const __nv_bfloat16*)scales,
+              (const int*)lengths, (float*)out, heads, kvh, d, addr, scale);
     } else {
+      const float* rows = (const float*)pool;
       kernel<float, Paged, false>
           <<<grid, decode_attn::kThreads, 0, (cudaStream_t)stream>>>(
-              (const float*)q, (const float*)pool, nullptr,
-              (const int*)lengths, (float*)out, heads, kvh, d, addr, scale);
+              (const float*)q, rows, rows + f, nullptr, (const int*)lengths,
+              (float*)out, heads, kvh, d, addr, scale);
     }
   }
   return (int)cudaGetLastError();

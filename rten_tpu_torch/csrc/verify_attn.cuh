@@ -3,7 +3,8 @@
 // lanes a row (the row layout of decode_attn.cuh). The kernel of
 // verify_attn.cu (V1: S <= 8 verify queries over a float or int8 cache),
 // decode_attn_grouped_int8.cu (G1 and G2: one query over an int8 cache,
-// exact q or int8 scores) and decode_attn_append.cu (A1: one query over a
+// exact q or int8 scores; G1's pv_int8 mode has a walk of its own there,
+// sharing quantize_q) and decode_attn_append.cu (A1: one query over a
 // float cache whose new row the kernel writes).
 //
 // Contract: query i of sequence b and head h (kv head h / (H / KVH)) sits
@@ -75,6 +76,32 @@ __device__ inline void load_words(const int8_t* p, int* w) {
   }
 }
 
+// kScores: the row quantization of q, the eight lanes of a row each
+// holding kDpl of its values: qs = absmax / 127 (1 where the row is 0), q8 =
+// clip(rint(q / qs), -127, 127) packed into kDpl / 4 words; returns qs.
+template <int kDpl>
+__device__ inline float quantize_q(const float* qv, int* qw) {
+  float amax = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kDpl; ++j) amax = fmaxf(amax, fabsf(qv[j]));
+#pragma unroll
+  for (int o = 1; o < kLanesPerTok; o <<= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float qs = amax == 0.0f ? 1.0f : amax / 127.0f;
+#pragma unroll
+  for (int w = 0; w < kDpl / 4; ++w) {
+    unsigned word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x =
+          fminf(fmaxf(rintf(qv[4 * w + i] / qs), -127.0f), 127.0f);
+      word |= ((unsigned)(int)x & 0xffu) << (8 * i);
+    }
+    qw[w] = (int)word;
+  }
+  return qs;
+}
+
 template <typename T, int kMode, bool kAppend, int kS, int kDpl>
 __global__ void __launch_bounds__(kThreads)
     kernel(const float* __restrict__ q, T* __restrict__ kv,
@@ -116,27 +143,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   int qw[kWords];
   float qscale = scale;  // kScores: qs * scale, the reference's order
-  if constexpr (kMode == kScores) {
-    float amax = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kDpl; ++j) amax = fmaxf(amax, fabsf(qv[0][j]));
-#pragma unroll
-    for (int o = 1; o < kLanesPerTok; o <<= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float qs = amax == 0.0f ? 1.0f : amax / 127.0f;
-#pragma unroll
-    for (int w = 0; w < kWords; ++w) {
-      unsigned word = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x = fminf(fmaxf(rintf(qv[0][4 * w + i] / qs), -127.0f),
-                              127.0f);
-        word |= ((unsigned)(int)x & 0xffu) << (8 * i);
-      }
-      qw[w] = (int)word;
-    }
-    qscale = qs * scale;
-  }
+  if constexpr (kMode == kScores)
+    qscale = quantize_q<kDpl>(qv[0], qw) * scale;
 
   T* rows = kv + (long long)b * cap * 2 * f;
   const float* nk = nullptr;

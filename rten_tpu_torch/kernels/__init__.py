@@ -1,27 +1,48 @@
 """Kernels of the port. Each hand-written CUDA kernel (``csrc/*.cu``) has a
 wrapper with a launch counter (``wrapper.launches``) and a plain PyTorch
 version of the same contract (``<name>_plain``): CPU tensors take the plain
-version, CUDA tensors launch the kernel or raise. ``decode_attn_int8``
-launches the kernel of ``decode_attn_int8_tail`` without a tail window, and
-``decode_attn_paged_grid`` and ``decode_attn_paged_int8`` the kernel of
-``decode_attn_paged`` in other modes, and ``matmul_int4_words_int8`` and
-``matmul_int4`` the kernel of ``matmul_int4_words`` in other modes, and
-``verify_attn_fused`` the kernel of ``verify_attn_grouped``, and
-``decode_attn_fused_int8`` the kernel of ``decode_attn_grouped_int8``; each
-counts its own launches. The verify wrappers also count per mode (float or
-int8 cache) in ``mode_launches``, and ``decode_attn_grouped_int8`` per
-score mode (exact q or int8 scores)."""
+version, CUDA tensors launch the kernel or raise. Wrappers that share a
+kernel, each counting its own launches:
 
-from .attention import (decode_attn_float, decode_attn_fused_int8,
-                        decode_attn_grouped_append, decode_attn_grouped_int8,
-                        decode_attn_int8, decode_attn_int8_tail,
-                        decode_attn_paged, decode_attn_paged_grid,
-                        decode_attn_paged_int8, flash_attention,
+* ``decode_attn_int8_tail`` (K1), ``decode_attn_int8`` (K1', no tail
+  window) and ``decode_attn_int8_partials`` (the partials mode):
+  ``csrc/decode_attn_int8_tail.cu``;
+* ``decode_attn_float`` (K6), ``decode_attn_flat_float`` (K8) and
+  ``decode_attn_native_dots``: ``csrc/decode_attn_float.cu``, on the kernel
+  of ``csrc/decode_attn.cuh``, which ``decode_attn_split_kv`` (K9,
+  ``csrc/decode_attn_split.cu``) and ``decode_attn_paged``,
+  ``decode_attn_paged_grid`` and ``decode_attn_paged_int8`` (P3, its grid
+  mode, P3i; ``csrc/decode_attn_paged.cu``) run too;
+* ``verify_attn_grouped`` and ``verify_attn_fused`` (V1,
+  ``csrc/verify_attn.cu``), ``decode_attn_grouped_int8`` and
+  ``decode_attn_fused_int8`` (G1, G2; ``csrc/decode_attn_grouped_int8.cu``)
+  and ``decode_attn_grouped_append`` (A1, ``csrc/decode_attn_append.cu``):
+  the kernel of ``csrc/verify_attn.cuh`` (G1's ``pv_int8`` mode walks
+  blocks in a kernel of its own in ``decode_attn_grouped_int8.cu``);
+* ``matmul_int4_words`` (Q1), ``matmul_int4_words_int8`` (Q1') and
+  ``matmul_int4`` (Q2): ``csrc/matmul_int4.cu``.
+
+The others have a source each: ``flash_attention`` (F1), ``kv_append``
+(K5), ``kv_append_int8`` (K7), ``kv_append_paged`` and
+``kv_append_paged_int8`` (P1, P2, one source), ``tail_flush_int8`` (K3),
+``head_argmax_int8`` (K2), ``matmul_int8_wo`` (K4) and
+``matmul_int8_tiled`` (M1, ``csrc/matmul_int8.cu``). The verify wrappers
+also count per mode (float or int8 cache) in ``mode_launches``, and
+``decode_attn_grouped_int8`` per mode (exact q or int8 scores, each with or
+without ``pv_int8``)."""
+
+from .attention import (decode_attn_flat_float, decode_attn_float,
+                        decode_attn_fused_int8, decode_attn_grouped_append,
+                        decode_attn_grouped_int8, decode_attn_int8,
+                        decode_attn_int8_partials, decode_attn_int8_tail,
+                        decode_attn_native_dots, decode_attn_paged,
+                        decode_attn_paged_grid, decode_attn_paged_int8,
+                        decode_attn_split_kv, flash_attention,
                         verify_attn_fused, verify_attn_grouped)
 from .cache import (kv_append, kv_append_int8, kv_append_paged,
                     kv_append_paged_int8, tail_flush_int8)
 from .gemm import (head_argmax_int8, matmul_int4, matmul_int4_words,
-                   matmul_int4_words_int8, matmul_int8_wo)
+                   matmul_int4_words_int8, matmul_int8_tiled, matmul_int8_wo)
 
 KERNELS = (decode_attn_int8_tail, head_argmax_int8, tail_flush_int8,
            matmul_int8_wo, kv_append, decode_attn_float, kv_append_int8,
@@ -30,7 +51,9 @@ KERNELS = (decode_attn_int8_tail, head_argmax_int8, tail_flush_int8,
            matmul_int4_words, matmul_int4_words_int8, matmul_int4,
            verify_attn_grouped, verify_attn_fused, flash_attention,
            decode_attn_grouped_int8, decode_attn_fused_int8,
-           decode_attn_grouped_append)
+           decode_attn_grouped_append, decode_attn_flat_float,
+           decode_attn_int8_partials, decode_attn_split_kv,
+           decode_attn_native_dots, matmul_int8_tiled)
 
 
 def reset_launch_counts():
@@ -51,14 +74,15 @@ def launch_counts():
     return out
 
 
-__all__ = ["KERNELS", "decode_attn_float", "decode_attn_fused_int8",
-           "decode_attn_grouped_append", "decode_attn_grouped_int8",
-           "decode_attn_int8", "decode_attn_int8_tail", "decode_attn_paged",
+__all__ = ["KERNELS", "decode_attn_flat_float", "decode_attn_float",
+           "decode_attn_fused_int8", "decode_attn_grouped_append",
+           "decode_attn_grouped_int8", "decode_attn_int8",
+           "decode_attn_int8_partials", "decode_attn_int8_tail",
+           "decode_attn_native_dots", "decode_attn_paged",
            "decode_attn_paged_grid", "decode_attn_paged_int8",
-           "flash_attention", "head_argmax_int8", "kv_append",
-           "kv_append_int8",
-           "launch_counts",
-           "kv_append_paged", "kv_append_paged_int8", "matmul_int4",
-           "matmul_int4_words", "matmul_int4_words_int8", "matmul_int8_wo",
-           "reset_launch_counts", "tail_flush_int8", "verify_attn_fused",
-           "verify_attn_grouped"]
+           "decode_attn_split_kv", "flash_attention", "head_argmax_int8",
+           "kv_append", "kv_append_int8", "kv_append_paged",
+           "kv_append_paged_int8", "launch_counts", "matmul_int4",
+           "matmul_int4_words", "matmul_int4_words_int8",
+           "matmul_int8_tiled", "matmul_int8_wo", "reset_launch_counts",
+           "tail_flush_int8", "verify_attn_fused", "verify_attn_grouped"]

@@ -14,10 +14,18 @@
 * ``decode_attn_int8`` launches the same kernel without a tail: it
   replaces ``flash_decode_flat`` in its int8 mode without a tail
   (``tail=None, q_bf16=True``). It has a launch count of its own.
-* ``decode_attn_float`` (CUDA, ``csrc/decode_attn_float.cu``) replaces
+* ``decode_attn_int8_partials`` launches the same kernel in its partials
+  mode: ``flash_decode_flat(partials=True)``, the unnormalized state for a
+  merge across capacity shards, with q rounded to bf16 or exact.
+* ``decode_attn_float`` (CUDA, ``csrc/decode_attn_float.cu``, K6) replaces
   ``flash_decode_grouped`` (:1039) and ``flash_decode_fused`` (:318) on
   float caches: f32 q, an f32 or bf16 cache read as f32, f32 sums and
-  output.
+  output. ``decode_attn_flat_float`` (K8) runs its kernel with the
+  roundings of ``flash_decode_flat``'s float mode (:1715, ``q_bf16``), and
+  ``decode_attn_native_dots`` with those of ``flash_decode_grouped``'s
+  ``native_dots``.
+* ``decode_attn_split_kv`` (CUDA, ``csrc/decode_attn_split.cu``, K9, K6's
+  kernel over separate K and V planes) replaces ``flash_decode`` (:2647).
 * ``decode_attn_paged``, ``decode_attn_paged_int8`` and
   ``decode_attn_paged_grid`` (CUDA, ``csrc/decode_attn_paged.cu``, K6's
   kernel on paged addressing) replace ``flash_decode_paged_grouped``
@@ -31,13 +39,15 @@
   ``csrc/decode_attn_grouped_int8.cu``, one kernel, G1) replace the int8
   modes of ``flash_decode_grouped`` (:1039; exact q, and ``int8_scores``)
   and ``flash_decode_fused`` (:318): one query per sequence over an int8
-  cache, q and the output in f32.
+  cache, q and the output in f32; with ``pv_int8`` the P.V dot runs on
+  row-quantized probabilities, as the reference's ``pv_int8``.
 * ``decode_attn_grouped_append`` (CUDA, ``csrc/decode_attn_append.cu``, A1)
   replaces ``flash_decode_grouped_append`` (:976): the float-cache decode
   append and the grouped float decode in one launch.
 
 :func:`int8_decode_kernel` is the reference's choice among K1', G1 and G2
-for an int8 cache without a tail window.
+for an int8 cache without a tail window, :func:`float_decode_kernel` its
+choice between K8 and K6 for a float cache.
 """
 
 from __future__ import annotations
@@ -120,12 +130,12 @@ def flat_vmem_bytes(heads, head_dim, kvh, group, block_k, window):
             + hp8 * head_dim * f_tot * 2)
 
 
-def _grouped_or_fused(batch, group, cap, block_k, int8_scores):
+def _grouped_or_fused(batch, group, cap, block_k, int8_scores, quant=True):
     """``flash_decode_grouped``'s own fallback (attention.py:1062-1065):
     the fused kernel when the batch does not divide by the group or the
-    capacity by the block (or the block by 4)."""
+    capacity by the block (or, on an int8 cache, the block by 4)."""
     block_k = min(block_k, cap)
-    if batch % group or cap % block_k or block_k % 4:
+    if batch % group or cap % block_k or quant and block_k % 4:
         return "fused", 0
     return ("grouped_scores" if int8_scores else "grouped"), group
 
@@ -177,6 +187,35 @@ def int8_decode_kernel(batch, heads, head_dim, kvh, cap, decode_attn="auto",
     return "fused", 0                   # :491-492
 
 
+def float_decode_kernel(batch, heads, head_dim, kvh, cap, decode_attn="auto"):
+    """The kernel that the reference's decode dispatch runs for one query
+    per sequence over a float (f32 or bf16) cache, and its group
+    (``_pallas_decode_attn``, transformer.py:366-492, at the default
+    ``RTEN_FLAT_QBF16``): ("flat", g) → K8 (``flash_decode_flat``'s float
+    mode, q rounded to bf16); ("grouped", g), ("fused", 0) and ("stream",
+    0) → K6, which has the numerics of all three. The float path has no
+    group widening and no long-capacity group 8 (:418-425 and :440-451 are
+    for int8 caches)."""
+    group = group_for(batch)            # :382, float groups
+    blk = 128 if cap >= 2048 else 64    # :381-383
+    kind = decode_attn
+    if kind == "auto":                  # :415-417: float caches stay grouped
+        kind = "grouped" if group else "fused"
+    if kind == "flat" and group:
+        # flash_decode_flat (attention.py:1752-1773) with q_bf16: the bf16
+        # E matrix round8(H)·D·KVH·D·2 bytes must fit 4 MB and the capacity
+        # divide by the block; otherwise grouped, whose own fallback is
+        # fused.
+        block_k = min(blk, cap)
+        e_bytes = -(-heads // 8) * 8 * head_dim * kvh * head_dim * 2
+        if cap % block_k == 0 and e_bytes <= E_MATRIX_BUDGET:
+            return "flat", group
+        return _grouped_or_fused(batch, group, cap, block_k, False, False)
+    if kind in ("grouped", "flat"):     # :480-486
+        return _grouped_or_fused(batch, group or 8, cap, blk, False, False)
+    return kind, 0                      # "fused", "stream"
+
+
 def _check(name, q, kv, scales, lengths, tail, tail_count):
     """Shapes of the int8 kernel's arguments; ``tail`` None is the no-tail
     mode (``tail_count`` 0, no window rows)."""
@@ -208,16 +247,18 @@ def _check(name, q, kv, scales, lengths, tail, tail_count):
     return b, h, d, kvh, cap, tail.shape[1]
 
 
-def decode_attn_int8_tail_plain(q, kv, scales, lengths, tail=None,
-                                tail_count=0, scale=None):
-    """Plain PyTorch version of the kernel (same contract); ``tail`` None
-    is the no-tail mode of ``decode_attn_int8``."""
+def _int8_flat_state(q, kv, scales, lengths, tail, tail_count, scale,
+                     q_bf16):
+    """The int8 kernel's arithmetic in plain PyTorch: (acc, m, l) of one
+    query per (sequence, head) over the packed tokens and the tail rows,
+    acc = sum p * v_scale * v and l = sum p against the global max m (-inf
+    where a sequence has no token, whose acc and l are 0)."""
     b, h, d, kvh, cap, rows = _check("decode_attn_int8_tail", q, kv, scales,
                                      lengths, tail, tail_count)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     rep = h // kvh
-    qb = q.to(torch.bfloat16).to(torch.float32)
+    qb = _bf16(q) if q_bf16 else q
     kq = kv.reshape(b, cap, 2, kvh, d).to(torch.float32)
     sf = scales.to(torch.float32)                          # [B, cap, 2, KVH]
     kf = kq[:, :, 0].repeat_interleave(rep, dim=2)         # [B, cap, H, D]
@@ -235,18 +276,32 @@ def decode_attn_int8_tail_plain(q, kv, scales, lengths, tail=None,
     s_p = s_p.masked_fill(~valid[:, None, :], -math.inf)
     scores = torch.cat([s_p, s_t], dim=-1)
     m = scores.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # no token
-    p = torch.exp(scores - m)
+    p = torch.exp(scores - torch.where(torch.isfinite(m), m,
+                                       torch.zeros_like(m)))  # no token
     l = p.sum(dim=-1, keepdim=True)
     p_p = p[..., :cap] * vs.transpose(1, 2)
     acc = (torch.einsum("bhc,bchd->bhd", p_p, vf)
            + torch.einsum("bht,bthd->bhd", p[..., cap:], tl[:, :, 1]))
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.to(torch.bfloat16).to(torch.float32)
+    return acc, m, l
 
 
-def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale):
-    """The int8 kernel on CUDA tensors for both modes; counts the launch
+def _bf16(x):
+    """x rounded to bf16 (nearest even), kept in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def decode_attn_int8_tail_plain(q, kv, scales, lengths, tail=None,
+                                tail_count=0, scale=None):
+    """Plain PyTorch version of the kernel (same contract); ``tail`` None
+    is the no-tail mode of ``decode_attn_int8``."""
+    acc, _, l = _int8_flat_state(q, kv, scales, lengths, tail, tail_count,
+                                 scale, True)
+    return _bf16(acc / torch.clamp(l, min=1e-30))
+
+
+def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale,
+                 partials=False, q_bf16=True):
+    """The int8 kernel on CUDA tensors for every mode; counts the launch
     on ``wrapper``."""
     name = wrapper.__name__
     b, h, d, kvh, cap, rows = _check(name, q, kv, scales, lengths, tail,
@@ -257,17 +312,18 @@ def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale):
     tensors = (q, kv, scales, lengths) + (() if tail is None else (tail,))
     _build.require(all(x.is_contiguous() for x in tensors), name,
                    "tensors must be contiguous")
-    out = torch.empty_like(q)
+    out = torch.empty((b, h, d + 2 * partials), dtype=torch.float32,
+                      device=q.device)
     chunk, splits = int8_chunks(b, h, cap + rows)
     part = (torch.empty((b, h, splits, d + 2), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
     fn = _build.function("decode_attn_int8_tail", "decode_attn_int8_tail",
-                         "pppppppiiiiiiiiifp")
+                         "pppppppiiiiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
              lengths.data_ptr(), None if tail is None else tail.data_ptr(),
              out.data_ptr(), None if part is None else part.data_ptr(), b,
-             h, kvh, d, cap, rows, tail_count, chunk, splits, float(scale),
-             _build.stream())
+             h, kvh, d, cap, rows, tail_count, chunk, splits, int(partials),
+             int(q_bf16), float(scale), _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
     return out
@@ -317,8 +373,69 @@ def decode_attn_int8(q, kv, scales, lengths, scale=None):
 decode_attn_int8.launches = 0
 
 
-def _check_float(q, kv, lengths):
-    name = "decode_attn_float"
+def int8_partials_check(batch, heads, head_dim, kvh, cap, q_bf16=True):
+    """Raise where the reference's partials decode raises: its caller's
+    flat group (``flat_group_for``, transformer.py:384-395, which asserts
+    one) and block (128 at capacity >= 2048, else 64), then
+    ``flash_decode_flat``'s shape rule (attention.py:1752-1762): the
+    capacity divides by the block, the block by 4, and the E matrix (bf16
+    with ``q_bf16``, else f32) fits 4 MB (the group divides the batch by
+    construction)."""
+    name = "decode_attn_int8_partials"
+    group = flat_group_for(batch)
+    _build.require(group > 0, name, f"batch {batch} has no flat group")
+    block_k = min(128 if cap >= 2048 else 64, cap)
+    e_bytes = (-(-heads // 8) * 8 * head_dim * kvh * head_dim
+               * (2 if q_bf16 else 4))
+    _build.require(not (cap % block_k or block_k % 4
+                        or e_bytes > E_MATRIX_BUDGET), name,
+                   f"shape unsupported (b={batch}, group={group}, "
+                   f"cap={cap}, block_k={block_k}, E {e_bytes} bytes)")
+
+
+def decode_attn_int8_partials_plain(q, kv, scales, lengths, q_bf16=True,
+                                    scale=None):
+    """Plain PyTorch version of ``decode_attn_int8_partials`` (same
+    contract)."""
+    b, h, d = q.shape
+    int8_partials_check(b, h, d, kv.shape[3] // d, kv.shape[1], q_bf16)
+    acc, m, l = _int8_flat_state(q, kv, scales, lengths, None, 0, scale,
+                                 q_bf16)
+    m = torch.where(torch.isfinite(m), m, torch.full_like(m, NEG_INF))
+    return torch.cat([_bf16(acc) if q_bf16 else acc, m, l], dim=-1)
+
+
+def decode_attn_int8_partials(q, kv, scales, lengths, q_bf16=True,
+                              scale=None):
+    """The partials mode of ``flash_decode_flat`` (attention.py:1745-1751,
+    1628-1656, 1897-1913): decode attention over an int8 cache without a
+    tail, returned unnormalized for a merge across capacity shards.
+
+    Arguments as ``decode_attn_int8``; ``q_bf16`` rounds q to bf16 (the
+    seq-sharded caller's default) or keeps it exact. Returns f32
+    [B, H, D + 2]: lanes 0..D-1 the accumulator sum p * v_scale * v
+    (rounded to bf16 with ``q_bf16``), lane D the max score m, lane D + 1
+    the sum l of p = exp(score - m). A sequence with no token (lengths <=
+    0) returns acc 0, m = -1e30 and l 0, which weigh nothing in the merge
+    out = sum acc exp(m - M) / sum l exp(m - M) (the reference returns
+    other acc and l there, which its merge weighs by 0 as well). Raises at
+    the shapes where the reference raises (:func:`int8_partials_check`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    name = "decode_attn_int8_partials"
+    if _build.on_cpu(name, q, kv, scales, lengths):
+        return decode_attn_int8_partials_plain(q, kv, scales, lengths,
+                                               q_bf16, scale)
+    b, h, d = q.shape
+    int8_partials_check(b, h, d, kv.shape[3] // d, kv.shape[1], q_bf16)
+    return _launch_int8(decode_attn_int8_partials, q, kv, scales, lengths,
+                        None, 0, scale, partials=True, q_bf16=q_bf16)
+
+
+decode_attn_int8_partials.launches = 0
+
+
+def _check_float(q, kv, lengths, name="decode_attn_float"):
     b, h, d = q.shape
     _build.require(q.dtype == torch.float32, name, "q must be f32 [B, H, D]")
     _build.require(kv.dim() == 4 and kv.shape[0] == b and kv.shape[2] == 2
@@ -357,17 +474,50 @@ def _live(lengths, cap):
             < lengths.to(torch.int64)[:, None])
 
 
-def decode_attn_float_plain(q, kv, lengths, scale=None):
-    """Plain PyTorch version of ``decode_attn_float`` (same contract): an
-    exact two-pass softmax in f32."""
-    b, h, d, kvh, cap = _check_float(q, kv, lengths)
+def _float_plain(name, q, kv, lengths, scale, flat=False):
+    """The float kernel's contract in plain PyTorch, an exact two-pass
+    softmax in f32; ``flat`` (K8) rounds q and every K element to bf16
+    before the score dot and the output to bf16."""
+    b, h, d, kvh, cap = _check_float(q, kv, lengths, name)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     rep = h // kvh
     x = kv.reshape(b, cap, 2, kvh, d).to(torch.float32)
     k = x[:, :, 0].repeat_interleave(rep, dim=2)           # [B, cap, H, D]
     v = x[:, :, 1].repeat_interleave(rep, dim=2)
-    return _softmax_attend(q, k, v, _live(lengths, cap), scale)
+    if flat:
+        q, k = _bf16(q), _bf16(k)
+    out = _softmax_attend(q, k, v, _live(lengths, cap), scale)
+    return _bf16(out) if flat else out
+
+
+def _launch_float(wrapper, symbol, q, kv, lengths, scale, *flags):
+    """K6's kernel (``csrc/decode_attn_float.cu``, entry ``symbol``) on
+    CUDA tensors; ``flags`` are the entry's int mode arguments after the
+    cache dtype. Counts the launch on ``wrapper``."""
+    name = wrapper.__name__
+    b, h, d, kvh, cap = _check_float(q, kv, lengths, name)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d % 64 == 0 and d <= 256, name,
+                   f"head_dim {d} must be a multiple of 64 up to 256")
+    _build.require(all(x.is_contiguous() for x in (q, kv, lengths)), name,
+                   "tensors must be contiguous")
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_float", symbol,
+                         "ppppiiiiii" + "i" * len(flags) + "fp")
+    err = fn(q.data_ptr(), kv.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             b, h, kvh, d, cap, int(kv.dtype == torch.bfloat16),
+             *(int(f) for f in flags), float(scale), _build.stream())
+    _build.check(err, name)
+    wrapper.launches += 1
+    return out
+
+
+def decode_attn_float_plain(q, kv, lengths, scale=None):
+    """Plain PyTorch version of ``decode_attn_float`` (same contract): an
+    exact two-pass softmax in f32."""
+    return _float_plain("decode_attn_float", q, kv, lengths, scale)
 
 
 def decode_attn_float(q, kv, lengths, scale=None):
@@ -378,27 +528,197 @@ def decode_attn_float(q, kv, lengths, scale=None):
     softmax and sums in f32. Returns f32 [B, H, D] (zeros where a length is
     0). CPU tensors take the plain version; CUDA tensors launch the kernel
     or raise."""
-    name = "decode_attn_float"
-    if _build.on_cpu(name, q, kv, lengths):
+    if _build.on_cpu("decode_attn_float", q, kv, lengths):
         return decode_attn_float_plain(q, kv, lengths, scale)
-    b, h, d, kvh, cap = _check_float(q, kv, lengths)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    _build.require(d % 64 == 0 and d <= 256, name,
-                   f"head_dim {d} must be a multiple of 64 up to 256")
-    _build.require(all(x.is_contiguous() for x in (q, kv, lengths)), name,
-                   "tensors must be contiguous")
-    out = torch.empty_like(q)
-    fn = _build.function(name, name, "ppppiiiiiifp")
-    err = fn(q.data_ptr(), kv.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             b, h, kvh, d, cap, int(kv.dtype == torch.bfloat16),
-             float(scale), _build.stream())
-    _build.check(err, name)
-    decode_attn_float.launches += 1
-    return out
+    return _launch_float(decode_attn_float, "decode_attn_float", q, kv,
+                         lengths, scale)
 
 
 decode_attn_float.launches = 0
+
+
+def decode_attn_flat_float_plain(q, kv, lengths, scale=None):
+    """Plain PyTorch version of ``decode_attn_flat_float`` (same
+    contract)."""
+    return _float_plain("decode_attn_flat_float", q, kv, lengths, scale,
+                        flat=True)
+
+
+def decode_attn_flat_float(q, kv, lengths, scale=None):
+    """Decode attention over a float cache with the numerics of
+    ``flash_decode_flat``'s float mode (attention.py:1715,
+    ``_decode_flat_kernel``) under ``q_bf16`` (``RTEN_FLAT_QBF16``, on by
+    default): q enters rounded to bf16, every K element is cast to bf16
+    before the score dot (``kblk.astype(qx.dtype)``, so an f32 cache's K
+    rounds too), the softmax and P.V run in f32 on V as stored, and the
+    normalized output is rounded to bf16 (its cast before the one-hot
+    compaction dot), returned as f32. The reference's exact mode
+    (``q_bf16=False``) is ``decode_attn_float``'s arithmetic.
+
+    Arguments, reads and the no-token rule as ``decode_attn_float``. The
+    reference's choice of this mode is :func:`float_decode_kernel`. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (K6's,
+    in its flat mode) or raise."""
+    if _build.on_cpu("decode_attn_flat_float", q, kv, lengths):
+        return decode_attn_flat_float_plain(q, kv, lengths, scale)
+    return _launch_float(decode_attn_flat_float, "decode_attn_flat_float", q,
+                         kv, lengths, scale)
+
+
+decode_attn_flat_float.launches = 0
+
+
+NATIVE_MAX_BLOCKS = 512           # the kernel keeps a max per block
+
+
+def _native_block(b, cap, block_k, group):
+    """The block of ``flash_decode_grouped`` (min(block_k, cap)), or 0 where
+    its own fallback (attention.py:1062-1065) drops ``native_dots`` for the
+    exact fused kernel."""
+    if _grouped_or_fused(b, group, cap, block_k, False, False)[0] == "fused":
+        return 0
+    return min(block_k, cap)
+
+
+def decode_attn_native_dots_plain(q, kv, lengths, block_k=64, group=8,
+                                  scale=None):
+    """Plain PyTorch version of ``decode_attn_native_dots`` (same
+    contract)."""
+    name = "decode_attn_native_dots"
+    blk = _native_block(q.shape[0], kv.shape[1], block_k, group)
+    if not blk:
+        return decode_attn_float_plain(q, kv, lengths, scale)
+    b, h, d, kvh, cap = _check_float(q, kv, lengths, name)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    n = min(-(-_live_rows(lengths, cap) // blk) * blk, cap)  # whole blocks
+    x = kv[:, :n].reshape(b, n, 2, kvh, d).to(torch.float32)
+    qn = q.to(kv.dtype).to(torch.float32).reshape(b, kvh, h // kvh, d)
+    s = torch.einsum("bgrd,bngd->bgrn", qn, x[:, :, 0]) * scale
+    return _attend_blocks(s, x[:, :, 1], lengths, blk, p_dtype=kv.dtype)
+
+
+def decode_attn_native_dots(q, kv, lengths, block_k=64, group=8, scale=None):
+    """``flash_decode_grouped``'s float mode with ``native_dots``
+    (attention.py:1145, 653-685): q cast to the cache dtype before the
+    score dot and p cast to it before P.V (the sum l takes the unrounded
+    p), both dots summing in f32. The reference rounds p = exp(s - m_i)
+    with m_i its running max after each block of min(``block_k``, cap)
+    rows, so this does too (:func:`_attend_blocks`). On a bf16 cache q and
+    p round to bf16; on an f32 cache this is ``decode_attn_float``'s
+    arithmetic. Where the reference's grouped kernel falls back to the
+    fused one (the batch does not divide by ``group`` or the capacity by
+    the block), native_dots is dropped and this returns
+    ``decode_attn_float`` (K6, counted there).
+
+    Arguments as ``decode_attn_float``. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    name = "decode_attn_native_dots"
+    if _build.on_cpu(name, q, kv, lengths):
+        return decode_attn_native_dots_plain(q, kv, lengths, block_k, group,
+                                             scale)
+    blk = _native_block(q.shape[0], kv.shape[1], block_k, group)
+    if not blk:
+        return decode_attn_float(q, kv, lengths, scale)
+    _build.require(blk % 4 == 0 and -(-kv.shape[1] // blk)
+                   <= NATIVE_MAX_BLOCKS, name,
+                   f"block {blk} must divide by 4 and the capacity hold at "
+                   f"most {NATIVE_MAX_BLOCKS} blocks")
+    return _launch_float(decode_attn_native_dots, name, q, kv, lengths,
+                         scale, blk)
+
+
+decode_attn_native_dots.launches = 0
+
+
+# -- K9: single-query decode over separate K and V caches ---------------------
+
+SPLIT_KV_BLOCK = 256               # flash_decode's block_k (its default)
+
+
+def split_kv_takes_kernel(s, d):
+    """Whether the reference's ``flash_decode`` (at its default block_k)
+    runs its kernel at these shapes (attention.py:2660): S >= block_k,
+    S % block_k == 0 and d % 128 == 0; every other shape takes
+    ``_attn_reference``."""
+    return s >= SPLIT_KV_BLOCK and s % SPLIT_KV_BLOCK == 0 and d % 128 == 0
+
+
+def _check_split(q, k_cache, v_cache, lengths):
+    name = "decode_attn_split_kv"
+    b, h, d = q.shape
+    _build.require(q.dtype == torch.float32, name, "q must be f32 [B, H, D]")
+    _build.require(k_cache.dim() == 4 and k_cache.shape[0] == b
+                   and k_cache.shape[3] == d
+                   and v_cache.shape == k_cache.shape
+                   and k_cache.dtype == v_cache.dtype
+                   and k_cache.dtype in FLOAT_CACHE_DTYPES, name,
+                   "k_cache and v_cache must be f32 or bf16 [B, KVH, S, D]")
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
+    _build.require(h % kvh == 0, name, "heads must be a multiple of KVH")
+    _build.require(lengths.shape == (b,) and lengths.dtype == torch.int32,
+                   name, "lengths must be int32 [B]")
+    return b, h, d, kvh, s
+
+
+def decode_attn_split_kv_plain(q, k_cache, v_cache, lengths, scale=None):
+    """Plain PyTorch version of ``decode_attn_split_kv`` (same contract:
+    the kernel's arithmetic at the kernel's shapes, ``attn_reference``
+    elsewhere)."""
+    b, h, d, kvh, s = _check_split(q, k_cache, v_cache, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    rep = h // kvh
+    k = k_cache.to(torch.float32).repeat_interleave(rep, dim=1)
+    v = v_cache.to(torch.float32).repeat_interleave(rep, dim=1)
+    if not split_kv_takes_kernel(s, d):
+        return attn_reference(q[:, :, None], k, v, False, scale,
+                              lengths)[:, :, 0]
+    return _softmax_attend(q, k.transpose(1, 2), v.transpose(1, 2),
+                           _live(lengths, s), scale)
+
+
+def decode_attn_split_kv(q, k_cache, v_cache, lengths, scale=None):
+    """Single-step decode attention over separate caches, the contract of
+    the reference's ``flash_decode`` (attention.py:2647): q f32 [B, H, D];
+    k_cache, v_cache f32 or bf16 [B, KVH, S, D] (H a multiple of KVH);
+    lengths int32 [B]. Returns f32 [B, H, D].
+
+    The reference's own choice is copied: at S >= 256, S % 256 == 0 and
+    d % 128 == 0 (:func:`split_kv_takes_kernel`) its kernel runs —
+    here K9: rows t < min(lengths, S), f32 scores, softmax and sums, zeros
+    where lengths <= 0 (every block is skipped); at every other shape its
+    ``_attn_reference`` runs (``attn_reference`` here, on either device,
+    no launch): masked scores take -1e30, so lengths 0 gives the mean of
+    V over all S rows. CPU tensors take the plain version; CUDA tensors at
+    the kernel's shapes launch the kernel or raise."""
+    name = "decode_attn_split_kv"
+    if _build.on_cpu(name, q, k_cache, v_cache, lengths):
+        return decode_attn_split_kv_plain(q, k_cache, v_cache, lengths,
+                                          scale)
+    b, h, d, kvh, s = _check_split(q, k_cache, v_cache, lengths)
+    if not split_kv_takes_kernel(s, d):
+        return decode_attn_split_kv_plain(q, k_cache, v_cache, lengths,
+                                          scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d <= 256, name, f"head_dim {d}: the kernel takes 128 or "
+                   f"256")
+    tensors = (q, k_cache, v_cache, lengths)
+    _build.require(all(x.is_contiguous() for x in tensors), name,
+                   "tensors must be contiguous")
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_split", name, "pppppiiiiiifp")
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, s,
+             int(k_cache.dtype == torch.bfloat16), float(scale),
+             _build.stream())
+    _build.check(err, name)
+    decode_attn_split_kv.launches += 1
+    return out
+
+
+decode_attn_split_kv.launches = 0
 
 
 def group_for(batch):
@@ -841,15 +1161,20 @@ def _attend_live(s, v, lengths, v_scale=None):
     return (out / torch.clamp(l, min=1e-30)).reshape(b, kvh * rep, -1)
 
 
-def _int8_decode_plain(name, q, kv, scales, lengths, scale, int8_scores):
+def _int8_decode_plain(name, q, kv, scales, lengths, scale, int8_scores,
+                       pv_block=0):
     """The int8 decode contract of G1 and G2 in plain PyTorch, over the
     live rows only: exact q, s = ((q . k8) * scale) * k_scale, or with
     ``int8_scores`` s = (f32(q8 . k8) * (q_scale * scale)) * k_scale; then
-    :func:`_attend_live` with V weighted by p * v_scale."""
+    :func:`_attend_live` with V weighted by p * v_scale, or with
+    ``pv_block`` (> 0) :func:`_attend_blocks` over blocks of that many
+    rows."""
     b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     rep, n = h // kvh, _live_rows(lengths, cap)
+    if pv_block:
+        n = min(-(-n // pv_block) * pv_block, cap)   # whole blocks
     x = kv[:, :n].reshape(b, n, 2, kvh, d).to(torch.float32)
     sf = scales[:, :n].to(torch.float32).permute(0, 3, 2, 1)  # [B,KVH,2,n]
     if int8_scores:
@@ -860,16 +1185,55 @@ def _int8_decode_plain(name, q, kv, scales, lengths, scale, int8_scores):
     else:
         s = torch.einsum("bgrd,bngd->bgrn", q.reshape(b, kvh, rep, d),
                          x[:, :, 0]) * scale
+    if pv_block:
+        return _attend_blocks(s * sf[:, :, None, 0], x[:, :, 1], lengths,
+                              pv_block, v_scale=sf[:, :, None, 1])
     return _attend_live(s * sf[:, :, None, 0], x[:, :, 1], lengths,
                         sf[:, :, None, 1])
 
 
+def _attend_blocks(s, v, lengths, block_k, v_scale=None, p_dtype=None):
+    """An f32 softmax over the live rows as the reference's grouped kernels
+    walk them, block by block of ``block_k`` rows, for the modes whose
+    arithmetic depends on the block: scores s [B, KVH, rep, n] (n a
+    multiple of the block), V rows v [B, n, KVH, D] as f32. Per block i,
+    m_i is the running max after it, p = exp(s - m_i) and l_i = sum p;
+    ``p_dtype`` (``native_dots``): acc_i = sum p' v with p' = p rounded to
+    that dtype; ``v_scale`` [B, KVH, 1, n] (``pv_int8``, attention.py:
+    825-837): pm = p * v_scale, pq = max(max pm, 1e-30) / 127, p8 =
+    round_half_even(pm / pq) and acc_i = f32(sum p8 v8) * pq. The blocks
+    combine as acc = sum acc_i exp(m_i - m), l = sum l_i exp(m_i - m).
+    Returns [B, KVH * rep, D], zeros where a length is 0."""
+    b, kvh, rep, n = s.shape
+    nb = n // block_k
+    s = s.masked_fill(~_live(lengths, n)[:, None, None, :], -math.inf)
+    s = s.reshape(b, kvh, rep, nb, block_k)
+    m_i = torch.cummax(s.amax(dim=-1), dim=-1).values       # [B,KVH,rep,nb]
+    m_i = torch.where(torch.isfinite(m_i), m_i, torch.zeros_like(m_i))
+    p = torch.exp(s - m_i[..., None])
+    l_i = p.sum(dim=-1)
+    vb = v.reshape(b, nb, block_k, kvh, -1)
+    if v_scale is None:
+        acc_i = torch.einsum("bgrik,bikgd->bgrid",
+                             p.to(p_dtype).to(torch.float32), vb)
+    else:
+        pm = p * v_scale.reshape(b, kvh, 1, nb, block_k)
+        pq = torch.clamp(pm.amax(dim=-1), min=1e-30) / 127.0
+        p8 = torch.round(pm / pq[..., None])
+        acc_i = torch.einsum("bgrik,bikgd->bgrid", p8, vb) * pq[..., None]
+    w = torch.exp(m_i - m_i[..., -1:])
+    acc = (acc_i * w[..., None]).sum(dim=3)
+    l = (l_i * w).sum(dim=-1, keepdim=True)
+    return (acc / torch.clamp(l, min=1e-30)).reshape(b, kvh * rep, -1)
+
+
 def _launch_int8_decode(wrapper, q, kv, scales, lengths, int8_scores, scale,
-                        dots=None):
-    """G1's kernel on CUDA tensors for both entries and score modes; counts
+                        dots=None, pv_block=0):
+    """G1's kernel on CUDA tensors for both entries and every mode; counts
     the launch on ``wrapper`` and, where it has them, in its modes.
     ``dots`` (int32 [B, H, cap], tests only) receives the integer score
-    dots of ``int8_scores``."""
+    dots of ``int8_scores``; ``pv_block`` > 0 is the ``pv_int8`` mode over
+    blocks of that many rows."""
     name = wrapper.__name__
     b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
     if scale is None:
@@ -882,30 +1246,55 @@ def _launch_int8_decode(wrapper, q, kv, scales, lengths, int8_scores, scale,
                        and dots.dtype == torch.int32
                        and dots.is_contiguous(), name,
                        "dots must be int32 [B, H, cap], int8_scores only")
+    if pv_block:
+        _build.require(dots is None, name, "dots: int8_scores without pv_int8")
+        _build.require(pv_block <= 256, name,
+                       f"pv_int8 block {pv_block}: the kernel takes <= 256")
     out = torch.empty_like(q)
     fn = _build.function("decode_attn_grouped_int8",
-                         "decode_attn_grouped_int8", "ppppppiiiiiifp")
+                         "decode_attn_grouped_int8", "ppppppiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
              lengths.data_ptr(), out.data_ptr(),
              None if dots is None else dots.data_ptr(), b, h, kvh, d, cap,
-             int(bool(int8_scores)), float(scale), _build.stream())
+             int(bool(int8_scores)), int(pv_block > 0), pv_block,
+             float(scale), _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
     if hasattr(wrapper, "mode_launches"):
-        wrapper.mode_launches["int8_scores" if int8_scores else "exact"] += 1
+        mode = "int8_scores" if int8_scores else "exact"
+        wrapper.mode_launches[("pv_int8." if pv_block else "") + mode] += 1
     return out
 
 
+def _pv_block(name, b, cap, pv_int8, block_k, group):
+    """The ``pv_int8`` block of ``flash_decode_grouped`` (min(block_k,
+    cap)), or 0 without ``pv_int8``; "fused" where its own fallback
+    (attention.py:1062-1065) drops the mode for the exact fused kernel."""
+    if not pv_int8:
+        return 0
+    _build.require(group > 0 and block_k > 0, name,
+                   "pv_int8 needs a group and a block")
+    if _grouped_or_fused(b, group, cap, block_k, False)[0] == "fused":
+        return "fused"
+    return min(block_k, cap)
+
+
 def decode_attn_grouped_int8_plain(q, kv, scales, lengths, int8_scores=False,
-                                   scale=None):
+                                   scale=None, pv_int8=False, block_k=64,
+                                   group=8):
     """Plain PyTorch version of ``decode_attn_grouped_int8`` (same
     contract)."""
-    return _int8_decode_plain("decode_attn_grouped_int8", q, kv, scales,
-                              lengths, scale, int8_scores)
+    name = "decode_attn_grouped_int8"
+    blk = _pv_block(name, q.shape[0], kv.shape[1], pv_int8, block_k, group)
+    if blk == "fused":
+        return decode_attn_fused_int8_plain(q, kv, scales, lengths, scale)
+    return _int8_decode_plain(name, q, kv, scales, lengths, scale,
+                              int8_scores, blk)
 
 
 def decode_attn_grouped_int8(q, kv, scales, lengths, int8_scores=False,
-                             scale=None, dots=None):
+                             scale=None, dots=None, pv_int8=False,
+                             block_k=64, group=8):
     """Decode attention for one query per sequence over an int8 cache, the
     contract of ``flash_decode_grouped``'s int8 modes
     (``_decode_grouped_quant_kernel``, attention.py:710).
@@ -917,19 +1306,36 @@ def decode_attn_grouped_int8(q, kv, scales, lengths, int8_scores=False,
     row-quantized per (sequence, head) (:func:`quantize_q_rows`) and score =
     (f32(int32 q8 . k8) * (q_scale * scale)) * k_scale. Then an f32
     softmax whose sum l takes the unscaled p, V weighted by p * v_scale;
-    out = acc / max(l, 1e-30), f32 [B, H, D]. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise. Launches count in
-    ``launches`` and per score mode in ``mode_launches``."""
+    out = acc / max(l, 1e-30), f32 [B, H, D].
+
+    ``pv_int8`` (either score mode): P.V runs on probabilities
+    row-quantized per block of min(``block_k``, cap) rows, as the
+    reference's (:func:`_attend_blocks`, attention.py:825-837). With it,
+    ``block_k`` and ``group`` are the reference's own and its fallback is
+    copied: where the batch does not divide by ``group``, the capacity by
+    the block or the block by 4, the reference drops ``pv_int8`` and
+    ``int8_scores`` for the exact fused kernel, and this returns
+    ``decode_attn_fused_int8`` (counted there). Without ``pv_int8`` the
+    caller has made that choice (:func:`int8_decode_kernel`). CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise.
+    Launches count in ``launches`` and per mode in ``mode_launches``
+    ("exact", "int8_scores", "pv_int8.exact", "pv_int8.int8_scores")."""
     name = "decode_attn_grouped_int8"
     if _build.on_cpu(name, q, kv, scales, lengths):
         return decode_attn_grouped_int8_plain(q, kv, scales, lengths,
-                                              int8_scores, scale)
+                                              int8_scores, scale, pv_int8,
+                                              block_k, group)
+    blk = _pv_block(name, q.shape[0], kv.shape[1], pv_int8, block_k, group)
+    if blk == "fused":
+        return decode_attn_fused_int8(q, kv, scales, lengths, scale)
     return _launch_int8_decode(decode_attn_grouped_int8, q, kv, scales,
-                               lengths, int8_scores, scale, dots)
+                               lengths, int8_scores, scale, dots, blk)
 
 
 decode_attn_grouped_int8.launches = 0
-decode_attn_grouped_int8.mode_launches = {"exact": 0, "int8_scores": 0}
+decode_attn_grouped_int8.mode_launches = {
+    "exact": 0, "int8_scores": 0, "pv_int8.exact": 0,
+    "pv_int8.int8_scores": 0}
 
 
 def decode_attn_fused_int8_plain(q, kv, scales, lengths, scale=None):

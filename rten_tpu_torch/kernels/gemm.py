@@ -4,6 +4,10 @@
   which the JAX package leaves to an XLA dot outside any Pallas kernel:
   here ``torch._int_mm`` (exact int32 accumulation) and the same f32
   epilogue, x_scale * w_scale[col].
+* ``matmul_int8_tiled`` (CUDA, ``csrc/matmul_int8.cu``, M1) replaces
+  ``matmul_int8_pallas`` (:93), the Pallas twin of ``matmul_int8`` with
+  the epilogue (f32(acc) * x_scale) * w_scale[col]. No path calls it (the
+  model keeps ``matmul_int8``, whose epilogue order differs).
 * ``matmul_int8_wo`` (CUDA, ``csrc/matmul_int8_wo.cu``) replaces
   ``matmul_int8_weight_only`` (:173).
 * ``head_argmax_int8`` (CUDA, ``csrc/head_argmax_int8.cu``) replaces
@@ -52,6 +56,56 @@ def matmul_int8(x, w, x_scale, w_scales):
     acc = torch._int_mm(x.contiguous(), w)
     scale = x_scale.to(torch.float32) * w_scales.to(torch.float32)
     return acc.to(torch.float32) * scale[None, :]
+
+
+def _check_int8_tiled(x, w, x_scale, w_scales):
+    name = "matmul_int8_tiled"
+    _build.require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0]
+                   and x.dtype == w.dtype == torch.int8, name,
+                   "x and w must be int8 [M, K] and [K, N]")
+    n = w.shape[1]
+    _build.require(w_scales.shape == (n,), name, "w_scales must be [N]")
+    xs = torch.as_tensor(x_scale, dtype=torch.float32, device=x.device)
+    _build.require(xs.numel() == 1, name, "x_scale must be a scalar")
+    return xs.reshape(1), w_scales.to(torch.float32)
+
+
+def matmul_int8_tiled_plain(x, w, x_scale, w_scales):
+    """Plain PyTorch version of ``matmul_int8_tiled`` (same contract): the
+    int32 sum taken exactly in f64 (every partial sum is an integer below
+    2^53), then the f32 epilogue in the reference's order."""
+    xs, ws = _check_int8_tiled(x, w, x_scale, w_scales)
+    acc = (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
+    return acc.to(torch.float32) * xs * ws[None, :]
+
+
+def matmul_int8_tiled(x, w, x_scale, w_scales):
+    """int8 ``x`` [M, K] × int8 ``w`` [K, N] → f32 [M, N], the contract of
+    ``matmul_int8_pallas`` (gemm.py:93-135): int32 accumulation, then
+    ``(f32(acc) * x_scale) * w_scales[col]`` in f32, in that order
+    (``matmul_int8`` multiplies by ``x_scale * w_scales`` instead). Any M,
+    N and K: the reference pads M to 32 and N and K to 128 with zeros,
+    which changes no sum. ``x_scale`` a Python float or a one-element
+    tensor; ``w_scales`` [N]. Bit-exact by construction. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
+    name = "matmul_int8_tiled"
+    if _build.on_cpu(name, x, w, w_scales):
+        return matmul_int8_tiled_plain(x, w, x_scale, w_scales)
+    xs, ws = _check_int8_tiled(x, w, x_scale, w_scales)
+    _build.require(x.is_contiguous() and w.is_contiguous(), name,
+                   "x and w must be contiguous")
+    m, k = x.shape
+    n = w.shape[1]
+    ws = ws.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    fn = _build.function("matmul_int8", "matmul_int8", "pppppiiip")
+    _build.check(fn(x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+                    out.data_ptr(), m, n, k, _build.stream()), name)
+    matmul_int8_tiled.launches += 1
+    return out
+
+
+matmul_int8_tiled.launches = 0
 
 
 def _check_wo(name, x, w, scales):

@@ -16,7 +16,10 @@ Prefill attention takes ``flash_attention`` where the reference's does
 ``attn_reference`` elsewhere. Decode attention follows the reference's
 automatic choice (``_pallas_decode_attn``, transformer.py:366-492): an int8
 cache with the tail window reads through ``decode_attn_int8_tail``; a float
-(f32 or bf16) cache through ``decode_attn_float``, or, with
+(f32 or bf16) cache through ``decode_attn_float``, or
+``decode_attn_flat_float`` where ``decode_attn="flat"`` takes the float
+mode of ``flash_decode_flat`` (see
+:func:`~rten_tpu_torch.kernels.attention.float_decode_kernel`), or, with
 ``fused_append`` where the reference fuses it (transformer.py:650-663),
 through ``decode_attn_grouped_append``, which also writes the new row; an
 int8 cache without a tail through ``decode_attn_int8``,
@@ -29,8 +32,7 @@ verify_step`, speculative decoding) follows transformer.py:741-772: see
 :func:`_verify_attn`.
 
 Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP.md
-item: bf16 compute, ``scan_layers``, MoE and the float mode of
-``flash_decode_flat`` (``decode_attn="flat"`` on a float cache).
+item: bf16 compute, ``scan_layers`` and MoE.
 """
 
 from __future__ import annotations
@@ -45,15 +47,16 @@ import torch
 from ..device import resolve_device
 from ..generate.kv_cache import KVCache
 from ..generate.paged_cache import PagedKVCache
-from ..kernels.attention import (attn_reference, decode_attn_float,
-                                 decode_attn_fused_int8,
+from ..kernels.attention import (attn_reference, decode_attn_flat_float,
+                                 decode_attn_float, decode_attn_fused_int8,
                                  decode_attn_grouped_append,
                                  decode_attn_grouped_int8, decode_attn_int8,
                                  decode_attn_int8_tail, decode_attn_paged,
                                  decode_attn_paged_grid,
                                  decode_attn_paged_int8, flash_attention,
-                                 flash_attention_takes, group_for,
-                                 int8_decode_kernel, verify_attn_fused,
+                                 flash_attention_takes, float_decode_kernel,
+                                 group_for, int8_decode_kernel,
+                                 verify_attn_fused,
                                  verify_attn_grouped)
 from ..kernels.gemm import (head_argmax_int8, matmul_int4, matmul_int4_words,
                             matmul_int4_words_int8, matmul_int8,
@@ -661,8 +664,10 @@ def _fused_append_takes(cfg, cache, b, s, chunk):
 def _cache_decode_attn(cfg, q3, cache, layer_idx):
     """Decode attention on a cache without a tail window, chosen as the
     reference's automatic dispatch chooses (transformer.py:366-492): a
-    float cache → ``decode_attn_float`` (the reference's grouped or fused
-    float kernel, one function); an int8 cache → the kernel that
+    float cache → the kernel that :func:`float_decode_kernel` names:
+    ``decode_attn_flat_float`` (``flash_decode_flat``'s float mode, q
+    rounded to bf16) or ``decode_attn_float`` (the reference's grouped,
+    fused and stream float kernels); an int8 cache → the kernel that
     :func:`int8_decode_kernel` names: ``decode_attn_int8``
     (``flash_decode_flat``, ``q_bf16``), ``decode_attn_grouped_int8`` (exact
     q or ``int8_scores``) or ``decode_attn_fused_int8``. A tail cache must
@@ -676,16 +681,14 @@ def _cache_decode_attn(cfg, q3, cache, layer_idx):
     lengths = cache.lengths + 1
     b = q3.shape[0]
     if not cache.quantized:
-        # decode_attn "flat" at a batch with a float group takes the float
-        # mode of flash_decode_flat (q rounded to bf16), which is not
-        # ported; "stream" (flash_decode_stream) has K6's numerics and is
-        # held against it by tests/test_torch_decode_paths.py.
-        if cfg.decode_attn == "flat" and group_for(b):
-            raise NotImplementedError(
-                f"decode_attn='flat' on a float cache at batch {b} takes "
-                f"the float mode of flash_decode_flat, which is not ported "
-                f"yet (ROADMAP.md Queue 2, flash_decode_flat float mode)")
-        return decode_attn_float(q3, cache.kv[layer_idx], lengths)
+        # "stream" (flash_decode_stream) has K6's numerics and is held
+        # against it by tests/test_torch_decode_paths.py.
+        kind, _ = float_decode_kernel(b, q3.shape[1], cache.head_dim,
+                                      cache.kv_heads, cache.capacity,
+                                      cfg.decode_attn)
+        attend = decode_attn_flat_float if kind == "flat" else \
+            decode_attn_float
+        return attend(q3, cache.kv[layer_idx], lengths)
     kind, _ = int8_decode_kernel(b, q3.shape[1], cache.head_dim,
                                  cache.kv_heads, cache.capacity,
                                  cfg.decode_attn, cfg.quant_int8_scores)

@@ -838,3 +838,177 @@ def test_grouped_append_kernel_matches_plain(gen, dtype, b, h, kvh, d, cap,
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= (
         F32_REL_TOL * ref.abs().max().item())
+
+
+# -- the last four TPU functions: K8, partials, K9, native_dots, pv_int8, M1 --
+
+def _float_kv(gen, b, cap, kvh, d, dtype):
+    return torch.randn((b, cap, 2, kvh * d), device="cuda",
+                       generator=gen).to(dtype)
+
+
+# chip_smoke.py's criteria for the kernels whose job is a rounding. K8 and
+# the partials mode with q_bf16 round the output to bf16 after K6's f32
+# sums: every element within one bf16 step of its own value plus K6's
+# 1e-5 of max |out|, and at least 99.9% within 2e-5 of max |out|, which the
+# unrounded kernel misses. native_dots and pv_int8 round every
+# probability: at least 99% of the elements within 1e-5 of max |out|,
+# which the kernel without the mode misses, and none past one flipped
+# rounding of one probability. Their batches hold 512 heads, so a flip in
+# one head moves the share by 0.2% at most.
+BF16_STEP = 2.0 ** -7
+ROUND_ELEM_TOL, ROUND_SHARE = 2e-5, 0.999
+FLIP_SHARE = 0.99
+
+
+def _share_within(out, ref, rel):
+    return (out - ref).abs().le(rel * ref.abs().max()).float().mean().item()
+
+
+def _assert_rounded(out, ref, unrounded):
+    err = (out - ref).abs()
+    assert (err <= BF16_STEP * ref.abs() + 1e-5 * ref.abs().max()).all()
+    assert _share_within(out, ref, ROUND_ELEM_TOL) >= ROUND_SHARE
+    if unrounded is not None:
+        assert _share_within(unrounded, ref, ROUND_ELEM_TOL) < ROUND_SHARE
+
+
+def _assert_flips(out, ref, tol, without):
+    assert (out - ref).abs().max().item() <= tol
+    assert _share_within(out, ref, 1e-5) >= FLIP_SHARE
+    assert _share_within(without, ref, 1e-5) < FLIP_SHARE
+
+
+def _lengths(pattern, b):
+    return torch.tensor(pattern, dtype=torch.int32,
+                        device="cuda").repeat(b // len(pattern))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flat_float_kernel_matches_plain(gen, d, dtype):
+    """K8 with GQA 2:1, lengths 0 (zeros), 1, ragged and past capacity:
+    both versions round the output to bf16 (the criterion above), and K6
+    at the same inputs misses its share."""
+    b, h, kvh, cap = 40, 4, 2, 96
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    kv = _float_kv(gen, b, cap, kvh, d, dtype)
+    lengths = _lengths([0, 1, 33, cap, cap + 9], b)
+    out = at.decode_attn_flat_float(q, kv, lengths)
+    ref = at.decode_attn_flat_float_plain(q, kv, lengths)
+    _assert_rounded(out, ref, at.decode_attn_float(q, kv, lengths))
+    assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("q_bf16", [True, False])
+@pytest.mark.parametrize("d,cap", [(64, 128), (128, 4096)])
+def test_partials_kernel_matches_plain(gen, d, cap, q_bf16):
+    """The partials mode at one block a sequence (capacity 128) and split
+    into chunks merged by the second launch (capacity 4096), lengths 0
+    (acc 0, m -1e30, l 0) through capacity; acc with q_bf16 held as K8's
+    output."""
+    b, h, kvh = 16, 4, 2
+    kv, scales, _ = _cache(gen, b, cap, 1, kvh, d)
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    lengths = _lengths([0, 1, cap // 3, cap], b)
+    out = at.decode_attn_int8_partials(q, kv, scales, lengths, q_bf16)
+    ref = at.decode_attn_int8_partials_plain(q, kv, scales, lengths, q_bf16)
+    if q_bf16:
+        _assert_rounded(out[..., :d], ref[..., :d], None)
+    else:
+        assert ((out[..., :d] - ref[..., :d]).abs().max()
+                <= 1e-5 * ref[..., :d].abs().max())
+    full = lengths > 0
+    for lane in (d, d + 1):      # m and l, within 1e-5 of their largest
+        live = ref[full, :, lane]
+        assert ((out[full, :, lane] - live).abs().max()
+                <= 1e-5 * live.abs().max())
+    assert ((out[~full, :, d] == -1e30).all()
+            and (out[~full, :, d + 1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,s", [(128, 256), (256, 512)])
+def test_split_kv_kernel_matches_plain(gen, d, s, dtype):
+    """K9 with GQA 4:1 at the reference's kernel shapes, lengths 0 (zeros)
+    through past S; at a shape the reference sends to its plain path the
+    wrapper launches nothing."""
+    b, h, kvh = 4, 8, 2
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    k, v = (torch.randn((b, kvh, s, d), device="cuda", generator=gen)
+            .to(dtype) for _ in range(2))
+    lengths = torch.tensor([0, 1, s // 3, s + 5], dtype=torch.int32,
+                           device="cuda")
+    before = at.decode_attn_split_kv.launches
+    out = at.decode_attn_split_kv(q, k, v, lengths)
+    ref = at.decode_attn_split_kv_plain(q, k, v, lengths)
+    assert at.decode_attn_split_kv.launches == before + 1
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert (out[0] == 0).all()
+    q64 = torch.randn((b, h, 64), device="cuda", generator=gen)
+    k64 = k[..., :64].contiguous()
+    at.decode_attn_split_kv(q64, k64, k64, lengths)
+    assert at.decode_attn_split_kv.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,block_k", [(64, 64), (128, 32)])
+def test_native_dots_kernel_matches_plain(gen, d, block_k, dtype):
+    """native_dots at group 2, lengths 1 through capacity: on a bf16 cache
+    a bf16 rounding of p may flip between the versions (the criterion
+    above, with chip_smoke.py's NATIVE_STEP of max |V| per flip, and K6
+    missing the share); on an f32 cache it is K6's arithmetic (K6's
+    tolerance)."""
+    b, h, kvh, cap = 128, 4, 2, 256
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    kv = _float_kv(gen, b, cap, kvh, d, dtype)
+    lengths = _lengths([1, 70, 200, cap], b)
+    kw = dict(block_k=block_k, group=2)
+    before = at.decode_attn_native_dots.launches
+    out = at.decode_attn_native_dots(q, kv, lengths, **kw)
+    ref = at.decode_attn_native_dots_plain(q, kv, lengths, **kw)
+    assert at.decode_attn_native_dots.launches == before + 1
+    if dtype == torch.bfloat16:
+        _assert_flips(out, ref, 2.0 ** -7 * kv[:, :, 1].abs().max().item(),
+                      at.decode_attn_float(q, kv, lengths))
+    else:
+        assert ((out - ref).abs().max().item()
+                <= 1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("int8_scores", [False, True])
+@pytest.mark.parametrize("d,block_k", [(64, 64), (128, 128)])
+def test_pv_int8_kernel_matches_plain(gen, d, block_k, int8_scores):
+    """G1's pv_int8 mode at group 2, lengths 1 through capacity: an int8
+    step of one probability may flip between the versions (the criterion
+    above, with chip_smoke.py's PV_INT8_STEP per flip, and G1 without
+    pv_int8 missing the share)."""
+    b, h, kvh, cap = 128, 4, 2, 512
+    kv, scales, _ = _cache(gen, b, cap, 1, kvh, d)
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    lengths = _lengths([1, 65, 300, cap], b)
+    kw = dict(int8_scores=int8_scores, pv_int8=True, block_k=block_k,
+              group=2)
+    mode = "pv_int8." + ("int8_scores" if int8_scores else "exact")
+    before = at.decode_attn_grouped_int8.mode_launches[mode]
+    out = at.decode_attn_grouped_int8(q, kv, scales, lengths, **kw)
+    ref = at.decode_attn_grouped_int8_plain(q, kv, scales, lengths, **kw)
+    assert at.decode_attn_grouped_int8.mode_launches[mode] == before + 1
+    g1 = at.decode_attn_grouped_int8(q, kv, scales, lengths,
+                                     int8_scores=int8_scores)
+    _assert_flips(out, ref, scales[:, :, 1].float().max().item(), g1)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (17, 33, 65), (64, 768, 768),
+                                   (300, 1100, 520), (96, 40, 130)])
+def test_matmul_int8_tiled_kernel_bit_exact(gen, m, k, n):
+    """M1 bit for bit against its plain version at ragged and tile-sized
+    shapes, with the scale as a float and as a one-element tensor."""
+    x = torch.randint(-127, 128, (m, k), device="cuda", dtype=torch.int8,
+                      generator=gen)
+    w = torch.randint(-127, 128, (k, n), device="cuda", dtype=torch.int8,
+                      generator=gen)
+    ws = 0.001 + torch.rand(n, device="cuda", generator=gen)
+    for xs in (0.07, torch.tensor(0.0173, device="cuda")):
+        out = pg.matmul_int8_tiled(x, w, xs, ws)
+        assert torch.equal(out, pg.matmul_int8_tiled_plain(x, w, xs, ws))

@@ -333,9 +333,10 @@ def test_decode_step_logits_match_reference(models, cache):
 def test_decode_dispatch_follows_the_reference(models, monkeypatch):
     """Which wrapper a decode step reaches: a float cache → K6 at any
     batch, with decode_attn "auto" or "stream"; with "flat" at a batch with
-    a group in (8, 4, 2) it raises naming ROADMAP (the reference takes the
-    unported float mode of flash_decode_flat there) and takes K6 at the
-    other batches (the reference's grouped/fused float kernels); an int8
+    a group in (8, 4, 2) → K8 (the reference takes the float mode of
+    flash_decode_flat there; tests/test_torch_flat_float.py holds the rule
+    against the reference's) and K6 at the other batches (the reference's
+    grouped/fused float kernels); an int8
     cache without a tail at a batch with a flat group → K1'; with no flat
     group → G2 (flash_decode_fused); decode_attn "grouped" → G1 with int8
     scores at this short capacity, "fused" and "stream" → G2
@@ -343,8 +344,9 @@ def test_decode_dispatch_follows_the_reference(models, monkeypatch):
     reference's)."""
     _, _, _, pps = models
     calls = []
-    for name in ("decode_attn_float", "decode_attn_int8",
-                 "decode_attn_grouped_int8", "decode_attn_fused_int8"):
+    for name in ("decode_attn_float", "decode_attn_flat_float",
+                 "decode_attn_int8", "decode_attn_grouped_int8",
+                 "decode_attn_fused_int8"):
         real = getattr(ptr, name)
 
         def spy(*a, _real=real, _name=name, **kw):
@@ -381,8 +383,7 @@ def test_decode_dispatch_follows_the_reference(models, monkeypatch):
     for b in (1, 3):
         assert step(flat, "f32", b) == {"decode_attn_float"}
     for kw in (dict(), dict(cache_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step(flat, "f32", 4, **kw)
+        assert step(flat, "f32", 4, **kw) == {"decode_attn_flat_float"}
     assert step(flat, "int8", 4, quantized=True) == {"decode_attn_int8"}
 
 

@@ -134,7 +134,25 @@ def _kernel_args():
             "decode_attn_grouped_int8": (q, kv, scales, lengths),
             "decode_attn_fused_int8": (q, kv, scales, lengths),
             "decode_attn_grouped_append": (q, torch.zeros((b, cap, 2, f)),
-                                           k, k, lengths)}
+                                           k, k, lengths),
+            "decode_attn_flat_float": (q, torch.zeros((b, cap, 2, f)),
+                                       lengths),
+            # Batch 4: a batch of 2 has no flat group, so it would raise.
+            "decode_attn_int8_partials": (
+                torch.zeros((4, 4, d)),
+                torch.zeros((4, cap, 2, f), dtype=torch.int8),
+                torch.ones((4, cap, 2, kvh), dtype=torch.bfloat16),
+                torch.ones(4, dtype=torch.int32)),
+            # Separate planes at a shape the kernel takes (d 128, S 256).
+            "decode_attn_split_kv": (torch.zeros((b, 4, 128)),
+                                     torch.zeros((b, kvh, 256, 128)),
+                                     torch.zeros((b, kvh, 256, 128)),
+                                     lengths),
+            # Block 64, group 2: no fallback to the fused kernel.
+            "decode_attn_native_dots": (q, torch.zeros((b, cap, 2, f)),
+                                        lengths, 64, 2),
+            "matmul_int8_tiled": (torch.zeros((4, 32), dtype=torch.int8), w,
+                                  1.0, s)}
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.__name__)
