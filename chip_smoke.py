@@ -16,12 +16,15 @@ Phases (any failure exits non-zero; nothing is caught):
    window 16, live lengths 65-176), with CUDA-event timings (cold L2, warm
    median) of the kernel, the plain version and, where one PyTorch call
    computes the same function, that call; plus each kernel's lower bound
-   from its bytes and operations. The int4 GEMMs (Q1 ``matmul_int4_words``,
-   Q1' ``matmul_int4_words_int8``, Q2 ``matmul_int4``) at every TinyLlama
-   weight shape at decode M = 16 and at one prefill M = 1024, each entry
-   summed over the calls of one decode step of path (F) that reach it
-   (111 for Q1 and Q1', 67 for Q2: under the byte layout wqkv and wo run
-   as a bf16 dot on their dequantized copy); V1 (``verify_attn_grouped``
+   from its bytes and operations. K2 (``head_argmax_int8``) also at M 1,
+   16 and 64 (printed, with TFLOP/s and the share of the bound). The int4
+   GEMMs (Q1 ``matmul_int4_words``, Q1' ``matmul_int4_words_int8``, Q2
+   ``matmul_int4``) at every TinyLlama weight shape at decode M = 16 and at
+   one prefill M = 1024, each entry summed over the calls of one decode
+   step of path (F) that reach it (111 for Q1 and Q1', 67 for Q2: under
+   the byte layout wqkv and wo run as a bf16 dot on their dequantized
+   copy), with each wrapper's launch count per call (must be 1) and the
+   CUDA kernels a call launches (profiler: Q1' two); V1 (``verify_attn_grouped``
    at batch 8 and ``verify_attn_fused`` at batch 3, capacity 2048, S 4,
    lives 64-320, each in its float mode on a bf16 cache, with
    ``scaled_dot_product_attention`` as the library call, and its int8
@@ -403,34 +406,47 @@ def _head_weights(k, n):
 
 
 def check_head_argmax(timer, w, s, w_dq, n):
-    m, k = 256, w.shape[0]
+    """K2 at the main path's M 256 (the entry) and at M 1, 16 and 64
+    (printed: bytes-bound), each against its plain version, with its
+    TFLOP/s and share of the bound beside the library call's time."""
+    k = w.shape[0]
     g = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.randn((m, k), device="cuda", generator=g)
-    idx = gemm.head_argmax_int8(x, w, s, n_valid=n)
-    logits = gemm.matmul_int8_wo_plain(x, w, s)[:, :n]
-    ref = gemm.head_argmax_int8_plain(x, w, s, n_valid=n)
-    torch.cuda.synchronize()
-    top2 = torch.topk(logits, 2, dim=-1).values
-    margin = top2[:, 0] - top2[:, 1]
-    rows = torch.arange(m, device="cuda")
-    regret = (logits[rows, ref.long()] - logits[rows, idx.long()]).abs()
-    bad = (idx != ref) & (margin >= K2_MARGIN_TOL)
-    near = int(((idx != ref) & ~bad).sum().item())
-    print(f"head_argmax_int8: {int((idx != ref).sum())} of {m} indices "
-          f"differ, {near} of them at a margin below {K2_MARGIN_TOL}")
-    check(not bad.any(), "K2 disagrees above the margin tolerance")
-    n_bytes = k * n + 4 * n + 4 * m * k + 4 * m
-    bms, by = bound_ms(n_bytes, 2.0 * m * k * n)
-    xb = x.to(torch.bfloat16)
-    return dict(name="head_argmax_int8",
-                source="rten_tpu_torch/csrc/head_argmax_int8.cu",
-                replaces="rten_tpu/kernels/gemm.py:268",
-                max_abs_err=regret.max().item(),
-                ms=timer(lambda: gemm.head_argmax_int8(x, w, s, n_valid=n)),
-                plain_ms=timer(lambda: gemm.head_argmax_int8_plain(
-                    x, w, s, n_valid=n)),
-                bound_ms=bms, bound_by=by,
-                library_ms=timer(lambda: torch.matmul(xb, w_dq).argmax(-1)))
+    entry = None
+    for m in (256, 1, 16, 64):
+        x = torch.randn((m, k), device="cuda", generator=g)
+        idx = gemm.head_argmax_int8(x, w, s, n_valid=n)
+        logits = gemm.matmul_int8_wo_plain(x, w, s)[:, :n]
+        ref = gemm.head_argmax_int8_plain(x, w, s, n_valid=n)
+        torch.cuda.synchronize()
+        top2 = torch.topk(logits, 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        rows = torch.arange(m, device="cuda")
+        regret = (logits[rows, ref.long()] - logits[rows, idx.long()]).abs()
+        bad = (idx != ref) & (margin >= K2_MARGIN_TOL)
+        near = int(((idx != ref) & ~bad).sum().item())
+        print(f"head_argmax_int8 (M {m}): {int((idx != ref).sum())} of {m} "
+              f"indices differ, {near} of them at a margin below "
+              f"{K2_MARGIN_TOL}")
+        check(not bad.any(), "K2 disagrees above the margin tolerance")
+        flops = 2.0 * m * k * n
+        bms, by = bound_ms(k * n + 4 * n + 4 * m * k + 4 * m, flops)
+        xb = x.to(torch.bfloat16)
+        ms = timer(lambda: gemm.head_argmax_int8(x, w, s, n_valid=n))
+        lib = timer(lambda: torch.matmul(xb, w_dq).argmax(-1))
+        plan = gemm.head_argmax_plan(m, k, w.shape[1])
+        print(f"head_argmax_int8 (M {m}, tile {plan['rows']} x "
+              f"{plan['slab']}): kernel_ms {ms:.4f} ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s, {bms / ms:.3f} of the {by} bound {bms:.4f}) "
+              f"library_ms {lib:.4f}")
+        if entry is None:
+            entry = dict(name="head_argmax_int8",
+                         source="rten_tpu_torch/csrc/head_argmax_int8.cu",
+                         replaces="rten_tpu/kernels/gemm.py:268",
+                         max_abs_err=regret.max().item(), ms=ms,
+                         plain_ms=timer(lambda: gemm.head_argmax_int8_plain(
+                             x, w, s, n_valid=n)),
+                         bound_ms=bms, bound_by=by, library_ms=lib)
+    return entry
 
 
 def check_matmul_wo(timer, w, s, w_dq, n):
@@ -883,6 +899,24 @@ INT4_SHAPES = (("wqkv", 2048, 2560, 22), ("wo", 2048, 2048, 22),
 INT4_KERNELS = (("matmul_int4_words", "words", "bf16"),
                 ("matmul_int4_words_int8", "words", "int8"),
                 ("matmul_int4", "bytes", None))
+INT4_SOURCES = {"matmul_int4_words": "rten_tpu_torch/csrc/matmul_int4.cu",
+                "matmul_int4_words_int8":
+                    "rten_tpu_torch/csrc/matmul_int4_int8dot.cu",
+                "matmul_int4": "rten_tpu_torch/csrc/matmul_int4.cu"}
+
+
+def device_launches(fn, calls=3):
+    """The CUDA kernels one call of ``fn`` launches, by the profiler's
+    device events over ``calls`` calls; "not measured" where the profiler
+    recorded none."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n / calls if n else "not measured"
 
 
 def _int4_bound(x, packed, scales, dot):
@@ -957,14 +991,20 @@ def check_int4(timer):
             else:
                 plain = lambda: gemm.matmul_int4_words_plain(  # noqa: E731
                     x, packed, sc, dot_mode=dot)
+            before = wrapper.launches
             out = wrapper(x, packed, sc)
+            counted = wrapper.launches - before
             ref = plain()
             bound = _int4_bound(x, packed, sc, dot)
             torch.cuda.synchronize()
             diff = (out - ref).abs()
             err, worst = diff.max().item(), (diff / bound).max().item()
             print(f"{kname} ({name}, M {m}, K {k}, N {n}): max_abs_err "
-                  f"{err:.3e}, worst |err| / bound {worst:.3f}")
+                  f"{err:.3e}, worst |err| / bound {worst:.3f}; launch "
+                  f"count +{counted} a call, "
+                  f"{device_launches(lambda: wrapper(x, packed, sc))} CUDA "
+                  f"kernels a call (profiler)")
+            check(counted == 1, f"{kname} counted {counted} launches a call")
             check(bool(torch.isfinite(out).all()) and worst <= 1.0,
                   f"{kname} disagrees at {name}")
             n_bytes = k * n // 2 + scales.numel() * 4 + 4 * m * k + 4 * m * n
@@ -1000,7 +1040,7 @@ def check_int4(timer):
               f"library_ms {acc['library_ms']:.4f} (bf16 matmul) "
               f"int4pack_ms {acc['int4pack_ms'] if int4pack else None}")
         entries.append(dict(
-            name=kname, source="rten_tpu_torch/csrc/matmul_int4.cu",
+            name=kname, source=INT4_SOURCES[kname],
             replaces=("rten_tpu/kernels/gemm.py:517" if dot is None
                       else "rten_tpu/kernels/gemm.py:430"),
             shape=(f"one decode step of (F), {acc['calls']} calls at M 16 "

@@ -19,13 +19,14 @@ kernel, each counting its own launches:
   and ``decode_attn_grouped_append`` (A1, ``csrc/decode_attn_append.cu``):
   the kernel of ``csrc/verify_attn.cuh`` (G1's ``pv_int8`` mode walks
   blocks in a kernel of its own in ``decode_attn_grouped_int8.cu``);
-* ``matmul_int4_words`` (Q1), ``matmul_int4_words_int8`` (Q1') and
-  ``matmul_int4`` (Q2): ``csrc/matmul_int4.cu``.
+* ``matmul_int4_words`` (Q1) and ``matmul_int4`` (Q2):
+  ``csrc/matmul_int4.cu``.
 
 The others have a source each: ``flash_attention`` (F1), ``kv_append``
 (K5), ``kv_append_int8`` (K7), ``kv_append_paged`` and
 ``kv_append_paged_int8`` (P1, P2, one source), ``tail_flush_int8`` (K3),
-``head_argmax_int8`` (K2), ``matmul_int8_wo`` (K4) and
+``head_argmax_int8`` (K2), ``matmul_int8_wo`` (K4),
+``matmul_int4_words_int8`` (Q1', ``csrc/matmul_int4_int8dot.cu``) and
 ``matmul_int8_tiled`` (M1, ``csrc/matmul_int8.cu``). The verify wrappers
 also count per mode (float or int8 cache) in ``mode_launches``, and
 ``decode_attn_grouped_int8`` per mode (exact q or int8 scores, each with or

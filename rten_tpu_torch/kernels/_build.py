@@ -25,12 +25,12 @@ SOURCES = ("decode_attn_int8_tail", "head_argmax_int8", "tail_flush_int8",
            "kv_append_int8", "kv_append_paged", "decode_attn_paged",
            "matmul_int4", "verify_attn", "prefill_attn",
            "decode_attn_grouped_int8", "decode_attn_append",
-           "decode_attn_split", "matmul_int8")
+           "decode_attn_split", "matmul_int8", "matmul_int4_int8dot")
 # No -use_fast_math: the int8 writers (tail_flush_int8, kv_append_int8,
-# kv_append_paged), matmul_int4's int8 activations, the int8 scores and
-# int8 probabilities of decode_attn_grouped_int8 and matmul_int8's epilogue
-# must reproduce IEEE division, multiplication and round-half-even bit for
-# bit.
+# kv_append_paged), matmul_int4_int8dot's int8 activations, the int8 scores
+# and int8 probabilities of decode_attn_grouped_int8 and matmul_int8's
+# epilogue must reproduce IEEE division, multiplication and round-half-even
+# bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,16 +11,20 @@
 * ``matmul_int8_wo`` (CUDA, ``csrc/matmul_int8_wo.cu``) replaces
   ``matmul_int8_weight_only`` (:173).
 * ``head_argmax_int8`` (CUDA, ``csrc/head_argmax_int8.cu``) replaces
-  ``matmul_argmax_int8`` (:268).
-* ``matmul_int4_words`` and ``matmul_int4_words_int8`` (CUDA,
-  ``csrc/matmul_int4.cu``) replace ``matmul_int4_words`` (:430) in its bf16
-  and int8 dot modes; ``matmul_int4`` (the same source) replaces
-  ``matmul_int4`` (:517). Each computes the reference's formula on its
-  packed layout, not ``x @ dequant(w)``: see the plain versions.
+  ``matmul_argmax_int8`` (:268); :func:`head_argmax_plan` sizes its tiles
+  and scratch.
+* ``matmul_int4_words`` (CUDA, ``csrc/matmul_int4.cu``) replaces
+  ``matmul_int4_words`` (:430) in its bf16 dot mode, and
+  ``matmul_int4_words_int8`` (CUDA, ``csrc/matmul_int4_int8dot.cu``, sized
+  by :func:`int4_int8_plan`) in its int8 dot mode; ``matmul_int4``
+  (``csrc/matmul_int4.cu``) replaces ``matmul_int4`` (:517). Each computes
+  the reference's formula on its packed layout, not ``x @ dequant(w)``: see
+  the plain versions.
 
-The two kernels read W as 8-byte vectors, so their weights have N % 8 == 0;
-``pad_cols`` pads an int8 weight's columns once, at quantize time, and the
-callers slice the output (or pass ``n_valid`` to the argmax head).
+The two int8-weight kernels read W in 8-byte pieces, so their weights have
+N % 8 == 0; ``pad_cols`` pads an int8 weight's columns once, at quantize
+time, and the callers slice the output (or pass ``n_valid`` to the argmax
+head).
 """
 
 from __future__ import annotations
@@ -166,6 +170,39 @@ def head_argmax_int8_plain(x, w, scales, n_valid=None):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+# The fused head's tiles (csrc/head_argmax_int8.cu): (largest M, rows of a
+# row block, columns of a vocabulary slab), first match; the kernel's config
+# is the index.
+_HEAD_TILES = ((32, 32, 256), (64, 64, 128), (128, 128, 192),
+               (None, 256, 192))
+_HEAD_BK = 64            # K rows per pipeline stage: x is padded to it
+
+
+def head_argmax_plan(m, k, n):
+    """The fused head's launch at M rows, K, N columns: the tile config,
+    its row block and slab, their counts, the padded bf16 copy of x
+    ([m_pad, k_pad]) and the scratch bytes (that copy, then the f32 and
+    int32 partials [M, slabs])."""
+    cfg = next(i for i, (top, _, _) in enumerate(_HEAD_TILES)
+               if top is None or m <= top)
+    _, rows, slab = _HEAD_TILES[cfg]
+    row_blocks, slabs = -(-m // rows), -(-n // slab)
+    m_pad, k_pad = row_blocks * rows, -(-k // _HEAD_BK) * _HEAD_BK
+    sizes = (2 * m_pad * k_pad, 4 * m * slabs, 4 * m * slabs)
+    return dict(cfg=cfg, rows=rows, slab=slab, row_blocks=row_blocks,
+                slabs=slabs, m_pad=m_pad, k_pad=k_pad, sizes=sizes)
+
+
+def _scratch(sizes, device):
+    """One uint8 allocation holding buffers of ``sizes`` bytes, each
+    16-byte aligned; returns their addresses and the tensor."""
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + -(-size // 16) * 16)
+    buf = torch.empty(max(offsets[-1], 16), dtype=torch.uint8, device=device)
+    return [buf.data_ptr() + o for o in offsets[:-1]], buf
+
+
 def head_argmax_int8(x, w, scales, n_valid=None):
     """Greedy LM head: ``argmax(x @ (w * scales))`` over the first
     ``n_valid`` columns (default all), ties to the lowest index, without
@@ -180,15 +217,13 @@ def head_argmax_int8(x, w, scales, n_valid=None):
     _build.require(0 < n_valid <= w.shape[1], name, "n_valid out of range")
     m, k = x.shape
     n = w.shape[1]
-    n_tiles = -(-n // 64)
-    part_val = torch.empty((m, n_tiles), dtype=torch.float32,
-                           device=x.device)
-    part_idx = torch.empty((m, n_tiles), dtype=torch.int32, device=x.device)
+    plan = head_argmax_plan(m, k, n)
+    (xb, part_val, part_idx), _buf = _scratch(plan["sizes"], x.device)
     out = torch.empty((m,), dtype=torch.int32, device=x.device)
-    fn = _build.function(name, name, "ppppppiiiip")
-    err = fn(x.data_ptr(), w.data_ptr(), scales.data_ptr(),
-             part_val.data_ptr(), part_idx.data_ptr(), out.data_ptr(), m, k,
-             n, n_valid, _build.stream())
+    fn = _build.function(name, name, "pppppppiiiiip")
+    err = fn(x.data_ptr(), w.data_ptr(), scales.data_ptr(), xb, part_val,
+             part_idx, out.data_ptr(), m, k, n, n_valid, plan["cfg"],
+             _build.stream())
     _build.check(err, name)
     head_argmax_int8.launches += 1
     return out
@@ -199,8 +234,7 @@ head_argmax_int8.launches = 0
 
 # -- group-wise int4 weights --------------------------------------------------
 
-_INT4_MODES = {"matmul_int4_words": 0, "matmul_int4_words_int8": 1,
-               "matmul_int4": 2}
+_INT4_MODES = {"matmul_int4_words": 0, "matmul_int4": 2}
 _INT4_BN = 64            # output columns per block of the kernel
 _INT4_BM = 64            # rows per block
 _INT4_BK = 64            # K rows per step: the group must be a multiple
@@ -274,8 +308,11 @@ def matmul_int4_words_plain(x, words, scales, group=INT4_GROUP,
         return _offset_correction(x.reshape(m, g, group).sum(-1),
                                   scales) + main
     absmax = x.abs().amax(dim=1, keepdim=True)
+    # A tensor divisor: CUDA divides by a Python scalar through its
+    # reciprocal, which can round the scale one step away from the CPU's
+    # (and the kernel's) IEEE division and flip an xq.
     xscale = torch.where(absmax == 0, torch.ones_like(absmax),
-                         absmax / 127.0)
+                         absmax / torch.full_like(absmax, 127.0))
     xq = torch.clamp(torch.round(x / xscale), -127, 127).reshape(m, g, group)
     acc = torch.bmm(xq.transpose(0, 1), u.reshape(g, group, n))  # [G, M, N]
     main = (acc * scales[:, None, :]).sum(0)
@@ -293,20 +330,15 @@ def matmul_int4_plain(x, packed, scales, group=INT4_GROUP):
 
 
 def _int4_splits(device, m, k, n, group):
-    """K splits of the kernel: enough blocks for about four per SM, each
-    split a whole number of groups."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
+    """K splits of the Q1/Q2 kernel: enough blocks for about four per SM,
+    each split a whole number of groups."""
     tiles = (n // _INT4_BN) * -(-m // _INT4_BM)
-    return max(1, min(k // group, -(-4 * _SM_COUNT[idx] // tiles)))
+    return max(1, min(k // group, -(-4 * _sm_count(device) // tiles)))
 
 
 def _launch_int4(wrapper, x, w, scales, group):
-    """The int4 kernel on CUDA tensors in the wrapper's mode; counts the
-    launch on ``wrapper``."""
+    """The int4 kernel of ``csrc/matmul_int4.cu`` on CUDA tensors in the
+    wrapper's mode (Q1 or Q2); counts the launch on ``wrapper``."""
     name = wrapper.__name__
     m, k, n = _check_int4(name, x, w, scales, group)
     _build.require(group % _INT4_BK == 0, name,
@@ -314,24 +346,100 @@ def _launch_int4(wrapper, x, w, scales, group):
     _build.require(all(t.is_contiguous() for t in (x, w, scales))
                    and w.data_ptr() % 16 == 0, name,
                    "tensors must be contiguous and w 16-byte aligned")
-    fn = _build.function("matmul_int4", "matmul_int4", "ppppppppiiiiiip")
+    fn = _build.function("matmul_int4", "matmul_int4", "pppppppiiiiiip")
     mode = _INT4_MODES[name]
     splits = _int4_splits(x.device, m, k, n, group)
-    # One scratch allocation: the kernel's activations (bf16 or int8), the
-    # f32 group sums, row scales and per-split partial tiles.
-    sizes = (m * k * (1 if mode == 1 else 2), 4 * m * (k // group), 4 * m,
-             4 * splits * m * n)
-    offsets = [0]
-    for size in sizes:
-        offsets.append(offsets[-1] + -(-size // 16) * 16)
-    scratch = torch.empty(offsets[-1], dtype=torch.uint8, device=x.device)
-    xa, xsum, xscale, ws = (scratch.data_ptr() + o for o in offsets[:4])
+    # One scratch allocation: the kernel's bf16 activations, the f32 group
+    # sums and the per-split partial tiles.
+    (xa, xsum, ws), _buf = _scratch(
+        (2 * m * k, 4 * m * (k // group), 4 * splits * m * n), x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = fn(x.data_ptr(), w.data_ptr(), scales.data_ptr(), xa, xsum, xscale,
-             ws, out.data_ptr(), m, k, n, group, splits, mode,
-             _build.stream())
+    err = fn(x.data_ptr(), w.data_ptr(), scales.data_ptr(), xa, xsum, ws,
+             out.data_ptr(), m, k, n, group, splits, mode, _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
+    return out
+
+
+# Q1' (csrc/matmul_int4_int8dot.cu): a block owns 256 output columns, 16 x
+# ms rows and one K split of whole groups; K steps of 32. A tile's splits
+# form one thread-block cluster.
+_Q1P_TILE_N = 256
+_Q1P_KSTEP = 32
+_Q1P_BLOCKS_PER_SM = 2   # resident blocks: the splits fill one such wave
+_Q1P_BATCH = 8           # K steps of weights a warp loads before its MMAs
+_Q1P_MAX_SPLITS = 16     # the largest cluster
+_Q1P_MAX_SPLIT_GROUPS = 16   # groups a split may span (its xq in smem)
+
+
+def int4_int8_plan(m, k, n, group, sm_count, splits=None):
+    """The launch of Q1' at M rows, K, N columns: m16 slabs per row
+    tile (``ms``: 1 at M <= 16, else 2), the tile counts, the K splits
+    (enough that a warp's share is one batch of ``_Q1P_BATCH`` K steps, no
+    more than one wave of ``_Q1P_BLOCKS_PER_SM`` blocks per SM holds, at
+    most one per group and ``_Q1P_MAX_SPLITS``, at least enough that none
+    spans more than ``_Q1P_MAX_SPLIT_GROUPS``, unless ``splits`` is given),
+    each split's
+    group range ``bounds`` as the kernel computes it, and the scratch bytes:
+    xq in fragment order [m_pad, K] and the row scales [m_pad]."""
+    ms = 1 if m <= 16 else 2
+    rows = 16 * ms
+    m_tiles, n_tiles, n_groups = -(-m // rows), n // _Q1P_TILE_N, k // group
+    if splits is None:
+        one_batch = -(-(k // _Q1P_KSTEP) // _Q1P_BATCH)
+        one_wave = _Q1P_BLOCKS_PER_SM * sm_count // (m_tiles * n_tiles)
+        splits = max(_int4_int8_fewest_splits(n_groups), 1,
+                     min(n_groups, _Q1P_MAX_SPLITS, one_batch, one_wave))
+    m_pad = m_tiles * rows
+    return dict(ms=ms, rows=rows, m_tiles=m_tiles, n_tiles=n_tiles,
+                splits=splits, m_pad=m_pad,
+                bounds=[z * n_groups // splits for z in range(splits + 1)],
+                sizes=(m_pad * k, 4 * m_pad))
+
+
+def _int4_int8_fewest_splits(n_groups):
+    return -(-n_groups // _Q1P_MAX_SPLIT_GROUPS)
+
+
+def _sm_count(device):
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _launch_int4_int8(x, words, scales, group, splits=None):
+    """Q1' on CUDA tensors (``splits`` overrides the plan's, for tests);
+    counts the launch on :func:`matmul_int4_words_int8`."""
+    name = "matmul_int4_words_int8"
+    m, k, n = _check_int4(name, x, words, scales, group)
+    _build.require(group % _Q1P_KSTEP == 0, name,
+                   f"the group must be a multiple of {_Q1P_KSTEP}")
+    _build.require(all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                       for t in (x, words, scales)), name,
+                   "tensors must be contiguous and 16-byte aligned")
+    n_groups = k // group
+    fewest = _int4_int8_fewest_splits(n_groups)
+    _build.require(fewest <= min(n_groups, _Q1P_MAX_SPLITS), name,
+                   f"K / group = {n_groups} groups need more than "
+                   f"{_Q1P_MAX_SPLITS} splits")
+    top = min(n_groups, _Q1P_MAX_SPLITS)
+    _build.require(splits is None or fewest <= splits <= top, name,
+                   f"splits must lie in [{fewest}, {top}]")
+    fn = _build.function("matmul_int4_int8dot", "matmul_int4_int8dot",
+                         "ppppppiiiiiip")
+    plan = int4_int8_plan(m, k, n, group,
+                          _sm_count(x.device) if splits is None else 0,
+                          splits)
+    (xqf, xscale), _buf = _scratch(plan["sizes"], x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    err = fn(x.data_ptr(), words.data_ptr(), scales.data_ptr(), xqf, xscale,
+             out.data_ptr(), m, k, n, group, plan["ms"], plan["splits"],
+             _build.stream())
+    _build.check(err, name)
+    matmul_int4_words_int8.launches += 1
     return out
 
 
@@ -350,12 +458,12 @@ matmul_int4_words.launches = 0
 
 def matmul_int4_words_int8(x, words, scales, group=INT4_GROUP):
     """:func:`matmul_int4_words` in the int8 dot mode (the reference's
-    ``dot_mode="int8"``): the same kernel, with a launch count of its own.
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    ``dot_mode="int8"``), on a kernel of its own (the group a multiple of
+    32). CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise."""
     if _build.on_cpu("matmul_int4_words_int8", x, words, scales):
         return matmul_int4_words_plain(x, words, scales, group, "int8")
-    return _launch_int4(matmul_int4_words_int8, x, words, scales, group)
+    return _launch_int4_int8(x, words, scales, group)
 
 
 matmul_int4_words_int8.launches = 0

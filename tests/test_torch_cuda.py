@@ -119,13 +119,18 @@ def test_head_argmax_kernel_matches_plain(gen, m):
 
 
 def test_head_argmax_kernel_ties_go_to_the_lowest_index(gen):
-    """Columns 5 and 70 (two 64-wide vocabulary tiles) and 900 tie for
-    the maximum: index 5 wins; the padding columns past n_valid (995 is
-    padded to 1000) never win, however large."""
-    k, n = 64, 995
+    """Columns that tie for the maximum in two warps of the first
+    vocabulary slab (64 columns a warp), in the next slab and in a later
+    one, at the tile the kernel takes for these rows: the lowest wins; the
+    padding columns past n_valid (995 is padded to 1000) never win,
+    however large."""
+    k, n, m = 64, 995, 4
+    slab = pg.head_argmax_plan(m, k, 1000)["slab"]
+    tied = (5, 64 + 6, slab + 7, 3 * slab + 4)
+    assert tied[-1] < n and len({c // slab for c in tied}) == 3
     w, s = _weights(gen, k, n)
-    x = torch.rand((4, k), device="cuda", generator=gen)
-    for c in (5, 70, 900):
+    x = torch.rand((m, k), device="cuda", generator=gen)
+    for c in tied:
         w[:, c] = 127
         s[c] = 1.0
     assert w.shape[1] == 1000
@@ -133,7 +138,30 @@ def test_head_argmax_kernel_ties_go_to_the_lowest_index(gen):
     s[n:] = 100.0
     idx = pg.head_argmax_int8(x, w, s, n_valid=n)
     torch.cuda.synchronize()
-    assert idx.tolist() == [5] * 4
+    assert idx.tolist() == [5] * m
+
+
+@pytest.mark.parametrize("m", [1, 3, 65, 130, 256, 300])
+def test_head_argmax_kernel_at_the_main_path_shape(gen, m):
+    """GPT-2's padded LM head (K 768, N 50264) with n_valid 50257 inside
+    the last vocabulary slab, at every tile of the kernel (M 1 to past one
+    256-row block): indices equal the plain version's except on rows whose
+    top-2 margin is below 1e-3; one launch a call."""
+    k, n_valid = 768, 50257
+    w, s = _weights(gen, k, n_valid)
+    plan = pg.head_argmax_plan(m, k, w.shape[1])
+    assert (plan["slabs"] - 1) * plan["slab"] < n_valid
+    x = torch.randn((m, k), device="cuda", generator=gen)
+    before = pg.head_argmax_int8.launches
+    idx = pg.head_argmax_int8(x, w, s, n_valid=n_valid)
+    ref = pg.head_argmax_int8_plain(x, w, s, n_valid=n_valid)
+    logits = pg.matmul_int8_wo_plain(x, w, s)[:, :n_valid]
+    torch.cuda.synchronize()
+    assert pg.head_argmax_int8.launches == before + 1
+    assert idx.shape == (m,) and int(idx.max()) < n_valid
+    top = logits.topk(2, dim=-1).values
+    near = (top[:, 0] - top[:, 1]) < 1e-3
+    assert ((idx == ref) | near).all()
 
 
 def test_decode_steps_on_the_card_match_the_cpu(gen):
@@ -619,6 +647,52 @@ def test_int4_kernels_match_plain(gen, mode, m, k, n):
     bound = int4_bound(x, packed, scales, mode)
     assert ((out - ref).abs() <= bound + 1e-30).all(), \
         ((out - ref).abs() / bound).max().item()
+
+
+# TinyLlama's int4 weights (K, N) at decode M 16, and w_gate at the prefill
+# M 1024; with the plan's splits and with a count that does not divide the
+# groups evenly (None: the plan's).
+INT4_INT8_CASES = [(16, 2048, 2560, None), (16, 2048, 2048, None),
+                   (16, 2048, 5632, None), (16, 5632, 2048, None),
+                   (16, 2048, 32000, None), (1024, 2048, 5632, None),
+                   (16, 2048, 2560, 3), (16, 2048, 2048, 7),
+                   (16, 2048, 5632, 5), (16, 5632, 2048, 5),
+                   (16, 2048, 32000, 3), (1024, 2048, 5632, 3)]
+
+
+@pytest.mark.parametrize("m,k,n,splits", INT4_INT8_CASES, ids=str)
+def test_int4_int8_kernel_at_tinyllama_shapes(gen, m, k, n, splits):
+    """Q1' against its plain version at every TinyLlama weight shape at
+    decode and at prefill, split as planned and unevenly (the cluster's
+    split-K sum); one launch a call."""
+    x, words, scales = int4_case(gen, "words_int8", m, k, n)
+    plan = pg.int4_int8_plan(m, k, n, 128, 132, splits)
+    g = k // 128
+    assert splits is None or g % plan["splits"]
+    before = pg.matmul_int4_words_int8.launches
+    out = pg._launch_int4_int8(x, words, scales, 128, splits)
+    ref = pg.matmul_int4_words_plain(x, words, scales, dot_mode="int8")
+    torch.cuda.synchronize()
+    assert pg.matmul_int4_words_int8.launches == before + 1
+    bound = int4_bound(x, words, scales, "words_int8")
+    assert torch.isfinite(out).all()
+    assert ((out - ref).abs() <= bound + 1e-30).all(), \
+        ((out - ref).abs() / bound).max().item()
+
+
+@pytest.mark.parametrize("m,k,n,splits", [(16, 2048, 2560, None),
+                                          (16, 5632, 2048, 5),
+                                          (100, 384, 768, 1),
+                                          (1024, 2048, 5632, None)],
+                         ids=str)
+def test_int4_int8_kernel_is_deterministic(gen, m, k, n, splits):
+    """Two calls on the same inputs agree bit for bit: the split-K sum
+    runs in split order, with no atomics on the values."""
+    x, words, scales = int4_case(gen, "words_int8", m, k, n)
+    first = pg._launch_int4_int8(x, words, scales, 128, splits)
+    second = pg._launch_int4_int8(x, words, scales, 128, splits)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("mode", list(INT4_KERNELS))
