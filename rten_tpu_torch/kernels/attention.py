@@ -1098,7 +1098,8 @@ def quantize_q_rows(q):
     the row is 0, q8 = clip(round_half_even(q / scale), -127, 127).
     q f32 [..., D] → (q8 f32 [..., D] holding integers, scale f32 [...])."""
     absmax = q.abs().amax(dim=-1)
-    qs = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    qs = torch.where(absmax == 0, torch.ones_like(absmax),
+                     absmax / torch.full_like(absmax, 127.0))
     return torch.clamp(torch.round(q / qs[..., None]), -127, 127), qs
 
 
@@ -1218,7 +1219,8 @@ def _attend_blocks(s, v, lengths, block_k, v_scale=None, p_dtype=None):
                              p.to(p_dtype).to(torch.float32), vb)
     else:
         pm = p * v_scale.reshape(b, kvh, 1, nb, block_k)
-        pq = torch.clamp(pm.amax(dim=-1), min=1e-30) / 127.0
+        pq = torch.clamp(pm.amax(dim=-1), min=1e-30)
+        pq = pq / torch.full_like(pq, 127.0)
         p8 = torch.round(pm / pq[..., None])
         acc_i = torch.einsum("bgrik,bikgd->bgrid", p8, vb) * pq[..., None]
     w = torch.exp(m_i - m_i[..., -1:])

@@ -17,7 +17,8 @@
   ``matmul_int4_words`` (:430) in its bf16 dot mode, and
   ``matmul_int4_words_int8`` (CUDA, ``csrc/matmul_int4_int8dot.cu``, sized
   by :func:`int4_int8_plan`) in its int8 dot mode; ``matmul_int4``
-  (``csrc/matmul_int4.cu``) replaces ``matmul_int4`` (:517). Each computes
+  (``csrc/matmul_int4.cu``) replaces ``matmul_int4`` (:517). The two share
+  one kernel template, tiled by :func:`int4_bf16_plan`. Each computes
   the reference's formula on its packed layout, not ``x @ dequant(w)``: see
   the plain versions.
 
@@ -28,6 +29,8 @@ head).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -235,10 +238,132 @@ head_argmax_int8.launches = 0
 # -- group-wise int4 weights --------------------------------------------------
 
 _INT4_MODES = {"matmul_int4_words": 0, "matmul_int4": 2}
-_INT4_BN = 64            # output columns per block of the kernel
-_INT4_BM = 64            # rows per block
-_INT4_BK = 64            # K rows per step: the group must be a multiple
 _SM_COUNT: dict = {}
+
+# Q1 and Q2 (csrc/matmul_int4.cu). Decode tile: a block owns 256 output
+# columns, 16 x ms rows and one K split of whole groups, its weights
+# streamed through a ring of 64-row stages; a tile's splits form one
+# thread-block cluster. Prefill tile: 128 rows x 256 columns a block, K
+# stages of 64.
+_INT4_TILE_N = 256
+_INT4_DECODE_MAX_M = 64      # M above this takes the prefill tile
+_INT4_SPLIT_ROWS = 256       # K rows a decode split aims at (4 stages)
+_INT4_BLOCKS_PER_SM = 2      # resident blocks: the splits fill one wave
+_INT4_MAX_SPLITS = 16        # the largest cluster
+_INT4_GROUP_MULTIPLE = 64    # the x chunk of a partial sum; a prefill stage
+_INT4_XPAD = 16              # f32 pad of a staged x row (at most)
+_INT4_STAGE = 64 * 128       # bytes of a ring stage: 64 K rows of W
+_INT4_MAX_RING = 16
+_INT4_SMEM_LIMIT = 232448    # dynamic shared memory a block may use
+_INT4_SMEM_TWO = 115712      # ... with two blocks resident on an SM
+_INT4_PREFILL_ROWS = 128
+_INT4_PREFILL_SMEM = 1024 + 4 * (128 * 64 * 2 + 64 * 128 + 256 * 4) \
+    + 2 * 64 * 256 * 2
+
+
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+def _int4_decode_smem(ms, gmax, group, splits, ring):
+    """Shared memory of the decode tile (csrc/matmul_int4.cu::dec_smem):
+    1 KB to align the weight ring of ``ring`` stages, the barriers, the
+    split's scales, its f32 x rows (padded), its chunk sums and, with
+    splits, the push buffer of the cluster's split-K sum."""
+    rows = 16 * ms
+    share = -(-(rows * _INT4_TILE_N // 4) // splits)
+    return (1024 + _align16(8 * (1 + 2 * _INT4_MAX_RING))
+            + gmax * _INT4_TILE_N * 4
+            + _align16(rows * (gmax * group + _INT4_XPAD) * 4)
+            + _align16(rows * (gmax * group // 64) * 4)
+            + ring * _INT4_STAGE
+            + (splits * share * 16 if splits > 1 else 0))
+
+
+def _int4_ring(ms, gmax, group, splits):
+    """Ring stages of the decode tile: every stage of a split where that
+    fits (at most ``_INT4_MAX_RING``), as many as leave room for two blocks
+    an SM, at least 2 (or the split's stages); None where even that does
+    not fit."""
+    stages = gmax * group // 64
+    base = _int4_decode_smem(ms, gmax, group, splits, 0)
+    low = min(2, stages)
+    if base + low * _INT4_STAGE > _INT4_SMEM_LIMIT:
+        return None
+    room = (_INT4_SMEM_TWO if base + low * _INT4_STAGE <= _INT4_SMEM_TWO
+            else _INT4_SMEM_LIMIT) - base
+    return max(low, min(_INT4_MAX_RING, stages, room // _INT4_STAGE))
+
+
+@functools.lru_cache(maxsize=4096)
+def int4_bf16_plan(m, k, n, group, sm_count, splits=None):
+    """The launch of Q1 / Q2 at M rows, K, N columns and ``group``
+    (cached: a decode step asks for the same few plans every time, and the
+    host-bound step would pay tens of microseconds for each; the returned
+    dict is shared and is not to be modified).
+
+    * ``tile="decode"`` at M <= 64 (bound by bytes), one launch: m16 slabs
+      per row tile ``ms`` (1 at M <= 16, else 2), the tile counts, the K
+      splits (enough that a split spans ``_INT4_SPLIT_ROWS`` K rows, no
+      more than one wave of ``_INT4_BLOCKS_PER_SM`` blocks per SM holds,
+      at most one per group and ``_INT4_MAX_SPLITS``, at least ``fewest``,
+      enough that a split's shared memory fits, and raised to ``pair``, the
+      fewest that leave room for two blocks an SM, where the count chosen
+      would not, unless ``splits`` is given), each split's group range
+      ``bounds`` as the kernel computes it, the stages of its weight ring
+      (``ring``: all of a split's where they fit beside two blocks an SM),
+      the block's shared memory, and no scratch.
+    * ``tile="prefill"`` at M > 64, or where no split count up to the
+      largest cluster fits a split in shared memory: row blocks of 128, one
+      split, and the scratch of the prep launch: bf16 x [m_pad, K] and the
+      f32 group sums [m_pad, K / group].
+
+    ``sizes`` lists the scratch buffers' bytes."""
+    n_groups, n_tiles = k // group, n // _INT4_TILE_N
+    top = min(n_groups, _INT4_MAX_SPLITS)
+    if m <= _INT4_DECODE_MAX_M:
+        ms = 1 if m <= 16 else 2
+        rows = 16 * ms
+        m_tiles = -(-m // rows)
+
+        def ring(s):
+            return _int4_ring(ms, -(-n_groups // s), group, s)
+
+        def smem(s):
+            return _int4_decode_smem(ms, -(-n_groups // s), group, s,
+                                     ring(s))
+
+        fewest = next((s for s in range(1, top + 1)
+                       if ring(s) is not None), None)
+        if fewest is not None:
+            # The fewest splits that leave room for two blocks an SM.
+            pair = next((s for s in range(fewest, top + 1)
+                         if smem(s) <= _INT4_SMEM_TWO), None)
+            if splits is None:
+                enough = -(-k // _INT4_SPLIT_ROWS)
+                one_wave = (_INT4_BLOCKS_PER_SM * sm_count
+                            // (m_tiles * n_tiles))
+                splits = max(fewest, min(top, enough, one_wave))
+                if smem(splits) > _INT4_SMEM_TWO and pair is not None:
+                    splits = max(splits, pair)
+            gmax = -(-n_groups // splits)
+            stages = ring(splits) or 0
+            return dict(tile="decode", ms=ms, rows=rows, m_tiles=m_tiles,
+                        n_tiles=n_tiles, splits=splits, fewest=fewest,
+                        top=top, m_pad=m_tiles * rows,
+                        bounds=[z * n_groups // splits
+                                for z in range(splits + 1)],
+                        pair=pair, ring=stages,
+                        smem=_int4_decode_smem(ms, gmax, group, splits,
+                                               stages), sizes=())
+    rows = _INT4_PREFILL_ROWS
+    m_tiles = -(-m // rows)
+    m_pad = m_tiles * rows
+    return dict(tile="prefill", ms=rows // 16, rows=rows, m_tiles=m_tiles,
+                n_tiles=n_tiles, splits=1 if splits is None else splits,
+                fewest=1, top=1, pair=1, m_pad=m_pad, bounds=[0, n_groups],
+                ring=0, smem=_INT4_PREFILL_SMEM,
+                sizes=(2 * m_pad * k, 4 * m_pad * n_groups))
 
 
 def _check_int4(name, x, w, scales, group):
@@ -329,33 +454,40 @@ def matmul_int4_plain(x, packed, scales, group=INT4_GROUP):
         q, scales, group)
 
 
-def _int4_splits(device, m, k, n, group):
-    """K splits of the Q1/Q2 kernel: enough blocks for about four per SM,
-    each split a whole number of groups."""
-    tiles = (n // _INT4_BN) * -(-m // _INT4_BM)
-    return max(1, min(k // group, -(-4 * _sm_count(device) // tiles)))
+def _aligned(t):
+    """``t`` itself where it starts on a 16-byte boundary, else a copy that
+    does (the kernels read x and the scales 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch_int4(wrapper, x, w, scales, group):
-    """The int4 kernel of ``csrc/matmul_int4.cu`` on CUDA tensors in the
-    wrapper's mode (Q1 or Q2); counts the launch on ``wrapper``."""
+def _launch_int4(wrapper, x, w, scales, group, splits=None):
+    """Q1 or Q2 (``csrc/matmul_int4.cu``, the wrapper's mode) on CUDA
+    tensors, tiled by :func:`int4_bf16_plan` (``splits`` overrides the
+    decode tile's, for tests); counts the launch on ``wrapper``."""
     name = wrapper.__name__
     m, k, n = _check_int4(name, x, w, scales, group)
-    _build.require(group % _INT4_BK == 0, name,
-                   f"the group must be a multiple of {_INT4_BK}")
+    _build.require(group % _INT4_GROUP_MULTIPLE == 0, name,
+                   f"the group must be a multiple of {_INT4_GROUP_MULTIPLE}")
     _build.require(all(t.is_contiguous() for t in (x, w, scales))
                    and w.data_ptr() % 16 == 0, name,
                    "tensors must be contiguous and w 16-byte aligned")
-    fn = _build.function("matmul_int4", "matmul_int4", "pppppppiiiiiip")
-    mode = _INT4_MODES[name]
-    splits = _int4_splits(x.device, m, k, n, group)
-    # One scratch allocation: the kernel's bf16 activations, the f32 group
-    # sums and the per-split partial tiles.
-    (xa, xsum, ws), _buf = _scratch(
-        (2 * m * k, 4 * m * (k // group), 4 * splits * m * n), x.device)
+    if splits is not None:
+        _build.require(splits >= 1, name, "splits must lie in [1, 16]")
+        plan = int4_bf16_plan(m, k, n, group, 0, splits)
+        _build.require(plan["fewest"] <= splits <= plan["top"], name,
+                       f"splits must lie in [{plan['fewest']}, "
+                       f"{plan['top']}] for the {plan['tile']} tile")
+    fn = _build.function("matmul_int4", "matmul_int4", "ppppppiiiiiiiiip")
+    if splits is None:
+        plan = int4_bf16_plan(m, k, n, group, _sm_count(x.device))
+    (xb, xsum), _buf = (_scratch(plan["sizes"], x.device)
+                        if plan["sizes"] else ((None, None), None))
+    x, scales = _aligned(x), _aligned(scales)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = fn(x.data_ptr(), w.data_ptr(), scales.data_ptr(), xa, xsum, ws,
-             out.data_ptr(), m, k, n, group, splits, mode, _build.stream())
+    err = fn(x.data_ptr(), w.data_ptr(), scales.data_ptr(), xb, xsum,
+             out.data_ptr(), m, k, n, group, _INT4_MODES[name],
+             int(plan["tile"] == "prefill"), plan["ms"], plan["splits"],
+             plan["ring"], _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
     return out

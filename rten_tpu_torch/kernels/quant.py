@@ -2,9 +2,12 @@
 group-wise int4 layouts) plus the per-(token, head) KV quantizer of
 ``rten_tpu/generate/kv_cache.py::_quantize_tokens``.
 
-Every division here is an IEEE float32 division (never a multiply by a
-reciprocal) and every rounding is round-half-even (``torch.round``), so
-the results match the reference bit for bit.
+Every division here is an IEEE float32 division and every rounding is
+round-half-even (``torch.round``), so the results match the reference bit
+for bit on both devices. The divisor is always a tensor: CUDA PyTorch
+divides a tensor by a Python float through a multiply by its reciprocal,
+which can land one rounding step away from the quotient, while tensor by
+tensor division is IEEE on the CPU and on the card alike.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ def dynamic_quantize(x):
     x = torch.as_tensor(x, dtype=torch.float32)
     x_min = torch.clamp(x.min(), max=0.0)
     x_max = torch.clamp(x.max(), min=0.0)
-    scale = (x_max - x_min) / 255.0
+    scale = (x_max - x_min) / torch.full_like(x_max, 255.0)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     zp = torch.clamp(torch.round(-x_min / scale), 0, 255).to(torch.uint8)
     y = torch.clamp(torch.round(x / scale) + zp.to(torch.float32), 0, 255)
@@ -71,7 +74,7 @@ def abs_max_quantize_int8(w, axis=0):
     w = torch.as_tensor(w).to(torch.float32)
     absmax = w.abs().amax(dim=axis, keepdim=True)
     scales = torch.where(absmax == 0, torch.ones_like(absmax),
-                         absmax / 127.0)
+                         absmax / torch.full_like(absmax, 127.0))
     q = torch.clamp(torch.round(w / scales), -127, 127).to(torch.int8)
     return q, scales.squeeze(axis)
 
@@ -84,7 +87,8 @@ def quantize_tokens(x):
     x = x.to(torch.float32)
     absmax = x.abs().amax(dim=-1)
     scale = torch.where(absmax == 0, torch.ones_like(absmax),
-                        absmax / 127.0).to(torch.bfloat16)
+                        absmax / torch.full_like(absmax, 127.0)
+                        ).to(torch.bfloat16)
     q = torch.clamp(torch.round(x / scale.to(torch.float32)[..., None]),
                     -127, 127).to(torch.int8)
     return q, scale
@@ -132,7 +136,8 @@ def _int4_groupwise(w, group, k_multiple):
         k, n = w.shape
     grouped = w.reshape(k // group, group, n)
     absmax = grouped.abs().amax(dim=1, keepdim=True)
-    scales = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
+    scales = torch.where(absmax == 0, torch.ones_like(absmax),
+                         absmax / torch.full_like(absmax, 7.0))
     q = torch.clamp(torch.round(grouped / scales), -8, 7).to(torch.int8)
     return q.reshape(k, n), scales[:, 0, :]
 

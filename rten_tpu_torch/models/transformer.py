@@ -188,7 +188,7 @@ def _linear_int8(x2, w):
     # group, then the int8 x int8 product.
     absmax = x2.abs().amax()
     x_scale = torch.where(absmax == 0, torch.ones_like(absmax),
-                          absmax / 127.0)
+                          absmax / torch.full_like(absmax, 127.0))
     xq = torch.clamp(torch.round(x2 / x_scale), -127, 127).to(torch.int8)
     return matmul_int8(xq, w.data, x_scale, w.scales)
 

@@ -1,10 +1,12 @@
 """Device timeline of one cold call of the quantized GEMM kernels.
 
 For each of TinyLlama's int4 weight shapes at decode M 16 the int8-dot
-GEMM (``matmul_int4_words_int8``), the bf16-dot GEMM
-(``matmul_int4_words``) and the bf16 ``torch.matmul`` it is held against;
-then the fused int8 head (``head_argmax_int8``) and its library call
-(bf16 ``matmul`` + ``argmax``) at GPT-2's head, M 256. Each call runs as
+GEMM (``matmul_int4_words_int8``), the bf16-dot GEMMs on words
+(``matmul_int4_words``, Q1) and on bytes (``matmul_int4``, Q2), and the
+bf16 ``torch.matmul`` they are held against; the same at the prefill M 1024
+of w_gate (Q1 and Q2 take their prefill tile there: a prep launch and the
+GEMM); then the fused int8 head (``head_argmax_int8``) and its library
+call (bf16 ``matmul`` + ``argmax``) at GPT-2's head, M 256. Each call runs as
 ``chip_smoke.py`` times it: the 50 MB L2 evicted, the card asleep for about
 a millisecond, then the call. Prints every CUDA kernel of the call with its
 start and end in microseconds after the sleep ends, so the launches of a
@@ -81,19 +83,24 @@ def main():
     _build.build_all()
     scrub = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(14)
-    for name, k, n in TINYLLAMA:
+    shapes = [(name, 16, k, n) for name, k, n in TINYLLAMA]
+    shapes.append(("w_gate prefill", 1024, 2048, 5632))
+    for name, m, k, n in shapes:
         w = 0.02 * torch.randn((k, n), device="cuda", generator=g)
-        x = torch.randn((16, k), device="cuda", generator=g)
+        x = torch.randn((m, k), device="cuda", generator=g)
         words, scales = qt.quantize_int4_words(w)
+        packed, _ = qt.quantize_int4_groupwise(w)
         w_dq = qt.dequantize_int4_words(words, scales).to(torch.bfloat16)
         xb = x.to(torch.bfloat16)
-        show(f"{name} M 16 matmul_int4_words_int8",
+        show(f"{name} M {m} matmul_int4_words_int8",
              timeline(scrub, lambda: gemm.matmul_int4_words_int8(
                  x, words, scales)))
-        show(f"{name} M 16 matmul_int4_words",
+        show(f"{name} M {m} matmul_int4_words",
              timeline(scrub, lambda: gemm.matmul_int4_words(
                  x, words, scales)))
-        show(f"{name} M 16 bf16 matmul",
+        show(f"{name} M {m} matmul_int4",
+             timeline(scrub, lambda: gemm.matmul_int4(x, packed, scales)))
+        show(f"{name} M {m} bf16 matmul",
              timeline(scrub, lambda: torch.matmul(xb, w_dq)))
     k, n_valid = 768, 50257
     w = 0.02 * torch.randn((k, n_valid), device="cuda", generator=g)

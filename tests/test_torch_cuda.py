@@ -18,11 +18,15 @@ from rten_tpu_torch.kernels import attention as at
 from rten_tpu_torch.kernels import cache as kc
 from rten_tpu_torch.kernels import gemm as pg
 from rten_tpu_torch.kernels.quant import (abs_max_quantize_int8,
+                                          dynamic_quantize, pack_int4,
+                                          pack_int4_words,
                                           quantize_int4_groupwise,
-                                          quantize_int4_words, unpack_int4,
+                                          quantize_int4_words,
+                                          quantize_tokens, unpack_int4,
                                           unpack_int4_words)
-from rten_tpu_torch.models import (TransformerConfig, TransformerLM,
-                                   quantize_weights)
+from rten_tpu_torch.models import (QuantWeight, TransformerConfig,
+                                   TransformerLM, quantize_weights)
+from rten_tpu_torch.models.transformer import linear
 
 NUMERICS_CASES = ("extreme_exponents", "score_ties", "underflow_tail")
 
@@ -589,25 +593,25 @@ INT4_KERNELS = {"words": (pg.matmul_int4_words, "bf16"),
                 "bytes": (pg.matmul_int4, None)}
 
 
-def int4_case(make, mode, m, k, n):
+def int4_case(make, mode, m, k, n, group=128):
     """x [M, K] and a quantized 0.02-scale weight [K, N] in ``mode``'s
-    layout, on the device of ``make`` (a torch.Generator), as the kernel's
-    arguments."""
+    layout (groups of ``group`` K rows), on the device of ``make`` (a
+    torch.Generator), as the kernel's arguments."""
     dev = make.device
     x = torch.randn((m, k), device=dev, generator=make)
     w = 0.02 * torch.randn((k, n), device=dev, generator=make)
     if mode == "bytes":
-        packed, scales = quantize_int4_groupwise(w)
+        packed, scales = quantize_int4_groupwise(w, group)
     else:
-        packed, scales = quantize_int4_words(w)
+        packed, scales = quantize_int4_words(w, group)
     return x, packed, scales
 
 
 def int4_bound(x, packed, scales, mode):
     """The bound of the kernel's and the plain version's difference: 2^-16
     of the sum of the magnitudes of every f32 term (2^8 roundings of 2^-24
-    each, for K up to 2048 terms), in integer units times the row scale
-    for the int8 mode."""
+    each; chip_smoke.py's INT4_REL_TOL, for K up to 5632 terms), in integer
+    units times the row scale for the int8 mode."""
     k = x.shape[1]
     group = k // scales.shape[0]
     s_rows = scales.repeat_interleave(group, dim=0)
@@ -1086,3 +1090,261 @@ def test_matmul_int8_tiled_kernel_bit_exact(gen, m, k, n):
     for xs in (0.07, torch.tensor(0.0173, device="cuda")):
         out = pg.matmul_int8_tiled(x, w, xs, ws)
         assert torch.equal(out, pg.matmul_int8_tiled_plain(x, w, xs, ws))
+
+
+# -- IEEE division on the card ----------------------------------------------
+# CUDA PyTorch divides a tensor by a Python float through a multiply by its
+# reciprocal; the port divides by a tensor instead, so the card's quantizers
+# give the CPU's bits. Each case below places values where a * f32(1 / d)
+# and a / d differ in f32 (found with numpy from a seed) as the absmax that
+# is divided; on the CPU both forms were already IEEE.
+
+def _reciprocal_misses(d, n, seed, lo=0.25, hi=8.0):
+    """n f32 values a in [lo, hi) with a * f32(1 / d) != a / d in f32."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(lo, hi, 200 * n).astype(np.float32)
+    miss = a[a * (np.float32(1) / np.float32(d)) != a / np.float32(d)]
+    assert len(miss) >= n
+    return torch.from_numpy(miss[:n].copy())
+
+
+def _with_absmax(shape, absmax, axis, seed):
+    """Values of magnitude below 0.9 ``absmax`` with ``absmax`` [...]
+    itself placed (with a random sign) once along ``axis`` of each slice;
+    numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    moved = list(shape)
+    moved.append(moved.pop(axis))
+    a = absmax.reshape(-1, 1)
+    flat = torch.from_numpy(rng.uniform(-0.9, 0.9, (a.shape[0], moved[-1])
+                                        ).astype(np.float32)) * a
+    sign = torch.from_numpy(rng.choice([-1.0, 1.0], a.shape[0]).astype(
+        np.float32))
+    at_ = torch.from_numpy(rng.integers(0, moved[-1], a.shape[0]))
+    flat[torch.arange(a.shape[0]), at_] = sign * a[:, 0]
+    return flat.reshape(moved).movedim(-1, axis).contiguous()
+
+
+def _same_bits(a, b):
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_abs_max_quantize_int8_on_the_card_matches_the_cpu(gen):
+    absmax = _reciprocal_misses(127.0, 64, seed=1)
+    w = _with_absmax((16, 64), absmax, axis=0, seed=2)
+    q_cpu, s_cpu = abs_max_quantize_int8(w, axis=0)
+    q_gpu, s_gpu = abs_max_quantize_int8(w.cuda(), axis=0)
+    assert _same_bits(s_gpu, s_cpu) and _same_bits(q_gpu, q_cpu)
+
+
+def test_quantize_tokens_on_the_card_matches_the_cpu(gen):
+    absmax = _reciprocal_misses(127.0, 6 * 4, seed=3)
+    x = _with_absmax((6, 4, 64), absmax, axis=2, seed=4)
+    q_cpu, s_cpu = quantize_tokens(x)
+    q_gpu, s_gpu = quantize_tokens(x.cuda())
+    assert _same_bits(s_gpu, s_cpu) and _same_bits(q_gpu, q_cpu)
+
+
+@pytest.mark.parametrize("layout", ["words", "bytes"])
+@pytest.mark.parametrize("crafted", [True, False])
+def test_int4_quantizers_on_the_card_match_the_cpu(gen, layout, crafted):
+    """Group scales absmax / 7 (crafted absmax, and random 0.02-scale
+    weights) and the packed nibbles, card against CPU, bit for bit."""
+    k, n, group = 512, 512, 128
+    if crafted:
+        absmax = _reciprocal_misses(7.0, (k // group) * n, seed=5,
+                                    lo=0.01, hi=0.1)
+        w = _with_absmax((k // group, group, n), absmax.reshape(-1, n),
+                         axis=1, seed=6).reshape(k, n)
+    else:
+        w = torch.from_numpy((0.02 * np.random.default_rng(7).standard_normal(
+            (k, n))).astype(np.float32))
+    make = quantize_int4_words if layout == "words" else \
+        quantize_int4_groupwise
+    p_cpu, s_cpu = make(w, group)
+    p_gpu, s_gpu = make(w.cuda(), group)
+    assert _same_bits(s_gpu, s_cpu) and _same_bits(p_gpu, p_cpu)
+
+
+def test_dynamic_quantize_on_the_card_matches_the_cpu(gen):
+    for i, top in enumerate(_reciprocal_misses(255.0, 8, seed=8).tolist()):
+        x = torch.from_numpy(np.random.default_rng(9 + i).uniform(
+            0.0, top, 1000).astype(np.float32))
+        x[17] = top
+        for a, b in zip(dynamic_quantize(x.cuda()), dynamic_quantize(x)):
+            assert _same_bits(a, b)
+
+
+def test_quantize_q_rows_on_the_card_matches_the_cpu(gen):
+    """G1's q quantization for its int8 scores."""
+    absmax = _reciprocal_misses(127.0, 4 * 8, seed=10)
+    q = _with_absmax((4, 8, 128), absmax, axis=2, seed=11)
+    for a, b in zip(at.quantize_q_rows(q.cuda()), at.quantize_q_rows(q)):
+        assert _same_bits(a, b)
+
+
+def test_int8_activations_on_the_card_match_the_cpu(gen):
+    """The model's per-tensor int8 activation scale at M > 64 (the int8 x
+    int8 linear): the whole linear, card against CPU, bit for bit."""
+    w = torch.from_numpy((0.02 * np.random.default_rng(12).standard_normal(
+        (256, 128))).astype(np.float32))
+    qw = QuantWeight("int8", *pg.pad_cols(*abs_max_quantize_int8(w)), 128)
+    for i, top in enumerate(_reciprocal_misses(127.0, 4, seed=13).tolist()):
+        x = torch.from_numpy(np.random.default_rng(14 + i).uniform(
+            -0.2, 0.2, (80, 256)).astype(np.float32))
+        x[5, 9] = -top
+        gpu_w = QuantWeight("int8", qw.data.cuda(), qw.scales.cuda(), 128)
+        assert _same_bits(linear(x.cuda(), gpu_w), linear(x, qw))
+
+
+def test_kv_append_int8_kernel_bit_exact_at_crafted_scales(gen):
+    """K7 against its plain version where the reciprocal form would round
+    a row's scale the other way (plain and kernel both IEEE now)."""
+    b, cap, kvh, d = 8, 64, 2, 64
+    kv, scales, _ = _cache(gen, b, cap, 1, kvh, d)
+    x = _with_absmax((b, kvh, 1, d), _reciprocal_misses(127.0, b * kvh, 15),
+                     axis=3, seed=16).cuda()
+    k, v = rows_view(x), rows_view(x.flip(0))
+    pos = torch.arange(0, 8 * b, 8, dtype=torch.int32, device="cuda") % cap
+    kv1, s1, kv2, s2 = kv.clone(), scales.clone(), kv.clone(), scales.clone()
+    kc.kv_append_int8(kv1, s1, k, v, pos)
+    kc.kv_append_int8_plain(kv2, s2, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(kv1, kv2) and torch.equal(s1, s2)
+
+
+# -- Q1 and Q2: both tiles ---------------------------------------------------
+
+INT4_BF16 = {"words": pg.matmul_int4_words, "bytes": pg.matmul_int4}
+# One pack tile, and TinyLlama's int4 weights (K, N).
+INT4_BF16_SHAPES = [(512, 256), (2048, 2560), (2048, 2048), (2048, 5632),
+                    (5632, 2048), (2048, 32000)]
+
+
+def _int4_bf16_plain(layout, x, packed, scales, group):
+    if layout == "words":
+        return pg.matmul_int4_words_plain(x, packed, scales, group, "bf16")
+    return pg.matmul_int4_plain(x, packed, scales, group)
+
+
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("k,n", INT4_BF16_SHAPES, ids=str)
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 64, 65, 1024])
+@pytest.mark.parametrize("layout", list(INT4_BF16))
+def test_int4_bf16_kernels_match_plain_on_both_tiles(gen, layout, m, k, n,
+                                                     group):
+    """Q1 (words) and Q2 (bytes) against their plain versions at decode
+    (M <= 64) and prefill (M > 64) M, one launch counted a call."""
+    wrapper = INT4_BF16[layout]
+    x, packed, scales = int4_case(gen, layout, m, k, n, group)
+    before = wrapper.launches
+    out = wrapper(x, packed, scales, group)
+    ref = _int4_bf16_plain(layout, x, packed, scales, group)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.shape == (m, n) and torch.isfinite(out).all()
+    bound = int4_bound(x, packed, scales, layout)
+    assert ((out - ref).abs() <= bound + 1e-30).all(), \
+        ((out - ref).abs() / bound).max().item()
+
+
+@pytest.mark.parametrize("m,k,n,splits", [(16, 2048, 2560, None),
+                                          (16, 2048, 2560, 3),
+                                          (16, 5632, 2048, 16),
+                                          (40, 2048, 5632, 5),
+                                          (1, 512, 256, 1),
+                                          (100, 384, 768, None),
+                                          (1024, 2048, 5632, None)],
+                         ids=str)
+@pytest.mark.parametrize("layout", list(INT4_BF16))
+def test_int4_bf16_kernels_are_deterministic(gen, layout, m, k, n, splits):
+    """Two calls on the same inputs agree bit for bit (the split-K sum in
+    split order, no atomics), and uneven splits agree with the plain
+    version."""
+    wrapper = INT4_BF16[layout]
+    x, packed, scales = int4_case(gen, layout, m, k, n)
+    first = pg._launch_int4(wrapper, x, packed, scales, 128, splits)
+    second = pg._launch_int4(wrapper, x, packed, scales, 128, splits)
+    ref = _int4_bf16_plain(layout, x, packed, scales, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    bound = int4_bound(x, packed, scales, layout)
+    assert ((first - ref).abs() <= bound + 1e-30).all()
+
+
+@pytest.mark.parametrize("m", [16, 100])
+@pytest.mark.parametrize("layout", list(INT4_BF16))
+def test_int4_bf16_kernels_take_unaligned_inputs(gen, layout, m):
+    """Contiguous x and scales that do not start on a 16-byte boundary
+    (the kernels read them 16 bytes at a time): the wrapper copies them,
+    as the old kernel took them, and the result is the aligned one's."""
+    x, packed, scales = int4_case(gen, layout, m, 512, 256)
+    xs = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    ss = torch.empty(scales.numel() + 1, device="cuda")[1:].view(
+        scales.shape)
+    xs.copy_(x)
+    ss.copy_(scales)
+    assert xs.data_ptr() % 16 and ss.data_ptr() % 16 and xs.is_contiguous()
+    out = INT4_BF16[layout](xs, packed, ss)
+    ref = INT4_BF16[layout](x, packed, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def _one_hot_rows(m, k, step=37):
+    """x [m, k] with row i one-hot (1.0) at K row (step * i) % k."""
+    x = torch.zeros((m, k), device="cuda")
+    rows = (step * torch.arange(m, device="cuda")) % k
+    x[torch.arange(m, device="cuda"), rows] = 1.0
+    return x, rows
+
+
+@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("layout", list(INT4_BF16))
+def test_int4_bf16_nibble_times_scale_is_exact(gen, layout, m):
+    """Every nibble (all 16 values in every group) times a sweep of scales
+    (2^-30 .. 2^10, all mantissas): a one-hot x reads back one weight row
+    per output row, bf16(bf16(q) * bf16(s)) bit for bit against
+    ``_grouped_bf16`` (Q2) and the plain formula (Q1), on the decode (M 64)
+    and prefill (M 128) tiles."""
+    k, n, group = 256, 512, 64
+    rng = np.random.default_rng(17)
+    q = torch.from_numpy(rng.integers(-8, 8, (k, n)).astype(np.int8))
+    q[:16, :] = torch.arange(-8, 8, dtype=torch.int8)[:, None]
+    scales = torch.from_numpy((2.0 ** rng.uniform(-30, 10, (k // group, n))
+                               ).astype(np.float32))
+    q, scales = q.cuda(), scales.cuda()
+    packed = pack_int4_words(q) if layout == "words" else pack_int4(q)
+    x, rows = _one_hot_rows(m, k)
+    out = INT4_BF16[layout](x, packed, scales, group)
+    ref = _int4_bf16_plain(layout, x, packed, scales, group)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    if layout == "bytes":
+        assert torch.equal(out, pg._grouped_bf16(q.float(), scales,
+                                                 group)[rows])
+
+
+@pytest.mark.parametrize("m", [16, 64, 200])
+@pytest.mark.parametrize("layout", list(INT4_BF16))
+def test_int4_bf16_k_order_of_a_and_b_agree(gen, layout, m):
+    """One-hot x against one-hot weights (column j holds 7 at one K row,
+    0 elsewhere): output (i, j) is nonzero exactly where x's K row is the
+    column's, so any mismatch between the K order of the A fragments and
+    of the B words shows."""
+    k, n, group = 128, 256, 64
+    hot = (torch.arange(n, device="cuda") * 5) % k
+    q = torch.zeros((k, n), dtype=torch.int8, device="cuda")
+    q[hot, torch.arange(n, device="cuda")] = 7
+    scales = torch.ones((k // group, n), device="cuda")
+    packed = pack_int4_words(q) if layout == "words" else pack_int4(q)
+    x, rows = _one_hot_rows(m, k, step=3)
+    out = INT4_BF16[layout](x, packed, scales, group)
+    ref = _int4_bf16_plain(layout, x, packed, scales, group)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    expect = 7.0 * (rows[:, None] == hot[None, :]).float()
+    assert torch.equal(out, expect)

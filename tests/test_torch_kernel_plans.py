@@ -1,16 +1,18 @@
-"""Host-side planning of the fused int8 head (K2, ``head_argmax_plan``) and
-of the int8-dot int4 GEMM (Q1', ``int4_int8_plan``): the tiles cover every
-row and column once, every K split is a whole number of groups, and the
-scratch the wrappers allocate holds what the kernels write, at M from 1 to
-1024. These run without a card; the wrappers' refusals are checked with the
-dispatch forced to the kernel path, before any build or launch."""
+"""Host-side planning of the fused int8 head (K2, ``head_argmax_plan``), of
+the int8-dot int4 GEMM (Q1', ``int4_int8_plan``) and of the bf16-dot int4
+GEMMs (Q1 and Q2, ``int4_bf16_plan``): the tiles cover every row and column
+once, every K split is a whole number of groups, the tile follows M, and
+the scratch the wrappers allocate holds what the kernels write, at M from 1
+to 8192. These run without a card; the wrappers' refusals are checked with
+the dispatch forced to the kernel path, before any build or launch."""
 
 import pytest
 import torch
 
 from rten_tpu_torch.kernels import _build
 from rten_tpu_torch.kernels import gemm as pg
-from rten_tpu_torch.kernels.quant import quantize_int4_words
+from rten_tpu_torch.kernels.quant import (quantize_int4_groupwise,
+                                          quantize_int4_words)
 
 ROWS = (1, 2, 3, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129,
         200, 255, 256, 257, 300, 511, 512, 513, 1000, 1024)
@@ -124,3 +126,126 @@ def test_int4_int8_kernel_refuses_a_split_count_out_of_range(monkeypatch):
     x = torch.randn((4, 256))
     with pytest.raises(ValueError, match="splits must lie"):
         pg._launch_int4_int8(x, words, scales, 128, splits=3)
+
+
+# Q1 and Q2: TinyLlama's and Mistral-7B's int4 weights (K, N), one pack
+# tile, and a ragged case.
+INT4_BF16_SHAPES = ((2048, 2560), (2048, 2048), (2048, 5632), (5632, 2048),
+                    (2048, 32000), (4096, 6144), (4096, 4096), (4096, 14336),
+                    (14336, 4096), (4096, 32000), (512, 256), (384, 768))
+INT4_BF16_ROWS = (1, 2, 5, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100, 127,
+                  128, 129, 512, 1000, 1024, 2048, 4096, 8192)
+
+
+@pytest.mark.parametrize("group", (64, 128))
+@pytest.mark.parametrize("k,n", INT4_BF16_SHAPES)
+@pytest.mark.parametrize("m", INT4_BF16_ROWS)
+def test_int4_bf16_plan_covers_once_and_sizes_its_scratch(m, k, n, group):
+    g = k // group
+    plan = pg.int4_bf16_plan(m, k, n, group, sm_count=132)
+    # The tile follows M: decode (bound by bytes) up to 64 rows.
+    assert plan["tile"] == ("decode" if m <= 64 else "prefill")
+    rows = plan["rows"]
+    assert (plan["m_tiles"] - 1) * rows < m <= plan["m_tiles"] * rows
+    assert plan["m_pad"] == plan["m_tiles"] * rows
+    assert plan["n_tiles"] * 256 == n
+    bounds, splits = plan["bounds"], plan["splits"]
+    assert bounds == [z * g // splits for z in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == g
+    assert all(b > a for a, b in zip(bounds, bounds[1:]))
+    if plan["tile"] == "decode":
+        assert plan["ms"] == (1 if m <= 16 else 2) and rows == 16 * plan["ms"]
+        assert 1 <= plan["fewest"] <= splits <= min(g, 16)
+        assert plan["smem"] <= pg._INT4_SMEM_LIMIT
+        # The ring holds at least 2 stages of 4 k16 steps (or the whole
+        # split), all of the longest split's where they fit beside a
+        # second block on the SM.
+        stages = -(-g // splits) * group // 64
+        assert min(2, stages) <= plan["ring"] <= min(16, stages)
+        assert (plan["ring"] == min(16, stages)
+                or plan["smem"] + pg._INT4_STAGE > pg._INT4_SMEM_TWO)
+        assert plan["sizes"] == ()       # no scratch: one launch
+    else:
+        assert rows == 128 and splits == 1
+        xb, xsum = plan["sizes"]
+        assert xb >= 2 * plan["m_pad"] * k and xsum >= 4 * plan["m_pad"] * g
+
+
+@pytest.mark.parametrize("ring", [1, 2, 16])
+@pytest.mark.parametrize("ms,splits", [(1, 1), (1, 2), (1, 16), (2, 1),
+                                       (2, 5), (2, 16)])
+def test_int4_decode_smem_holds_what_the_kernel_stages(ms, splits, ring):
+    """The decode tile's shared memory: 1 KB to align the ring, 33
+    barriers, the split's f32 scales, its f32 x rows with their pad, the
+    chunk sums, the weight ring (64 K rows of 128 bytes a stage) and the
+    cluster's push buffer."""
+    k, group = 2048, 128
+    gmax = -(-(k // group) // splits)
+    rows, ks = 16 * ms, gmax * group
+    need = (1024 + 33 * 8 + gmax * 256 * 4 + rows * (ks + 16) * 4
+            + rows * (ks // 64) * 4 + ring * 64 * 128
+            + (splits * -(-(rows * 64) // splits) * 16 if splits > 1 else 0))
+    assert pg._int4_decode_smem(ms, gmax, group, splits, ring) >= need
+
+
+@pytest.mark.parametrize("splits", [1, 3, 5, 7, 16])
+def test_int4_bf16_plan_keeps_a_given_split_count(splits):
+    plan = pg.int4_bf16_plan(16, 2048, 2560, 128, 132, splits)
+    assert plan["tile"] == "decode" and plan["splits"] == splits
+    assert plan["bounds"][-1] == 16 and len(plan["bounds"]) == splits + 1
+
+
+def test_int4_bf16_plan_fills_one_wave_at_decode():
+    """At decode the split count stops where the blocks would need a
+    second wave of two resident blocks per SM, or at one batch a warp."""
+    for k, n in INT4_BF16_SHAPES:
+        plan = pg.int4_bf16_plan(16, k, n, 128, 132)
+        blocks = plan["m_tiles"] * plan["n_tiles"] * plan["splits"]
+        fewest = (plan["fewest"], plan["pair"])
+        assert blocks <= 2 * 132 or plan["splits"] in fewest
+        assert plan["splits"] * 256 <= -(-k // 256) * 256 \
+            or plan["splits"] in fewest
+        # Two blocks fit on an SM wherever some split count allows it.
+        assert plan["pair"] is None or plan["smem"] <= pg._INT4_SMEM_TWO
+
+
+def test_int4_bf16_plan_takes_the_prefill_tile_where_no_split_fits():
+    """At decode M a K too long for 16 splits' shared memory takes the
+    prefill tile, which streams x through a ring: nothing is refused."""
+    k = 64 * 1024
+    plan = pg.int4_bf16_plan(16, k, 256, 64, 132)
+    assert plan["tile"] == "prefill" and plan["sizes"][0] >= 2 * 128 * k
+    assert pg.int4_bf16_plan(16, 8192, 256, 64, 132)["tile"] == "decode"
+
+
+@pytest.mark.parametrize("mode", ["words", "bytes"])
+def test_int4_kernels_refuse_a_group_they_do_not_tile(monkeypatch, mode):
+    """On CUDA (simulated) Q1 and Q2 take groups that are multiples of 64;
+    a group of 32 raises before any build or launch."""
+    _kernel_path(monkeypatch)
+    w = torch.randn((128, 256), generator=torch.Generator().manual_seed(2))
+    make = quantize_int4_words if mode == "words" else \
+        quantize_int4_groupwise
+    wrapper = pg.matmul_int4_words if mode == "words" else pg.matmul_int4
+    packed, _ = make(w, group=32)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="multiple of 64"):
+        wrapper(torch.randn((4, 128)), packed, torch.ones((4, 256)),
+                group=32)
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("m,splits", [(16, 0), (16, 17), (16, 3),
+                                      (100, 2)])
+def test_int4_kernels_refuse_a_split_count_out_of_range(monkeypatch, m,
+                                                         splits):
+    """Decode splits outside [fewest, min(groups, 16)], and any split count
+    but 1 on the prefill tile, raise before any build."""
+    _kernel_path(monkeypatch)
+    w = torch.randn((256, 256), generator=torch.Generator().manual_seed(3))
+    words, scales = quantize_int4_words(w)
+    before = pg.matmul_int4_words.launches
+    with pytest.raises(ValueError, match="splits must lie"):
+        pg._launch_int4(pg.matmul_int4_words, torch.randn((m, 256)), words,
+                        scales, 128, splits=splits)
+    assert pg.matmul_int4_words.launches == before
