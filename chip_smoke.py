@@ -17,7 +17,11 @@ Phases (any failure exits non-zero; nothing is caught):
    median) of the kernel, the plain version and, where one PyTorch call
    computes the same function, that call; plus each kernel's lower bound
    from its bytes and operations. K2 (``head_argmax_int8``) also at M 1,
-   16 and 64 (printed, with TFLOP/s and the share of the bound). The int4
+   16 and 64 (printed, with TFLOP/s and the share of the bound); K4
+   (``matmul_int8_wo``, K2's tiles with a store epilogue) at M 64 and
+   also at M 1, 16 and 32 (extra keys, with TFLOP/s and the share of the
+   bound), with the CUDA kernels a call launches (profiler: the convert
+   and the tile, two; more fails). The int4
    GEMMs (Q1 ``matmul_int4_words``, Q1' ``matmul_int4_words_int8``, Q2
    ``matmul_int4``) at every TinyLlama weight shape at decode M = 16 and at
    one prefill M = 1024, Q1 and Q2 also at Mistral-7B's w_gate at M 8192,
@@ -37,10 +41,12 @@ Phases (any failure exits non-zero; nothing is caught):
    over 4 KV heads, capacity 2048); K1 at capacity 16384 and K1' at 12288
    (batch 4, lives past 12,100 tokens). At path (H)'s shapes (32 query
    heads over 8 KV heads of 128): F1 (``flash_attention``, B 16, S 512,
-   causal, f32; the library call f32 ``scaled_dot_product_attention(
-   is_causal=True)``), G1 (``decode_attn_grouped_int8``) with exact q at
-   capacity 4096 and with int8 scores at 1024 (its int32 dots held bit for
-   bit), G2 (``decode_attn_fused_int8``) at batch 3, and A1
+   causal, f32, split-TF32 tensor-core products: its bound at the TF32
+   peak, the f32 SIMT bound printed beside it; the library call f32
+   ``scaled_dot_product_attention(is_causal=True)``), G1
+   (``decode_attn_grouped_int8``) with exact q at capacity 4096 and with
+   int8 scores at 1024 (its int32 dots held bit for bit), G2
+   (``decode_attn_fused_int8``) at batch 3, and A1
    (``decode_attn_grouped_append``) on a bf16 and an f32 cache (the write
    held bit for bit against K5), lives 512-576. The kernels of the last
    four TPU functions: K8 (``decode_attn_flat_float``) at path (I)'s
@@ -96,7 +102,9 @@ Phases (any failure exits non-zero; nothing is caught):
    requests x 256 new tokens on repetitive (one 8-token period tiled) and
    on random 64-token prompts, in turns with the plain engine at the same
    settings (plain, spec, spec, plain; ``verify_attn_grouped`` in its float
-   mode and ``matmul_int8_wo`` must launch); (G-int8), the same
+   mode and ``matmul_int8_wo`` must launch), and one burst traced (the
+   kernels that take the most device time, and K4's time per step);
+   (G-int8), the same
    speculative serve on an int8 cache (``verify_attn_grouped`` in its int8
    mode must launch); and (G) card against CPU at ``max_batch=3`` (no
    group: ``verify_attn_fused`` must launch in each mode), 3 requests of 8
@@ -169,6 +177,7 @@ from rten_tpu_torch.models.transformer import int4_takes_kernel
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
 PEAK_F32_FLOP_S = 67e12            # outside the tensor cores
+PEAK_TF32_FLOP_S = 495e12
 PEAK_INT8_OP_S = 1979e12
 REPS = 20
 SLEEP_CYCLES = 2_000_000           # about 1 ms at the H100's clocks
@@ -455,27 +464,61 @@ def check_head_argmax(timer, w, s, w_dq, n):
 
 
 def check_matmul_wo(timer, w, s, w_dq, n):
-    m, k = 64, w.shape[0]
+    """K4 (K2's tiles with a store epilogue) against its plain version at
+    the main path's M 64 (the entry: the largest admission group) and at M
+    1, 16 and 32 ((G)'s verify head), each with its TFLOP/s and share of
+    the bound beside the library call (the bf16 ``matmul`` on the
+    dequantized weight); and the CUDA kernels one call launches."""
+    k = w.shape[0]
     g = torch.Generator(device="cuda").manual_seed(4)
-    x = torch.randn((m, k), device="cuda", generator=g)
-    out = gemm.matmul_int8_wo(x, w, s)[:, :n]
-    ref = gemm.matmul_int8_wo_plain(x, w, s)[:, :n]
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    tol = K4_REL_TOL * ref.abs().max().item()
-    print(f"matmul_int8_wo: max_abs_err {err:.3e} (tol {tol:.3e})")
-    check(err <= tol, "K4 disagrees")
-    n_bytes = k * n + 4 * n + 4 * m * k + 4 * m * n
-    bms, by = bound_ms(n_bytes, 2.0 * m * k * n)
-    xb = x.to(torch.bfloat16)
-    return dict(name="matmul_int8_wo",
-                source="rten_tpu_torch/csrc/matmul_int8_wo.cu",
-                replaces="rten_tpu/kernels/gemm.py:173",
-                max_abs_err=err,
-                ms=timer(lambda: gemm.matmul_int8_wo(x, w, s)),
-                plain_ms=timer(lambda: gemm.matmul_int8_wo_plain(x, w, s)),
-                bound_ms=bms, bound_by=by,
-                library_ms=timer(lambda: torch.matmul(xb, w_dq)))
+    entry = None
+    for m in (64, 1, 16, 32):
+        x = torch.randn((m, k), device="cuda", generator=g)
+        out = gemm.matmul_int8_wo(x, w, s)[:, :n]
+        ref = gemm.matmul_int8_wo_plain(x, w, s)[:, :n]
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = K4_REL_TOL * ref.abs().max().item()
+        print(f"matmul_int8_wo (M {m}): max_abs_err {err:.3e} (tol "
+              f"{tol:.3e})")
+        check(err <= tol, f"K4 disagrees at M {m}")
+        flops = 2.0 * m * k * w.shape[1]
+        n_bytes = k * w.shape[1] + 4 * w.shape[1] + 4 * m * k \
+            + 4 * m * w.shape[1]
+        bms, by = bound_ms(n_bytes, flops)
+        xb = x.to(torch.bfloat16)
+        ms = timer(lambda: gemm.matmul_int8_wo(x, w, s))
+        lib = timer(lambda: torch.matmul(xb, w_dq))
+        plan = gemm.matmul_int8_wo_plan(m, k, w.shape[1])
+        print(f"matmul_int8_wo (M {m}, tile {plan['rows']} x "
+              f"{plan['slab']}): kernel_ms {ms:.4f} ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s, {bms / ms:.3f} of the {by} bound {bms:.4f}) "
+              f"library_ms {lib:.4f}")
+        if entry is None:
+            before = gemm.matmul_int8_wo.launches
+            gemm.matmul_int8_wo(x, w, s)
+            counted = gemm.matmul_int8_wo.launches - before
+            launched = device_launches(lambda: gemm.matmul_int8_wo(x, w, s))
+            print(f"matmul_int8_wo (M {m}): launch count +{counted} a call, "
+                  f"{launched} CUDA kernels a call (profiler)")
+            # The convert and the tile; the profiler can lose a kernel,
+            # never add one.
+            check(counted == 1 and (launched == "not measured"
+                                    or launched <= 2),
+                  f"K4 counted {counted} launches and ran {launched} CUDA "
+                  f"kernels a call")
+            entry = dict(name="matmul_int8_wo",
+                         source="rten_tpu_torch/csrc/head_argmax_int8.cu",
+                         replaces="rten_tpu/kernels/gemm.py:173",
+                         max_abs_err=err, ms=ms,
+                         plain_ms=timer(lambda: gemm.matmul_int8_wo_plain(
+                             x, w, s)),
+                         bound_ms=bms, bound_by=by, library_ms=lib,
+                         device_launches=launched)
+        else:
+            entry.update({f"m{m}_ms": ms, f"m{m}_bound_ms": bms,
+                          f"m{m}_library_ms": lib})
+    return entry
 
 
 def check_tail_flush(timer, b=256, kvh=12, cap=512, live=(16, 160)):
@@ -1101,9 +1144,11 @@ def check_flash_attention(timer, b=16, h=H_HEADS, s=512, d=H_D):
     """F1 against its plain version at path (H)'s prefill (an admission
     group of 16 prompts of 512 tokens, k and v repeated to 32 heads),
     causal; the library call is ``scaled_dot_product_attention(is_causal=
-    True)`` on the same f32 tensors. Bound: 2*B*H*S^2*D causal FLOPs at the
-    f32 peak outside the tensor cores, against each input read and the
-    output written once."""
+    True)`` on the same f32 tensors. F1 does its products in split TF32
+    (three tensor-core products per f32 product), so its bound is 3 x
+    2*B*H*S^2*D causal FLOPs at the dense TF32 peak against each input
+    read and the output written once; the f32 SIMT bound (the FLOPs at
+    the f32 peak outside the tensor cores) is printed beside it."""
     g = torch.Generator(device="cuda").manual_seed(21)
     q, k, v = (torch.randn((b, h, s, d), device="cuda", generator=g)
                for _ in range(3))
@@ -1121,21 +1166,25 @@ def check_flash_attention(timer, b=16, h=H_HEADS, s=512, d=H_D):
           f"{label} disagrees")
     del lib_out
     flops = 2.0 * b * h * s * s * d
-    bms, by = bound_ms(4 * q.numel() * 4, flops, PEAK_F32_FLOP_S)
+    n_bytes = 4 * q.numel() * 4
+    bms, by = bound_ms(n_bytes, 3 * flops, PEAK_TF32_FLOP_S)
+    simt_bms, _ = bound_ms(n_bytes, flops, PEAK_F32_FLOP_S)
     ms = timer(lambda: at.flash_attention(q, k, v))
     plain_ms = timer(lambda: at.flash_attention_plain(q, k, v))
     lib = timer(lambda: F.scaled_dot_product_attention(q, k, v,
                                                        is_causal=True))
     print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-          f"{bms:.4f} ({by}, {flops / 1e9:.1f} GFLOP) library_ms {lib:.4f} "
-          f"(f32 scaled_dot_product_attention); {flops / ms / 1e9:.1f} "
-          f"TFLOP/s")
+          f"{bms:.4f} ({by}, 3 x {flops / 1e9:.1f} GFLOP of TF32; the f32 "
+          f"SIMT bound {simt_bms:.4f}) library_ms {lib:.4f} (f32 "
+          f"scaled_dot_product_attention); {flops / ms / 1e9:.1f} TFLOP/s "
+          f"of f32 work, {3 * flops / ms / 1e9:.1f} of TF32, "
+          f"{bms / ms:.3f} of the bound")
     return dict(name="flash_attention",
                 source="rten_tpu_torch/csrc/prefill_attn.cu",
                 replaces="rten_tpu/kernels/attention.py:118",
                 shape=f"B {b}, {h} heads of {d}, S {s}, causal, f32",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, simt_bound_ms=simt_bms)
 
 
 def _decode_lengths(g, b, lives):
@@ -2206,6 +2255,13 @@ def trace_spec_burst(model, params, prompts, steps=8):
     for e in on_card[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
               f"{e.count:5d}x  {e.key[:90]}")
+    # K4 (the verify head): its convert and tile launches.
+    k4 = [e for e in on_card
+          if "x_to_bf16" in e.key or "int8_head_tile" in e.key
+          or "int8_head_wgmma" in e.key]
+    print(f"path (G), K4 (matmul_int8_wo) in the traced burst: "
+          f"{sum(e.self_device_time_total for e in k4) / 1e3 / steps:.4f} "
+          f"ms per step over {sum(e.count for e in k4)} CUDA kernels")
     del engine
 
 
@@ -2533,7 +2589,10 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("mode", "shape", "int4pack_ms", "prefill_ms",
+    extra = ("mode", "shape", "device_launches", "m1_ms", "m1_bound_ms",
+             "m1_library_ms", "m16_ms", "m16_bound_ms", "m16_library_ms",
+             "m32_ms", "m32_bound_ms", "m32_library_ms", "simt_bound_ms",
+             "int4pack_ms", "prefill_ms",
              "prefill_library_ms", "prefill_bound_ms", "prefill_8192_ms",
              "prefill_8192_library_ms", "prefill_8192_bound_ms",
              "decode_ms", "f32_max_abs_err",

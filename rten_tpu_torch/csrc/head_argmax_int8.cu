@@ -1,14 +1,22 @@
-// Fused int8 LM head + argmax (K2): idx[m] = argmax_n (bf16(x) @ bf16(W))[m, n]
-// * col_scale[n] over n < n_valid, without materialising the logits.
+// The int8-weight LM head GEMM, bf16(x) @ bf16(W) * col_scale[n] with f32
+// accumulation, and its two epilogues:
+//   K2 head_argmax_int8: idx[m] = argmax over n < n_valid, without
+//      materialising the logits.
+//   K4 matmul_int8_wo: out[m, n] = the f32 logits, stored.
 //
-// Replaces: rten_tpu/kernels/gemm.py::matmul_argmax_int8 (greedy decode
-// head, reached through rten_tpu/models/transformer.py::decode_step_argmax).
+// Replaces: rten_tpu/kernels/gemm.py::matmul_argmax_int8 (K2, the greedy
+// decode head, reached through rten_tpu/models/transformer.py::
+// decode_step_argmax) and gemm.py::matmul_int8_weight_only (K4, the prefill
+// LM head of admission groups of at most 64 rows and the verify head of
+// speculative decoding, transformer.py:179-182).
 //
 // Bound on the H100: operations at batch 256 (2 * 256 * 768 * 50264 =
 // 19.8 GFLOP, 20 us at the 989 TFLOP/s bf16 tensor-core peak), bytes at
-// small batch (the 38.6 MB weight, 11.5 us at 3.35 TB/s).
+// small batch (the 38.6 MB weight, 11.5 us at 3.35 TB/s; K4 also writes
+// 4 * M * N bytes of logits, 12.9 MB at M 64).
 //
-// Design, three launches:
+// Design: both entries share the launches below, and differ only in the
+// tile's epilogue (a template argument).
 //   convert: x f32 -> bf16 once, zero-padded to [row blocks x BM, K_pad],
 //            so the main loops copy x with 16-byte cp.async and mask
 //            nothing.
@@ -30,11 +38,14 @@
 //            from each of its 4 K rows and converts them in registers, which
 //            gives the B registers of 4 n8 tiles whose columns interleave
 //            (n8 tile j holds columns 4c + j); the epilogue maps them back.
-//            Each row's (max, lowest index) of acc * scale is folded in
-//            registers and across its quad by shuffles (and, at M <= 64,
-//            across the slab's warps in shared memory): one partial per
-//            (row, slab).
-//   reduce:  one warp per row folds its partials.
+//            Argmax epilogue (K2): each row's (max, lowest index) of
+//            acc * scale is folded in registers and across its quad by
+//            shuffles (and, at M <= 64, across the slab's warps in shared
+//            memory): one partial per (row, slab). Store epilogue (K4):
+//            acc * scale straight from the registers to out; at M <= 64 a
+//            lane's 4 interleaved n8 tiles hold 4 adjacent columns of a
+//            row, one 16-byte store.
+//   reduce:  (K2 only) one warp per row folds its partials.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -148,18 +159,26 @@ struct TileShape {
   static constexpr int SMEM = STAGES * (X_STAGE + W_STAGE) + WARPS_N * BM * 8;
 };
 
+// Where a tile's epilogue writes: K2's partials [M, slabs] (argmax over
+// the columns below n_valid), or K4's logits out [M, N] (n_valid == N).
+struct Epilogue {
+  float* part_val;
+  int* part_idx;
+  float* out;
+  int n_valid;
+  int slabs;
+};
+
 // Register path (M <= 64): block tile BM x BN; warp (wm, wn) owns one m16
 // tile x 64 columns. LDW pads each W row by 16 bytes, so the lanes' 4-byte
 // reads of rows 2*tig + {0, 1, 8, 9} at column 4*g fall in 32 distinct
 // banks; LDX does the same for ldmatrix's 8 row addresses.
-template <int WARPS_M>
+template <int WARPS_M, bool STORE>
 __global__ void __launch_bounds__(THREADS)
-    head_argmax_tile_kernel(const __nv_bfloat16* __restrict__ xb,
-                            const int8_t* __restrict__ w,
-                            const float* __restrict__ scales,
-                            float* __restrict__ part_val,
-                            int* __restrict__ part_idx, int M, int K,
-                            int k_pad, int N, int n_valid, int slabs) {
+    int8_head_tile_kernel(const __nv_bfloat16* __restrict__ xb,
+                          const int8_t* __restrict__ w,
+                          const float* __restrict__ scales, Epilogue ep,
+                          int M, int K, int k_pad, int N) {
   using S = TileShape<WARPS_M>;
   constexpr int BM = S::BM, BN = S::BN, LDW = S::LDW;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -250,6 +269,7 @@ __global__ void __launch_bounds__(THREADS)
   // that is column n0 + wn * 64 + 32 h + 8 tig + 4 (e & 1) + j, row
   // g + 8 (e >> 1) of the warp's m16 tile.
   const int c0 = n0 + wn * WN + 8 * tig;
+  const int n_valid = ep.n_valid;
   float sc[2][2][4];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -260,6 +280,31 @@ __global__ void __launch_bounds__(THREADS)
         const int col = c0 + 32 * h + 4 * o + j;
         sc[h][o][j] = col < n_valid ? scales[col] : 0.0f;
       }
+  if constexpr (STORE) {
+    // Columns c0 + 32 h + 4 o + 0..3 of a row: 16 bytes, in range or out
+    // as a whole (N % 8 == 0).
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gm = m0 + wm * 16 + 8 * half + g;
+      if (gm >= M) continue;
+      float* orow = ep.out + (long long)gm * N;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+          const int col = c0 + 32 * h + 4 * o;
+          if (col < N) {
+            const int e = 2 * half + o;
+            *reinterpret_cast<float4*>(orow + col) = make_float4(
+                __fmul_rn(acc[h][0][e], sc[h][o][0]),
+                __fmul_rn(acc[h][1][e], sc[h][o][1]),
+                __fmul_rn(acc[h][2][e], sc[h][o][2]),
+                __fmul_rn(acc[h][3][e], sc[h][o][3]));
+          }
+        }
+    }
+    return;
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float v = -INFINITY;
@@ -296,8 +341,8 @@ __global__ void __launch_bounds__(THREADS)
       better(v, idx, red_v[o * BM + r], red_i[o * BM + r]);
     const int gm = m0 + r;
     if (gm < M) {
-      part_val[(long long)gm * slabs + slab] = v;
-      part_idx[(long long)gm * slabs + slab] = idx;
+      ep.part_val[(long long)gm * ep.slabs + slab] = v;
+      ep.part_idx[(long long)gm * ep.slabs + slab] = idx;
     }
   }
 }
@@ -322,14 +367,12 @@ struct WgShape {
 // 128-byte swizzle row), the int8 W ring [stage][64][192], and the bf16 W
 // tiles [2][3 column blocks of 64][64 k][64 n] (N-major: a k row of 64
 // columns is one swizzle row; column blocks 8 KB apart).
-template <int WG>
+template <int WG, bool STORE>
 __global__ void __launch_bounds__(WgShape<WG>::THREADS, 1)
-    head_argmax_wgmma_kernel(const __nv_bfloat16* __restrict__ xb,
-                             const int8_t* __restrict__ w,
-                             const float* __restrict__ scales,
-                             float* __restrict__ part_val,
-                             int* __restrict__ part_idx, int M, int K,
-                             int k_pad, int N, int n_valid, int slabs) {
+    int8_head_wgmma_kernel(const __nv_bfloat16* __restrict__ xb,
+                           const int8_t* __restrict__ w,
+                           const float* __restrict__ scales, Epilogue ep,
+                           int M, int K, int k_pad, int N) {
   using S = WgShape<WG>;
   constexpr int NT = S::THREADS, BM = S::BM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -347,6 +390,7 @@ __global__ void __launch_bounds__(WgShape<WG>::THREADS, 1)
   const int warp_in_wg = (tid >> 5) & 3, g = lane >> 2, tig = lane & 3;
   const int m0 = blockIdx.x * BM, slab = blockIdx.y, n0 = slab * WG_BN;
   const int k_steps = k_pad / BK;
+  const int n_valid = ep.n_valid;
 
   for (int c = tid; c < WG_BN; c += NT) {
     const int col = n0 + c;
@@ -437,6 +481,23 @@ __global__ void __launch_bounds__(WgShape<WG>::THREADS, 1)
   // d[4 j + e]: row 16 warp_in_wg + g + 8 (e >> 1) of the warpgroup's 64,
   // column 8 j + 2 tig + (e & 1) of the slab. A row's 192 columns lie in
   // one quad.
+  if constexpr (STORE) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gm = m0 + 64 * wg + 16 * warp_in_wg + 8 * half + g;
+      if (gm >= M) continue;
+      float* orow = ep.out + (long long)gm * N;
+#pragma unroll
+      for (int j = 0; j < WG_BN / 8; ++j) {
+        const int c = 8 * j + 2 * tig, col = n0 + c;
+        if (col < N)
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(__fmul_rn(d[4 * j + 2 * half], s_scale[c]),
+                          __fmul_rn(d[4 * j + 2 * half + 1], s_scale[c + 1]));
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float v = -INFINITY;
@@ -457,8 +518,8 @@ __global__ void __launch_bounds__(WgShape<WG>::THREADS, 1)
     }
     const int gm = m0 + 64 * wg + 16 * warp_in_wg + 8 * half + g;
     if (tig == 0 && gm < M) {
-      part_val[(long long)gm * slabs + slab] = v;
-      part_idx[(long long)gm * slabs + slab] = idx;
+      ep.part_val[(long long)gm * ep.slabs + slab] = v;
+      ep.part_idx[(long long)gm * ep.slabs + slab] = idx;
     }
   }
 }
@@ -498,45 +559,74 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[MAX_DEVICES]) {
   return cudaSuccess;
 }
 
-template <int WARPS_M>
+template <int WARPS_M, bool STORE>
 cudaError_t launch_tile(const __nv_bfloat16* xb, const int8_t* w,
-                        const float* scales, float* part_val, int* part_idx,
-                        int M, int K, int k_pad, int N, int n_valid,
-                        int slabs, cudaStream_t st) {
+                        const float* scales, const Epilogue& ep, int M,
+                        int K, int k_pad, int N, cudaStream_t st) {
   using S = TileShape<WARPS_M>;
   static bool done[MAX_DEVICES];
-  auto kernel = head_argmax_tile_kernel<WARPS_M>;
+  auto kernel = int8_head_tile_kernel<WARPS_M, STORE>;
   const cudaError_t err = allow_smem(kernel, S::SMEM, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + S::BM - 1) / S::BM, slabs);
-  kernel<<<grid, THREADS, S::SMEM, st>>>(xb, w, scales, part_val, part_idx,
-                                         M, K, k_pad, N, n_valid, slabs);
+  const dim3 grid((M + S::BM - 1) / S::BM, (N + S::BN - 1) / S::BN);
+  kernel<<<grid, THREADS, S::SMEM, st>>>(xb, w, scales, ep, M, K, k_pad, N);
   return cudaGetLastError();
 }
 
-template <int WG>
+template <int WG, bool STORE>
 cudaError_t launch_wgmma(const __nv_bfloat16* xb, const int8_t* w,
-                         const float* scales, float* part_val, int* part_idx,
-                         int M, int K, int k_pad, int N, int n_valid,
-                         int slabs, cudaStream_t st) {
+                         const float* scales, const Epilogue& ep, int M,
+                         int K, int k_pad, int N, cudaStream_t st) {
   using S = WgShape<WG>;
   static bool done[MAX_DEVICES];
-  auto kernel = head_argmax_wgmma_kernel<WG>;
+  auto kernel = int8_head_wgmma_kernel<WG, STORE>;
   const cudaError_t err = allow_smem(kernel, S::SMEM, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + S::BM - 1) / S::BM, slabs);
-  kernel<<<grid, S::THREADS, S::SMEM, st>>>(
-      xb, w, scales, part_val, part_idx, M, K, k_pad, N, n_valid, slabs);
+  const dim3 grid((M + S::BM - 1) / S::BM, (N + WG_BN - 1) / WG_BN);
+  kernel<<<grid, S::THREADS, S::SMEM, st>>>(xb, w, scales, ep, M, K, k_pad,
+                                            N);
   return cudaGetLastError();
+}
+
+// The tiles by config, as gemm.py::head_argmax_plan picks them:
+// 0: BM 32, BN 256 (2 x 4 warps); 1: BM 64, BN 128 (4 x 2 warps);
+// 2: BM 128, BN 192 (2 warpgroups); 3: BM 256, BN 192 (4 warpgroups).
+constexpr int kBM[4] = {32, 64, 128, 256};
+constexpr int kBN[4] = {256, 128, WG_BN, WG_BN};
+
+// The convert launch, then the tile launch of config cfg with epilogue
+// STORE.
+template <bool STORE>
+cudaError_t run_tiles(const void* x, const void* w, const void* scales,
+                      void* xb, const Epilogue& ep, int M, int K, int N,
+                      int cfg, cudaStream_t st) {
+  const int m_pad = (M + kBM[cfg] - 1) / kBM[cfg] * kBM[cfg];
+  const int k_pad = (K + BK - 1) / BK * BK;
+  const long long chunks = (long long)m_pad * (k_pad / 8);
+  x_to_bf16_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
+      (const float*)x, (__nv_bfloat16*)xb, M, K, m_pad, k_pad);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const auto* xbp = (const __nv_bfloat16*)xb;
+  const auto* wp = (const int8_t*)w;
+  const auto* sp = (const float*)scales;
+  switch (cfg) {
+    case 0:
+      return launch_tile<2, STORE>(xbp, wp, sp, ep, M, K, k_pad, N, st);
+    case 1:
+      return launch_tile<4, STORE>(xbp, wp, sp, ep, M, K, k_pad, N, st);
+    case 2:
+      return launch_wgmma<2, STORE>(xbp, wp, sp, ep, M, K, k_pad, N, st);
+    default:
+      return launch_wgmma<4, STORE>(xbp, wp, sp, ep, M, K, k_pad, N, st);
+  }
 }
 
 }  // namespace
 
-// x f32 [M, K]; w int8 [K, N] (N % 8 == 0, 8-byte aligned rows); scales
-// f32 [N]; xb bf16 scratch [m_pad, k_pad]; part_val / part_idx [M, slabs];
-// out int32 [M]. cfg picks the tile as gemm.py::head_argmax_plan does:
-// 0: BM 32, BN 256 (2 x 4 warps); 1: BM 64, BN 128 (4 x 2 warps);
-// 2: BM 128, BN 192 (2 warpgroups); 3: BM 256, BN 192 (4 warpgroups).
+// x f32 [M, K]; w int8 [K, N] (N % 8 == 0, 16-byte aligned); scales f32
+// [N]; xb bf16 scratch [m_pad, k_pad]; part_val / part_idx [M, slabs];
+// out int32 [M]. cfg picks the tile (kBM, kBN above).
 extern "C" int head_argmax_int8(const void* x, const void* w,
                                 const void* scales, void* xb, void* part_val,
                                 void* part_idx, void* out, int M, int K,
@@ -544,42 +634,27 @@ extern "C" int head_argmax_int8(const void* x, const void* w,
   cudaStream_t st = (cudaStream_t)stream;
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
   if (cfg < 0 || cfg > 3) return (int)cudaErrorInvalidValue;
-  static const int kBM[4] = {32, 64, 128, 256};
-  static const int kBN[4] = {256, 128, WG_BN, WG_BN};
-  const int m_pad = (M + kBM[cfg] - 1) / kBM[cfg] * kBM[cfg];
-  const int k_pad = (K + BK - 1) / BK * BK;
   const int slabs = (N + kBN[cfg] - 1) / kBN[cfg];
-  const long long chunks = (long long)m_pad * (k_pad / 8);
-  x_to_bf16_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
-      (const float*)x, (__nv_bfloat16*)xb, M, K, m_pad, k_pad);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const auto* xbp = (const __nv_bfloat16*)xb;
-  const auto* wp = (const int8_t*)w;
-  const auto* sp = (const float*)scales;
-  auto* pv = (float*)part_val;
-  auto* pi = (int*)part_idx;
-  switch (cfg) {
-    case 0:
-      err = launch_tile<2>(xbp, wp, sp, pv, pi, M, K, k_pad, N, n_valid,
-                           slabs, st);
-      break;
-    case 1:
-      err = launch_tile<4>(xbp, wp, sp, pv, pi, M, K, k_pad, N, n_valid,
-                           slabs, st);
-      break;
-    case 2:
-      err = launch_wgmma<2>(xbp, wp, sp, pv, pi, M, K, k_pad, N, n_valid,
-                            slabs, st);
-      break;
-    default:
-      err = launch_wgmma<4>(xbp, wp, sp, pv, pi, M, K, k_pad, N, n_valid,
-                            slabs, st);
-  }
+  const Epilogue ep{(float*)part_val, (int*)part_idx, nullptr, n_valid,
+                    slabs};
+  const cudaError_t err =
+      run_tiles<false>(x, w, scales, xb, ep, M, K, N, cfg, st);
   if (err != cudaSuccess) return (int)err;
   constexpr int rows_per_block = 4;
   head_argmax_reduce_kernel<<<(M + rows_per_block - 1) / rows_per_block,
                               32 * rows_per_block, 0, st>>>(
-      pv, pi, (int*)out, M, slabs);
+      (const float*)part_val, (const int*)part_idx, (int*)out, M, slabs);
   return (int)cudaGetLastError();
+}
+
+// K4: the same operands and tiles; out f32 [M, N] = acc * scales, every
+// column stored.
+extern "C" int matmul_int8_wo(const void* x, const void* w,
+                              const void* scales, void* xb, void* out, int M,
+                              int K, int N, int cfg, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (cfg < 0 || cfg > 3) return (int)cudaErrorInvalidValue;
+  const Epilogue ep{nullptr, nullptr, (float*)out, N, 0};
+  return (int)run_tiles<true>(x, w, scales, xb, ep, M, K, N, cfg, st);
 }

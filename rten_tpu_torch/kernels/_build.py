@@ -21,7 +21,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("decode_attn_int8_tail", "head_argmax_int8", "tail_flush_int8",
-           "matmul_int8_wo", "kv_append", "decode_attn_float",
+           "kv_append", "decode_attn_float",
            "kv_append_int8", "kv_append_paged", "decode_attn_paged",
            "matmul_int4", "verify_attn", "prefill_attn",
            "decode_attn_grouped_int8", "decode_attn_append",

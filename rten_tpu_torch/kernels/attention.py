@@ -6,7 +6,7 @@
   :func:`flash_attention_takes`), head_dim 64 among them.
 * ``flash_attention`` (CUDA, ``csrc/prefill_attn.cu``, F1) replaces
   ``flash_attention`` (:118): blockwise attention with an online softmax
-  in f32, at head_dim 128.
+  at f32 accuracy (split-TF32 tensor-core products), at head_dim 128.
 * ``decode_attn_int8_tail`` (CUDA, ``csrc/decode_attn_int8_tail.cu``)
   replaces ``flash_decode_flat`` (:1715) in its int8 + tail mode with
   ``q_bf16=True``: packed int8 tokens dequantized by per-(token, head)

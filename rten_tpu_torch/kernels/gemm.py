@@ -8,11 +8,12 @@
   ``matmul_int8_pallas`` (:93), the Pallas twin of ``matmul_int8`` with
   the epilogue (f32(acc) * x_scale) * w_scale[col]. No path calls it (the
   model keeps ``matmul_int8``, whose epilogue order differs).
-* ``matmul_int8_wo`` (CUDA, ``csrc/matmul_int8_wo.cu``) replaces
-  ``matmul_int8_weight_only`` (:173).
 * ``head_argmax_int8`` (CUDA, ``csrc/head_argmax_int8.cu``) replaces
   ``matmul_argmax_int8`` (:268); :func:`head_argmax_plan` sizes its tiles
   and scratch.
+* ``matmul_int8_wo`` (CUDA, the same source and tiles with a store
+  epilogue) replaces ``matmul_int8_weight_only`` (:173);
+  :func:`matmul_int8_wo_plan` sizes its scratch.
 * ``matmul_int4_words`` (CUDA, ``csrc/matmul_int4.cu``) replaces
   ``matmul_int4_words`` (:430) in its bf16 dot mode, and
   ``matmul_int4_words_int8`` (CUDA, ``csrc/matmul_int4_int8dot.cu``, sized
@@ -153,10 +154,12 @@ def matmul_int8_wo(x, w, scales):
     _check_kernel(name, x, w, scales)
     m, k = x.shape
     n = w.shape[1]
+    plan = matmul_int8_wo_plan(m, k, n)
+    (xb,), _buf = _scratch(plan["sizes"], x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = _build.function(name, name, "ppppiiip")
-    err = fn(x.data_ptr(), w.data_ptr(), scales.data_ptr(), out.data_ptr(),
-             m, k, n, _build.stream())
+    fn = _build.function("head_argmax_int8", name, "pppppiiiip")
+    err = fn(x.data_ptr(), w.data_ptr(), scales.data_ptr(), xb,
+             out.data_ptr(), m, k, n, plan["cfg"], _build.stream())
     _build.check(err, name)
     matmul_int8_wo.launches += 1
     return out
@@ -194,6 +197,15 @@ def head_argmax_plan(m, k, n):
     sizes = (2 * m_pad * k_pad, 4 * m * slabs, 4 * m * slabs)
     return dict(cfg=cfg, rows=rows, slab=slab, row_blocks=row_blocks,
                 slabs=slabs, m_pad=m_pad, k_pad=k_pad, sizes=sizes)
+
+
+def matmul_int8_wo_plan(m, k, n):
+    """K4's launch: the fused head's tile at M rows (K4 runs on K2's
+    tiles), and one scratch buffer, the padded bf16 copy of x; no
+    partials (the store epilogue writes the logits)."""
+    plan = head_argmax_plan(m, k, n)
+    plan["sizes"] = plan["sizes"][:1]
+    return plan
 
 
 def _scratch(sizes, device):

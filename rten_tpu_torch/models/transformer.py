@@ -306,12 +306,21 @@ def _norm(cfg, x, scale, bias):
     return out.to(x.dtype)
 
 
+def _rope_freqs(d, theta, device):
+    """freqs = theta^(-i / (D/2)) in f32 (transformer.py:325-336). The
+    exponent divides by a tensor: CUDA PyTorch turns a division by a
+    Python number into a multiply by its reciprocal, which rounds
+    otherwise than the reference's division unless D/2 is a power of
+    two."""
+    half = d // 2
+    i = torch.arange(0, half, dtype=torch.float32, device=device)
+    return theta ** (-i / torch.full_like(i, half))
+
+
 def _rope_tables(positions, d, theta):
     """cos and sin [B, 1, S, D/2] of the rotary angles for positions
-    [B, S]: freqs = theta^(-i / (D/2)) in f32 (transformer.py:325-336)."""
-    half = d // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=positions.device) / half)
+    [B, S]."""
+    freqs = _rope_freqs(d, theta, positions.device)
     angles = positions.to(torch.float32)[:, None, :, None] * freqs
     return torch.cos(angles), torch.sin(angles)
 

@@ -26,6 +26,7 @@ from rten_tpu_torch.kernels.quant import (abs_max_quantize_int8,
                                           unpack_int4_words)
 from rten_tpu_torch.models import (QuantWeight, TransformerConfig,
                                    TransformerLM, quantize_weights)
+from rten_tpu_torch.models import transformer as ptr
 from rten_tpu_torch.models.transformer import linear
 
 NUMERICS_CASES = ("extreme_exponents", "score_ties", "underflow_tail")
@@ -106,6 +107,35 @@ def test_matmul_wo_kernel_matches_plain(gen, m):
     # Same bf16 operands and f32 accumulation, sums in other orders.
     tol = 2.0 ** -8 * ref.abs().max().item()
     assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("m", [1, 32, 64, 100])
+def test_matmul_wo_kernel_at_the_main_path_shape(gen, m):
+    """K4 on K2's tiles at GPT-2's padded LM head (K 768, N 50264): M 1, 32
+    ((G)'s verify head), 64 (the largest admission group) on the register
+    tile, 100 on the wgmma tile; every column stored, one launch a call."""
+    w, s = _weights(gen, 768, 50257)
+    x = torch.randn((m, 768), device="cuda", generator=gen)
+    before = pg.matmul_int8_wo.launches
+    out = pg.matmul_int8_wo(x, w, s)
+    ref = pg.matmul_int8_wo_plain(x, w, s)
+    torch.cuda.synchronize()
+    assert pg.matmul_int8_wo.launches == before + 1
+    assert out.shape == (m, 50264) and torch.isfinite(out).all()
+    tol = 2.0 ** -8 * ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("m", [16, 64, 100])
+def test_matmul_wo_kernel_is_deterministic(gen, m):
+    """Two calls on the same inputs give the same bits (no atomics, a
+    fixed summation order)."""
+    w, s = _weights(gen, 768, 50257)
+    x = torch.randn((m, 768), device="cuda", generator=gen)
+    a = pg.matmul_int8_wo(x, w, s)
+    b = pg.matmul_int8_wo(x, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("m", [1, 3, 65, 130])
@@ -831,6 +861,103 @@ def test_flash_attention_kernel_matches_plain(gen, b, h, s, causal):
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= (
         F32_REL_TOL * ref.abs().max().item())
+
+
+def _assert_per_head(out, ref, rel=F32_REL_TOL):
+    """Every (b, h) head within ``rel`` of its own max |out|."""
+    err = (out - ref).abs().amax(dim=(2, 3))
+    assert (err <= rel * ref.abs().amax(dim=(2, 3))).all(), err.max()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,s", [(1, 2, 2048), (2, 4, 1024), (4, 16, 768),
+                                   (8, 64, 128), (1, 4, 256)])
+def test_flash_attention_kernel_across_lengths_and_heads(gen, b, h, s,
+                                                         causal):
+    """F1's split-TF32 products at S 128 to 2048 and 2 to 512 heads, each
+    head within 1e-5 of its max |out| of the plain version."""
+    q, k, v = (torch.randn((b, h, s, 128), device="cuda", generator=gen)
+               for _ in range(3))
+    out = at.flash_attention(q, k, v, causal=causal)
+    ref = at.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _assert_per_head(out, ref)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_at_scaled_heads(gen, causal):
+    """q, k and v of head e scaled by 2^e, 2^-e and 2^e, e from -8 to 8:
+    every operand of the hi/lo split moves its exponent by up to 8 while the
+    scores stay of order 1 (scores of order 2^16 would make f32 attention
+    itself ill-conditioned: one f32 rounding of a score then moves its
+    probability by ~2^-8); each head within 1e-5 of its own max |out|."""
+    b, h, s = 2, 9, 256
+    e = torch.arange(-8, 9, 2, device="cuda",
+                     dtype=torch.float32).reshape(1, h, 1, 1)
+    q, k, v = (torch.randn((b, h, s, 128), device="cuda", generator=gen)
+               * torch.exp2(sign * e) for sign in (1, -1, 1))
+    out = at.flash_attention(q, k, v, causal=causal)
+    ref = at.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _assert_per_head(out, ref)
+
+
+def test_flash_attention_kernel_row_below_the_mask_value(gen):
+    """A query whose every score lies below -1e30, as a fully masked row
+    looks to the kernel: the reference kernel gives 0 there (its running
+    max starts at -1e30; tests/test_torch_prefill_attn.py holds that
+    against the JAX package), where the plain softmax would not; the
+    other rows agree with the plain version."""
+    b, h, s = 1, 2, 256
+    q, k, v = (torch.randn((b, h, s, 128), device="cuda", generator=gen)
+               for _ in range(3))
+    k[..., 0] = 1.0 + k[..., 0].abs()
+    q[0, 1, 5] = 0.0
+    q[0, 1, 5, 0] = -1e32
+    out = at.flash_attention(q, k, v, causal=False)
+    ref = at.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert not out[0, 1, 5].any()
+    ref[0, 1, 5] = 0.0
+    assert (out - ref).abs().max().item() <= (
+        F32_REL_TOL * ref.abs().max().item())
+
+
+# -- RoPE tables on the card --------------------------------------------------
+
+def _ulps(a, b):
+    """The largest distance in f32 ulps between same-signed a and b."""
+    return (a.cpu().view(torch.int32).long()
+            - b.cpu().view(torch.int32).long()).abs().max().item()
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+@pytest.mark.parametrize("d", [80, 96])
+def test_rope_tables_on_the_card_match_the_cpu(gen, d, theta):
+    """Head dims whose half (40, 48) is no power of two, where a multiply
+    by f32(1 / half) rounds 7 and 15 of the exponents -i / half otherwise
+    than the division. The card's freqs are the card's pow of the CPU's
+    exponents, bit for bit, so they lie within the one ulp by which the
+    card's powf and the CPU's pow may differ on equal inputs, where the
+    reciprocal's exponents, amplified by ln(theta), moved them further.
+    cos and sin are not compared with the CPU's bit for bit: CUDA's cosf
+    and sinf and the CPU's differ in the last bit on some equal inputs."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32)
+    exponent = -i / torch.full_like(i, half)      # the reference's division
+    reciprocal = -i * (1 / torch.full_like(i, half))
+    assert int((reciprocal != exponent).sum()) == {40: 7, 48: 15}[half]
+    f_cpu = ptr._rope_freqs(d, theta, "cpu")
+    f_gpu = ptr._rope_freqs(d, theta, "cuda")
+    assert _same_bits(f_gpu, theta ** exponent.cuda())
+    assert _ulps(f_gpu, f_cpu) <= 1
+    pos = torch.arange(4096, device="cuda").reshape(2, 2048)
+    cos, sin = ptr._rope_tables(pos, d, theta)
+    angles = pos.to(torch.float32)[:, None, :, None] * f_gpu
+    assert _same_bits(cos, torch.cos(angles))
+    assert _same_bits(sin, torch.sin(angles))
 
 
 def _int8_cache(gen, b, cap, kvh, d):

@@ -1,4 +1,5 @@
-"""Host-side planning of the fused int8 head (K2, ``head_argmax_plan``), of
+"""Host-side planning of the fused int8 head (K2, ``head_argmax_plan``) and
+of the weight-only int8 GEMM on its tiles (K4, ``matmul_int8_wo_plan``), of
 the int8-dot int4 GEMM (Q1', ``int4_int8_plan``) and of the bf16-dot int4
 GEMMs (Q1 and Q2, ``int4_bf16_plan``): the tiles cover every row and column
 once, every K split is a whole number of groups, the tile follows M, and
@@ -48,6 +49,48 @@ def test_head_argmax_plan_covers_once_and_sizes_its_scratch(m, k, n):
 def test_head_argmax_plan_grows_its_row_block_with_m():
     rows = [pg.head_argmax_plan(m, 768, 50264)["rows"] for m in ROWS]
     assert rows == sorted(rows) and rows[-1] == 256
+
+
+# K4's rows: the admission groups of up to 64 rows, (G)'s verify head at
+# 32, and the wgmma tile above 64.
+WO_ROWS = tuple(m for m in ROWS if m <= 300)
+
+
+@pytest.mark.parametrize("k", (80, 768, 2048))
+@pytest.mark.parametrize("m", WO_ROWS)
+def test_matmul_wo_plan_covers_once_without_partials(m, k):
+    """K4 runs K2's tile at every M (the register tile up to 64 rows,
+    wgmma above), covers every row and every column of GPT-2's padded head
+    once, and its only scratch is the padded bf16 copy of x."""
+    n = 50264
+    plan = pg.matmul_int8_wo_plan(m, k, n)
+    head = pg.head_argmax_plan(m, k, n)
+    assert {key: plan[key] for key in plan if key != "sizes"} == \
+        {key: head[key] for key in head if key != "sizes"}
+    rows, slab = plan["rows"], plan["slab"]
+    assert (plan["row_blocks"] - 1) * rows < m <= plan["row_blocks"] * rows
+    assert (plan["slabs"] - 1) * slab < n <= plan["slabs"] * slab
+    assert plan["cfg"] == (0 if m <= 32 else 1 if m <= 64 else
+                           2 if m <= 128 else 3)
+    # The store epilogue's 16-byte groups of 4 columns start inside a slab
+    # and lie in range or out as a whole.
+    assert slab % 4 == 0 and n % 8 == 0
+    (xb,) = plan["sizes"]
+    assert plan["k_pad"] % 64 == 0 and plan["k_pad"] - 64 < k <= plan["k_pad"]
+    assert xb == 2 * plan["row_blocks"] * rows * plan["k_pad"]
+    assert len(head["sizes"]) == 3
+
+
+def test_matmul_wo_kernel_refuses_unpadded_columns(monkeypatch):
+    """On CUDA (simulated) K4 reads W in 8-byte pieces: an N that is not a
+    multiple of 8 raises before any build or launch."""
+    _kernel_path(monkeypatch)
+    before = pg.matmul_int8_wo.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pg.matmul_int8_wo(torch.zeros((4, 64)),
+                          torch.zeros((64, 100), dtype=torch.int8),
+                          torch.ones(100))
+    assert pg.matmul_int8_wo.launches == before
 
 
 @pytest.mark.parametrize("k,n", INT4_SHAPES)
