@@ -44,8 +44,9 @@ Phases (any failure exits non-zero; nothing is caught):
    causal, f32, split-TF32 tensor-core products: its bound at the TF32
    peak, the f32 SIMT bound printed beside it; the library call f32
    ``scaled_dot_product_attention(is_causal=True)``), G1
-   (``decode_attn_grouped_int8``) with exact q at capacity 4096 and with
-   int8 scores at 1024 (its int32 dots held bit for bit), G2
+   (``decode_attn_grouped_int8``) with exact q at capacity 4096 (beside
+   V1's kernel at S = 1 on the same inputs, the design it replaced) and
+   with int8 scores at 1024 (its int32 dots held bit for bit), G2
    (``decode_attn_fused_int8``) at batch 3, and A1
    (``decode_attn_grouped_append``) on a bf16 and an f32 cache (the write
    held bit for bit against K5), lives 512-576. The kernels of the last
@@ -60,7 +61,11 @@ Phases (any failure exits non-zero; nothing is caught):
    ``pv_int8`` mode at path (H)'s shapes in both score modes; M1
    (``matmul_int8_tiled``) bit for bit at GPT-2-small's four linears at
    M 256 and 4096 (``torch._int_mm`` and the epilogue). No path reaches
-   the last five: their entries carry ``"path": null``. The kernels whose
+   the last five: their entries carry ``"path": null``. P3i and G1 (both
+   score modes) run the KV-group kernel (``csrc/decode_attn_kv_group.cuh``):
+   their entries add its plan (splits a sequence, blocks, warps a block,
+   query heads a warp) and the CUDA kernels a call launches (profiler),
+   which must be one. The kernels whose
    job is a rounding are held to criteria that the kernel without it
    misses, and the script checks that it does: K8 (and the partials
    mode's acc) to one bf16 step of each element and 99.9% of the elements
@@ -89,7 +94,8 @@ Phases (any failure exits non-zero; nothing is caught):
      tokens. (I-bf16): int8 weights on a bf16 cache, 256 requests of 16.
    For int8 + tail, (A), (D) and (E): decode at a full batch, one burst
    timed on the host clock and one traced by torch.profiler (time by
-   kernel, the card's busy share); for (B) and (C) the timed burst only;
+   kernel, the card's busy share; on (D) P3i's device time a step); for
+   (B) and (C) the timed burst only;
    for (D) and (E) also the host time of the allocator's pass before a
    burst. Then one line with the int8 + tail and f32 decode tokens/s of
    this run and their ratio, and each paged path's steady burst against
@@ -127,7 +133,8 @@ Phases (any failure exits non-zero; nothing is caught):
    prefill_buckets=(512,))``: 24 requests of 512-token prompts x 64 new
    tokens (two admission groups), F1 once per layer and prefill, G1 with
    exact q and K7 once per layer and decode step, K1, K1' and K3 never;
-   a timed and a traced steady burst. Its variants at 4 layers: (H-fused)
+   a timed and a traced steady burst (G1's device time a step). Its
+   variants at 4 layers: (H-fused)
    ``max_batch=3`` (G2), (H-scores) ``decode_attn="grouped"`` at capacity
    1024 (G1 with int8 scores) and (H-append) a bf16 cache with
    ``fused_append=True`` (A1; K5 and K6 never).
@@ -840,14 +847,40 @@ def check_decode_attn_paged(timer, mode):
     n_bytes = (live * row + 2 * q.numel() * 4 + b * 4
                + table.numel() * 4)
     bms, by = bound_ms(n_bytes, 4.0 * live * h * d, PEAK_F32_FLOP_S)
-    return dict(name=wrapper.__name__,
-                source="rten_tpu_torch/csrc/decode_attn_paged.cu",
-                replaces=("rten_tpu/kernels/attention.py:2573"
-                          if mode == "grid" else
-                          "rten_tpu/kernels/attention.py:2272"),
-                max_abs_err=err, ms=timer(lambda: wrapper(*args)),
-                plain_ms=timer(lambda: plain(*args)),
-                bound_ms=bms, bound_by=by, library_ms=None)
+    entry = dict(name=wrapper.__name__,
+                 source="rten_tpu_torch/csrc/decode_attn_paged.cu",
+                 replaces=("rten_tpu/kernels/attention.py:2573"
+                           if mode == "grid" else
+                           "rten_tpu/kernels/attention.py:2272"),
+                 max_abs_err=err, ms=timer(lambda: wrapper(*args)),
+                 plain_ms=timer(lambda: plain(*args)),
+                 bound_ms=bms, bound_by=by, library_ms=None)
+    if mode == "int8":
+        entry.update(kv_group_launch(
+            "decode_attn_paged_int8",
+            at.paged_int8_plan(b, h, pool.shape[3] // d, PAGE,
+                               table.shape[1], d),
+            lambda: wrapper(*args), entry))
+    return entry
+
+
+def kv_group_launch(label, plan, fn, entry):
+    """P3i's and G1's launch on the KV-group kernel: the plan's splits,
+    blocks, warps and heads a warp (printed: the wrapper's plan at these
+    shapes, not read from the launch), and the CUDA kernels one call
+    launches (profiler, kept in the entry), which must be one: the splits
+    merge in their cluster."""
+    n = device_launches(fn)
+    share = entry["bound_ms"] / entry["ms"]
+    print(f"{label}: {plan['splits']} split(s) a sequence, {plan['blocks']} "
+          f"blocks of {plan['warps']} warps, {plan['heads_per_warp']} query "
+          f"head(s) a warp in {plan['head_groups']} head group(s); {n} CUDA "
+          f"kernel(s) a call; kernel_ms {entry['ms']:.4f} bound_ms "
+          f"{entry['bound_ms']:.4f} (share {share:.2f})")
+    check(n == 1 or n == "not measured",
+          f"{label} launched {n} CUDA kernels a call, not one")
+    return dict(source="rten_tpu_torch/csrc/decode_attn_kv_group.cuh",
+                device_launches=n)
 
 
 def _verify_inputs(g, b, s, h, d, cap, live, mode):
@@ -1245,15 +1278,29 @@ def check_int8_decode(timer, entry, b, cap, lives=H_LIVES, h=H_HEADS,
     print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
           f"{bms:.4f} ({by}) library_ms None")
     entry_kw = {} if entry == "fused" else dict(mode=entry)
-    return dict(name=wrapper.__name__, **entry_kw,
-                source="rten_tpu_torch/csrc/decode_attn_grouped_int8.cu",
-                replaces=("rten_tpu/kernels/attention.py:318"
-                          if entry == "fused"
-                          else "rten_tpu/kernels/attention.py:1039"),
-                shape=(f"B {b}, {h} heads over {kvh} of {d}, int8 cache of "
-                       f"capacity {cap}, lives {lives[0]}-{lives[1] - 1}"),
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+    result = dict(name=wrapper.__name__, **entry_kw,
+                  source="rten_tpu_torch/csrc/decode_attn_grouped_int8.cu",
+                  replaces=("rten_tpu/kernels/attention.py:318"
+                            if entry == "fused"
+                            else "rten_tpu/kernels/attention.py:1039"),
+                  shape=(f"B {b}, {h} heads over {kvh} of {d}, int8 cache "
+                         f"of capacity {cap}, lives {lives[0]}-"
+                         f"{lives[1] - 1}"),
+                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                  bound_by=by, library_ms=None)
+    if entry != "fused":
+        result.update(kv_group_launch(
+            f"decode_attn_grouped_int8 ({entry})",
+            at.grouped_int8_plan(b, h, kvh, cap, d),
+            lambda: wrapper(*args, **kw), result))
+    if entry == "exact":
+        # The design G1 replaced, V1's kernel at S = 1 (G2's own), on the
+        # same inputs in the same run.
+        result["previous_design_ms"] = timer(
+            lambda: at.decode_attn_fused_int8(*args))
+        print(f"{label}: V1's kernel at S = 1 on the same inputs "
+              f"{result['previous_design_ms']:.4f} ms")
+    return result
 
 
 def check_grouped_append(timer, b=16, cap=4096, lives=H_LIVES, h=H_HEADS,
@@ -1743,7 +1790,9 @@ def to_device(params, device):
 # (``mistral``) at their own ``batch``, ``capacity`` and ``prompt`` length,
 # with ``config`` overrides of ``TransformerConfig.mixtral(n_experts=0)``;
 # on (H) and (I) the kernels of ``per_step`` launch once per layer and decode
-# step, those of ``per_prefill`` once per layer and admission group.
+# step, those of ``per_prefill`` once per layer and admission group; a
+# traced path with ``trace_kernel`` (label, CUDA symbol) prints that
+# kernel's device time a step.
 PATHS = {
     "int8_tail": dict(weights="int8", engine=dict(quantized_cache=True),
                       tail=16, requests=(320, 48),
@@ -1766,7 +1815,9 @@ PATHS = {
                        tail=0, requests=(320, 48),
                        kernels=("kv_append_paged_int8",
                                 "decode_attn_paged_int8", "head_argmax_int8",
-                                "matmul_int8_wo")),
+                                "matmul_int8_wo"),
+                       trace_kernel=("P3i (decode_attn_paged_int8)",
+                                     "kv_group::kernel")),
     "paged_f32": dict(weights="f32", engine=dict(paged=True, page_size=PAGE),
                       tail=0, requests=(320, 48),
                       kernels=("kv_append_paged", "decode_attn_paged")),
@@ -1807,6 +1858,8 @@ PATHS = {
                          per_step=("decode_attn_grouped_int8.exact",
                                    "kv_append_int8"),
                          per_prefill=("flash_attention",),
+                         trace_kernel=("G1 (decode_attn_grouped_int8, exact "
+                                       "q)", "kv_group::kernel"),
                          absent=("decode_attn_int8", "decode_attn_int8_tail",
                                  "tail_flush_int8", "decode_attn_fused_int8",
                                  "decode_attn_grouped_int8.int8_scores")),
@@ -2038,6 +2091,16 @@ def steady_decode(model, params, path, steps=16, trace=False):
         for e in on_card[:15]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
                   f"{e.count:5d}x  {e.key[:90]}")
+        if "trace_kernel" in PATHS[path]:
+            # P3i on (D), G1 on (H): the KV-group kernel's device time a
+            # step beside the step time.
+            label, symbol = PATHS[path]["trace_kernel"]
+            mine = [e for e in on_card if symbol in e.key]
+            ms = sum(e.self_device_time_total for e in mine) / 1e3
+            count = sum(e.count for e in mine)
+            print(f"path {path}: {label} device time {ms / steps:.4f} ms a "
+                  f"step ({count / steps:.2f} launches a step in the trace) "
+                  f"of {1e3 * wall / steps:.3f} ms a traced step")
     del engine
     torch.cuda.empty_cache()
     return rate
@@ -2595,7 +2658,7 @@ def main():
              "int4pack_ms", "prefill_ms",
              "prefill_library_ms", "prefill_bound_ms", "prefill_8192_ms",
              "prefill_8192_library_ms", "prefill_8192_bound_ms",
-             "decode_ms", "f32_max_abs_err",
+             "decode_ms", "previous_design_ms", "f32_max_abs_err",
              "f32_ms", "f32_plain_ms", "f32_bound_ms", "bf16_max_abs_err",
              "bf16_ms", "bf16_plain_ms", "bf16_bound_ms", "bf16_library_ms",
              "exact_q_max_abs_err", "exact_q_ms", "exact_q_plain_ms")

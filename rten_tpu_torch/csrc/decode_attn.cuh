@@ -1,24 +1,22 @@
 // Single-query decode attention, one block of four warps per (sequence,
 // head), shared by decode_attn_float.cu (K6 and its flat mode K8: a
 // contiguous float cache), decode_attn_split.cu (K9: separate K and V
-// planes) and decode_attn_paged.cu (P3 and P3i: a block-paged float or int8
-// pool).
+// planes) and decode_attn_paged.cu (P3 and its grid mode: a block-paged
+// float pool). The row layout helpers below (eight lanes a row) also serve
+// the int8 kernels (decode_attn_int8_tail.cu, verify_attn.cuh,
+// decode_attn_kv_group.cuh).
 //
 // Contract: for sequence b and query head h (kv head h / (H / KVH)),
 // n = min(lengths[b], capacity) tokens are read, token t from the row that
 // the addressing gives (Contiguous: [b, t] of a [B, cap, 2, KVH*D] cache;
 // Split: [b, kv head, t] of separate [B, KVH, S, D] K and V planes; Paged:
-// [table[b, t / page], t % page] of a [n_pages, page, 2, KVH*D] pool). A
-// float cache is read as f32; score_t = (q . k_t) * scale,
-// out = sum_t p_t v_t / max(sum_t p_t, 1e-30). An int8 pool (kQuant) with
-// bf16 scales [.., 2, KVH] per (token, plane, head) follows the reference's
-// int8 paged kernel: score_t = ((q . k_t) * scale) * k_scale_t, the sum
-// l takes the unscaled p_t and V is weighted by p_t * v_scale_t; q and the
-// output stay f32. A token whose row is masked (Paged with mask_unmapped,
-// an unmapped page) takes no weight; a sequence with no live token gets
-// zeros. kFlat (flash_decode_flat's float mode with q_bf16) rounds where
-// the reference's kernel casts: q and every K element to bf16 before the
-// score dot, the output to bf16.
+// [table[b, t / page], t % page] of a [n_pages, page, 2, KVH*D] pool). The
+// cache is read as f32; score_t = (q . k_t) * scale,
+// out = sum_t p_t v_t / max(sum_t p_t, 1e-30). A token whose row is masked
+// (Paged with mask_unmapped, an unmapped page) takes no weight; a sequence
+// with no live token gets zeros. kFlat (flash_decode_flat's float mode
+// with q_bf16) rounds where the reference's kernel casts: q and every K
+// element to bf16 before the score dot, the output to bf16.
 //
 // Design: a warp owns every fourth tile of 4 tokens; each lane holds two
 // adjacent dims of every 64, so a warp reads a head's K and V rows as
@@ -40,7 +38,7 @@ constexpr int kTok = 4;            // tokens per warp tile
 constexpr int kMaxJ = 4;           // head_dim <= 64 * kMaxJ
 constexpr int kMaxD = 64 * kMaxJ;
 
-// Roundings of the float modes (kQuant false).
+// Roundings of the float modes.
 enum Round { kNone = 0, kFlat = 1 };
 
 __device__ inline float bf16_round(float x) {
@@ -52,10 +50,6 @@ __device__ inline float2 load2(const float* p) {
 }
 __device__ inline float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ inline float2 load2(const int8_t* p) {
-  const char2 c = *reinterpret_cast<const char2*>(p);
-  return make_float2((float)c.x, (float)c.y);
 }
 
 // The row layout of the int8 kernel (decode_attn_int8_tail.cu) and the
@@ -149,10 +143,9 @@ struct Paged {
   }
 };
 
-template <typename T, typename Addr, bool kQuant, int kRound = kNone>
+template <typename T, typename Addr, int kRound = kNone>
 __global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ scales,
                        const int* __restrict__ lengths,
                        float* __restrict__ out, int heads, int kvh, int d,
                        Addr addr, float scale) {
@@ -182,7 +175,7 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
 
   const long long head = (long long)kh * addr.head_stride + 2 * lane;
   for (int t0 = warp * kTok; t0 < n; t0 += kWarps * kTok) {
-    float s[kTok], ks[kTok], vs[kTok];
+    float s[kTok];
     bool live[kTok];
     float2 vv[kTok][kMaxJ];
 #pragma unroll
@@ -190,12 +183,6 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
       const int t = t0 + u;
       const long long r = t < n ? addr.row(b, t) : -1;
       live[u] = r >= 0;
-      ks[u] = vs[u] = 0.0f;
-      if (kQuant && live[u]) {
-        const __nv_bfloat16* sr = scales + r * 2 * kvh + kh;
-        ks[u] = __bfloat162float(sr[0]);
-        vs[u] = __bfloat162float(sr[kvh]);
-      }
       float dot = 0.0f;
 #pragma unroll
       for (int j = 0; j < kMaxJ; ++j) {
@@ -217,10 +204,7 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
-      if (kQuant)
-        s[u] = live[u] ? s[u] * scale * ks[u] : -INFINITY;
-      else
-        s[u] = live[u] ? s[u] * scale : -INFINITY;
+      s[u] = live[u] ? s[u] * scale : -INFINITY;
       tile_max = fmaxf(tile_max, s[u]);
     }
     // Without masking, token t0 < n is live, so tile_max is finite and the
@@ -239,11 +223,10 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kTok; ++u) {
       const float p = expf(s[u] - m_new);
       l += p;
-      const float pv = kQuant ? p * vs[u] : p;
 #pragma unroll
       for (int j = 0; j < kMaxJ; ++j) {
-        acc[j].x += pv * vv[u][j].x;
-        acc[j].y += pv * vv[u][j].y;
+        acc[j].x += p * vv[u][j].x;
+        acc[j].y += p * vv[u][j].y;
       }
     }
     m = m_new;

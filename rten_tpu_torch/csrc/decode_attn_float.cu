@@ -57,15 +57,15 @@ cudaError_t launch(const void* q, const void* kv, const void* lengths,
   if (batch > 0) {
     if (bf16) {
       const __nv_bfloat16* rows = (const __nv_bfloat16*)kv;
-      kernel<__nv_bfloat16, Contiguous, false, kRound>
+      kernel<__nv_bfloat16, Contiguous, kRound>
           <<<grid, decode_attn::kThreads, 0, stream>>>(
-              (const float*)q, rows, rows + f, nullptr, (const int*)lengths,
+              (const float*)q, rows, rows + f, (const int*)lengths,
               (float*)out, heads, kvh, d, addr, scale);
     } else {
       const float* rows = (const float*)kv;
-      kernel<float, Contiguous, false, kRound>
+      kernel<float, Contiguous, kRound>
           <<<grid, decode_attn::kThreads, 0, stream>>>(
-              (const float*)q, rows, rows + f, nullptr, (const int*)lengths,
+              (const float*)q, rows, rows + f, (const int*)lengths,
               (float*)out, heads, kvh, d, addr, scale);
     }
   }

@@ -7,12 +7,11 @@
 // (_decode_fused_kernel with scales). The two differ only in how the TPU
 // grid batches sequences; the block-diagonal q rows, the one-hot scale
 // selectors and the token-packed int32 rows exist for the MXU and Mosaic.
-// One kernel serves both here.
 //
 // Contract: verify_attn.cuh at one query (lengths count it), modes kExact
-// and kScores. In kScores the integer dots are exact (int32 __dp4a sums),
-// and `dots` (int32 [B, H, cap], may be null) receives them for t <
-// min(lengths, cap).
+// and kScores (the same in decode_attn_kv_group.cuh). In kScores the
+// integer dots are exact (int32 __dp4a sums), and `dots` (int32 [B, H,
+// cap], may be null) receives them for t < min(lengths, cap).
 // pv_int8 (the reference's P.V as an int8 x int8 dot, attention.py:
 // 825-837): per block of block_k rows (the reference's blocks, row 0 of
 // the cache first) and query head, p_t = exp(s_t - m) with m the running
@@ -22,16 +21,33 @@
 //
 // Bound on the H100: bytes. At batch 16, 32 query heads over 8 KV heads of
 // 128 (Mistral-7B) and lives 512-576 a layer reads about 16 * 544 * 2 * 1040
-// bytes of int8 rows and scales, 18 MB, 5.4 us at 3.35 TB/s. Design: V1's
-// kernel (verify_attn.cuh) at S = 1, one block per (sequence, query head):
-// the four query heads of a KV head each read its rows (through L2 after
-// the first), and the sequence is not split over blocks. pv_int8 needs the
-// row max over whole reference blocks, which V1's walk spreads over four
-// warps, so it walks blocks instead: each warp owns every fourth block,
-// scores its rows into shared memory (one row's eight lanes a dot, as V1),
-// then takes p, the scale-folded p and their row max lane-strided over the
-// block, and sums p8 * v8 exactly in f32 (integers below 2^24) before the
-// one multiply by pq.
+// bytes of int8 rows and scales, 18 MB, 5.4 us at 3.35 TB/s. The exact-q
+// arithmetic, about 8 f32 FMAs a group of 4 heads and one exact convert
+// (a byte permute and a subtract) per int8 element, is about 4-5 us of the
+// card's instruction rate at that shape: as long as the bytes, so the
+// design keeps both low.
+// Design of G1 without pv_int8 (decode_attn_grouped_int8_rows): the kernel
+// of decode_attn_kv_group.cuh, one block per (sequence, KV head, split):
+// the group's four query heads share each row, which crosses from device
+// memory once through a 2-stage ring of 64-row tiles (16-byte cp.async);
+// at d 128 a warp holds two heads' q and accumulators, and two head groups
+// of warps read each staged row from shared memory. B x KVH = 128 blocks
+// would leave the walk of 512-576 rows to one block an SM, so
+// grouped_int8_plan splits each sequence into 2 chunks of whole 16-row
+// units (one cluster, merged through distributed shared memory in the
+// same launch) and gives each of the 256 blocks 8 warps. V1's kernel at
+// S = 1 (one block per query head, every head reading the KV head's rows,
+// no split) took 0.043 ms here; int8 scores share the walk with __dp4a
+// dots.
+// G2 (decode_attn_grouped_int8 with exact q, batches of 1-3) stays on
+// V1's kernel (verify_attn.cuh) at S = 1. pv_int8 needs the row max over
+// whole reference blocks, which V1's walk spreads over four warps, so it
+// walks blocks instead: each warp owns every fourth block, scores its rows
+// into shared memory (one row's eight lanes a dot, as V1), then takes p,
+// the scale-folded p and their row max lane-strided over the block, and
+// sums p8 * v8 exactly in f32 (integers below 2^24) before the one
+// multiply by pq.
+#include "decode_attn_kv_group.cuh"
 #include "verify_attn.cuh"
 
 namespace {
@@ -222,20 +238,19 @@ cudaError_t launch_pv_int8(const void* q, const void* kv, const void* scales,
 
 }  // namespace
 
-// int8_scores: 0 exact q (kExact), 1 row-quantized q (kScores). pv_int8: 1
-// takes the int8 P.V walk over blocks of block_k rows (dots unused). The
-// wrapper checks d in {64, 128}, shapes and contiguity.
+// G2 (exact q, pv_int8 0) and pv_int8 in either score mode (int8_scores 1:
+// row-quantized q): V1's kernel at S = 1, or the pv_int8 walk over blocks
+// of block_k rows. The wrapper checks d in {64, 128}, shapes and
+// contiguity.
 extern "C" int decode_attn_grouped_int8(const void* q, const void* kv,
                                         const void* scales,
                                         const void* lengths, void* out,
-                                        void* dots, int batch, int heads,
-                                        int kvh, int d, int cap,
-                                        int int8_scores, int pv_int8,
+                                        int batch, int heads, int kvh, int d,
+                                        int cap, int int8_scores, int pv_int8,
                                         int block_k, float scale,
                                         void* stream) {
   using verify_rows::launch_decode;
   cudaStream_t st = (cudaStream_t)stream;
-  void* rows = const_cast<void*>(kv);
   cudaError_t err;
   if (pv_int8)
     err = int8_scores
@@ -245,13 +260,37 @@ extern "C" int decode_attn_grouped_int8(const void* q, const void* kv,
               : launch_pv_int8<verify_rows::kExact>(
                     q, kv, scales, lengths, out, batch, heads, kvh, d, cap,
                     block_k, scale, st);
+  else if (int8_scores)
+    err = cudaErrorInvalidValue;  // G1's int8 scores: the rows kernel below
   else
-    err = int8_scores
-              ? launch_decode<int8_t, verify_rows::kScores, false>(
-                    q, rows, scales, nullptr, nullptr, 0, 0, lengths, out,
-                    dots, batch, heads, kvh, d, cap, scale, st)
-              : launch_decode<int8_t, verify_rows::kExact, false>(
-                    q, rows, scales, nullptr, nullptr, 0, 0, lengths, out,
-                    nullptr, batch, heads, kvh, d, cap, scale, st);
+    err = launch_decode<int8_t, verify_rows::kExact, false>(
+        q, const_cast<void*>(kv), scales, nullptr, nullptr, 0, 0, lengths,
+        out, nullptr, batch, heads, kvh, d, cap, scale, st);
   return (int)err;
+}
+
+// G1 without pv_int8, the launch of grouped_int8_plan: int8_scores 0 exact
+// q (kExact), 1 row-quantized q (kScores, `dots` int32 [B, H, cap] or
+// null); `splits` chunks a sequence (1 to 8, one cluster) of whole
+// `unit`-row units; hpw query heads a warp, hg head groups, warps 4 or 8
+// a block (kv_group::launch). d 64 or 128, as V1's kernel took. The
+// wrapper checks shapes, contiguity and 16-byte alignment.
+extern "C" int decode_attn_grouped_int8_rows(
+    const void* q, const void* kv, const void* scales, const void* lengths,
+    void* out, void* dots, int batch, int heads, int kvh, int d, int cap,
+    int int8_scores, int splits, int unit, int hpw, int hg, int warps,
+    float scale, void* stream) {
+  const kv_group::Rows addr{cap};
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(int8_scores
+                   ? kv_group::launch<kv_group::Rows, kv_group::kScores,
+                                      false>(
+                         q, kv, scales, lengths, out, dots, batch, heads,
+                         kvh, d, addr, splits, unit, hpw, hg, warps, scale,
+                         st)
+                   : kv_group::launch<kv_group::Rows, kv_group::kExact,
+                                      false>(
+                         q, kv, scales, lengths, out, nullptr, batch, heads,
+                         kvh, d, addr, splits, unit, hpw, hg, warps, scale,
+                         st));
 }

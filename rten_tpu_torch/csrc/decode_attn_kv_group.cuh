@@ -1,0 +1,574 @@
+// Single-query decode attention over an int8 KV cache with every query head
+// of a KV head's group in one block: the kernel of decode_attn_paged.cu's
+// int8 mode (P3i: a block-paged pool, rows through the page table) and of
+// decode_attn_grouped_int8.cu's G1 entry (contiguous rows, exact q or int8
+// scores).
+//
+// Contract: for sequence b and KV head kh, query heads kh * rep .. kh * rep
+// + rep - 1 (rep = H / KVH) read rows t < n = min(lengths[b], capacity),
+// row t of sequence b from the row the addressing gives (Rows: [b, t] of a
+// [B, cap, 2, KVH*D] cache; Pages: [table[b, t / page], t % page] of a
+// [n_pages, page, 2, KVH*D] pool, an unmapped id (-1) reading pool page
+// 0), with bf16 scales [.., 2, KVH] per (row, plane, KV head). q f32 [B,
+// H, D], out f32 [B, H, D], nothing rounded to bf16.
+// kExact: s_t = ((q . k8_t) * scale) * k_scale_t.
+// kScores: q row-quantized in the kernel (verify_rows::quantize_q: qs =
+//   absmax / 127, 1 where the row is 0; q8 = clip(rint(q / qs), -127, 127))
+//   and s_t = (f32(int32 q8 . k8_t) * (qs * scale)) * k_scale_t; with
+//   `dots` the int32 sums [B, H, cap] are stored for t < n.
+// Then out = sum_t p_t v_scale_t v8_t / max(sum_t p_t, 1e-30), p_t =
+// exp(s_t - max s): l takes the unscaled p, V is weighted by p * v_scale.
+// A sequence with no live row gets zeros.
+//
+// Bound on the H100: bytes. Each live row's int8 K and V slices of one KV
+// head (2 x D bytes) and its two bf16 scales are read once for the whole
+// group; the arithmetic, about 4 f32 flops a query head and one exact
+// convert per int8 element, is as long as the bytes at a group of 4 (G1 at
+// path (H)) and a quarter of them at a group of 1 (P3i at path (D)).
+//
+// Design: one block of 4 or 8 warps per (sequence, KV head, split), so each
+// int8 row crosses from device memory once for a group of up to 8 query
+// heads (4 above D 128); a larger group takes a block per 8 (or 4) of its
+// heads, each reading the rows.
+// - Rows move a tile of 64 at a time (a page of 64 on the paged path; 32
+//   above D 128) through a 2-stage ring in shared memory by 16-byte
+//   cp.async copies: the tile's K and V slices (64 x 2 x D bytes, 8 KB at
+//   D 64) are in flight together, and the next tile's while this one is
+//   computed. The two bf16 scales of each row are plain loads sent with
+//   the copies and stored beside them after the current tile's compute.
+// - A paged block reads its chunk's page ids from the table once, into
+//   shared memory, before any copy: one id a page, not one a row. With one
+//   split every id of the sequence loads beside the length and q, so a
+//   block waits on one round trip to device memory before its copies.
+// - Compute reads the tile from shared memory on the eight-lanes-a-row
+//   layout (decode_attn.cuh): each lane holds D / 8 values of a row, in
+//   8- or 16-byte loads; int8 converts exactly by a byte permute and one
+//   float subtract; the dot reduces over 8 lanes. A warp serves kHpw query
+//   heads of the group with q and the accumulators in registers (kHpw * D
+//   / 8 <= 32 values each), so a converted row is used kHpw times; where
+//   the group has more heads, kHG head groups of warps share each staged
+//   row from shared memory. Each warp keeps an online softmax per head
+//   and takes a tile in three passes: the scores of all its rows of the
+//   tile (independent steps the scheduler interleaves), one max and one
+//   rescale per head (skipped where the max did not grow: alpha would be
+//   1), then P V; a partial tile skips its dead steps.
+// - A sequence splits into `splits` chunks of whole units (a page, or 16
+//   rows) only where B x KVH alone leaves the card short of blocks; the
+//   splits of a (sequence, KV head) form one thread-block cluster and merge
+//   their (m, l, acc) through distributed shared memory after one cluster
+//   barrier: one launch, no scratch. A launch of few blocks takes 8 warps
+//   a block: the walk is bound by the latency of its warps, not by the
+//   instruction rate.
+// What bounds it (python -m rten_tpu_torch.tools.kv_group_variants): the
+// staged copies alone, without the walk, take 0.79-0.87 of the whole
+// kernel's time at both paths' shapes, the walk alone 0.66-0.84: each
+// block's chain of round trips (length, ids, copies) and the few warps
+// left to hide them, not the card's byte rate.
+#pragma once
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "verify_attn.cuh"
+
+namespace kv_group {
+
+namespace cg = cooperative_groups;
+
+constexpr int kLanes = 8;        // lanes a row
+constexpr int kMaxIds = 256;     // page ids a paged block stages
+constexpr int kMaxSplits = 8;    // a cluster holds a sequence's splits
+
+enum Mode { kExact = 0, kScores = 1 };
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The four signed bytes of w as exact floats: byte b of w ^ 0x80808080 is
+// v + 128 in [0, 255]; under the exponent of 2^23 it reads 2^23 + v + 128.
+__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.0f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.0f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.0f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.0f;
+}
+
+// Each addressing gives row t of sequence b a row index r into [rows, 2,
+// KVH*D] (and [rows, 2, KVH] for the scales), for t in the block's chunk
+// [c0, c1).
+
+// A contiguous cache [B, cap, 2, KVH*D]: row b * cap + t.
+struct Rows {
+  static constexpr int kIds = 1;
+  int cap;
+  __device__ int capacity() const { return cap; }
+  __device__ void stage_ids(int*, int, int, int) const {}
+  __device__ long long row(const int*, int b, int t, int) const {
+    return (long long)b * cap + t;
+  }
+};
+
+// A block-paged pool [n_pages, page, 2, KVH*D] through the table [B,
+// max_pages]: the chunk starts on a page boundary, and its page ids
+// (clamped to >= 0: an unmapped page reads pool page 0) sit in shared
+// memory, at most kMaxIds of them (the wrapper's plan splits to keep it
+// so; with one split every id of the row, max_pages <= kMaxIds).
+struct Pages {
+  static constexpr int kIds = kMaxIds;
+  const int* table;
+  int page, max_pages;
+  __device__ int capacity() const { return page * max_pages; }
+  __device__ void stage_ids(int* ids, int b, int c0, int c1) const {
+    const int p0 = c0 / page, np = (c1 - c0 + page - 1) / page;
+    for (int i = threadIdx.x; i < np; i += blockDim.x)
+      ids[i] = max(table[(long long)b * max_pages + p0 + i], 0);
+  }
+  __device__ long long row(const int* ids, int, int t, int c0) const {
+    return (long long)ids[(t - c0) / page] * page + t % page;
+  }
+};
+
+// kDpl int8 values of shared memory as kDpl / 4 words, in 16-byte loads
+// (kDpl 16 or 32) or 8-byte ones (kDpl 8 or 24).
+template <int kDpl>
+__device__ __forceinline__ void words(const int8_t* p, uint32_t* w) {
+  if constexpr (kDpl % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < kDpl / 16; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kDpl / 8; ++i) {
+      const uint2 v = reinterpret_cast<const uint2*>(p)[i];
+      w[2 * i] = v.x;
+      w[2 * i + 1] = v.y;
+    }
+  }
+}
+
+template <typename Addr, int kMode, int kDpl, int kHpw, int kHG, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
+    kernel(const float* __restrict__ q, const int8_t* __restrict__ kv,
+           const __nv_bfloat16* __restrict__ scales,
+           const int* __restrict__ lengths, float* __restrict__ out,
+           int* __restrict__ dots, int heads, int kvh, Addr addr, int unit,
+           float scale) {
+  constexpr int d = kLanes * kDpl;
+  // Rows a ring stage holds: 64, or 32 above D 128, where two stages of
+  // 64 would pass the 48 KB of static shared memory.
+  constexpr int kTile = d <= 128 ? 64 : 32;
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kWords = kDpl / 4;
+  constexpr int kRG = kWarps / kHG;      // warps a head group
+  constexpr int kSteps = kTile / (4 * kRG);  // a warp's steps a tile
+  constexpr int kVec = d / 16;           // 16-byte pieces of a row slice
+  constexpr int kPieces = kTile * kVec;  // of a plane of a stage
+  constexpr int kPlane = kTile * d;      // bytes of one plane of a stage
+  constexpr int kStage = 2 * kPlane + 2 * kTile * 4;
+  constexpr int kHeads = kHG * kHpw;     // the block's heads, padded
+  // After the walk the ring holds the warps' states and the block's.
+  constexpr int kMerge =
+      4 * (2 * kWarps * kHpw + kWarps * kHpw * d + 2 * kHeads + kHeads * d);
+  static_assert(kHG * kRG == kWarps && kTile % (4 * kRG) == 0 &&
+                    kThreads >= 2 * kTile,
+                "tiling");
+  static_assert(kMerge <= 2 * kStage, "merge state fits in the ring");
+  __shared__ __align__(16) unsigned char ring[2 * kStage];
+  __shared__ int ids[Addr::kIds];
+
+  // The block serves kHeads query heads of KV head kh's group from head
+  // h0 of the group on (a group of more heads takes more blocks, each
+  // reading the rows again); nh of them are real.
+  const int split = blockIdx.x, splits = gridDim.x, b = blockIdx.z;
+  const int rep = heads / kvh, chunks = (rep + kHeads - 1) / kHeads;
+  const int kh = blockIdx.y / chunks;
+  const int h0 = (blockIdx.y % chunks) * kHeads, nh = min(kHeads, rep - h0);
+  const long long hbase = (long long)b * heads + kh * rep + h0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane / kLanes, col = (lane % kLanes) * kDpl;
+  const int hg = warp % kHG, rg = warp / kHG;
+  const long long f = (long long)kvh * d;
+
+  // q of the warp's heads (a padded head reads the block's last q and
+  // writes nothing), and with one split every page id of the sequence,
+  // loaded beside the length: none of them waits for it.
+  const int len = lengths[b];
+  float qv[kHpw][kDpl];
+#pragma unroll
+  for (int j = 0; j < kHpw; ++j) {
+    const int hl = min(hg * kHpw + j, nh - 1);
+    const float* qr = q + (hbase + hl) * d + col;
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i) qv[j][i] = qr[i];
+  }
+  if (splits == 1) addr.stage_ids(ids, b, 0, addr.capacity());
+  // The chunk: rows [c0, c1) of [0, n), whole units, one per split.
+  const int n = min(max(len, 0), addr.capacity());
+  const int per = (n + splits - 1) / splits;
+  const int chunk = (per + unit - 1) / unit * unit;
+  const int c0 = min(n, split * chunk), c1 = min(n, c0 + chunk);
+  const int tiles = (c1 - c0 + kTile - 1) / kTile;
+  if (splits > 1) addr.stage_ids(ids, b, c0, c1);
+
+  uint32_t qw[kHpw][kWords];
+  float qscale[kHpw];
+#pragma unroll
+  for (int j = 0; j < kHpw; ++j) {
+    qscale[j] = scale;
+    if constexpr (kMode == kScores)
+      qscale[j] = verify_rows::quantize_q<kDpl>(qv[j], (int*)qw[j]) * scale;
+  }
+  float m[kHpw], l[kHpw], acc[kHpw][kDpl];
+#pragma unroll
+  for (int j = 0; j < kHpw; ++j) {
+    m[j] = -INFINITY;
+    l[j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i) acc[j][i] = 0.0f;
+  }
+  __syncthreads();  // the page ids
+
+  // Tile j's K and V slices into stage j % 2 (one commit group per tile
+  // and thread, empty past the chunk); returns this thread's scale of the
+  // tile (row tid % 64, plane tid / 64; threads past 128 take none),
+  // stored by put_scale.
+  auto stage = [&](int j) -> float {
+    unsigned char* buf = ring + (j & 1) * kStage;
+    const int t0 = c0 + j * kTile;
+#pragma unroll
+    for (int p = 0; p < (kPieces + kThreads - 1) / kThreads; ++p) {
+      const int e = tid + p * kThreads, r = e / kVec, vq = e % kVec;
+      if ((kPieces % kThreads == 0 || e < kPieces) && t0 + r < c1) {
+        const int8_t* src = kv + addr.row(ids, b, t0 + r, c0) * 2 * f +
+                            (long long)kh * d + 16 * vq;
+        cp_async16(buf + r * d + 16 * vq, src);
+        cp_async16(buf + kPlane + r * d + 16 * vq, src + f);
+      }
+    }
+    cp_async_commit();
+    const int t = t0 + tid % kTile, plane = tid / kTile;
+    return t < c1 && plane < 2 ? __bfloat162float(
+                        scales[(addr.row(ids, b, t, c0) * 2 + plane) * kvh +
+                               kh])
+                  : 0.0f;
+  };
+  auto put_scale = [&](int j, float s) {
+    if (tid < 2 * kTile)
+      reinterpret_cast<float*>(ring + (j & 1) * kStage + 2 * kPlane)[tid] = s;
+  };
+
+  // One tile's walk over stage buf (rows live rows from row t0): a full
+  // tile unrolls without a branch; a partial one skips the steps past its
+  // rows (warp-uniform).
+  auto walk = [&](auto full, const unsigned char* buf, int rows, int t0) {
+    constexpr bool kFull = decltype(full)::value;
+    auto on = [&](int k) { return kFull || (k * kRG + rg) * 4 < rows; };
+    const int8_t* ks8 = reinterpret_cast<const int8_t*>(buf);
+    const int8_t* vs8 = ks8 + kPlane;
+    const float* ksc = reinterpret_cast<const float*>(buf + 2 * kPlane);
+    const float* vsc = ksc + kTile;
+    // The scores of the warp's rows: step k takes row (k * kRG + rg) * 4 +
+    // grp, and the steps are independent of each other.
+    float sc[kSteps][kHpw];
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      const int r = (k * kRG + rg) * 4 + grp;
+      if (!on(k)) {
+#pragma unroll
+        for (int j2 = 0; j2 < kHpw; ++j2) sc[k][j2] = -INFINITY;
+        continue;
+      }
+      uint32_t kw[kWords];
+      words<kDpl>(ks8 + r * d + col, kw);
+      if constexpr (kMode == kExact) {
+        float kf[kDpl];
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) s8x4_to_f32(kw[w], kf + 4 * w);
+#pragma unroll
+        for (int j2 = 0; j2 < kHpw; ++j2) {
+          float dot = 0.0f;
+#pragma unroll
+          for (int i = 0; i < kDpl; ++i) dot += qv[j2][i] * kf[i];
+#pragma unroll
+          for (int o = 1; o < kLanes; o <<= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          sc[k][j2] = dot * scale;
+        }
+      } else {
+#pragma unroll
+        for (int j2 = 0; j2 < kHpw; ++j2) {
+          int dot = 0;
+#pragma unroll
+          for (int w = 0; w < kWords; ++w)
+            dot = __dp4a((int)qw[j2][w], (int)kw[w], dot);
+#pragma unroll
+          for (int o = 1; o < kLanes; o <<= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          const int hl = hg * kHpw + j2;
+          if (dots != nullptr && lane % kLanes == 0 && r < rows && hl < nh)
+            dots[(hbase + hl) * addr.capacity() + t0 + r] = dot;
+          sc[k][j2] = (float)dot * qscale[j2];
+        }
+      }
+      const float ksr = ksc[r];
+#pragma unroll
+      for (int j2 = 0; j2 < kHpw; ++j2)
+        sc[k][j2] = r < rows ? sc[k][j2] * ksr : -INFINITY;
+    }
+    // Rows are a prefix of the tile: the warp has a live row here iff its
+    // first one is (warp-uniform). Then per head the tile's max over the
+    // warp's rows, one rescale where it grew, and p v_scale in place.
+    if (4 * rg < rows) {
+#pragma unroll
+      for (int j2 = 0; j2 < kHpw; ++j2) {
+        float mx = sc[0][j2];
+#pragma unroll
+        for (int k = 1; k < kSteps; ++k) mx = fmaxf(mx, sc[k][j2]);
+#pragma unroll
+        for (int o = kLanes; o < 32; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        if (mx > m[j2]) {
+          const float alpha = expf(m[j2] - mx);
+          l[j2] *= alpha;
+#pragma unroll
+          for (int i = 0; i < kDpl; ++i) acc[j2][i] *= alpha;
+          m[j2] = mx;
+        }
+#pragma unroll
+        for (int k = 0; k < kSteps; ++k) {
+          if (!on(k)) continue;
+          const float p = expf(sc[k][j2] - m[j2]);
+          l[j2] += p;
+          sc[k][j2] = p * vsc[(k * kRG + rg) * 4 + grp];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kSteps; ++k) {
+        if (!on(k)) continue;
+        const int r = (k * kRG + rg) * 4 + grp;
+        uint32_t vw[kWords];
+        words<kDpl>(vs8 + r * d + col, vw);
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) {
+          float vf[4];
+          s8x4_to_f32(vw[w], vf);
+#pragma unroll
+          for (int j2 = 0; j2 < kHpw; ++j2)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[j2][4 * w + i] += sc[k][j2] * vf[i];
+        }
+      }
+    }
+  };
+
+  // The ring: tile j + 1 is in flight while tile j is walked. The barrier
+  // at the top of iteration j lands tile j (its copies waited for, its
+  // scales stored) and frees stage (j + 1) % 2, which tile j + 1 then
+  // fills; its scales land in registers during the walk and are stored
+  // after it. (Four stages, three tiles ahead, measured slower for G1 at
+  // path (H)'s shapes.)
+  put_scale(0, stage(0));
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j's rows and scales; stage (j + 1) % 2 is free
+    const float next = stage(j + 1);
+    const unsigned char* buf = ring + (j & 1) * kStage;
+    const int t0 = c0 + j * kTile, rows = min(kTile, c1 - t0);
+    if (rows == kTile)
+      walk(std::true_type(), buf, rows, t0);
+    else
+      walk(std::false_type(), buf, rows, t0);
+    if (j + 1 < tiles) put_scale(j + 1, next);
+  }
+  __syncthreads();  // every warp is done with the ring
+
+  // Sum l and acc over the warp's four row groups (m is warp-uniform).
+#pragma unroll
+  for (int j = 0; j < kHpw; ++j) {
+#pragma unroll
+    for (int o = kLanes; o < 32; o <<= 1) {
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], o);
+#pragma unroll
+      for (int i = 0; i < kDpl; ++i)
+        acc[j][i] += __shfl_xor_sync(0xffffffffu, acc[j][i], o);
+    }
+  }
+  // The warps' states, then the block's per head (the ring is free: the
+  // last tile's wait took every copy, and its barrier every read).
+  float* wm = reinterpret_cast<float*>(ring);  // [kWarps][kHpw]
+  float* wl = wm + kWarps * kHpw;
+  float* wacc = wl + kWarps * kHpw;           // [kWarps][kHpw][d]
+  float* bm = wacc + kWarps * kHpw * d;       // [kHeads]
+  float* bl = bm + kHeads;
+  float* bacc = bl + kHeads;                  // [kHeads][d]
+#pragma unroll
+  for (int j = 0; j < kHpw; ++j) {
+    if (lane == 0) {
+      wm[warp * kHpw + j] = m[j];
+      wl[warp * kHpw + j] = l[j];
+    }
+    if (grp == 0) {
+#pragma unroll
+      for (int i = 0; i < kDpl; ++i)
+        wacc[(warp * kHpw + j) * d + col + i] = acc[j][i];
+    }
+  }
+  __syncthreads();
+  // A warp (or a block) that saw no live row has m = -inf and weighs
+  // exp(-inf) = 0; a head with no live row at all gets zeros.
+  for (int e = tid; e < kHeads * d; e += kThreads) {
+    const int hl = e / d, c = e % d, g = hl / kHpw, j = hl % kHpw;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int x = 0; x < kRG; ++x)
+      mx = fmaxf(mx, wm[(g + kHG * x) * kHpw + j]);
+    float sum = 0.0f, o = 0.0f;
+    if (mx != -INFINITY) {
+#pragma unroll
+      for (int x = 0; x < kRG; ++x) {
+        const int w = (g + kHG * x) * kHpw + j;
+        const float cw = expf(wm[w] - mx);
+        sum += wl[w] * cw;
+        o += wacc[w * d + c] * cw;
+      }
+    }
+    if (splits == 1) {
+      if (hl < nh) out[(hbase + hl) * d + c] = o / fmaxf(sum, 1e-30f);
+    } else {
+      bacc[hl * d + c] = o;
+      if (c == 0) {
+        bm[hl] = mx;
+        bl[hl] = sum;
+      }
+    }
+  }
+  if (splits == 1) return;
+  // The splits' states merge across the cluster: split s writes the s-th
+  // share of the group's outputs from every split's shared memory.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int total = nh * d, share = (total + splits - 1) / splits;
+  const int e1 = min(total, (split + 1) * share);
+  for (int e = split * share + tid; e < e1; e += kThreads) {
+    const int hl = e / d, c = e % d;
+    float mx = -INFINITY;
+    for (int s = 0; s < splits; ++s)
+      mx = fmaxf(mx, cluster.map_shared_rank(bm, s)[hl]);
+    float sum = 0.0f, o = 0.0f;
+    if (mx != -INFINITY) {
+      for (int s = 0; s < splits; ++s) {
+        const float cw = expf(cluster.map_shared_rank(bm, s)[hl] - mx);
+        sum += cluster.map_shared_rank(bl, s)[hl] * cw;
+        o += cluster.map_shared_rank(bacc, s)[hl * d + c] * cw;
+      }
+    }
+    out[(hbase + hl) * d + c] = o / fmaxf(sum, 1e-30f);
+  }
+  cluster.sync();  // no block leaves while another reads its state
+}
+
+template <typename Addr, int kMode, int kDpl, int kHpw, int kHG, int kWarps>
+cudaError_t launch_one(const float* q, const int8_t* kv,
+                       const __nv_bfloat16* scales, const int* lengths,
+                       float* out, int* dots, int batch, int heads, int kvh,
+                       Addr addr, int splits, int unit, float scale,
+                       cudaStream_t stream) {
+  auto fn = kernel<Addr, kMode, kDpl, kHpw, kHG, kWarps>;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  const int chunks = (heads / kvh + kHG * kHpw - 1) / (kHG * kHpw);
+  cfg.gridDim = dim3(splits, kvh * chunks, batch);
+  cfg.blockDim = dim3(32 * kWarps);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, fn, q, kv, scales, lengths, out, dots,
+                            heads, kvh, addr, unit, scale);
+}
+
+// The caller's plan chooses the tiling: kHpw query heads a warp (q and
+// the accumulators of kHpw heads hold kHpw * D / 8 values each, at most
+// 32), kHG head groups of warps sharing each staged row (a block serves
+// kHpw * kHG heads), and 4 or 8 warps. These are the tilings built; D
+// above 128 only for kWide (the paged pool: K6's kernel took D up to 256
+// there). The wrapper checks shapes, contiguity, 16-byte alignment, a
+// paged chunk's page ids and 1 <= splits <= kMaxSplits.
+template <typename Addr, int kMode, bool kWide>
+cudaError_t launch(const void* q, const void* kv, const void* scales,
+                   const void* lengths, void* out, void* dots, int batch,
+                   int heads, int kvh, int d, Addr addr, int splits, int unit,
+                   int hpw, int hg, int warps, float scale,
+                   cudaStream_t stream) {
+  if (kvh < 1 || heads < kvh || heads % kvh || splits < 1 ||
+      splits > kMaxSplits || unit < 1 || (warps != 4 && warps != 8))
+    return cudaErrorInvalidValue;
+  if (batch <= 0) return cudaGetLastError();
+  const float* qf = (const float*)q;
+  const int8_t* rows = (const int8_t*)kv;
+  const __nv_bfloat16* sc = (const __nv_bfloat16*)scales;
+  const int* len = (const int*)lengths;
+  float* o = (float*)out;
+  int* dt = (int*)dots;
+#define KV_GROUP_TILING(D, HPW, HG)                                         \
+  if (d == D && hpw == HPW && hg == HG)                                     \
+    return warps == 4                                                       \
+               ? launch_one<Addr, kMode, D / kLanes, HPW, HG, 4>(           \
+                     qf, rows, sc, len, o, dt, batch, heads, kvh, addr,     \
+                     splits, unit, scale, stream)                           \
+               : launch_one<Addr, kMode, D / kLanes, HPW, HG, 8>(           \
+                     qf, rows, sc, len, o, dt, batch, heads, kvh, addr,     \
+                     splits, unit, scale, stream);
+  KV_GROUP_TILING(64, 1, 1)
+  KV_GROUP_TILING(64, 2, 1)
+  KV_GROUP_TILING(64, 4, 1)
+  KV_GROUP_TILING(64, 4, 2)
+  KV_GROUP_TILING(128, 1, 1)
+  KV_GROUP_TILING(128, 2, 1)
+  KV_GROUP_TILING(128, 2, 2)
+  KV_GROUP_TILING(128, 2, 4)
+  if constexpr (kWide) {
+    KV_GROUP_TILING(192, 1, 1)
+    KV_GROUP_TILING(192, 1, 2)
+    KV_GROUP_TILING(192, 1, 4)
+    KV_GROUP_TILING(256, 1, 1)
+    KV_GROUP_TILING(256, 1, 2)
+    KV_GROUP_TILING(256, 1, 4)
+  }
+#undef KV_GROUP_TILING
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace kv_group

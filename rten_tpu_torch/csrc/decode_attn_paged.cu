@@ -1,40 +1,56 @@
 // Single-query decode attention over a block-paged KV pool.
 //
 // Replaces: rten_tpu/kernels/attention.py::flash_decode_paged_grouped in
-// its float mode (kernel _decode_paged_grouped_kernel) and its int8 mode
-// (kernel _decode_paged_grouped_quant_kernel), and ::flash_decode_paged
-// (kernel _decode_paged_kernel, float pools). On the TPU the page table is
-// a scalar-prefetch operand and each program DMAs whole pages of G
-// sequences (grouped) or one page per grid step (grid) into VMEM; the
-// block-diagonal q and the one-hot scale selector exist for the MXU. Here
-// each block resolves its own sequence's page ids from the table as it
-// walks the tokens, so the pool is never gathered into a contiguous copy.
+// its float mode (kernel _decode_paged_grouped_kernel, P3) and its int8
+// mode (kernel _decode_paged_grouped_quant_kernel, P3i), and
+// ::flash_decode_paged (kernel _decode_paged_kernel, float pools, P3's grid
+// mode). On the TPU the page table is a scalar-prefetch operand and each
+// program DMAs whole pages of G sequences (grouped) or one page per grid
+// step (grid) into VMEM; the block-diagonal q and the one-hot scale
+// selector exist for the MXU. Here each block reads its own sequence's
+// page ids from the table, so the pool is never gathered into a
+// contiguous copy.
 //
-// Contract (decode_attn.cuh, Paged addressing): pool f32 or int8
-// [n_pages, page, 2, KVH*D], int8 with bf16 scales [n_pages, page, 2, KVH];
-// table int32 [B, max_pages] (-1 = unmapped); tokens [0, min(lengths[b],
-// page * max_pages)) are read. An unmapped page inside the length is read
-// from pool page 0 (mask_unmapped = 0, the grouped kernels, which clamp
-// the id to >= 0) or masked (mask_unmapped = 1, the grid kernel). The
-// reference's int8 numerics: q and the output f32 without bf16 rounding,
-// score = ((q . k_int8) * scale) * k_scale, l sums the unscaled p, and V
-// is weighted by p * v_scale.
+// Contract: pool f32 or int8 [n_pages, page, 2, KVH*D], int8 with bf16
+// scales [n_pages, page, 2, KVH]; table int32 [B, max_pages] (-1 =
+// unmapped); tokens [0, min(lengths[b], page * max_pages)) are read. An
+// unmapped page inside the length is read from pool page 0 (mask_unmapped
+// = 0, the grouped kernels, which clamp the id to >= 0) or masked
+// (mask_unmapped = 1, the grid kernel; float pools only). The reference's
+// int8 numerics: q and the output f32 without bf16 rounding, score = ((q .
+// k_int8) * scale) * k_scale, l sums the unscaled p, and V is weighted by
+// p * v_scale; a sequence with no live token gets zeros.
 //
 // Bound on the H100: bytes. At batch 256, 12 heads of 64 and a live
 // length L it reads B*L*2*768 elements per layer: about 189 MB of an f32
 // pool at L = 120 (56 us), 47 MB of int8 plus 1.5 MB of scales (15 us).
-// Design: K6's kernel (one block of four warps per (sequence, head), a
-// per-warp online softmax in registers) on the paged addressing; the
-// table entry of each token is a broadcast load that stays in L1 for the
-// page's 64 tokens.
+// The int8 arithmetic is about 4 flops and one convert per byte, 7 us of
+// the card's f32 instruction rate at that shape: bytes bound it.
+// Float pools (P3 and its grid mode): K6's kernel (decode_attn.cuh, one
+// block of four warps per (sequence, head), a per-warp online softmax in
+// registers); the table entry of each token is a broadcast load that stays
+// in L1 for the page's tokens.
+// int8 pools (P3i): decode_attn_kv_group.cuh, one block per (sequence, KV
+// head) with every query head of the group, so each int8 row is read once
+// for the group; the block reads its page ids once into shared memory and
+// moves a page of 64 rows at a time (8 KB of K and V at D 64, plus 256 B
+// of scales) through a 2-stage cp.async ring, computing from shared memory
+// on the eight-lanes-a-row layout. K6's layout gave an int8 row to a lane
+// as 2-byte loads, one dependent table read and two 2-byte scale loads per
+// token, and 4 tokens a warp in flight: 0.189 ms against the 0.015 bound.
+// At (D)'s batch of 256, B x KVH = 3072 blocks fill the card, so one
+// launch with no split (paged_int8_plan); a batch too small for that
+// splits each sequence into chunks of whole pages, merged inside a
+// thread-block cluster, still one launch.
 #include "decode_attn.cuh"
+#include "decode_attn_kv_group.cuh"
 
 extern "C" int decode_attn_paged(const void* q, const void* pool,
-                                 const void* scales, const void* table,
-                                 const void* lengths, void* out, int batch,
-                                 int heads, int kvh, int d, int page,
-                                 int max_pages, int quant, int mask_unmapped,
-                                 float scale, void* stream) {
+                                 const void* table, const void* lengths,
+                                 void* out, int batch, int heads, int kvh,
+                                 int d, int page, int max_pages,
+                                 int mask_unmapped, float scale,
+                                 void* stream) {
   using decode_attn::kernel;
   using decode_attn::Paged;
   dim3 grid(heads, batch);
@@ -42,19 +58,30 @@ extern "C" int decode_attn_paged(const void* q, const void* pool,
   const Paged addr{(const int*)table, page, max_pages, mask_unmapped, 2 * f,
                    d};
   if (batch > 0) {
-    if (quant) {
-      const int8_t* rows = (const int8_t*)pool;
-      kernel<int8_t, Paged, true>
-          <<<grid, decode_attn::kThreads, 0, (cudaStream_t)stream>>>(
-              (const float*)q, rows, rows + f, (const __nv_bfloat16*)scales,
-              (const int*)lengths, (float*)out, heads, kvh, d, addr, scale);
-    } else {
-      const float* rows = (const float*)pool;
-      kernel<float, Paged, false>
-          <<<grid, decode_attn::kThreads, 0, (cudaStream_t)stream>>>(
-              (const float*)q, rows, rows + f, nullptr, (const int*)lengths,
-              (float*)out, heads, kvh, d, addr, scale);
-    }
+    const float* rows = (const float*)pool;
+    kernel<float, Paged>
+        <<<grid, decode_attn::kThreads, 0, (cudaStream_t)stream>>>(
+            (const float*)q, rows, rows + f, (const int*)lengths,
+            (float*)out, heads, kvh, d, addr, scale);
   }
   return (int)cudaGetLastError();
+}
+
+// The launch of paged_int8_plan: splits, the chunks a sequence (and KV
+// head) splits into, each a whole number of pages (1 to 8, one cluster);
+// hpw query heads a warp, hg head groups, warps 4 or 8 a block
+// (kv_group::launch). d 64 to 256 in steps of 64, as K6's kernel took.
+// The wrapper checks that a chunk holds at most 256 pages, shapes,
+// contiguity and 16-byte alignment.
+extern "C" int decode_attn_paged_int8(const void* q, const void* pool,
+                                      const void* scales, const void* table,
+                                      const void* lengths, void* out,
+                                      int batch, int heads, int kvh, int d,
+                                      int page, int max_pages, int splits,
+                                      int hpw, int hg, int warps, float scale,
+                                      void* stream) {
+  const kv_group::Pages addr{(const int*)table, page, max_pages};
+  return (int)kv_group::launch<kv_group::Pages, kv_group::kExact, true>(
+      q, pool, scales, lengths, out, nullptr, batch, heads, kvh, d, addr,
+      splits, page, hpw, hg, warps, scale, (cudaStream_t)stream);
 }

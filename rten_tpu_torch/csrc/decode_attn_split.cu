@@ -36,14 +36,14 @@ extern "C" int decode_attn_split_kv(const void* q, const void* k,
   cudaStream_t st = (cudaStream_t)stream;
   if (batch > 0) {
     if (bf16) {
-      kernel<__nv_bfloat16, Split, false>
+      kernel<__nv_bfloat16, Split>
           <<<grid, decode_attn::kThreads, 0, st>>>(
               (const float*)q, (const __nv_bfloat16*)k,
-              (const __nv_bfloat16*)v, nullptr, (const int*)lengths,
+              (const __nv_bfloat16*)v, (const int*)lengths,
               (float*)out, heads, kvh, d, addr, scale);
     } else {
-      kernel<float, Split, false><<<grid, decode_attn::kThreads, 0, st>>>(
-          (const float*)q, (const float*)k, (const float*)v, nullptr,
+      kernel<float, Split><<<grid, decode_attn::kThreads, 0, st>>>(
+          (const float*)q, (const float*)k, (const float*)v,
           (const int*)lengths, (float*)out, heads, kvh, d, addr, scale);
     }
   }

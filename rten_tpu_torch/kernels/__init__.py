@@ -10,15 +10,19 @@ kernel, each counting its own launches:
 * ``decode_attn_float`` (K6), ``decode_attn_flat_float`` (K8) and
   ``decode_attn_native_dots``: ``csrc/decode_attn_float.cu``, on the kernel
   of ``csrc/decode_attn.cuh``, which ``decode_attn_split_kv`` (K9,
-  ``csrc/decode_attn_split.cu``) and ``decode_attn_paged``,
-  ``decode_attn_paged_grid`` and ``decode_attn_paged_int8`` (P3, its grid
-  mode, P3i; ``csrc/decode_attn_paged.cu``) run too;
+  ``csrc/decode_attn_split.cu``) and ``decode_attn_paged`` and
+  ``decode_attn_paged_grid`` (P3 and its grid mode,
+  ``csrc/decode_attn_paged.cu``) run too;
+* ``decode_attn_paged_int8`` (P3i, ``csrc/decode_attn_paged.cu``) and
+  ``decode_attn_grouped_int8`` without ``pv_int8`` (G1, both score modes,
+  ``csrc/decode_attn_grouped_int8.cu``): the KV-group kernel of
+  ``csrc/decode_attn_kv_group.cuh``;
 * ``verify_attn_grouped`` and ``verify_attn_fused`` (V1,
-  ``csrc/verify_attn.cu``), ``decode_attn_grouped_int8`` and
-  ``decode_attn_fused_int8`` (G1, G2; ``csrc/decode_attn_grouped_int8.cu``)
-  and ``decode_attn_grouped_append`` (A1, ``csrc/decode_attn_append.cu``):
-  the kernel of ``csrc/verify_attn.cuh`` (G1's ``pv_int8`` mode walks
-  blocks in a kernel of its own in ``decode_attn_grouped_int8.cu``);
+  ``csrc/verify_attn.cu``), ``decode_attn_fused_int8`` (G2,
+  ``csrc/decode_attn_grouped_int8.cu``) and ``decode_attn_grouped_append``
+  (A1, ``csrc/decode_attn_append.cu``): the kernel of
+  ``csrc/verify_attn.cuh`` (G1's ``pv_int8`` mode walks blocks in a kernel
+  of its own in ``decode_attn_grouped_int8.cu``);
 * ``matmul_int4_words`` (Q1) and ``matmul_int4`` (Q2):
   ``csrc/matmul_int4.cu``.
 

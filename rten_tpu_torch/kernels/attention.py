@@ -26,21 +26,26 @@
   ``native_dots``.
 * ``decode_attn_split_kv`` (CUDA, ``csrc/decode_attn_split.cu``, K9, K6's
   kernel over separate K and V planes) replaces ``flash_decode`` (:2647).
-* ``decode_attn_paged``, ``decode_attn_paged_int8`` and
-  ``decode_attn_paged_grid`` (CUDA, ``csrc/decode_attn_paged.cu``, K6's
-  kernel on paged addressing) replace ``flash_decode_paged_grouped``
-  (:2272) in its float and int8 modes and ``flash_decode_paged`` (:2573):
-  decode attention over a block-paged pool through the page table.
+* ``decode_attn_paged`` and ``decode_attn_paged_grid`` (CUDA,
+  ``csrc/decode_attn_paged.cu``, K6's kernel on paged addressing) and
+  ``decode_attn_paged_int8`` (P3i, the same source on the KV-group kernel
+  of ``csrc/decode_attn_kv_group.cuh``: one block per KV head for its
+  whole query group, rows staged in shared memory a page at a time)
+  replace ``flash_decode_paged_grouped`` (:2272) in its float and int8
+  modes and ``flash_decode_paged`` (:2573): decode attention over a
+  block-paged pool through the page table.
 * ``verify_attn_grouped`` and ``verify_attn_fused`` (CUDA,
   ``csrc/verify_attn.cu``, one kernel, V1) replace ``flash_verify_grouped``
   (:1957) and ``flash_verify_fused`` (:2394): S speculative-verify queries
   per sequence, causal within the chunk, over a float or int8 cache.
-* ``decode_attn_grouped_int8`` and ``decode_attn_fused_int8`` (CUDA,
-  ``csrc/decode_attn_grouped_int8.cu``, one kernel, G1) replace the int8
-  modes of ``flash_decode_grouped`` (:1039; exact q, and ``int8_scores``)
-  and ``flash_decode_fused`` (:318): one query per sequence over an int8
+* ``decode_attn_grouped_int8`` (G1) and ``decode_attn_fused_int8`` (G2)
+  (CUDA, ``csrc/decode_attn_grouped_int8.cu``) replace the int8 modes of
+  ``flash_decode_grouped`` (:1039; exact q, and ``int8_scores``) and
+  ``flash_decode_fused`` (:318): one query per sequence over an int8
   cache, q and the output in f32; with ``pv_int8`` the P.V dot runs on
-  row-quantized probabilities, as the reference's ``pv_int8``.
+  row-quantized probabilities, as the reference's ``pv_int8``. G1 without
+  ``pv_int8`` runs P3i's KV-group kernel on contiguous rows; G2 and
+  ``pv_int8`` run V1's kernel and a block walk.
 * ``decode_attn_grouped_append`` (CUDA, ``csrc/decode_attn_append.cu``, A1)
   replaces ``flash_decode_grouped_append`` (:976): the float-cache decode
   append and the grouped float decode in one launch.
@@ -782,31 +787,149 @@ def _paged_plain(name, q, pool, scales, table, lengths, scale,
     return _softmax_attend(q, k, v, valid, scale, ks, vs)
 
 
-def _launch_paged(wrapper, q, pool, scales, table, lengths, scale,
-                  mask_unmapped):
-    """The paged kernel on CUDA tensors for every mode; counts the launch
-    on ``wrapper``."""
+def _launch_paged(wrapper, q, pool, table, lengths, scale, mask_unmapped):
+    """K6's kernel on a float pool (P3 and its grid mode) on CUDA tensors;
+    counts the launch on ``wrapper``."""
     name = wrapper.__name__
-    b, h, d, kvh, page, n_p = _check_paged(name, q, pool, scales, table,
+    b, h, d, kvh, page, n_p = _check_paged(name, q, pool, None, table,
                                            lengths)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     _build.require(d % 64 == 0 and d <= 256, name,
                    f"head_dim {d} must be a multiple of 64 up to 256")
-    tensors = (q, pool, table, lengths) + (() if scales is None
-                                           else (scales,))
-    _build.require(all(x.is_contiguous() for x in tensors), name,
-                   "tensors must be contiguous")
+    _build.require(all(x.is_contiguous() for x in (q, pool, table, lengths)),
+                   name, "tensors must be contiguous")
     out = torch.empty_like(q)
     fn = _build.function("decode_attn_paged", "decode_attn_paged",
-                         "ppppppiiiiiiiifp")
-    err = fn(q.data_ptr(), pool.data_ptr(),
-             None if scales is None else scales.data_ptr(),
-             table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, kvh,
-             d, page, n_p, int(scales is not None), int(mask_unmapped),
-             float(scale), _build.stream())
+                         "pppppiiiiiiifp")
+    err = fn(q.data_ptr(), pool.data_ptr(), table.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, page, n_p,
+             int(mask_unmapped), float(scale), _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
+    return out
+
+
+# -- P3i and G1: one block per (sequence, KV head[, split]) ------------------
+# csrc/decode_attn_kv_group.cuh moves 64-row tiles through a 2-stage ring in
+# shared memory and serves every query head of the KV head's group from it.
+# A sequence splits into chunks (one thread-block cluster, merged in the same
+# launch) only where B x KVH leaves the card short of this many blocks, and
+# a launch of at most two blocks an SM gives each block 8 warps, not 4.
+# At path (H)'s G1 (128 pairs) 2 splits of 8 warps took 0.0238 ms against
+# 0.0283-0.0353 for 4 warps at 1-4 splits; at path (D)'s P3i (3072 blocks)
+# 4 warps took 0.0400 against 0.0473 for 8 (python -m
+# rten_tpu_torch.tools.kv_group_variants, H100 80GB HBM3, 700 W).
+KV_GROUP_TARGET_BLOCKS = 256
+KV_GROUP_WIDE_BLOCKS = 2 * 132
+KV_GROUP_MAX_SPLITS = 8            # a cluster's portable size
+KV_GROUP_MAX_IDS = 256             # page ids a paged block stages
+KV_GROUP_UNIT = 16                 # G1's chunk unit in rows
+
+
+def _pow2_at_least(n):
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def kv_group_heads(rep, head_dim):
+    """(heads a warp serves, head groups of warps a block) for a group of
+    ``rep`` query heads: a warp's q and accumulators hold at most 32 values
+    a lane (head_dim / 8 a head), a block at most 4 head groups and 8 heads
+    (4 above head_dim 128); a larger group takes more blocks. These are
+    the tilings ``decode_attn_kv_group.cuh`` builds."""
+    w = min(256 // head_dim, _pow2_at_least(rep))
+    return w, min(4, 8 // w, _pow2_at_least(-(-rep // w)))
+
+
+def kv_group_chunks(n, splits, unit):
+    """The rows [c0, c1) of each split of a sequence with ``n`` live rows,
+    as the kernel computes them: chunks of ceil(n / splits) rows rounded up
+    to whole units, the last ones short or empty."""
+    per = -(-n // splits)
+    chunk = -(-per // unit) * unit
+    out = []
+    for s in range(splits):
+        c0 = min(n, s * chunk)
+        out.append((c0, min(n, c0 + chunk)))
+    return out
+
+
+def _kv_group_plan(batch, heads, kvh, head_dim, unit, most_units, fewest,
+                   splits, warps):
+    rep = heads // kvh
+    w, groups = kv_group_heads(rep, head_dim)
+    pairs = batch * kvh * -(-rep // (w * groups))
+    most = max(1, min(KV_GROUP_MAX_SPLITS, most_units))
+    if splits is None:
+        splits = max(fewest, min(most, -(-KV_GROUP_TARGET_BLOCKS
+                                          // max(pairs, 1))))
+    return dict(splits=splits, unit=unit, fewest=fewest, most=most,
+                blocks=pairs * splits, heads_per_warp=w, head_groups=groups,
+                warps=warps or (8 if pairs * splits <= KV_GROUP_WIDE_BLOCKS
+                                else 4))
+
+
+def paged_int8_plan(batch, heads, kvh, page, max_pages, head_dim=64,
+                    splits=None, warps=None):
+    """P3i's launch: one block per (sequence, KV head, split) for up to 8
+    query heads of the KV head's group (4 above head_dim 128;
+    :func:`kv_group_heads`); ``splits`` chunks of whole pages a sequence
+    (``kv_group_chunks`` with unit = page), more than one only where the
+    blocks fall short of KV_GROUP_TARGET_BLOCKS, and at least enough that a
+    chunk holds at most KV_GROUP_MAX_IDS page ids. One CUDA kernel a call
+    (the splits merge inside their cluster); no scratch. ``splits`` and
+    ``warps`` override the choice (tests and measurement)."""
+    fewest = -(-max_pages // KV_GROUP_MAX_IDS)
+    return _kv_group_plan(batch, heads, kvh, head_dim, page, max_pages,
+                          fewest, splits, warps)
+
+
+def grouped_int8_plan(batch, heads, kvh, cap, head_dim=128, splits=None,
+                      warps=None):
+    """G1's launch (exact q or int8 scores, without ``pv_int8``): the
+    kernel of :func:`paged_int8_plan` on contiguous rows, chunks of whole
+    KV_GROUP_UNIT-row units."""
+    return _kv_group_plan(batch, heads, kvh, head_dim, KV_GROUP_UNIT,
+                          -(-cap // KV_GROUP_UNIT), 1, splits, warps)
+
+
+def _check_kv_group(name, tensors, plan):
+    """The refusals of the KV-group kernel at ``plan``, before any build;
+    ``tensors`` (q, the int8 cache or pool, ...)."""
+    _build.require(all(x.is_contiguous() for x in tensors), name,
+                   "tensors must be contiguous")
+    _build.require(tensors[1].data_ptr() % 16 == 0, name,
+                   "the int8 cache must be 16-byte aligned (16-byte copies)")
+    _build.require(plan["fewest"] <= plan["splits"] <= plan["most"], name,
+                   f"splits must lie in [{plan['fewest']}, {plan['most']}] "
+                   f"(at most {KV_GROUP_MAX_SPLITS} chunks of at most "
+                   f"{KV_GROUP_MAX_IDS} pages), got {plan['splits']}")
+    _build.require(plan["warps"] in (4, 8), name,
+                   f"warps must be 4 or 8, got {plan['warps']}")
+
+
+def _launch_paged_int8(q, pool, scales, table, lengths, scale, plan=None):
+    """P3i's kernel on CUDA tensors at ``plan`` (default
+    :func:`paged_int8_plan`'s); counts the launch."""
+    name = "decode_attn_paged_int8"
+    b, h, d, kvh, page, n_p = _check_paged(name, q, pool, scales, table,
+                                           lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d in (64, 128, 192, 256), name,
+                   f"head_dim {d} must be one of (64, 128, 192, 256)")
+    plan = plan or paged_int8_plan(b, h, kvh, page, n_p, d)
+    _check_kv_group(name, (q, pool, scales, table, lengths), plan)
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_paged", "decode_attn_paged_int8",
+                         "ppppppiiiiiiiiiifp")
+    err = fn(q.data_ptr(), pool.data_ptr(), scales.data_ptr(),
+             table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, kvh,
+             d, page, n_p, plan["splits"], plan["heads_per_warp"],
+             plan["head_groups"], plan["warps"], float(scale),
+             _build.stream())
+    _build.check(err, name)
+    decode_attn_paged_int8.launches += 1
     return out
 
 
@@ -830,8 +953,8 @@ def decode_attn_paged(q, pool, table, lengths, scale=None):
     name = "decode_attn_paged"
     if _build.on_cpu(name, q, pool, table, lengths):
         return decode_attn_paged_plain(q, pool, table, lengths, scale)
-    return _launch_paged(decode_attn_paged, q, pool, None, table, lengths,
-                         scale, False)
+    return _launch_paged(decode_attn_paged, q, pool, table, lengths, scale,
+                         False)
 
 
 decode_attn_paged.launches = 0
@@ -853,8 +976,8 @@ def decode_attn_paged_grid(q, pool, table, lengths, scale=None):
     name = "decode_attn_paged_grid"
     if _build.on_cpu(name, q, pool, table, lengths):
         return decode_attn_paged_grid_plain(q, pool, table, lengths, scale)
-    return _launch_paged(decode_attn_paged_grid, q, pool, None, table,
-                         lengths, scale, True)
+    return _launch_paged(decode_attn_paged_grid, q, pool, table, lengths,
+                         scale, True)
 
 
 decode_attn_paged_grid.launches = 0
@@ -878,13 +1001,13 @@ def decode_attn_paged_int8(q, pool, scales, table, lengths, scale=None):
 
     pool int8 [n_pages, page, 2, KVH*D]; scales bf16 [n_pages, page, 2,
     KVH]; the rest as ``decode_attn_paged``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel (head_dim 64, 128, 192 or
+    256) or raise."""
     name = "decode_attn_paged_int8"
     if _build.on_cpu(name, q, pool, scales, table, lengths):
         return decode_attn_paged_int8_plain(q, pool, scales, table, lengths,
                                             scale)
-    return _launch_paged(decode_attn_paged_int8, q, pool, scales, table,
-                         lengths, scale, False)
+    return _launch_paged_int8(q, pool, scales, table, lengths, scale)
 
 
 decode_attn_paged_int8.launches = 0
@@ -1230,12 +1353,11 @@ def _attend_blocks(s, v, lengths, block_k, v_scale=None, p_dtype=None):
 
 
 def _launch_int8_decode(wrapper, q, kv, scales, lengths, int8_scores, scale,
-                        dots=None, pv_block=0):
-    """G1's kernel on CUDA tensors for both entries and every mode; counts
-    the launch on ``wrapper`` and, where it has them, in its modes.
-    ``dots`` (int32 [B, H, cap], tests only) receives the integer score
-    dots of ``int8_scores``; ``pv_block`` > 0 is the ``pv_int8`` mode over
-    blocks of that many rows."""
+                        pv_block=0):
+    """G2's kernel (V1's at S = 1, exact q) or, with ``pv_block`` > 0, the
+    ``pv_int8`` walk over blocks of that many rows (either score mode) on
+    CUDA tensors; counts the launch on ``wrapper`` and, where it has them,
+    in its modes."""
     name = wrapper.__name__
     b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
     if scale is None:
@@ -1243,28 +1365,57 @@ def _launch_int8_decode(wrapper, q, kv, scales, lengths, int8_scores, scale,
     _build.require(d in (64, 128), name, f"head_dim {d} must be 64 or 128")
     _build.require(all(x.is_contiguous() for x in (q, kv, scales, lengths)),
                    name, "tensors must be contiguous")
-    if dots is not None:
-        _build.require(int8_scores and dots.shape == (b, h, cap)
-                       and dots.dtype == torch.int32
-                       and dots.is_contiguous(), name,
-                       "dots must be int32 [B, H, cap], int8_scores only")
     if pv_block:
-        _build.require(dots is None, name, "dots: int8_scores without pv_int8")
         _build.require(pv_block <= 256, name,
                        f"pv_int8 block {pv_block}: the kernel takes <= 256")
     out = torch.empty_like(q)
     fn = _build.function("decode_attn_grouped_int8",
-                         "decode_attn_grouped_int8", "ppppppiiiiiiiifp")
+                         "decode_attn_grouped_int8", "pppppiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(),
-             None if dots is None else dots.data_ptr(), b, h, kvh, d, cap,
+             lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, cap,
              int(bool(int8_scores)), int(pv_block > 0), pv_block,
              float(scale), _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
     if hasattr(wrapper, "mode_launches"):
         mode = "int8_scores" if int8_scores else "exact"
-        wrapper.mode_launches[("pv_int8." if pv_block else "") + mode] += 1
+        wrapper.mode_launches["pv_int8." + mode] += 1
+    return out
+
+
+def _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores, scale,
+                              dots=None, plan=None):
+    """G1 without ``pv_int8`` (both score modes) on CUDA tensors: the
+    KV-group kernel at ``plan`` (default :func:`grouped_int8_plan`'s);
+    counts the launch. ``dots`` (int32 [B, H, cap], tests only) receives
+    the integer score dots of ``int8_scores``."""
+    name = "decode_attn_grouped_int8"
+    b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d in (64, 128), name,
+                   f"head_dim {d} must be one of (64, 128)")
+    plan = plan or grouped_int8_plan(b, h, kvh, cap, d)
+    _check_kv_group(name, (q, kv, scales, lengths), plan)
+    if dots is not None:
+        _build.require(int8_scores and dots.shape == (b, h, cap)
+                       and dots.dtype == torch.int32
+                       and dots.is_contiguous(), name,
+                       "dots must be int32 [B, H, cap], int8_scores only")
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_grouped_int8",
+                         "decode_attn_grouped_int8_rows",
+                         "ppppppiiiiiiiiiiifp")
+    err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(),
+             None if dots is None else dots.data_ptr(), b, h, kvh, d, cap,
+             int(bool(int8_scores)), plan["splits"], plan["unit"],
+             plan["heads_per_warp"], plan["head_groups"], plan["warps"],
+             float(scale), _build.stream())
+    _build.check(err, name)
+    decode_attn_grouped_int8.launches += 1
+    decode_attn_grouped_int8.mode_launches[
+        "int8_scores" if int8_scores else "exact"] += 1
     return out
 
 
@@ -1318,10 +1469,12 @@ def decode_attn_grouped_int8(q, kv, scales, lengths, int8_scores=False,
     the block or the block by 4, the reference drops ``pv_int8`` and
     ``int8_scores`` for the exact fused kernel, and this returns
     ``decode_attn_fused_int8`` (counted there). Without ``pv_int8`` the
-    caller has made that choice (:func:`int8_decode_kernel`). CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise.
-    Launches count in ``launches`` and per mode in ``mode_launches``
-    ("exact", "int8_scores", "pv_int8.exact", "pv_int8.int8_scores")."""
+    caller has made that choice (:func:`int8_decode_kernel`). Without
+    ``pv_int8`` a block serves up to 8 query heads of a KV head's group
+    (:func:`grouped_int8_plan`). head_dim 64 or 128. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise. Launches count in ``launches`` and per mode in
+    ``mode_launches`` ("exact", "int8_scores", "pv_int8.exact",
+    "pv_int8.int8_scores")."""
     name = "decode_attn_grouped_int8"
     if _build.on_cpu(name, q, kv, scales, lengths):
         return decode_attn_grouped_int8_plain(q, kv, scales, lengths,
@@ -1330,8 +1483,13 @@ def decode_attn_grouped_int8(q, kv, scales, lengths, int8_scores=False,
     blk = _pv_block(name, q.shape[0], kv.shape[1], pv_int8, block_k, group)
     if blk == "fused":
         return decode_attn_fused_int8(q, kv, scales, lengths, scale)
-    return _launch_int8_decode(decode_attn_grouped_int8, q, kv, scales,
-                               lengths, int8_scores, scale, dots, blk)
+    if blk:
+        _build.require(dots is None, name,
+                       "dots: int8_scores without pv_int8")
+        return _launch_int8_decode(decode_attn_grouped_int8, q, kv, scales,
+                                   lengths, int8_scores, scale, blk)
+    return _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores,
+                                     scale, dots)
 
 
 decode_attn_grouped_int8.launches = 0

@@ -529,15 +529,27 @@ def test_kv_append_paged_kernels_bit_exact(gen, quantized):
 
 # Rows: one token, a whole page, three pages less one, past its two mapped
 # pages (an unmapped page inside the length: the grouped modes read page 0,
-# the grid masks it), released (no mapped page), and empty.
-ATTN_LENGTHS = [1, PAGE, 3 * PAGE - 1, 3 * PAGE + 4, 5, 0]
-ATTN_MAPPED = [1, 1, 3, 2, 0, 0]
+# the grid masks it), released (no mapped page), empty, a page less one, a
+# page and one, the capacity, and past it.
+ATTN_LENGTHS = [1, PAGE, 3 * PAGE - 1, 3 * PAGE + 4, 5, 0, PAGE - 1,
+                PAGE + 1, 4 * PAGE, 4 * PAGE + 3]
+ATTN_MAPPED = [1, 1, 3, 2, 0, 0, 1, 2, 4, 4]
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("mode", ["grouped", "grid", "int8"])
-def test_decode_attn_paged_kernels_match_plain(gen, mode, d):
-    b, h, kvh, n_pages, max_pages = 6, 4, 2, 24, 4
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("h,kvh", [(4, 2), (4, 4), (8, 2), (16, 1)])
+@pytest.mark.parametrize("mode,splits,warps", [
+    ("grouped", None, None), ("grid", None, None), ("int8", None, None),
+    ("int8", 1, None), ("int8", 3, 4)])
+def test_decode_attn_paged_kernels_match_plain(gen, mode, splits, warps, h,
+                                               kvh, d):
+    """P3, its grid mode and P3i at groups 1, 2, 4 and 16 (P3i: two blocks
+    of 8 heads a KV head, four of 4 above head_dim 128) and head_dim 64 to
+    256; P3i also with its sequences split into 1 or 3 chunks of whole
+    pages through the launcher's plan (the plan's own split here is 4 or
+    more: so few (sequence, KV head) pairs fall short of its target; so
+    few blocks take 8 warps each), and with 4 warps a block."""
+    b, n_pages, max_pages = len(ATTN_LENGTHS), 48, 4
     f = kvh * d
     table = _paged_table(b, max_pages, ATTN_MAPPED, n_pages, seed=1)
     lengths = torch.tensor(ATTN_LENGTHS, dtype=torch.int32, device="cuda")
@@ -556,7 +568,11 @@ def test_decode_attn_paged_kernels_match_plain(gen, mode, d):
     before = {w: w.launches for w in (at.decode_attn_paged,
                                       at.decode_attn_paged_grid,
                                       at.decode_attn_paged_int8)}
-    out = wrapper(*args)
+    if splits or warps:
+        out = at._launch_paged_int8(*args, None, at.paged_int8_plan(
+            b, h, kvh, PAGE, max_pages, d, splits, warps))
+    else:
+        out = wrapper(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
     assert {w: w.launches - n for w, n in before.items()} == {
@@ -568,6 +584,30 @@ def test_decode_attn_paged_kernels_match_plain(gen, mode, d):
     assert (out[5] == 0).all()
     if mode == "grid":
         assert (out[4] == 0).all()
+
+
+@pytest.mark.parametrize("splits", [None, 2, 8])
+def test_decode_attn_paged_int8_stages_many_page_ids(gen, splits):
+    """P3i over 600 pages of 8 a sequence: a chunk holds at most 256 page
+    ids, so the plan splits into at least 3 chunks, and a plan of fewer
+    raises before any launch."""
+    b, h, kvh, d, max_pages = 3, 8, 2, 64, 600
+    n_pages = b * max_pages + 1
+    table = _paged_table(b, max_pages, [600, 400, 250], n_pages, seed=2)
+    lengths = torch.tensor([600 * PAGE, 400 * PAGE - 3, 250 * PAGE + 9],
+                           dtype=torch.int32, device="cuda")
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    pool, scales, _ = _cache(gen, n_pages, PAGE, 1, kvh, d)
+    args = (q, pool, scales, table, lengths)
+    plan = at.paged_int8_plan(b, h, kvh, PAGE, max_pages, d, splits)
+    if splits == 2:
+        with pytest.raises(ValueError, match="splits must lie"):
+            at._launch_paged_int8(*args, None, plan)
+        return
+    out = at._launch_paged_int8(*args, None, plan)
+    ref = at.decode_attn_paged_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("weights,b", [("f32", 4), ("f32", 3),
@@ -968,12 +1008,30 @@ def _int8_cache(gen, b, cap, kvh, d):
     return kv, scales
 
 
-# (batch, heads, kv heads, head_dim, capacity, lengths): ragged small
-# shapes (a length 0, one past capacity) and the path's (Mistral-7B, B 16
-# at capacity 4096 and 1024, B 3; lives 512-576).
+# (batch, heads, kv heads, head_dim, capacity, lengths[, splits[,
+# warps]]): ragged small shapes at groups 1, 2, 4, 8, 12 and 16 (a length
+# 0, one past capacity; above 8 a KV head takes two blocks), every length from 0 to past the capacity with G1's
+# sequences in 1, 2, 3, 5 or 8 chunks (every chunk and 64-row tile
+# boundary +- 1), G1's blocks of 4 and 8 warps, and the path's
+# (Mistral-7B, B 16 at capacity 4096 and 1024, B 3; lives 512-576).
 INT8_DECODE_CASES = [
     (4, 8, 2, 128, 96, [0, 1, 96, 140]),
     (3, 4, 4, 64, 64, [5, 64, 33]),
+    (6, 4, 2, 64, 200, [0, 1, 63, 64, 65, 200]),
+    (4, 16, 2, 128, 256, [1, 129, 255, 256]),
+    (3, 32, 4, 64, 300, [17, 299, 301]),
+    (3, 8, 8, 128, 160, [0, 127, 160]),
+    (4, 12, 1, 128, 96, [0, 1, 96, 140]),
+    (3, 32, 2, 64, 300, [17, 299, 301]),
+    (4, 24, 2, 128, 200, [1, 64, 65, 200], 3),
+    (140, 8, 2, 64, 136, range(140), 3),
+    (140, 8, 2, 128, 136, range(140), 8),
+    (140, 8, 2, 64, 136, range(140), 5, 8),
+    (140, 16, 2, 128, 136, range(140), 2, 8),
+    (140, 8, 2, 128, 300, range(0, 560, 4), 1, 8),
+    (140, 8, 2, 64, 300, range(0, 560, 4), 2, 4),
+    (16, 32, 8, 128, 1024, list(range(512, 576, 4)), 2, 4),
+    (16, 32, 8, 128, 1024, list(range(512, 576, 4)), 4, 8),
     (16, 32, 8, 128, 4096, list(range(512, 576, 4))),
     (16, 32, 8, 128, 1024, list(range(512, 576, 4))),
     (3, 32, 8, 128, 4096, [512, 544, 576]),
@@ -986,11 +1044,12 @@ def test_int8_decode_kernels_match_plain(gen, entry, case):
     """G1 in both score modes and G2 against their plain versions; with
     int8 scores the kernel's int32 dots equal the plain ones bit for
     bit."""
-    b, h, kvh, d, cap, lens = case
+    b, h, kvh, d, cap, lens, *opt = case
+    splits, warps = list(opt) + [None, None][len(opt):]
     kv, scales = _int8_cache(gen, b, cap, kvh, d)
     q = torch.randn((b, h, d), device="cuda", generator=gen) * 2
     q[0, 0] = 0                                     # an all-zero q row
-    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(list(lens), dtype=torch.int32, device="cuda")
     scores = entry == "int8_scores"
     if entry == "fused":
         wrapper = at.decode_attn_fused_int8
@@ -1000,8 +1059,14 @@ def test_int8_decode_kernels_match_plain(gen, entry, case):
         wrapper = at.decode_attn_grouped_int8
         dots = torch.full((b, h, cap), -1, dtype=torch.int32, device="cuda")
         before = wrapper.mode_launches[entry]
-        out = wrapper(q, kv, scales, lengths, int8_scores=scores,
-                      dots=dots if scores else None)
+        dots = dots if scores else None
+        if splits or warps:
+            out = at._launch_grouped_int8_rows(
+                q, kv, scales, lengths, scores, None, dots,
+                at.grouped_int8_plan(b, h, kvh, cap, d, splits, warps))
+        else:
+            out = wrapper(q, kv, scales, lengths, int8_scores=scores,
+                          dots=dots)
         ref = at.decode_attn_grouped_int8_plain(q, kv, scales, lengths,
                                                 int8_scores=scores)
         assert wrapper.mode_launches[entry] == before + 1

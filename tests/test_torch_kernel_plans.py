@@ -4,13 +4,19 @@ the int8-dot int4 GEMM (Q1', ``int4_int8_plan``) and of the bf16-dot int4
 GEMMs (Q1 and Q2, ``int4_bf16_plan``): the tiles cover every row and column
 once, every K split is a whole number of groups, the tile follows M, and
 the scratch the wrappers allocate holds what the kernels write, at M from 1
-to 8192. These run without a card; the wrappers' refusals are checked with
-the dispatch forced to the kernel path, before any build or launch."""
+to 8192; and of the int8 decode attention that serves a KV head's whole
+query group in one block (P3i ``paged_int8_plan``, G1
+``grouped_int8_plan``): every live row in one chunk, chunks of whole pages
+or units, the split count, the blocks and no scratch, at batch 1-256 and
+groups 1-32, and a tiling the kernel builds. These run without a card; the wrappers' refusals are checked
+with the dispatch forced to the kernel path, before any build or
+launch."""
 
 import pytest
 import torch
 
 from rten_tpu_torch.kernels import _build
+from rten_tpu_torch.kernels import attention as at
 from rten_tpu_torch.kernels import gemm as pg
 from rten_tpu_torch.kernels.quant import (quantize_int4_groupwise,
                                           quantize_int4_words)
@@ -292,3 +298,227 @@ def test_int4_kernels_refuse_a_split_count_out_of_range(monkeypatch, m,
         pg._launch_int4(pg.matmul_int4_words, torch.randn((m, 256)), words,
                         scales, 128, splits=splits)
     assert pg.matmul_int4_words.launches == before
+
+
+# -- P3i and G1: the KV-group kernel's plan (kernels/attention.py) ----------
+
+GROUPS = (1, 2, 4, 8)
+BATCHES = (1, 2, 3, 7, 16, 31, 64, 100, 256)
+
+
+@pytest.mark.parametrize("unit", [1, 8, 16, 64])
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_kv_group_chunks_hold_every_row_once(splits, unit):
+    """Every live row lies in exactly one split's chunk, each non-empty
+    chunk starts on a unit (a page for P3i) and holds whole units but for
+    the last, at every length from 0 to 300 rows."""
+    for n in range(0, 301):
+        chunks = at.kv_group_chunks(n, splits, unit)
+        assert len(chunks) == splits
+        seen = [0] * n
+        for c0, c1 in chunks:
+            assert 0 <= c0 <= c1 <= n and (c0 == c1 or c0 % unit == 0)
+            for t in range(c0, c1):
+                seen[t] += 1
+        assert seen == [1] * n
+        full = [c1 - c0 for c0, c1 in chunks if c1 < n]
+        assert all(x % unit == 0 for x in full)
+
+
+def _built_tilings():
+    """The (head_dim, heads a warp, head groups) the KV-group kernel
+    builds, read from its source: {False: G1's, True: P3i's}."""
+    import re
+    text = (_build.CSRC / "decode_attn_kv_group.cuh").read_text()
+    narrow, wide = text.split("if constexpr (kWide)")
+    find = lambda t: {tuple(map(int, m)) for m in re.findall(
+        r"^  +KV_GROUP_TILING\((\d+), (\d+), (\d+)\)$", t, re.M)}
+    return {False: find(narrow), True: find(narrow) | find(wide)}
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_kv_group_plan_picks_a_tiling_the_kernel_builds(d):
+    """For every group of 1-32 query heads the plan's heads a warp and
+    head groups are a tiling the kernel builds (G1 at head_dim 64 and 128,
+    P3i up to 256), hold at most 32 values a lane a warp, and the blocks
+    of a KV head cover its group once, the last one padded at most."""
+    built = _built_tilings()
+    assert built[False] and built[True] > built[False]
+    for rep in range(1, 33):
+        plan = at.paged_int8_plan(2, 2 * rep, 2, 16, 8, d)
+        w, g = plan["heads_per_warp"], plan["head_groups"]
+        assert (d, w, g) in built[True]
+        if d <= 128:
+            rows = at.grouped_int8_plan(2, 2 * rep, 2, 64, d)
+            assert (d, w, g) in built[False]
+            assert (rows["heads_per_warp"], rows["head_groups"]) == (w, g)
+        assert w * d // 8 <= 32 and w * g <= (8 if d <= 128 else 4)
+        chunks = -(-rep // (w * g))
+        assert (chunks - 1) * w * g < rep <= chunks * w * g
+        assert chunks == 1 or w * g == (8 if d <= 128 else 4)
+        assert plan["blocks"] == 2 * 2 * chunks * plan["splits"]
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("b", BATCHES)
+def test_paged_int8_plan_splits_whole_pages_and_sizes_nothing(b, group):
+    """P3i: splits in [fewest, 8], blocks = B x KVH x head blocks x splits
+    (one CUDA kernel a call, the splits merged in their cluster; the plan
+    allocates nothing); a chunk of the longest live length holds at most
+    KV_GROUP_MAX_IDS pages; a batch that fills the card is not split."""
+    kvh = max(1, 12 // group)
+    for page, max_pages in ((8, 64), (16, 4), (64, 8), (64, 64), (8, 2048)):
+        for d in (64, 128, 192, 256):
+            plan = at.paged_int8_plan(b, kvh * group, kvh, page, max_pages,
+                                      d)
+            s = plan["splits"]
+            assert plan["fewest"] <= s <= plan["most"] <= 8
+            per = plan["heads_per_warp"] * plan["head_groups"]
+            pairs = b * kvh * -(-group // per)
+            assert plan["blocks"] == pairs * s
+            assert plan["unit"] == page
+            assert plan["warps"] == (
+                8 if plan["blocks"] <= at.KV_GROUP_WIDE_BLOCKS else 4)
+            for n in (0, 1, page - 1, page, page + 1, page * max_pages):
+                for c0, c1 in at.kv_group_chunks(n, s, page):
+                    assert -(-(c1 - c0) // page) <= at.KV_GROUP_MAX_IDS
+            if pairs >= at.KV_GROUP_TARGET_BLOCKS:
+                assert s == plan["fewest"]
+
+
+def test_paged_int8_plan_at_the_paged_path_is_one_unsplit_launch():
+    """Path (D): GPT-2 at batch 256, 12 heads of 64, pages of 64 over a
+    capacity of 512: 3072 blocks, no split, one warp a head."""
+    plan = at.paged_int8_plan(256, 12, 12, 64, 8)
+    assert (plan["splits"], plan["blocks"]) == (1, 3072)
+    assert (plan["heads_per_warp"], plan["head_groups"]) == (1, 1)
+    assert plan["warps"] == 4
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("b", BATCHES)
+def test_grouped_int8_plan_splits_into_whole_units(b, group):
+    kvh = 8 if group <= 4 else 4
+    for cap in (16, 100, 1024, 4096):
+        for d in (64, 128):
+            plan = at.grouped_int8_plan(b, kvh * group, kvh, cap, d)
+            s = plan["splits"]
+            assert 1 <= s <= min(8, -(-cap // at.KV_GROUP_UNIT))
+            per = plan["heads_per_warp"] * plan["head_groups"]
+            pairs = b * kvh * -(-group // per)
+            assert plan["blocks"] == pairs * s
+            assert plan["unit"] == at.KV_GROUP_UNIT
+            assert s == 1 or pairs * (s - 1) < at.KV_GROUP_TARGET_BLOCKS
+            assert plan["warps"] == (
+                8 if plan["blocks"] <= at.KV_GROUP_WIDE_BLOCKS else 4)
+
+
+def test_grouped_int8_plan_at_mistral_splits_to_fill_the_card():
+    """Path (H): 16 sequences x 8 KV heads = 128 pairs, split into 2
+    chunks (256 blocks, at most two an SM, so 8 warps each); a warp serves
+    2 of the group's 4 heads."""
+    plan = at.grouped_int8_plan(16, 32, 8, 4096)
+    assert (plan["splits"], plan["blocks"], plan["warps"]) == (2, 256, 8)
+    assert (plan["heads_per_warp"], plan["head_groups"]) == (2, 2)
+    assert at.kv_group_chunks(576, 2, 16) == [(0, 288), (288, 576)]
+    assert at.kv_group_chunks(544, 2, 16) == [(0, 272), (272, 544)]
+
+
+def _int8_pool(b, h, kvh, d, page=8, max_pages=4):
+    pool = torch.zeros((b * max_pages + 1, page, 2, kvh * d),
+                       dtype=torch.int8)
+    scales = torch.ones((b * max_pages + 1, page, 2, kvh),
+                        dtype=torch.bfloat16)
+    table = torch.arange(1, b * max_pages + 1, dtype=torch.int32).reshape(
+        b, max_pages)
+    return (torch.zeros((b, h, d)), pool, scales, table,
+            torch.full((b,), 5, dtype=torch.int32))
+
+
+def _int8_cache(b, h, kvh, d):
+    return (torch.zeros((b, h, d)),
+            torch.zeros((b, 32, 2, kvh * d), dtype=torch.int8),
+            torch.ones((b, 32, 2, kvh), dtype=torch.bfloat16),
+            torch.full((b,), 5, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("h,kvh,d,paged", [
+    (4, 4, 96, True), (4, 4, 96, False), (4, 4, 320, True),
+    (4, 4, 192, False), (4, 4, 256, False), (32, 2, 256, False)])
+def test_kv_group_kernels_refuse_a_shape_they_do_not_tile(monkeypatch, h,
+                                                          kvh, d, paged):
+    """On CUDA (simulated) P3i takes head_dim 64 to 256 in steps of 64 (as
+    K6's kernel did) and G1 64 or 128 (as V1's did), in both score modes;
+    anything else raises before any build. Any group size is taken."""
+    _kernel_path(monkeypatch)
+    what = f"head_dim {d} must be one of"
+    if paged:
+        before = at.decode_attn_paged_int8.launches
+        with pytest.raises(ValueError, match=what):
+            at.decode_attn_paged_int8(*_int8_pool(2, h, kvh, d))
+        assert at.decode_attn_paged_int8.launches == before
+        return
+    before = dict(at.decode_attn_grouped_int8.mode_launches)
+    for scores in (False, True):
+        with pytest.raises(ValueError, match=what):
+            at.decode_attn_grouped_int8(*_int8_cache(2, h, kvh, d),
+                                        int8_scores=scores)
+    assert at.decode_attn_grouped_int8.mode_launches == before
+
+
+@pytest.mark.parametrize("h,kvh,d", [(32, 2, 64), (16, 1, 128),
+                                     (24, 2, 192), (12, 1, 256)])
+def test_kv_group_kernels_take_a_group_above_eight(monkeypatch, h, kvh, d):
+    """Groups of 12 and 16 query heads pass every check and reach the
+    build (here: no nvcc); P3i takes head_dim 192 and 256."""
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    with pytest.raises(RuntimeError, match="no build"):
+        at.decode_attn_paged_int8(*_int8_pool(2, h, kvh, d))
+    if d <= 128:
+        for scores in (False, True):
+            with pytest.raises(RuntimeError, match="no build"):
+                at.decode_attn_grouped_int8(*_int8_cache(2, h, kvh, d),
+                                            int8_scores=scores)
+
+
+def _no_build(lib, symbol, signature):
+    raise RuntimeError(f"no build: {lib}.{symbol}")
+
+
+def test_kv_group_kernels_refuse_strided_or_unaligned_tensors(monkeypatch):
+    _kernel_path(monkeypatch)
+    q, pool, scales, table, lengths = _int8_pool(2, 4, 2, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        at.decode_attn_paged_int8(q.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), pool, scales, table,
+                                  lengths)
+    kv = torch.zeros((2, 33, 2, 128), dtype=torch.int8)[:, 1:]
+    with pytest.raises(ValueError, match="contiguous"):
+        at.decode_attn_grouped_int8(torch.zeros((2, 4, 64)), kv,
+                                    torch.ones((2, 32, 2, 2),
+                                               dtype=torch.bfloat16),
+                                    lengths)
+    flat = torch.zeros(2 * 32 * 2 * 128 + 8, dtype=torch.int8)
+    kv = flat[8:].view(2, 32, 2, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        at.decode_attn_grouped_int8(torch.zeros((2, 4, 64)), kv,
+                                    torch.ones((2, 32, 2, 2),
+                                               dtype=torch.bfloat16),
+                                    lengths)
+
+
+@pytest.mark.parametrize("splits,warps", [(0, None), (9, None), (1, 6)])
+def test_kv_group_kernels_refuse_a_split_count_out_of_range(monkeypatch,
+                                                            splits, warps):
+    """A plan with splits outside [fewest, 8] or warps other than 4 or 8
+    raises in the launchers before any build."""
+    _kernel_path(monkeypatch)
+    what = "splits must lie" if warps is None else "warps must be"
+    plan = at.paged_int8_plan(2, 4, 2, 8, 4, 64, splits, warps)
+    with pytest.raises(ValueError, match=what):
+        at._launch_paged_int8(*_int8_pool(2, 4, 2, 64), None, plan)
+    plan = at.grouped_int8_plan(2, 4, 2, 32, 64, splits, warps)
+    with pytest.raises(ValueError, match=what):
+        at._launch_grouped_int8_rows(*_int8_cache(2, 4, 2, 64), False,
+                                     None, plan=plan)
