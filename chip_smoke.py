@@ -61,11 +61,12 @@ Phases (any failure exits non-zero; nothing is caught):
    ``pv_int8`` mode at path (H)'s shapes in both score modes; M1
    (``matmul_int8_tiled``) bit for bit at GPT-2-small's four linears at
    M 256 and 4096 (``torch._int_mm`` and the epilogue). No path reaches
-   the last five: their entries carry ``"path": null``. P3i and G1 (both
-   score modes) run the KV-group kernel (``csrc/decode_attn_kv_group.cuh``):
-   their entries add its plan (splits a sequence, blocks, warps a block,
-   query heads a warp) and the CUDA kernels a call launches (profiler),
-   which must be one. The kernels whose
+   the last five: their entries carry ``"path": null``. P3, its grid mode,
+   P3i, G1 (both score modes) and K8 (f32 and bf16) run the KV-group kernel
+   (``csrc/decode_attn_kv_group.cuh``): the plan (splits a sequence,
+   blocks, warps a block, query heads a warp, the ring) is printed and
+   their entries add the CUDA kernels a call launches (profiler), which
+   must be one. The kernels whose
    job is a rounding are held to criteria that the kernel without it
    misses, and the script checks that it does: K8 (and the partials
    mode's acc) to one bf16 step of each element and 99.9% of the elements
@@ -92,9 +93,10 @@ Phases (any failure exits non-zero; nothing is caught):
    - (I) flat f32: f32 weights and cache with ``decode_attn="flat"``: K8
      once per layer and decode step, K6 never; 320 requests of 48 new
      tokens. (I-bf16): int8 weights on a bf16 cache, 256 requests of 16.
-   For int8 + tail, (A), (D) and (E): decode at a full batch, one burst
-   timed on the host clock and one traced by torch.profiler (time by
-   kernel, the card's busy share; on (D) P3i's device time a step); for
+   For int8 + tail, (A), (D), (E) and (I): decode at a full batch, one
+   burst timed on the host clock and one traced by torch.profiler (time by
+   kernel, the card's busy share; the device time a step of P3i on (D),
+   P3 on (E) and K8 on (I)); for
    (B) and (C) the timed burst only;
    for (D) and (E) also the host time of the allocator's pass before a
    burst. Then one line with the int8 + tail and f32 decode tokens/s of
@@ -855,21 +857,19 @@ def check_decode_attn_paged(timer, mode):
                  max_abs_err=err, ms=timer(lambda: wrapper(*args)),
                  plain_ms=timer(lambda: plain(*args)),
                  bound_ms=bms, bound_by=by, library_ms=None)
-    if mode == "int8":
-        entry.update(kv_group_launch(
-            "decode_attn_paged_int8",
-            at.paged_int8_plan(b, h, pool.shape[3] // d, PAGE,
-                               table.shape[1], d),
-            lambda: wrapper(*args), entry))
+    entry.update(kv_group_launch(
+        wrapper.__name__,
+        at.paged_plan(b, h, pool.shape[3] // d, PAGE, table.shape[1], d),
+        lambda: wrapper(*args), entry))
     return entry
 
 
 def kv_group_launch(label, plan, fn, entry):
-    """P3i's and G1's launch on the KV-group kernel: the plan's splits,
-    blocks, warps and heads a warp (printed: the wrapper's plan at these
-    shapes, not read from the launch), and the CUDA kernels one call
-    launches (profiler, kept in the entry), which must be one: the splits
-    merge in their cluster."""
+    """The launch of a kernel on the KV-group kernel (P3, its grid mode,
+    P3i, G1, K8): the plan's splits, blocks, warps and heads a warp
+    (printed: the wrapper's plan at these shapes, not read from the
+    launch), and the CUDA kernels one call launches (profiler, kept in the
+    entry), which must be one: the splits merge in their cluster."""
     n = device_launches(fn)
     share = entry["bound_ms"] / entry["ms"]
     print(f"{label}: {plan['splits']} split(s) a sequence, {plan['blocks']} "
@@ -1291,7 +1291,7 @@ def check_int8_decode(timer, entry, b, cap, lives=H_LIVES, h=H_HEADS,
     if entry != "fused":
         result.update(kv_group_launch(
             f"decode_attn_grouped_int8 ({entry})",
-            at.grouped_int8_plan(b, h, kvh, cap, d),
+            at.rows_plan(b, h, kvh, cap, d),
             lambda: wrapper(*args, **kw), result))
     if entry == "exact":
         # The design G1 replaced, V1's kernel at S = 1 (G2's own), on the
@@ -1418,19 +1418,21 @@ def check_flat_float(timer, b=256, h=12, kvh=12, cap=512, lives=(65, 177),
         res[dtype] = dict(max_abs_err=err, share=share, k6_share=k6_share,
                           ms=ms, plain_ms=plain_ms, bound_ms=bms,
                           bound_by=by, library_ms=lib)
+        res[dtype].update(kv_group_launch(
+            label, at.rows_plan(b, h, kvh, cap, d),
+            lambda: at.decode_attn_flat_float(q, kv, lengths), res[dtype]))
         del kv
     if not entry:
         return None
     bf = res[torch.bfloat16]
     return dict(name="decode_attn_flat_float",
-                source="rten_tpu_torch/csrc/decode_attn_float.cu",
                 replaces="rten_tpu/kernels/attention.py:1715",
                 shape=(f"B {b}, {h} heads of {d}, f32 cache of capacity "
                        f"{cap}, lives {lives[0]}-{lives[1] - 1}"),
                 **res[torch.float32],
                 **{f"bf16_{key}": bf[key] for key in
                    ("max_abs_err", "share", "k6_share", "ms", "plain_ms",
-                    "bound_ms", "library_ms")})
+                    "bound_ms", "library_ms", "device_launches")})
 
 
 def check_partials(timer, b=256, h=12, kvh=12, cap=512, lives=(65, 177),
@@ -1820,14 +1822,18 @@ PATHS = {
                                      "kv_group::kernel")),
     "paged_f32": dict(weights="f32", engine=dict(paged=True, page_size=PAGE),
                       tail=0, requests=(320, 48),
-                      kernels=("kv_append_paged", "decode_attn_paged")),
+                      kernels=("kv_append_paged", "decode_attn_paged"),
+                      trace_kernel=("P3 (decode_attn_paged)",
+                                    "kv_group::kernel")),
     # (I): decode_attn="flat" on float caches takes K8, 12 launches a step.
     "flat_f32": dict(weights="f32", engine=dict(),
                      config=dict(decode_attn="flat"), tail=0,
                      requests=(320, 48),
                      kernels=("kv_append", "decode_attn_flat_float"),
                      per_step=("decode_attn_flat_float",),
-                     absent=("decode_attn_float",)),
+                     absent=("decode_attn_float",),
+                     trace_kernel=("K8 (decode_attn_flat_float)",
+                                   "kv_group::kernel")),
     "flat_bf16": dict(weights="int8", engine=dict(cache_dtype="bfloat16"),
                       config=dict(decode_attn="flat"), tail=0,
                       requests=(256, 16),
@@ -2092,8 +2098,8 @@ def steady_decode(model, params, path, steps=16, trace=False):
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
                   f"{e.count:5d}x  {e.key[:90]}")
         if "trace_kernel" in PATHS[path]:
-            # P3i on (D), G1 on (H): the KV-group kernel's device time a
-            # step beside the step time.
+            # P3i on (D), P3 on (E), K8 on (I), G1 on (H): the KV-group
+            # kernel's device time a step beside the step time.
             label, symbol = PATHS[path]["trace_kernel"]
             mine = [e for e in on_card if symbol in e.key]
             ms = sum(e.self_device_time_total for e in mine) / 1e3
@@ -2519,7 +2525,7 @@ def main():
             steady[path] = steady_decode(
                 gpt2_model(path), params, path,
                 trace=path in ("int8_tail", "f32", "paged_int8",
-                               "paged_f32"))
+                               "paged_f32", "flat_f32"))
     print(f"same-run decode tokens/s at batch 256, int8 + tail against the "
           f"f32 baseline: with admissions {rates['int8_tail']:.1f} / "
           f"{rates['f32']:.1f} = {rates['int8_tail'] / rates['f32']:.3f}; "
@@ -2661,6 +2667,7 @@ def main():
              "decode_ms", "previous_design_ms", "f32_max_abs_err",
              "f32_ms", "f32_plain_ms", "f32_bound_ms", "bf16_max_abs_err",
              "bf16_ms", "bf16_plain_ms", "bf16_bound_ms", "bf16_library_ms",
+             "bf16_device_launches",
              "exact_q_max_abs_err", "exact_q_ms", "exact_q_plain_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}

@@ -1,22 +1,17 @@
 // Single-query decode attention, one block of four warps per (sequence,
-// head), shared by decode_attn_float.cu (K6 and its flat mode K8: a
-// contiguous float cache), decode_attn_split.cu (K9: separate K and V
-// planes) and decode_attn_paged.cu (P3 and its grid mode: a block-paged
-// float pool). The row layout helpers below (eight lanes a row) also serve
-// the int8 kernels (decode_attn_int8_tail.cu, verify_attn.cuh,
-// decode_attn_kv_group.cuh).
+// head), shared by decode_attn_float.cu (K6: a contiguous float cache) and
+// decode_attn_split.cu (K9: separate K and V planes). The row layout
+// helpers below (eight lanes a row) also serve the int8 kernels
+// (decode_attn_int8_tail.cu, verify_attn.cuh) and the KV-group kernel
+// (decode_attn_kv_group.cuh: P3i, P3 and its grid mode, G1 and K8).
 //
 // Contract: for sequence b and query head h (kv head h / (H / KVH)),
 // n = min(lengths[b], capacity) tokens are read, token t from the row that
 // the addressing gives (Contiguous: [b, t] of a [B, cap, 2, KVH*D] cache;
-// Split: [b, kv head, t] of separate [B, KVH, S, D] K and V planes; Paged:
-// [table[b, t / page], t % page] of a [n_pages, page, 2, KVH*D] pool). The
+// Split: [b, kv head, t] of separate [B, KVH, S, D] K and V planes). The
 // cache is read as f32; score_t = (q . k_t) * scale,
-// out = sum_t p_t v_t / max(sum_t p_t, 1e-30). A token whose row is masked
-// (Paged with mask_unmapped, an unmapped page) takes no weight; a sequence
-// with no live token gets zeros. kFlat (flash_decode_flat's float mode
-// with q_bf16) rounds where the reference's kernel casts: q and every K
-// element to bf16 before the score dot, the output to bf16.
+// out = sum_t p_t v_t / max(sum_t p_t, 1e-30); a sequence with no live
+// token gets zeros.
 //
 // Design: a warp owns every fourth tile of 4 tokens; each lane holds two
 // adjacent dims of every 64, so a warp reads a head's K and V rows as
@@ -37,9 +32,6 @@ constexpr int kWarps = 4, kThreads = 32 * kWarps;
 constexpr int kTok = 4;            // tokens per warp tile
 constexpr int kMaxJ = 4;           // head_dim <= 64 * kMaxJ
 constexpr int kMaxD = 64 * kMaxJ;
-
-// Roundings of the float modes.
-enum Round { kNone = 0, kFlat = 1 };
 
 __device__ inline float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -104,7 +96,6 @@ __device__ inline void load_row(const float* p, float* x) {
 
 // Token rows of a contiguous [B, cap, 2, KVH*D] cache (V = K + KVH*D).
 struct Contiguous {
-  static constexpr bool kMasks = false;
   int cap;
   long long row_stride, head_stride;  // 2 * KVH * D, D
   __device__ int capacity() const { return cap; }
@@ -115,7 +106,6 @@ struct Contiguous {
 
 // Token rows of separate K and V planes [B, KVH, S, D].
 struct Split {
-  static constexpr bool kMasks = false;
   int cap;                            // S
   long long row_stride, head_stride;  // D, S * D
   long long seq_rows;                 // KVH * S
@@ -123,27 +113,7 @@ struct Split {
   __device__ long long row(int b, int t) const { return b * seq_rows + t; }
 };
 
-// Token rows of a block-paged pool [n_pages, page, 2, KVH*D] through the
-// page table [B, max_pages] (-1 = unmapped). An unmapped page inside the
-// length is masked (mask_unmapped, the reference's grid kernel) or read
-// from pool page 0 (the reference's grouped kernels).
-struct Paged {
-  static constexpr bool kMasks = true;
-  const int* table;
-  int page, max_pages, mask_unmapped;
-  long long row_stride, head_stride;  // 2 * KVH * D, D
-  __device__ int capacity() const { return page * max_pages; }
-  __device__ long long row(int b, int t) const {
-    int id = table[(long long)b * max_pages + t / page];
-    if (id < 0) {
-      if (mask_unmapped) return -1;
-      id = 0;
-    }
-    return (long long)id * page + t % page;
-  }
-};
-
-template <typename T, typename Addr, int kRound = kNone>
+template <typename T, typename Addr>
 __global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
                        const int* __restrict__ lengths,
@@ -162,11 +132,6 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j)
     qv[j] = j < nj ? load2(qrow + 64 * j) : make_float2(0.0f, 0.0f);
-  if constexpr (kRound == kFlat) {
-#pragma unroll
-    for (int j = 0; j < kMaxJ; ++j)
-      qv[j] = make_float2(bf16_round(qv[j].x), bf16_round(qv[j].y));
-  }
 
   float m = -INFINITY, l = 0.0f;
   float2 acc[kMaxJ];
@@ -189,10 +154,8 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
         vv[u][j] = make_float2(0.0f, 0.0f);
         if (j < nj && live[u]) {
           const long long o = r * addr.row_stride + head + 64 * j;
-          float2 kk = load2(k + o);
+          const float2 kk = load2(k + o);
           vv[u][j] = load2(v + o);
-          if (kRound == kFlat) kk = make_float2(bf16_round(kk.x),
-                                                bf16_round(kk.y));
           dot += qv[j].x * kk.x + qv[j].y * kk.y;
         }
       }
@@ -207,11 +170,9 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
       s[u] = live[u] ? s[u] * scale : -INFINITY;
       tile_max = fmaxf(tile_max, s[u]);
     }
-    // Without masking, token t0 < n is live, so tile_max is finite and the
-    // first tile's alpha is exp(-inf) = 0. With masking, a warp may not
-    // have seen a live token yet: skip, keeping m = -inf.
+    // Token t0 < n is live, so tile_max is finite and the first tile's
+    // alpha is exp(-inf) = 0.
     const float m_new = fmaxf(m, tile_max);
-    if (Addr::kMasks && m_new == -INFINITY) continue;
     const float alpha = expf(m - m_new);
     l *= alpha;
 #pragma unroll
@@ -258,8 +219,7 @@ __global__ void kernel(const float* __restrict__ q, const T* __restrict__ k,
       }
     }
     const float y = o / fmaxf(sum, 1e-30f);
-    out[((long long)b * heads + h) * d + i] =
-        kRound == kFlat ? bf16_round(y) : y;
+    out[((long long)b * heads + h) * d + i] = y;
   }
 }
 

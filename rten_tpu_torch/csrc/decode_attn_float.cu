@@ -1,7 +1,8 @@
-// Single-query decode attention over a float (f32 or bf16) KV cache: K6 and
-// its flat mode K8 (the kernel of decode_attn.cuh on contiguous rows), and
-// the native_dots mode (a kernel of its own below, on the same rows and
-// lane layout).
+// Single-query decode attention over a float (f32 or bf16) KV cache: K6
+// (the kernel of decode_attn.cuh on contiguous rows), its flat mode K8 (the
+// KV-group kernel of decode_attn_kv_group.cuh on contiguous rows) and the
+// native_dots mode (a kernel of its own below, on K6's rows and lane
+// layout).
 //
 // Replaces:
 // - K6: rten_tpu/kernels/attention.py::flash_decode_grouped (kernel
@@ -37,18 +38,23 @@
 // 189 MB, 56 us, at L = 120; half that for bf16); the arithmetic is
 // 4 flops per element read (0.5 flop per byte in f32). The roundings of
 // K8 and native_dots add a few instructions per element and no bytes.
-// Design: the kernel of decode_attn.cuh on contiguous rows (one block of
-// four warps per (sequence, head), a per-warp online softmax in registers,
-// one merge). native_dots reads K twice (the first pass only for the block
-// maxima, kept in shared memory: at most kMaxBlocks blocks).
+// Design: K6 runs the kernel of decode_attn.cuh on contiguous rows (one
+// block of four warps per (sequence, head), a per-warp online softmax in
+// registers, one merge). K8 runs the KV-group kernel (one block per
+// (sequence, KV head, split) for the whole query group, rows staged in
+// shared memory by cp.async, splits merged in a cluster): on K6's kernel
+// it read each row once per query head, 8 times at TinyLlama's group of 8,
+// and took 0.294 ms there against a 0.010 bound. native_dots reads K twice
+// (the first pass only for the block maxima, kept in shared memory: at
+// most kMaxBlocks blocks).
 #include "decode_attn.cuh"
+#include "decode_attn_kv_group.cuh"
 
 namespace {
 
-template <int kRound>
-cudaError_t launch(const void* q, const void* kv, const void* lengths,
-                   void* out, int batch, int heads, int kvh, int d, int cap,
-                   int bf16, float scale, cudaStream_t stream) {
+cudaError_t launch_k6(const void* q, const void* kv, const void* lengths,
+                      void* out, int batch, int heads, int kvh, int d,
+                      int cap, int bf16, float scale, cudaStream_t stream) {
   using decode_attn::Contiguous;
   using decode_attn::kernel;
   const long long f = (long long)kvh * d;
@@ -57,13 +63,13 @@ cudaError_t launch(const void* q, const void* kv, const void* lengths,
   if (batch > 0) {
     if (bf16) {
       const __nv_bfloat16* rows = (const __nv_bfloat16*)kv;
-      kernel<__nv_bfloat16, Contiguous, kRound>
+      kernel<__nv_bfloat16, Contiguous>
           <<<grid, decode_attn::kThreads, 0, stream>>>(
               (const float*)q, rows, rows + f, (const int*)lengths,
               (float*)out, heads, kvh, d, addr, scale);
     } else {
       const float* rows = (const float*)kv;
-      kernel<float, Contiguous, kRound>
+      kernel<float, Contiguous>
           <<<grid, decode_attn::kThreads, 0, stream>>>(
               (const float*)q, rows, rows + f, (const int*)lengths,
               (float*)out, heads, kvh, d, addr, scale);
@@ -213,20 +219,33 @@ extern "C" int decode_attn_float(const void* q, const void* kv,
                                  const void* lengths, void* out, int batch,
                                  int heads, int kvh, int d, int cap,
                                  int bf16, float scale, void* stream) {
-  return (int)launch<decode_attn::kNone>(q, kv, lengths, out, batch, heads,
-                                         kvh, d, cap, bf16, scale,
-                                         (cudaStream_t)stream);
+  return (int)launch_k6(q, kv, lengths, out, batch, heads, kvh, d, cap,
+                        bf16, scale, (cudaStream_t)stream);
 }
 
-// K8: flash_decode_flat's float mode with q_bf16, the roundings above.
+// K8: flash_decode_flat's float mode with q_bf16 (kv_group::kFlat), at the
+// launch of rows_plan: `splits` chunks a sequence (1 to 8, one cluster) of
+// whole `unit`-row units; hpw query heads a warp, hg head groups, warps 4
+// or 8 a block (kv_group::launch). bf16: 0 f32 cache, 1 bf16 cache. d 64
+// to 256 in steps of 64, as K6's kernel took. The wrapper checks shapes,
+// contiguity and 16-byte alignment.
 extern "C" int decode_attn_flat_float(const void* q, const void* kv,
                                       const void* lengths, void* out,
                                       int batch, int heads, int kvh, int d,
-                                      int cap, int bf16, float scale,
-                                      void* stream) {
-  return (int)launch<decode_attn::kFlat>(q, kv, lengths, out, batch, heads,
-                                         kvh, d, cap, bf16, scale,
-                                         (cudaStream_t)stream);
+                                      int cap, int bf16, int splits,
+                                      int unit, int hpw, int hg, int warps,
+                                      float scale, void* stream) {
+  using kv_group::launch;
+  const kv_group::Rows addr{cap};
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(bf16 ? launch<__nv_bfloat16, kv_group::Rows, kv_group::kFlat,
+                             true>(q, kv, nullptr, lengths, out, nullptr,
+                                   batch, heads, kvh, d, addr, splits, unit,
+                                   hpw, hg, warps, scale, st)
+                    : launch<float, kv_group::Rows, kv_group::kFlat, true>(
+                          q, kv, nullptr, lengths, out, nullptr, batch,
+                          heads, kvh, d, addr, splits, unit, hpw, hg, warps,
+                          scale, st));
 }
 
 // native_dots over blocks of block_k rows (on an f32 cache the roundings

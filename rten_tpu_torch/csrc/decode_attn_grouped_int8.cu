@@ -33,7 +33,7 @@
 // at d 128 a warp holds two heads' q and accumulators, and two head groups
 // of warps read each staged row from shared memory. B x KVH = 128 blocks
 // would leave the walk of 512-576 rows to one block an SM, so
-// grouped_int8_plan splits each sequence into 2 chunks of whole 16-row
+// rows_plan splits each sequence into 2 chunks of whole 16-row
 // units (one cluster, merged through distributed shared memory in the
 // same launch) and gives each of the 256 blocks 8 warps. V1's kernel at
 // S = 1 (one block per query head, every head reading the KV head's rows,
@@ -269,28 +269,27 @@ extern "C" int decode_attn_grouped_int8(const void* q, const void* kv,
   return (int)err;
 }
 
-// G1 without pv_int8, the launch of grouped_int8_plan: int8_scores 0 exact
-// q (kExact), 1 row-quantized q (kScores, `dots` int32 [B, H, cap] or
-// null); `splits` chunks a sequence (1 to 8, one cluster) of whole
-// `unit`-row units; hpw query heads a warp, hg head groups, warps 4 or 8
-// a block (kv_group::launch). d 64 or 128, as V1's kernel took. The
-// wrapper checks shapes, contiguity and 16-byte alignment.
+// G1 without pv_int8, the launch of rows_plan: int8_scores 0 exact q
+// (kExact), 1 row-quantized q (kScores, `dots` int32 [B, H, cap] or null);
+// `splits` chunks a sequence (1 to 8, one cluster) of whole `unit`-row
+// units; hpw query heads a warp, hg head groups, warps 4 or 8 a block
+// (kv_group::launch). d 64 or 128, as V1's kernel took. The wrapper checks
+// shapes, contiguity and 16-byte alignment.
 extern "C" int decode_attn_grouped_int8_rows(
     const void* q, const void* kv, const void* scales, const void* lengths,
     void* out, void* dots, int batch, int heads, int kvh, int d, int cap,
     int int8_scores, int splits, int unit, int hpw, int hg, int warps,
     float scale, void* stream) {
+  using kv_group::launch;
   const kv_group::Rows addr{cap};
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(int8_scores
-                   ? kv_group::launch<kv_group::Rows, kv_group::kScores,
-                                      false>(
-                         q, kv, scales, lengths, out, dots, batch, heads,
-                         kvh, d, addr, splits, unit, hpw, hg, warps, scale,
-                         st)
-                   : kv_group::launch<kv_group::Rows, kv_group::kExact,
-                                      false>(
-                         q, kv, scales, lengths, out, nullptr, batch, heads,
-                         kvh, d, addr, splits, unit, hpw, hg, warps, scale,
-                         st));
+                   ? launch<int8_t, kv_group::Rows, kv_group::kScores,
+                            false>(q, kv, scales, lengths, out, dots, batch,
+                                   heads, kvh, d, addr, splits, unit, hpw,
+                                   hg, warps, scale, st)
+                   : launch<int8_t, kv_group::Rows, kv_group::kExact,
+                            false>(q, kv, scales, lengths, out, nullptr,
+                                   batch, heads, kvh, d, addr, splits, unit,
+                                   hpw, hg, warps, scale, st));
 }

@@ -1,16 +1,20 @@
-// Single-query decode attention over an int8 KV cache with every query head
-// of a KV head's group in one block: the kernel of decode_attn_paged.cu's
-// int8 mode (P3i: a block-paged pool, rows through the page table) and of
-// decode_attn_grouped_int8.cu's G1 entry (contiguous rows, exact q or int8
-// scores).
+// Single-query decode attention with every query head of a KV head's group
+// in one block, over int8 rows with bf16 scales or over float rows (f32 or
+// bf16): the kernel of decode_attn_paged.cu (P3i on an int8 pool, P3 and
+// its grid mode on an f32 pool: rows through the page table), of
+// decode_attn_grouped_int8.cu's G1 entry (contiguous int8 rows, exact q or
+// int8 scores) and of decode_attn_float.cu's K8 (contiguous f32 or bf16
+// rows, flash_decode_flat's roundings).
 //
 // Contract: for sequence b and KV head kh, query heads kh * rep .. kh * rep
 // + rep - 1 (rep = H / KVH) read rows t < n = min(lengths[b], capacity),
 // row t of sequence b from the row the addressing gives (Rows: [b, t] of a
 // [B, cap, 2, KVH*D] cache; Pages: [table[b, t / page], t % page] of a
 // [n_pages, page, 2, KVH*D] pool, an unmapped id (-1) reading pool page
-// 0), with bf16 scales [.., 2, KVH] per (row, plane, KV head). q f32 [B,
-// H, D], out f32 [B, H, D], nothing rounded to bf16.
+// 0; MaskedPages: the same, but the rows of an unmapped page take no
+// weight). q f32 [B, H, D], out f32 [B, H, D].
+// int8 rows (T = int8_t) carry bf16 scales [.., 2, KVH] per (row, plane,
+// KV head), and nothing is rounded to bf16:
 // kExact: s_t = ((q . k8_t) * scale) * k_scale_t.
 // kScores: q row-quantized in the kernel (verify_rows::quantize_q: qs =
 //   absmax / 127, 1 where the row is 0; q8 = clip(rint(q / qs), -127, 127))
@@ -18,40 +22,58 @@
 //   `dots` the int32 sums [B, H, cap] are stored for t < n.
 // Then out = sum_t p_t v_scale_t v8_t / max(sum_t p_t, 1e-30), p_t =
 // exp(s_t - max s): l takes the unscaled p, V is weighted by p * v_scale.
-// A sequence with no live row gets zeros.
+// Float rows (T = float or __nv_bfloat16), read as f32:
+// kExact: s_t = (q . k_t) * scale, out = sum_t p_t v_t / max(sum_t p_t,
+//   1e-30), all in f32.
+// kFlat (flash_decode_flat's float mode with q_bf16): q is rounded to bf16
+//   as it enters and every K element before the score dot (a bf16 cache's
+//   are already), V is used as stored, and the normalized output is
+//   rounded to bf16.
+// A sequence with no live row (or, masked, no mapped live row) gets zeros.
 //
-// Bound on the H100: bytes. Each live row's int8 K and V slices of one KV
-// head (2 x D bytes) and its two bf16 scales are read once for the whole
-// group; the arithmetic, about 4 f32 flops a query head and one exact
-// convert per int8 element, is as long as the bytes at a group of 4 (G1 at
-// path (H)) and a quarter of them at a group of 1 (P3i at path (D)).
+// Bound on the H100: bytes. Each live row's K and V slices of one KV head
+// (2 x D elements) and, for int8, its two bf16 scales are read once for the
+// whole group; the arithmetic, about 4 f32 flops a query head and element
+// (and one exact convert per int8 element), is as long as the int8 bytes
+// at a group of 4 (G1 at path (H)) and a quarter of them at a group of 1
+// (P3i at path (D)); over f32 rows it is 1 flop a byte at a group of 1 (P3
+// at (E), K8 at (I)) against the card's 20 flops a byte.
 //
 // Design: one block of 4 or 8 warps per (sequence, KV head, split), so each
-// int8 row crosses from device memory once for a group of up to 8 query
-// heads (4 above D 128); a larger group takes a block per 8 (or 4) of its
-// heads, each reading the rows.
-// - Rows move a tile of 64 at a time (a page of 64 on the paged path; 32
-//   above D 128) through a 2-stage ring in shared memory by 16-byte
-//   cp.async copies: the tile's K and V slices (64 x 2 x D bytes, 8 KB at
-//   D 64) are in flight together, and the next tile's while this one is
-//   computed. The two bf16 scales of each row are plain loads sent with
-//   the copies and stored beside them after the current tile's compute.
+// row crosses from device memory once for a group of up to 8 query heads (4
+// above D 128); a larger group takes a block per 8 (or 4) of its heads,
+// each reading the rows.
+// - Rows move a tile at a time through a ring of stages in shared memory by
+//   16-byte cp.async copies: the tile's K and V slices are in flight
+//   together, and the next tiles' while this one is computed. An int8 tile
+//   is 64 rows (32 above D 128), 8 KB at D 64, in 2 stages; a float tile
+//   is kF32Rows or kBf16Rows rows at D 64, fewer at a wider D (tile_rows),
+//   in kFloatStages stages; a page then takes several tiles. The ring is
+//   dynamic shared memory (the opt-in is set where the block's shared
+//   memory passes 48 KB). The two bf16 scales of each int8 row are plain
+//   loads sent with the copies and stored beside them after the current
+//   tile's compute.
 // - A paged block reads its chunk's page ids from the table once, into
 //   shared memory, before any copy: one id a page, not one a row. With one
 //   split every id of the sequence loads beside the length and q, so a
-//   block waits on one round trip to device memory before its copies.
+//   block waits on one round trip to device memory before its copies. A
+//   masked block stages the raw ids, copies nothing for an unmapped page
+//   and gives its rows no weight.
 // - Compute reads the tile from shared memory on the eight-lanes-a-row
-//   layout (decode_attn.cuh): each lane holds D / 8 values of a row, in
-//   8- or 16-byte loads; int8 converts exactly by a byte permute and one
-//   float subtract; the dot reduces over 8 lanes. A warp serves kHpw query
-//   heads of the group with q and the accumulators in registers (kHpw * D
-//   / 8 <= 32 values each), so a converted row is used kHpw times; where
-//   the group has more heads, kHG head groups of warps share each staged
-//   row from shared memory. Each warp keeps an online softmax per head
-//   and takes a tile in three passes: the scores of all its rows of the
-//   tile (independent steps the scheduler interleaves), one max and one
-//   rescale per head (skipped where the max did not grow: alpha would be
-//   1), then P V; a partial tile skips its dead steps.
+//   layout (decode_attn.cuh): each lane holds D / 8 values of a row (int8:
+//   contiguous, in 8- or 16-byte loads, converted exactly by a byte permute
+//   and one float subtract; f32 and bf16: the 16-byte chunks slot, slot +
+//   8, .. of the row, so the eight lanes of a row read 128 contiguous bytes
+//   at once, free of bank conflicts); the dot reduces over 8 lanes. A warp
+//   serves kHpw query heads of the group with q and the accumulators in
+//   registers (kHpw * D / 8 <= 32 values each), so a row read from shared
+//   memory is used kHpw times; where the group has more heads, kHG head
+//   groups of warps share each staged row. Each warp keeps an online
+//   softmax per head and takes a tile in three passes: the scores of all
+//   its rows of the tile (independent steps the scheduler interleaves), one
+//   max and one rescale per head (skipped where the max did not grow: alpha
+//   would be 1), then P V; a partial tile skips its dead steps, and a dead
+//   float row's stale shared memory is never weighed.
 // - A sequence splits into `splits` chunks of whole units (a page, or 16
 //   rows) only where B x KVH alone leaves the card short of blocks; the
 //   splits of a (sequence, KV head) form one thread-block cluster and merge
@@ -59,11 +81,13 @@
 //   barrier: one launch, no scratch. A launch of few blocks takes 8 warps
 //   a block: the walk is bound by the latency of its warps, not by the
 //   instruction rate.
-// What bounds it (python -m rten_tpu_torch.tools.kv_group_variants): the
-// staged copies alone, without the walk, take 0.79-0.87 of the whole
-// kernel's time at both paths' shapes, the walk alone 0.66-0.84: each
-// block's chain of round trips (length, ids, copies) and the few warps
-// left to hide them, not the card's byte rate.
+// What bounds it (python -m rten_tpu_torch.tools.kv_group_variants): for
+// the int8 rows the staged copies alone, without the walk, take 0.79-0.87
+// of the whole kernel's time at both paths' shapes, the walk alone
+// 0.66-0.84: each block's chain of round trips (length, ids, copies) and
+// the few warps left to hide them, not the card's byte rate. Over f32 rows
+// at 3072 blocks (P3, K8) it reaches 0.73 of the byte bound (the float
+// ring's tilings: kF32Rows below).
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -82,8 +106,53 @@ namespace cg = cooperative_groups;
 constexpr int kLanes = 8;        // lanes a row
 constexpr int kMaxIds = 256;     // page ids a paged block stages
 constexpr int kMaxSplits = 8;    // a cluster holds a sequence's splits
+constexpr int kMaxSmem = 227 * 1024;
+// Rows of a float ring stage at D 64 (halved for each doubling of D, at
+// least 16) and the stages of a float ring. Tiles of 16, 32 and 64 rows in
+// 2 or 3 stages read within 5% of each other at paths (E), (I) and
+// (I-bf16), but 3 x 64 f32 rows (11% slower at (E), 44% at the grid mode's
+// batch of 3); 16 rows were 22% slower at TinyLlama's K8, and a third stage
+// gained nowhere (tools/kv_group_variants.py, which builds the others by
+// patching this line).
+constexpr int kF32Rows = 32, kBf16Rows = 64, kFloatStages = 2;
 
-enum Mode { kExact = 0, kScores = 1 };
+// kExact and kScores on int8 rows; kExact and kFlat on float rows.
+enum Mode { kExact = 0, kScores = 1, kFlat = 2 };
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Rows a ring stage holds and the stages of the ring, for rows of D
+// elements of elt bytes.
+__host__ __device__ constexpr int tile_rows(int d, int elt) {
+  if (elt == 1) return d <= 128 ? 64 : 32;
+  const int r = (elt == 4 ? kF32Rows : kBf16Rows) * 64 / pow2_at_least(d);
+  return r < 16 ? 16 : r;
+}
+__host__ __device__ constexpr int ring_stages(int elt) {
+  return elt == 1 ? 2 : kFloatStages;
+}
+
+// The block's sizes for rows of T at D = 8 * kDpl: tile, stages, shared
+// memory (the ring, which after the walk holds the warps' and the block's
+// softmax states: it is sized to hold both).
+template <typename T, int kDpl, int kHpw, int kHG, int kWarps>
+struct Shape {
+  static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  static constexpr int d = kLanes * kDpl;
+  static constexpr int kTile = tile_rows(d, sizeof(T));
+  static constexpr int kStages = ring_stages(sizeof(T));
+  static constexpr int kPlane = kTile * d * (int)sizeof(T);
+  static constexpr int kStage = 2 * kPlane + (kInt8 ? 2 * kTile * 4 : 0);
+  static constexpr int kHeads = kHG * kHpw;
+  static constexpr int kMerge =
+      4 * (2 * kWarps * kHpw + kWarps * kHpw * d + 2 * kHeads + kHeads * d);
+  static constexpr int kSmem =
+      kStages * kStage > kMerge ? kStages * kStage : kMerge;
+};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -117,38 +186,52 @@ __device__ __forceinline__ void s8x4_to_f32(uint32_t w, float* f) {
 
 // Each addressing gives row t of sequence b a row index r into [rows, 2,
 // KVH*D] (and [rows, 2, KVH] for the scales), for t in the block's chunk
-// [c0, c1).
+// [c0, c1), or -1 for a masked row, which is neither copied nor weighed.
 
 // A contiguous cache [B, cap, 2, KVH*D]: row b * cap + t.
 struct Rows {
   static constexpr int kIds = 1;
+  static constexpr bool kMasks = false;
   int cap;
   __device__ int capacity() const { return cap; }
   __device__ void stage_ids(int*, int, int, int) const {}
   __device__ long long row(const int*, int b, int t, int) const {
     return (long long)b * cap + t;
   }
+  __device__ bool live(const int*, int, int) const { return true; }
 };
 
 // A block-paged pool [n_pages, page, 2, KVH*D] through the table [B,
-// max_pages]: the chunk starts on a page boundary, and its page ids
-// (clamped to >= 0: an unmapped page reads pool page 0) sit in shared
-// memory, at most kMaxIds of them (the wrapper's plan splits to keep it
-// so; with one split every id of the row, max_pages <= kMaxIds).
-struct Pages {
+// max_pages]: the chunk starts on a page boundary, and its page ids sit in
+// shared memory, at most kMaxIds of them (the wrapper's plan splits to
+// keep it so; with one split every id of the row, max_pages <= kMaxIds).
+// kMask false clamps an id to >= 0 (an unmapped page reads pool page 0,
+// the reference's grouped kernels); kMask true keeps it, and an unmapped
+// page's rows are masked (its grid kernel).
+template <bool kMask>
+struct PageTable {
   static constexpr int kIds = kMaxIds;
+  static constexpr bool kMasks = kMask;
   const int* table;
   int page, max_pages;
   __device__ int capacity() const { return page * max_pages; }
   __device__ void stage_ids(int* ids, int b, int c0, int c1) const {
     const int p0 = c0 / page, np = (c1 - c0 + page - 1) / page;
-    for (int i = threadIdx.x; i < np; i += blockDim.x)
-      ids[i] = max(table[(long long)b * max_pages + p0 + i], 0);
+    for (int i = threadIdx.x; i < np; i += blockDim.x) {
+      const int id = table[(long long)b * max_pages + p0 + i];
+      ids[i] = kMask ? id : max(id, 0);
+    }
   }
   __device__ long long row(const int* ids, int, int t, int c0) const {
-    return (long long)ids[(t - c0) / page] * page + t % page;
+    const int id = ids[(t - c0) / page];
+    return kMask && id < 0 ? -1 : (long long)id * page + t % page;
+  }
+  __device__ bool live(const int* ids, int t, int c0) const {
+    return !kMask || ids[(t - c0) / page] >= 0;
   }
 };
+using Pages = PageTable<false>;
+using MaskedPages = PageTable<true>;
 
 // kDpl int8 values of shared memory as kDpl / 4 words, in 16-byte loads
 // (kDpl 16 or 32) or 8-byte ones (kDpl 8 or 24).
@@ -173,34 +256,81 @@ __device__ __forceinline__ void words(const int8_t* p, uint32_t* w) {
   }
 }
 
-template <typename Addr, int kMode, int kDpl, int kHpw, int kHG, int kWarps>
+// Values per 16-byte chunk of a row: a lane holds kDpl contiguous int8
+// values, or the float chunks slot, slot + 8, .. (value i of lane slot s is
+// element elem(s, i) of the row).
+template <typename T, int kDpl>
+constexpr int kChunk =
+    std::is_same<T, int8_t>::value ? kDpl : 16 / (int)sizeof(T);
+
+template <typename T, int kDpl>
+__device__ __forceinline__ int elem(int slot, int i) {
+  constexpr int e = kChunk<T, kDpl>;
+  return (i / e) * kLanes * e + slot * e + i % e;
+}
+
+// Lane slot's kDpl values of a row in shared memory, as f32.
+template <int kDpl>
+__device__ __forceinline__ void row_vals(const int8_t* row, int slot,
+                                         float* x) {
+  uint32_t w[kDpl / 4];
+  words<kDpl>(row + slot * kDpl, w);
+#pragma unroll
+  for (int i = 0; i < kDpl / 4; ++i) s8x4_to_f32(w[i], x + 4 * i);
+}
+template <int kDpl>
+__device__ __forceinline__ void row_vals(const float* row, int slot,
+                                         float* x) {
+#pragma unroll
+  for (int c = 0; c < kDpl / 4; ++c) {
+    const float4 v = reinterpret_cast<const float4*>(row)[c * kLanes + slot];
+    x[4 * c] = v.x;
+    x[4 * c + 1] = v.y;
+    x[4 * c + 2] = v.z;
+    x[4 * c + 3] = v.w;
+  }
+}
+template <int kDpl>
+__device__ __forceinline__ void row_vals(const __nv_bfloat16* row, int slot,
+                                         float* x) {
+#pragma unroll
+  for (int c = 0; c < kDpl / 8; ++c) {
+    const uint4 raw = reinterpret_cast<const uint4*>(row)[c * kLanes + slot];
+    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[8 * c + i] = __bfloat162float(v[i]);
+  }
+}
+
+template <typename T, typename Addr, int kMode, int kDpl, int kHpw, int kHG,
+          int kWarps>
 __global__ void __launch_bounds__(32 * kWarps)
-    kernel(const float* __restrict__ q, const int8_t* __restrict__ kv,
+    kernel(const float* __restrict__ q, const T* __restrict__ kv,
            const __nv_bfloat16* __restrict__ scales,
            const int* __restrict__ lengths, float* __restrict__ out,
            int* __restrict__ dots, int heads, int kvh, Addr addr, int unit,
            float scale) {
-  constexpr int d = kLanes * kDpl;
-  // Rows a ring stage holds: 64, or 32 above D 128, where two stages of
-  // 64 would pass the 48 KB of static shared memory.
-  constexpr int kTile = d <= 128 ? 64 : 32;
+  using S = Shape<T, kDpl, kHpw, kHG, kWarps>;
+  constexpr bool kInt8 = S::kInt8;
+  constexpr int d = S::d;
+  constexpr int kTile = S::kTile, kStages = S::kStages;
   constexpr int kThreads = 32 * kWarps;
   constexpr int kWords = kDpl / 4;
-  constexpr int kRG = kWarps / kHG;      // warps a head group
-  constexpr int kSteps = kTile / (4 * kRG);  // a warp's steps a tile
-  constexpr int kVec = d / 16;           // 16-byte pieces of a row slice
-  constexpr int kPieces = kTile * kVec;  // of a plane of a stage
-  constexpr int kPlane = kTile * d;      // bytes of one plane of a stage
-  constexpr int kStage = 2 * kPlane + 2 * kTile * 4;
-  constexpr int kHeads = kHG * kHpw;     // the block's heads, padded
-  // After the walk the ring holds the warps' states and the block's.
-  constexpr int kMerge =
-      4 * (2 * kWarps * kHpw + kWarps * kHpw * d + 2 * kHeads + kHeads * d);
-  static_assert(kHG * kRG == kWarps && kTile % (4 * kRG) == 0 &&
-                    kThreads >= 2 * kTile,
+  constexpr int kRG = kWarps / kHG;                // warps a head group
+  constexpr int kSteps = (kTile + 4 * kRG - 1) / (4 * kRG);  // a warp's
+  constexpr bool kDense = kTile % (4 * kRG) == 0;  // every step has rows
+  constexpr int kVec = d * (int)sizeof(T) / 16;    // pieces of a row slice
+  constexpr int kPieces = kTile * kVec;            // of a plane of a stage
+  constexpr int kPlane = S::kPlane, kStage = S::kStage;
+  constexpr int kHeads = S::kHeads;                // the block's, padded
+  static_assert(kInt8 ? kMode != kFlat : kMode != kScores, "mode");
+  static_assert(kHG * kRG == kWarps && (!kInt8 || (kDense &&
+                                                   kThreads >= 2 * kTile)),
                 "tiling");
-  static_assert(kMerge <= 2 * kStage, "merge state fits in the ring");
-  __shared__ __align__(16) unsigned char ring[2 * kStage];
+  static_assert(S::kMerge <= S::kSmem &&
+                    S::kSmem + 4 * Addr::kIds <= kMaxSmem,
+                "the merge state fits in the ring, the ring in the SM");
+  extern __shared__ __align__(16) unsigned char ring[];
   __shared__ int ids[Addr::kIds];
 
   // The block serves kHeads query heads of KV head kh's group from head
@@ -212,7 +342,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   const int h0 = (blockIdx.y % chunks) * kHeads, nh = min(kHeads, rep - h0);
   const long long hbase = (long long)b * heads + kh * rep + h0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane / kLanes, col = (lane % kLanes) * kDpl;
+  const int grp = lane / kLanes, slot = lane % kLanes;
   const int hg = warp % kHG, rg = warp / kHG;
   const long long f = (long long)kvh * d;
 
@@ -224,9 +354,13 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
   for (int j = 0; j < kHpw; ++j) {
     const int hl = min(hg * kHpw + j, nh - 1);
-    const float* qr = q + (hbase + hl) * d + col;
+    const float* qr = q + (hbase + hl) * d;
 #pragma unroll
-    for (int i = 0; i < kDpl; ++i) qv[j][i] = qr[i];
+    for (int i = 0; i < kDpl; ++i) {
+      qv[j][i] = qr[elem<T, kDpl>(slot, i)];
+      if constexpr (kMode == kFlat) qv[j][i] = decode_attn::bf16_round(
+          qv[j][i]);
+    }
   }
   if (splits == 1) addr.stage_ids(ids, b, 0, addr.capacity());
   // The chunk: rows [c0, c1) of [0, n), whole units, one per split.
@@ -255,73 +389,74 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
   __syncthreads();  // the page ids
 
-  // Tile j's K and V slices into stage j % 2 (one commit group per tile
-  // and thread, empty past the chunk); returns this thread's scale of the
-  // tile (row tid % 64, plane tid / 64; threads past 128 take none),
-  // stored by put_scale.
+  // Tile j's K and V slices into stage j % kStages (one commit group per
+  // tile and thread, empty past the chunk); for int8 returns this thread's
+  // scale of the tile (row tid % kTile, plane tid / kTile; threads past 2
+  // x kTile take none), stored by put_scale.
   auto stage = [&](int j) -> float {
-    unsigned char* buf = ring + (j & 1) * kStage;
+    unsigned char* buf = ring + (j % kStages) * kStage;
     const int t0 = c0 + j * kTile;
 #pragma unroll
     for (int p = 0; p < (kPieces + kThreads - 1) / kThreads; ++p) {
       const int e = tid + p * kThreads, r = e / kVec, vq = e % kVec;
       if ((kPieces % kThreads == 0 || e < kPieces) && t0 + r < c1) {
-        const int8_t* src = kv + addr.row(ids, b, t0 + r, c0) * 2 * f +
-                            (long long)kh * d + 16 * vq;
-        cp_async16(buf + r * d + 16 * vq, src);
-        cp_async16(buf + kPlane + r * d + 16 * vq, src + f);
+        const long long row = addr.row(ids, b, t0 + r, c0);
+        if (!Addr::kMasks || row >= 0) {
+          const T* src = kv + row * 2 * f + (long long)kh * d +
+                         vq * (16 / (int)sizeof(T));
+          unsigned char* dst = buf + r * d * (int)sizeof(T) + 16 * vq;
+          cp_async16(dst, src);
+          cp_async16(dst + kPlane, src + f);
+        }
       }
     }
     cp_async_commit();
-    const int t = t0 + tid % kTile, plane = tid / kTile;
-    return t < c1 && plane < 2 ? __bfloat162float(
-                        scales[(addr.row(ids, b, t, c0) * 2 + plane) * kvh +
-                               kh])
-                  : 0.0f;
+    if constexpr (kInt8) {
+      const int t = t0 + tid % kTile, plane = tid / kTile;
+      return t < c1 && plane < 2
+                 ? __bfloat162float(
+                       scales[(addr.row(ids, b, t, c0) * 2 + plane) * kvh +
+                              kh])
+                 : 0.0f;
+    }
+    return 0.0f;
   };
   auto put_scale = [&](int j, float s) {
-    if (tid < 2 * kTile)
-      reinterpret_cast<float*>(ring + (j & 1) * kStage + 2 * kPlane)[tid] = s;
+    if (kInt8 && tid < 2 * kTile)
+      reinterpret_cast<float*>(ring + (j % kStages) * kStage +
+                               2 * kPlane)[tid] = s;
   };
 
   // One tile's walk over stage buf (rows live rows from row t0): a full
   // tile unrolls without a branch; a partial one skips the steps past its
   // rows (warp-uniform).
   auto walk = [&](auto full, const unsigned char* buf, int rows, int t0) {
-    constexpr bool kFull = decltype(full)::value;
+    constexpr bool kFull = decltype(full)::value && kDense;
     auto on = [&](int k) { return kFull || (k * kRG + rg) * 4 < rows; };
-    const int8_t* ks8 = reinterpret_cast<const int8_t*>(buf);
-    const int8_t* vs8 = ks8 + kPlane;
+    const T* ks = reinterpret_cast<const T*>(buf);
+    const T* vs = reinterpret_cast<const T*>(buf + kPlane);
     const float* ksc = reinterpret_cast<const float*>(buf + 2 * kPlane);
     const float* vsc = ksc + kTile;
     // The scores of the warp's rows: step k takes row (k * kRG + rg) * 4 +
-    // grp, and the steps are independent of each other.
+    // grp, and the steps are independent of each other. A dead row (past
+    // the tile's rows, or masked) scores -inf and, over float rows, adds
+    // nothing of its stale V.
     float sc[kSteps][kHpw];
+    bool dead[kSteps];
 #pragma unroll
     for (int k = 0; k < kSteps; ++k) {
       const int r = (k * kRG + rg) * 4 + grp;
+      dead[k] = !((kFull || r < rows) && addr.live(ids, t0 + r, c0));
       if (!on(k)) {
 #pragma unroll
         for (int j2 = 0; j2 < kHpw; ++j2) sc[k][j2] = -INFINITY;
         continue;
       }
-      uint32_t kw[kWords];
-      words<kDpl>(ks8 + r * d + col, kw);
-      if constexpr (kMode == kExact) {
-        float kf[kDpl];
-#pragma unroll
-        for (int w = 0; w < kWords; ++w) s8x4_to_f32(kw[w], kf + 4 * w);
-#pragma unroll
-        for (int j2 = 0; j2 < kHpw; ++j2) {
-          float dot = 0.0f;
-#pragma unroll
-          for (int i = 0; i < kDpl; ++i) dot += qv[j2][i] * kf[i];
-#pragma unroll
-          for (int o = 1; o < kLanes; o <<= 1)
-            dot += __shfl_xor_sync(0xffffffffu, dot, o);
-          sc[k][j2] = dot * scale;
-        }
-      } else {
+      if constexpr (kMode == kScores) {
+        uint32_t kw[kWords];
+        words<kDpl>(reinterpret_cast<const int8_t*>(ks) + r * d +
+                        slot * kDpl,
+                    kw);
 #pragma unroll
         for (int j2 = 0; j2 < kHpw; ++j2) {
           int dot = 0;
@@ -332,19 +467,43 @@ __global__ void __launch_bounds__(32 * kWarps)
           for (int o = 1; o < kLanes; o <<= 1)
             dot += __shfl_xor_sync(0xffffffffu, dot, o);
           const int hl = hg * kHpw + j2;
-          if (dots != nullptr && lane % kLanes == 0 && r < rows && hl < nh)
+          if (dots != nullptr && slot == 0 && r < rows && hl < nh)
             dots[(hbase + hl) * addr.capacity() + t0 + r] = dot;
           sc[k][j2] = (float)dot * qscale[j2];
         }
+      } else {
+        float kf[kDpl];
+        row_vals<kDpl>(ks + r * d, slot, kf);
+        if constexpr (kMode == kFlat && std::is_same<T, float>::value) {
+#pragma unroll
+          for (int i = 0; i < kDpl; ++i) kf[i] = decode_attn::bf16_round(
+              kf[i]);
+        }
+#pragma unroll
+        for (int j2 = 0; j2 < kHpw; ++j2) {
+          float dot = 0.0f;
+#pragma unroll
+          for (int i = 0; i < kDpl; ++i) dot += qv[j2][i] * kf[i];
+#pragma unroll
+          for (int o = 1; o < kLanes; o <<= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          sc[k][j2] = dot * scale;
+        }
       }
-      const float ksr = ksc[r];
+      if constexpr (kInt8) {
+        const float ksr = ksc[r];
+#pragma unroll
+        for (int j2 = 0; j2 < kHpw; ++j2) sc[k][j2] *= ksr;
+      }
 #pragma unroll
       for (int j2 = 0; j2 < kHpw; ++j2)
-        sc[k][j2] = r < rows ? sc[k][j2] * ksr : -INFINITY;
+        sc[k][j2] = dead[k] ? -INFINITY : sc[k][j2];
     }
-    // Rows are a prefix of the tile: the warp has a live row here iff its
-    // first one is (warp-uniform). Then per head the tile's max over the
-    // warp's rows, one rescale where it grew, and p v_scale in place.
+    // Rows are a prefix of the tile: the warp has a row here iff its first
+    // one is (warp-uniform). Then per head the tile's max over the warp's
+    // rows, one rescale where it grew, and p (times v_scale) in place. A
+    // masked warp may have seen no live row yet: its m stays -inf and its
+    // p are 0.
     if (4 * rg < rows) {
 #pragma unroll
       for (int j2 = 0; j2 < kHpw; ++j2) {
@@ -364,51 +523,67 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
         for (int k = 0; k < kSteps; ++k) {
           if (!on(k)) continue;
-          const float p = expf(sc[k][j2] - m[j2]);
+          float p = expf(sc[k][j2] - m[j2]);
+          if constexpr (Addr::kMasks) p = m[j2] == -INFINITY ? 0.0f : p;
           l[j2] += p;
-          sc[k][j2] = p * vsc[(k * kRG + rg) * 4 + grp];
+          sc[k][j2] = kInt8 ? p * vsc[(k * kRG + rg) * 4 + grp] : p;
         }
       }
 #pragma unroll
       for (int k = 0; k < kSteps; ++k) {
         if (!on(k)) continue;
         const int r = (k * kRG + rg) * 4 + grp;
-        uint32_t vw[kWords];
-        words<kDpl>(vs8 + r * d + col, vw);
+        if constexpr (kInt8) {
+          uint32_t vw[kWords];
+          words<kDpl>(reinterpret_cast<const int8_t*>(vs) + r * d +
+                          slot * kDpl,
+                      vw);
 #pragma unroll
-        for (int w = 0; w < kWords; ++w) {
-          float vf[4];
-          s8x4_to_f32(vw[w], vf);
+          for (int w = 0; w < kWords; ++w) {
+            float vf[4];
+            s8x4_to_f32(vw[w], vf);
+#pragma unroll
+            for (int j2 = 0; j2 < kHpw; ++j2)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                acc[j2][4 * w + i] += sc[k][j2] * vf[i];
+          }
+        } else {
+          float vf[kDpl];
+          row_vals<kDpl>(vs + r * d, slot, vf);
+#pragma unroll
+          for (int i = 0; i < kDpl; ++i) vf[i] = dead[k] ? 0.0f : vf[i];
 #pragma unroll
           for (int j2 = 0; j2 < kHpw; ++j2)
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              acc[j2][4 * w + i] += sc[k][j2] * vf[i];
+            for (int i = 0; i < kDpl; ++i) acc[j2][i] += sc[k][j2] * vf[i];
         }
       }
     }
   };
 
-  // The ring: tile j + 1 is in flight while tile j is walked. The barrier
-  // at the top of iteration j lands tile j (its copies waited for, its
-  // scales stored) and frees stage (j + 1) % 2, which tile j + 1 then
-  // fills; its scales land in registers during the walk and are stored
-  // after it. (Four stages, three tiles ahead, measured slower for G1 at
-  // path (H)'s shapes.)
-  put_scale(0, stage(0));
+  // The ring: tiles j + 1 .. j + kStages - 1 are in flight while tile j is
+  // walked. The barrier at the top of iteration j lands tile j (its copies
+  // waited for, its scales stored) and frees the stage of tile j - 1,
+  // which tile j + kStages - 1 then fills; an int8 tile's scales land in
+  // registers during the walk and are stored after it. (Four stages, three
+  // tiles ahead, measured slower for G1 at path (H)'s shapes.)
+#pragma unroll
+  for (int j = 0; j + 1 < kStages; ++j) put_scale(j, stage(j));
   for (int j = 0; j < tiles; ++j) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile j's rows and scales; stage (j + 1) % 2 is free
-    const float next = stage(j + 1);
-    const unsigned char* buf = ring + (j & 1) * kStage;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile j's rows and scales; tile j - 1's stage free
+    const float next = stage(j + kStages - 1);
+    const unsigned char* buf = ring + (j % kStages) * kStage;
     const int t0 = c0 + j * kTile, rows = min(kTile, c1 - t0);
     if (rows == kTile)
       walk(std::true_type(), buf, rows, t0);
     else
       walk(std::false_type(), buf, rows, t0);
-    if (j + 1 < tiles) put_scale(j + 1, next);
+    if (j + kStages - 1 < tiles) put_scale(j + kStages - 1, next);
   }
-  __syncthreads();  // every warp is done with the ring
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring, every copy landed
 
   // Sum l and acc over the warp's four row groups (m is warp-uniform).
 #pragma unroll
@@ -421,8 +596,7 @@ __global__ void __launch_bounds__(32 * kWarps)
         acc[j][i] += __shfl_xor_sync(0xffffffffu, acc[j][i], o);
     }
   }
-  // The warps' states, then the block's per head (the ring is free: the
-  // last tile's wait took every copy, and its barrier every read).
+  // The warps' states, then the block's per head, in the ring.
   float* wm = reinterpret_cast<float*>(ring);  // [kWarps][kHpw]
   float* wl = wm + kWarps * kHpw;
   float* wacc = wl + kWarps * kHpw;           // [kWarps][kHpw][d]
@@ -438,10 +612,15 @@ __global__ void __launch_bounds__(32 * kWarps)
     if (grp == 0) {
 #pragma unroll
       for (int i = 0; i < kDpl; ++i)
-        wacc[(warp * kHpw + j) * d + col + i] = acc[j][i];
+        wacc[(warp * kHpw + j) * d + elem<T, kDpl>(slot, i)] = acc[j][i];
     }
   }
   __syncthreads();
+  // The normalized output, rounded to bf16 in kFlat.
+  auto result = [](float o, float sum) {
+    const float y = o / fmaxf(sum, 1e-30f);
+    return kMode == kFlat ? decode_attn::bf16_round(y) : y;
+  };
   // A warp (or a block) that saw no live row has m = -inf and weighs
   // exp(-inf) = 0; a head with no live row at all gets zeros.
   for (int e = tid; e < kHeads * d; e += kThreads) {
@@ -461,7 +640,7 @@ __global__ void __launch_bounds__(32 * kWarps)
       }
     }
     if (splits == 1) {
-      if (hl < nh) out[(hbase + hl) * d + c] = o / fmaxf(sum, 1e-30f);
+      if (hl < nh) out[(hbase + hl) * d + c] = result(o, sum);
     } else {
       bacc[hl * d + c] = o;
       if (c == 0) {
@@ -472,7 +651,9 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
   if (splits == 1) return;
   // The splits' states merge across the cluster: split s writes the s-th
-  // share of the group's outputs from every split's shared memory.
+  // share of the group's outputs from every split's shared memory. A split
+  // with no live row has m = -inf and weighs 0; a head none of them saw
+  // gets zeros.
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int total = nh * d, share = (total + splits - 1) / splits;
@@ -490,30 +671,40 @@ __global__ void __launch_bounds__(32 * kWarps)
         o += cluster.map_shared_rank(bacc, s)[hl * d + c] * cw;
       }
     }
-    out[(hbase + hl) * d + c] = o / fmaxf(sum, 1e-30f);
+    out[(hbase + hl) * d + c] = result(o, sum);
   }
   cluster.sync();  // no block leaves while another reads its state
 }
 
-template <typename Addr, int kMode, int kDpl, int kHpw, int kHG, int kWarps>
-cudaError_t launch_one(const float* q, const int8_t* kv,
+template <typename T, typename Addr, int kMode, int kDpl, int kHpw, int kHG,
+          int kWarps>
+cudaError_t launch_one(const float* q, const T* kv,
                        const __nv_bfloat16* scales, const int* lengths,
                        float* out, int* dots, int batch, int heads, int kvh,
                        Addr addr, int splits, int unit, float scale,
                        cudaStream_t stream) {
-  auto fn = kernel<Addr, kMode, kDpl, kHpw, kHG, kWarps>;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  constexpr int kSmem = Shape<T, kDpl, kHpw, kHG, kWarps>::kSmem;
+  auto fn = kernel<T, Addr, kMode, kDpl, kHpw, kHG, kWarps>;
+  // Above 48 KB of shared memory (the ring and the static ids) a block
+  // needs the opt-in. It is set at every such launch: a static guard would
+  // be one object across every library that instantiates this template.
+  if constexpr (kSmem + 4 * Addr::kIds > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (attr != cudaSuccess) return attr;
+  }
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = splits;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   const int chunks = (heads / kvh + kHG * kHpw - 1) / (kHG * kHpw);
   cfg.gridDim = dim3(splits, kvh * chunks, batch);
   cfg.blockDim = dim3(32 * kWarps);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = kSmem;
   cfg.stream = stream;
-  cfg.attrs = attr;
+  cfg.attrs = attrs;
   cfg.numAttrs = splits > 1 ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, fn, q, kv, scales, lengths, out, dots,
                             heads, kvh, addr, unit, scale);
@@ -522,11 +713,12 @@ cudaError_t launch_one(const float* q, const int8_t* kv,
 // The caller's plan chooses the tiling: kHpw query heads a warp (q and
 // the accumulators of kHpw heads hold kHpw * D / 8 values each, at most
 // 32), kHG head groups of warps sharing each staged row (a block serves
-// kHpw * kHG heads), and 4 or 8 warps. These are the tilings built; D
-// above 128 only for kWide (the paged pool: K6's kernel took D up to 256
-// there). The wrapper checks shapes, contiguity, 16-byte alignment, a
-// paged chunk's page ids and 1 <= splits <= kMaxSplits.
-template <typename Addr, int kMode, bool kWide>
+// kHpw * kHG heads) and 4 or 8 warps; the ring is tile_rows x ring_stages
+// for T at D. These are the tilings built; D above 128 only for kWide
+// (P3i, P3 and K8: K6's kernel took D up to 256 there). The wrapper checks
+// shapes, contiguity, 16-byte alignment, a paged chunk's page ids and
+// 1 <= splits <= kMaxSplits.
+template <typename T, typename Addr, int kMode, bool kWide>
 cudaError_t launch(const void* q, const void* kv, const void* scales,
                    const void* lengths, void* out, void* dots, int batch,
                    int heads, int kvh, int d, Addr addr, int splits, int unit,
@@ -537,7 +729,7 @@ cudaError_t launch(const void* q, const void* kv, const void* scales,
     return cudaErrorInvalidValue;
   if (batch <= 0) return cudaGetLastError();
   const float* qf = (const float*)q;
-  const int8_t* rows = (const int8_t*)kv;
+  const T* rw = (const T*)kv;
   const __nv_bfloat16* sc = (const __nv_bfloat16*)scales;
   const int* len = (const int*)lengths;
   float* o = (float*)out;
@@ -545,11 +737,11 @@ cudaError_t launch(const void* q, const void* kv, const void* scales,
 #define KV_GROUP_TILING(D, HPW, HG)                                         \
   if (d == D && hpw == HPW && hg == HG)                                     \
     return warps == 4                                                       \
-               ? launch_one<Addr, kMode, D / kLanes, HPW, HG, 4>(           \
-                     qf, rows, sc, len, o, dt, batch, heads, kvh, addr,     \
+               ? launch_one<T, Addr, kMode, D / kLanes, HPW, HG, 4>(        \
+                     qf, rw, sc, len, o, dt, batch, heads, kvh, addr,       \
                      splits, unit, scale, stream)                           \
-               : launch_one<Addr, kMode, D / kLanes, HPW, HG, 8>(           \
-                     qf, rows, sc, len, o, dt, batch, heads, kvh, addr,     \
+               : launch_one<T, Addr, kMode, D / kLanes, HPW, HG, 8>(        \
+                     qf, rw, sc, len, o, dt, batch, heads, kvh, addr,       \
                      splits, unit, scale, stream);
   KV_GROUP_TILING(64, 1, 1)
   KV_GROUP_TILING(64, 2, 1)

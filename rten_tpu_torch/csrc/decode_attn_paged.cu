@@ -16,63 +16,63 @@
 // unmapped); tokens [0, min(lengths[b], page * max_pages)) are read. An
 // unmapped page inside the length is read from pool page 0 (mask_unmapped
 // = 0, the grouped kernels, which clamp the id to >= 0) or masked
-// (mask_unmapped = 1, the grid kernel; float pools only). The reference's
-// int8 numerics: q and the output f32 without bf16 rounding, score = ((q .
-// k_int8) * scale) * k_scale, l sums the unscaled p, and V is weighted by
-// p * v_scale; a sequence with no live token gets zeros.
+// (mask_unmapped = 1, the grid kernel; float pools only). Float pools: q,
+// the pool and the output f32, nothing rounded, score = (q . k) * scale,
+// out = sum p v / max(sum p, 1e-30). The reference's int8 numerics: q and
+// the output f32 without bf16 rounding, score = ((q . k_int8) * scale) *
+// k_scale, l sums the unscaled p, and V is weighted by p * v_scale. A
+// sequence with no live (or, masked, no mapped live) token gets zeros.
 //
 // Bound on the H100: bytes. At batch 256, 12 heads of 64 and a live
 // length L it reads B*L*2*768 elements per layer: about 189 MB of an f32
 // pool at L = 120 (56 us), 47 MB of int8 plus 1.5 MB of scales (15 us).
 // The int8 arithmetic is about 4 flops and one convert per byte, 7 us of
-// the card's f32 instruction rate at that shape: bytes bound it.
-// Float pools (P3 and its grid mode): K6's kernel (decode_attn.cuh, one
-// block of four warps per (sequence, head), a per-warp online softmax in
-// registers); the table entry of each token is a broadcast load that stays
-// in L1 for the page's tokens.
-// int8 pools (P3i): decode_attn_kv_group.cuh, one block per (sequence, KV
-// head) with every query head of the group, so each int8 row is read once
-// for the group; the block reads its page ids once into shared memory and
-// moves a page of 64 rows at a time (8 KB of K and V at D 64, plus 256 B
-// of scales) through a 2-stage cp.async ring, computing from shared memory
-// on the eight-lanes-a-row layout. K6's layout gave an int8 row to a lane
-// as 2-byte loads, one dependent table read and two 2-byte scale loads per
-// token, and 4 tokens a warp in flight: 0.189 ms against the 0.015 bound.
-// At (D)'s batch of 256, B x KVH = 3072 blocks fill the card, so one
-// launch with no split (paged_int8_plan); a batch too small for that
-// splits each sequence into chunks of whole pages, merged inside a
-// thread-block cluster, still one launch.
-#include "decode_attn.cuh"
+// the card's f32 instruction rate at that shape; over f32 it is 1 flop a
+// byte: bytes bound both.
+// Design: decode_attn_kv_group.cuh, one block per (sequence, KV head) with
+// every query head of the group, so each row is read once for the group;
+// the block reads its page ids once into shared memory and moves its rows
+// a tile at a time (int8: a page of 64 rows, 8 KB of K and V at D 64 plus
+// 256 B of scales; f32: tile_rows of the header, a page in several tiles)
+// through a cp.async ring, computing from shared memory on the
+// eight-lanes-a-row layout. K6's layout (one block per query head) gave a
+// row to a lane as 8- or 2-byte loads, one dependent table read per token,
+// and 4 tokens a warp in flight: P3i 0.189 ms against its 0.015 bound, P3
+// 0.142 against 0.058. At a batch of 256, B x KVH = 3072 blocks fill the
+// card, so one launch with no split (paged_plan); a batch too small for
+// that (the grid mode's batch of 3) splits each sequence into chunks of
+// whole pages, merged inside a thread-block cluster, still one launch.
 #include "decode_attn_kv_group.cuh"
 
+// P3 and its grid mode (mask_unmapped 1) on an f32 pool, and P3i on an
+// int8 one (with scales), at the launch of paged_plan: splits, the chunks
+// a sequence (and KV head) splits into, each a whole number of pages (1 to
+// 8, one cluster); hpw query heads a warp, hg head groups, warps 4 or 8 a
+// block (kv_group::launch). d 64 to 256 in steps of 64, as K6's kernel
+// took. The wrapper checks that a chunk holds at most 256 pages, shapes,
+// contiguity and 16-byte alignment.
 extern "C" int decode_attn_paged(const void* q, const void* pool,
                                  const void* table, const void* lengths,
                                  void* out, int batch, int heads, int kvh,
                                  int d, int page, int max_pages,
-                                 int mask_unmapped, float scale,
+                                 int mask_unmapped, int splits, int hpw,
+                                 int hg, int warps, float scale,
                                  void* stream) {
-  using decode_attn::kernel;
-  using decode_attn::Paged;
-  dim3 grid(heads, batch);
-  const long long f = (long long)kvh * d;
-  const Paged addr{(const int*)table, page, max_pages, mask_unmapped, 2 * f,
-                   d};
-  if (batch > 0) {
-    const float* rows = (const float*)pool;
-    kernel<float, Paged>
-        <<<grid, decode_attn::kThreads, 0, (cudaStream_t)stream>>>(
-            (const float*)q, rows, rows + f, (const int*)lengths,
-            (float*)out, heads, kvh, d, addr, scale);
+  using kv_group::launch;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mask_unmapped) {
+    const kv_group::MaskedPages addr{(const int*)table, page, max_pages};
+    return (int)launch<float, kv_group::MaskedPages, kv_group::kExact,
+                       true>(q, pool, nullptr, lengths, out, nullptr, batch,
+                             heads, kvh, d, addr, splits, page, hpw, hg,
+                             warps, scale, st);
   }
-  return (int)cudaGetLastError();
+  const kv_group::Pages addr{(const int*)table, page, max_pages};
+  return (int)launch<float, kv_group::Pages, kv_group::kExact, true>(
+      q, pool, nullptr, lengths, out, nullptr, batch, heads, kvh, d, addr,
+      splits, page, hpw, hg, warps, scale, st);
 }
 
-// The launch of paged_int8_plan: splits, the chunks a sequence (and KV
-// head) splits into, each a whole number of pages (1 to 8, one cluster);
-// hpw query heads a warp, hg head groups, warps 4 or 8 a block
-// (kv_group::launch). d 64 to 256 in steps of 64, as K6's kernel took.
-// The wrapper checks that a chunk holds at most 256 pages, shapes,
-// contiguity and 16-byte alignment.
 extern "C" int decode_attn_paged_int8(const void* q, const void* pool,
                                       const void* scales, const void* table,
                                       const void* lengths, void* out,
@@ -81,7 +81,8 @@ extern "C" int decode_attn_paged_int8(const void* q, const void* pool,
                                       int hpw, int hg, int warps, float scale,
                                       void* stream) {
   const kv_group::Pages addr{(const int*)table, page, max_pages};
-  return (int)kv_group::launch<kv_group::Pages, kv_group::kExact, true>(
+  return (int)kv_group::launch<int8_t, kv_group::Pages, kv_group::kExact,
+                               true>(
       q, pool, scales, lengths, out, nullptr, batch, heads, kvh, d, addr,
       splits, page, hpw, hg, warps, scale, (cudaStream_t)stream);
 }

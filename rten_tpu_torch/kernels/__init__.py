@@ -8,15 +8,14 @@ kernel, each counting its own launches:
   window) and ``decode_attn_int8_partials`` (the partials mode):
   ``csrc/decode_attn_int8_tail.cu``;
 * ``decode_attn_float`` (K6), ``decode_attn_flat_float`` (K8) and
-  ``decode_attn_native_dots``: ``csrc/decode_attn_float.cu``, on the kernel
-  of ``csrc/decode_attn.cuh``, which ``decode_attn_split_kv`` (K9,
-  ``csrc/decode_attn_split.cu``) and ``decode_attn_paged`` and
-  ``decode_attn_paged_grid`` (P3 and its grid mode,
-  ``csrc/decode_attn_paged.cu``) run too;
-* ``decode_attn_paged_int8`` (P3i, ``csrc/decode_attn_paged.cu``) and
-  ``decode_attn_grouped_int8`` without ``pv_int8`` (G1, both score modes,
-  ``csrc/decode_attn_grouped_int8.cu``): the KV-group kernel of
-  ``csrc/decode_attn_kv_group.cuh``;
+  ``decode_attn_native_dots``: ``csrc/decode_attn_float.cu``; K6 runs the
+  kernel of ``csrc/decode_attn.cuh``, which ``decode_attn_split_kv`` (K9,
+  ``csrc/decode_attn_split.cu``) runs too;
+* ``decode_attn_paged``, ``decode_attn_paged_grid`` and
+  ``decode_attn_paged_int8`` (P3, its grid mode and P3i,
+  ``csrc/decode_attn_paged.cu``), ``decode_attn_grouped_int8`` without
+  ``pv_int8`` (G1, both score modes, ``csrc/decode_attn_grouped_int8.cu``)
+  and K8: the KV-group kernel of ``csrc/decode_attn_kv_group.cuh``;
 * ``verify_attn_grouped`` and ``verify_attn_fused`` (V1,
   ``csrc/verify_attn.cu``), ``decode_attn_fused_int8`` (G2,
   ``csrc/decode_attn_grouped_int8.cu``) and ``decode_attn_grouped_append``

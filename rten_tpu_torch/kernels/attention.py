@@ -20,20 +20,21 @@
 * ``decode_attn_float`` (CUDA, ``csrc/decode_attn_float.cu``, K6) replaces
   ``flash_decode_grouped`` (:1039) and ``flash_decode_fused`` (:318) on
   float caches: f32 q, an f32 or bf16 cache read as f32, f32 sums and
-  output. ``decode_attn_flat_float`` (K8) runs its kernel with the
-  roundings of ``flash_decode_flat``'s float mode (:1715, ``q_bf16``), and
-  ``decode_attn_native_dots`` with those of ``flash_decode_grouped``'s
-  ``native_dots``.
+  output. ``decode_attn_native_dots`` runs its layout with the roundings
+  of ``flash_decode_grouped``'s ``native_dots``. ``decode_attn_flat_float``
+  (K8, the same source, on the KV-group kernel of
+  ``csrc/decode_attn_kv_group.cuh``) replaces ``flash_decode_flat``'s float
+  mode (:1715, ``q_bf16``) with its roundings.
 * ``decode_attn_split_kv`` (CUDA, ``csrc/decode_attn_split.cu``, K9, K6's
   kernel over separate K and V planes) replaces ``flash_decode`` (:2647).
-* ``decode_attn_paged`` and ``decode_attn_paged_grid`` (CUDA,
-  ``csrc/decode_attn_paged.cu``, K6's kernel on paged addressing) and
-  ``decode_attn_paged_int8`` (P3i, the same source on the KV-group kernel
-  of ``csrc/decode_attn_kv_group.cuh``: one block per KV head for its
-  whole query group, rows staged in shared memory a page at a time)
-  replace ``flash_decode_paged_grouped`` (:2272) in its float and int8
-  modes and ``flash_decode_paged`` (:2573): decode attention over a
-  block-paged pool through the page table.
+* ``decode_attn_paged`` and ``decode_attn_paged_grid`` (P3 and its grid
+  mode, f32 pools) and ``decode_attn_paged_int8`` (P3i) (CUDA,
+  ``csrc/decode_attn_paged.cu``, on the KV-group kernel of
+  ``csrc/decode_attn_kv_group.cuh``: one block per KV head for its whole
+  query group, rows staged in shared memory a tile at a time) replace
+  ``flash_decode_paged_grouped`` (:2272) in its float and int8 modes and
+  ``flash_decode_paged`` (:2573): decode attention over a block-paged
+  pool through the page table.
 * ``verify_attn_grouped`` and ``verify_attn_fused`` (CUDA,
   ``csrc/verify_attn.cu``, one kernel, V1) replace ``flash_verify_grouped``
   (:1957) and ``flash_verify_fused`` (:2394): S speculative-verify queries
@@ -562,15 +563,39 @@ def decode_attn_flat_float(q, kv, lengths, scale=None):
 
     Arguments, reads and the no-token rule as ``decode_attn_float``. The
     reference's choice of this mode is :func:`float_decode_kernel`. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (K6's,
-    in its flat mode) or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel (the
+    KV-group kernel in its flat mode, a block per KV head for up to 8
+    query heads of its group, :func:`rows_plan`; head_dim 64 to 256 in
+    steps of 64) or raise."""
     if _build.on_cpu("decode_attn_flat_float", q, kv, lengths):
         return decode_attn_flat_float_plain(q, kv, lengths, scale)
-    return _launch_float(decode_attn_flat_float, "decode_attn_flat_float", q,
-                         kv, lengths, scale)
+    return _launch_flat_float(q, kv, lengths, scale)
 
 
 decode_attn_flat_float.launches = 0
+
+
+def _launch_flat_float(q, kv, lengths, scale, plan=None):
+    """K8 on CUDA tensors: the KV-group kernel in its flat mode at ``plan``
+    (default :func:`rows_plan`'s); counts the launch."""
+    name = "decode_attn_flat_float"
+    b, h, d, kvh, cap = _check_float(q, kv, lengths, name)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _kv_group_head_dim(name, d)
+    plan = plan or rows_plan(b, h, kvh, cap, d)
+    _check_kv_group(name, (q, kv, lengths), plan)
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_float", "decode_attn_flat_float",
+                         "ppppiiiiiiiiiiifp")
+    err = fn(q.data_ptr(), kv.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             b, h, kvh, d, cap, int(kv.dtype == torch.bfloat16),
+             plan["splits"], plan["unit"], plan["heads_per_warp"],
+             plan["head_groups"], plan["warps"], float(scale),
+             _build.stream())
+    _build.check(err, name)
+    decode_attn_flat_float.launches += 1
+    return out
 
 
 NATIVE_MAX_BLOCKS = 512           # the kernel keeps a max per block
@@ -787,44 +812,25 @@ def _paged_plain(name, q, pool, scales, table, lengths, scale,
     return _softmax_attend(q, k, v, valid, scale, ks, vs)
 
 
-def _launch_paged(wrapper, q, pool, table, lengths, scale, mask_unmapped):
-    """K6's kernel on a float pool (P3 and its grid mode) on CUDA tensors;
-    counts the launch on ``wrapper``."""
-    name = wrapper.__name__
-    b, h, d, kvh, page, n_p = _check_paged(name, q, pool, None, table,
-                                           lengths)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    _build.require(d % 64 == 0 and d <= 256, name,
-                   f"head_dim {d} must be a multiple of 64 up to 256")
-    _build.require(all(x.is_contiguous() for x in (q, pool, table, lengths)),
-                   name, "tensors must be contiguous")
-    out = torch.empty_like(q)
-    fn = _build.function("decode_attn_paged", "decode_attn_paged",
-                         "pppppiiiiiiifp")
-    err = fn(q.data_ptr(), pool.data_ptr(), table.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, page, n_p,
-             int(mask_unmapped), float(scale), _build.stream())
-    _build.check(err, name)
-    wrapper.launches += 1
-    return out
-
-
-# -- P3i and G1: one block per (sequence, KV head[, split]) ------------------
-# csrc/decode_attn_kv_group.cuh moves 64-row tiles through a 2-stage ring in
-# shared memory and serves every query head of the KV head's group from it.
-# A sequence splits into chunks (one thread-block cluster, merged in the same
-# launch) only where B x KVH leaves the card short of this many blocks, and
-# a launch of at most two blocks an SM gives each block 8 warps, not 4.
+# -- the KV-group kernel: one block per (sequence, KV head[, split]) ---------
+# csrc/decode_attn_kv_group.cuh moves its rows a tile at a time through a
+# ring of stages in shared memory and serves every query head of the KV
+# head's group from it: P3i (int8 pool), P3 and its grid mode (f32 pool), G1
+# (contiguous int8 rows) and K8 (contiguous f32 or bf16 rows). A sequence
+# splits into chunks (one thread-block cluster, merged in the same launch)
+# only where B x KVH leaves the card short of this many blocks, and a launch
+# of at most two blocks an SM gives each block 8 warps, not 4.
 # At path (H)'s G1 (128 pairs) 2 splits of 8 warps took 0.0238 ms against
 # 0.0283-0.0353 for 4 warps at 1-4 splits; at path (D)'s P3i (3072 blocks)
-# 4 warps took 0.0400 against 0.0473 for 8 (python -m
+# 4 warps took 0.0400 against 0.0473 for 8; over f32 and bf16 rows 4 warps
+# were within 1% of 8 or faster at 3072 blocks ((E), (I), (I-bf16)) and 8
+# warps 7% faster at TinyLlama's K8 (256 blocks) (python -m
 # rten_tpu_torch.tools.kv_group_variants, H100 80GB HBM3, 700 W).
 KV_GROUP_TARGET_BLOCKS = 256
 KV_GROUP_WIDE_BLOCKS = 2 * 132
 KV_GROUP_MAX_SPLITS = 8            # a cluster's portable size
 KV_GROUP_MAX_IDS = 256             # page ids a paged block stages
-KV_GROUP_UNIT = 16                 # G1's chunk unit in rows
+KV_GROUP_UNIT = 16                 # the chunk unit of contiguous rows
 
 
 def _pow2_at_least(n):
@@ -869,25 +875,27 @@ def _kv_group_plan(batch, heads, kvh, head_dim, unit, most_units, fewest,
                                 else 4))
 
 
-def paged_int8_plan(batch, heads, kvh, page, max_pages, head_dim=64,
-                    splits=None, warps=None):
-    """P3i's launch: one block per (sequence, KV head, split) for up to 8
+def paged_plan(batch, heads, kvh, page, max_pages, head_dim=64, splits=None,
+               warps=None):
+    """The launch of the KV-group kernel over a paged pool (P3i's int8 one,
+    P3's f32 one): one block per (sequence, KV head, split) for up to 8
     query heads of the KV head's group (4 above head_dim 128;
     :func:`kv_group_heads`); ``splits`` chunks of whole pages a sequence
     (``kv_group_chunks`` with unit = page), more than one only where the
     blocks fall short of KV_GROUP_TARGET_BLOCKS, and at least enough that a
     chunk holds at most KV_GROUP_MAX_IDS page ids. One CUDA kernel a call
-    (the splits merge inside their cluster); no scratch. ``splits`` and
-    ``warps`` override the choice (tests and measurement)."""
+    (the splits merge inside their cluster); no scratch. The kernel sizes
+    its ring from the element type. ``splits`` and ``warps`` override the
+    choice (tests and measurement)."""
     fewest = -(-max_pages // KV_GROUP_MAX_IDS)
     return _kv_group_plan(batch, heads, kvh, head_dim, page, max_pages,
                           fewest, splits, warps)
 
 
-def grouped_int8_plan(batch, heads, kvh, cap, head_dim=128, splits=None,
-                      warps=None):
-    """G1's launch (exact q or int8 scores, without ``pv_int8``): the
-    kernel of :func:`paged_int8_plan` on contiguous rows, chunks of whole
+def rows_plan(batch, heads, kvh, cap, head_dim=128, splits=None, warps=None):
+    """The launch of the KV-group kernel over a contiguous cache (G1's int8
+    rows, exact q or int8 scores, without ``pv_int8``; K8's f32 or bf16
+    rows): the plan of :func:`paged_plan` with chunks of whole
     KV_GROUP_UNIT-row units."""
     return _kv_group_plan(batch, heads, kvh, head_dim, KV_GROUP_UNIT,
                           -(-cap // KV_GROUP_UNIT), 1, splits, warps)
@@ -895,11 +903,11 @@ def grouped_int8_plan(batch, heads, kvh, cap, head_dim=128, splits=None,
 
 def _check_kv_group(name, tensors, plan):
     """The refusals of the KV-group kernel at ``plan``, before any build;
-    ``tensors`` (q, the int8 cache or pool, ...)."""
+    ``tensors`` (q, the cache or pool, ...)."""
     _build.require(all(x.is_contiguous() for x in tensors), name,
                    "tensors must be contiguous")
     _build.require(tensors[1].data_ptr() % 16 == 0, name,
-                   "the int8 cache must be 16-byte aligned (16-byte copies)")
+                   "the cache must be 16-byte aligned (16-byte copies)")
     _build.require(plan["fewest"] <= plan["splits"] <= plan["most"], name,
                    f"splits must lie in [{plan['fewest']}, {plan['most']}] "
                    f"(at most {KV_GROUP_MAX_SPLITS} chunks of at most "
@@ -908,17 +916,47 @@ def _check_kv_group(name, tensors, plan):
                    f"warps must be 4 or 8, got {plan['warps']}")
 
 
+def _kv_group_head_dim(name, d):
+    _build.require(d in (64, 128, 192, 256), name,
+                   f"head_dim {d} must be one of (64, 128, 192, 256)")
+
+
+def _launch_paged(wrapper, q, pool, table, lengths, scale, mask_unmapped,
+                  plan=None):
+    """P3 (``mask_unmapped`` False) or its grid mode (True) on CUDA tensors:
+    the KV-group kernel over an f32 pool at ``plan`` (default
+    :func:`paged_plan`'s); counts the launch on ``wrapper``."""
+    name = wrapper.__name__
+    b, h, d, kvh, page, n_p = _check_paged(name, q, pool, None, table,
+                                           lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _kv_group_head_dim(name, d)
+    plan = plan or paged_plan(b, h, kvh, page, n_p, d)
+    _check_kv_group(name, (q, pool, table, lengths), plan)
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_paged", "decode_attn_paged",
+                         "pppppiiiiiiiiiiifp")
+    err = fn(q.data_ptr(), pool.data_ptr(), table.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, page, n_p,
+             int(mask_unmapped), plan["splits"], plan["heads_per_warp"],
+             plan["head_groups"], plan["warps"], float(scale),
+             _build.stream())
+    _build.check(err, name)
+    wrapper.launches += 1
+    return out
+
+
 def _launch_paged_int8(q, pool, scales, table, lengths, scale, plan=None):
     """P3i's kernel on CUDA tensors at ``plan`` (default
-    :func:`paged_int8_plan`'s); counts the launch."""
+    :func:`paged_plan`'s); counts the launch."""
     name = "decode_attn_paged_int8"
     b, h, d, kvh, page, n_p = _check_paged(name, q, pool, scales, table,
                                            lengths)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    _build.require(d in (64, 128, 192, 256), name,
-                   f"head_dim {d} must be one of (64, 128, 192, 256)")
-    plan = plan or paged_int8_plan(b, h, kvh, page, n_p, d)
+    _kv_group_head_dim(name, d)
+    plan = plan or paged_plan(b, h, kvh, page, n_p, d)
     _check_kv_group(name, (q, pool, scales, table, lengths), plan)
     out = torch.empty_like(q)
     fn = _build.function("decode_attn_paged", "decode_attn_paged_int8",
@@ -949,7 +987,9 @@ def decode_attn_paged(q, pool, table, lengths, scale=None):
     like the reference's grouped kernel, an unmapped (-1) page inside the
     length reads pool page 0 (only a released slot has one, and the engine
     discards its rows). Returns f32 [B, H, D]. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel (the KV-group kernel, a block
+    per KV head for up to 8 query heads of its group, :func:`paged_plan`;
+    head_dim 64 to 256 in steps of 64) or raise."""
     name = "decode_attn_paged"
     if _build.on_cpu(name, q, pool, table, lengths):
         return decode_attn_paged_plain(q, pool, table, lengths, scale)
@@ -1386,7 +1426,7 @@ def _launch_int8_decode(wrapper, q, kv, scales, lengths, int8_scores, scale,
 def _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores, scale,
                               dots=None, plan=None):
     """G1 without ``pv_int8`` (both score modes) on CUDA tensors: the
-    KV-group kernel at ``plan`` (default :func:`grouped_int8_plan`'s);
+    KV-group kernel at ``plan`` (default :func:`rows_plan`'s);
     counts the launch. ``dots`` (int32 [B, H, cap], tests only) receives
     the integer score dots of ``int8_scores``."""
     name = "decode_attn_grouped_int8"
@@ -1395,7 +1435,7 @@ def _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores, scale,
         scale = 1.0 / math.sqrt(d)
     _build.require(d in (64, 128), name,
                    f"head_dim {d} must be one of (64, 128)")
-    plan = plan or grouped_int8_plan(b, h, kvh, cap, d)
+    plan = plan or rows_plan(b, h, kvh, cap, d)
     _check_kv_group(name, (q, kv, scales, lengths), plan)
     if dots is not None:
         _build.require(int8_scores and dots.shape == (b, h, cap)
@@ -1471,7 +1511,7 @@ def decode_attn_grouped_int8(q, kv, scales, lengths, int8_scores=False,
     ``decode_attn_fused_int8`` (counted there). Without ``pv_int8`` the
     caller has made that choice (:func:`int8_decode_kernel`). Without
     ``pv_int8`` a block serves up to 8 query heads of a KV head's group
-    (:func:`grouped_int8_plan`). head_dim 64 or 128. CPU tensors take the
+    (:func:`rows_plan`). head_dim 64 or 128. CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise. Launches count in ``launches`` and per mode in
     ``mode_launches`` ("exact", "int8_scores", "pv_int8.exact",
     "pv_int8.int8_scores")."""

@@ -1,44 +1,62 @@
-"""P3i and G1 (the KV-group kernel, ``csrc/decode_attn_kv_group.cuh``) at
-their serving paths' shapes, against their own launch choices and the
-designs they replaced, on one card in one call:
+"""The KV-group kernel (``csrc/decode_attn_kv_group.cuh``) at its serving
+paths' shapes, against its own launch choices and the designs it replaced,
+on one card in one call.
 
-* P3i (``decode_attn_paged_int8``) at path (D)'s shapes (B 256, 12 heads
-  of 64, pages of 64, capacity 512, lives 65-176 over scrambled pages)
-  with its sequences in 1 (the plan's choice) and 2 chunks and blocks of
-  4 or 8 warps, beside P3
-  (``decode_attn_paged``, K6's kernel) on an f32 pool of the same shape;
+Float rows:
+
+* P3 (``decode_attn_paged``) at path (E)'s shapes (B 256, 12 heads of 64,
+  an f32 pool of pages of 64, capacity 512, lives 65-176 over scrambled
+  pages), its grid mode (``decode_attn_paged_grid``) at batch 3 with a
+  page of each sequence unmapped, K8 (``decode_attn_flat_float``) at path
+  (I)'s (B 256, 12 heads of 64, an f32 cache of capacity 512, lives
+  65-176), at (I-bf16)'s (the same on a bf16 cache) and at TinyLlama's
+  (B 16, 32 heads over 4 KV heads, capacity 2048, lives 65-1999);
+* each at the float ring's tilings: tiles of 16, 32 and 64 rows at head_dim
+  64 in 2 or 3 stages (the header's kF32Rows, kBf16Rows and kFloatStages,
+  each tiling built from a copy of the header with that line patched, one
+  ``nvcc`` a library, all started together), with blocks of 4 or 8 warps;
+  a split launch (the grid mode, TinyLlama's K8) also at half and twice
+  its splits.
+
+int8 rows:
+
+* P3i (``decode_attn_paged_int8``) at path (D)'s shapes (path (E)'s on an
+  int8 pool) with its sequences in 1 (the plan's choice) and 2 chunks and
+  blocks of 4 or 8 warps;
 * G1 exact q (``decode_attn_grouped_int8``) at path (H)'s shapes (B 16, 32
   heads over 8 KV heads of 128, capacity 4096, lives 512-576) with 1, 2, 4
   and 8 chunks and blocks of 4 or 8 warps, beside V1's kernel at S = 1 on
   the same inputs (``decode_attn_fused_int8``: G1's kernel before this
-  design), and G1's int8 scores at the plan's launch.
+  design), and G1's int8 scores at the plan's launch;
+* then P3i and G1 at the plan's launch built from variants of the header,
+  to see where the time goes: ``no_walk`` (the rows are staged but never
+  computed: the copies and the block's fixed costs), ``no_copies`` (the
+  walk over stale shared memory: the arithmetic and the fixed costs),
+  ``step_softmax`` (the walk before its three passes: a softmax step per
+  row) and ``dense_steps`` (every step of a partial tile computed, its dead
+  rows masked). The first two compute garbage, so their error is not held.
 
-Each line: the device time (CUDA events, cold L2, warm median), its share
-of the byte bound, and the error against the plain version as a share of
-1e-5 of max |out| (the kernels' tolerance), in two rounds.
+Each line: the device time (CUDA events, cold L2, warm median) in two
+rounds, its share of the byte bound, and the error against the plain
+version as a share of its tolerance (1e-5 of max |out|; K8, whose output is
+rounded to bf16: the share of elements off by more than 2e-5 of max |out|,
+against 0.001). The int8 variants are timed twice: after the scrub that
+``chip_smoke.py``'s timer runs (zeroing 256 MB, which leaves the 50 MB L2
+full of dirty lines that the kernel's reads must first write back), and
+after a read of the same 256 MB (the L2 cold and clean).
 
-Then the same two kernels (P3i and G1 at the plan's launch) built from
-variants of ``decode_attn_kv_group.cuh``, each by its own ``nvcc`` (all
-started together) into ``rten_tpu_torch/build/kv_group_variants/``, to
-see where the time goes: ``no_walk`` (the rows are staged but never
-computed: the copies and the block's fixed costs), ``no_copies`` (the
-walk over stale shared memory: the arithmetic and the fixed costs) and
-``step_softmax`` (the walk before its three passes: a softmax step per
-row) and ``dense_steps`` (every step of a partial tile computed, its dead
-rows masked). The first two compute garbage, so their error is not held. Each
-variant is timed twice: after the scrub that ``chip_smoke.py``'s timer
-runs (zeroing 256 MB, which leaves the 50 MB L2 full of dirty lines that
-the kernel's reads must first write back), and after a read of the same
-256 MB (the L2 cold and clean).
+    python -m rten_tpu_torch.tools.kv_group_variants [--skip int8|float]
 
-    python -m rten_tpu_torch.tools.kv_group_variants
-
-Needs one NVIDIA card and nvcc; without a card it exits non-zero.
+Builds go to ``rten_tpu_torch/build/kv_group_variants/``. Needs one NVIDIA
+card and nvcc; without a card it exits non-zero.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -51,15 +69,23 @@ from rten_tpu_torch.kernels import attention as at
 SLEEP_CYCLES = 2_000_000          # about 1 ms at the H100's clocks
 REPS = 20
 REL_TOL = 1e-5
+ROUND_ELEM_TOL, ROUND_SHARE = 2e-5, 0.999
 PEAK_BYTES_S = 3.35e12
 OUT = _build.BUILD_DIR / "kv_group_variants"
 HEADER = "decode_attn_kv_group.cuh"
+# The float ring's tilings: (rows at head_dim 64, stages), and the header's
+# line that sets the shipped one.
+FLOAT_TILINGS = [(rows, stages) for stages in (2, 3)
+                 for rows in (16, 32, 64)]
+FLOAT_RING = re.compile(r"constexpr int kF32Rows = \d+, kBf16Rows = \d+, "
+                        r"kFloatStages = \d+;")
 TILE = "    const int t0 = c0 + j * kTile, rows = min(kTile, c1 - t0);\n"
-COPIES = ("        cp_async16(buf + r * d + 16 * vq, src);\n"
-          "        cp_async16(buf + kPlane + r * d + 16 * vq, src + f);\n")
-WALK_END = "    if (j + 1 < tiles) put_scale(j + 1, next);\n"
-# The walk before its three passes: a softmax step per row (two shuffles,
-# a branch and an exp chained into every row).
+COPIES = ("          cp_async16(dst, src);\n"
+          "          cp_async16(dst + kPlane, src + f);\n")
+WALK_END = ("    if (j + kStages - 1 < tiles) put_scale(j + kStages - 1, "
+            "next);\n")
+# The int8 walk before its three passes: a softmax step per row (two
+# shuffles, a branch and an exp chained into every row).
 STEP_WALK = """    const int t0 = c0 + j * kTile, rows = min(kTile, c1 - t0);
     const int8_t* ks8 = reinterpret_cast<const int8_t*>(buf);
     const int8_t* vs8 = ks8 + kPlane;
@@ -70,7 +96,7 @@ STEP_WALK = """    const int t0 = c0 + j * kTile, rows = min(kTile, c1 - t0);
       const int r = r0 + grp;
       const bool live = r < rows;
       uint32_t kw[kWords];
-      words<kDpl>(ks8 + r * d + col, kw);
+      words<kDpl>(ks8 + r * d + slot * kDpl, kw);
       float s[kHpw];
       float kf[kDpl];
 #pragma unroll
@@ -106,7 +132,7 @@ STEP_WALK = """    const int t0 = c0 + j * kTile, rows = min(kTile, c1 - t0);
         pv[j2] = p * vsr;
       }
       uint32_t vw[kWords];
-      words<kDpl>(vs8 + r * d + col, vw);
+      words<kDpl>(vs8 + r * d + slot * kDpl, vw);
 #pragma unroll
       for (int w = 0; w < kWords; ++w) {
         float vf[4];
@@ -153,8 +179,52 @@ def device_ms(scrub, fn, clean=False):
     return sorted(times)[len(times) // 2]
 
 
-def paged_inputs(g, quant):
-    b, h, d, page, max_pages = 256, 12, 64, 64, 8
+def _nvcc(src_dir, lib, out_dir):
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src_dir),
+           "-o", str(out_dir / f"lib{lib}.so"), str(src_dir / f"{lib}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(procs):
+    for key, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
+
+
+@contextlib.contextmanager
+def library(lib, path):
+    """The launchers of ``kernels/attention.py`` call the entries of the
+    library at ``path`` instead of the shipped ``lib``."""
+    dll = ctypes.CDLL(str(path))
+    shipped = _build.function
+
+    def function(lib_name, symbol, argtypes):
+        if lib_name != lib:
+            return shipped(lib_name, symbol, argtypes)
+        return _entry(dll, symbol, argtypes)
+
+    _build.function = function
+    try:
+        yield
+    finally:
+        _build.function = shipped
+
+
+def _entry(dll, symbol, argtypes):
+    fn = getattr(dll, symbol)
+    fn.argtypes = [{"p": ctypes.c_void_p, "i": ctypes.c_int,
+                    "f": ctypes.c_float}[c] for c in argtypes]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_inputs(g, quant, b=256, unmapped=False):
+    """(E)'s or (D)'s inputs at batch ``b``; ``unmapped`` unmaps the second
+    page of each sequence (the grid mode masks its rows)."""
+    h, d, page, max_pages = 12, 64, 64, 8
     f = h * d
     n_pages = b * max_pages + 1
     q = torch.randn((b, h, d), device="cuda", generator=g)
@@ -175,8 +245,12 @@ def paged_inputs(g, quant):
     mapped = (lengths.to(torch.int64) + page - 1) // page
     table[torch.arange(max_pages, device="cuda")[None, :]
           >= mapped[:, None]] = -1
+    live = lengths.double()
+    if unmapped:
+        table[:, 1] = -1
+        live = live - (lengths - page).clamp(0, page).double()
     row = 2 * f * (1 if quant else 4) + (2 * h * 2 if quant else 0)
-    n_bytes = lengths.double().sum().item() * row + 2 * q.numel() * 4
+    n_bytes = live.sum().item() * row + 2 * q.numel() * 4
     return q, pool, scales, table.contiguous(), lengths, n_bytes
 
 
@@ -194,13 +268,36 @@ def grouped_inputs(g):
     return q, kv, scales, lengths, n_bytes
 
 
-def report(scrub, label, fn, ref, n_bytes, rounds, clean=True):
+def flat_inputs(g, dtype, b=256, h=12, kvh=12, cap=512, lives=(65, 177)):
+    d = 64
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
+                     generator=g).to(dtype)
+    lengths = torch.randint(lives[0], lives[1], (b,), device="cuda",
+                            generator=g, dtype=torch.int32)
+    row = 2 * kvh * d * kv.element_size()
+    n_bytes = lengths.double().sum().item() * row + 2 * q.numel() * 4
+    return q, kv, lengths, n_bytes
+
+
+def held_error(out, ref, rounded):
+    """The error as a share of the kernel's tolerance (<= 1 passes)."""
+    err = (out - ref).abs()
+    top = ref.abs().max().item()
+    if rounded:
+        off = err.gt(ROUND_ELEM_TOL * top).float().mean().item()
+        return off / (1.0 - ROUND_SHARE)
+    return err.max().item() / (REL_TOL * top)
+
+
+def report(scrub, label, fn, ref, n_bytes, rounds=2, clean=False,
+           rounded=False):
     out = fn()
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item() / (REL_TOL * ref.abs().max().item())
+    err = held_error(out, ref, rounded)
     bound = n_bytes / PEAK_BYTES_S * 1e3
     times = [device_ms(scrub, fn) for _ in range(rounds)]
-    line = (f"{label:46s} " + " / ".join(f"{t:.4f}" for t in times)
+    line = (f"{label:52s} " + " / ".join(f"{t:.4f}" for t in times)
             + f" ms ({bound / min(times):.2f} of {bound:.4f})")
     if clean:
         times = [device_ms(scrub, fn, True) for _ in range(rounds)]
@@ -210,12 +307,95 @@ def report(scrub, label, fn, ref, n_bytes, rounds, clean=True):
     return err
 
 
-def build_variants():
-    """Every variant's P3i and G1 libraries, one nvcc each, all started
-    together; returns {variant: (P3i function, G1 function)}."""
+def float_cases(g):
+    """(label, launcher(plan), plan(splits, warps), plain output, bytes,
+    rounded, library) of the float paths."""
+    cases = []
+    for label, b, unmapped in (("P3 at (E)", 256, False),
+                               ("grid mode at batch 3", 3, True)):
+        q, pool, _, table, lengths, n_bytes = paged_inputs(g, False, b,
+                                                           unmapped)
+        args = (q, pool, table, lengths)
+        grid = label.startswith("grid")
+        wrapper = at.decode_attn_paged_grid if grid else at.decode_attn_paged
+        plain = (at.decode_attn_paged_grid_plain if grid
+                 else at.decode_attn_paged_plain)
+        cases.append((
+            label,
+            lambda plan, args=args, w=wrapper, m=grid: at._launch_paged(
+                w, *args, None, m, plan),
+            lambda s, w, b=b: at.paged_plan(b, 12, 12, 64, 8, 64, s, w),
+            plain(*args), n_bytes, False, "decode_attn_paged"))
+    for label, dtype, shape in (
+            ("K8 f32 at (I)", torch.float32, {}),
+            ("K8 bf16 at (I-bf16)", torch.bfloat16, {}),
+            ("K8 f32 at TinyLlama's shape", torch.float32,
+             dict(b=16, h=32, kvh=4, cap=2048, lives=(65, 2000)))):
+        q, kv, lengths, n_bytes = flat_inputs(g, dtype, **shape)
+        args = (q, kv, lengths)
+        b, h, d = q.shape
+        kvh, cap = kv.shape[3] // d, kv.shape[1]
+        cases.append((
+            label,
+            lambda plan, args=args: at._launch_flat_float(*args, None, plan),
+            lambda s, w, b=b, h=h, kvh=kvh, cap=cap: at.rows_plan(
+                b, h, kvh, cap, 64, s, w),
+            at.decode_attn_flat_float_plain(*args), n_bytes, True,
+            "decode_attn_float"))
+    return cases
+
+
+def float_section(scrub):
+    """The float paths at every ring tiling and warp count; returns the
+    worst held error."""
     header = (_build.CSRC / HEADER).read_text()
-    procs = {}
-    for name, patches in VARIANTS.items():
+    ring = FLOAT_RING.search(header)
+    if ring is None:
+        raise RuntimeError("the header no longer sets the float ring in "
+                           "one line")
+    dirs = build_patched(
+        {f"float_{rows}x{stages}": [(ring.group(0), (
+            f"constexpr int kF32Rows = {rows}, kBf16Rows = {rows}, "
+            f"kFloatStages = {stages};"))]
+         for rows, stages in FLOAT_TILINGS},
+        ("decode_attn_paged", "decode_attn_float"))
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for label, launch, plan_of, ref, n_bytes, rounded, lib in float_cases(g):
+        plan = plan_of(None, None)
+        print(f"{label} (plan: {plan['splits']} split(s) of {plan['warps']} "
+              f"warps, {plan['heads_per_warp']} head(s) a warp in "
+              f"{plan['head_groups']} group(s), {plan['blocks']} blocks):",
+              flush=True)
+        for rows, stages in FLOAT_TILINGS:
+            src = dirs[f"float_{rows}x{stages}"]
+            with library(lib, src / f"lib{lib}.so"):
+                for warps in (4, 8):
+                    p = plan_of(None, warps)
+                    worst = max(worst, report(
+                        scrub, f"  {stages} x {rows} rows, {warps} "
+                        f"warps{' (plan)' if warps == plan['warps'] else ''}",
+                        lambda p=p: launch(p), ref, n_bytes,
+                        rounded=rounded))
+        # A split launch against half and twice its splits (shipped ring).
+        if plan["splits"] > 1:
+            for splits in sorted({plan["splits"] // 2,
+                                  min(2 * plan["splits"], plan["most"])}
+                                 - {plan["splits"]}):
+                p = plan_of(splits, None)
+                worst = max(worst, report(
+                    scrub, f"  {splits} splits, {p['warps']} warps",
+                    lambda p=p: launch(p), ref, n_bytes, rounded=rounded))
+    return worst
+
+
+def build_patched(variants, libs):
+    """Each variant of the header ({name: [(old, new), ...]}, ``old``
+    "walk" for the int8 tile walk) with the libraries ``libs``, one nvcc
+    each, all started together; returns {name: directory}."""
+    header = (_build.CSRC / HEADER).read_text()
+    procs, dirs = {}, {}
+    for name, patches in variants.items():
         text = header
         for old, new in patches:
             if old == "walk":  # the tile walk, from its first line to its end
@@ -229,62 +409,82 @@ def build_variants():
         for f in _build.CSRC.glob("*.cuh"):
             shutil.copy(f, src / f.name)
         (src / HEADER).write_text(text)
-        for lib in ("decode_attn_paged", "decode_attn_grouped_int8"):
+        for lib in libs:
             shutil.copy(_build.CSRC / f"{lib}.cu", src / f"{lib}.cu")
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-o",
-                   str(src / f"lib{lib}.so"), str(src / f"{lib}.cu")]
-            procs[name, lib] = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)
-    for key, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
-    fns = {}
-    for name in VARIANTS:
-        paged = ctypes.CDLL(str(OUT / name / "libdecode_attn_paged.so"))
-        rows = ctypes.CDLL(str(OUT / name /
-                               "libdecode_attn_grouped_int8.so"))
-        fp, fr = paged.decode_attn_paged_int8, \
-            rows.decode_attn_grouped_int8_rows
-        fp.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fr.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fp.restype = fr.restype = ctypes.c_int
-        fns[name] = (fp, fr)
-    return fns
+            procs[name, lib] = _nvcc(src, lib, src)
+        dirs[name] = src
+    _wait(procs)
+    return dirs
 
 
-def call_paged(fn, q, pool, scales, table, lengths):
-    b, h, d = q.shape
-    n_pages, page, _, f = pool.shape
-    out = torch.empty_like(q)
-    plan = at.paged_int8_plan(b, h, f // d, page, table.shape[1], d)
-    _build.check(fn(q.data_ptr(), pool.data_ptr(), scales.data_ptr(),
-                    table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
-                    h, f // d, d, page, table.shape[1], plan["splits"],
-                    plan["heads_per_warp"], plan["head_groups"],
-                    plan["warps"], 1.0 / d ** 0.5, _build.stream()),
-                  "P3i variant")
-    return out
+def int8_section(scrub):
+    g = torch.Generator(device="cuda").manual_seed(13)
+    worst = 0.0
+    q, pool, scales, table, lengths, n_bytes = paged_inputs(g, True)
+    args = (q, pool, scales, table, lengths)
+    ref = at.decode_attn_paged_int8_plain(*args)
+    print("P3i at path (D)'s shapes (ms in two rounds):")
+    for splits, warps in ((None, 4), (None, 8), (2, 4), (2, 8)):
+        plan = at.paged_plan(256, 12, 12, 64, 8, 64, splits, warps)
+        worst = max(worst, report(
+            scrub, f"  decode_attn_paged_int8 splits {plan['splits']}"
+            f"{' (plan)' if splits is None else ''}, {warps} warps",
+            lambda: at._launch_paged_int8(*args, None, plan), ref,
+            n_bytes, clean=True))
+
+    q, kv, scales, lengths, n_bytes = grouped_inputs(g)
+    args = (q, kv, scales, lengths)
+    ref = at.decode_attn_grouped_int8_plain(*args)
+    plan = at.rows_plan(16, 32, 8, 4096)
+    print(f"G1 exact q at path (H)'s shapes (plan: {plan['splits']} "
+          f"splits of {plan['warps']} warps):")
+    for splits in (1, 2, 4, 8):
+        for warps in (4, 8):
+            plan = at.rows_plan(16, 32, 8, 4096, 128, splits, warps)
+            worst = max(worst, report(
+                scrub, f"  G1 splits {splits}, {warps} warps",
+                lambda: at._launch_grouped_int8_rows(*args, False, None,
+                                                     plan=plan),
+                ref, n_bytes, clean=True))
+    report(scrub, "  V1's kernel at S = 1 (decode_attn_fused_int8)",
+           lambda: at.decode_attn_fused_int8(*args), ref, n_bytes,
+           clean=True)
+    ref = at.decode_attn_grouped_int8_plain(*args, int8_scores=True)
+    worst = max(worst, report(
+        scrub, "  G1 int8 scores (plan)",
+        lambda: at.decode_attn_grouped_int8(*args, int8_scores=True), ref,
+        n_bytes, clean=True))
+
+    dirs = build_patched(VARIANTS, ("decode_attn_paged",
+                                    "decode_attn_grouped_int8"))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    p_args = paged_inputs(g, True)
+    p_ref = at.decode_attn_paged_int8_plain(*p_args[:5])
+    r_args = grouped_inputs(g)
+    r_ref = at.decode_attn_grouped_int8_plain(*r_args[:4])
+    print("variants of decode_attn_kv_group.cuh at the plan's launch:")
+    for name, src in dirs.items():
+        for label, lib, fn, ref, n_bytes in (
+                ("P3i", "decode_attn_paged",
+                 lambda: at._launch_paged_int8(*p_args[:5], None), p_ref,
+                 p_args[5]),
+                ("G1", "decode_attn_grouped_int8",
+                 lambda: at._launch_grouped_int8_rows(*r_args[:4], False,
+                                                      None),
+                 r_ref, r_args[4])):
+            with library(lib, src / f"lib{lib}.so"):
+                err = report(scrub, f"  {name}: {label}", fn, ref, n_bytes,
+                             clean=True)
+            if name in HELD:
+                worst = max(worst, err)
+    return worst
 
 
-def call_rows(fn, q, kv, scales, lengths):
-    b, h, d = q.shape
-    cap, kvh = kv.shape[1], kv.shape[3] // d
-    out = torch.empty_like(q)
-    plan = at.grouped_int8_plan(b, h, kvh, cap, d)
-    _build.check(fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
-                    lengths.data_ptr(), out.data_ptr(), None, b, h, kvh, d,
-                    cap, 0, plan["splits"], plan["unit"],
-                    plan["heads_per_warp"], plan["head_groups"],
-                    plan["warps"], 1.0 / d ** 0.5, _build.stream()),
-                  "G1 variant")
-    return out
-
-
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--skip", choices=("int8", "float"), action="append",
+                        default=[], help="leave a section out")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kv_group_variants: no CUDA device", file=sys.stderr)
         return 1
@@ -293,64 +493,11 @@ def main():
                          text=True, check=True).stdout.strip())
     _build.build_all()
     scrub = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(13)
     worst = 0.0
-    q, pool, scales, table, lengths, n_bytes = paged_inputs(g, True)
-    args = (q, pool, scales, table, lengths)
-    ref = at.decode_attn_paged_int8_plain(*args)
-    print("P3i at path (D)'s shapes (ms in two rounds):")
-    for splits, warps in ((None, 4), (None, 8), (2, 4), (2, 8)):
-        plan = at.paged_int8_plan(256, 12, 12, 64, 8, 64, splits, warps)
-        worst = max(worst, report(
-            scrub, f"  decode_attn_paged_int8 splits {plan['splits']}"
-            f"{' (plan)' if splits is None else ''}, {warps} warps",
-            lambda: at._launch_paged_int8(*args, None, plan), ref,
-            n_bytes, 2))
-    qf, poolf, _, tablef, lengthsf, n_bytes_f = paged_inputs(g, False)
-    argsf = (qf, poolf, tablef, lengthsf)
-    report(scrub, "  decode_attn_paged (P3, f32 pool, K6's kernel)",
-           lambda: at.decode_attn_paged(*argsf),
-           at.decode_attn_paged_plain(*argsf), n_bytes_f, 2)
-
-    q, kv, scales, lengths, n_bytes = grouped_inputs(g)
-    args = (q, kv, scales, lengths)
-    ref = at.decode_attn_grouped_int8_plain(*args)
-    plan = at.grouped_int8_plan(16, 32, 8, 4096)
-    print(f"G1 exact q at path (H)'s shapes (plan: {plan['splits']} "
-          f"splits of {plan['warps']} warps):")
-    for splits in (1, 2, 4, 8):
-        for warps in (4, 8):
-            plan = at.grouped_int8_plan(16, 32, 8, 4096, 128, splits, warps)
-            worst = max(worst, report(
-                scrub, f"  G1 splits {splits}, {warps} warps",
-                lambda: at._launch_grouped_int8_rows(*args, False, None,
-                                                     plan=plan),
-                ref, n_bytes, 2))
-    report(scrub, "  V1's kernel at S = 1 (decode_attn_fused_int8)",
-           lambda: at.decode_attn_fused_int8(*args), ref, n_bytes, 2)
-    ref = at.decode_attn_grouped_int8_plain(*args, int8_scores=True)
-    worst = max(worst, report(
-        scrub, "  G1 int8 scores (plan)",
-        lambda: at.decode_attn_grouped_int8(*args, int8_scores=True), ref,
-        n_bytes, 2))
-
-    fns = build_variants()
-    g = torch.Generator(device="cuda").manual_seed(13)
-    p_args = paged_inputs(g, True)
-    p_ref = at.decode_attn_paged_int8_plain(*p_args[:5])
-    r_args = grouped_inputs(g)
-    r_ref = at.decode_attn_grouped_int8_plain(*r_args[:4])
-    print("variants of decode_attn_kv_group.cuh at the plan's launch:")
-    for name, (fp, fr) in fns.items():
-        for label, fn, ref, n_bytes in (
-                ("P3i", lambda: call_paged(fp, *p_args[:5]), p_ref,
-                 p_args[5]),
-                ("G1", lambda: call_rows(fr, *r_args[:4]), r_ref,
-                 r_args[4])):
-            err = report(scrub, f"  {name}: {label}", fn, ref, n_bytes, 2,
-                         clean=True)
-            if name in HELD:
-                worst = max(worst, err)
+    if "float" not in args.skip:
+        worst = max(worst, float_section(scrub))
+    if "int8" not in args.skip:
+        worst = max(worst, int8_section(scrub))
     print(f"worst error {worst:.3f} of the tolerance")
     return 0 if worst <= 1.0 else 1
 

@@ -540,15 +540,17 @@ ATTN_MAPPED = [1, 1, 3, 2, 0, 0, 1, 2, 4, 4]
 @pytest.mark.parametrize("h,kvh", [(4, 2), (4, 4), (8, 2), (16, 1)])
 @pytest.mark.parametrize("mode,splits,warps", [
     ("grouped", None, None), ("grid", None, None), ("int8", None, None),
-    ("int8", 1, None), ("int8", 3, 4)])
+    ("int8", 1, None), ("int8", 3, 4), ("grouped", 1, None),
+    ("grouped", 3, 4), ("grid", 1, 8), ("grid", 2, 4)])
 def test_decode_attn_paged_kernels_match_plain(gen, mode, splits, warps, h,
                                                kvh, d):
-    """P3, its grid mode and P3i at groups 1, 2, 4 and 16 (P3i: two blocks
-    of 8 heads a KV head, four of 4 above head_dim 128) and head_dim 64 to
-    256; P3i also with its sequences split into 1 or 3 chunks of whole
-    pages through the launcher's plan (the plan's own split here is 4 or
-    more: so few (sequence, KV head) pairs fall short of its target; so
-    few blocks take 8 warps each), and with 4 warps a block."""
+    """P3, its grid mode and P3i (the KV-group kernel on an f32 or int8
+    pool) at groups 1, 2, 4 and 16 (two blocks of 8 heads a KV head, four
+    of 4 above head_dim 128) and head_dim 64 to 256; also with their
+    sequences split into 1, 2 or 3 chunks of whole pages through the
+    launcher's plan (the plan's own split here is 4 or more: so few
+    (sequence, KV head) pairs fall short of its target; so few blocks
+    take 8 warps each), and with 4 or 8 warps a block."""
     b, n_pages, max_pages = len(ATTN_LENGTHS), 48, 4
     f = kvh * d
     table = _paged_table(b, max_pages, ATTN_MAPPED, n_pages, seed=1)
@@ -569,8 +571,12 @@ def test_decode_attn_paged_kernels_match_plain(gen, mode, splits, warps, h,
                                       at.decode_attn_paged_grid,
                                       at.decode_attn_paged_int8)}
     if splits or warps:
-        out = at._launch_paged_int8(*args, None, at.paged_int8_plan(
-            b, h, kvh, PAGE, max_pages, d, splits, warps))
+        plan = at.paged_plan(b, h, kvh, PAGE, max_pages, d, splits, warps)
+        if mode == "int8":
+            out = at._launch_paged_int8(*args, None, plan)
+        else:
+            out = at._launch_paged(wrapper, *args, None, mode == "grid",
+                                   plan)
     else:
         out = wrapper(*args)
     ref = plain(*args)
@@ -586,6 +592,35 @@ def test_decode_attn_paged_kernels_match_plain(gen, mode, splits, warps, h,
         assert (out[4] == 0).all()
 
 
+@pytest.mark.parametrize("splits", [None, 2, 4])
+@pytest.mark.parametrize("d", [64, 256])
+def test_decode_attn_paged_grid_masks_whole_splits(gen, d, splits):
+    """The grid mode where whole chunks of a sequence are unmapped pages
+    inside its length: their splits see no live row (m = -inf, l = 0) and
+    the cluster's merge weighs them 0; a sequence with no mapped page gets
+    zeros, and nothing is NaN."""
+    b, h, kvh, max_pages, n_pages = 4, 8, 2, 8, 40
+    ids = iter(np.random.default_rng(3).permutation(np.arange(1, n_pages)))
+    table = np.full((b, max_pages), -1, np.int32)
+    table[0, 4:] = [next(ids) for _ in range(4)]   # the first half unmapped
+    table[1, :4] = [next(ids) for _ in range(4)]   # the second half
+    table[2, 2:6] = [next(ids) for _ in range(4)]  # the middle only
+    table = torch.from_numpy(table).cuda()         # row 3: none mapped
+    lengths = torch.tensor([8 * PAGE, 8 * PAGE - 3, 7 * PAGE, 6 * PAGE],
+                           dtype=torch.int32, device="cuda")
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    pool = torch.randn((n_pages, PAGE, 2, kvh * d), device="cuda",
+                       generator=gen)
+    plan = at.paged_plan(b, h, kvh, PAGE, max_pages, d, splits)
+    out = at._launch_paged(at.decode_attn_paged_grid, q, pool, table,
+                           lengths, None, True, plan)
+    ref = at.decode_attn_paged_grid_plain(q, pool, table, lengths)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert (out[3] == 0).all() and (out[:3] != 0).any(dim=-1).all()
+
+
 @pytest.mark.parametrize("splits", [None, 2, 8])
 def test_decode_attn_paged_int8_stages_many_page_ids(gen, splits):
     """P3i over 600 pages of 8 a sequence: a chunk holds at most 256 page
@@ -599,7 +634,7 @@ def test_decode_attn_paged_int8_stages_many_page_ids(gen, splits):
     q = torch.randn((b, h, d), device="cuda", generator=gen)
     pool, scales, _ = _cache(gen, n_pages, PAGE, 1, kvh, d)
     args = (q, pool, scales, table, lengths)
-    plan = at.paged_int8_plan(b, h, kvh, PAGE, max_pages, d, splits)
+    plan = at.paged_plan(b, h, kvh, PAGE, max_pages, d, splits)
     if splits == 2:
         with pytest.raises(ValueError, match="splits must lie"):
             at._launch_paged_int8(*args, None, plan)
@@ -1063,7 +1098,7 @@ def test_int8_decode_kernels_match_plain(gen, entry, case):
         if splits or warps:
             out = at._launch_grouped_int8_rows(
                 q, kv, scales, lengths, scores, None, dots,
-                at.grouped_int8_plan(b, h, kvh, cap, d, splits, warps))
+                at.rows_plan(b, h, kvh, cap, d, splits, warps))
         else:
             out = wrapper(q, kv, scales, lengths, int8_scores=scores,
                           dots=dots)
@@ -1154,20 +1189,79 @@ def _lengths(pattern, b):
                         device="cuda").repeat(b // len(pattern))
 
 
+# Lengths 0 (zeros), 1, a 16-row unit - 1, + 0 and + 1, ragged, the
+# capacity less one, the capacity and past it.
+FLAT_LENGTHS = [0, 1, 15, 16, 17, 33, 95, 96, 105, 64]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
-def test_flat_float_kernel_matches_plain(gen, d, dtype):
-    """K8 with GQA 2:1, lengths 0 (zeros), 1, ragged and past capacity:
-    both versions round the output to bf16 (the criterion above), and K6
-    at the same inputs misses its share."""
-    b, h, kvh, cap = 40, 4, 2, 96
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("h,kvh,splits,warps", [
+    (4, 2, None, None), (8, 8, None, None), (16, 2, None, None),
+    (32, 2, None, None), (8, 1, 3, None), (4, 2, 6, 4), (16, 1, 2, 8),
+    (4, 4, 1, 4)])
+def test_flat_float_kernel_matches_plain(gen, d, dtype, h, kvh, splits,
+                                         warps):
+    """K8 (the KV-group kernel in its flat mode) at groups 1, 2, 8 and 16
+    and head_dim 64 to 256, with the plan's splits and with 1, 2, 3 or 6
+    chunks of whole 16-row units and 4 or 8 warps forced through the
+    launcher's plan: both versions round the output to bf16 (the criterion
+    above), and K6 at the same inputs misses its share."""
+    b, cap = 40, 96
     q = torch.randn((b, h, d), device="cuda", generator=gen)
     kv = _float_kv(gen, b, cap, kvh, d, dtype)
-    lengths = _lengths([0, 1, 33, cap, cap + 9], b)
-    out = at.decode_attn_flat_float(q, kv, lengths)
+    lengths = _lengths(FLAT_LENGTHS, b)
+    before = at.decode_attn_flat_float.launches
+    if splits or warps:
+        out = at._launch_flat_float(q, kv, lengths, None, at.rows_plan(
+            b, h, kvh, cap, d, splits, warps))
+    else:
+        out = at.decode_attn_flat_float(q, kv, lengths)
     ref = at.decode_attn_flat_float_plain(q, kv, lengths)
+    assert at.decode_attn_flat_float.launches == before + 1
     _assert_rounded(out, ref, at.decode_attn_float(q, kv, lengths))
     assert (out[0] == 0).all()
+
+
+def _cuda_kernels_a_call(fn, calls=3):
+    """The CUDA kernels one call of ``fn`` launches, by the profiler's
+    device events (the most of a few sessions: the profiler can lose a
+    kernel, never adds one)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(1 for e in prof.events()
+                             if e.device_type == DeviceType.CUDA))
+        if most and most % calls == 0:
+            break
+    return most / calls
+
+
+def test_kv_group_float_kernels_are_one_launch(gen):
+    """P3, its grid mode (split into chunks merged in their cluster) and K8
+    (split, f32 and bf16) launch one CUDA kernel a call."""
+    b, h, kvh, d, max_pages, n_pages = 3, 8, 2, 64, 4, 16
+    table = _paged_table(b, max_pages, [4, 2, 3], n_pages, seed=4)
+    lengths = torch.tensor([4 * PAGE, 2 * PAGE - 1, 3 * PAGE],
+                           dtype=torch.int32, device="cuda")
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    pool = torch.randn((n_pages, PAGE, 2, kvh * d), device="cuda",
+                       generator=gen)
+    assert at.paged_plan(b, h, kvh, PAGE, max_pages, d)["splits"] > 1
+    calls = [lambda: at.decode_attn_paged(q, pool, table, lengths),
+             lambda: at.decode_attn_paged_grid(q, pool, table, lengths)]
+    lived = lengths.clamp(max=64)
+    for dtype in (torch.float32, torch.bfloat16):
+        kv = _float_kv(gen, b, 64, kvh, d, dtype)
+        calls.append(lambda kv=kv: at.decode_attn_flat_float(q, kv, lived))
+    for fn in calls:
+        assert _cuda_kernels_a_call(fn) == 1
 
 
 @pytest.mark.parametrize("q_bf16", [True, False])

@@ -4,13 +4,14 @@ the int8-dot int4 GEMM (Q1', ``int4_int8_plan``) and of the bf16-dot int4
 GEMMs (Q1 and Q2, ``int4_bf16_plan``): the tiles cover every row and column
 once, every K split is a whole number of groups, the tile follows M, and
 the scratch the wrappers allocate holds what the kernels write, at M from 1
-to 8192; and of the int8 decode attention that serves a KV head's whole
-query group in one block (P3i ``paged_int8_plan``, G1
-``grouped_int8_plan``): every live row in one chunk, chunks of whole pages
-or units, the split count, the blocks and no scratch, at batch 1-256 and
-groups 1-32, and a tiling the kernel builds. These run without a card; the wrappers' refusals are checked
-with the dispatch forced to the kernel path, before any build or
-launch."""
+to 8192; and of the decode attention that serves a KV head's whole query
+group in one block (the KV-group kernel: P3i and P3 with its grid mode,
+``paged_plan``; G1 and K8, ``rows_plan``) over int8, bf16 and f32 rows:
+every live row in one chunk, chunks of whole pages or units, the split
+count, the blocks and no scratch, at batch 1-256 and groups 1-32, the
+paths' splits, and a tiling the kernel builds. These run without a card;
+the wrappers' refusals are checked with the dispatch forced to the kernel
+path, before any build or launch."""
 
 import pytest
 import torch
@@ -339,19 +340,20 @@ def _built_tilings():
 @pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_kv_group_plan_picks_a_tiling_the_kernel_builds(d):
     """For every group of 1-32 query heads the plan's heads a warp and
-    head groups are a tiling the kernel builds (G1 at head_dim 64 and 128,
-    P3i up to 256), hold at most 32 values a lane a warp, and the blocks
-    of a KV head cover its group once, the last one padded at most."""
+    head groups are a tiling the kernel builds (G1 at head_dim 64 and 128;
+    P3i, P3 with its grid mode and K8 up to 256), hold at most 32 values a
+    lane a warp, and the blocks of a KV head cover its group once, the last
+    one padded at most."""
     built = _built_tilings()
     assert built[False] and built[True] > built[False]
     for rep in range(1, 33):
-        plan = at.paged_int8_plan(2, 2 * rep, 2, 16, 8, d)
+        plan = at.paged_plan(2, 2 * rep, 2, 16, 8, d)
         w, g = plan["heads_per_warp"], plan["head_groups"]
         assert (d, w, g) in built[True]
+        rows = at.rows_plan(2, 2 * rep, 2, 64, d)
+        assert (rows["heads_per_warp"], rows["head_groups"]) == (w, g)
         if d <= 128:
-            rows = at.grouped_int8_plan(2, 2 * rep, 2, 64, d)
             assert (d, w, g) in built[False]
-            assert (rows["heads_per_warp"], rows["head_groups"]) == (w, g)
         assert w * d // 8 <= 32 and w * g <= (8 if d <= 128 else 4)
         chunks = -(-rep // (w * g))
         assert (chunks - 1) * w * g < rep <= chunks * w * g
@@ -369,7 +371,7 @@ def test_paged_int8_plan_splits_whole_pages_and_sizes_nothing(b, group):
     kvh = max(1, 12 // group)
     for page, max_pages in ((8, 64), (16, 4), (64, 8), (64, 64), (8, 2048)):
         for d in (64, 128, 192, 256):
-            plan = at.paged_int8_plan(b, kvh * group, kvh, page, max_pages,
+            plan = at.paged_plan(b, kvh * group, kvh, page, max_pages,
                                       d)
             s = plan["splits"]
             assert plan["fewest"] <= s <= plan["most"] <= 8
@@ -389,7 +391,7 @@ def test_paged_int8_plan_splits_whole_pages_and_sizes_nothing(b, group):
 def test_paged_int8_plan_at_the_paged_path_is_one_unsplit_launch():
     """Path (D): GPT-2 at batch 256, 12 heads of 64, pages of 64 over a
     capacity of 512: 3072 blocks, no split, one warp a head."""
-    plan = at.paged_int8_plan(256, 12, 12, 64, 8)
+    plan = at.paged_plan(256, 12, 12, 64, 8)
     assert (plan["splits"], plan["blocks"]) == (1, 3072)
     assert (plan["heads_per_warp"], plan["head_groups"]) == (1, 1)
     assert plan["warps"] == 4
@@ -401,7 +403,7 @@ def test_grouped_int8_plan_splits_into_whole_units(b, group):
     kvh = 8 if group <= 4 else 4
     for cap in (16, 100, 1024, 4096):
         for d in (64, 128):
-            plan = at.grouped_int8_plan(b, kvh * group, kvh, cap, d)
+            plan = at.rows_plan(b, kvh * group, kvh, cap, d)
             s = plan["splits"]
             assert 1 <= s <= min(8, -(-cap // at.KV_GROUP_UNIT))
             per = plan["heads_per_warp"] * plan["head_groups"]
@@ -417,7 +419,7 @@ def test_grouped_int8_plan_at_mistral_splits_to_fill_the_card():
     """Path (H): 16 sequences x 8 KV heads = 128 pairs, split into 2
     chunks (256 blocks, at most two an SM, so 8 warps each); a warp serves
     2 of the group's 4 heads."""
-    plan = at.grouped_int8_plan(16, 32, 8, 4096)
+    plan = at.rows_plan(16, 32, 8, 4096)
     assert (plan["splits"], plan["blocks"], plan["warps"]) == (2, 256, 8)
     assert (plan["heads_per_warp"], plan["head_groups"]) == (2, 2)
     assert at.kv_group_chunks(576, 2, 16) == [(0, 288), (288, 576)]
@@ -515,10 +517,158 @@ def test_kv_group_kernels_refuse_a_split_count_out_of_range(monkeypatch,
     raises in the launchers before any build."""
     _kernel_path(monkeypatch)
     what = "splits must lie" if warps is None else "warps must be"
-    plan = at.paged_int8_plan(2, 4, 2, 8, 4, 64, splits, warps)
+    plan = at.paged_plan(2, 4, 2, 8, 4, 64, splits, warps)
     with pytest.raises(ValueError, match=what):
         at._launch_paged_int8(*_int8_pool(2, 4, 2, 64), None, plan)
-    plan = at.grouped_int8_plan(2, 4, 2, 32, 64, splits, warps)
+    plan = at.rows_plan(2, 4, 2, 32, 64, splits, warps)
     with pytest.raises(ValueError, match=what):
         at._launch_grouped_int8_rows(*_int8_cache(2, 4, 2, 64), False,
                                      None, plan=plan)
+
+
+# -- P3, its grid mode and K8: the KV-group kernel over float rows ----------
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("b", BATCHES)
+def test_float_plans_split_into_whole_pages_or_units(b, group):
+    """P3 (paged) and K8 (contiguous; the element type does not enter the
+    plan): splits in [fewest, most] <= 8, blocks = B x KVH x head blocks x
+    splits, and every live row in one chunk of whole pages (P3) or 16-row
+    units (K8), at every length from 0 to the capacity."""
+    kvh = max(1, 12 // group)
+    for page, max_pages in ((8, 64), (64, 8), (16, 4)):
+        cap = page * max_pages
+        plans = [(at.paged_plan(b, kvh * group, kvh, page, max_pages, 64),
+                  page, cap),
+                 (at.rows_plan(b, kvh * group, kvh, cap, 64),
+                  at.KV_GROUP_UNIT, cap)]
+        for plan, unit, cap in plans:
+            s = plan["splits"]
+            assert plan["unit"] == unit
+            assert plan["fewest"] <= s <= plan["most"] <= 8
+            per = plan["heads_per_warp"] * plan["head_groups"]
+            assert plan["blocks"] == b * kvh * -(-group // per) * s
+            for n in range(0, cap + 1, max(1, cap // 50)):
+                chunks = at.kv_group_chunks(n, s, unit)
+                rows = [t for c0, c1 in chunks for t in range(c0, c1)]
+                assert rows == list(range(n))
+                assert all(c0 % unit == 0 for c0, c1 in chunks if c1 > c0)
+
+
+def test_float_plans_at_their_paths():
+    """(E): P3 at batch 256, 3072 blocks of 4 warps, no split; its grid
+    mode at batch 3 splits (8 chunks of whole pages in one cluster); K8 at
+    (I) and (I-bf16) one unsplit launch, at TinyLlama's shape (32 query
+    heads over 4 KV heads, capacity 2048) 4 splits of 8 warps, a warp
+    serving 4 of the group's 8 heads."""
+    e = at.paged_plan(256, 12, 12, 64, 8, 64)
+    assert (e["splits"], e["blocks"], e["warps"]) == (1, 3072, 4)
+    grid = at.paged_plan(3, 12, 12, 64, 8, 64)
+    assert grid["splits"] == 8 and grid["blocks"] == 288
+    flat = at.rows_plan(256, 12, 12, 512, 64)
+    assert (flat["splits"], flat["blocks"], flat["warps"]) == (1, 3072, 4)
+    tiny = at.rows_plan(16, 32, 4, 2048, 64)
+    assert (tiny["splits"], tiny["blocks"], tiny["warps"]) == (4, 256, 8)
+    assert (tiny["heads_per_warp"], tiny["head_groups"]) == (4, 2)
+
+
+def _float_pool(b, h, kvh, d, page=8, max_pages=4):
+    pool = torch.zeros((b * max_pages + 1, page, 2, kvh * d))
+    table = torch.arange(1, b * max_pages + 1, dtype=torch.int32).reshape(
+        b, max_pages)
+    return (torch.zeros((b, h, d)), pool, table,
+            torch.full((b,), 5, dtype=torch.int32))
+
+
+def _float_cache(b, h, kvh, d, dtype=torch.float32):
+    return (torch.zeros((b, h, d)),
+            torch.zeros((b, 32, 2, kvh * d), dtype=dtype),
+            torch.full((b,), 5, dtype=torch.int32))
+
+
+FLOAT_WRAPPERS = ("decode_attn_paged", "decode_attn_paged_grid",
+                  "decode_attn_flat_float")
+
+
+def _float_call(name, b, h, kvh, d, dtype=torch.float32):
+    if name == "decode_attn_flat_float":
+        return lambda: at.decode_attn_flat_float(*_float_cache(b, h, kvh, d,
+                                                               dtype))
+    return lambda: getattr(at, name)(*_float_pool(b, h, kvh, d))
+
+
+@pytest.mark.parametrize("d", [96, 320])
+@pytest.mark.parametrize("name", FLOAT_WRAPPERS)
+def test_kv_group_float_kernels_refuse_a_head_dim_they_do_not_tile(
+        monkeypatch, name, d):
+    """On CUDA (simulated) P3, its grid mode and K8 take head_dim 64 to 256
+    in steps of 64; anything else raises before any build."""
+    _kernel_path(monkeypatch)
+    wrapper = getattr(at, name)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match=f"head_dim {d} must be one of"):
+        _float_call(name, 2, 4, 2, d)()
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("h,kvh,d", [(32, 2, 64), (16, 1, 128),
+                                     (24, 2, 192), (12, 1, 256),
+                                     (4, 4, 64)])
+@pytest.mark.parametrize("name,dtype", [
+    (name, torch.float32) for name in FLOAT_WRAPPERS] + [
+    ("decode_attn_flat_float", torch.bfloat16)])
+def test_kv_group_float_kernels_take_every_shape_k6_took(monkeypatch, name,
+                                                         dtype, h, kvh, d):
+    """Groups of 1, 12 and 16 query heads and head_dim 64 to 256, f32 (P3,
+    grid) and f32 or bf16 (K8), pass every check and reach the build (here:
+    no nvcc)."""
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    with pytest.raises(RuntimeError, match="no build"):
+        _float_call(name, 2, h, kvh, d, dtype)()
+
+
+@pytest.mark.parametrize("splits,warps", [(0, None), (9, None), (1, 6)])
+@pytest.mark.parametrize("name", FLOAT_WRAPPERS)
+def test_kv_group_float_launchers_refuse_a_split_count_out_of_range(
+        monkeypatch, name, splits, warps):
+    """A plan with splits outside [fewest, most] or warps other than 4 or 8
+    raises in the float launchers before any build."""
+    _kernel_path(monkeypatch)
+    what = "splits must lie" if warps is None else "warps must be"
+    wrapper = getattr(at, name)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match=what):
+        if name == "decode_attn_flat_float":
+            plan = at.rows_plan(2, 4, 2, 32, 64, splits, warps)
+            at._launch_flat_float(*_float_cache(2, 4, 2, 64), None, plan)
+        else:
+            plan = at.paged_plan(2, 4, 2, 8, 4, 64, splits, warps)
+            at._launch_paged(wrapper, *_float_pool(2, 4, 2, 64), None,
+                             name.endswith("grid"), plan)
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("name", FLOAT_WRAPPERS)
+def test_kv_group_float_launchers_refuse_strided_or_unaligned_tensors(
+        monkeypatch, name):
+    _kernel_path(monkeypatch)
+    if name == "decode_attn_flat_float":
+        q, kv, lengths = _float_cache(2, 4, 2, 64)
+        strided = torch.zeros((2, 33, 2, 128))[:, 1:]
+        flat = torch.zeros(2 * 32 * 2 * 128 + 1)
+        cases = [((q, strided, lengths), "contiguous"),
+                 ((q, flat[1:].view(2, 32, 2, 128), lengths),
+                  "16-byte aligned")]
+        call = at.decode_attn_flat_float
+    else:
+        q, pool, table, lengths = _float_pool(2, 4, 2, 64)
+        strided_q = q.transpose(0, 1).contiguous().transpose(0, 1)
+        flat = torch.zeros(pool.numel() + 1)
+        cases = [((strided_q, pool, table, lengths), "contiguous"),
+                 ((q, flat[1:].view(pool.shape), table, lengths),
+                  "16-byte aligned")]
+        call = getattr(at, name)
+    for args, what in cases:
+        with pytest.raises(ValueError, match=what):
+            call(*args)
