@@ -44,8 +44,7 @@ Phases (any failure exits non-zero; nothing is caught):
    causal, f32, split-TF32 tensor-core products: its bound at the TF32
    peak, the f32 SIMT bound printed beside it; the library call f32
    ``scaled_dot_product_attention(is_causal=True)``), G1
-   (``decode_attn_grouped_int8``) with exact q at capacity 4096 (beside
-   V1's kernel at S = 1 on the same inputs, the design it replaced) and
+   (``decode_attn_grouped_int8``) with exact q at capacity 4096 and
    with int8 scores at 1024 (its int32 dots held bit for bit), G2
    (``decode_attn_fused_int8``) at batch 3, and A1
    (``decode_attn_grouped_append``) on a bf16 and an f32 cache (the write
@@ -62,9 +61,10 @@ Phases (any failure exits non-zero; nothing is caught):
    (``matmul_int8_tiled``) bit for bit at GPT-2-small's four linears at
    M 256 and 4096 (``torch._int_mm`` and the epilogue). No path reaches
    the last five: their entries carry ``"path": null``. P3, its grid mode,
-   P3i, G1 (both score modes) and K8 (f32 and bf16) run the KV-group kernel
+   P3i, G1 (both score modes), G2, K8 (f32 and bf16) and V1 (both entries,
+   both modes) run the KV-group kernel
    (``csrc/decode_attn_kv_group.cuh``): the plan (splits a sequence,
-   blocks, warps a block, query heads a warp, the ring) is printed and
+   blocks, warps a block, query rows a warp, the ring) is printed and
    their entries add the CUDA kernels a call launches (profiler), which
    must be one. The kernels whose
    job is a rounding are held to criteria that the kernel without it
@@ -111,7 +111,8 @@ Phases (any failure exits non-zero; nothing is caught):
    on random 64-token prompts, in turns with the plain engine at the same
    settings (plain, spec, spec, plain; ``verify_attn_grouped`` in its float
    mode and ``matmul_int8_wo`` must launch), and one burst traced (the
-   kernels that take the most device time, and K4's time per step);
+   kernels that take the most device time, and K4's and V1's time per
+   step);
    (G-int8), the same
    speculative serve on an int8 cache (``verify_attn_grouped`` in its int8
    mode must launch); and (G) card against CPU at ``max_batch=3`` (no
@@ -151,7 +152,8 @@ Phases (any failure exits non-zero; nothing is caught):
    TinyLlama's width with 2 layers: 4 requests of 8 tokens x 16 new tokens,
    logits + argmax (the int4 head has no fused argmax). For (H) with 1
    layer at full width: 4 requests of 128-token prompts (F1 on the card) x
-   9 new tokens (G1 each decode step), logits + argmax.
+   9 new tokens (G1 each decode step), logits + argmax; (H-fused) the same
+   with 3 requests (G2 each decode step).
 
 Prints a ``{"kernels": [...]}`` JSON line (V1 with one entry per entry
 point and mode, G1 per mode), then as the last line ``{"ok": true,
@@ -866,7 +868,8 @@ def check_decode_attn_paged(timer, mode):
 
 def kv_group_launch(label, plan, fn, entry):
     """The launch of a kernel on the KV-group kernel (P3, its grid mode,
-    P3i, G1, K8): the plan's splits, blocks, warps and heads a warp
+    P3i, G1, G2, K8, V1): the plan's splits, blocks, warps and query rows a
+    warp
     (printed: the wrapper's plan at these shapes, not read from the
     launch), and the CUDA kernels one call launches (profiler, kept in the
     entry), which must be one: the splits merge in their cluster."""
@@ -874,7 +877,7 @@ def kv_group_launch(label, plan, fn, entry):
     share = entry["bound_ms"] / entry["ms"]
     print(f"{label}: {plan['splits']} split(s) a sequence, {plan['blocks']} "
           f"blocks of {plan['warps']} warps, {plan['heads_per_warp']} query "
-          f"head(s) a warp in {plan['head_groups']} head group(s); {n} CUDA "
+          f"row(s) a warp in {plan['head_groups']} row group(s); {n} CUDA "
           f"kernel(s) a call; kernel_ms {entry['ms']:.4f} bound_ms "
           f"{entry['bound_ms']:.4f} (share {share:.2f})")
     check(n == 1 or n == "not measured",
@@ -910,7 +913,9 @@ def check_verify_attn(timer, entry, b, cap, live, s=4, h=12, d=64):
     library's ``scaled_dot_product_attention`` (bf16, a boolean mask over
     the capacity; float mode only) and, at the same shapes, one decode
     query per sequence through K6 (float) or K1' (int8): a verify step
-    should cost about one decode step. Returns one entry per mode."""
+    should cost about one decode step. V1 runs the KV-group kernel
+    (:func:`kv_group_launch`: the plan, one CUDA kernel a call). Returns
+    one entry per mode."""
     wrapper = getattr(at, f"verify_attn_{entry}")
     plain = getattr(at, f"verify_attn_{entry}_plain")
     g = torch.Generator(device="cuda").manual_seed(15)
@@ -959,16 +964,19 @@ def check_verify_attn(timer, entry, b, cap, live, s=4, h=12, d=64):
               f"bound_ms {bms:.4f} ({by}) library_ms {library}; one decode "
               f"query per sequence through {decode_name} {decode:.4f} ms, "
               f"verify / decode {ms / decode:.2f}")
-        entries.append(dict(
+        result = dict(
             name=wrapper.__name__, mode=mode,
-            source="rten_tpu_torch/csrc/verify_attn.cu",
             replaces=("rten_tpu/kernels/attention.py:1957" if entry ==
                       "grouped" else "rten_tpu/kernels/attention.py:2394"),
             shape=(f"B {b}, S {s}, {h} heads of {d}, capacity {cap}, "
                    f"lives {live[0]}-{live[1] - 1}, "
                    f"{'bf16' if scales is None else 'int8'} cache"),
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=library, decode_ms=decode))
+            bound_by=by, library_ms=library, decode_ms=decode)
+        result.update(kv_group_launch(
+            label, at.verify_plan(b, s, h, kv.shape[3] // d, cap, d),
+            lambda: wrapper(*args), result))
+        entries.append(result)
     return entries
 
 
@@ -1279,7 +1287,6 @@ def check_int8_decode(timer, entry, b, cap, lives=H_LIVES, h=H_HEADS,
           f"{bms:.4f} ({by}) library_ms None")
     entry_kw = {} if entry == "fused" else dict(mode=entry)
     result = dict(name=wrapper.__name__, **entry_kw,
-                  source="rten_tpu_torch/csrc/decode_attn_grouped_int8.cu",
                   replaces=("rten_tpu/kernels/attention.py:318"
                             if entry == "fused"
                             else "rten_tpu/kernels/attention.py:1039"),
@@ -1288,18 +1295,9 @@ def check_int8_decode(timer, entry, b, cap, lives=H_LIVES, h=H_HEADS,
                          f"{lives[1] - 1}"),
                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                   bound_by=by, library_ms=None)
-    if entry != "fused":
-        result.update(kv_group_launch(
-            f"decode_attn_grouped_int8 ({entry})",
-            at.rows_plan(b, h, kvh, cap, d),
-            lambda: wrapper(*args, **kw), result))
-    if entry == "exact":
-        # The design G1 replaced, V1's kernel at S = 1 (G2's own), on the
-        # same inputs in the same run.
-        result["previous_design_ms"] = timer(
-            lambda: at.decode_attn_fused_int8(*args))
-        print(f"{label}: V1's kernel at S = 1 on the same inputs "
-              f"{result['previous_design_ms']:.4f} ms")
+    result.update(kv_group_launch(
+        f"{wrapper.__name__} ({entry})", at.rows_plan(b, h, kvh, cap, d),
+        lambda: wrapper(*args, **kw), result))
     return result
 
 
@@ -1722,8 +1720,8 @@ def mistral_model(path, n_layers):
 
 def mistral_paths(launches, rates, steady):
     """Path (H) at full width and depth, its three variants at 4 layers,
-    and (H) card against CPU at 1 layer; fills ``launches``, ``rates`` and
-    ``steady``."""
+    and (H) and (H-fused) card against CPU at 1 layer; fills ``launches``,
+    ``rates`` and ``steady``."""
     path = "mistral_int8"
     model = mistral_model(path, 32)
     t0 = time.perf_counter()
@@ -1764,6 +1762,15 @@ def mistral_paths(launches, rates, steady):
     check(counts["flash_attention"] > 0
           and counts["decode_attn_grouped_int8.exact"] > 0,
           "mistral_int8 card against CPU: F1 or G1 never launched")
+    # (H-fused): batch 3 has no group, so decode runs G2.
+    counts = card_against_cpu(
+        mistral_model("mistral_fused", 1), params1, "mistral_fused",
+        MISTRAL_PATH_LOGIT_TOL, max_batch=3, fused=False, prompt=128,
+        new_tokens=9)
+    print(f"mistral_fused (1 layer) card against CPU, card runs: launches "
+          f"{nonzero(counts)}")
+    check(counts["decode_attn_fused_int8"] > 0,
+          "mistral_fused card against CPU: G2 never launched")
     del params1
     torch.cuda.empty_cache()
 
@@ -2331,6 +2338,12 @@ def trace_spec_burst(model, params, prompts, steps=8):
     print(f"path (G), K4 (matmul_int8_wo) in the traced burst: "
           f"{sum(e.self_device_time_total for e in k4) / 1e3 / steps:.4f} "
           f"ms per step over {sum(e.count for e in k4)} CUDA kernels")
+    # V1 (verify_attn_grouped): the KV-group kernel over ChunkRows.
+    v1 = [e for e in on_card if "ChunkRows" in e.key]
+    print(f"path (G), V1 (verify_attn_grouped) in the traced burst: "
+          f"{sum(e.self_device_time_total for e in v1) / 1e3 / steps:.4f} "
+          f"ms per step over {sum(e.count for e in v1) / steps:.2f} CUDA "
+          f"kernels a step")
     del engine
 
 
@@ -2664,7 +2677,7 @@ def main():
              "int4pack_ms", "prefill_ms",
              "prefill_library_ms", "prefill_bound_ms", "prefill_8192_ms",
              "prefill_8192_library_ms", "prefill_8192_bound_ms",
-             "decode_ms", "previous_design_ms", "f32_max_abs_err",
+             "decode_ms", "f32_max_abs_err",
              "f32_ms", "f32_plain_ms", "f32_bound_ms", "bf16_max_abs_err",
              "bf16_ms", "bf16_plain_ms", "bf16_bound_ms", "bf16_library_ms",
              "bf16_device_launches",

@@ -1,9 +1,10 @@
 // Single-query decode attention, one block of four warps per (sequence,
 // head), shared by decode_attn_float.cu (K6: a contiguous float cache) and
 // decode_attn_split.cu (K9: separate K and V planes). The row layout
-// helpers below (eight lanes a row) also serve the int8 kernels
-// (decode_attn_int8_tail.cu, verify_attn.cuh) and the KV-group kernel
-// (decode_attn_kv_group.cuh: P3i, P3 and its grid mode, G1 and K8).
+// helpers below (eight lanes a row) also serve the int8 kernel
+// (decode_attn_int8_tail.cu), A1 (verify_attn.cuh), G1's pv_int8 walk and
+// the KV-group kernel (decode_attn_kv_group.cuh: P3i, P3 and its grid
+// mode, G1, G2, K8 and V1).
 //
 // Contract: for sequence b and query head h (kv head h / (H / KVH)),
 // n = min(lengths[b], capacity) tokens are read, token t from the row that
@@ -44,8 +45,8 @@ __device__ inline float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// The row layout of the int8 kernel (decode_attn_int8_tail.cu) and the
-// verify kernel (verify_attn.cu): eight lanes share a token row, each
+// The row layout of the int8 kernel (decode_attn_int8_tail.cu) and A1
+// (verify_attn.cuh): eight lanes share a token row, each
 // holding kDpl = d / 8 values (8 or 16), so one warp load covers four rows.
 constexpr int kLanesPerTok = 8;
 constexpr int kTokPerLoad = 32 / kLanesPerTok;

@@ -8,9 +8,9 @@
 // float decode. It computes what K5 (kv_append.cu) followed by K6
 // (decode_attn_float.cu) compute, without K5's launch.
 //
-// Contract: verify_attn.cuh at one query, mode kFloat with kAppend. The
-// cache write is K5's, bit for bit (bf16 rounds to nearest even); lengths
-// count the new token, which sits at clip(lengths - 1, 0, cap - 1).
+// Contract: verify_attn.cuh's. The cache write is K5's, bit for bit (bf16
+// rounds to nearest even); lengths count the new token, which sits at
+// clip(lengths - 1, 0, cap - 1).
 //
 // Bound on the H100: bytes. At batch 16, 32 query heads over 8 KV heads of
 // 128 and lives 512-576 a layer reads about 16 * 544 * 2 * 1024 * 2 bytes
@@ -29,15 +29,13 @@ extern "C" int decode_attn_append(const void* q, void* kv, const void* k,
                                   const void* lengths, void* out, int batch,
                                   int heads, int kvh, int d, int cap,
                                   int bf16, float scale, void* stream) {
-  using verify_rows::kFloat;
-  using verify_rows::launch_decode;
+  using verify_rows::launch_append;
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err =
-      bf16 ? launch_decode<__nv_bfloat16, kFloat, true>(
-                 q, kv, nullptr, k, v, k_stride, v_stride, lengths, out,
-                 nullptr, batch, heads, kvh, d, cap, scale, st)
-           : launch_decode<float, kFloat, true>(
-                 q, kv, nullptr, k, v, k_stride, v_stride, lengths, out,
-                 nullptr, batch, heads, kvh, d, cap, scale, st);
+      bf16 ? launch_append<__nv_bfloat16>(q, kv, k, v, k_stride, v_stride,
+                                          lengths, out, batch, heads, kvh, d,
+                                          cap, scale, st)
+           : launch_append<float>(q, kv, k, v, k_stride, v_stride, lengths,
+                                  out, batch, heads, kvh, d, cap, scale, st);
   return (int)err;
 }

@@ -8,10 +8,10 @@
 // grid batches sequences; the block-diagonal q rows, the one-hot scale
 // selectors and the token-packed int32 rows exist for the MXU and Mosaic.
 //
-// Contract: verify_attn.cuh at one query (lengths count it), modes kExact
-// and kScores (the same in decode_attn_kv_group.cuh). In kScores the
-// integer dots are exact (int32 __dp4a sums), and `dots` (int32 [B, H,
-// cap], may be null) receives them for t < min(lengths, cap).
+// Contract: decode_attn_kv_group.cuh over contiguous rows (lengths count
+// the query), modes kExact and kScores. In kScores the integer dots are
+// exact (int32 __dp4a sums), and `dots` (int32 [B, H, cap], may be null)
+// receives them for t < min(lengths, cap).
 // pv_int8 (the reference's P.V as an int8 x int8 dot, attention.py:
 // 825-837): per block of block_k rows (the reference's blocks, row 0 of
 // the cache first) and query head, p_t = exp(s_t - m) with m the running
@@ -35,18 +35,19 @@
 // would leave the walk of 512-576 rows to one block an SM, so
 // rows_plan splits each sequence into 2 chunks of whole 16-row
 // units (one cluster, merged through distributed shared memory in the
-// same launch) and gives each of the 256 blocks 8 warps. V1's kernel at
-// S = 1 (one block per query head, every head reading the KV head's rows,
-// no split) took 0.043 ms here; int8 scores share the walk with __dp4a
-// dots.
-// G2 (decode_attn_grouped_int8 with exact q, batches of 1-3) stays on
-// V1's kernel (verify_attn.cuh) at S = 1. pv_int8 needs the row max over
-// whole reference blocks, which V1's walk spreads over four warps, so it
-// walks blocks instead: each warp owns every fourth block, scores its rows
-// into shared memory (one row's eight lanes a dot, as V1), then takes p,
-// the scale-folded p and their row max lane-strided over the block, and
-// sums p8 * v8 exactly in f32 (integers below 2^24) before the one
-// multiply by pq.
+// same launch) and gives each of the 256 blocks 8 warps. verify_attn.cuh's
+// kernel at S = 1 (one block per query head, every head reading the KV
+// head's rows, no split) took 0.043 ms here; int8 scores share the walk
+// with __dp4a dots.
+// G2 (decode_attn_fused_int8: exact q at the batches and capacities the
+// reference sends to its fused kernel) is the same launch at rows_plan's
+// choice: at (H-fused), batch 3, 24 (sequence, KV head) pairs in 8 splits.
+// pv_int8 needs the row max over whole reference blocks, so it walks
+// blocks instead: each warp owns every fourth block, scores its rows into
+// shared memory (one row's eight lanes a dot), then takes p, the
+// scale-folded p and their row max lane-strided over the block, and sums
+// p8 * v8 exactly in f32 (integers below 2^24) before the one multiply by
+// pq.
 #include "decode_attn_kv_group.cuh"
 #include "verify_attn.cuh"
 
@@ -238,43 +239,30 @@ cudaError_t launch_pv_int8(const void* q, const void* kv, const void* scales,
 
 }  // namespace
 
-// G2 (exact q, pv_int8 0) and pv_int8 in either score mode (int8_scores 1:
-// row-quantized q): V1's kernel at S = 1, or the pv_int8 walk over blocks
-// of block_k rows. The wrapper checks d in {64, 128}, shapes and
-// contiguity.
-extern "C" int decode_attn_grouped_int8(const void* q, const void* kv,
-                                        const void* scales,
-                                        const void* lengths, void* out,
-                                        int batch, int heads, int kvh, int d,
-                                        int cap, int int8_scores, int pv_int8,
-                                        int block_k, float scale,
-                                        void* stream) {
-  using verify_rows::launch_decode;
+// pv_int8 in either score mode (int8_scores 1: row-quantized q): the walk
+// over blocks of block_k rows. The wrapper checks d in {64, 128}, shapes
+// and contiguity.
+extern "C" int decode_attn_pv_int8(const void* q, const void* kv,
+                                   const void* scales, const void* lengths,
+                                   void* out, int batch, int heads, int kvh,
+                                   int d, int cap, int int8_scores,
+                                   int block_k, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (pv_int8)
-    err = int8_scores
-              ? launch_pv_int8<verify_rows::kScores>(
-                    q, kv, scales, lengths, out, batch, heads, kvh, d, cap,
-                    block_k, scale, st)
-              : launch_pv_int8<verify_rows::kExact>(
-                    q, kv, scales, lengths, out, batch, heads, kvh, d, cap,
-                    block_k, scale, st);
-  else if (int8_scores)
-    err = cudaErrorInvalidValue;  // G1's int8 scores: the rows kernel below
-  else
-    err = launch_decode<int8_t, verify_rows::kExact, false>(
-        q, const_cast<void*>(kv), scales, nullptr, nullptr, 0, 0, lengths,
-        out, nullptr, batch, heads, kvh, d, cap, scale, st);
-  return (int)err;
+  return (int)(int8_scores
+                   ? launch_pv_int8<verify_rows::kScores>(
+                         q, kv, scales, lengths, out, batch, heads, kvh, d,
+                         cap, block_k, scale, st)
+                   : launch_pv_int8<verify_rows::kExact>(
+                         q, kv, scales, lengths, out, batch, heads, kvh, d,
+                         cap, block_k, scale, st));
 }
 
-// G1 without pv_int8, the launch of rows_plan: int8_scores 0 exact q
+// G1 without pv_int8 and G2, the launch of rows_plan: int8_scores 0 exact q
 // (kExact), 1 row-quantized q (kScores, `dots` int32 [B, H, cap] or null);
 // `splits` chunks a sequence (1 to 8, one cluster) of whole `unit`-row
 // units; hpw query heads a warp, hg head groups, warps 4 or 8 a block
-// (kv_group::launch). d 64 or 128, as V1's kernel took. The wrapper checks
-// shapes, contiguity and 16-byte alignment.
+// (kv_group::launch). d 64 or 128, as verify_attn.cuh's kernel took. The
+// wrapper checks shapes, contiguity and 16-byte alignment.
 extern "C" int decode_attn_grouped_int8_rows(
     const void* q, const void* kv, const void* scales, const void* lengths,
     void* out, void* dots, int batch, int heads, int kvh, int d, int cap,

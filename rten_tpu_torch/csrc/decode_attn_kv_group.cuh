@@ -1,10 +1,12 @@
-// Single-query decode attention with every query head of a KV head's group
-// in one block, over int8 rows with bf16 scales or over float rows (f32 or
-// bf16): the kernel of decode_attn_paged.cu (P3i on an int8 pool, P3 and
-// its grid mode on an f32 pool: rows through the page table), of
-// decode_attn_grouped_int8.cu's G1 entry (contiguous int8 rows, exact q or
-// int8 scores) and of decode_attn_float.cu's K8 (contiguous f32 or bf16
-// rows, flash_decode_flat's roundings).
+// Decode attention with every query head of a KV head's group in one
+// block, and chunked-verify attention with every (query, head) pair of the
+// group in one block, over int8 rows with bf16 scales or over float rows
+// (f32 or bf16): the kernel of decode_attn_paged.cu (P3i on an int8 pool,
+// P3 and its grid mode on an f32 pool: rows through the page table), of
+// decode_attn_grouped_int8.cu's G1 and G2 (contiguous int8 rows, exact q or
+// int8 scores), of decode_attn_float.cu's K8 (contiguous f32 or bf16 rows,
+// flash_decode_flat's roundings) and of verify_attn.cu's V1 (S <= 8 verify
+// queries a sequence over contiguous f32, bf16 or int8 rows).
 //
 // Contract: for sequence b and KV head kh, query heads kh * rep .. kh * rep
 // + rep - 1 (rep = H / KVH) read rows t < n = min(lengths[b], capacity),
@@ -12,7 +14,10 @@
 // [B, cap, 2, KVH*D] cache; Pages: [table[b, t / page], t % page] of a
 // [n_pages, page, 2, KVH*D] pool, an unmapped id (-1) reading pool page
 // 0; MaskedPages: the same, but the rows of an unmapped page take no
-// weight). q f32 [B, H, D], out f32 [B, H, D].
+// weight). q f32 [B, H, D], out f32 [B, H, D]. ChunkRows (Rows with S
+// verify queries, kExact only): q and out [B, S, H, D], lengths count the
+// rows before the chunk, and query i reads rows t < min(max(lengths[b], 0)
+// + i + 1, cap).
 // int8 rows (T = int8_t) carry bf16 scales [.., 2, KVH] per (row, plane,
 // KV head), and nothing is rounded to bf16:
 // kExact: s_t = ((q . k8_t) * scale) * k_scale_t.
@@ -40,9 +45,11 @@
 // at (E), K8 at (I)) against the card's 20 flops a byte.
 //
 // Design: one block of 4 or 8 warps per (sequence, KV head, split), so each
-// row crosses from device memory once for a group of up to 8 query heads (4
-// above D 128); a larger group takes a block per 8 (or 4) of its heads,
-// each reading the rows.
+// row crosses from device memory once for a group of up to 8 query rows (4
+// above D 128): the group's query heads, or a verify chunk's S x rep pairs
+// (query i, head h), row i * rep + h; a larger group takes a block per 8
+// (or 4) of its rows, each reading the rows. A verify row's causal limit is
+// one compare per (query row, row) in the score pass.
 // - Rows move a tile at a time through a ring of stages in shared memory by
 //   16-byte cp.async copies: the tile's K and V slices are in flight
 //   together, and the next tiles' while this one is computed. An int8 tile
@@ -188,17 +195,35 @@ __device__ __forceinline__ void s8x4_to_f32(uint32_t w, float* f) {
 // KVH*D] (and [rows, 2, KVH] for the scales), for t in the block's chunk
 // [c0, c1), or -1 for a masked row, which is neither copied nor weighed.
 
+// Each addressing also gives the query rows of a sequence and KV head: a
+// decode step's are the group's rep query heads, q and out [B, H, D], and
+// lengths count the query (rows t < min(lengths, cap)); a verify chunk's
+// (ChunkRows) are below.
+
 // A contiguous cache [B, cap, 2, KVH*D]: row b * cap + t.
 struct Rows {
   static constexpr int kIds = 1;
   static constexpr bool kMasks = false;
+  static constexpr bool kChunk = false;
   int cap;
+  __host__ __device__ int queries() const { return 1; }
   __device__ int capacity() const { return cap; }
   __device__ void stage_ids(int*, int, int, int) const {}
   __device__ long long row(const int*, int b, int t, int) const {
     return (long long)b * cap + t;
   }
   __device__ bool live(const int*, int, int) const { return true; }
+};
+
+// A contiguous cache with a chunk of s >= 1 verify queries a sequence: q
+// and out [B, s, H, D]; lengths count the rows before the chunk, and query
+// i reads rows t < min(lengths + i + 1, cap). The
+// group's query rows are the s x rep pairs (i, h), row i * rep + h, each
+// with its own limit: a row past it scores -inf.
+struct ChunkRows : Rows {
+  static constexpr bool kChunk = true;
+  int s;
+  __host__ __device__ int queries() const { return s; }
 };
 
 // A block-paged pool [n_pages, page, 2, KVH*D] through the table [B,
@@ -212,8 +237,10 @@ template <bool kMask>
 struct PageTable {
   static constexpr int kIds = kMaxIds;
   static constexpr bool kMasks = kMask;
+  static constexpr bool kChunk = false;
   const int* table;
   int page, max_pages;
+  __host__ __device__ int queries() const { return 1; }
   __device__ int capacity() const { return page * max_pages; }
   __device__ void stage_ids(int* ids, int b, int c0, int c1) const {
     const int p0 = c0 / page, np = (c1 - c0 + page - 1) / page;
@@ -324,6 +351,8 @@ __global__ void __launch_bounds__(32 * kWarps)
   constexpr int kPlane = S::kPlane, kStage = S::kStage;
   constexpr int kHeads = S::kHeads;                // the block's, padded
   static_assert(kInt8 ? kMode != kFlat : kMode != kScores, "mode");
+  static_assert(!(Addr::kChunk && kMode == kScores),
+                "a verify chunk has no int8-scores mode");
   static_assert(kHG * kRG == kWarps && (!kInt8 || (kDense &&
                                                    kThreads >= 2 * kTile)),
                 "tiling");
@@ -333,28 +362,41 @@ __global__ void __launch_bounds__(32 * kWarps)
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ int ids[Addr::kIds];
 
-  // The block serves kHeads query heads of KV head kh's group from head
-  // h0 of the group on (a group of more heads takes more blocks, each
-  // reading the rows again); nh of them are real.
+  // The block serves kHeads query rows of KV head kh's group from row h0
+  // of the group on (a group of more rows takes more blocks, each reading
+  // the rows again); nh of them are real. qrow(hl) is row hl's index into
+  // the [.., D] rows of q and out.
   const int split = blockIdx.x, splits = gridDim.x, b = blockIdx.z;
-  const int rep = heads / kvh, chunks = (rep + kHeads - 1) / kHeads;
+  const int rep = heads / kvh, nq = addr.queries(), group = nq * rep;
+  const int chunks = (group + kHeads - 1) / kHeads;
   const int kh = blockIdx.y / chunks;
-  const int h0 = (blockIdx.y % chunks) * kHeads, nh = min(kHeads, rep - h0);
-  const long long hbase = (long long)b * heads + kh * rep + h0;
+  const int h0 = (blockIdx.y % chunks) * kHeads, nh = min(kHeads,
+                                                         group - h0);
+  auto qrow = [&](int hl) -> long long {
+    const int r = h0 + hl;
+    if constexpr (Addr::kChunk)
+      return ((long long)b * nq + r / rep) * heads + kh * rep + r % rep;
+    else
+      return (long long)b * heads + kh * rep + r;
+  };
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane / kLanes, slot = lane % kLanes;
   const int hg = warp % kHG, rg = warp / kHG;
   const long long f = (long long)kvh * d;
 
-  // q of the warp's heads (a padded head reads the block's last q and
-  // writes nothing), and with one split every page id of the sequence,
-  // loaded beside the length: none of them waits for it.
+  // q of the warp's rows (a padded row reads the block's last q and
+  // writes nothing) and a verify row's causal limit lim, and with one
+  // split every page id of the sequence, loaded beside the length: none of
+  // them waits for it.
   const int len = lengths[b];
   float qv[kHpw][kDpl];
+  int lim[kHpw];
 #pragma unroll
   for (int j = 0; j < kHpw; ++j) {
     const int hl = min(hg * kHpw + j, nh - 1);
-    const float* qr = q + (hbase + hl) * d;
+    const float* qr = q + qrow(hl) * d;
+    if constexpr (Addr::kChunk)
+      lim[j] = min(max(len, 0) + (h0 + hl) / rep + 1, addr.capacity());
 #pragma unroll
     for (int i = 0; i < kDpl; ++i) {
       qv[j][i] = qr[elem<T, kDpl>(slot, i)];
@@ -363,8 +405,9 @@ __global__ void __launch_bounds__(32 * kWarps)
     }
   }
   if (splits == 1) addr.stage_ids(ids, b, 0, addr.capacity());
-  // The chunk: rows [c0, c1) of [0, n), whole units, one per split.
-  const int n = min(max(len, 0), addr.capacity());
+  // The chunk: rows [c0, c1) of [0, n), whole units, one per split (a
+  // verify chunk's n takes the rows of all its queries).
+  const int n = min(max(len, 0) + (Addr::kChunk ? nq : 0), addr.capacity());
   const int per = (n + splits - 1) / splits;
   const int chunk = (per + unit - 1) / unit * unit;
   const int c0 = min(n, split * chunk), c1 = min(n, c0 + chunk);
@@ -440,7 +483,8 @@ __global__ void __launch_bounds__(32 * kWarps)
     // The scores of the warp's rows: step k takes row (k * kRG + rg) * 4 +
     // grp, and the steps are independent of each other. A dead row (past
     // the tile's rows, or masked) scores -inf and, over float rows, adds
-    // nothing of its stale V.
+    // nothing of its stale V; a row past a verify query's limit scores -inf
+    // for that query.
     float sc[kSteps][kHpw];
     bool dead[kSteps];
 #pragma unroll
@@ -468,7 +512,7 @@ __global__ void __launch_bounds__(32 * kWarps)
             dot += __shfl_xor_sync(0xffffffffu, dot, o);
           const int hl = hg * kHpw + j2;
           if (dots != nullptr && slot == 0 && r < rows && hl < nh)
-            dots[(hbase + hl) * addr.capacity() + t0 + r] = dot;
+            dots[qrow(hl) * addr.capacity() + t0 + r] = dot;
           sc[k][j2] = (float)dot * qscale[j2];
         }
       } else {
@@ -497,13 +541,16 @@ __global__ void __launch_bounds__(32 * kWarps)
       }
 #pragma unroll
       for (int j2 = 0; j2 < kHpw; ++j2)
-        sc[k][j2] = dead[k] ? -INFINITY : sc[k][j2];
+        sc[k][j2] = dead[k] || (Addr::kChunk && t0 + r >= lim[j2])
+                        ? -INFINITY
+                        : sc[k][j2];
     }
     // Rows are a prefix of the tile: the warp has a row here iff its first
-    // one is (warp-uniform). Then per head the tile's max over the warp's
-    // rows, one rescale where it grew, and p (times v_scale) in place. A
-    // masked warp may have seen no live row yet: its m stays -inf and its
-    // p are 0.
+    // one is (warp-uniform). Then per query row the tile's max over the
+    // warp's rows, one rescale where it grew, and p (times v_scale) in
+    // place. A masked warp, or a verify query whose limit lies before the
+    // warp's rows so far, may have seen no live row yet: its m stays -inf
+    // and its p are 0 (exp(-inf - -inf) would be NaN).
     if (4 * rg < rows) {
 #pragma unroll
       for (int j2 = 0; j2 < kHpw; ++j2) {
@@ -524,7 +571,8 @@ __global__ void __launch_bounds__(32 * kWarps)
         for (int k = 0; k < kSteps; ++k) {
           if (!on(k)) continue;
           float p = expf(sc[k][j2] - m[j2]);
-          if constexpr (Addr::kMasks) p = m[j2] == -INFINITY ? 0.0f : p;
+          if constexpr (Addr::kMasks || Addr::kChunk)
+            p = m[j2] == -INFINITY ? 0.0f : p;
           l[j2] += p;
           sc[k][j2] = kInt8 ? p * vsc[(k * kRG + rg) * 4 + grp] : p;
         }
@@ -640,7 +688,7 @@ __global__ void __launch_bounds__(32 * kWarps)
       }
     }
     if (splits == 1) {
-      if (hl < nh) out[(hbase + hl) * d + c] = result(o, sum);
+      if (hl < nh) out[qrow(hl) * d + c] = result(o, sum);
     } else {
       bacc[hl * d + c] = o;
       if (c == 0) {
@@ -671,7 +719,7 @@ __global__ void __launch_bounds__(32 * kWarps)
         o += cluster.map_shared_rank(bacc, s)[hl * d + c] * cw;
       }
     }
-    out[(hbase + hl) * d + c] = result(o, sum);
+    out[qrow(hl) * d + c] = result(o, sum);
   }
   cluster.sync();  // no block leaves while another reads its state
 }
@@ -699,7 +747,8 @@ cudaError_t launch_one(const float* q, const T* kv,
   attrs[0].val.clusterDim.y = 1;
   attrs[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  const int chunks = (heads / kvh + kHG * kHpw - 1) / (kHG * kHpw);
+  const int chunks =
+      (heads / kvh * addr.queries() + kHG * kHpw - 1) / (kHG * kHpw);
   cfg.gridDim = dim3(splits, kvh * chunks, batch);
   cfg.blockDim = dim3(32 * kWarps);
   cfg.dynamicSmemBytes = kSmem;

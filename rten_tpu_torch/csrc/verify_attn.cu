@@ -22,52 +22,47 @@
 // f32 [B, S, H, D].
 //
 // Bound on the H100: bytes. A verify step should cost about one decode
-// step: each block reads its head's live K/V rows once for all S queries.
-// At batch 8, 12 heads of 64, lives 64-320 and a bf16 cache that is about
-// 8 * 192 * 2 * 768 * 2 bytes = 4.7 MB per layer (1.4 us at 3.35 TB/s).
-// Design: verify_attn.cuh's kernel, one block of four warps per
-// (sequence, head), instantiated for S <= 4 and S <= 8.
-#include "verify_attn.cuh"
+// step: each row of a KV head crosses from device memory once for all S
+// queries of all its query heads. At batch 8, 12 heads of 64, lives 64-320
+// and a bf16 cache that is about 8 * 192 * 2 * 768 * 2 bytes = 4.7 MB per
+// layer (1.4 us at 3.35 TB/s).
+// Design: the KV-group kernel (decode_attn_kv_group.cuh, ChunkRows): one
+// block per (sequence, KV head, split) serves the S x rep query rows (i, h)
+// of the KV head's group, up to 8 a block (4 at D 128: more take more
+// blocks), from rows staged a tile at a time by cp.async; each query row
+// keeps its own causal limit, and a sequence's splits merge in their
+// cluster (verify_plan in kernels/attention.py picks splits, warps and the
+// tiling). S takes any value 1-8 without a rebuild.
+#include "decode_attn_kv_group.cuh"
 
-namespace {
-
-template <typename T, int kMode>
-cudaError_t launch_kind(const void* q, const void* kv, const void* scales,
-                        const void* lengths, void* out, int batch, int s,
-                        int heads, int kvh, int d, int cap, float scale,
-                        cudaStream_t stream) {
-  using verify_rows::launch;
-  void* rows = const_cast<void*>(kv);
-  if (s <= 4)
-    return launch<T, kMode, false, 4>(q, rows, scales, nullptr, nullptr, 0,
-                                      0, lengths, out, nullptr, batch, s, 0,
-                                      heads, kvh, d, cap, scale, stream);
-  return launch<T, kMode, false, 8>(q, rows, scales, nullptr, nullptr, 0, 0,
-                                    lengths, out, nullptr, batch, s, 0,
-                                    heads, kvh, d, cap, scale, stream);
-}
-
-}  // namespace
-
-// kind: 0 f32 cache, 1 bf16 cache, 2 int8 cache with bf16 scales. The
-// wrapper checks d in {64, 128} and 1 <= s <= 8.
+// kind: 0 f32 cache, 1 bf16 cache, 2 int8 cache with bf16 scales. `splits`
+// chunks a sequence (1 to 8, one cluster) of whole `unit`-row units; hpw
+// query rows a warp, hg row groups, warps 4 or 8 a block (kv_group::launch).
+// The wrapper checks d in {64, 128}, shapes, contiguity and 16-byte
+// alignment.
 extern "C" int verify_attn(const void* q, const void* kv, const void* scales,
                            const void* lengths, void* out, int batch, int s,
                            int heads, int kvh, int d, int cap, int kind,
+                           int splits, int unit, int hpw, int hg, int warps,
                            float scale, void* stream) {
-  using verify_rows::kExact;
-  using verify_rows::kFloat;
+  using kv_group::ChunkRows;
+  using kv_group::kExact;
+  using kv_group::launch;
+  if (s < 1 || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  const ChunkRows addr{{cap}, s};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (kind == 0)
-    err = launch_kind<float, kFloat>(q, kv, scales, lengths, out, batch, s,
-                                     heads, kvh, d, cap, scale, st);
+    err = launch<float, ChunkRows, kExact, false>(
+        q, kv, nullptr, lengths, out, nullptr, batch, heads, kvh, d, addr,
+        splits, unit, hpw, hg, warps, scale, st);
   else if (kind == 1)
-    err = launch_kind<__nv_bfloat16, kFloat>(q, kv, scales, lengths, out,
-                                             batch, s, heads, kvh, d, cap,
-                                             scale, st);
+    err = launch<__nv_bfloat16, ChunkRows, kExact, false>(
+        q, kv, nullptr, lengths, out, nullptr, batch, heads, kvh, d, addr,
+        splits, unit, hpw, hg, warps, scale, st);
   else
-    err = launch_kind<int8_t, kExact>(q, kv, scales, lengths, out, batch, s,
-                                      heads, kvh, d, cap, scale, st);
+    err = launch<int8_t, ChunkRows, kExact, false>(
+        q, kv, scales, lengths, out, nullptr, batch, heads, kvh, d, addr,
+        splits, unit, hpw, hg, warps, scale, st);
   return (int)err;
 }

@@ -36,17 +36,19 @@
   ``flash_decode_paged`` (:2573): decode attention over a block-paged
   pool through the page table.
 * ``verify_attn_grouped`` and ``verify_attn_fused`` (CUDA,
-  ``csrc/verify_attn.cu``, one kernel, V1) replace ``flash_verify_grouped``
-  (:1957) and ``flash_verify_fused`` (:2394): S speculative-verify queries
-  per sequence, causal within the chunk, over a float or int8 cache.
+  ``csrc/verify_attn.cu`` on the KV-group kernel, one kernel, V1) replace
+  ``flash_verify_grouped`` (:1957) and ``flash_verify_fused`` (:2394): S
+  speculative-verify queries per sequence, causal within the chunk, over
+  a float or int8 cache; a block serves the S x rep (query, head) rows of
+  a KV head's group (:func:`verify_plan`).
 * ``decode_attn_grouped_int8`` (G1) and ``decode_attn_fused_int8`` (G2)
   (CUDA, ``csrc/decode_attn_grouped_int8.cu``) replace the int8 modes of
   ``flash_decode_grouped`` (:1039; exact q, and ``int8_scores``) and
   ``flash_decode_fused`` (:318): one query per sequence over an int8
   cache, q and the output in f32; with ``pv_int8`` the P.V dot runs on
   row-quantized probabilities, as the reference's ``pv_int8``. G1 without
-  ``pv_int8`` runs P3i's KV-group kernel on contiguous rows; G2 and
-  ``pv_int8`` run V1's kernel and a block walk.
+  ``pv_int8`` and G2 run P3i's KV-group kernel on contiguous rows;
+  ``pv_int8`` runs a block walk.
 * ``decode_attn_grouped_append`` (CUDA, ``csrc/decode_attn_append.cu``, A1)
   replaces ``flash_decode_grouped_append`` (:976): the float-cache decode
   append and the grouped float decode in one launch.
@@ -814,9 +816,10 @@ def _paged_plain(name, q, pool, scales, table, lengths, scale,
 
 # -- the KV-group kernel: one block per (sequence, KV head[, split]) ---------
 # csrc/decode_attn_kv_group.cuh moves its rows a tile at a time through a
-# ring of stages in shared memory and serves every query head of the KV
+# ring of stages in shared memory and serves every query row of the KV
 # head's group from it: P3i (int8 pool), P3 and its grid mode (f32 pool), G1
-# (contiguous int8 rows) and K8 (contiguous f32 or bf16 rows). A sequence
+# and G2 (contiguous int8 rows), K8 (contiguous f32 or bf16 rows) and V1
+# (contiguous f32, bf16 or int8 rows; S x rep query rows a group). A sequence
 # splits into chunks (one thread-block cluster, merged in the same launch)
 # only where B x KVH leaves the card short of this many blocks, and a launch
 # of at most two blocks an SM gives each block 8 warps, not 4.
@@ -838,11 +841,12 @@ def _pow2_at_least(n):
 
 
 def kv_group_heads(rep, head_dim):
-    """(heads a warp serves, head groups of warps a block) for a group of
-    ``rep`` query heads: a warp's q and accumulators hold at most 32 values
-    a lane (head_dim / 8 a head), a block at most 4 head groups and 8 heads
-    (4 above head_dim 128); a larger group takes more blocks. These are
-    the tilings ``decode_attn_kv_group.cuh`` builds."""
+    """(query rows a warp serves, row groups of warps a block) for a group
+    of ``rep`` query rows (the query heads of a KV head, or a verify
+    chunk's S x rep pairs): a warp's q and accumulators hold at most 32
+    values a lane (head_dim / 8 a row), a block at most 4 row groups and 8
+    rows (4 above head_dim 128); a larger group takes more blocks. These
+    are the tilings ``decode_attn_kv_group.cuh`` builds."""
     w = min(256 // head_dim, _pow2_at_least(rep))
     return w, min(4, 8 // w, _pow2_at_least(-(-rep // w)))
 
@@ -894,11 +898,21 @@ def paged_plan(batch, heads, kvh, page, max_pages, head_dim=64, splits=None,
 
 def rows_plan(batch, heads, kvh, cap, head_dim=128, splits=None, warps=None):
     """The launch of the KV-group kernel over a contiguous cache (G1's int8
-    rows, exact q or int8 scores, without ``pv_int8``; K8's f32 or bf16
-    rows): the plan of :func:`paged_plan` with chunks of whole
+    rows, exact q or int8 scores, without ``pv_int8``, and G2's; K8's f32
+    or bf16 rows): the plan of :func:`paged_plan` with chunks of whole
     KV_GROUP_UNIT-row units."""
     return _kv_group_plan(batch, heads, kvh, head_dim, KV_GROUP_UNIT,
                           -(-cap // KV_GROUP_UNIT), 1, splits, warps)
+
+
+def verify_plan(batch, s, heads, kvh, cap, head_dim=64, splits=None,
+                warps=None):
+    """The launch of the KV-group kernel for V1 (``verify_attn_grouped`` and
+    ``verify_attn_fused``, f32, bf16 or int8 rows): :func:`rows_plan`'s
+    plan for a group of S x rep query rows (query i, head h; row i * rep +
+    h), each with its own causal limit. A sequence's chunks cover rows
+    ``[0, min(lengths + S, cap))`` (``kv_group_chunks``)."""
+    return rows_plan(batch, s * heads, kvh, cap, head_dim, splits, warps)
 
 
 def _check_kv_group(name, tensors, plan):
@@ -1111,24 +1125,29 @@ def _verify_plain(name, q, kv, scales, lengths, scale):
     return out.transpose(1, 2).contiguous()
 
 
-def _launch_verify(wrapper, q, kv, scales, lengths, scale):
-    """The verify kernel on CUDA tensors in both modes; counts the launch
-    on ``wrapper`` and in its mode."""
+def _launch_verify(wrapper, q, kv, scales, lengths, scale, plan=None):
+    """V1 on CUDA tensors in both modes: the KV-group kernel at ``plan``
+    (default :func:`verify_plan`'s); counts the launch on ``wrapper`` and
+    in its mode."""
     name = wrapper.__name__
     b, s, h, d, kvh, cap = _check_verify(name, q, kv, scales, lengths)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    _build.require(d in (64, 128), name, f"head_dim {d} must be 64 or 128")
-    tensors = (q, kv, lengths) + (() if scales is None else (scales,))
-    _build.require(all(x.is_contiguous() for x in tensors), name,
-                   "tensors must be contiguous")
+    _build.require(d in (64, 128), name,
+                   f"head_dim {d} must be one of (64, 128)")
+    plan = plan or verify_plan(b, s, h, kvh, cap, d)
+    _check_kv_group(name, (q, kv, lengths) + (
+        () if scales is None else (scales,)), plan)
     out = torch.empty_like(q)
     kind = 2 if scales is not None else int(kv.dtype == torch.bfloat16)
-    fn = _build.function("verify_attn", "verify_attn", "pppppiiiiiiifp")
+    fn = _build.function("verify_attn", "verify_attn",
+                         "pppppiiiiiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(),
              None if scales is None else scales.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), b, s, h, kvh, d, cap, kind,
-             float(scale), _build.stream())
+             plan["splits"], plan["unit"], plan["heads_per_warp"],
+             plan["head_groups"], plan["warps"], float(scale),
+             _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
     wrapper.mode_launches["float" if scales is None else "int8"] += 1
@@ -1153,8 +1172,8 @@ def verify_attn_grouped(q, kv, lengths, scales=None, scale=None):
     chunk. Query i reads rows ``t < min(lengths + i + 1, cap)``; scores,
     softmax and sums in f32, no bf16 rounding. Returns f32 [B, S, H, D].
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. Launches count in ``launches`` and per mode in
-    ``mode_launches``."""
+    raise (the KV-group kernel, :func:`verify_plan`; head_dim 64 or 128).
+    Launches count in ``launches`` and per mode in ``mode_launches``."""
     name = "verify_attn_grouped"
     extra = () if scales is None else (scales,)
     if _build.on_cpu(name, q, kv, lengths, *extra):
@@ -1314,6 +1333,8 @@ def _attend_live(s, v, lengths, v_scale=None):
     D]; with int8 scales v_scale [B, KVH, 1, n] weighs p after the sum l.
     Returns [B, KVH * rep, D], zeros where a length is 0."""
     b, kvh, rep, n = s.shape
+    if n == 0:                                  # no sequence has a row
+        return s.new_zeros((b, kvh * rep, v.shape[-1]))
     s = s.masked_fill(~_live(lengths, n)[:, None, None, :], -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # no token
@@ -1369,6 +1390,8 @@ def _attend_blocks(s, v, lengths, block_k, v_scale=None, p_dtype=None):
     combine as acc = sum acc_i exp(m_i - m), l = sum l_i exp(m_i - m).
     Returns [B, KVH * rep, D], zeros where a length is 0."""
     b, kvh, rep, n = s.shape
+    if n == 0:                                  # no sequence has a row
+        return s.new_zeros((b, kvh * rep, v.shape[-1]))
     nb = n // block_k
     s = s.masked_fill(~_live(lengths, n)[:, None, None, :], -math.inf)
     s = s.reshape(b, kvh, rep, nb, block_k)
@@ -1392,44 +1415,40 @@ def _attend_blocks(s, v, lengths, block_k, v_scale=None, p_dtype=None):
     return (acc / torch.clamp(l, min=1e-30)).reshape(b, kvh * rep, -1)
 
 
-def _launch_int8_decode(wrapper, q, kv, scales, lengths, int8_scores, scale,
-                        pv_block=0):
-    """G2's kernel (V1's at S = 1, exact q) or, with ``pv_block`` > 0, the
-    ``pv_int8`` walk over blocks of that many rows (either score mode) on
-    CUDA tensors; counts the launch on ``wrapper`` and, where it has them,
-    in its modes."""
-    name = wrapper.__name__
+def _launch_pv_int8(q, kv, scales, lengths, int8_scores, scale, pv_block):
+    """G1's ``pv_int8`` walk over blocks of ``pv_block`` rows (either score
+    mode) on CUDA tensors; counts the launch in its mode."""
+    name = "decode_attn_grouped_int8"
     b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     _build.require(d in (64, 128), name, f"head_dim {d} must be 64 or 128")
     _build.require(all(x.is_contiguous() for x in (q, kv, scales, lengths)),
                    name, "tensors must be contiguous")
-    if pv_block:
-        _build.require(pv_block <= 256, name,
-                       f"pv_int8 block {pv_block}: the kernel takes <= 256")
+    _build.require(pv_block <= 256, name,
+                   f"pv_int8 block {pv_block}: the kernel takes <= 256")
     out = torch.empty_like(q)
-    fn = _build.function("decode_attn_grouped_int8",
-                         "decode_attn_grouped_int8", "pppppiiiiiiiifp")
+    fn = _build.function("decode_attn_grouped_int8", "decode_attn_pv_int8",
+                         "pppppiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, cap,
-             int(bool(int8_scores)), int(pv_block > 0), pv_block,
-             float(scale), _build.stream())
+             int(bool(int8_scores)), pv_block, float(scale), _build.stream())
     _build.check(err, name)
-    wrapper.launches += 1
-    if hasattr(wrapper, "mode_launches"):
-        mode = "int8_scores" if int8_scores else "exact"
-        wrapper.mode_launches["pv_int8." + mode] += 1
+    decode_attn_grouped_int8.launches += 1
+    decode_attn_grouped_int8.mode_launches[
+        "pv_int8." + ("int8_scores" if int8_scores else "exact")] += 1
     return out
 
 
 def _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores, scale,
-                              dots=None, plan=None):
-    """G1 without ``pv_int8`` (both score modes) on CUDA tensors: the
-    KV-group kernel at ``plan`` (default :func:`rows_plan`'s);
-    counts the launch. ``dots`` (int32 [B, H, cap], tests only) receives
-    the integer score dots of ``int8_scores``."""
-    name = "decode_attn_grouped_int8"
+                              dots=None, plan=None, wrapper=None):
+    """G1 without ``pv_int8`` (both score modes) or, with ``wrapper``
+    ``decode_attn_fused_int8``, G2 (exact q) on CUDA tensors: the KV-group
+    kernel at ``plan`` (default :func:`rows_plan`'s); counts the launch on
+    the wrapper and, for G1, in its mode. ``dots`` (int32 [B, H, cap],
+    tests only) receives the integer score dots of ``int8_scores``."""
+    wrapper = wrapper or decode_attn_grouped_int8
+    name = wrapper.__name__
     b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -1453,9 +1472,10 @@ def _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores, scale,
              plan["heads_per_warp"], plan["head_groups"], plan["warps"],
              float(scale), _build.stream())
     _build.check(err, name)
-    decode_attn_grouped_int8.launches += 1
-    decode_attn_grouped_int8.mode_launches[
-        "int8_scores" if int8_scores else "exact"] += 1
+    wrapper.launches += 1
+    if wrapper is decode_attn_grouped_int8:
+        wrapper.mode_launches[
+            "int8_scores" if int8_scores else "exact"] += 1
     return out
 
 
@@ -1526,8 +1546,8 @@ def decode_attn_grouped_int8(q, kv, scales, lengths, int8_scores=False,
     if blk:
         _build.require(dots is None, name,
                        "dots: int8_scores without pv_int8")
-        return _launch_int8_decode(decode_attn_grouped_int8, q, kv, scales,
-                                   lengths, int8_scores, scale, blk)
+        return _launch_pv_int8(q, kv, scales, lengths, int8_scores, scale,
+                               blk)
     return _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores,
                                      scale, dots)
 
@@ -1549,14 +1569,15 @@ def decode_attn_fused_int8(q, kv, scales, lengths, scale=None):
     """``decode_attn_grouped_int8``'s exact-q contract for the batches and
     capacities the reference sends to ``flash_decode_fused``'s int8 mode
     (attention.py:318; no group, or a capacity that does not divide by the
-    block). The kernel of ``decode_attn_grouped_int8``, with a launch count
-    of its own. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    block). G1's exact-q launch (the KV-group kernel at
+    :func:`rows_plan`'s choice), with a launch count of its own. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (head_dim
+    64 or 128) or raise."""
     name = "decode_attn_fused_int8"
     if _build.on_cpu(name, q, kv, scales, lengths):
         return decode_attn_fused_int8_plain(q, kv, scales, lengths, scale)
-    return _launch_int8_decode(decode_attn_fused_int8, q, kv, scales,
-                               lengths, False, scale)
+    return _launch_grouped_int8_rows(q, kv, scales, lengths, False, scale,
+                                     wrapper=decode_attn_fused_int8)
 
 
 decode_attn_fused_int8.launches = 0

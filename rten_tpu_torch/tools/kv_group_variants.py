@@ -25,9 +25,8 @@ int8 rows:
   blocks of 4 or 8 warps;
 * G1 exact q (``decode_attn_grouped_int8``) at path (H)'s shapes (B 16, 32
   heads over 8 KV heads of 128, capacity 4096, lives 512-576) with 1, 2, 4
-  and 8 chunks and blocks of 4 or 8 warps, beside V1's kernel at S = 1 on
-  the same inputs (``decode_attn_fused_int8``: G1's kernel before this
-  design), and G1's int8 scores at the plan's launch;
+  and 8 chunks and blocks of 4 or 8 warps, and G1's int8 scores at the
+  plan's launch;
 * then P3i and G1 at the plan's launch built from variants of the header,
   to see where the time goes: ``no_walk`` (the rows are staged but never
   computed: the copies and the block's fixed costs), ``no_copies`` (the
@@ -35,6 +34,21 @@ int8 rows:
   ``step_softmax`` (the walk before its three passes: a softmax step per
   row) and ``dense_steps`` (every step of a partial tile computed, its dead
   rows masked). The first two compute garbage, so their error is not held.
+
+Verify and G2 (``--skip verify`` leaves them out):
+
+* V1 (``verify_attn_grouped``, ``verify_attn_fused``: S x rep query rows
+  a block) at path (G)'s shapes (B 8, S 4, 12 heads of 64, capacity 2048,
+  lives 64-320) on a bf16 cache and on an int8 one ((G-int8)), and at the
+  batch of 3 that takes the fused entry, with 1-8 splits and blocks of 4
+  or 8 warps; (G)'s bf16 case also at the plan's launch for S 1, 2 and 8;
+* G2 (``decode_attn_fused_int8``) at path (H-fused)'s shapes (B 3, 32
+  heads over 8 KV heads of 128, capacity 4096, lives 512-576) with 1-8
+  splits and blocks of 4 or 8 warps;
+* then V1 at (G) and (G-int8) and G2 at the plan's launch built from the
+  header's ``no_walk`` and ``no_copies`` variants; V1 at (G) with the
+  lives of the traced burst of ``chip_smoke.py`` (64-85 rows); and the
+  timer's floor: a one-element fill, timed as the kernels are.
 
 Each line: the device time (CUDA events, cold L2, warm median) in two
 rounds, its share of the byte bound, and the error against the plain
@@ -45,7 +59,8 @@ against 0.001). The int8 variants are timed twice: after the scrub that
 full of dirty lines that the kernel's reads must first write back), and
 after a read of the same 256 MB (the L2 cold and clean).
 
-    python -m rten_tpu_torch.tools.kv_group_variants [--skip int8|float]
+    python -m rten_tpu_torch.tools.kv_group_variants \
+        [--skip int8|float|verify]
 
 Builds go to ``rten_tpu_torch/build/kv_group_variants/``. Needs one NVIDIA
 card and nvcc; without a card it exits non-zero.
@@ -446,9 +461,6 @@ def int8_section(scrub):
                 lambda: at._launch_grouped_int8_rows(*args, False, None,
                                                      plan=plan),
                 ref, n_bytes, clean=True))
-    report(scrub, "  V1's kernel at S = 1 (decode_attn_fused_int8)",
-           lambda: at.decode_attn_fused_int8(*args), ref, n_bytes,
-           clean=True)
     ref = at.decode_attn_grouped_int8_plain(*args, int8_scores=True)
     worst = max(worst, report(
         scrub, "  G1 int8 scores (plan)",
@@ -480,9 +492,135 @@ def int8_section(scrub):
     return worst
 
 
+def verify_inputs(g, mode, b, s=4, h=12, d=64, cap=2048, lives=(64, 321)):
+    """Path (G)'s verify inputs (a bf16 cache, or ``mode`` "int8") at batch
+    ``b``, and the bytes of the rows the chunk's queries read (each once),
+    q and the output."""
+    f = h * d
+    q = torch.randn((b, s, h, d), device="cuda", generator=g)
+    lengths = torch.randint(lives[0], lives[1], (b,), device="cuda",
+                            generator=g, dtype=torch.int32)
+    if mode == "int8":
+        kv = torch.randint(-127, 128, (b, cap, 2, f), device="cuda",
+                           dtype=torch.int8, generator=g)
+        scales = (0.002 + 0.01 * torch.rand((b, cap, 2, h), device="cuda",
+                                            generator=g)).to(torch.bfloat16)
+        row = 2 * f + 2 * h * 2
+    else:
+        kv = torch.randn((b, cap, 2, f), device="cuda",
+                         generator=g).to(torch.bfloat16)
+        scales, row = None, 2 * f * 2
+    rows = (lengths.double() + s).clamp(max=cap).sum().item()
+    return q, kv, lengths, scales, rows * row + 2 * q.numel() * 4
+
+
+def verify_section(scrub):
+    """V1 at (G), (G-int8) and batch 3, G2 at (H-fused): every split count
+    and both warp counts; returns the worst held error."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    worst = 0.0
+    for label, mode, b in (("V1 float at (G)", "bf16", 8),
+                           ("V1 int8 at (G-int8)", "int8", 8),
+                           ("V1 float at batch 3", "bf16", 3),
+                           ("V1 int8 at batch 3", "int8", 3)):
+        q, kv, lengths, scales, n_bytes = verify_inputs(g, mode, b)
+        wrapper = at.verify_attn_grouped if b == 8 else at.verify_attn_fused
+        ref = at.verify_attn_grouped_plain(q, kv, lengths, scales)
+        plan = at.verify_plan(b, 4, 12, 12, 2048, 64)
+        print(f"{label} (plan: {plan['splits']} split(s) of "
+              f"{plan['warps']} warps, {plan['heads_per_warp']} row(s) a "
+              f"warp in {plan['head_groups']} group(s), {plan['blocks']} "
+              f"blocks):", flush=True)
+        for splits in range(1, 9):
+            for warps in (4, 8):
+                p = at.verify_plan(b, 4, 12, 12, 2048, 64, splits, warps)
+                mark = " (plan)" if (splits, warps) == (
+                    plan["splits"], plan["warps"]) else ""
+                worst = max(worst, report(
+                    scrub, f"  {splits} splits, {warps} warps{mark}",
+                    lambda p=p: at._launch_verify(
+                        wrapper, q, kv, scales, lengths, None, p),
+                    ref, n_bytes, clean=True))
+    g = torch.Generator(device="cuda").manual_seed(16)
+    for s in (1, 2, 8):
+        q, kv, lengths, scales, n_bytes = verify_inputs(g, "bf16", 8, s)
+        ref = at.verify_attn_grouped_plain(q, kv, lengths, scales)
+        plan = at.verify_plan(8, s, 12, 12, 2048, 64)
+        worst = max(worst, report(
+            scrub, f"V1 float at (G), S {s} (plan: {plan['splits']} splits "
+            f"of {plan['warps']} warps, {plan['heads_per_warp']} x "
+            f"{plan['head_groups']} rows)",
+            lambda: at.verify_attn_grouped(q, kv, lengths, scales), ref,
+            n_bytes, clean=True))
+
+    b, h, kvh, d, cap = 3, 32, 8, 128, 4096
+    kv = torch.randint(-127, 128, (b, cap, 2, kvh * d), device="cuda",
+                       dtype=torch.int8, generator=g)
+    scales = (0.002 + 0.01 * torch.rand((b, cap, 2, kvh), device="cuda",
+                                        generator=g)).to(torch.bfloat16)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    lengths = torch.randint(512, 577, (b,), device="cuda", generator=g,
+                            dtype=torch.int32)
+    n_bytes = (lengths.double().sum().item() * (2 * kvh * d + 2 * kvh * 2)
+               + 2 * q.numel() * 4)
+    args = (q, kv, scales, lengths)
+    ref = at.decode_attn_fused_int8_plain(*args)
+    plan = at.rows_plan(b, h, kvh, cap, d)
+    print(f"G2 at (H-fused) (plan: {plan['splits']} splits of "
+          f"{plan['warps']} warps, {plan['blocks']} blocks):", flush=True)
+    for splits in range(1, 9):
+        for warps in (4, 8):
+            p = at.rows_plan(b, h, kvh, cap, d, splits, warps)
+            mark = " (plan)" if (splits, warps) == (
+                plan["splits"], plan["warps"]) else ""
+            worst = max(worst, report(
+                scrub, f"  {splits} splits, {warps} warps{mark}",
+                lambda p=p: at._launch_grouped_int8_rows(
+                    *args, False, None, plan=p,
+                    wrapper=at.decode_attn_fused_int8),
+                ref, n_bytes, clean=True))
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    cases = []
+    for label, mode in (("V1 float at (G)", "bf16"),
+                        ("V1 int8 at (G-int8)", "int8")):
+        v_q, v_kv, v_len, v_sc, v_bytes = verify_inputs(g, mode, 8)
+        cases.append((label, "verify_attn",
+                      lambda v=(v_q, v_kv, v_len, v_sc):
+                      at.verify_attn_grouped(*v),
+                      at.verify_attn_grouped_plain(v_q, v_kv, v_len, v_sc),
+                      v_bytes))
+    cases.append(("G2 at (H-fused)", "decode_attn_grouped_int8",
+                  lambda: at.decode_attn_fused_int8(*args), ref, n_bytes))
+    dirs = build_patched({k: VARIANTS[k] for k in ("shipped", "no_walk",
+                                                    "no_copies")},
+                         ("verify_attn", "decode_attn_grouped_int8"))
+    print("variants of decode_attn_kv_group.cuh at the plan's launch:")
+    for name, src in dirs.items():
+        for label, lib, fn, c_ref, c_bytes in cases:
+            with library(lib, src / f"lib{lib}.so"):
+                err = report(scrub, f"  {name}: {label}", fn, c_ref,
+                             c_bytes, clean=True)
+            if name in HELD:
+                worst = max(worst, err)
+    q, kv, lengths, scales, n_bytes = verify_inputs(g, "bf16", 8,
+                                                    lives=(64, 86))
+    worst = max(worst, report(
+        scrub, "V1 float at (G), lives 64-85 (plan)",
+        lambda: at.verify_attn_grouped(q, kv, lengths, scales),
+        at.verify_attn_grouped_plain(q, kv, lengths, scales), n_bytes,
+        clean=True))
+    one = torch.zeros(1, device="cuda")
+    times = [device_ms(scrub, lambda: one.fill_(1.0)) for _ in range(2)]
+    print(f"the timer's floor, a one-element fill: "
+          + " / ".join(f"{t:.4f}" for t in times) + " ms", flush=True)
+    return worst
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--skip", choices=("int8", "float"), action="append",
+    parser.add_argument("--skip", choices=("int8", "float", "verify"),
+                        action="append",
                         default=[], help="leave a section out")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -498,6 +636,8 @@ def main(argv=None):
         worst = max(worst, float_section(scrub))
     if "int8" not in args.skip:
         worst = max(worst, int8_section(scrub))
+    if "verify" not in args.skip:
+        worst = max(worst, verify_section(scrub))
     print(f"worst error {worst:.3f} of the tolerance")
     return 0 if worst <= 1.0 else 1
 

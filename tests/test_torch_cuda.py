@@ -850,7 +850,7 @@ def test_int8_kernel_past_the_old_capacity_limit(gen, b, h, kvh, cap,
     assert (out - ref).abs().max().item() <= tol
 
 
-def _verify_case(gen, b, s, h, kvh, d, cap, mode):
+def _verify_case(gen, b, s, h, kvh, d, cap, mode, lens=None):
     q = torch.randn((b, s, h, d), device="cuda", generator=gen)
     if mode == "int8":
         kv, scales, _ = _cache(gen, b, cap, 1, kvh, d)
@@ -858,33 +858,72 @@ def _verify_case(gen, b, s, h, kvh, d, cap, mode):
         kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
                          generator=gen).to(getattr(torch, mode))
         scales = None
-    lengths = torch.tensor([cap - s, 0, 5, 37, 3, 61, 62, 64][:b],
-                           dtype=torch.int32, device="cuda")
+    lens = lens or [cap - s, 0, 5, 37, 3, 61, 62, 64][:b]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     return q, kv, lengths, scales
 
 
-@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("b,s,h,kvh,d,cap", [
+# (batch, S, heads, kv heads, head_dim, capacity[, splits, warps[,
+# lengths]]): S 1 to 8, GQA and plain heads, head_dim 64 and 128, a chunk
+# that ends at the capacity, lengths 0 and ragged at the plan's launch;
+# then the plan forced to 1-8 splits of 4 or 8 warps at S 1-8, and at S 8
+# with 4 query heads a KV head of 128 (4 blocks of 2 queries x 4 heads) a
+# sequence of 14 rows before its chunk in 2 splits: the second, rows 16-21,
+# lies past every query of the first block (limits 15 and 16).
+VERIFY_CASES = [
     (8, 4, 12, 12, 64, 128), (3, 1, 4, 2, 64, 96), (1, 8, 4, 2, 128, 64),
-    (5, 5, 8, 2, 128, 2048), (2, 2, 2, 1, 64, 40)])
-def test_verify_attn_kernels_match_plain(gen, b, s, h, kvh, d, cap, mode):
-    """V1 through both entries against the plain version: S 1 to 8, GQA
-    and plain heads, head_dim 64 and 128, a chunk that ends at the
-    capacity, lengths 0 and ragged, f32, bf16 and int8 caches. Each entry
-    counts its launches in its mode."""
-    q, kv, lengths, scales = _verify_case(gen, b, s, h, kvh, d, cap, mode)
+    (5, 5, 8, 2, 128, 2048), (2, 2, 2, 1, 64, 40),
+    (8, 1, 4, 2, 64, 96, 1, 8), (8, 2, 12, 12, 64, 128, 2, 4),
+    (8, 3, 8, 2, 128, 200, 3, 8), (8, 4, 16, 4, 128, 64, 4, 4),
+    (8, 5, 4, 4, 64, 300, 5, 8), (8, 6, 8, 2, 64, 128, 6, 4),
+    (8, 7, 2, 1, 128, 128, 7, 8), (8, 8, 12, 12, 64, 2048, 8, 4),
+    (8, 8, 8, 2, 128, 64, 2, 8, [14, 0, 15, 16, 30, 31, 46, 64]),
+    (4, 8, 8, 2, 128, 64, 2, 4, [14, 14, 0, 56]),
+]
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", VERIFY_CASES, ids=str)
+def test_verify_attn_kernels_match_plain(gen, case, mode):
+    """V1 through both entries against the plain version (VERIFY_CASES), on
+    f32, bf16 and int8 caches, at the plan's launch or a forced one. Each
+    entry counts its launches in its mode."""
+    b, s, h, kvh, d, cap, *opt = case
+    splits, warps, lens = list(opt) + [None, None, None][len(opt):]
+    q, kv, lengths, scales = _verify_case(gen, b, s, h, kvh, d, cap, mode,
+                                          lens)
     ref = at.verify_attn_grouped_plain(q, kv, lengths, scales)
     key = "float" if scales is None else "int8"
     for wrapper in (at.verify_attn_grouped, at.verify_attn_fused):
         before = (wrapper.launches, dict(wrapper.mode_launches))
-        out = wrapper(q, kv, lengths, scales)
+        if splits:
+            plan = at.verify_plan(b, s, h, kvh, cap, d, splits, warps)
+            assert plan["splits"] == splits
+            out = at._launch_verify(wrapper, q, kv, scales, lengths, None,
+                                    plan)
+        else:
+            out = wrapper(q, kv, lengths, scales)
         torch.cuda.synchronize()
         assert wrapper.launches == before[0] + 1
         assert wrapper.mode_launches[key] == before[1][key] + 1
         assert out.shape == (b, s, h, d) and torch.isfinite(out).all()
-        # f32 sums in other orders (S online softmaxes per warp against an
-        # exact two-pass softmax), nothing rounded to bf16: K6's 1e-5.
+        # f32 sums in other orders (online softmaxes per warp and split
+        # against an exact two-pass softmax), nothing rounded to bf16:
+        # K6's 1e-5.
         assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["bfloat16", "int8"])
+def test_verify_attn_kernels_are_one_launch(gen, mode):
+    """Both V1 entries launch one CUDA kernel a call, split (batch 3: 8
+    splits merged in their cluster) or not."""
+    for b in (3, 8):
+        q, kv, lengths, scales = _verify_case(gen, b, 4, 12, 12, 64, 2048,
+                                              mode)
+        assert at.verify_plan(b, 4, 12, 12, 2048, 64)["splits"] > 1
+        for wrapper in (at.verify_attn_grouped, at.verify_attn_fused):
+            assert _cuda_kernels_a_call(
+                lambda: wrapper(q, kv, lengths, scales)) == 1
 
 
 @pytest.mark.parametrize("b", [4, 3])
@@ -1114,6 +1153,31 @@ def test_int8_decode_kernels_match_plain(gen, entry, case):
         live = (torch.arange(cap, device="cuda")[None, None, :]
                 < lengths.clamp(max=cap)[:, None, None])
         assert torch.equal(torch.where(live, dots, 0), want)
+
+
+@pytest.mark.parametrize("b,cap,lens", [
+    (1, 100, [0]), (1, 4095, [4100]), (2, 77, [0, 90]),
+    (3, 4100, [0, 576, 4107]), (3, 1000, [1, 999, 1000])])
+def test_fused_int8_kernel_takes_ragged_capacities(gen, b, cap, lens):
+    """G2 (the KV-group kernel, exact q) at batches 1-3 and Mistral-7B's
+    head shape over capacities no block divides, with lengths 0 and past
+    the capacity: against its plain version, one launch counted and one
+    CUDA kernel a call."""
+    h, kvh, d = 32, 8, 128
+    kv, scales = _int8_cache(gen, b, cap, kvh, d)
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = at.decode_attn_fused_int8.launches
+    out = at.decode_attn_fused_int8(q, kv, scales, lengths)
+    ref = at.decode_attn_fused_int8_plain(q, kv, scales, lengths)
+    torch.cuda.synchronize()
+    assert at.decode_attn_fused_int8.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= (
+        F32_REL_TOL * ref.abs().max().item())
+    assert not out[lengths == 0].any()
+    assert _cuda_kernels_a_call(
+        lambda: at.decode_attn_fused_int8(q, kv, scales, lengths)) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

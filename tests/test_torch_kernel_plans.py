@@ -6,7 +6,8 @@ once, every K split is a whole number of groups, the tile follows M, and
 the scratch the wrappers allocate holds what the kernels write, at M from 1
 to 8192; and of the decode attention that serves a KV head's whole query
 group in one block (the KV-group kernel: P3i and P3 with its grid mode,
-``paged_plan``; G1 and K8, ``rows_plan``) over int8, bf16 and f32 rows:
+``paged_plan``; G1, G2 and K8, ``rows_plan``; V1, ``verify_plan``: the S x
+rep (query, head) rows of a verify chunk) over int8, bf16 and f32 rows:
 every live row in one chunk, chunks of whole pages or units, the split
 count, the blocks and no scratch, at batch 1-256 and groups 1-32, the
 paths' splits, and a tiling the kernel builds. These run without a card;
@@ -672,3 +673,219 @@ def test_kv_group_float_launchers_refuse_strided_or_unaligned_tensors(
     for args, what in cases:
         with pytest.raises(ValueError, match=what):
             call(*args)
+
+
+# -- V1 and G2: the KV-group kernel over a verify chunk and for G2 -----------
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("s", range(1, 9))
+def test_verify_plan_covers_every_query_row_once(s, rep, d):
+    """V1's blocks of a KV head serve each (query i, head h) pair of the
+    chunk once, as row i * rep + h, with a tiling the kernel builds (at
+    most 32 values a lane, 8 rows a block); blocks = B x KVH x row blocks
+    x splits."""
+    built = _built_tilings()[False]
+    kvh, b = 2, 3
+    plan = at.verify_plan(b, s, kvh * rep, kvh, 2048, d)
+    w, g = plan["heads_per_warp"], plan["head_groups"]
+    assert (d, w, g) in built and w * d // 8 <= 32 and w * g <= 8
+    per, rows = w * g, s * rep
+    chunks = -(-rows // per)
+    seen = {}
+    for c in range(chunks):
+        for hl in range(min(per, rows - c * per)):   # the block's real rows
+            pair = divmod(c * per + hl, rep)
+            seen[pair] = seen.get(pair, 0) + 1
+    assert seen == {(i, h): 1 for i in range(s) for h in range(rep)}
+    assert chunks == 1 or per == 8
+    assert plan["blocks"] == b * kvh * chunks * plan["splits"]
+    assert plan["unit"] == at.KV_GROUP_UNIT
+
+
+@pytest.mark.parametrize("s", range(1, 9))
+@pytest.mark.parametrize("cap", [16, 40, 2048])
+def test_verify_plan_chunks_cover_the_chunk_rows_once(cap, s):
+    """Every row some query of the chunk reads, [0, min(len + S, cap)),
+    lies in one split's chunk of whole 16-row units, at every length from
+    0 to past the capacity and every split count the plan takes."""
+    most = at.verify_plan(1, s, 12, 12, cap, 64)["most"]
+    assert most == min(8, -(-cap // 16))
+    for splits in range(1, most + 1):
+        for live in range(0, cap + 3):
+            n = min(live + s, cap)
+            reads = max(min(live + i + 1, cap) for i in range(s))
+            assert reads == n
+            rows = [t for c0, c1 in at.kv_group_chunks(n, splits, 16)
+                    for t in range(c0, c1)]
+            assert rows == list(range(n))
+
+
+def test_verify_plan_at_its_paths():
+    """(G) and (G-int8): GPT-2-small at batch 8, S 4, 12 heads of 64,
+    capacity 2048: 96 (sequence, KV head) pairs in 3 splits, a warp
+    serving the 4 queries of a head; the fused entry's batch 3: 36 pairs in
+    8 splits; S 5-8 take 8 query rows a block (4 x 2); Mistral-7B's GQA
+    (32 heads over 8 of 128) at S 4: 16 rows a KV head in 2 blocks."""
+    g = at.verify_plan(8, 4, 12, 12, 2048, 64)
+    assert (g["splits"], g["blocks"]) == (3, 288)
+    assert (g["heads_per_warp"], g["head_groups"]) == (4, 1)
+    b3 = at.verify_plan(3, 4, 12, 12, 2048, 64)
+    assert (b3["splits"], b3["blocks"]) == (8, 288)
+    for s in range(5, 9):
+        p = at.verify_plan(8, s, 12, 12, 2048, 64)
+        assert (p["heads_per_warp"], p["head_groups"]) == (4, 2)
+    m = at.verify_plan(16, 4, 32, 8, 4096, 128)
+    assert m["heads_per_warp"] * m["head_groups"] == 8
+    assert m["blocks"] == 16 * 8 * 2 * m["splits"]
+
+
+def _verify_args(b=2, s=4, h=4, kvh=2, d=64, cap=32, int8=False):
+    q = torch.zeros((b, s, h, d))
+    if int8:
+        kv = torch.zeros((b, cap, 2, kvh * d), dtype=torch.int8)
+        scales = torch.ones((b, cap, 2, kvh), dtype=torch.bfloat16)
+    else:
+        kv, scales = torch.zeros((b, cap, 2, kvh * d)), None
+    return q, kv, torch.full((b,), 5, dtype=torch.int32), scales
+
+
+def _recorded(monkeypatch):
+    """Simulated CUDA tensors and a C entry that records its arguments."""
+    _kernel_path(monkeypatch)
+    calls = []
+
+    def function(lib, symbol, signature):
+        return lambda *args: calls.append((symbol, args)) or 0
+
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(_build, "stream", lambda: 0)
+    return calls
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("wrapper", ["verify_attn_grouped",
+                                     "verify_attn_fused"])
+def test_verify_wrappers_launch_the_plan(monkeypatch, wrapper, int8):
+    """On CUDA (simulated) both V1 entries pass verify_plan's splits, unit,
+    tiling and warps to the one C entry, with the cache's kind, and count
+    one launch in their mode."""
+    calls = _recorded(monkeypatch)
+    fn = getattr(at, wrapper)
+    before = (fn.launches, dict(fn.mode_launches))
+    q, kv, lengths, scales = _verify_args(b=3, s=6, int8=int8)
+    fn(q, kv, lengths, scales)
+    plan = at.verify_plan(3, 6, 4, 2, 32, 64)
+    (symbol, args), = calls
+    assert symbol == "verify_attn"
+    assert args[5:17] == (3, 6, 4, 2, 64, 32, 2 if int8 else 0,
+                          plan["splits"], plan["unit"],
+                          plan["heads_per_warp"], plan["head_groups"],
+                          plan["warps"])
+    key = "int8" if int8 else "float"
+    assert fn.launches == before[0] + 1
+    assert fn.mode_launches[key] == before[1][key] + 1
+
+
+@pytest.mark.parametrize("s", [0, 9])
+def test_verify_kernel_refuses_a_chunk_outside_one_to_eight(monkeypatch, s):
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    before = at.verify_attn_grouped.launches
+    with pytest.raises(ValueError, match=f"S={s} outside 1..8"):
+        at.verify_attn_grouped(*_verify_args(s=s))
+    assert at.verify_attn_grouped.launches == before
+
+
+@pytest.mark.parametrize("d", [32, 96, 192, 256])
+@pytest.mark.parametrize("int8", [False, True])
+def test_verify_kernel_refuses_a_head_dim_it_does_not_tile(monkeypatch, d,
+                                                           int8):
+    """V1 takes head_dim 64 or 128 (as before): anything else raises before
+    any build; both take 64 and 128 to the build."""
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    with pytest.raises(ValueError, match=f"head_dim {d} must be one of"):
+        at.verify_attn_fused(*_verify_args(d=d, int8=int8))
+    for ok in (64, 128):
+        with pytest.raises(RuntimeError, match="no build"):
+            at.verify_attn_fused(*_verify_args(d=ok, int8=int8))
+
+
+def test_verify_kernel_refuses_strided_or_unaligned_tensors(monkeypatch):
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    q, kv, lengths, scales = _verify_args(int8=True)
+    strided_q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    strided_kv = torch.zeros((2, 33, 2, 128), dtype=torch.int8)[:, 1:]
+    flat = torch.zeros(2 * 32 * 2 * 128 + 8, dtype=torch.int8)
+    unaligned = flat[8:].view(2, 32, 2, 128)
+    strided_scales = torch.ones((2, 32, 2, 4),
+                                dtype=torch.bfloat16)[..., ::2]
+    for args, what in (((strided_q, kv, lengths, scales), "contiguous"),
+                       ((q, strided_kv, lengths, scales), "contiguous"),
+                       ((q, kv, lengths, strided_scales), "contiguous"),
+                       ((q, unaligned, lengths, scales), "16-byte aligned")):
+        with pytest.raises(ValueError, match=what):
+            at.verify_attn_grouped(*args)
+
+
+@pytest.mark.parametrize("splits,warps", [(0, None), (9, None), (3, None),
+                                          (1, 6)])
+def test_verify_kernel_refuses_a_split_count_out_of_range(monkeypatch,
+                                                          splits, warps):
+    """A plan with splits outside [1, min(8, cap / 16)] (capacity 32: at
+    most 2) or warps other than 4 or 8 raises before any build."""
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    what = "splits must lie" if warps is None else "warps must be"
+    plan = at.verify_plan(2, 4, 4, 2, 32, 64, splits, warps)
+    before = at.verify_attn_fused.launches
+    with pytest.raises(ValueError, match=what):
+        q, kv, lengths, scales = _verify_args()
+        at._launch_verify(at.verify_attn_fused, q, kv, scales, lengths,
+                          None, plan)
+    assert at.verify_attn_fused.launches == before
+
+
+def test_fused_int8_takes_rows_plan_at_h_fused(monkeypatch):
+    """G2 at (H-fused) (batch 3, 32 heads over 8 KV heads of 128, capacity
+    4096): G1's exact-q entry at rows_plan's launch, 24 pairs in 8 splits
+    of 8 warps (192 blocks), a warp serving 2 of the group's 4 heads in 2
+    groups; one launch counted on G2, none on G1."""
+    calls = _recorded(monkeypatch)
+    plan = at.rows_plan(3, 32, 8, 4096, 128)
+    assert (plan["splits"], plan["blocks"], plan["warps"]) == (8, 192, 8)
+    assert (plan["heads_per_warp"], plan["head_groups"]) == (2, 2)
+    before = (at.decode_attn_fused_int8.launches,
+              at.decode_attn_grouped_int8.launches)
+    q = torch.zeros((3, 32, 128))
+    kv = torch.zeros((3, 4096, 2, 1024), dtype=torch.int8)
+    scales = torch.ones((3, 4096, 2, 8), dtype=torch.bfloat16)
+    at.decode_attn_fused_int8(q, kv, scales,
+                              torch.full((3,), 512, dtype=torch.int32))
+    (symbol, args), = calls
+    assert symbol == "decode_attn_grouped_int8_rows"
+    assert args[6:17] == (3, 32, 8, 128, 4096, 0, 8, 16, 2, 2, 8)
+    assert (at.decode_attn_fused_int8.launches,
+            at.decode_attn_grouped_int8.launches) == (before[0] + 1,
+                                                      before[1])
+
+
+def test_fused_int8_refuses_strided_or_unaligned_tensors(monkeypatch):
+    """G2 now checks what the KV-group kernel needs before any build: a
+    strided or unaligned cache, at a ragged capacity too."""
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    q = torch.zeros((2, 4, 64))
+    scales = torch.ones((2, 37, 2, 2), dtype=torch.bfloat16)
+    lengths = torch.full((2,), 5, dtype=torch.int32)
+    strided = torch.zeros((2, 38, 2, 128), dtype=torch.int8)[:, 1:]
+    flat = torch.zeros(2 * 37 * 2 * 128 + 8, dtype=torch.int8)
+    for kv, what in ((strided, "contiguous"),
+                     (flat[8:].view(2, 37, 2, 128), "16-byte aligned")):
+        with pytest.raises(ValueError, match=what):
+            at.decode_attn_fused_int8(q, kv, scales, lengths)
+    with pytest.raises(RuntimeError, match="no build"):
+        at.decode_attn_fused_int8(q, flat[:-8].view(2, 37, 2, 128), scales,
+                                  lengths)

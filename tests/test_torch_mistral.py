@@ -135,6 +135,27 @@ def test_fused_int8_plain_matches_flash_decode_fused(b, cap):
     _close(at.decode_attn_fused_int8(_t(q), kv, scales, _t(lens)), ref)
 
 
+@pytest.mark.parametrize("entry", ["fused", "exact", "int8_scores",
+                                   "pv_int8"])
+def test_int8_decode_plain_gives_zeros_without_a_live_row(entry):
+    """A batch whose every length is 0 (no sequence has a row yet): G2's
+    and G1's plain versions, pv_int8 included, return zeros, as the
+    kernels and flash_decode_fused do, instead of reducing over no row."""
+    q, jc, kv, scales = _int8_case(95, b=2)
+    lens = np.zeros(2, np.int32)
+    if entry == "fused":
+        out = at.decode_attn_fused_int8(_t(q), kv, scales, _t(lens))
+        ref = np.asarray(flash_decode_fused(
+            jnp.asarray(q), jc.kv[0], jnp.asarray(lens), KVH,
+            kv_scales=jc.quant_scales[0]))
+        assert not ref.any()
+    else:
+        out = at.decode_attn_grouped_int8(
+            _t(q), kv, scales, _t(lens), int8_scores=entry == "int8_scores",
+            pv_int8=entry == "pv_int8", group=2)
+    assert out.shape == (2, H, D) and not out.any()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_grouped_append_plain_matches_flash_decode_grouped_append(dtype):
     """A1 against flash_decode_grouped_append at group 2 and block 64: the
