@@ -625,35 +625,85 @@ def check_kv_append(timer):
     return entry
 
 
-def check_kv_append_int8(timer):
-    """K7 at path (B)'s shapes: bit-exact against the plain version."""
-    b, cap, kvh, d = 256, 512, 12, 64
-    f = kvh * d
-    g = torch.Generator(device="cuda").manual_seed(8)
+def kv_append_int8_inputs(b, kvh, d, cap, lives, masked, seed):
+    """K7's inputs at one shape: new rows as views of one projection output
+    (one head all zero, so scale 1.0), positions drawn from ``lives`` less
+    one with one slot past the capacity and, with ``masked``, every fourth
+    one negative (nothing written), and a random int8 cache with its bf16
+    scales. Returns (k, v, positions, kv, scales)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     k, v = _decode_rows(g, b, kvh, d)
-    k[0, 0] = 0                    # an all-zero head takes scale 1.0
-    lengths = _live_lengths(g, b) - 1
-    lengths[1] = cap + 7
-    kv = torch.randint(-127, 128, (b, cap, 2, f), device="cuda",
+    k[0, 0] = 0
+    lengths = _decode_lengths(g, b, lives) - 1
+    lengths[1 % b] = cap + 7
+    if masked:
+        lengths[::4] = -1 - lengths[::4]
+    kv = torch.randint(-127, 128, (b, cap, 2, kvh * d), device="cuda",
                        dtype=torch.int8, generator=g)
     scales = torch.rand((b, cap, 2, kvh), device="cuda",
                         generator=g).to(torch.bfloat16)
+    return k, v, lengths, kv, scales
+
+
+def _kv_append_int8_case(timer, label, b, kvh, d, cap, lives, masked,
+                         seed):
+    """K7 at one shape (:func:`kv_append_int8_inputs`) against its plain
+    version: bytes and scales bit for bit, one CUDA kernel a call
+    (profiler), the kernel's and the plain version's times and the bound
+    (the f32 rows read, the int8 bytes, the scales and the positions
+    once)."""
+    f = kvh * d
+    k, v, lengths, kv, scales = kv_append_int8_inputs(b, kvh, d, cap, lives,
+                                                      masked, seed)
     kv1, s1, kv2, s2 = kv.clone(), scales.clone(), kv.clone(), scales.clone()
-    kc.kv_append_int8(kv1, s1, k, v, lengths)
-    kc.kv_append_int8_plain(kv2, s2, k, v, lengths)
+    call = lambda: kc.kv_append_int8(kv1, s1, k, v, lengths, masked)
+    call()
+    kc.kv_append_int8_plain(kv2, s2, k, v, lengths, masked)
     torch.cuda.synchronize()
     err = max((kv1.int() - kv2.int()).abs().max().item(),
               (s1.float() - s2.float()).abs().max().item())
-    print(f"kv_append_int8: max_abs_err {err} (bit-exact required)")
-    check(torch.equal(kv1, kv2) and torch.equal(s1, s2), "K7 not bit-exact")
-    bms, by = bound_ms(2 * b * f * 4 + 2 * b * f + 2 * b * kvh * 2 + b * 4)
+    wide = kc.kv_append_int8_wide(d, kv1, k.reshape(b, f), v.reshape(b, f))
+    print(f"kv_append_int8 ({label}): max_abs_err {err} (bit-exact "
+          f"required); {'wide' if wide else 'narrow'} instance")
+    check(torch.equal(kv1, kv2) and torch.equal(s1, s2),
+          f"K7 not bit-exact at {label}")
+    rows = int((lengths >= 0).sum().item()) if masked else b
+    bms, by = bound_ms(2 * b * f * 4 + 2 * rows * f + 2 * rows * kvh * 2
+                       + b * 4)
+    ms = timer(call)
+    plain_ms = timer(lambda: kc.kv_append_int8_plain(kv2, s2, k, v, lengths,
+                                                     masked))
+    # The profiler after the timings, as kv_group_launch does.
+    n = device_launches(call)
+    print(f"kv_append_int8 ({label}): {n} CUDA kernel(s) a call")
+    check(n == 1 or n == "not measured",
+          f"K7 launched {n} CUDA kernels a call at {label}, not one")
+    print(f"kv_append_int8 ({label}): kernel_ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} bound_ms {bms:.4f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, device_launches=n)
+
+
+def check_kv_append_int8(timer):
+    """K7 at path (B)'s shapes (the entry) and at path (H)'s (B 16, 8 KV
+    heads of 128, capacity 4096; the entry's ``h_*`` keys), each bit-exact
+    against the plain version, one CUDA kernel a call and timed, and both
+    with ``masked`` and negative positions (bit-exact, printed)."""
+    res = _kv_append_int8_case(timer, "(B): B 256, 12 heads of 64, "
+                               "capacity 512", *K7_B_SHAPE, False, 8)
+    h = _kv_append_int8_case(timer, "(H): B 16, 8 heads of 128, capacity "
+                             "4096", *K7_H_SHAPE, False, 9)
+    for label, shape in (("(B), masked", K7_B_SHAPE),
+                         ("(H), masked", K7_H_SHAPE)):
+        _kv_append_int8_case(timer, label, *shape, True, 10)
     return dict(name="kv_append_int8",
                 source="rten_tpu_torch/csrc/kv_append_int8.cu",
-                replaces="rten_tpu/kernels/cache.py:148", max_abs_err=err,
-                ms=timer(lambda: kc.kv_append_int8(kv1, s1, k, v, lengths)),
-                plain_ms=timer(lambda: kc.kv_append_int8_plain(
-                    kv2, s2, k, v, lengths)),
-                bound_ms=bms, bound_by=by, library_ms=None)
+                replaces="rten_tpu/kernels/cache.py:148",
+                shape="B 256, 12 heads of 64, capacity 512", **res,
+                library_ms=None,
+                **{f"h_{key}": h[key] for key in
+                   ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "device_launches")})
 
 
 def check_decode_attn_float(timer):
@@ -868,8 +918,8 @@ def check_decode_attn_paged(timer, mode):
 
 def kv_group_launch(label, plan, fn, entry):
     """The launch of a kernel on the KV-group kernel (P3, its grid mode,
-    P3i, G1, G2, K8, V1): the plan's splits, blocks, warps and query rows a
-    warp
+    P3i, G1, G2, K8, V1, A1): the plan's splits, blocks, warps and query
+    rows a warp
     (printed: the wrapper's plan at these shapes, not read from the
     launch), and the CUDA kernels one call launches (profiler, kept in the
     entry), which must be one: the splits merge in their cluster."""
@@ -1179,6 +1229,10 @@ def check_int4(timer):
 # 128, 512-token prompts, so decode reads lives 512-576.
 H_HEADS, H_KVH, H_D = 32, 8, 128
 H_LIVES = (512, 577)
+# K7's shapes: (batch, KV heads, head_dim, capacity, lives) of path (B)
+# and of path (H).
+K7_B_SHAPE = (256, 12, 64, 512, (65, 177))
+K7_H_SHAPE = (16, H_KVH, H_D, 4096, H_LIVES)
 
 
 def check_flash_attention(timer, b=16, h=H_HEADS, s=512, d=H_D):
@@ -1303,12 +1357,14 @@ def check_int8_decode(timer, entry, b, cap, lives=H_LIVES, h=H_HEADS,
 
 def check_grouped_append(timer, b=16, cap=4096, lives=H_LIVES, h=H_HEADS,
                          kvh=H_KVH, d=H_D):
-    """A1 against its plain version (K5's write, then K6's contract) on a
-    bf16 cache, path (H-append)'s, and on an f32 one (printed, and kept in
-    the entry's ``f32_*`` keys): the written cache must equal the plain
-    version's and K5's bit for bit. k and v are strided views of one qkv
-    row, as the model passes them. Bound: the live rows read once, the new
-    f32 rows read and written once in the cache dtype."""
+    """A1 (the KV-group kernel with the write fused) against its plain
+    version (K5's write, then K6's contract) on a bf16 cache, path
+    (H-append)'s, and on an f32 one (printed, and kept in the entry's
+    ``f32_*`` keys): the written cache must equal the plain version's and
+    K5's bit for bit, and one call must launch one CUDA kernel
+    (``kv_group_launch``, which prints the plan). k and v are strided views
+    of one qkv row, as the model passes them. Bound: the live rows read
+    once, the new f32 rows read and written once in the cache dtype."""
     g = torch.Generator(device="cuda").manual_seed(23)
     q = torch.randn((b, h, d), device="cuda", generator=g)
     qkv = torch.randn((b, 1, 3 * kvh * d), device="cuda", generator=g)
@@ -1347,16 +1403,20 @@ def check_grouped_append(timer, b=16, cap=4096, lives=H_LIVES, h=H_HEADS,
               f"bound_ms {bms:.4f} ({by}) library_ms None")
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by)
+        res[name].update(kv_group_launch(
+            label, at.rows_plan(b, h, kvh, cap, d),
+            lambda: at.decode_attn_grouped_append(q, kv, k, v, lengths),
+            res[name]))
         del kv, kv_plain, kv_k5
     f32 = res["float32"]
     return dict(name="decode_attn_grouped_append",
-                source="rten_tpu_torch/csrc/decode_attn_append.cu",
                 replaces="rten_tpu/kernels/attention.py:976",
                 shape=(f"B {b}, {h} heads over {kvh} of {d}, bf16 cache of "
                        f"capacity {cap}, lives {lives[0]}-{lives[1] - 1}"),
                 **res["bfloat16"], library_ms=None,
                 **{f"f32_{key}": f32[key] for key in
-                   ("max_abs_err", "ms", "plain_ms", "bound_ms")})
+                   ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "device_launches")})
 
 
 # -- K8, the partials mode, K9, native_dots, pv_int8 and M1 -------------------
@@ -1720,8 +1780,8 @@ def mistral_model(path, n_layers):
 
 def mistral_paths(launches, rates, steady):
     """Path (H) at full width and depth, its three variants at 4 layers,
-    and (H) and (H-fused) card against CPU at 1 layer; fills ``launches``,
-    ``rates`` and ``steady``."""
+    and (H), (H-fused) and (H-append) card against CPU at 1 layer; fills
+    ``launches``, ``rates`` and ``steady``."""
     path = "mistral_int8"
     model = mistral_model(path, 32)
     t0 = time.perf_counter()
@@ -1771,6 +1831,16 @@ def mistral_paths(launches, rates, steady):
           f"{nonzero(counts)}")
     check(counts["decode_attn_fused_int8"] > 0,
           "mistral_fused card against CPU: G2 never launched")
+    # (H-append): a bf16 cache with the append fused, so decode runs A1.
+    counts = card_against_cpu(
+        mistral_model("mistral_append", 1), params1, "mistral_append",
+        MISTRAL_PATH_LOGIT_TOL, max_batch=4, fused=False, prompt=128,
+        new_tokens=9)
+    print(f"mistral_append (1 layer) card against CPU, card runs: launches "
+          f"{nonzero(counts)}")
+    check(counts["decode_attn_grouped_append"] > 0
+          and counts["kv_append"] == 0,
+          "mistral_append card against CPU: decode did not run through A1")
     del params1
     torch.cuda.empty_cache()
 
@@ -2668,6 +2738,9 @@ def main():
         else:
             r["path"] = home[r["name"]]
             r["launches"] = launches[r["path"]][key]
+        if r["name"] == "kv_append_int8":
+            # K7 runs on path (H) too: its launches there beside (B)'s.
+            r["h_launches"] = launches["mistral_int8"][key]
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2678,7 +2751,10 @@ def main():
              "prefill_library_ms", "prefill_bound_ms", "prefill_8192_ms",
              "prefill_8192_library_ms", "prefill_8192_bound_ms",
              "decode_ms", "f32_max_abs_err",
-             "f32_ms", "f32_plain_ms", "f32_bound_ms", "bf16_max_abs_err",
+             "f32_ms", "f32_plain_ms", "f32_bound_ms",
+             "f32_device_launches", "h_max_abs_err", "h_ms", "h_plain_ms",
+             "h_bound_ms", "h_device_launches", "h_launches",
+             "bf16_max_abs_err",
              "bf16_ms", "bf16_plain_ms", "bf16_bound_ms", "bf16_library_ms",
              "bf16_device_launches",
              "exact_q_max_abs_err", "exact_q_ms", "exact_q_plain_ms")

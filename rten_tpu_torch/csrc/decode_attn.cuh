@@ -2,9 +2,9 @@
 // head), shared by decode_attn_float.cu (K6: a contiguous float cache) and
 // decode_attn_split.cu (K9: separate K and V planes). The row layout
 // helpers below (eight lanes a row) also serve the int8 kernel
-// (decode_attn_int8_tail.cu), A1 (verify_attn.cuh), G1's pv_int8 walk and
-// the KV-group kernel (decode_attn_kv_group.cuh: P3i, P3 and its grid
-// mode, G1, G2, K8 and V1).
+// (decode_attn_int8_tail.cu), G1's pv_int8 walk and the KV-group kernel
+// (decode_attn_kv_group.cuh: P3i, P3 and its grid mode, G1, G2, K8, V1 and
+// A1).
 //
 // Contract: for sequence b and query head h (kv head h / (H / KVH)),
 // n = min(lengths[b], capacity) tokens are read, token t from the row that
@@ -45,9 +45,9 @@ __device__ inline float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// The row layout of the int8 kernel (decode_attn_int8_tail.cu) and A1
-// (verify_attn.cuh): eight lanes share a token row, each
-// holding kDpl = d / 8 values (8 or 16), so one warp load covers four rows.
+// The row layout of the int8 kernel (decode_attn_int8_tail.cu) and G1's
+// pv_int8 walk: eight lanes share a token row, each holding kDpl = d / 8
+// values (8 or 16), so one warp load covers four rows.
 constexpr int kLanesPerTok = 8;
 constexpr int kTokPerLoad = 32 / kLanesPerTok;
 
@@ -76,18 +76,6 @@ __device__ inline void load_row(const __nv_bfloat16* p, float* x) {
     const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
     for (int i = 0; i < 8; ++i) x[8 * c + i] = __bfloat162float(v[i]);
-  }
-}
-
-template <int kDpl>
-__device__ inline void load_row(const float* p, float* x) {
-#pragma unroll
-  for (int c = 0; c < kDpl / 4; ++c) {
-    const float4 v = *reinterpret_cast<const float4*>(p + 4 * c);
-    x[4 * c] = v.x;
-    x[4 * c + 1] = v.y;
-    x[4 * c + 2] = v.z;
-    x[4 * c + 3] = v.w;
   }
 }
 

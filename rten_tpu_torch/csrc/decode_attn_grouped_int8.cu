@@ -35,9 +35,9 @@
 // would leave the walk of 512-576 rows to one block an SM, so
 // rows_plan splits each sequence into 2 chunks of whole 16-row
 // units (one cluster, merged through distributed shared memory in the
-// same launch) and gives each of the 256 blocks 8 warps. verify_attn.cuh's
-// kernel at S = 1 (one block per query head, every head reading the KV
-// head's rows, no split) took 0.043 ms here; int8 scores share the walk
+// same launch) and gives each of the 256 blocks 8 warps. The design before
+// (one block per query head, every head reading the KV head's rows, no
+// split) took 0.043 ms here; int8 scores share the walk
 // with __dp4a dots.
 // G2 (decode_attn_fused_int8: exact q at the batches and capacities the
 // reference sends to its fused kernel) is the same launch at rows_plan's
@@ -261,7 +261,7 @@ extern "C" int decode_attn_pv_int8(const void* q, const void* kv,
 // (kExact), 1 row-quantized q (kScores, `dots` int32 [B, H, cap] or null);
 // `splits` chunks a sequence (1 to 8, one cluster) of whole `unit`-row
 // units; hpw query heads a warp, hg head groups, warps 4 or 8 a block
-// (kv_group::launch). d 64 or 128, as verify_attn.cuh's kernel took. The
+// (kv_group::launch). d 64 or 128, as the design before took. The
 // wrapper checks shapes, contiguity and 16-byte alignment.
 extern "C" int decode_attn_grouped_int8_rows(
     const void* q, const void* kv, const void* scales, const void* lengths,

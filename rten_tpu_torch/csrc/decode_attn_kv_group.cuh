@@ -5,8 +5,10 @@
 // P3 and its grid mode on an f32 pool: rows through the page table), of
 // decode_attn_grouped_int8.cu's G1 and G2 (contiguous int8 rows, exact q or
 // int8 scores), of decode_attn_float.cu's K8 (contiguous f32 or bf16 rows,
-// flash_decode_flat's roundings) and of verify_attn.cu's V1 (S <= 8 verify
-// queries a sequence over contiguous f32, bf16 or int8 rows).
+// flash_decode_flat's roundings), of verify_attn.cu's V1 (S <= 8 verify
+// queries a sequence over contiguous f32, bf16 or int8 rows) and of
+// decode_attn_append.cu's A1 (contiguous f32 or bf16 rows, the decode
+// append written by the same launch).
 //
 // Contract: for sequence b and KV head kh, query heads kh * rep .. kh * rep
 // + rep - 1 (rep = H / KVH) read rows t < n = min(lengths[b], capacity),
@@ -17,7 +19,12 @@
 // weight). q f32 [B, H, D], out f32 [B, H, D]. ChunkRows (Rows with S
 // verify queries, kExact only): q and out [B, S, H, D], lengths count the
 // rows before the chunk, and query i reads rows t < min(max(lengths[b], 0)
-// + i + 1, cap).
+// + i + 1, cap). AppendRows (Rows with the decode append fused, float rows,
+// kExact only): the new f32 rows new_k / new_v [B, KVH*D] (row strides in
+// elements) are cast to the cache's type (bf16 rounds to nearest even) and
+// written at pos = clip(lengths[b] - 1, 0, cap - 1), for every length, by
+// one block per (sequence, KV head); row n - 1 (= pos whenever n >= 1) is
+// staged from the new row, never read from the cache.
 // int8 rows (T = int8_t) carry bf16 scales [.., 2, KVH] per (row, plane,
 // KV head), and nothing is rounded to bf16:
 // kExact: s_t = ((q . k8_t) * scale) * k_scale_t.
@@ -81,6 +88,14 @@
 //   max and one rescale per head (skipped where the max did not grow: alpha
 //   would be 1), then P V; a partial tile skips its dead steps, and a dead
 //   float row's stale shared memory is never weighed.
+// - AppendRows: the thread that owns a 16-byte piece of row n - 1 in a
+//   stage loads its elements from new_k / new_v, rounds them to T and
+//   stores them into the slot where the copy would have landed; the
+//   stage's wait and barrier cover both kinds of store. So no block of the
+//   launch reads row pos from device memory, and the write of split 0's
+//   first head block (blockIdx.y % chunks == 0) races with nothing, however
+//   many blocks stage the row; it goes through the addressing's own
+//   pointer, so the read pointer's __restrict__ stays sound.
 // - A sequence splits into `splits` chunks of whole units (a page, or 16
 //   rows) only where B x KVH alone leaves the card short of blocks; the
 //   splits of a (sequence, KV head) form one thread-block cluster and merge
@@ -205,6 +220,7 @@ struct Rows {
   static constexpr int kIds = 1;
   static constexpr bool kMasks = false;
   static constexpr bool kChunk = false;
+  static constexpr bool kAppend = false;
   int cap;
   __host__ __device__ int queries() const { return 1; }
   __device__ int capacity() const { return cap; }
@@ -226,6 +242,38 @@ struct ChunkRows : Rows {
   __host__ __device__ int queries() const { return s; }
 };
 
+// A contiguous float cache with the decode append fused: the new f32 rows
+// new_k and new_v [B, KVH*D] (row strides ks and vs, in elements; 16-byte
+// aligned, as the wrapper checks) and the cache again, writable.
+template <typename T>
+struct AppendRows : Rows {
+  static constexpr bool kAppend = true;
+  const float* new_k;
+  const float* new_v;
+  int ks, vs;
+  T* cache;
+  // The 16 bytes of T at element e of sequence b's new row of `plane`:
+  // its f32 values rounded to T.
+  __device__ uint4 piece(int b, int plane, int e) const {
+    const float4* src = reinterpret_cast<const float4*>(
+        plane == 0 ? new_k + (long long)b * ks + e
+                   : new_v + (long long)b * vs + e);
+    const float4 a = src[0];
+    if constexpr (std::is_same<T, float>::value) {
+      return make_uint4(__float_as_uint(a.x), __float_as_uint(a.y),
+                        __float_as_uint(a.z), __float_as_uint(a.w));
+    } else {
+      const float4 c = src[1];
+      return make_uint4(bf16x2(a.x, a.y), bf16x2(a.z, a.w),
+                        bf16x2(c.x, c.y), bf16x2(c.z, c.w));
+    }
+  }
+  static __device__ unsigned bf16x2(float lo, float hi) {
+    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+           (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16;
+  }
+};
+
 // A block-paged pool [n_pages, page, 2, KVH*D] through the table [B,
 // max_pages]: the chunk starts on a page boundary, and its page ids sit in
 // shared memory, at most kMaxIds of them (the wrapper's plan splits to
@@ -238,6 +286,7 @@ struct PageTable {
   static constexpr int kIds = kMaxIds;
   static constexpr bool kMasks = kMask;
   static constexpr bool kChunk = false;
+  static constexpr bool kAppend = false;
   const int* table;
   int page, max_pages;
   __host__ __device__ int queries() const { return 1; }
@@ -353,6 +402,8 @@ __global__ void __launch_bounds__(32 * kWarps)
   static_assert(kInt8 ? kMode != kFlat : kMode != kScores, "mode");
   static_assert(!(Addr::kChunk && kMode == kScores),
                 "a verify chunk has no int8-scores mode");
+  static_assert(!Addr::kAppend || (!kInt8 && kMode == kExact),
+                "the fused append writes float rows, exact mode");
   static_assert(kHG * kRG == kWarps && (!kInt8 || (kDense &&
                                                    kThreads >= 2 * kTile)),
                 "tiling");
@@ -444,10 +495,19 @@ __global__ void __launch_bounds__(32 * kWarps)
       const int e = tid + p * kThreads, r = e / kVec, vq = e % kVec;
       if ((kPieces % kThreads == 0 || e < kPieces) && t0 + r < c1) {
         const long long row = addr.row(ids, b, t0 + r, c0);
-        if (!Addr::kMasks || row >= 0) {
+        unsigned char* dst = buf + r * d * (int)sizeof(T) + 16 * vq;
+        bool fresh = false;  // row n - 1 of a fused append: the new row
+        if constexpr (Addr::kAppend) {
+          fresh = t0 + r == n - 1;
+          if (fresh) {
+            const int el = kh * d + vq * (16 / (int)sizeof(T));
+            *reinterpret_cast<uint4*>(dst) = addr.piece(b, 0, el);
+            *reinterpret_cast<uint4*>(dst + kPlane) = addr.piece(b, 1, el);
+          }
+        }
+        if (!fresh && (!Addr::kMasks || row >= 0)) {
           const T* src = kv + row * 2 * f + (long long)kh * d +
                          vq * (16 / (int)sizeof(T));
-          unsigned char* dst = buf + r * d * (int)sizeof(T) + 16 * vq;
           cp_async16(dst, src);
           cp_async16(dst + kPlane, src + f);
         }
@@ -618,6 +678,21 @@ __global__ void __launch_bounds__(32 * kWarps)
   // tiles ahead, measured slower for G1 at path (H)'s shapes.)
 #pragma unroll
   for (int j = 0; j + 1 < kStages; ++j) put_scale(j, stage(j));
+  // The fused append, while the first tiles are in flight: KV head kh's
+  // slice of both planes of the new row at pos, by one block.
+  if constexpr (Addr::kAppend) {
+    if (split == 0 && blockIdx.y % chunks == 0) {
+      const int pos = min(max(len - 1, 0), addr.cap - 1);
+      T* row = addr.cache + ((long long)b * addr.cap + pos) * 2 * f +
+               (long long)kh * d;
+      constexpr int kPer = 16 / (int)sizeof(T);  // elements a piece
+      for (int e = tid; e < 2 * kVec; e += kThreads) {
+        const int plane = e / kVec, el = (e % kVec) * kPer;
+        *reinterpret_cast<uint4*>(row + plane * f + el) =
+            addr.piece(b, plane, kh * d + el);
+      }
+    }
+  }
   for (int j = 0; j < tiles; ++j) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // tile j's rows and scales; tile j - 1's stage free

@@ -1,6 +1,8 @@
-// Per-(token, plane, head) symmetric int8 quantization of one head row,
-// shared by tail_flush_int8.cu (bf16 window rows) and kv_append_int8.cu
-// (f32 decode rows). One warp quantizes one row of d values:
+// Per-(token, plane, head) symmetric int8 quantization of one head row:
+// quantize_row (one warp a row of d values) for tail_flush_int8.cu (bf16
+// window rows) and kv_append_paged.cu (f32 decode rows), and
+// quantize_row_lanes8 (eight lanes a row, four rows a warp, the values in
+// registers) for kv_append_int8.cu (f32 decode rows). Both compute
 //
 //   absmax over the row (warp shuffles),
 //   scale = bf16_rn(absmax / 127), or 1.0 where absmax == 0,
@@ -43,6 +45,54 @@ __device__ inline void quantize_row(const In* __restrict__ src,
     dst[i] = (int8_t)fminf(fmaxf(q, -127.0f), 127.0f);
   }
   if (lane == 0) *scale = sb;
+}
+
+// The scale of a row of absmax amax, and value x quantized with the
+// scale's f32 value sf: quantize_row's arithmetic.
+__device__ inline __nv_bfloat16 row_scale(float amax) {
+  return __float2bfloat16_rn(amax == 0.0f ? 1.0f : __fdiv_rn(amax, 127.0f));
+}
+__device__ inline int quantize_value(float x, float sf) {
+  return (int)fminf(fmaxf(rintf(__fdiv_rn(x, sf)), -127.0f), 127.0f);
+}
+
+// Eight lanes a row: lane slot (lane % 8) holds x[0, kDpl), values slot *
+// kDpl .. of the row (so the row has 8 * kDpl values). The absmax takes
+// three shuffles within the row's eight lanes, so all 32 lanes of the
+// warp must call it, four rows at once. Packs the lane's bytes into
+// w[kDpl / 4] (byte i of word j is value 4j + i) and returns the row's
+// scale. The max is exact in any order, so the scale and the bytes are
+// quantize_row's bit for bit.
+template <int kDpl>
+__device__ inline __nv_bfloat16 quantize_row_lanes8(const float* x,
+                                                    uint32_t* w) {
+  static_assert(kDpl % 4 == 0, "whole words a lane");
+  float amax = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kDpl; ++i) amax = fmaxf(amax, fabsf(x[i]));
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  // An all-zero row divides nothing: IEEE division takes its slow path for
+  // a zero dividend, and one such head among 256 rows cost K7 0.0017 ms at
+  // path (H)'s shape on an H100 (PERF.md). Its bytes are 0, its scale 1.0.
+  if (amax == 0.0f) {
+#pragma unroll
+    for (int j = 0; j < kDpl / 4; ++j) w[j] = 0;
+    return __float2bfloat16_rn(1.0f);
+  }
+  const __nv_bfloat16 sb = row_scale(amax);
+  const float sf = __bfloat162float(sb);
+#pragma unroll
+  for (int j = 0; j < kDpl / 4; ++j) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      word |= ((uint32_t)quantize_value(x[4 * j + i], sf) & 0xffu)
+              << (8 * i);
+    w[j] = word;
+  }
+  return sb;
 }
 
 }  // namespace kvquant

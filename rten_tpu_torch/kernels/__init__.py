@@ -15,13 +15,12 @@ kernel, each counting its own launches:
   ``decode_attn_paged_int8`` (P3, its grid mode and P3i,
   ``csrc/decode_attn_paged.cu``), ``decode_attn_grouped_int8`` without
   ``pv_int8`` (G1, both score modes) and ``decode_attn_fused_int8`` (G2,
-  both ``csrc/decode_attn_grouped_int8.cu``), K8 and
+  both ``csrc/decode_attn_grouped_int8.cu``), K8,
   ``verify_attn_grouped`` and ``verify_attn_fused`` (V1,
-  ``csrc/verify_attn.cu``): the KV-group kernel of
+  ``csrc/verify_attn.cu``) and ``decode_attn_grouped_append`` (A1, the
+  write fused, ``csrc/decode_attn_append.cu``): the KV-group kernel of
   ``csrc/decode_attn_kv_group.cuh`` (G1's ``pv_int8`` mode walks blocks in
-  a kernel of its own in ``decode_attn_grouped_int8.cu``;
-  ``decode_attn_grouped_append``, A1, runs the kernel of
-  ``csrc/verify_attn.cuh``);
+  a kernel of its own in ``decode_attn_grouped_int8.cu``);
 * ``matmul_int4_words`` (Q1) and ``matmul_int4`` (Q2):
   ``csrc/matmul_int4.cu``.
 

@@ -49,9 +49,10 @@
   row-quantized probabilities, as the reference's ``pv_int8``. G1 without
   ``pv_int8`` and G2 run P3i's KV-group kernel on contiguous rows;
   ``pv_int8`` runs a block walk.
-* ``decode_attn_grouped_append`` (CUDA, ``csrc/decode_attn_append.cu``, A1)
-  replaces ``flash_decode_grouped_append`` (:976): the float-cache decode
-  append and the grouped float decode in one launch.
+* ``decode_attn_grouped_append`` (CUDA, ``csrc/decode_attn_append.cu``, A1,
+  on the KV-group kernel with the write fused) replaces
+  ``flash_decode_grouped_append`` (:976): the float-cache decode append and
+  the grouped float decode in one launch.
 
 :func:`int8_decode_kernel` is the reference's choice among K1', G1 and G2
 for an int8 cache without a tail window, :func:`float_decode_kernel` its
@@ -818,8 +819,9 @@ def _paged_plain(name, q, pool, scales, table, lengths, scale,
 # csrc/decode_attn_kv_group.cuh moves its rows a tile at a time through a
 # ring of stages in shared memory and serves every query row of the KV
 # head's group from it: P3i (int8 pool), P3 and its grid mode (f32 pool), G1
-# and G2 (contiguous int8 rows), K8 (contiguous f32 or bf16 rows) and V1
-# (contiguous f32, bf16 or int8 rows; S x rep query rows a group). A sequence
+# and G2 (contiguous int8 rows), K8 and A1 (contiguous f32 or bf16 rows; A1
+# writes the new row too) and V1 (contiguous f32, bf16 or int8 rows; S x rep
+# query rows a group). A sequence
 # splits into chunks (one thread-block cluster, merged in the same launch)
 # only where B x KVH leaves the card short of this many blocks, and a launch
 # of at most two blocks an SM gives each block 8 warps, not 4.
@@ -898,9 +900,9 @@ def paged_plan(batch, heads, kvh, page, max_pages, head_dim=64, splits=None,
 
 def rows_plan(batch, heads, kvh, cap, head_dim=128, splits=None, warps=None):
     """The launch of the KV-group kernel over a contiguous cache (G1's int8
-    rows, exact q or int8 scores, without ``pv_int8``, and G2's; K8's f32
-    or bf16 rows): the plan of :func:`paged_plan` with chunks of whole
-    KV_GROUP_UNIT-row units."""
+    rows, exact q or int8 scores, without ``pv_int8``, and G2's; K8's and
+    A1's f32 or bf16 rows): the plan of :func:`paged_plan` with chunks of
+    whole KV_GROUP_UNIT-row units."""
     return _kv_group_plan(batch, heads, kvh, head_dim, KV_GROUP_UNIT,
                           -(-cap // KV_GROUP_UNIT), 1, splits, warps)
 
@@ -1631,24 +1633,42 @@ def decode_attn_grouped_append(q, kv, k, v, lengths, scale=None):
     q f32 [B, H, D]; kv f32 or bf16 [B, cap, 2, KVH*D]; k, v f32
     [B, KVH, 1, D] (strided views are fine); lengths int32 [B] counting the
     new token. Returns f32 [B, H, D]. CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel (the KV-group kernel with the append
+    fused, a block per KV head for up to 8 query heads of its group,
+    :func:`rows_plan`; head_dim 64 or 128; the new rows' data pointers and
+    row strides 16-byte aligned, as the model's views of its qkv output
+    are) or raise."""
     name = "decode_attn_grouped_append"
     if _build.on_cpu(name, q, kv, k, v, lengths):
         return decode_attn_grouped_append_plain(q, kv, k, v, lengths, scale)
+    return _launch_grouped_append(q, kv, k, v, lengths, scale)
+
+
+def _launch_grouped_append(q, kv, k, v, lengths, scale, plan=None):
+    """A1 on CUDA tensors: the KV-group kernel over the float cache with
+    the write fused, at ``plan`` (default :func:`rows_plan`'s); counts the
+    launch."""
+    name = "decode_attn_grouped_append"
     b, h, d, kvh, cap = _check_append_attn(q, kv, k, v, lengths)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     _build.require(d in (64, 128), name, f"head_dim {d} must be 64 or 128")
-    _build.require(all(x.is_contiguous() for x in (q, kv, lengths)), name,
-                   "q, kv and lengths must be contiguous")
+    plan = plan or rows_plan(b, h, kvh, cap, d)
+    _check_kv_group(name, (q, kv, lengths), plan)
     kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
+    _build.require(all(x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0
+                       for x in (kr, vr)), name,
+                   "the new rows must be 16-byte aligned, pointers and row "
+                   "strides (16-byte loads)")
     out = torch.empty_like(q)
     fn = _build.function("decode_attn_append", "decode_attn_append",
-                         "ppppiippiiiiiifp")
+                         "ppppiippiiiiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), kr.data_ptr(), vr.data_ptr(),
              kr.stride(0), vr.stride(0), lengths.data_ptr(), out.data_ptr(),
              b, h, kvh, d, cap, int(kv.dtype == torch.bfloat16),
-             float(scale), _build.stream())
+             plan["splits"], plan["unit"], plan["heads_per_warp"],
+             plan["head_groups"], plan["warps"], float(scale),
+             _build.stream())
     _build.check(err, name)
     decode_attn_grouped_append.launches += 1
     return out

@@ -173,6 +173,18 @@ def kv_append_int8_plain(kv, scales, k, v, pos, masked=False):
     scales[bidx, p] = s[keep]
 
 
+def kv_append_int8_wide(d, kv, kr, vr):
+    """Whether K7 takes its wide instance: head_dim 64 or 128 (every
+    preset's but the small test configuration's 16; D / 8 values a lane:
+    16-byte loads and one 8- or 16-byte store), the f32 rows ``kr``/``vr``
+    and the int8 cache 16-byte aligned (data pointers, and row strides in
+    whole 16-byte units). Else its narrow instance (scalar loads, byte
+    stores) serves the call: every head_dim, any alignment."""
+    return (d in (64, 128) and kv.data_ptr() % 16 == 0
+            and all(x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0
+                    for x in (kr, vr)))
+
+
 def kv_append_int8(kv, scales, k, v, pos, masked=False):
     """Quantize each sequence's new K/V per (plane, head) and write the
     int8 bytes and bf16 scales into the int8 cache, in place, at
@@ -183,7 +195,8 @@ def kv_append_int8(kv, scales, k, v, pos, masked=False):
     kv int8 [B, cap, 2, KVH*D]; scales bf16 [B, cap, 2, KVH]; k, v f32
     [B, KVH, 1, D] (strided views are fine); pos int32 [B] (the cache
     lengths). CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel (eight lanes a row; its wide or narrow instance by
+    :func:`kv_append_int8_wide`) or raise."""
     name = "kv_append_int8"
     if _build.on_cpu(name, kv, scales, k, v, pos):
         return kv_append_int8_plain(kv, scales, k, v, pos, masked)
@@ -191,10 +204,11 @@ def kv_append_int8(kv, scales, k, v, pos, masked=False):
     _build.require(all(x.is_contiguous() for x in (kv, scales, pos)), name,
                    "kv, scales and pos must be contiguous")
     kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
-    fn = _build.function(name, name, "ppiipppiiiiip")
+    fn = _build.function(name, name, "ppiipppiiiiiip")
     err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
              kv.data_ptr(), scales.data_ptr(), pos.data_ptr(), b, cap, kvh,
-             d, int(bool(masked)), _build.stream())
+             d, int(bool(masked)), int(kv_append_int8_wide(d, kv, kr, vr)),
+             _build.stream())
     _build.check(err, name)
     kv_append_int8.launches += 1
 

@@ -1,6 +1,6 @@
 """The KV-group kernel (``csrc/decode_attn_kv_group.cuh``) at its serving
 paths' shapes, against its own launch choices and the designs it replaced,
-on one card in one call.
+and K7 against variants of its source, on one card in one call.
 
 Float rows:
 
@@ -50,6 +50,34 @@ Verify and G2 (``--skip verify`` leaves them out):
   lives of the traced burst of ``chip_smoke.py`` (64-85 rows); and the
   timer's floor: a one-element fill, timed as the kernels are.
 
+A1 (``--skip append`` leaves it out):
+
+* A1 (``decode_attn_grouped_append``: the decode append fused) at path
+  (H-append)'s shapes (B 16, 32 heads over 8 KV heads of 128, capacity
+  4096, lives 512-576, k and v views of one qkv row) on a bf16 cache and
+  on an f32 one, with 1-8 splits and blocks of 4 or 8 warps; its error is
+  held on the output and its cache write bit for bit against the plain
+  version's.
+
+K7 (``--skip k7`` leaves it out):
+
+* K7 (``kv_append_int8``) at ``chip_smoke.py``'s (B) and (H) cases, with
+  its inputs and its timer (imported from it, so the times are the ones it
+  prints), each also without its all-zero head and with the model's new
+  rows and positions (k and v views of one [B, 1, (H + 2 KVH) D] qkv row,
+  positions 64-576), built from variants of its source: ``shipped``,
+  ``one_warp_a_row`` (the design before, as it was launched: one warp a
+  row through ``kvquant::quantize_row``, 256 threads a block, the source
+  loads after the branch on the position), ``position_first`` (the shipped
+  kernel with its source loads issued after the position has arrived),
+  ``no_divide`` (each value multiplied by the scale: wrong bytes, the
+  divisions' cost), ``divide_zeros`` (an all-zero row divided as any
+  other: IEEE division takes its slow path for a zero dividend) and
+  ``select_zeros`` (no test of the row; each zero divided as 1.0, its
+  result selected away) and ``lanes16`` (sixteen lanes a row: half the
+  values and divisions a lane). Each time in two rounds of turns; each
+  variant but ``no_divide`` held bit for bit against the plain version.
+
 Each line: the device time (CUDA events, cold L2, warm median) in two
 rounds, its share of the byte bound, and the error against the plain
 version as a share of its tolerance (1e-5 of max |out|; K8, whose output is
@@ -60,7 +88,7 @@ full of dirty lines that the kernel's reads must first write back), and
 after a read of the same 256 MB (the L2 cold and clean).
 
     python -m rten_tpu_torch.tools.kv_group_variants \
-        [--skip int8|float|verify]
+        [--skip int8|float|verify|append|k7]
 
 Builds go to ``rten_tpu_torch/build/kv_group_variants/``. Needs one NVIDIA
 card and nvcc; without a card it exits non-zero.
@@ -80,6 +108,7 @@ import torch
 
 from rten_tpu_torch.kernels import _build
 from rten_tpu_torch.kernels import attention as at
+from rten_tpu_torch.kernels import cache as kc
 
 SLEEP_CYCLES = 2_000_000          # about 1 ms at the H100's clocks
 REPS = 20
@@ -169,6 +198,82 @@ VARIANTS = {
                      "    auto on = [&](int k) { return true; };\n")],
 }
 HELD = ("shipped", "step_softmax", "dense_steps")
+# K7's design before: one warp a (sequence, plane, head) row, the position
+# read first and its branch taken before the source row is loaded.
+ONE_WARP_A_ROW = """__global__ void one_warp_a_row(
+    const float* __restrict__ k, const float* __restrict__ v, int k_stride,
+    int v_stride, int8_t* __restrict__ kv, __nv_bfloat16* __restrict__ scales,
+    const int* __restrict__ pos_in, int batch, int cap, int kvh, int d,
+    int masked) {
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (warp >= (long long)batch * 2 * kvh) return;
+  const int h = (int)(warp % kvh);
+  const int plane = (int)((warp / kvh) % 2);
+  const int b = (int)(warp / (2 * kvh));
+  const int p = pos_in[b];
+  if (masked && p < 0) return;
+  const int pos = min(max(p, 0), cap - 1);
+  const long long f = (long long)kvh * d;
+  const float* src = plane == 0 ? k + (long long)b * k_stride
+                                : v + (long long)b * v_stride;
+  const long long row = ((long long)b * cap + pos) * 2 + plane;
+  kvquant::quantize_row(src + (long long)h * d,
+                        kv + row * f + (long long)h * d,
+                        scales + row * kvh + h, d);
+}
+
+}  // namespace
+"""
+K7_DISPATCH = """  if (!wide)
+    KV_APPEND_INT8(0);
+  else if (d == 64)
+    KV_APPEND_INT8(8);
+  else
+    KV_APPEND_INT8(16);
+"""
+K7_SOURCE = "kv_append_int8.cu"
+K7_LOADS = "  if constexpr (kDpl > 0) {\n    float x[kDpl];\n"
+K7_ZERO_ROW = """  if (amax == 0.0f) {
+#pragma unroll
+    for (int j = 0; j < kDpl / 4; ++j) w[j] = 0;
+    return __float2bfloat16_rn(1.0f);
+  }
+"""
+K7_VARIANTS = {
+    "shipped": [],
+    "one_warp_a_row": [
+        (K7_SOURCE, "}  // namespace\n", ONE_WARP_A_ROW),
+        (K7_SOURCE, K7_DISPATCH,
+         "  one_warp_a_row<<<(unsigned)((threads * 4 + 255) / 256), 256, 0,"
+         " st>>>(\n      kf, vf, k_stride, v_stride, kv8, sc, ps, batch, cap,"
+         " kvh, d, masked);\n")],
+    "position_first": [
+        (K7_SOURCE, K7_LOADS,
+         "  if ((on ? __ldg(pos_in + b) : 0) < -(1 << 30)) return;\n"
+         + K7_LOADS)],
+    "no_divide": [("kv_quant.cuh", "rintf(__fdiv_rn(x, sf))",
+                   "rintf(x * sf)")],
+    "divide_zeros": [("kv_quant.cuh", K7_ZERO_ROW, "")],
+    "lanes16": [
+        (K7_SOURCE, "constexpr int kLanes = 8;", "constexpr int kLanes = 16;"),
+        (K7_SOURCE, '  static_assert(kDpl == 8 || kDpl == 16, "head_dim 64 or '
+         '128");\n', ""),
+        (K7_SOURCE, "  else\n    *reinterpret_cast<uint2*>(p) = make_uint2("
+         "w[0], w[1]);\n",
+         "  else if constexpr (kDpl == 8)\n    *reinterpret_cast<uint2*>(p) = "
+         "make_uint2(w[0], w[1]);\n  else\n    *reinterpret_cast<uint32_t*>"
+         "(p) = w[0];\n"),
+        (K7_SOURCE, "    KV_APPEND_INT8(8);\n  else\n    KV_APPEND_INT8(16);",
+         "    KV_APPEND_INT8(4);\n  else\n    KV_APPEND_INT8(8);"),
+        ("kv_quant.cuh", "  for (int o = 1; o < 8; o <<= 1)",
+         "  for (int o = 1; o < 16; o <<= 1)")],
+    "select_zeros": [
+        ("kv_quant.cuh", K7_ZERO_ROW, ""),
+        ("kv_quant.cuh", "  return (int)fminf(fmaxf(rintf(__fdiv_rn(x, sf))",
+         "  return x == 0.0f ? 0 : (int)fminf(fmaxf(rintf(__fdiv_rn("
+         "x == 0.0f ? 1.0f : x, sf))")],
+}
 
 
 def device_ms(scrub, fn, clean=False):
@@ -405,27 +510,26 @@ def float_section(scrub):
 
 
 def build_patched(variants, libs):
-    """Each variant of the header ({name: [(old, new), ...]}, ``old``
-    "walk" for the int8 tile walk) with the libraries ``libs``, one nvcc
-    each, all started together; returns {name: directory}."""
-    header = (_build.CSRC / HEADER).read_text()
+    """Each variant ({name: [patch, ...]}: ``(old, new)`` in the header,
+    ``old`` "walk" for the int8 tile walk, or ``(file, old, new)`` in that
+    file of csrc) with the libraries ``libs``, one nvcc each, all started
+    together; returns {name: directory}."""
     procs, dirs = {}, {}
     for name, patches in variants.items():
-        text = header
-        for old, new in patches:
+        src = OUT / name
+        src.mkdir(parents=True, exist_ok=True)
+        for f in [*_build.CSRC.glob("*.cuh"),
+                  *(_build.CSRC / f"{lib}.cu" for lib in libs)]:
+            shutil.copy(f, src / f.name)
+        for patch in patches:
+            file, old, new = patch if len(patch) == 3 else (HEADER, *patch)
+            text = (src / file).read_text()
             if old == "walk":  # the tile walk, from its first line to its end
                 old = text[text.index(TILE):text.index(WALK_END)]
             if old not in text:
-                raise RuntimeError(f"{name}: the header no longer holds "
-                                   f"{old!r}")
-            text = text.replace(old, new)
-        src = OUT / name
-        src.mkdir(parents=True, exist_ok=True)
-        for f in _build.CSRC.glob("*.cuh"):
-            shutil.copy(f, src / f.name)
-        (src / HEADER).write_text(text)
+                raise RuntimeError(f"{name}: {file} no longer holds {old!r}")
+            (src / file).write_text(text.replace(old, new))
         for lib in libs:
-            shutil.copy(_build.CSRC / f"{lib}.cu", src / f"{lib}.cu")
             procs[name, lib] = _nvcc(src, lib, src)
         dirs[name] = src
     _wait(procs)
@@ -617,9 +721,116 @@ def verify_section(scrub):
     return worst
 
 
+def append_section(scrub):
+    """A1 at (H-append) on a bf16 and an f32 cache: every split count and
+    both warp counts, each launch's cache write held bit for bit against
+    the plain version's; returns the worst held error."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    b, h, kvh, d, cap = 16, 32, 8, 128, 4096
+    f = kvh * d
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    qkv = torch.randn((b, 1, (h + 2 * kvh) * d), device="cuda", generator=g)
+    k = qkv[..., h * d:h * d + f].reshape(b, 1, kvh, d).transpose(1, 2)
+    v = qkv[..., h * d + f:].reshape(b, 1, kvh, d).transpose(1, 2)
+    lengths = torch.randint(512, 577, (b,), device="cuda", generator=g,
+                            dtype=torch.int32)
+    plan = at.rows_plan(b, h, kvh, cap, d)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        kv = torch.randn((b, cap, 2, f), device="cuda",
+                         generator=g).to(dtype)
+        want = kv.clone()
+        ref = at.decode_attn_grouped_append_plain(q, want, k, v, lengths)
+        elt = kv.element_size()
+        n_bytes = ((lengths - 1).double().sum().item() * 2 * f * elt
+                   + 2 * q.numel() * 4 + b * 2 * f * (4 + elt))
+        print(f"A1 at (H-append), {str(dtype).split('.')[-1]} cache (plan: "
+              f"{plan['splits']} splits of {plan['warps']} warps, "
+              f"{plan['heads_per_warp']} row(s) a warp in "
+              f"{plan['head_groups']} group(s), {plan['blocks']} blocks):",
+              flush=True)
+        for splits in range(1, 9):
+            for warps in (4, 8):
+                p = at.rows_plan(b, h, kvh, cap, d, splits, warps)
+                mark = " (plan)" if (splits, warps) == (
+                    plan["splits"], plan["warps"]) else ""
+                got = kv.clone()
+                worst = max(worst, report(
+                    scrub, f"  {splits} splits, {warps} warps{mark}",
+                    lambda p=p, got=got: at._launch_grouped_append(
+                        q, got, k, v, lengths, None, p),
+                    ref, n_bytes, clean=True))
+                if not torch.equal(got, want):
+                    print("    the cache write differs from the plain "
+                          "version's", flush=True)
+                    worst = float("inf")
+    return worst
+
+
+def _k7_cases():
+    """K7's inputs: chip_smoke.py's (B) and (H) cases, each also without
+    its all-zero head and with the model's new rows and positions in their
+    place; [(label, (k, v, pos, kv, scales))] and chip_smoke.py's timer."""
+    sys.path.insert(0, str(_build.CSRC.parents[1]))
+    import chip_smoke as cs
+    g = torch.Generator(device="cuda").manual_seed(19)
+    cases = []
+    for name, shape, seed, h in (("(B)", cs.K7_B_SHAPE, 8, 12),
+                                 ("(H)", cs.K7_H_SHAPE, 9, cs.H_HEADS)):
+        k, v, pos, kv, scales = cs.kv_append_int8_inputs(*shape, False, seed)
+        b, kvh, d, cap = shape[:4]
+        f = kvh * d
+        nz = k.clone()
+        nz[0, 0] = torch.randn(nz[0, 0].shape, device="cuda", generator=g)
+        qkv = torch.randn((b, 1, (h + 2 * kvh) * d), device="cuda",
+                          generator=g)
+        mk, mv = (qkv[..., h * d + i * f:h * d + (i + 1) * f]
+                  .reshape(b, 1, kvh, d).transpose(1, 2) for i in (0, 1))
+        mpos = torch.randint(64, 577, (b,), device="cuda", generator=g,
+                             dtype=torch.int32)
+        cases += [(f"chip_smoke.py's {name}", (k, v, pos, kv, scales)),
+                  (f"{name} without the zero head", (nz, v, pos, kv, scales)),
+                  (f"{name}, the model's rows and positions",
+                   (mk, mv, mpos, kv, scales))]
+    return cases, cs.Timer()
+
+
+def k7_section():
+    """K7's variants at chip_smoke.py's cases and the model's rows and
+    positions, in two rounds of turns, with chip_smoke.py's timer; returns
+    0, or inf if a held variant's bytes or scales differ from the plain
+    version's."""
+    dirs = build_patched(K7_VARIANTS, ("kv_append_int8",))
+    cases, timer = _k7_cases()
+    worst = 0.0
+    for label, (k, v, pos, kv, scales) in cases:
+        want, want_s = kv.clone(), scales.clone()
+        kc.kv_append_int8_plain(want, want_s, k, v, pos)
+        times = {name: [] for name in dirs}
+        for _ in range(2):
+            for name, src in dirs.items():
+                got, got_s = kv.clone(), scales.clone()
+                with library("kv_append_int8", src / "libkv_append_int8.so"):
+                    kc.kv_append_int8(got, got_s, k, v, pos)
+                    times[name].append(timer(
+                        lambda: kc.kv_append_int8(got, got_s, k, v, pos)))
+                if name != "no_divide" and not (torch.equal(got, want)
+                                                and torch.equal(got_s,
+                                                                want_s)):
+                    print(f"  {name} at {label}: not bit for bit the plain "
+                          f"version", flush=True)
+                    worst = float("inf")
+        print(f"K7 at {label}: " + ", ".join(
+            f"{name} " + " / ".join(f"{t:.4f}" for t in ts)
+            for name, ts in times.items()) + " ms", flush=True)
+    return worst
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--skip", choices=("int8", "float", "verify"),
+    parser.add_argument("--skip",
+                        choices=("int8", "float", "verify", "append",
+                                 "k7"),
                         action="append",
                         default=[], help="leave a section out")
     args = parser.parse_args(argv)
@@ -638,6 +849,10 @@ def main(argv=None):
         worst = max(worst, int8_section(scrub))
     if "verify" not in args.skip:
         worst = max(worst, verify_section(scrub))
+    if "append" not in args.skip:
+        worst = max(worst, append_section(scrub))
+    if "k7" not in args.skip:
+        worst = max(worst, k7_section())
     print(f"worst error {worst:.3f} of the tolerance")
     return 0 if worst <= 1.0 else 1
 

@@ -1,0 +1,243 @@
+"""The arithmetic of the two decode appends' kernels, redone in torch on the
+CPU and held against the JAX package (CPU backend, Pallas in interpret
+mode), on inputs drawn with numpy:
+
+* A1 (``decode_attn_grouped_append``) on the KV-group kernel: the cache
+  write of split 0 of each (sequence, KV head), row n - 1 staged from the
+  new row rounded to the cache dtype (never read from the cache), the
+  chunks of ``rows_plan``, warps and ring tiles, and the splits' (m, l,
+  acc) merged with m = -inf weighing 0, against
+  ``flash_decode_grouped_append`` on f32 and bf16 caches;
+* K7 (``kv_append_int8``): its eight-lane quantizer (a lane's absmax over
+  its values, then three shuffles within the row's eight lanes), in the
+  wide and the narrow lane layouts, bit for bit against
+  ``_quantize_tokens``.
+
+The card tests (tests/test_torch_cuda.py) hold the kernels to their plain
+versions; these hold the kernels' design to the reference."""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rten_tpu.generate.kv_cache import _quantize_tokens
+from rten_tpu.kernels.attention import flash_decode_grouped_append
+from rten_tpu_torch.kernels import attention as at
+from test_torch_spec_kernels import _merge, _tile_rows, _warp_walk
+
+# -- A1 on the KV-group kernel ------------------------------------------------
+
+# GQA 4:1 at the reference's group 2 and block 64.
+B, H, KVH, CAP = 4, 8, 2, 128
+# Both sum in f32 in other orders (an online softmax over ring tiles,
+# warps and splits against the reference's over 64-row blocks): 1e-5 of
+# max |out|, the plain version's tolerance.
+REL_TOL = 1e-5
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _kv_group_append(q, kv, k, v, lengths, plan):
+    """A1 as the KV-group kernel computes it at ``plan``: returns (out, the
+    cache after the write). The cache it reads is the one it was given: row
+    n - 1 of each sequence comes from the new row rounded to the cache
+    dtype, so the result cannot depend on the order of write and read."""
+    b, h, d = q.shape
+    cap, kvh = kv.shape[1], kv.shape[3] // d
+    rep, per = h // kvh, plan["heads_per_warp"] * plan["head_groups"]
+    n_rg = plan["warps"] // plan["head_groups"]
+    tile = _tile_rows(d, kv.element_size())
+    scale = 1.0 / math.sqrt(d)
+    new = torch.stack([k.reshape(b, kvh * d), v.reshape(b, kvh * d)],
+                      dim=1).to(kv.dtype)                  # [B, 2, KVH*D]
+    written = kv.clone()
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), cap)
+        pos = min(max(int(lengths[bi]) - 1, 0), cap - 1)
+        rows = kv[bi].clone()
+        if n:
+            rows[n - 1] = new[bi]          # staged from the new row
+        x = rows.reshape(cap, 2, kvh, d).to(torch.float32)
+        for kh in range(kvh):
+            # Split 0 of the first head block writes the KV head's slice.
+            sl = slice(kh * d, (kh + 1) * d)
+            written[bi, pos, :, sl] = new[bi, :, sl]
+            kk, vv = x[:, 0, kh], x[:, 1, kh]
+            for r0 in range(0, rep, per):
+                heads = range(r0, min(r0 + per, rep))
+                qr = torch.stack([q[bi, kh * rep + r] for r in heads])
+                lim = torch.full((len(heads),), n)
+                states = []
+                for c0, c1 in at.kv_group_chunks(n, plan["splits"],
+                                                 plan["unit"]):
+                    tiles = [range(t0, min(t0 + tile, c1))
+                             for t0 in range(c0, c1, tile)]
+                    states.append(_merge([_warp_walk(
+                        qr, kk, vv, None, None,
+                        [[t for t in tr if ((t - tr[0]) // 4) % n_rg == rg]
+                         for tr in tiles], lim, scale, False)
+                        for rg in range(n_rg)]))
+                _, l, acc = _merge(states)
+                o = acc / torch.clamp(l, min=1e-30)[:, None]
+                for j, r in enumerate(heads):
+                    out[bi, kh * rep + r] = o[j]
+    return out, written
+
+
+# (lengths counting the new token, head_dim, splits, warps; None: the
+# plan's). The plan's launch at B 4 takes 8 splits of 16-row units, so a
+# sequence of 45 rows leaves splits 3-7 without a row; a length 0 (row 0
+# written, zeros out) and one past the capacity (the last row written and
+# read); 3 splits of 4 warps, 1 of 8, and 2 and 5 splits at head_dim 64.
+APPEND_CASES = [
+    ([0, CAP + 5, 45, CAP - 3], 128, None, None),
+    ([1, 17, CAP, 64], 128, 3, 4),
+    ([33, 0, 2, CAP + 1], 128, 1, 8),
+    ([CAP + 9, 45, 16, 0], 64, None, None),
+    ([5, CAP, 97, 48], 64, 2, 4),
+    ([64, 65, 1, 31], 64, 5, 8),
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", APPEND_CASES, ids=str)
+def test_kv_group_append_arithmetic_matches_reference(case, dtype):
+    """A1's design against flash_decode_grouped_append: the written cache
+    bit for bit, the output within 1e-5 of max |out|, finite, zeros where
+    the length is 0. The reference reads no row past its capacity and
+    weighs a length-0 sequence's masked block uniformly, so it runs at
+    lengths clipped to [1, cap]: the same write position and, for every
+    length >= 1, the same rows; a length 0 is held to the port's contract
+    (zeros) instead."""
+    lens, d, splits, warps = case
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(500 + APPEND_CASES.index(case))
+    kv0 = rng.standard_normal((B, CAP, 2, KVH * d)).astype(np.float32)
+    q = rng.standard_normal((B, H, d)).astype(np.float32)
+    k, v = (rng.standard_normal((B, KVH, 1, d)).astype(np.float32) * 3
+            for _ in range(2))
+    lengths = np.array(lens, np.int32)
+    new_rows = np.stack([k.reshape(B, -1), v.reshape(B, -1)], 1)[:, None]
+    ref, ref_kv = flash_decode_grouped_append(
+        jnp.asarray(q), jnp.asarray(kv0).astype(jdt),
+        jnp.asarray(new_rows), jnp.asarray(np.clip(lengths, 1, CAP)), KVH,
+        block_k=64, group=2)
+    ref = np.asarray(ref)
+    kv = torch.from_numpy(kv0).to(tdt)
+    plan = at.rows_plan(B, H, KVH, CAP, d, splits, warps)
+    out, written = _kv_group_append(torch.from_numpy(q), kv,
+                                    torch.from_numpy(k), torch.from_numpy(v),
+                                    torch.from_numpy(lengths), plan)
+    np.testing.assert_array_equal(
+        written.to(torch.float32).numpy(),
+        np.asarray(ref_kv.astype(jnp.float32)))
+    assert torch.isfinite(out).all()
+    live = lengths > 0
+    assert not out[~live].any()
+    np.testing.assert_allclose(out[live].numpy(), ref[live], rtol=0,
+                               atol=REL_TOL * np.abs(ref[live]).max())
+
+
+def test_kv_group_append_plan_leaves_a_split_without_rows():
+    """The first case's plan really has empty splits and short ones, so
+    the merge's m = -inf weighing 0 is exercised."""
+    plan = at.rows_plan(B, H, KVH, CAP, 128)
+    chunks = at.kv_group_chunks(45, plan["splits"], plan["unit"])
+    assert plan["splits"] == 8 and (45, 45) in chunks
+    assert chunks[0] == (0, 16)
+
+
+# -- K7's eight-lane quantizer ------------------------------------------------
+
+def _lanes8_quantize(x, wide):
+    """K7's quantizer on rows x [N, D] (f32): each of a row's eight lanes
+    takes the absmax of its values (wide: D / 8 contiguous values; narrow:
+    ceil(D / 8) of them, the last lanes fewer or none), then three
+    shuffles (xor 1, 2, 4) combine the lanes' partials; scale =
+    bf16(absmax / 127), 1 where it is 0; q = clip(rint(x / f32(scale)),
+    -127, 127). Returns (q int8 [N, D], scale bf16 [N])."""
+    n, d = x.shape
+    per = d // 8 if wide else -(-d // 8)
+    part = torch.zeros((n, 8))
+    for lane in range(8):
+        vals = x[:, lane * per:min(d, (lane + 1) * per)].abs()
+        if vals.shape[1]:
+            part[:, lane] = torch.maximum(part[:, lane], vals.amax(dim=1))
+    for o in (1, 2, 4):
+        part = torch.maximum(part, part[:, torch.arange(8) ^ o])
+    assert (part == part[:, :1]).all()
+    amax = part[:, 0]
+    scale = torch.where(amax == 0, torch.ones_like(amax),
+                        amax / 127.0).to(torch.bfloat16)
+    sf = scale.to(torch.float32)[:, None]
+    q = torch.clamp(torch.round(x / sf), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _crafted_rows(d, seed):
+    """Rows at mixed magnitudes, an all-zero row, rows whose absmax is 127
+    x a bf16 scale exactly (so x / scale is exact) holding values at
+    rounding ties (k + 0.5) x scale, +-0 and +-127 x scale, and rows whose
+    scale a reciprocal multiply would round otherwise."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((12, d))
+         * np.exp(rng.uniform(-6, 6, (12, 1)))).astype(np.float32)
+    x[1] = 0.0
+    for i, sf in enumerate((0.0078125, 0.01171875, 3.25, 1.5e-3), start=2):
+        sf = float(np.float32(torch.tensor(sf).to(torch.bfloat16).item()))
+        ties = (rng.integers(-126, 126, d) + 0.5) * sf
+        ties[0], ties[-1] = 127 * sf, -127 * sf
+        ties[1 % d] = 0.0
+        ties[2 % d] = -0.0
+        x[i] = ties.astype(np.float32)
+    x[6, :] = np.float32(-0.0)
+    x[7, 0] = 1e-30
+    flips = _scale_flips(rng, 4)
+    x[8:] = rng.uniform(-0.9, 0.9, (4, d)).astype(np.float32) * flips[:, None]
+    x[8:, -1] = flips
+    return x
+
+
+def _bf16(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16).to(torch.float32).numpy()
+
+
+def _scale_flips(rng, n):
+    """n absmaxes a whose scale bf16(a / 127) a multiply by the f32
+    reciprocal of 127 would round to the other bf16 neighbour: a within an
+    ulp of 127 x a bf16 midpoint."""
+    s = _bf16(rng.uniform(0.01, 4.0, 20000))
+    mid = s + np.float32(2.0) ** (np.floor(np.log2(s)) - 8).astype(np.float32)
+    a0 = (mid.astype(np.float64) * 127).astype(np.float32)
+    a = np.concatenate([np.nextafter(a0, np.float32(np.inf)), a0,
+                        np.nextafter(a0, np.float32(0))])
+    flip = a[_bf16(a / np.float32(127))
+             != _bf16(a * (np.float32(1) / np.float32(127)))]
+    assert len(flip) >= n
+    return flip[:n]
+
+
+@pytest.mark.parametrize("d,wide", [(32, True), (64, True), (128, True),
+                                    (96, True), (256, True), (16, False),
+                                    (80, False), (12, False), (3, False),
+                                    (64, False)])
+def test_eight_lane_quantizer_bit_exact_against_quantize_tokens(d, wide):
+    """K7's quantizer in the lane layout of its wide instance (D / 8
+    contiguous values a lane: head_dim 64 and 128 on the card, and here
+    other multiples of 8 too) or its narrow one (any head_dim) equals the
+    reference's ``_quantize_tokens`` bit for bit: the max is exact in any
+    order, and the division and rounding are IEEE."""
+    x = _crafted_rows(d, 700 + d)
+    q, scale = _lanes8_quantize(torch.from_numpy(x), wide)
+    jq, js = _quantize_tokens(jnp.asarray(x)[None, :, None, :])
+    np.testing.assert_array_equal(q.numpy(),
+                                  np.asarray(jq)[0, :, 0].astype(np.int8))
+    assert torch.equal(scale.view(torch.int16), torch.from_numpy(
+        np.array(js)[0, :, 0].view(np.int16)))
+    assert (q[1] == 0).all() and scale[1].item() == 1.0
+    assert q[2:6].abs().max().item() == 127

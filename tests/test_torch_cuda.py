@@ -299,14 +299,17 @@ def numerics_ok(got, q, k, v, lengths, max_ulp, rel):
                                                          relerr.max())
 
 
-def rows_view(x):
+def rows_view(x, offset=0):
     """x [B, KVH, 1, D] as the model hands it over: a strided view into a
-    fused [B, 1, 3F] projection output."""
+    fused [B, 1, 3F] projection output (with ``offset`` 1, one f32 element
+    later in a row one longer: neither the rows nor their stride 16-byte
+    aligned)."""
     b, kvh, _, d = x.shape
     f = kvh * d
-    qkv = torch.zeros((b, 1, 3 * f), device=x.device)
-    qkv[:, 0, f:2 * f] = x.reshape(b, f)
-    return qkv[..., f:2 * f].reshape(b, 1, kvh, d).transpose(1, 2)
+    qkv = torch.zeros((b, 1, 3 * f + offset), device=x.device)
+    qkv[:, 0, f + offset:2 * f + offset] = x.reshape(b, f)
+    return qkv[..., f + offset:2 * f + offset].reshape(
+        b, 1, kvh, d).transpose(1, 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -327,25 +330,50 @@ def test_kv_append_kernel_bit_exact(gen, dtype):
     assert torch.equal(kv1, kv2)
 
 
+# K7's shapes (batch, KV heads, head_dim, row offset): path (B)'s heads at
+# batch 8, path (H)'s (8 KV heads of 128) at batch 16 and 1, batches whose
+# rows do not fill a block of 16 rows (3 x 2 x 2 = 12, 5 x 2 x 3 = 30), and
+# the narrow instance: head_dim 16 (the small test configs) and 80, and
+# head_dim 64 with unaligned rows.
+K7_SHAPES = [(8, 2, 64, 0), (16, 8, 128, 0), (1, 8, 128, 0), (3, 2, 64, 0),
+             (5, 3, 128, 0), (4, 2, 16, 0), (3, 2, 80, 0), (6, 2, 64, 1)]
+
+
+def _k7_positions(b, cap, masked):
+    """Positions from negative (masked: nothing written) through past the
+    capacity (clamped), rotated so that batch 1 takes a live one."""
+    pos = [1, 5, 31, cap - 1, cap, cap + 5, 2 * cap, -1 if masked else 0]
+    return torch.tensor(np.resize(pos, b), dtype=torch.int32, device="cuda")
+
+
 @pytest.mark.parametrize("masked", [False, True])
-def test_kv_append_int8_kernel_bit_exact(gen, masked):
-    b, cap, kvh, d = 8, 64, 2, 64
+@pytest.mark.parametrize("b,kvh,d,offset", K7_SHAPES, ids=str)
+def test_kv_append_int8_kernel_bit_exact(gen, masked, b, kvh, d, offset):
+    """K7 against its plain version bit for bit (bytes and scales), both
+    ``masked`` modes, wide and narrow instances; one launch counted and one
+    CUDA kernel a call."""
+    cap = 64
     kv, scales, _ = _cache(gen, b, cap, 1, kvh, d)
     x = torch.randn((b, kvh, 1, d), device="cuda", generator=gen)
     x = x * torch.exp(4 * torch.rand((b, kvh, 1, 1), device="cuda",
                                      generator=gen) - 3)
-    x[0, 1] = 0                            # all-zero head: scale 1.0
-    x[1, 0] = 1e-30                        # tiny absmax
-    k, v = rows_view(x), rows_view(x.flip(0))
-    pos = torch.tensor([-1 if masked else 0, 1, 5, 31, cap - 1, cap,
-                        cap + 5, 2 * cap], dtype=torch.int32, device="cuda")
+    x[0, min(1, kvh - 1)] = 0              # all-zero head: scale 1.0
+    x[-1, 0] = 1e-30                       # tiny absmax
+    k, v = rows_view(x, offset), rows_view(x.flip(0), offset)
+    pos = _k7_positions(b, cap, masked)
     kv1, s1, kv2, s2 = kv.clone(), scales.clone(), kv.clone(), scales.clone()
+    before = kc.kv_append_int8.launches
     kc.kv_append_int8(kv1, s1, k, v, pos, masked=masked)
     kc.kv_append_int8_plain(kv2, s2, k, v, pos, masked=masked)
     torch.cuda.synchronize()
+    assert kc.kv_append_int8.launches == before + 1
     assert torch.equal(kv1, kv2) and torch.equal(s1, s2)
     if masked:
-        assert torch.equal(kv1[0], kv[0]) and torch.equal(s1[0], scales[0])
+        off = (pos < 0).nonzero()[:, 0]
+        assert torch.equal(kv1[off], kv[off])
+        assert torch.equal(s1[off], scales[off])
+    assert _cuda_kernels_a_call(
+        lambda: kc.kv_append_int8(kv1, s1, k, v, pos, masked=masked)) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1180,17 +1208,34 @@ def test_fused_int8_kernel_takes_ragged_capacities(gen, b, cap, lens):
         lambda: at.decode_attn_fused_int8(q, kv, scales, lengths)) == 1
 
 
+# A1's cases (batch, heads, KV heads, head_dim, capacity, lengths counting
+# the new token, splits, warps; None: rows_plan's): lengths from 0 (row 0
+# written, zeros out) to past capacity (the last row); 4 splits where the
+# length-1 sequence leaves three without a row, 8 of 8 warps with a
+# sequence in one split; and path (H-append)'s shape at the plan and at
+# every split count of 4 and 8 warps.
+H_APPEND_LENS = list(range(512, 576, 4))
+APPEND_CASES = ([(4, 8, 2, 128, 64, [0, 1, 64, 90], None, None),
+                 (3, 4, 4, 64, 128, [7, 128, 1], None, None),
+                 (16, 32, 8, 128, 4096, H_APPEND_LENS, None, None),
+                 (4, 8, 2, 128, 64, [0, 1, 64, 90], 4, 4),
+                 (3, 4, 4, 64, 128, [7, 128, 0], 8, 8)]
+                + [(16, 32, 8, 128, 4096, H_APPEND_LENS, splits, warps)
+                   for splits in range(1, 9) for warps in (4, 8)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,kvh,d,cap,lens", [
-    (4, 8, 2, 128, 64, [0, 1, 64, 90]),
-    (3, 4, 4, 64, 128, [7, 128, 1]),
-    (16, 32, 8, 128, 4096, list(range(512, 576, 4)))])
+@pytest.mark.parametrize("b,h,kvh,d,cap,lens,splits,warps", APPEND_CASES,
+                         ids=str)
 def test_grouped_append_kernel_matches_plain(gen, dtype, b, h, kvh, d, cap,
-                                             lens):
-    """A1 against K5 + K6's contract: the written cache bit for bit (K5's
-    write too), the output within 1e-5 of max |out|; lengths count the new
-    token, from 0 (row 0 written, zeros out) to past capacity (the last
-    row); k and v are strided views, as the model passes them."""
+                                             lens, splits, warps):
+    """A1 (the KV-group kernel with the write fused) against K5 + K6's
+    contract: the written cache bit for bit (K5's write too), the output
+    within 1e-5 of max |out|; lengths count the new token, from 0 (row 0
+    written, zeros out) to past capacity (the last row); k and v are
+    strided views, as the model passes them; the plan's launch or one
+    forced through the launcher; one launch counted and one CUDA kernel a
+    call."""
     kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
                      generator=gen).to(dtype)
     q = torch.randn((b, h, d), device="cuda", generator=gen)
@@ -1199,14 +1244,24 @@ def test_grouped_append_kernel_matches_plain(gen, dtype, b, h, kvh, d, cap,
     v = qkv[..., kvh * d:2 * kvh * d].reshape(b, 1, kvh, d).transpose(1, 2)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     kv1, kv2, kv3 = kv.clone(), kv.clone(), kv.clone()
-    out = at.decode_attn_grouped_append(q, kv1, k, v, lengths)
+    if splits or warps:
+        plan = at.rows_plan(b, h, kvh, cap, d, splits, warps)
+        call = lambda: at._launch_grouped_append(q, kv1, k, v, lengths,
+                                                 None, plan)
+    else:
+        call = lambda: at.decode_attn_grouped_append(q, kv1, k, v, lengths)
+    before = at.decode_attn_grouped_append.launches
+    out = call()
     ref = at.decode_attn_grouped_append_plain(q, kv2, k, v, lengths)
     kc.kv_append(kv3, k, v, lengths - 1)
     torch.cuda.synchronize()
+    assert at.decode_attn_grouped_append.launches == before + 1
     assert torch.equal(kv1, kv2) and torch.equal(kv1, kv3)
     assert torch.isfinite(out).all()
+    assert not out[lengths == 0].any()
     assert (out - ref).abs().max().item() <= (
         F32_REL_TOL * ref.abs().max().item())
+    assert _cuda_kernels_a_call(call) == 1
 
 
 # -- the last four TPU functions: K8, partials, K9, native_dots, pv_int8, M1 --
@@ -1550,18 +1605,22 @@ def test_int8_activations_on_the_card_match_the_cpu(gen):
         assert _same_bits(linear(x.cuda(), gpu_w), linear(x, qw))
 
 
-def test_kv_append_int8_kernel_bit_exact_at_crafted_scales(gen):
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,kvh,d,offset", K7_SHAPES, ids=str)
+def test_kv_append_int8_kernel_bit_exact_at_crafted_scales(gen, masked, b,
+                                                           kvh, d, offset):
     """K7 against its plain version where the reciprocal form would round
-    a row's scale the other way (plain and kernel both IEEE now)."""
-    b, cap, kvh, d = 8, 64, 2, 64
+    a row's scale the other way (plain and kernel both IEEE now), at K7's
+    shapes and both ``masked`` modes."""
+    cap = 64
     kv, scales, _ = _cache(gen, b, cap, 1, kvh, d)
     x = _with_absmax((b, kvh, 1, d), _reciprocal_misses(127.0, b * kvh, 15),
                      axis=3, seed=16).cuda()
-    k, v = rows_view(x), rows_view(x.flip(0))
-    pos = torch.arange(0, 8 * b, 8, dtype=torch.int32, device="cuda") % cap
+    k, v = rows_view(x, offset), rows_view(x.flip(0), offset)
+    pos = _k7_positions(b, cap, masked)
     kv1, s1, kv2, s2 = kv.clone(), scales.clone(), kv.clone(), scales.clone()
-    kc.kv_append_int8(kv1, s1, k, v, pos)
-    kc.kv_append_int8_plain(kv2, s2, k, v, pos)
+    kc.kv_append_int8(kv1, s1, k, v, pos, masked=masked)
+    kc.kv_append_int8_plain(kv2, s2, k, v, pos, masked=masked)
     torch.cuda.synchronize()
     assert torch.equal(kv1, kv2) and torch.equal(s1, s2)
 

@@ -6,19 +6,23 @@ once, every K split is a whole number of groups, the tile follows M, and
 the scratch the wrappers allocate holds what the kernels write, at M from 1
 to 8192; and of the decode attention that serves a KV head's whole query
 group in one block (the KV-group kernel: P3i and P3 with its grid mode,
-``paged_plan``; G1, G2 and K8, ``rows_plan``; V1, ``verify_plan``: the S x
-rep (query, head) rows of a verify chunk) over int8, bf16 and f32 rows:
-every live row in one chunk, chunks of whole pages or units, the split
-count, the blocks and no scratch, at batch 1-256 and groups 1-32, the
-paths' splits, and a tiling the kernel builds. These run without a card;
-the wrappers' refusals are checked with the dispatch forced to the kernel
-path, before any build or launch."""
+``paged_plan``; G1, G2, K8 and A1, ``rows_plan``; V1, ``verify_plan``: the
+S x rep (query, head) rows of a verify chunk) over int8, bf16 and f32
+rows: every live row in one chunk, chunks of whole pages or units, the
+split count, the blocks and no scratch, at batch 1-256 and groups 1-32,
+the paths' splits, and a tiling the kernel builds; and the int8 decode
+append K7's choice between its wide and narrow instances. These run
+without a card; the wrappers' refusals are checked with the dispatch
+forced to the kernel path, before any build or launch."""
+
+import math
 
 import pytest
 import torch
 
 from rten_tpu_torch.kernels import _build
 from rten_tpu_torch.kernels import attention as at
+from rten_tpu_torch.kernels import cache as kc
 from rten_tpu_torch.kernels import gemm as pg
 from rten_tpu_torch.kernels.quant import (quantize_int4_groupwise,
                                           quantize_int4_words)
@@ -889,3 +893,190 @@ def test_fused_int8_refuses_strided_or_unaligned_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="no build"):
         at.decode_attn_fused_int8(q, flat[:-8].view(2, 37, 2, 128), scales,
                                   lengths)
+
+
+# -- A1 on the KV-group kernel, the decode append fused -----------------------
+
+def _append_args(b=2, h=4, kvh=2, d=64, cap=32, dtype=torch.float32,
+                 width_pad=0, k_off=0, kv=None):
+    """A1's arguments as the model passes them: q, the cache, and k and v
+    as strided views of one qkv row [B, 1, (H + 2 KVH) D + width_pad], k
+    starting ``k_off`` elements late."""
+    f = kvh * d
+    qkv = torch.zeros((b, 1, h * d + 2 * f + width_pad))
+    k = qkv[..., h * d + k_off:h * d + f + k_off].reshape(
+        b, 1, kvh, d).transpose(1, 2)
+    v = qkv[..., h * d + f:h * d + 2 * f].reshape(b, 1, kvh, d).transpose(
+        1, 2)
+    if kv is None:
+        kv = torch.zeros((b, cap, 2, f), dtype=dtype)
+    return (torch.zeros((b, h, d)), kv, k, v,
+            torch.full((b,), 5, dtype=torch.int32)), qkv
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_append_takes_rows_plan_at_h_append(monkeypatch, dtype):
+    """A1 at (H-append) (batch 16, 32 heads over 8 KV heads of 128, a
+    cache of capacity 4096): the KV-group kernel at rows_plan's launch,
+    128 pairs in 2 splits of 8 warps (256 blocks), a warp serving 2 of the
+    group's 4 heads in 2 groups, G1's plan; k and v passed as the model's
+    views of its qkv output (offsets H * D and (H + KVH) * D, row stride
+    (H + 2 KVH) * D); one launch counted."""
+    calls = _recorded(monkeypatch)
+    plan = at.rows_plan(16, 32, 8, 4096, 128)
+    assert (plan["splits"], plan["blocks"], plan["warps"]) == (2, 256, 8)
+    assert (plan["heads_per_warp"], plan["head_groups"]) == (2, 2)
+    # The cache is never touched here: torch.empty maps it lazily.
+    kv = torch.empty((16, 4096, 2, 1024), dtype=dtype)
+    args, qkv = _append_args(16, 32, 8, 128, 4096, kv=kv)
+    before = at.decode_attn_grouped_append.launches
+    at.decode_attn_grouped_append(*args)
+    (symbol, got), = calls
+    assert symbol == "decode_attn_append"
+    assert got[8:19] == (16, 32, 8, 128, 4096, int(dtype == torch.bfloat16),
+                         2, 16, 2, 2, 8)
+    assert got[4:6] == (48 * 128, 48 * 128)
+    assert (got[2] - qkv.data_ptr(), got[3] - qkv.data_ptr()) == (
+        32 * 128 * 4, 40 * 128 * 4)
+    assert at.decode_attn_grouped_append.launches == before + 1
+
+
+def _unaligned(shape, dtype, elts=1):
+    flat = torch.zeros(math.prod(shape) + elts, dtype=dtype)
+    return flat[elts:].view(shape)
+
+
+# (what, the arguments' overrides, plan overrides, the refusal's words).
+APPEND_REFUSALS = [
+    ("strided cache",
+     dict(kv=torch.zeros((2, 33, 2, 128))[:, 1:]), {}, "contiguous"),
+    ("unaligned f32 cache", dict(kv=_unaligned((2, 32, 2, 128),
+                                               torch.float32)), {},
+     "16-byte aligned"),
+    ("unaligned bf16 cache", dict(kv=_unaligned((2, 32, 2, 128),
+                                                torch.bfloat16)), {},
+     "16-byte aligned"),
+    ("new rows' pointer", dict(width_pad=4, k_off=1), {},
+     "new rows must be 16-byte aligned"),
+    ("new rows' stride", dict(width_pad=1), {},
+     "new rows must be 16-byte aligned"),
+    ("no split", {}, dict(splits=0), "splits must lie"),
+    ("nine splits", {}, dict(splits=9), "splits must lie"),
+    ("three splits of 16-row units at capacity 32", {}, dict(splits=3),
+     "splits must lie"),
+    ("six warps", {}, dict(warps=6), "warps must be"),
+    ("head_dim 32", dict(d=32), {}, "head_dim"),
+    ("head_dim 96", dict(d=96), {}, "head_dim"),
+    ("head_dim 256", dict(d=256, h=2, kvh=1), {}, "head_dim"),
+]
+
+
+@pytest.mark.parametrize("case", APPEND_REFUSALS, ids=lambda c: c[0])
+def test_grouped_append_refuses_before_any_build(monkeypatch, case):
+    """On CUDA (simulated) A1 raises on what the KV-group kernel cannot
+    take before any build or launch: a strided or unaligned cache, new
+    rows whose pointer or row stride is not 16-byte aligned, a split count
+    outside [1, min(8, cap / 16)], warps other than 4 or 8, head_dim other
+    than 64 and 128."""
+    _, overrides, plan_kw, what = case
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    args, _ = _append_args(**overrides)
+    d = args[0].shape[2]
+    before = at.decode_attn_grouped_append.launches
+    with pytest.raises(ValueError, match=what):
+        if plan_kw:
+            at._launch_grouped_append(*args, None, at.rows_plan(
+                2, 4, 2, 32, d, plan_kw.get("splits"), plan_kw.get("warps")))
+        else:
+            at.decode_attn_grouped_append(*args)
+    assert at.decode_attn_grouped_append.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_append_takes_the_models_views(monkeypatch, dtype):
+    """The control for the refusals above: the same shapes, aligned, reach
+    the build."""
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    args, _ = _append_args(dtype=dtype)
+    with pytest.raises(RuntimeError, match="no build"):
+        at.decode_attn_grouped_append(*args)
+
+
+# -- K7: the wide and narrow instances of the int8 decode append -------------
+
+def _int8_append_args(b=3, kvh=2, d=64, width_pad=0, k_off=0, kv_off=0):
+    """K7's arguments: an int8 cache (``kv_off`` bytes past a 16-byte
+    boundary), k and v as strided views of one qkv row, and positions."""
+    f, cap = kvh * d, 8
+    qkv = torch.zeros((b, 1, 3 * f + width_pad))
+    k = qkv[..., f + k_off:2 * f + k_off].reshape(b, 1, kvh, d).transpose(
+        1, 2)
+    v = qkv[..., 2 * f:3 * f].reshape(b, 1, kvh, d).transpose(1, 2)
+    kv = _unaligned((b, cap, 2, f), torch.int8, 16 + kv_off)
+    scales = torch.ones((b, cap, 2, kvh), dtype=torch.bfloat16)
+    return kv, scales, k, v, torch.arange(b, dtype=torch.int32)
+
+
+# (head_dim, layout overrides, the instance: True wide, False narrow).
+K7_INSTANCES = [
+    (32, {}, False), (64, {}, True), (96, {}, False), (128, {}, True),
+    (256, {}, False), (160, {}, False), (192, {}, False), (224, {}, False),
+    (16, {}, False), (80, {}, False), (8, {}, False), (3, {}, False),
+    (288, {}, False), (512, {}, False),
+    (64, dict(k_off=1, width_pad=4), False),     # a row's pointer
+    (64, dict(width_pad=2), False),              # the row stride
+    (128, dict(kv_off=8), False),                # the cache's pointer
+]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d,layout,wide", K7_INSTANCES, ids=str)
+def test_kv_append_int8_picks_its_instance(monkeypatch, d, layout, wide,
+                                           masked):
+    """On CUDA (simulated) K7 passes the wide instance (16-byte loads) for
+    head_dim 64 or 128 with every row 16-byte aligned, and the narrow one
+    otherwise (any other head_dim, a multiple of 32 too); ``masked`` and
+    the views' row strides as given; one launch counted."""
+    calls = _recorded(monkeypatch)
+    kv, scales, k, v, pos = _int8_append_args(d=d, **layout)
+    assert kc.kv_append_int8_wide(d, kv, k.reshape(3, -1),
+                                  v.reshape(3, -1)) == wide
+    before = kc.kv_append_int8.launches
+    kc.kv_append_int8(kv, scales, k, v, pos, masked=masked)
+    (symbol, got), = calls
+    assert symbol == "kv_append_int8"
+    f = 2 * d
+    assert got[2:4] == (3 * f + layout.get("width_pad", 0),) * 2
+    assert got[7:13] == (3, 8, 2, d, int(masked), int(wide))
+    assert kc.kv_append_int8.launches == before + 1
+
+
+K7_REFUSALS = [
+    ("strided cache", lambda a: (a[0].transpose(0, 1).contiguous()
+                                 .transpose(0, 1), *a[1:]), "contiguous"),
+    ("strided scales", lambda a: (a[0], torch.ones(
+        (3, 8, 2, 4), dtype=torch.bfloat16)[..., ::2], *a[2:]),
+     "contiguous"),
+    ("strided positions", lambda a: (*a[:4], torch.zeros(
+        6, dtype=torch.int32)[::2]), "contiguous"),
+    ("scales of another shape", lambda a: (a[0], torch.ones(
+        (3, 8, 2, 1), dtype=torch.bfloat16), *a[2:]), "scales must be"),
+    ("rows of two tokens", lambda a: (*a[:2], torch.zeros((3, 2, 2, 64)),
+                                      torch.zeros((3, 2, 2, 64)), a[4]),
+     "k and v must be"),
+]
+
+
+@pytest.mark.parametrize("case", K7_REFUSALS, ids=lambda c: c[0])
+def test_kv_append_int8_refuses_before_any_build(monkeypatch, case):
+    """K7 raises on what neither instance takes before any build: strided
+    cache, scales or positions, and shapes off its contract."""
+    _, change, what = case
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    with pytest.raises(ValueError, match=what):
+        kc.kv_append_int8(*change(_int8_append_args()))
+    with pytest.raises(RuntimeError, match="no build"):
+        kc.kv_append_int8(*_int8_append_args())
