@@ -60,9 +60,14 @@ Phases (any failure exits non-zero; nothing is caught):
    ``pv_int8`` mode at path (H)'s shapes in both score modes; M1
    (``matmul_int8_tiled``) bit for bit at GPT-2-small's four linears at
    M 256 and 4096 (``torch._int_mm`` and the epilogue). No path reaches
-   the last five: their entries carry ``"path": null``. P3, its grid mode,
-   P3i, G1 (both score modes), G2, K8 (f32 and bf16) and V1 (both entries,
-   both modes) run the KV-group kernel
+   the last five: their entries carry ``"path": null``. K6
+   (``decode_attn_float``) at path (A)'s f32 and (C)'s bf16 cache (f32 and
+   bf16 SDPA), at batch 3 (the reference's fused fallback) and at
+   TinyLlama's GQA (B 16, 32 heads over 4 KV heads, capacity 2048); P2
+   (``kv_append_paged_int8``) with and without its all-zero head, one CUDA
+   kernel a call. P3, its grid mode, P3i, G1 (both score modes), G2, K6
+   (f32 and bf16), K8 (f32 and bf16) and V1 (both entries, both modes) run
+   the KV-group kernel
    (``csrc/decode_attn_kv_group.cuh``): the plan (splits a sequence,
    blocks, warps a block, query rows a warp, the ring) is printed and
    their entries add the CUDA kernels a call launches (profiler), which
@@ -217,7 +222,8 @@ K4_REL_TOL = 2.0 ** -8
 # check_int8_matmul.)
 PATH_LOGIT_TOL = 5e-2
 # K5 and K7: bit for bit. K6: both sum in f32 (an online softmax per warp
-# against an exact two-pass softmax), so they differ by a few f32 roundings
+# over ring tiles, merged across warps and splits, against an exact
+# two-pass softmax), so they differ by a few f32 roundings
 # of outputs of order 1: 1e-5 of max |out|. K1' (the no-tail mode of K1):
 # K1's tolerance.
 K6_REL_TOL = 1e-5
@@ -706,52 +712,93 @@ def check_kv_append_int8(timer):
                     "device_launches")})
 
 
+# K6's shapes beside paths (A) and (C): the reference's fused fallback
+# (batch 3, no group divides it) and TinyLlama's float-cache GQA (B 16, 32
+# query heads over 4 KV heads of 64, capacity 2048); (label, key prefix,
+# B, H, KVH, capacity, lives).
+K6_SHAPES = (("batch 3", "b3", 3, 12, 12, 512, (65, 177)),
+             ("TinyLlama GQA", "gqa", 16, 32, 4, 2048, (65, 2001)))
+
+
+def _k6_case(timer, label, q, kv, lengths):
+    """K6 (``decode_attn_float``) against its plain version on one input:
+    held within K6_REL_TOL of max |out|, timed beside the plain version and
+    ``scaled_dot_product_attention`` in the cache dtype (q cast to it; the
+    mask over the capacity; ``enable_gqa`` under GQA), the plan and one
+    CUDA kernel a call (``kv_group_launch``). Bound: the live rows read
+    once in the cache dtype, 4 f32 operations per (head, dim, row)."""
+    b, h, d = q.shape
+    cap, kvh = kv.shape[1], kv.shape[3] // d
+    out = at.decode_attn_float(q, kv, lengths)
+    ref = at.decode_attn_float_plain(q, kv, lengths)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = K6_REL_TOL * ref.abs().max().item()
+    print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})")
+    check(bool(torch.isfinite(out).all()) and err <= tol,
+          f"{label}: K6 disagrees")
+    bms, by = _decode_bound(q, lengths, cap, 2 * kvh * d * kv.element_size())
+    k4 = kv[:, :, 0].view(b, cap, kvh, d).transpose(1, 2)
+    v4 = kv[:, :, 1].view(b, cap, kvh, d).transpose(1, 2)
+    qs, mask = q[:, :, None].to(kv.dtype), _sdpa_mask(lengths, cap)
+    lib = timer(lambda: F.scaled_dot_product_attention(
+        qs, k4, v4, attn_mask=mask, enable_gqa=h > kvh))
+    ms = timer(lambda: at.decode_attn_float(q, kv, lengths))
+    plain_ms = timer(lambda: at.decode_attn_float_plain(q, kv, lengths))
+    print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bms:.4f} ({by}) library_ms {lib:.4f} "
+          f"({str(kv.dtype)[6:]} scaled_dot_product_attention)")
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=lib)
+    res.update(kv_group_launch(label, at.rows_plan(b, h, kvh, cap, d),
+                               lambda: at.decode_attn_float(q, kv, lengths),
+                               res))
+    return res
+
+
 def check_decode_attn_float(timer):
-    """K6 at path (A)'s shapes on an f32 cache (the entry, with
-    scaled_dot_product_attention as the library yardstick) and path (C)'s
-    bf16 cache (printed)."""
+    """K6 (the KV-group kernel in its exact mode) at path (A)'s shapes on
+    an f32 cache (the entry, with f32 scaled_dot_product_attention as the
+    library yardstick) and path (C)'s bf16 cache (the entry's ``bf16_*``
+    keys, with bf16 SDPA), then at K6_SHAPES on f32 caches (the ``b3_*``
+    and ``gqa_*`` keys): each held to K6_REL_TOL against the plain
+    version, with its plan and one CUDA kernel a call."""
     b, h, d, cap = 256, 12, 64, 512
     f = h * d
     g = torch.Generator(device="cuda").manual_seed(9)
     q = torch.randn((b, h, d), device="cuda", generator=g)
     lengths = _live_lengths(g, b)
-    live = lengths.clamp(max=cap).to(torch.float64).sum().item()
-    mask = (torch.arange(cap, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
-    entry = None
+    res = {}
     for dtype in (torch.float32, torch.bfloat16):
         kv = torch.randn((b, cap, 2, f), device="cuda",
                          generator=g).to(dtype)
-        out = at.decode_attn_float(q, kv, lengths)
-        ref = at.decode_attn_float_plain(q, kv, lengths)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = K6_REL_TOL * ref.abs().max().item()
-        print(f"decode_attn_float ({dtype}): max_abs_err {err:.3e} (tol "
-              f"{tol:.3e})")
-        check(bool(torch.isfinite(out).all()) and err <= tol,
-              f"K6 disagrees on {dtype}")
-        n_bytes = live * 2 * f * kv.element_size() + 2 * q.numel() * 4 + b * 4
-        bms, by = bound_ms(n_bytes, 4.0 * live * h * d, PEAK_F32_FLOP_S)
-        library = None
-        if dtype == torch.float32:
-            k4 = kv[:, :, 0].view(b, cap, h, d).transpose(1, 2)
-            v4 = kv[:, :, 1].view(b, cap, h, d).transpose(1, 2)
-            library = timer(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], k4, v4, attn_mask=mask))
-        r = dict(name="decode_attn_float",
-                 source="rten_tpu_torch/csrc/decode_attn_float.cu",
-                 replaces="rten_tpu/kernels/attention.py:1039,318",
-                 max_abs_err=err,
-                 ms=timer(lambda: at.decode_attn_float(q, kv, lengths)),
-                 plain_ms=timer(lambda: at.decode_attn_float_plain(
-                     q, kv, lengths)),
-                 bound_ms=bms, bound_by=by, library_ms=library)
-        print(f"decode_attn_float ({dtype}): kernel_ms {r['ms']:.4f} "
-              f"plain_ms {r['plain_ms']:.4f} bound_ms {bms:.4f} ({by}) "
-              f"library_ms {library}")
-        entry = entry or r
-    return entry
+        res[dtype] = _k6_case(timer, f"decode_attn_float ({str(dtype)[6:]} "
+                              f"cache, B {b}, {h} heads of {d}, capacity "
+                              f"{cap}, lives 65-176)", q, kv, lengths)
+        del kv
+    extra = {}
+    for label, key, b, h, kvh, cap, lives in K6_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(9)
+        q = torch.randn((b, h, d), device="cuda", generator=g)
+        lengths = _decode_lengths(g, b, lives)
+        kv = torch.randn((b, cap, 2, kvh * d), device="cuda", generator=g)
+        r = _k6_case(timer, f"decode_attn_float ({label}: f32 cache, B {b}, "
+                     f"{h} heads over {kvh} of {d}, capacity {cap}, lives "
+                     f"{lives[0]}-{lives[1] - 1})", q, kv, lengths)
+        extra.update({f"{key}_{k}": r[k] for k in
+                      ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "library_ms", "device_launches")})
+        del kv
+    bf = res[torch.bfloat16]
+    return dict(name="decode_attn_float",
+                replaces="rten_tpu/kernels/attention.py:1039,318,542",
+                shape="B 256, 12 heads of 64, f32 cache of capacity 512, "
+                      "lives 65-176",
+                **res[torch.float32],
+                **{f"bf16_{key}": bf[key] for key in
+                   ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "library_ms", "device_launches")},
+                **extra)
 
 
 def check_decode_attn_int8(timer, b=256, h=12, kvh=12, cap=512,
@@ -815,58 +862,94 @@ def _paged_pool(g, b, lengths, dtype):
     return pool, scales, table.contiguous()
 
 
-def check_kv_append_paged(timer, quantized):
-    """P1 (f32 pool, path E) or P2 (int8 pool, path D) at B 256: bit-exact
-    against the plain version, with one slot past capacity (its last page)
-    and one released slot (table row -1: the garbage page)."""
+def kv_append_paged_inputs(quantized, zero_head=True):
+    """P1's (f32 pool, path E) or P2's (int8 pool, path D) inputs at B 256:
+    new rows as views of one projection output (with ``zero_head``, one
+    head all zero: scale 1.0), lengths 64-175 with one slot past capacity
+    (its last page), and a pool of scrambled pages with one released slot
+    (table row -1: the garbage page). Returns (k, v, lengths, pool, scales
+    or None, table)."""
     b, kvh, d = 256, 12, 64
-    f = kvh * d
     g = torch.Generator(device="cuda").manual_seed(11 + quantized)
     k, v = _decode_rows(g, b, kvh, d)
-    k[0, 0] = 0                    # an all-zero head takes scale 1.0
+    if zero_head:
+        k[0, 0] = 0
     lengths = _live_lengths(g, b) - 1
     lengths[1] = 512 + 7           # a finished slot past capacity
     pool, scales, table = _paged_pool(
         g, b, (lengths + 2).clamp(max=512),
         torch.int8 if quantized else torch.float32)
     table[2] = -1                  # a released slot
-    p1, p2 = pool.clone(), pool.clone()
+    return k, v, lengths, pool, scales, table
+
+
+def check_kv_append_paged(timer, quantized):
+    """P1 (f32 pool, path E) or P2 (int8 pool, path D) at B 256
+    (:func:`kv_append_paged_inputs`): bit-exact against the plain version.
+    P2 also without its all-zero head (the entry's ``nz_*`` keys: bit-exact
+    and timed), with one CUDA kernel a call (profiler)."""
+    b, kvh, d = 256, 12, 64
+    f = kvh * d
+    k, v, lengths, pool, scales, table = kv_append_paged_inputs(quantized)
     if quantized:
-        s1, s2 = scales.clone(), scales.clone()
-        kc.kv_append_paged_int8(p1, s1, k, v, table, lengths)
-        kc.kv_append_paged_int8_plain(p2, s2, k, v, table, lengths)
-        torch.cuda.synchronize()
-        err = max((p1.int() - p2.int()).abs().max().item(),
-                  (s1.float() - s2.float()).abs().max().item())
-        exact = torch.equal(p1, p2) and torch.equal(s1, s2)
         n_bytes = 2 * b * f * 4 + 2 * b * f + 2 * b * kvh * 2 + 2 * b * 4
-        entry = dict(
-            name="kv_append_paged_int8",
-            replaces="rten_tpu/kernels/cache.py:280",
-            ms=timer(lambda: kc.kv_append_paged_int8(p1, s1, k, v, table,
-                                                     lengths)),
-            plain_ms=timer(lambda: kc.kv_append_paged_int8_plain(
-                p2, s2, k, v, table, lengths)), library_ms=None)
+        entry = dict(name="kv_append_paged_int8",
+                     replaces="rten_tpu/kernels/cache.py:280",
+                     library_ms=None)
+        for key, zero in (("", True), ("nz_", False)):
+            if not zero:
+                k, v = kv_append_paged_inputs(quantized, zero)[:2]
+            p1, p2 = pool.clone(), pool.clone()
+            s1, s2 = scales.clone(), scales.clone()
+            call = lambda: kc.kv_append_paged_int8(p1, s1, k, v, table,
+                                                   lengths)
+            call()
+            kc.kv_append_paged_int8_plain(p2, s2, k, v, table, lengths)
+            torch.cuda.synchronize()
+            err = max((p1.int() - p2.int()).abs().max().item(),
+                      (s1.float() - s2.float()).abs().max().item())
+            label = ("kv_append_paged_int8" if zero else
+                     "kv_append_paged_int8 (no all-zero head)")
+            print(f"{label}: max_abs_err {err} (bit-exact required)")
+            check(torch.equal(p1, p2) and torch.equal(s1, s2),
+                  f"{label} not bit-exact")
+            ms = timer(call)
+            plain_ms = timer(lambda: kc.kv_append_paged_int8_plain(
+                p2, s2, k, v, table, lengths))
+            n = device_launches(call)
+            print(f"{label}: {n} CUDA kernel(s) a call; kernel_ms {ms:.4f} "
+                  f"plain_ms {plain_ms:.4f}")
+            check(n == 1 or n == "not measured",
+                  f"{label} launched {n} CUDA kernels a call, not one")
+            entry.update({f"{key}max_abs_err": err, f"{key}ms": ms,
+                          f"{key}plain_ms": plain_ms,
+                          f"{key}device_launches": n})
     else:
+        p1, p2 = pool.clone(), pool.clone()
         kc.kv_append_paged(p1, k, v, table, lengths)
         kc.kv_append_paged_plain(p2, k, v, table, lengths)
         torch.cuda.synchronize()
         err = (p1 - p2).abs().max().item()
-        exact = torch.equal(p1, p2)
+        print(f"kv_append_paged: max_abs_err {err} (bit-exact required)")
+        check(torch.equal(p1, p2), "kv_append_paged not bit-exact")
         n_bytes = 2 * b * f * 4 + b * 2 * f * 4 + 2 * b * 4
         ids, offs = kc.paged_slots(table, lengths, PAGE)
         rows = torch.stack([k.reshape(b, f), v.reshape(b, f)], dim=1)
         entry = dict(
             name="kv_append_paged", replaces="rten_tpu/kernels/cache.py:94",
+            max_abs_err=err,
             ms=timer(lambda: kc.kv_append_paged(p1, k, v, table, lengths)),
             plain_ms=timer(lambda: kc.kv_append_paged_plain(
                 p2, k, v, table, lengths)),
             library_ms=timer(lambda: p1.index_put_((ids, offs), rows)))
-    print(f"{entry['name']}: max_abs_err {err} (bit-exact required)")
-    check(exact, f"{entry['name']} not bit-exact")
     bms, by = bound_ms(n_bytes)
+    if quantized:
+        print(f"kv_append_paged_int8: bound_ms {bms:.4f} ({by}); kernel_ms "
+              f"{entry['ms']:.4f} with the all-zero head, "
+              f"{entry['nz_ms']:.4f} without")
+        entry["nz_bound_ms"] = bms
     return dict(entry, source="rten_tpu_torch/csrc/kv_append_paged.cu",
-                max_abs_err=err, bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by)
 
 
 def check_decode_attn_paged(timer, mode):
@@ -918,7 +1001,7 @@ def check_decode_attn_paged(timer, mode):
 
 def kv_group_launch(label, plan, fn, entry):
     """The launch of a kernel on the KV-group kernel (P3, its grid mode,
-    P3i, G1, G2, K8, V1, A1): the plan's splits, blocks, warps and query
+    P3i, G1, G2, K6, K8, V1, A1): the plan's splits, blocks, warps and query
     rows a warp
     (printed: the wrapper's plan at these shapes, not read from the
     launch), and the CUDA kernels one call launches (profiler, kept in the
@@ -1044,14 +1127,15 @@ INT4_SOURCES = {"matmul_int4_words": "rten_tpu_torch/csrc/matmul_int4.cu",
                 "matmul_int4": "rten_tpu_torch/csrc/matmul_int4.cu"}
 
 
-def device_launches(fn, calls=3, sessions=4):
+def device_launches(fn, calls=3, sessions=10):
     """The CUDA kernels one call of ``fn`` launches, by the profiler's
     device events over ``calls`` calls; "not measured" where the profiler
     recorded none. The profiler can lose kernels in a session (on the H100
-    one session saw two kernels in three one-kernel calls, another none)
-    but never adds one, so each session records after a warm-up step, and
-    sessions repeat, up to ``sessions``, until one counts a whole number
-    of kernels a call; the count is the most that a session saw."""
+    one session saw two kernels in three one-kernel calls, another none;
+    once four sessions in a row lost one) but never adds one, so each
+    session records after a warm-up step, and sessions repeat, up to
+    ``sessions``, until one counts a whole number of kernels a call; the
+    count is the most that a session saw."""
     fn()
     torch.cuda.synchronize()
     most = 0
@@ -2756,7 +2840,12 @@ def main():
              "h_bound_ms", "h_device_launches", "h_launches",
              "bf16_max_abs_err",
              "bf16_ms", "bf16_plain_ms", "bf16_bound_ms", "bf16_library_ms",
-             "bf16_device_launches",
+             "bf16_device_launches", "b3_max_abs_err", "b3_ms",
+             "b3_plain_ms", "b3_bound_ms", "b3_library_ms",
+             "b3_device_launches", "gqa_max_abs_err", "gqa_ms",
+             "gqa_plain_ms", "gqa_bound_ms", "gqa_library_ms",
+             "gqa_device_launches", "nz_max_abs_err", "nz_ms",
+             "nz_plain_ms", "nz_bound_ms", "nz_device_launches",
              "exact_q_max_abs_err", "exact_q_ms", "exact_q_plain_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}

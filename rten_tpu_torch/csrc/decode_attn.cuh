@@ -1,18 +1,17 @@
 // Single-query decode attention, one block of four warps per (sequence,
-// head), shared by decode_attn_float.cu (K6: a contiguous float cache) and
-// decode_attn_split.cu (K9: separate K and V planes). The row layout
-// helpers below (eight lanes a row) also serve the int8 kernel
-// (decode_attn_int8_tail.cu), G1's pv_int8 walk and the KV-group kernel
-// (decode_attn_kv_group.cuh: P3i, P3 and its grid mode, G1, G2, K8, V1 and
-// A1).
+// query head): the kernel of decode_attn_split.cu (K9: separate K and V
+// planes), its one user. The row layout helpers below (eight lanes a row)
+// serve the int8 kernel (decode_attn_int8_tail.cu), G1's pv_int8 walk and
+// the KV-group kernel (decode_attn_kv_group.cuh: P3i, P3 and its grid
+// mode, G1, G2, K6, K8, V1 and A1); bf16_round and load2 serve
+// decode_attn_float.cu's native_dots kernel too.
 //
 // Contract: for sequence b and query head h (kv head h / (H / KVH)),
-// n = min(lengths[b], capacity) tokens are read, token t from the row that
-// the addressing gives (Contiguous: [b, t] of a [B, cap, 2, KVH*D] cache;
-// Split: [b, kv head, t] of separate [B, KVH, S, D] K and V planes). The
-// cache is read as f32; score_t = (q . k_t) * scale,
-// out = sum_t p_t v_t / max(sum_t p_t, 1e-30); a sequence with no live
-// token gets zeros.
+// n = min(max(lengths[b], 0), capacity) tokens are read, token t from the
+// row that the addressing gives (Split: [b, kv head, t] of separate
+// [B, KVH, S, D] K and V planes). The planes are read as f32; score_t =
+// (q . k_t) * scale, out = sum_t p_t v_t / max(sum_t p_t, 1e-30); a
+// sequence with no live token gets zeros.
 //
 // Design: a warp owns every fourth tile of 4 tokens; each lane holds two
 // adjacent dims of every 64, so a warp reads a head's K and V rows as
@@ -20,7 +19,7 @@
 // Each warp keeps an online softmax (running max, sum and accumulator in
 // registers), so the score row never needs shared memory and capacity is
 // unlimited; the four warp states merge once at the end through shared
-// memory.
+// memory. Every query head of a group reads the group's rows again.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,16 +81,6 @@ __device__ inline void load_row(const __nv_bfloat16* p, float* x) {
 // Each addressing gives token t of sequence b a row r; kv head kh of that
 // row starts r * row_stride + kh * head_stride elements into the K plane's
 // pointer, and at the same offset into the V plane's.
-
-// Token rows of a contiguous [B, cap, 2, KVH*D] cache (V = K + KVH*D).
-struct Contiguous {
-  int cap;
-  long long row_stride, head_stride;  // 2 * KVH * D, D
-  __device__ int capacity() const { return cap; }
-  __device__ long long row(int b, int t) const {
-    return (long long)b * cap + t;
-  }
-};
 
 // Token rows of separate K and V planes [B, KVH, S, D].
 struct Split {

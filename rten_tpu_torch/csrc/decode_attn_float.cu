@@ -1,18 +1,18 @@
 // Single-query decode attention over a float (f32 or bf16) KV cache: K6
-// (the kernel of decode_attn.cuh on contiguous rows), its flat mode K8 (the
-// KV-group kernel of decode_attn_kv_group.cuh on contiguous rows) and the
-// native_dots mode (a kernel of its own below, on K6's rows and lane
-// layout).
+// and its flat mode K8 (both the KV-group kernel of decode_attn_kv_group.cuh
+// on contiguous rows, in its exact and its flat mode) and the native_dots
+// mode (a kernel of its own below, on the row layout of decode_attn.cuh).
 //
 // Replaces:
 // - K6: rten_tpu/kernels/attention.py::flash_decode_grouped (kernel
 //   _decode_grouped_kernel) and ::flash_decode_fused (kernel
-//   _decode_fused_kernel) in their float-cache mode with native_dots off.
-//   The two differ only in how the TPU grid batches sequences (G sequences
-//   per program to hide the MXU's op latency, or one program per
-//   (sequence, block)); the block-diagonal q and the one-hot head
-//   extraction exist for the MXU. One kernel serves both here, at any
-//   batch.
+//   _decode_fused_kernel) in their float-cache mode with native_dots off,
+//   and ::flash_decode_stream (kernel _decode_stream_kernel, the same f32
+//   numerics). The three differ only in how the TPU grid batches
+//   sequences (G sequences per program to hide the MXU's op latency, one
+//   program per (sequence, block), or one per sequence with its own DMA
+//   loop); the block-diagonal q and the one-hot head extraction exist for
+//   the MXU. One kernel serves all three here, at any batch.
 // - K8: ::flash_decode_flat in its float mode (kernel _decode_flat_kernel)
 //   with q_bf16: q enters rounded to bf16, every K element is cast to q's
 //   dtype (bf16) before the score dot, P.V runs in f32 on V as stored, and
@@ -28,8 +28,8 @@
 //   p_t = bf16(exp(s_t - m_i)) weighted by exp(m_i - m_last) in f32).
 //
 // Contract: for sequence b and query head h (kv head h / (H / KVH)),
-// n = min(lengths[b], cap) tokens are read; score_t = (q . k_t) * scale in
-// f32 (a bf16 cache is read as f32), softmax over t < n in f32,
+// n = min(max(lengths[b], 0), cap) tokens are read; score_t = (q . k_t) *
+// scale in f32 (a bf16 cache is read as f32), softmax over t < n in f32,
 // out = sum_t p_t v_t / max(sum_t p_t, 1e-30), f32, with the roundings of
 // the mode. A sequence with n = 0 gets zeros.
 //
@@ -38,44 +38,37 @@
 // 189 MB, 56 us, at L = 120; half that for bf16); the arithmetic is
 // 4 flops per element read (0.5 flop per byte in f32). The roundings of
 // K8 and native_dots add a few instructions per element and no bytes.
-// Design: K6 runs the kernel of decode_attn.cuh on contiguous rows (one
-// block of four warps per (sequence, head), a per-warp online softmax in
-// registers, one merge). K8 runs the KV-group kernel (one block per
-// (sequence, KV head, split) for the whole query group, rows staged in
-// shared memory by cp.async, splits merged in a cluster): on K6's kernel
-// it read each row once per query head, 8 times at TinyLlama's group of 8,
-// and took 0.294 ms there against a 0.010 bound. native_dots reads K twice
-// (the first pass only for the block maxima, kept in shared memory: at
-// most kMaxBlocks blocks).
+// Design: K6 and K8 run the KV-group kernel (one block per (sequence, KV
+// head, split) for the whole query group, rows staged in shared memory by
+// cp.async, splits merged in a cluster), at the launch of rows_plan. The
+// kernel K6 ran before (decode_attn.cuh: one block of four warps per
+// (sequence, query head), rows loaded straight from device memory, no
+// staging) read each row once per query head, 8 times at TinyLlama's group
+// of 8 (0.295 ms there against a 0.010 bound), and launched B x H blocks
+// at small batches. native_dots reads K twice (the first pass only for the
+// block maxima, kept in shared memory: at most kMaxBlocks blocks).
 #include "decode_attn.cuh"
 #include "decode_attn_kv_group.cuh"
 
 namespace {
 
-cudaError_t launch_k6(const void* q, const void* kv, const void* lengths,
-                      void* out, int batch, int heads, int kvh, int d,
-                      int cap, int bf16, float scale, cudaStream_t stream) {
-  using decode_attn::Contiguous;
-  using decode_attn::kernel;
-  const long long f = (long long)kvh * d;
-  const Contiguous addr{cap, 2 * f, d};
-  const dim3 grid(heads, batch);
-  if (batch > 0) {
-    if (bf16) {
-      const __nv_bfloat16* rows = (const __nv_bfloat16*)kv;
-      kernel<__nv_bfloat16, Contiguous>
-          <<<grid, decode_attn::kThreads, 0, stream>>>(
-              (const float*)q, rows, rows + f, (const int*)lengths,
-              (float*)out, heads, kvh, d, addr, scale);
-    } else {
-      const float* rows = (const float*)kv;
-      kernel<float, Contiguous>
-          <<<grid, decode_attn::kThreads, 0, stream>>>(
-              (const float*)q, rows, rows + f, (const int*)lengths,
-              (float*)out, heads, kvh, d, addr, scale);
-    }
-  }
-  return cudaGetLastError();
+// K6 (kExact) or K8 (kFlat) on a contiguous f32 or bf16 cache.
+template <int kMode>
+int launch_rows(const void* q, const void* kv, const void* lengths,
+                void* out, int batch, int heads, int kvh, int d, int cap,
+                int bf16, int splits, int unit, int hpw, int hg, int warps,
+                float scale, void* stream) {
+  using kv_group::launch;
+  const kv_group::Rows addr{cap};
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(bf16 ? launch<__nv_bfloat16, kv_group::Rows, kMode, true>(
+                          q, kv, nullptr, lengths, out, nullptr, batch,
+                          heads, kvh, d, addr, splits, unit, hpw, hg, warps,
+                          scale, st)
+                    : launch<float, kv_group::Rows, kMode, true>(
+                          q, kv, nullptr, lengths, out, nullptr, batch,
+                          heads, kvh, d, addr, splits, unit, hpw, hg, warps,
+                          scale, st));
 }
 
 constexpr int kMaxBlocks = 512;   // capacity / block_k for native_dots
@@ -213,39 +206,33 @@ __global__ void native_dots_kernel(const float* __restrict__ q,
 
 }  // namespace
 
-// K6. bf16: 0 f32 cache, 1 bf16 cache. The wrapper checks d % 64 == 0,
-// d <= 256, shapes and contiguity.
+// K6 (kv_group::kExact) and K8 (kv_group::kFlat: flash_decode_flat's
+// float mode with q_bf16), each at the launch of rows_plan: `splits`
+// chunks a sequence (1 to 8, one cluster) of whole `unit`-row units; hpw
+// query heads a warp, hg head groups, warps 4 or 8 a block
+// (kv_group::launch). bf16: 0 f32 cache, 1 bf16 cache. d 64 to 256 in
+// steps of 64. The wrapper checks shapes, contiguity and 16-byte alignment
+// of the cache.
 extern "C" int decode_attn_float(const void* q, const void* kv,
                                  const void* lengths, void* out, int batch,
                                  int heads, int kvh, int d, int cap,
-                                 int bf16, float scale, void* stream) {
-  return (int)launch_k6(q, kv, lengths, out, batch, heads, kvh, d, cap,
-                        bf16, scale, (cudaStream_t)stream);
+                                 int bf16, int splits, int unit, int hpw,
+                                 int hg, int warps, float scale,
+                                 void* stream) {
+  return launch_rows<kv_group::kExact>(q, kv, lengths, out, batch, heads,
+                                       kvh, d, cap, bf16, splits, unit, hpw,
+                                       hg, warps, scale, stream);
 }
 
-// K8: flash_decode_flat's float mode with q_bf16 (kv_group::kFlat), at the
-// launch of rows_plan: `splits` chunks a sequence (1 to 8, one cluster) of
-// whole `unit`-row units; hpw query heads a warp, hg head groups, warps 4
-// or 8 a block (kv_group::launch). bf16: 0 f32 cache, 1 bf16 cache. d 64
-// to 256 in steps of 64, as K6's kernel took. The wrapper checks shapes,
-// contiguity and 16-byte alignment.
 extern "C" int decode_attn_flat_float(const void* q, const void* kv,
                                       const void* lengths, void* out,
                                       int batch, int heads, int kvh, int d,
                                       int cap, int bf16, int splits,
                                       int unit, int hpw, int hg, int warps,
                                       float scale, void* stream) {
-  using kv_group::launch;
-  const kv_group::Rows addr{cap};
-  cudaStream_t st = (cudaStream_t)stream;
-  return (int)(bf16 ? launch<__nv_bfloat16, kv_group::Rows, kv_group::kFlat,
-                             true>(q, kv, nullptr, lengths, out, nullptr,
-                                   batch, heads, kvh, d, addr, splits, unit,
-                                   hpw, hg, warps, scale, st)
-                    : launch<float, kv_group::Rows, kv_group::kFlat, true>(
-                          q, kv, nullptr, lengths, out, nullptr, batch,
-                          heads, kvh, d, addr, splits, unit, hpw, hg, warps,
-                          scale, st));
+  return launch_rows<kv_group::kFlat>(q, kv, lengths, out, batch, heads,
+                                      kvh, d, cap, bf16, splits, unit, hpw,
+                                      hg, warps, scale, stream);
 }
 
 // native_dots over blocks of block_k rows (on an f32 cache the roundings

@@ -4,8 +4,9 @@
 // (f32 or bf16): the kernel of decode_attn_paged.cu (P3i on an int8 pool,
 // P3 and its grid mode on an f32 pool: rows through the page table), of
 // decode_attn_grouped_int8.cu's G1 and G2 (contiguous int8 rows, exact q or
-// int8 scores), of decode_attn_float.cu's K8 (contiguous f32 or bf16 rows,
-// flash_decode_flat's roundings), of verify_attn.cu's V1 (S <= 8 verify
+// int8 scores), of decode_attn_float.cu's K6 and K8 (contiguous f32 or
+// bf16 rows, exact or with flash_decode_flat's roundings), of
+// verify_attn.cu's V1 (S <= 8 verify
 // queries a sequence over contiguous f32, bf16 or int8 rows) and of
 // decode_attn_append.cu's A1 (contiguous f32 or bf16 rows, the decode
 // append written by the same launch).
@@ -839,7 +840,8 @@ cudaError_t launch_one(const float* q, const T* kv,
 // 32), kHG head groups of warps sharing each staged row (a block serves
 // kHpw * kHG heads) and 4 or 8 warps; the ring is tile_rows x ring_stages
 // for T at D. These are the tilings built; D above 128 only for kWide
-// (P3i, P3 and K8: K6's kernel took D up to 256 there). The wrapper checks
+// (P3i, P3, K6 and K8: the per-head kernel of decode_attn.cuh took D up
+// to 256 there). The wrapper checks
 // shapes, contiguity, 16-byte alignment, a paged chunk's page ids and
 // 1 <= splits <= kMaxSplits.
 template <typename T, typename Addr, int kMode, bool kWide>

@@ -17,9 +17,9 @@
 //
 // Bound on the H100: bytes. Each live row of K and V is read once per kv
 // head: B * L * 2 * KVH * D elements (at B 16, 8 KV heads of 128 and L
-// 544, 36 MB of f32, 10.6 us at 3.35 TB/s). Design: K6's block of four
-// warps per (sequence, query head) with the Split addressing (row stride
-// D, head stride S * D).
+// 544, 36 MB of f32, 10.6 us at 3.35 TB/s). Design: decode_attn.cuh's
+// block of four warps per (sequence, query head) with the Split
+// addressing (row stride D, head stride S * D).
 #include "decode_attn.cuh"
 
 // bf16: 0 f32 planes, 1 bf16 planes. The wrapper checks d % 64 == 0,

@@ -18,26 +18,25 @@
 // k and v are f32 rows [B, KVH*D] with row strides k_stride / v_stride
 // (elements). P1: an f32 pool. P2: an int8 pool [n_pages, page, 2, KVH*D]
 // and bf16 scales [n_pages, page, 2, KVH], quantized per (plane, head) by
-// kv_quant.cuh, bit for bit with the reference's quantizer. Two sequences
+// kv_quant.cuh's quantize_row_lanes8, bit for bit with the reference's
+// quantizer. Two sequences
 // that resolve to the same row (dead slots in page 0) race; only garbage
 // is written there.
 //
 // Bound on the H100: bytes. At batch 256, KVH*D = 768 it reads 1.6 MB of
 // f32 rows and writes 1.6 MB (P1) or 0.4 MB and 12 KB of scales (P2), about
-// 1 us at 3.35 TB/s; launch latency dominates. Design: K5's (one thread per
-// element, coalesced) and K7's (one warp per (sequence, plane, head)) with
-// page addressing. The file must not be compiled with -use_fast_math.
-#include "kv_quant.cuh"
+// 1 us at 3.35 TB/s; launch latency dominates. Design: P1 is K5's (one
+// thread per element, coalesced) with P2's page addressing
+// (kvappend::PagedSlots). P2 is K7's kernel
+// (kv_append_int8.cuh: eight lanes a row, four rows a warp, an all-zero
+// row not divided) with the PagedSlots addressing: each lane issues its
+// source loads and the length's, then the table load at the length's
+// page, and quantizes the row while that is in flight. It ran one warp a
+// row before, its source loads behind the chain length -> table. The file
+// must not be compiled with -use_fast_math.
+#include "kv_append_int8.cuh"
 
 namespace {
-
-__device__ inline long long paged_row(const int* table, const int* lengths,
-                                      int b, int page, int max_pages) {
-  const int len = max(lengths[b], 0);
-  const int idx = min(len / page, max_pages - 1);
-  const int id = max(table[(long long)b * max_pages + idx], 0);
-  return (long long)id * page + len % page;
-}
 
 __global__ void kv_append_paged_kernel(const float* __restrict__ k,
                                        const float* __restrict__ v,
@@ -52,31 +51,10 @@ __global__ void kv_append_paged_kernel(const float* __restrict__ k,
   const int c = (int)(i % f);
   const int plane = (int)((i / f) % 2);
   const int b = (int)(i / (2LL * f));
-  const long long r = paged_row(table, lengths, b, page, max_pages);
+  const kvappend::PagedSlots addr{table, lengths, page, max_pages};
+  const long long r = addr.row(b, addr.locate(b));
   pool[(r * 2 + plane) * f + c] = plane == 0 ? k[(long long)b * k_stride + c]
                                              : v[(long long)b * v_stride + c];
-}
-
-__global__ void kv_append_paged_int8_kernel(
-    const float* __restrict__ k, const float* __restrict__ v, int k_stride,
-    int v_stride, int8_t* __restrict__ pool,
-    __nv_bfloat16* __restrict__ scales, const int* __restrict__ table,
-    const int* __restrict__ lengths, int batch, int page, int max_pages,
-    int kvh, int d) {
-  const long long warp =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (warp >= (long long)batch * 2 * kvh) return;
-  const int h = (int)(warp % kvh);
-  const int plane = (int)((warp / kvh) % 2);
-  const int b = (int)(warp / (2 * kvh));
-  const long long f = (long long)kvh * d;
-  const float* src = plane == 0 ? k + (long long)b * k_stride
-                                : v + (long long)b * v_stride;
-  const long long row =
-      paged_row(table, lengths, b, page, max_pages) * 2 + plane;
-  kvquant::quantize_row(src + (long long)h * d,
-                        pool + row * f + (long long)h * d,
-                        scales + row * kvh + h, d);
 }
 
 }  // namespace
@@ -97,21 +75,17 @@ extern "C" int kv_append_paged(const void* k, const void* v, int k_stride,
   return (int)cudaGetLastError();
 }
 
+// wide: 1 for the wide instance (the wrapper checks d 64 or 128 and every
+// row 16-byte aligned), 0 for the narrow one.
 extern "C" int kv_append_paged_int8(const void* k, const void* v,
                                     int k_stride, int v_stride, void* pool,
                                     void* scales, const void* table,
                                     const void* lengths, int batch, int page,
-                                    int max_pages, int kvh, int d,
+                                    int max_pages, int kvh, int d, int wide,
                                     void* stream) {
-  const long long threads = (long long)batch * 2 * kvh * 32;
-  const int block = 256;
-  const long long grid = (threads + block - 1) / block;
-  if (grid > 0) {
-    kv_append_paged_int8_kernel<<<(unsigned)grid, block, 0,
-                                  (cudaStream_t)stream>>>(
-        (const float*)k, (const float*)v, k_stride, v_stride, (int8_t*)pool,
-        (__nv_bfloat16*)scales, (const int*)table, (const int*)lengths,
-        batch, page, max_pages, kvh, d);
-  }
-  return (int)cudaGetLastError();
+  const kvappend::PagedSlots addr{(const int*)table, (const int*)lengths,
+                                  page, max_pages};
+  return (int)kvappend::launch(k, v, k_stride, v_stride, pool, scales,
+                               batch, kvh, d, wide, addr,
+                               (cudaStream_t)stream);
 }

@@ -17,16 +17,19 @@
 * ``decode_attn_int8_partials`` launches the same kernel in its partials
   mode: ``flash_decode_flat(partials=True)``, the unnormalized state for a
   merge across capacity shards, with q rounded to bf16 or exact.
-* ``decode_attn_float`` (CUDA, ``csrc/decode_attn_float.cu``, K6) replaces
-  ``flash_decode_grouped`` (:1039) and ``flash_decode_fused`` (:318) on
-  float caches: f32 q, an f32 or bf16 cache read as f32, f32 sums and
-  output. ``decode_attn_native_dots`` runs its layout with the roundings
-  of ``flash_decode_grouped``'s ``native_dots``. ``decode_attn_flat_float``
-  (K8, the same source, on the KV-group kernel of
-  ``csrc/decode_attn_kv_group.cuh``) replaces ``flash_decode_flat``'s float
-  mode (:1715, ``q_bf16``) with its roundings.
-* ``decode_attn_split_kv`` (CUDA, ``csrc/decode_attn_split.cu``, K9, K6's
-  kernel over separate K and V planes) replaces ``flash_decode`` (:2647).
+* ``decode_attn_float`` (CUDA, ``csrc/decode_attn_float.cu``, K6, on the
+  KV-group kernel of ``csrc/decode_attn_kv_group.cuh`` in its exact mode)
+  replaces ``flash_decode_grouped`` (:1039), ``flash_decode_fused`` (:318)
+  and ``flash_decode_stream`` (:542) on float caches: f32 q, an f32 or
+  bf16 cache read as f32, f32 sums and output. ``decode_attn_flat_float``
+  (K8, the same source and kernel in its flat mode) replaces
+  ``flash_decode_flat``'s float mode (:1715, ``q_bf16``) with its
+  roundings. ``decode_attn_native_dots`` (a kernel of its own in the same
+  source) adds the roundings of ``flash_decode_grouped``'s
+  ``native_dots``.
+* ``decode_attn_split_kv`` (CUDA, ``csrc/decode_attn_split.cu``, K9, the
+  per-head kernel of ``csrc/decode_attn.cuh`` over separate K and V
+  planes) replaces ``flash_decode`` (:2647).
 * ``decode_attn_paged`` and ``decode_attn_paged_grid`` (P3 and its grid
   mode, f32 pools) and ``decode_attn_paged_int8`` (P3i) (CUDA,
   ``csrc/decode_attn_paged.cu``, on the KV-group kernel of
@@ -500,24 +503,26 @@ def _float_plain(name, q, kv, lengths, scale, flat=False):
     return _bf16(out) if flat else out
 
 
-def _launch_float(wrapper, symbol, q, kv, lengths, scale, *flags):
-    """K6's kernel (``csrc/decode_attn_float.cu``, entry ``symbol``) on
-    CUDA tensors; ``flags`` are the entry's int mode arguments after the
-    cache dtype. Counts the launch on ``wrapper``."""
+def _launch_rows_float(wrapper, q, kv, lengths, scale, plan=None):
+    """K6 (``decode_attn_float``) or K8 (``decode_attn_flat_float``) on CUDA
+    tensors: the KV-group kernel over the float cache in the wrapper's mode
+    (the C entry of the wrapper's name in ``csrc/decode_attn_float.cu``) at
+    ``plan`` (default :func:`rows_plan`'s); counts the launch on
+    ``wrapper``."""
     name = wrapper.__name__
     b, h, d, kvh, cap = _check_float(q, kv, lengths, name)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    _build.require(d % 64 == 0 and d <= 256, name,
-                   f"head_dim {d} must be a multiple of 64 up to 256")
-    _build.require(all(x.is_contiguous() for x in (q, kv, lengths)), name,
-                   "tensors must be contiguous")
+    _kv_group_head_dim(name, d)
+    plan = plan or rows_plan(b, h, kvh, cap, d)
+    _check_kv_group(name, (q, kv, lengths), plan)
     out = torch.empty_like(q)
-    fn = _build.function("decode_attn_float", symbol,
-                         "ppppiiiiii" + "i" * len(flags) + "fp")
+    fn = _build.function("decode_attn_float", name, "ppppiiiiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), lengths.data_ptr(), out.data_ptr(),
              b, h, kvh, d, cap, int(kv.dtype == torch.bfloat16),
-             *(int(f) for f in flags), float(scale), _build.stream())
+             plan["splits"], plan["unit"], plan["heads_per_warp"],
+             plan["head_groups"], plan["warps"], float(scale),
+             _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
     return out
@@ -530,17 +535,21 @@ def decode_attn_float_plain(q, kv, lengths, scale=None):
 
 
 def decode_attn_float(q, kv, lengths, scale=None):
-    """Decode attention for one query per sequence over a float cache.
+    """Decode attention for one query per sequence over a float cache: the
+    contract of ``flash_decode_grouped`` (attention.py:1039), of
+    ``flash_decode_fused`` (:318) and of ``flash_decode_stream`` (:542) in
+    their float modes.
 
     q f32 [B, H, D]; kv f32 or bf16 [B, cap, 2, KVH*D] (plane 0 K, plane 1
-    V); lengths int32 [B]. Reads tokens ``[0, min(lengths, cap))``; scores,
-    softmax and sums in f32. Returns f32 [B, H, D] (zeros where a length is
-    0). CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise."""
+    V); lengths int32 [B]. Reads tokens ``[0, min(max(lengths, 0), cap))``;
+    scores, softmax and sums in f32. Returns f32 [B, H, D] (zeros where a
+    length is 0). CPU tensors take the plain version; CUDA tensors launch
+    the kernel (the KV-group kernel in its exact mode, a block per KV head
+    for up to 8 query heads of its group, :func:`rows_plan`; head_dim 64 to
+    256 in steps of 64; the cache 16-byte aligned) or raise."""
     if _build.on_cpu("decode_attn_float", q, kv, lengths):
         return decode_attn_float_plain(q, kv, lengths, scale)
-    return _launch_float(decode_attn_float, "decode_attn_float", q, kv,
-                         lengths, scale)
+    return _launch_rows_float(decode_attn_float, q, kv, lengths, scale)
 
 
 decode_attn_float.launches = 0
@@ -572,33 +581,11 @@ def decode_attn_flat_float(q, kv, lengths, scale=None):
     steps of 64) or raise."""
     if _build.on_cpu("decode_attn_flat_float", q, kv, lengths):
         return decode_attn_flat_float_plain(q, kv, lengths, scale)
-    return _launch_flat_float(q, kv, lengths, scale)
+    return _launch_rows_float(decode_attn_flat_float, q, kv, lengths,
+                              scale)
 
 
 decode_attn_flat_float.launches = 0
-
-
-def _launch_flat_float(q, kv, lengths, scale, plan=None):
-    """K8 on CUDA tensors: the KV-group kernel in its flat mode at ``plan``
-    (default :func:`rows_plan`'s); counts the launch."""
-    name = "decode_attn_flat_float"
-    b, h, d, kvh, cap = _check_float(q, kv, lengths, name)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    _kv_group_head_dim(name, d)
-    plan = plan or rows_plan(b, h, kvh, cap, d)
-    _check_kv_group(name, (q, kv, lengths), plan)
-    out = torch.empty_like(q)
-    fn = _build.function("decode_attn_float", "decode_attn_flat_float",
-                         "ppppiiiiiiiiiiifp")
-    err = fn(q.data_ptr(), kv.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             b, h, kvh, d, cap, int(kv.dtype == torch.bfloat16),
-             plan["splits"], plan["unit"], plan["heads_per_warp"],
-             plan["head_groups"], plan["warps"], float(scale),
-             _build.stream())
-    _build.check(err, name)
-    decode_attn_flat_float.launches += 1
-    return out
 
 
 NATIVE_MAX_BLOCKS = 512           # the kernel keeps a max per block
@@ -657,8 +644,21 @@ def decode_attn_native_dots(q, kv, lengths, block_k=64, group=8, scale=None):
                    <= NATIVE_MAX_BLOCKS, name,
                    f"block {blk} must divide by 4 and the capacity hold at "
                    f"most {NATIVE_MAX_BLOCKS} blocks")
-    return _launch_float(decode_attn_native_dots, name, q, kv, lengths,
-                         scale, blk)
+    b, h, d, kvh, cap = _check_float(q, kv, lengths, name)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d % 64 == 0 and d <= 256, name,
+                   f"head_dim {d} must be a multiple of 64 up to 256")
+    _build.require(all(x.is_contiguous() for x in (q, kv, lengths)), name,
+                   "tensors must be contiguous")
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_float", name, "ppppiiiiiiifp")
+    err = fn(q.data_ptr(), kv.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             b, h, kvh, d, cap, int(kv.dtype == torch.bfloat16), blk,
+             float(scale), _build.stream())
+    _build.check(err, name)
+    decode_attn_native_dots.launches += 1
+    return out
 
 
 decode_attn_native_dots.launches = 0
@@ -819,8 +819,8 @@ def _paged_plain(name, q, pool, scales, table, lengths, scale,
 # csrc/decode_attn_kv_group.cuh moves its rows a tile at a time through a
 # ring of stages in shared memory and serves every query row of the KV
 # head's group from it: P3i (int8 pool), P3 and its grid mode (f32 pool), G1
-# and G2 (contiguous int8 rows), K8 and A1 (contiguous f32 or bf16 rows; A1
-# writes the new row too) and V1 (contiguous f32, bf16 or int8 rows; S x rep
+# and G2 (contiguous int8 rows), K6, K8 and A1 (contiguous f32 or bf16 rows;
+# A1 writes the new row too) and V1 (contiguous f32, bf16 or int8 rows; S x rep
 # query rows a group). A sequence
 # splits into chunks (one thread-block cluster, merged in the same launch)
 # only where B x KVH leaves the card short of this many blocks, and a launch
@@ -900,9 +900,9 @@ def paged_plan(batch, heads, kvh, page, max_pages, head_dim=64, splits=None,
 
 def rows_plan(batch, heads, kvh, cap, head_dim=128, splits=None, warps=None):
     """The launch of the KV-group kernel over a contiguous cache (G1's int8
-    rows, exact q or int8 scores, without ``pv_int8``, and G2's; K8's and
-    A1's f32 or bf16 rows): the plan of :func:`paged_plan` with chunks of
-    whole KV_GROUP_UNIT-row units."""
+    rows, exact q or int8 scores, without ``pv_int8``, and G2's; K6's, K8's
+    and A1's f32 or bf16 rows): the plan of :func:`paged_plan` with chunks
+    of whole KV_GROUP_UNIT-row units."""
     return _kv_group_plan(batch, heads, kvh, head_dim, KV_GROUP_UNIT,
                           -(-cap // KV_GROUP_UNIT), 1, splits, warps)
 

@@ -14,7 +14,9 @@
   ``csrc/kv_append_paged.cu``) replace ``paged_append`` (:94) and
   ``paged_append_quant`` (:280, with the quantization before it): the
   decode appends into a block-paged pool, page and offset resolved from
-  the page table inside the kernel.
+  the page table inside the kernel. ``kv_append_paged_int8`` runs
+  ``kv_append_int8``'s kernel (``csrc/kv_append_int8.cuh``) through the
+  page table.
 
 The cache layout is the port's byte-addressable one (int8
 ``[B, cap, 2, KVH*D]``, bf16 scales ``[B, cap, 2, KVH]``; pools
@@ -174,12 +176,13 @@ def kv_append_int8_plain(kv, scales, k, v, pos, masked=False):
 
 
 def kv_append_int8_wide(d, kv, kr, vr):
-    """Whether K7 takes its wide instance: head_dim 64 or 128 (every
-    preset's but the small test configuration's 16; D / 8 values a lane:
-    16-byte loads and one 8- or 16-byte store), the f32 rows ``kr``/``vr``
-    and the int8 cache 16-byte aligned (data pointers, and row strides in
-    whole 16-byte units). Else its narrow instance (scalar loads, byte
-    stores) serves the call: every head_dim, any alignment."""
+    """Whether K7 (and P2, the same kernel) takes its wide instance:
+    head_dim 64 or 128 (every preset's but the small test configuration's
+    16; D / 8 values a lane: 16-byte loads and one 8- or 16-byte store),
+    the f32 rows ``kr``/``vr`` and the int8 cache or pool ``kv`` 16-byte
+    aligned (data pointers, and row strides in whole 16-byte units). Else
+    its narrow instance (scalar loads, byte stores) serves the call: every
+    head_dim, any alignment."""
     return (d in (64, 128) and kv.data_ptr() % 16 == 0
             and all(x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0
                     for x in (kr, vr)))
@@ -312,7 +315,9 @@ def kv_append_paged_int8(pool, scales, k, v, table, lengths):
     pool int8 [n_pages, page, 2, KVH*D]; scales bf16 [n_pages, page, 2,
     KVH]; k, v f32 [B, KVH, 1, D] (strided views are fine); table int32
     [B, P]; lengths int32 [B]. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel (``kv_append_int8``'s, eight lanes a row,
+    the row's page read from the table while the row is quantized; its
+    wide or narrow instance by :func:`kv_append_int8_wide`) or raise."""
     name = "kv_append_paged_int8"
     if _build.on_cpu(name, pool, scales, k, v, table, lengths):
         return kv_append_paged_int8_plain(pool, scales, k, v, table, lengths)
@@ -322,10 +327,11 @@ def kv_append_paged_int8(pool, scales, k, v, table, lengths):
                        for x in (pool, scales, table, lengths)), name,
                    "pool, scales, table and lengths must be contiguous")
     kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
-    fn = _build.function("kv_append_paged", name, "ppiippppiiiiip")
+    fn = _build.function("kv_append_paged", name, "ppiippppiiiiiip")
     err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
              pool.data_ptr(), scales.data_ptr(), table.data_ptr(),
-             lengths.data_ptr(), b, page, n_p, kvh, d, _build.stream())
+             lengths.data_ptr(), b, page, n_p, kvh, d,
+             int(kv_append_int8_wide(d, pool, kr, vr)), _build.stream())
     _build.check(err, name)
     kv_append_paged_int8.launches += 1
 

@@ -1,6 +1,7 @@
 """The KV-group kernel (``csrc/decode_attn_kv_group.cuh``) at its serving
 paths' shapes, against its own launch choices and the designs it replaced,
-and K7 against variants of its source, on one card in one call.
+and K7, K6 and P2 against variants of their sources, on one card in one
+call.
 
 Float rows:
 
@@ -10,13 +11,16 @@ Float rows:
   page of each sequence unmapped, K8 (``decode_attn_flat_float``) at path
   (I)'s (B 256, 12 heads of 64, an f32 cache of capacity 512, lives
   65-176), at (I-bf16)'s (the same on a bf16 cache) and at TinyLlama's
-  (B 16, 32 heads over 4 KV heads, capacity 2048, lives 65-1999);
+  (B 16, 32 heads over 4 KV heads, capacity 2048, lives 65-1999), and K6
+  (``decode_attn_float``) at path (A)'s (the shape of (I)), at (C)'s (the
+  same on a bf16 cache), at batch 3 (the reference's fused fallback) and
+  at TinyLlama's;
 * each at the float ring's tilings: tiles of 16, 32 and 64 rows at head_dim
   64 in 2 or 3 stages (the header's kF32Rows, kBf16Rows and kFloatStages,
   each tiling built from a copy of the header with that line patched, one
   ``nvcc`` a library, all started together), with blocks of 4 or 8 warps;
-  a split launch (the grid mode, TinyLlama's K8) also at half and twice
-  its splits.
+  a split launch (the grid mode, K6 at batch 3, TinyLlama's K6 and K8)
+  also at half and twice its splits.
 
 int8 rows:
 
@@ -78,6 +82,20 @@ K7 (``--skip k7`` leaves it out):
   values and divisions a lane). Each time in two rounds of turns; each
   variant but ``no_divide`` held bit for bit against the plain version.
 
+K6 and P2 (``--skip k6``, ``--skip p2`` leave them out):
+
+* K6 (``decode_attn_float``) at path (A)'s shapes (K8's at (I)), at (C)'s
+  (the same on a bf16 cache), at batch 3 and at TinyLlama's GQA, built as
+  shipped and as the design before (``per_head``: the per-head kernel of
+  ``csrc/decode_attn.cuh`` on contiguous rows), each held to 1e-5 of max
+  |out| against the plain version;
+* P2 (``kv_append_paged_int8``) at ``chip_smoke.py``'s (D) case, with and
+  without its all-zero head (its inputs and timer, imported from it),
+  built as shipped and as the design before (``one_warp_a_row``: one warp
+  a row through ``kvquant::quantize_row``, 256 threads a block), each bit
+  for bit against the plain version;
+* each in two rounds of turns with ``chip_smoke.py``'s timer.
+
 Each line: the device time (CUDA events, cold L2, warm median) in two
 rounds, its share of the byte bound, and the error against the plain
 version as a share of its tolerance (1e-5 of max |out|; K8, whose output is
@@ -88,7 +106,7 @@ full of dirty lines that the kernel's reads must first write back), and
 after a read of the same 256 MB (the L2 cold and clean).
 
     python -m rten_tpu_torch.tools.kv_group_variants \
-        [--skip int8|float|verify|append|k7]
+        [--skip int8|float|verify|append|k7|k6|p2]
 
 Builds go to ``rten_tpu_torch/build/kv_group_variants/``. Needs one NVIDIA
 card and nvcc; without a card it exits non-zero.
@@ -223,7 +241,6 @@ ONE_WARP_A_ROW = """__global__ void one_warp_a_row(
                         scales + row * kvh + h, d);
 }
 
-}  // namespace
 """
 K7_DISPATCH = """  if (!wide)
     KV_APPEND_INT8(0);
@@ -232,7 +249,8 @@ K7_DISPATCH = """  if (!wide)
   else
     KV_APPEND_INT8(16);
 """
-K7_SOURCE = "kv_append_int8.cu"
+K7_SOURCE = "kv_append_int8.cuh"
+K7_LAUNCH = "template <typename Addr>\ncudaError_t launch("
 K7_LOADS = "  if constexpr (kDpl > 0) {\n    float x[kDpl];\n"
 K7_ZERO_ROW = """  if (amax == 0.0f) {
 #pragma unroll
@@ -243,14 +261,14 @@ K7_ZERO_ROW = """  if (amax == 0.0f) {
 K7_VARIANTS = {
     "shipped": [],
     "one_warp_a_row": [
-        (K7_SOURCE, "}  // namespace\n", ONE_WARP_A_ROW),
+        (K7_SOURCE, K7_LAUNCH, ONE_WARP_A_ROW + K7_LAUNCH),
         (K7_SOURCE, K7_DISPATCH,
          "  one_warp_a_row<<<(unsigned)((threads * 4 + 255) / 256), 256, 0,"
-         " st>>>(\n      kf, vf, k_stride, v_stride, kv8, sc, ps, batch, cap,"
-         " kvh, d, masked);\n")],
+         " stream>>>(\n      kf, vf, k_stride, v_stride, kv8, sc, addr.pos,"
+         " batch, addr.cap, kvh, d, addr.masked);\n")],
     "position_first": [
         (K7_SOURCE, K7_LOADS,
-         "  if ((on ? __ldg(pos_in + b) : 0) < -(1 << 30)) return;\n"
+         "  if ((on ? addr.locate(b) : 0) < -(1 << 30)) return;\n"
          + K7_LOADS)],
     "no_divide": [("kv_quant.cuh", "rintf(__fdiv_rn(x, sf))",
                    "rintf(x * sf)")],
@@ -273,6 +291,101 @@ K7_VARIANTS = {
         ("kv_quant.cuh", "  return (int)fminf(fmaxf(rintf(__fdiv_rn(x, sf))",
          "  return x == 0.0f ? 0 : (int)fminf(fmaxf(rintf(__fdiv_rn("
          "x == 0.0f ? 1.0f : x, sf))")],
+}
+
+
+# K6's design before: the per-head kernel of decode_attn.cuh (a block of
+# four warps per (sequence, query head), rows loaded straight from device
+# memory) on contiguous rows, launched as it was.
+K6_SOURCE = "decode_attn_float.cu"
+K6_PER_HEAD = """// Token rows of a contiguous [B, cap, 2, KVH*D] cache (V = K + KVH*D).
+struct Contiguous {
+  int cap;
+  long long row_stride, head_stride;  // 2 * KVH * D, D
+  __device__ int capacity() const { return cap; }
+  __device__ long long row(int b, int t) const {
+    return (long long)b * cap + t;
+  }
+};
+
+int per_head(const void* q, const void* kv, const void* lengths, void* out,
+             int batch, int heads, int kvh, int d, int cap, int bf16,
+             float scale, void* stream) {
+  using decode_attn::kernel;
+  const long long f = (long long)kvh * d;
+  const Contiguous addr{cap, 2 * f, d};
+  const dim3 grid(heads, batch);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (batch > 0 && bf16) {
+    const __nv_bfloat16* rows = (const __nv_bfloat16*)kv;
+    kernel<__nv_bfloat16, Contiguous><<<grid, decode_attn::kThreads, 0, st>>>(
+        (const float*)q, rows, rows + f, (const int*)lengths, (float*)out,
+        heads, kvh, d, addr, scale);
+  } else if (batch > 0) {
+    const float* rows = (const float*)kv;
+    kernel<float, Contiguous><<<grid, decode_attn::kThreads, 0, st>>>(
+        (const float*)q, rows, rows + f, (const int*)lengths, (float*)out,
+        heads, kvh, d, addr, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+"""
+K6_ENTRY = "  return launch_rows<kv_group::kExact>("
+K6_VARIANTS = {
+    "shipped": [],
+    "per_head": [
+        (K6_SOURCE, "}  // namespace\n", K6_PER_HEAD),
+        (K6_SOURCE, K6_ENTRY,
+         "  return per_head(q, kv, lengths, out, batch, heads, kvh, d, cap,"
+         " bf16, scale, stream);\n" + K6_ENTRY)],
+}
+# (label, cache dtype, flat_inputs' shape) of K6's cases.
+K6_CASES = (("(A)", torch.float32, {}), ("(C)", torch.bfloat16, {}),
+            ("batch 3", torch.float32, dict(b=3)),
+            ("TinyLlama's GQA", torch.float32,
+             dict(b=16, h=32, kvh=4, cap=2048, lives=(65, 2000))))
+# P2's design before: one warp a (sequence, plane, head) row through
+# kvquant::quantize_row, its source loads behind the chain length -> table,
+# 256 threads a block.
+P2_SOURCE = "kv_append_paged.cu"
+P2_ONE_WARP_A_ROW = """__global__ void one_warp_a_row(
+    const float* __restrict__ k, const float* __restrict__ v, int k_stride,
+    int v_stride, int8_t* __restrict__ pool,
+    __nv_bfloat16* __restrict__ scales, const int* __restrict__ table,
+    const int* __restrict__ lengths, int batch, int page, int max_pages,
+    int kvh, int d) {
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (warp >= (long long)batch * 2 * kvh) return;
+  const int h = (int)(warp % kvh);
+  const int plane = (int)((warp / kvh) % 2);
+  const int b = (int)(warp / (2 * kvh));
+  const long long f = (long long)kvh * d;
+  const float* src = plane == 0 ? k + (long long)b * k_stride
+                                : v + (long long)b * v_stride;
+  const kvappend::PagedSlots addr{table, lengths, page, max_pages};
+  const long long row = addr.row(b, addr.locate(b)) * 2 + plane;
+  kvquant::quantize_row(src + (long long)h * d,
+                        pool + row * f + (long long)h * d,
+                        scales + row * kvh + h, d);
+}
+
+}  // namespace
+"""
+P2_ENTRY = "  return (int)kvappend::launch(k, v, k_stride, v_stride, pool, scales,"
+P2_VARIANTS = {
+    "shipped": [],
+    "one_warp_a_row": [
+        (P2_SOURCE, "}  // namespace\n", P2_ONE_WARP_A_ROW),
+        (P2_SOURCE, P2_ENTRY,
+         "  one_warp_a_row<<<(unsigned)((batch * 2LL * kvh * 32 + 255) / "
+         "256), 256, 0,\n      (cudaStream_t)stream>>>((const float*)k, "
+         "(const float*)v, k_stride,\n      v_stride, (int8_t*)pool, "
+         "(__nv_bfloat16*)scales, (const int*)table,\n      (const int*)"
+         "lengths, batch, page, max_pages, kvh, d);\n  return "
+         "(int)cudaGetLastError();\n" + P2_ENTRY)],
 }
 
 
@@ -446,22 +559,29 @@ def float_cases(g):
                 w, *args, None, m, plan),
             lambda s, w, b=b: at.paged_plan(b, 12, 12, 64, 8, 64, s, w),
             plain(*args), n_bytes, False, "decode_attn_paged"))
+    tiny = dict(b=16, h=32, kvh=4, cap=2048, lives=(65, 2000))
     for label, dtype, shape in (
             ("K8 f32 at (I)", torch.float32, {}),
             ("K8 bf16 at (I-bf16)", torch.bfloat16, {}),
-            ("K8 f32 at TinyLlama's shape", torch.float32,
-             dict(b=16, h=32, kvh=4, cap=2048, lives=(65, 2000)))):
+            ("K8 f32 at TinyLlama's shape", torch.float32, tiny),
+            ("K6 f32 at (A)", torch.float32, {}),
+            ("K6 bf16 at (C)", torch.bfloat16, {}),
+            ("K6 f32 at batch 3", torch.float32, dict(b=3)),
+            ("K6 f32 at TinyLlama's shape", torch.float32, tiny)):
         q, kv, lengths, n_bytes = flat_inputs(g, dtype, **shape)
         args = (q, kv, lengths)
         b, h, d = q.shape
         kvh, cap = kv.shape[3] // d, kv.shape[1]
+        flat = label.startswith("K8")
+        wrapper = at.decode_attn_flat_float if flat else at.decode_attn_float
+        plain = getattr(at, wrapper.__name__ + "_plain")
         cases.append((
             label,
-            lambda plan, args=args: at._launch_flat_float(*args, None, plan),
+            lambda plan, args=args, w=wrapper: at._launch_rows_float(
+                w, *args, None, plan),
             lambda s, w, b=b, h=h, kvh=kvh, cap=cap: at.rows_plan(
                 b, h, kvh, cap, 64, s, w),
-            at.decode_attn_flat_float_plain(*args), n_bytes, True,
-            "decode_attn_float"))
+            plain(*args), n_bytes, flat, "decode_attn_float"))
     return cases
 
 
@@ -767,12 +887,18 @@ def append_section(scrub):
     return worst
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` of this checkout, for its inputs and its timer."""
+    sys.path.insert(0, str(_build.CSRC.parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
 def _k7_cases():
     """K7's inputs: chip_smoke.py's (B) and (H) cases, each also without
     its all-zero head and with the model's new rows and positions in their
     place; [(label, (k, v, pos, kv, scales))] and chip_smoke.py's timer."""
-    sys.path.insert(0, str(_build.CSRC.parents[1]))
-    import chip_smoke as cs
+    cs = _chip_smoke()
     g = torch.Generator(device="cuda").manual_seed(19)
     cases = []
     for name, shape, seed, h in (("(B)", cs.K7_B_SHAPE, 8, 12),
@@ -795,6 +921,33 @@ def _k7_cases():
     return cases, cs.Timer()
 
 
+def _turns(lib, dirs, label, cases, timer):
+    """Each variant's library (``dirs``: {name: directory}) in two rounds
+    of turns on each case ((case label, reset, call, held): ``reset()``
+    restores what the call writes, ``call()`` runs the wrapper, ``held()``
+    after it says whether its result is the plain version's, None where
+    the variant is not held); prints one line a case and returns 0, or inf
+    if a held variant's result differs."""
+    worst = 0.0
+    for case, reset, call, held in cases:
+        times = {name: [] for name in dirs}
+        for _ in range(2):
+            for name, src in dirs.items():
+                with library(lib, src / f"lib{lib}.so"):
+                    reset()
+                    call()
+                    ok = held(name)
+                    times[name].append(timer(call))
+                if ok is False:
+                    print(f"  {name} at {case}: not held to the plain "
+                          f"version", flush=True)
+                    worst = float("inf")
+        print(f"{label} at {case}: " + ", ".join(
+            f"{name} " + " / ".join(f"{t:.4f}" for t in ts)
+            for name, ts in times.items()) + " ms", flush=True)
+    return worst
+
+
 def k7_section():
     """K7's variants at chip_smoke.py's cases and the model's rows and
     positions, in two rounds of turns, with chip_smoke.py's timer; returns
@@ -802,35 +955,80 @@ def k7_section():
     version's."""
     dirs = build_patched(K7_VARIANTS, ("kv_append_int8",))
     cases, timer = _k7_cases()
-    worst = 0.0
+    turns = []
     for label, (k, v, pos, kv, scales) in cases:
         want, want_s = kv.clone(), scales.clone()
         kc.kv_append_int8_plain(want, want_s, k, v, pos)
-        times = {name: [] for name in dirs}
-        for _ in range(2):
-            for name, src in dirs.items():
-                got, got_s = kv.clone(), scales.clone()
-                with library("kv_append_int8", src / "libkv_append_int8.so"):
-                    kc.kv_append_int8(got, got_s, k, v, pos)
-                    times[name].append(timer(
-                        lambda: kc.kv_append_int8(got, got_s, k, v, pos)))
-                if name != "no_divide" and not (torch.equal(got, want)
-                                                and torch.equal(got_s,
-                                                                want_s)):
-                    print(f"  {name} at {label}: not bit for bit the plain "
-                          f"version", flush=True)
-                    worst = float("inf")
-        print(f"K7 at {label}: " + ", ".join(
-            f"{name} " + " / ".join(f"{t:.4f}" for t in ts)
-            for name, ts in times.items()) + " ms", flush=True)
-    return worst
+        got, got_s = kv.clone(), scales.clone()
+        turns.append((
+            label,
+            lambda kv=kv, scales=scales, got=got, got_s=got_s: (
+                got.copy_(kv), got_s.copy_(scales)),
+            lambda k=k, v=v, pos=pos, got=got, got_s=got_s:
+                kc.kv_append_int8(got, got_s, k, v, pos),
+            lambda name, got=got, got_s=got_s, want=want, want_s=want_s:
+                None if name == "no_divide" else
+                torch.equal(got, want) and torch.equal(got_s, want_s)))
+    return _turns("kv_append_int8", dirs, "K7", turns, timer)
+
+
+def k6_section(scrub):
+    """K6 (``decode_attn_float``) at K6_CASES, as shipped and as the design
+    before (``per_head``), in two rounds of turns with chip_smoke.py's
+    timer, each held to 1e-5 of max |out| against the plain version;
+    returns the worst held error."""
+    dirs = build_patched(K6_VARIANTS, ("decode_attn_float",))
+    g = torch.Generator(device="cuda").manual_seed(20)
+    turns, errors = [], [0.0]
+    for label, dtype, shape in K6_CASES:
+        q, kv, lengths, n_bytes = flat_inputs(g, dtype, **shape)
+        ref = at.decode_attn_float_plain(q, kv, lengths)
+        out = {}
+        turns.append((
+            f"{label} ({str(dtype)[6:]} cache, bound "
+            f"{n_bytes / PEAK_BYTES_S * 1e3:.4f} ms)",
+            out.clear,
+            lambda q=q, kv=kv, lengths=lengths, out=out: out.update(
+                y=at.decode_attn_float(q, kv, lengths)),
+            lambda name, out=out, ref=ref: errors.append(
+                held_error(out["y"], ref, False)) or errors[-1] <= 1.0))
+    worst = _turns("decode_attn_float", dirs, "K6", turns,
+                   _chip_smoke().Timer())
+    print(f"K6: worst error {max(errors):.3f} of the tolerance", flush=True)
+    return max(worst, max(errors))
+
+
+def p2_section():
+    """P2 (``kv_append_paged_int8``) at chip_smoke.py's (D) case, with and
+    without its all-zero head, as shipped and as the design before
+    (``one_warp_a_row``), in two rounds of turns with chip_smoke.py's
+    timer, each held bit for bit; returns 0, or inf if one differs."""
+    dirs = build_patched(P2_VARIANTS, ("kv_append_paged",))
+    cs = _chip_smoke()
+    turns = []
+    for label, zero in (("chip_smoke.py's (D)", True),
+                        ("(D) without the zero head", False)):
+        k, v, lengths, pool, scales, table = cs.kv_append_paged_inputs(
+            True, zero)
+        want, want_s = pool.clone(), scales.clone()
+        kc.kv_append_paged_int8_plain(want, want_s, k, v, table, lengths)
+        got, got_s = pool.clone(), scales.clone()
+        turns.append((
+            label,
+            lambda pool=pool, scales=scales, got=got, got_s=got_s: (
+                got.copy_(pool), got_s.copy_(scales)),
+            lambda k=k, v=v, t=table, n=lengths, got=got, got_s=got_s:
+                kc.kv_append_paged_int8(got, got_s, k, v, t, n),
+            lambda name, got=got, got_s=got_s, want=want, want_s=want_s:
+                torch.equal(got, want) and torch.equal(got_s, want_s)))
+    return _turns("kv_append_paged", dirs, "P2", turns, cs.Timer())
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--skip",
                         choices=("int8", "float", "verify", "append",
-                                 "k7"),
+                                 "k7", "k6", "p2"),
                         action="append",
                         default=[], help="leave a section out")
     args = parser.parse_args(argv)
@@ -853,6 +1051,10 @@ def main(argv=None):
         worst = max(worst, append_section(scrub))
     if "k7" not in args.skip:
         worst = max(worst, k7_section())
+    if "k6" not in args.skip:
+        worst = max(worst, k6_section(scrub))
+    if "p2" not in args.skip:
+        worst = max(worst, p2_section())
     print(f"worst error {worst:.3f} of the tolerance")
     return 0 if worst <= 1.0 else 1
 

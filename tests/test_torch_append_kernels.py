@@ -1,6 +1,7 @@
-"""The arithmetic of the two decode appends' kernels, redone in torch on the
-CPU and held against the JAX package (CPU backend, Pallas in interpret
-mode), on inputs drawn with numpy:
+"""The arithmetic of the float decode kernels on the KV-group kernel and of
+the int8 decode appends, redone in torch on the CPU and held against the
+JAX package (CPU backend, Pallas in interpret mode), on inputs drawn with
+numpy:
 
 * A1 (``decode_attn_grouped_append``) on the KV-group kernel: the cache
   write of split 0 of each (sequence, KV head), row n - 1 staged from the
@@ -8,10 +9,18 @@ mode), on inputs drawn with numpy:
   chunks of ``rows_plan``, warps and ring tiles, and the splits' (m, l,
   acc) merged with m = -inf weighing 0, against
   ``flash_decode_grouped_append`` on f32 and bf16 caches;
+* K6 (``decode_attn_float``) on the KV-group kernel in its exact mode: the
+  same walk without the write, against ``flash_decode_grouped``,
+  ``flash_decode_fused`` and ``flash_decode_stream`` on f32 and bf16
+  caches;
 * K7 (``kv_append_int8``): its eight-lane quantizer (a lane's absmax over
   its values, then three shuffles within the row's eight lanes), in the
   wide and the narrow lane layouts, bit for bit against
-  ``_quantize_tokens``.
+  ``_quantize_tokens``;
+* P2 (``kv_append_paged_int8``): K7's kernel through the page table (the
+  length, then the table entry at its page, then the quantized row stored
+  lane by lane), bit for bit against the reference's paged decode append
+  (``_quantize_tokens``, then ``paged_append_quant``).
 
 The card tests (tests/test_torch_cuda.py) hold the kernels to their plain
 versions; these hold the kernels' design to the reference."""
@@ -24,8 +33,14 @@ import pytest
 import torch
 
 from rten_tpu.generate.kv_cache import _quantize_tokens
-from rten_tpu.kernels.attention import flash_decode_grouped_append
+from rten_tpu.generate.paged_cache import PagedKVCache as JPagedKVCache
+from rten_tpu.kernels.attention import (flash_decode_fused,
+                                        flash_decode_grouped,
+                                        flash_decode_grouped_append,
+                                        flash_decode_stream)
 from rten_tpu_torch.kernels import attention as at
+from rten_tpu_torch.kernels import cache as kc
+from test_torch_paged import _pools, _with
 from test_torch_spec_kernels import _merge, _tile_rows, _warp_walk
 
 # -- A1 on the KV-group kernel ------------------------------------------------
@@ -40,32 +55,37 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _kv_group_append(q, kv, k, v, lengths, plan):
-    """A1 as the KV-group kernel computes it at ``plan``: returns (out, the
-    cache after the write). The cache it reads is the one it was given: row
-    n - 1 of each sequence comes from the new row rounded to the cache
-    dtype, so the result cannot depend on the order of write and read."""
+def _kv_group_float(q, kv, lengths, plan, new=None):
+    """K6 (``new`` None) or A1 (``new``: the new rows [B, 2, KVH*D] in the
+    cache dtype) as the KV-group kernel computes them at ``plan``: each
+    block of up to 8 query heads of a KV head walks its chunks
+    (``kv_group_chunks``) a ring tile at a time, each row group of warps
+    taking every n_rg-th step of 4 rows; the warps' and then the splits'
+    (m, l, acc) merge with m = -inf weighing 0. Returns (out, the cache
+    after A1's write; K6's is the cache given). A1's cache reads are the
+    cache given: row n - 1 of each sequence comes from the new row, so the
+    result cannot depend on the order of write and read."""
     b, h, d = q.shape
     cap, kvh = kv.shape[1], kv.shape[3] // d
     rep, per = h // kvh, plan["heads_per_warp"] * plan["head_groups"]
     n_rg = plan["warps"] // plan["head_groups"]
     tile = _tile_rows(d, kv.element_size())
     scale = 1.0 / math.sqrt(d)
-    new = torch.stack([k.reshape(b, kvh * d), v.reshape(b, kvh * d)],
-                      dim=1).to(kv.dtype)                  # [B, 2, KVH*D]
     written = kv.clone()
     out = torch.zeros_like(q)
     for bi in range(b):
         n = min(max(int(lengths[bi]), 0), cap)
         pos = min(max(int(lengths[bi]) - 1, 0), cap - 1)
         rows = kv[bi].clone()
-        if n:
+        if new is not None and n:
             rows[n - 1] = new[bi]          # staged from the new row
         x = rows.reshape(cap, 2, kvh, d).to(torch.float32)
         for kh in range(kvh):
-            # Split 0 of the first head block writes the KV head's slice.
-            sl = slice(kh * d, (kh + 1) * d)
-            written[bi, pos, :, sl] = new[bi, :, sl]
+            if new is not None:
+                # Split 0 of the first head block writes the KV head's
+                # slice.
+                sl = slice(kh * d, (kh + 1) * d)
+                written[bi, pos, :, sl] = new[bi, :, sl]
             kk, vv = x[:, 0, kh], x[:, 1, kh]
             for r0 in range(0, rep, per):
                 heads = range(r0, min(r0 + per, rep))
@@ -86,6 +106,15 @@ def _kv_group_append(q, kv, k, v, lengths, plan):
                 for j, r in enumerate(heads):
                     out[bi, kh * rep + r] = o[j]
     return out, written
+
+
+def _kv_group_append(q, kv, k, v, lengths, plan):
+    """A1 as the KV-group kernel computes it at ``plan``: returns (out, the
+    cache after the write)."""
+    b, kvh, _, d = k.shape
+    new = torch.stack([k.reshape(b, kvh * d), v.reshape(b, kvh * d)],
+                      dim=1).to(kv.dtype)                  # [B, 2, KVH*D]
+    return _kv_group_float(q, kv, lengths, plan, new)
 
 
 # (lengths counting the new token, head_dim, splits, warps; None: the
@@ -149,6 +178,82 @@ def test_kv_group_append_plan_leaves_a_split_without_rows():
     chunks = at.kv_group_chunks(45, plan["splits"], plan["unit"])
     assert plan["splits"] == 8 and (45, 45) in chunks
     assert chunks[0] == (0, 16)
+
+
+# -- K6 on the KV-group kernel ------------------------------------------------
+
+# (the reference, batch, heads, KV heads, head_dim, lengths, splits, warps;
+# None: the plan's). MHA and GQA 4:1 at head_dim 64 and 128; the grouped
+# kernel (group 2 divides the batch), the fused one (batch 1 and 3, no
+# group) and the stream one; lengths 0 (zeros), 1, the capacity and past
+# it. The plan at batch 4 and 3 takes 8 splits of 16-row units, so a
+# sequence of 45 or 33 rows leaves splits without a row; 1 to 5 splits and
+# 4 or 8 warps forced.
+K6_CASES = [
+    ("grouped", 4, 8, 2, 64, [0, CAP + 5, 45, CAP - 3], None, None),
+    ("grouped", 4, 4, 4, 128, [1, 17, CAP, 64], 3, 4),
+    ("fused", 3, 8, 2, 64, [33, 0, CAP + 1], None, None),
+    ("fused", 1, 8, 2, 128, [CAP], 5, 8),
+    ("stream", 4, 4, 1, 64, [5, CAP, 97, 1], 2, 8),
+    ("stream", 3, 4, 4, 128, [0, 64, CAP + 9], 1, 4),
+]
+
+
+def _k6_reference(kind, q, kv, lengths, kvh):
+    """The reference's float decode kernel ``kind`` at its block of 64."""
+    args = (jnp.asarray(q), kv, jnp.asarray(lengths), kvh)
+    if kind == "grouped":
+        return flash_decode_grouped(*args, block_k=64, group=2)
+    if kind == "fused":
+        return flash_decode_fused(*args, block_k=64)
+    return flash_decode_stream(*args, block_k=64)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", K6_CASES, ids=str)
+def test_kv_group_float_arithmetic_matches_reference(case, dtype):
+    """K6's design (the KV-group kernel's exact mode at ``rows_plan``)
+    against flash_decode_grouped, flash_decode_fused and
+    flash_decode_stream: the output within 1e-5 of max |out|, finite,
+    zeros where the length is 0. The reference reads no row past its
+    capacity and weighs a length-0 sequence's masked block uniformly, so
+    it runs at lengths clipped to [1, cap]: the same rows for every length
+    >= 1; a length 0 is held to the port's contract (zeros) instead."""
+    kind, b, h, kvh, d, lens, splits, warps = case
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(600 + K6_CASES.index(case))
+    kv0 = rng.standard_normal((b, CAP, 2, kvh * d)).astype(np.float32)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    lengths = np.array(lens, np.int32)
+    jkv = jnp.asarray(kv0).astype(jdt)
+    ref = np.asarray(_k6_reference(kind, q, jkv, np.clip(lengths, 1, CAP),
+                                   kvh))
+    kv = torch.from_numpy(kv0).to(tdt)
+    plan = at.rows_plan(b, h, kvh, CAP, d, splits, warps)
+    out, _ = _kv_group_float(torch.from_numpy(q), kv,
+                             torch.from_numpy(lengths), plan)
+    assert torch.isfinite(out).all()
+    live = lengths > 0
+    assert not out[~live].any()
+    np.testing.assert_allclose(out[live].numpy(), ref[live], rtol=0,
+                               atol=REL_TOL * np.abs(ref[live]).max())
+
+
+def test_kv_group_float_plans_leave_splits_without_rows():
+    """The plans of the first and third K6 cases split into 8 chunks of
+    16-row units, so their 45- and 33-row sequences leave splits without a
+    row (the merge's m = -inf weighing 0 is exercised) and their
+    capacity-long ones fill every split; the fused case's batch of 3 is
+    the reference's fused fallback."""
+    for b, h, kvh, n in ((4, 8, 2, 45), (3, 8, 2, 33)):
+        plan = at.rows_plan(b, h, kvh, CAP, 64)
+        assert plan["splits"] == 8 and plan["unit"] == 16
+        chunks = at.kv_group_chunks(n, plan["splits"], plan["unit"])
+        assert (n, n) in chunks and chunks[0] == (0, 16)
+        assert all(c1 > c0 for c0, c1 in at.kv_group_chunks(
+            CAP, plan["splits"], plan["unit"]))
+    assert at.float_decode_kernel(3, 8, 64, 2, CAP) == ("fused", 0)
+    assert at.float_decode_kernel(4, 8, 64, 2, CAP) == ("grouped", 2)
 
 
 # -- K7's eight-lane quantizer ------------------------------------------------
@@ -241,3 +346,95 @@ def test_eight_lane_quantizer_bit_exact_against_quantize_tokens(d, wide):
         np.array(js)[0, :, 0].view(np.int16)))
     assert (q[1] == 0).all() and scale[1].item() == 1.0
     assert q[2:6].abs().max().item() == 127
+
+
+# -- P2: K7's kernel through the page table -----------------------------------
+
+PAGE, MAX_PAGES, N_PAGES = 8, 4, 24
+# Lengths before the append: mid-page, at a page boundary, at a page's
+# last row, a finished slot past capacity (the last page), a slot whose
+# page at its length is unmapped (page 0, offset 2), and a released slot
+# (table row -1: page 0, offset 5); the mapped pages of each row.
+P2_LENGTHS = [3, PAGE, 2 * PAGE - 1, MAX_PAGES * PAGE + 3, PAGE + 2, 5]
+P2_MAPPED = [1, 2, 2, 4, 1, 0]
+
+
+def _p2_table(rng):
+    ids = list(rng.permutation(np.arange(1, N_PAGES)))
+    table = np.full((len(P2_MAPPED), MAX_PAGES), -1, np.int32)
+    for i, n in enumerate(P2_MAPPED):
+        table[i, :n] = [ids.pop() for _ in range(n)]
+    return table
+
+
+def _lanes8_paged_append(pool, scales, k, v, table, lengths, wide):
+    """P2 as its kernel runs, in place: each (sequence, plane, KV head) row
+    in eight lanes (:func:`_lanes8_quantize`'s layout); the lane's source
+    values, then the length, then the table entry at the length's page
+    (page index min(len // page, P - 1), id max(entry, 0), offset len %
+    page, len = max(length, 0)), the row quantized, and each lane's bytes
+    stored at its values' offsets, the scale by the row's first lane."""
+    b, kvh, _, d = k.shape
+    page, max_pages = pool.shape[1], table.shape[1]
+    per = d // 8 if wide else -(-d // 8)
+    x = torch.stack([k[:, :, 0], v[:, :, 0]], dim=1).reshape(-1, d)
+    q, s = _lanes8_quantize(x, wide)
+    for r in range(x.shape[0]):
+        bi, plane, h = r // (2 * kvh), (r // kvh) % 2, r % kvh
+        length = max(int(lengths[bi]), 0)
+        pid = max(int(table[bi, min(length // page, max_pages - 1)]), 0)
+        off = length % page
+        for lane in range(8):
+            lo, hi = min(d, lane * per), min(d, (lane + 1) * per)
+            pool[pid, off, plane, h * d + lo:h * d + hi] = q[r, lo:hi]
+        scales[pid, off, plane, h] = s[r]
+
+
+@pytest.mark.parametrize("kvh,d,wide", [(2, 128, True), (2, 128, False),
+                                        (2, 64, True), (8, 16, False)])
+def test_eight_lane_paged_append_bit_exact_against_paged_append_quant(
+        kvh, d, wide):
+    """P2's design (K7's eight-lane kernel with the PagedSlots addressing,
+    its wide and narrow layouts, head_dim 16 to 128) writes the bytes and
+    scales of the reference's paged decode append (``_quantize_tokens``,
+    then ``paged_append_quant``) bit for bit over the whole pool: an
+    all-zero head (scale 1.0, bytes 0), a finished slot past capacity into
+    its last page, an unmapped page and a released slot into page 0; the
+    plain version too."""
+    rng = np.random.default_rng(800 + d + wide)
+    b = len(P2_LENGTHS)
+    table = _p2_table(rng)
+    lengths = np.array(P2_LENGTHS, np.int32)
+    jc = JPagedKVCache.create(1, N_PAGES, PAGE, kvh, d, b, MAX_PAGES,
+                              quantized=True)
+    # Pages 1-18 filled by a prefill of 3 pages a sequence first, so most
+    # rows the append writes held other bytes and scales.
+    pre_table = np.full((b, MAX_PAGES), -1, np.int32)
+    pre_table[:, :3] = np.arange(1, 3 * b + 1).reshape(b, 3)
+    jc = _with(jc, table=pre_table)
+    pre = (rng.standard_normal((b, kvh, 3 * PAGE, d)).astype(np.float32))
+    jc = jc.append(0, jnp.asarray(pre), jnp.asarray(pre[:, :, ::-1]),
+                   position=0)
+    jc = _with(jc, table=table, lengths=lengths)
+    pool, scales = _pools(jc)
+    k, v = (rng.standard_normal((b, kvh, 1, d)).astype(np.float32)
+            * np.exp(rng.uniform(-3, 3, (b, kvh, 1, 1))).astype(np.float32)
+            for _ in range(2))
+    k[0, 1] = 0.0                          # an all-zero head
+    jc = jc.append(0, jnp.asarray(k), jnp.asarray(v))
+    want_pool, want_scales = _pools(jc)
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    tt, tl = torch.from_numpy(table), torch.from_numpy(lengths)
+    got_pool, got_scales = pool.clone(), scales.clone()
+    _lanes8_paged_append(got_pool, got_scales, tk, tv, tt, tl, wide)
+    assert torch.equal(got_pool, want_pool)
+    assert torch.equal(got_scales.view(torch.int16),
+                       want_scales.view(torch.int16))
+    assert not torch.equal(got_pool, pool)
+    page0 = max(int(table[0, 0]), 0)
+    assert got_scales[page0, 3, 0, 1].item() == 1.0
+    assert not got_pool[page0, 3, 0, d:2 * d].any()
+    plain_pool, plain_scales = pool.clone(), scales.clone()
+    kc.kv_append_paged_int8_plain(plain_pool, plain_scales, tk, tv, tt, tl)
+    assert torch.equal(plain_pool, want_pool)
+    assert torch.equal(plain_scales, want_scales)

@@ -401,6 +401,59 @@ def test_decode_attn_float_kernel_matches_plain(gen, dtype, b, h, kvh, d,
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+# K6's plan shapes (batch, heads, KV heads, capacity): paths (A) and (C),
+# batch 3 (the reference's fused fallback: 8 splits at head_dim 64) and
+# TinyLlama's GQA (32 query heads over 4 KV heads: 4 splits of 8 warps).
+K6_PLAN_SHAPES = [(256, 12, 12, 512), (3, 12, 12, 512), (16, 32, 4, 2048)]
+
+
+@pytest.mark.parametrize("shape", K6_PLAN_SHAPES, ids=str)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_float_kernel_at_its_plan_shapes(gen, dtype, d, shape):
+    """K6 on the KV-group kernel at its plan's shapes and head_dim 64, 128
+    and 256, f32 and bf16 caches: ragged lengths from 0 (zeros) through
+    the capacity and past it, within 1e-5 of max |out| of the plain
+    version; one launch counted and one CUDA kernel a call."""
+    b, h, kvh, cap = shape
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
+                     generator=gen).to(dtype)
+    lengths = torch.randint(1, cap + 40, (b,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, cap + 9, cap], dtype=torch.int32)[:b]
+    before = at.decode_attn_float.launches
+    out = at.decode_attn_float(q, kv, lengths)
+    ref = at.decode_attn_float_plain(q, kv, lengths)
+    torch.cuda.synchronize()
+    assert at.decode_attn_float.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert not out[0].any()
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert _cuda_kernels_a_call(
+        lambda: at.decode_attn_float(q, kv, lengths)) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_float_kernel_refuses_an_unaligned_cache(gen, dtype):
+    """K6 stages rows by 16-byte copies: a cache that does not start on a
+    16-byte boundary raises before any launch; the same cache aligned
+    runs."""
+    b, h, kvh, d, cap = 2, 4, 2, 64, 32
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    n = b * cap * 2 * kvh * d
+    flat = torch.zeros(n + 8, device="cuda", dtype=dtype)
+    lengths = torch.tensor([5, cap], dtype=torch.int32, device="cuda")
+    before = at.decode_attn_float.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        at.decode_attn_float(q, flat[1:n + 1].view(b, cap, 2, kvh * d),
+                             lengths)
+    assert at.decode_attn_float.launches == before
+    out = at.decode_attn_float(q, flat[8:].view(b, cap, 2, kvh * d), lengths)
+    assert at.decode_attn_float.launches == before + 1
+    assert torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize("name", NUMERICS_CASES)
 def test_decode_attn_float_kernel_numerics(gen, name):
     """tests/test_numerics.py's online-softmax stress cases on the card, at
@@ -518,16 +571,32 @@ APPEND_LENGTHS = [3, PAGE, 2 * PAGE - 1, 4 * PAGE + 1, 3 * PAGE + 2, 5]
 APPEND_MAPPED = [1, 2, 2, 4, 2, 0]
 
 
+# (KV heads, head_dim, row offset, an all-zero head): P2's wide instance
+# at 3 heads of 64 and 2 of 128, with and without the zero head; the narrow
+# one at head_dim 16 (the small test configs) and 80, and on unaligned
+# rows (rows_view's offset 1).
+PAGED_APPEND_SHAPES = [(3, 64, 0, True), (3, 64, 0, False), (2, 128, 0, True),
+                       (8, 16, 0, True), (3, 80, 0, True), (3, 64, 1, True),
+                       (2, 128, 1, False)]
+
+
+@pytest.mark.parametrize("kvh,d,offset,zero_head", PAGED_APPEND_SHAPES,
+                         ids=str)
 @pytest.mark.parametrize("quantized", [False, True])
-def test_kv_append_paged_kernels_bit_exact(gen, quantized):
-    b, kvh, d, n_pages, max_pages = 6, 3, 64, 20, 4
+def test_kv_append_paged_kernels_bit_exact(gen, quantized, kvh, d, offset,
+                                           zero_head):
+    """P1 and P2 against their plain versions bit for bit (P2: bytes and
+    scales, through K7's kernel in its wide or narrow instance); one
+    launch counted, and for P2 one CUDA kernel a call."""
+    b, n_pages, max_pages = 6, 20, 4
     table = _paged_table(b, max_pages, APPEND_MAPPED, n_pages)
     lengths = torch.tensor(APPEND_LENGTHS, dtype=torch.int32, device="cuda")
     x = torch.randn((b, kvh, 1, d), device="cuda", generator=gen)
     x = x * torch.exp(4 * torch.rand((b, kvh, 1, 1), device="cuda",
                                      generator=gen) - 3)
-    x[0, 1] = 0                            # all-zero head: scale 1.0
-    k, v = rows_view(x), rows_view(x.flip(0))
+    if zero_head:
+        x[0, 1] = 0                        # all-zero head: scale 1.0
+    k, v = rows_view(x, offset), rows_view(x.flip(0), offset)
     if quantized:
         pool = torch.randint(-127, 128, (n_pages, PAGE, 2, kvh * d),
                              device="cuda", dtype=torch.int8, generator=gen)
@@ -541,6 +610,8 @@ def test_kv_append_paged_kernels_bit_exact(gen, quantized):
         torch.cuda.synchronize()
         assert kc.kv_append_paged_int8.launches == before + 1
         assert torch.equal(p1, p2) and torch.equal(s1, s2)
+        assert _cuda_kernels_a_call(lambda: kc.kv_append_paged_int8(
+            p1, s1, k, v, table, lengths)) == 1
     else:
         pool = torch.randn((n_pages, PAGE, 2, kvh * d), device="cuda",
                            generator=gen)
@@ -1332,8 +1403,9 @@ def test_flat_float_kernel_matches_plain(gen, d, dtype, h, kvh, splits,
     lengths = _lengths(FLAT_LENGTHS, b)
     before = at.decode_attn_flat_float.launches
     if splits or warps:
-        out = at._launch_flat_float(q, kv, lengths, None, at.rows_plan(
-            b, h, kvh, cap, d, splits, warps))
+        out = at._launch_rows_float(
+            at.decode_attn_flat_float, q, kv, lengths, None,
+            at.rows_plan(b, h, kvh, cap, d, splits, warps))
     else:
         out = at.decode_attn_flat_float(q, kv, lengths)
     ref = at.decode_attn_flat_float_plain(q, kv, lengths)
@@ -1344,13 +1416,14 @@ def test_flat_float_kernel_matches_plain(gen, d, dtype, h, kvh, splits,
 
 def _cuda_kernels_a_call(fn, calls=3):
     """The CUDA kernels one call of ``fn`` launches, by the profiler's
-    device events (the most of a few sessions: the profiler can lose a
-    kernel, never adds one)."""
+    device events (the most of up to ten sessions, until one counts a
+    whole number a call: the profiler can lose a kernel, never adds
+    one)."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     most = 0
-    for _ in range(4):
+    for _ in range(10):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()

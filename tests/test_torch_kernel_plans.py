@@ -6,12 +6,13 @@ once, every K split is a whole number of groups, the tile follows M, and
 the scratch the wrappers allocate holds what the kernels write, at M from 1
 to 8192; and of the decode attention that serves a KV head's whole query
 group in one block (the KV-group kernel: P3i and P3 with its grid mode,
-``paged_plan``; G1, G2, K8 and A1, ``rows_plan``; V1, ``verify_plan``: the
+``paged_plan``; G1, G2, K6, K8 and A1, ``rows_plan``; V1, ``verify_plan``: the
 S x rep (query, head) rows of a verify chunk) over int8, bf16 and f32
 rows: every live row in one chunk, chunks of whole pages or units, the
 split count, the blocks and no scratch, at batch 1-256 and groups 1-32,
 the paths' splits, and a tiling the kernel builds; and the int8 decode
-append K7's choice between its wide and narrow instances. These run
+appends' (K7's, and P2's on K7's kernel) choice between the wide and
+narrow instances. These run
 without a card; the wrappers' refusals are checked with the dispatch
 forced to the kernel path, before any build or launch."""
 
@@ -577,6 +578,41 @@ def test_float_plans_at_their_paths():
     assert (tiny["heads_per_warp"], tiny["head_groups"]) == (4, 2)
 
 
+# K6's shapes (batch, heads, KV heads, capacity) and its plan there
+# (splits, blocks, warps, heads a warp, head groups): paths (A) and (C);
+# batch 3, the reference's fused fallback (8 splits in one cluster);
+# TinyLlama's float cache (32 query heads over 4 KV heads).
+K6_PLANS = [((256, 12, 12, 512), (1, 3072, 4, 1, 1)),
+            ((3, 12, 12, 512), (8, 288, 4, 1, 1)),
+            ((16, 32, 4, 2048), (4, 256, 8, 4, 2))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,want", K6_PLANS, ids=str)
+def test_decode_attn_float_takes_rows_plan_at_its_shapes(monkeypatch, shape,
+                                                         want, dtype):
+    """K6 (``decode_attn_float``) launches the KV-group kernel in its exact
+    mode (its own C entry) at rows_plan's launch: the table's splits,
+    blocks and warps, 16-row units, and its tiling of heads; one launch
+    counted."""
+    b, h, kvh, cap = shape
+    plan = at.rows_plan(b, h, kvh, cap, 64)
+    assert (plan["splits"], plan["blocks"], plan["warps"],
+            plan["heads_per_warp"], plan["head_groups"]) == want
+    calls = _recorded(monkeypatch)
+    # The cache is never touched here: torch.empty maps it lazily.
+    kv = torch.empty((b, cap, 2, kvh * 64), dtype=dtype)
+    before = at.decode_attn_float.launches
+    at.decode_attn_float(torch.zeros((b, h, 64)), kv,
+                         torch.full((b,), 100, dtype=torch.int32))
+    (symbol, got), = calls
+    assert symbol == "decode_attn_float"
+    assert got[4:15] == (b, h, kvh, 64, cap, int(dtype == torch.bfloat16),
+                         want[0], at.KV_GROUP_UNIT, want[3], want[4],
+                         want[2])
+    assert at.decode_attn_float.launches == before + 1
+
+
 def _float_pool(b, h, kvh, d, page=8, max_pages=4):
     pool = torch.zeros((b * max_pages + 1, page, 2, kvh * d))
     table = torch.arange(1, b * max_pages + 1, dtype=torch.int32).reshape(
@@ -592,13 +628,13 @@ def _float_cache(b, h, kvh, d, dtype=torch.float32):
 
 
 FLOAT_WRAPPERS = ("decode_attn_paged", "decode_attn_paged_grid",
-                  "decode_attn_flat_float")
+                  "decode_attn_flat_float", "decode_attn_float")
+ROWS_WRAPPERS = ("decode_attn_flat_float", "decode_attn_float")
 
 
 def _float_call(name, b, h, kvh, d, dtype=torch.float32):
-    if name == "decode_attn_flat_float":
-        return lambda: at.decode_attn_flat_float(*_float_cache(b, h, kvh, d,
-                                                               dtype))
+    if name in ROWS_WRAPPERS:
+        return lambda: getattr(at, name)(*_float_cache(b, h, kvh, d, dtype))
     return lambda: getattr(at, name)(*_float_pool(b, h, kvh, d))
 
 
@@ -606,8 +642,8 @@ def _float_call(name, b, h, kvh, d, dtype=torch.float32):
 @pytest.mark.parametrize("name", FLOAT_WRAPPERS)
 def test_kv_group_float_kernels_refuse_a_head_dim_they_do_not_tile(
         monkeypatch, name, d):
-    """On CUDA (simulated) P3, its grid mode and K8 take head_dim 64 to 256
-    in steps of 64; anything else raises before any build."""
+    """On CUDA (simulated) P3, its grid mode, K8 and K6 take head_dim 64 to
+    256 in steps of 64; anything else raises before any build."""
     _kernel_path(monkeypatch)
     wrapper = getattr(at, name)
     before = wrapper.launches
@@ -621,12 +657,12 @@ def test_kv_group_float_kernels_refuse_a_head_dim_they_do_not_tile(
                                      (4, 4, 64)])
 @pytest.mark.parametrize("name,dtype", [
     (name, torch.float32) for name in FLOAT_WRAPPERS] + [
-    ("decode_attn_flat_float", torch.bfloat16)])
+    (name, torch.bfloat16) for name in ROWS_WRAPPERS])
 def test_kv_group_float_kernels_take_every_shape_k6_took(monkeypatch, name,
                                                          dtype, h, kvh, d):
     """Groups of 1, 12 and 16 query heads and head_dim 64 to 256, f32 (P3,
-    grid) and f32 or bf16 (K8), pass every check and reach the build (here:
-    no nvcc)."""
+    grid) and f32 or bf16 (K8, K6), pass every check and reach the build
+    (here: no nvcc)."""
     _kernel_path(monkeypatch)
     monkeypatch.setattr(_build, "function", _no_build)
     with pytest.raises(RuntimeError, match="no build"):
@@ -644,9 +680,10 @@ def test_kv_group_float_launchers_refuse_a_split_count_out_of_range(
     wrapper = getattr(at, name)
     before = wrapper.launches
     with pytest.raises(ValueError, match=what):
-        if name == "decode_attn_flat_float":
+        if name in ROWS_WRAPPERS:
             plan = at.rows_plan(2, 4, 2, 32, 64, splits, warps)
-            at._launch_flat_float(*_float_cache(2, 4, 2, 64), None, plan)
+            at._launch_rows_float(wrapper, *_float_cache(2, 4, 2, 64), None,
+                                  plan)
         else:
             plan = at.paged_plan(2, 4, 2, 8, 4, 64, splits, warps)
             at._launch_paged(wrapper, *_float_pool(2, 4, 2, 64), None,
@@ -658,14 +695,17 @@ def test_kv_group_float_launchers_refuse_a_split_count_out_of_range(
 def test_kv_group_float_launchers_refuse_strided_or_unaligned_tensors(
         monkeypatch, name):
     _kernel_path(monkeypatch)
-    if name == "decode_attn_flat_float":
+    if name in ROWS_WRAPPERS:
         q, kv, lengths = _float_cache(2, 4, 2, 64)
         strided = torch.zeros((2, 33, 2, 128))[:, 1:]
         flat = torch.zeros(2 * 32 * 2 * 128 + 1)
+        bf = torch.zeros(2 * 32 * 2 * 128 + 4, dtype=torch.bfloat16)
         cases = [((q, strided, lengths), "contiguous"),
                  ((q, flat[1:].view(2, 32, 2, 128), lengths),
+                  "16-byte aligned"),
+                 ((q, bf[4:].view(2, 32, 2, 128), lengths),
                   "16-byte aligned")]
-        call = at.decode_attn_flat_float
+        call = getattr(at, name)
     else:
         q, pool, table, lengths = _float_pool(2, 4, 2, 64)
         strided_q = q.transpose(0, 1).contiguous().transpose(0, 1)
@@ -1080,3 +1120,43 @@ def test_kv_append_int8_refuses_before_any_build(monkeypatch, case):
         kc.kv_append_int8(*change(_int8_append_args()))
     with pytest.raises(RuntimeError, match="no build"):
         kc.kv_append_int8(*_int8_append_args())
+
+
+# -- P2: K7's kernel through the page table -----------------------------------
+
+def _paged_int8_append_args(b=3, kvh=2, d=64, width_pad=0, k_off=0,
+                            kv_off=0):
+    """P2's arguments: an int8 pool of pages of 8 (``kv_off`` bytes past a
+    16-byte boundary), its scales, k and v as strided views of one qkv
+    row, a table of 2 pages a sequence and lengths."""
+    f, page, max_pages = kvh * d, 8, 2
+    qkv = torch.zeros((b, 1, 3 * f + width_pad))
+    k = qkv[..., f + k_off:2 * f + k_off].reshape(b, 1, kvh, d).transpose(
+        1, 2)
+    v = qkv[..., 2 * f:3 * f].reshape(b, 1, kvh, d).transpose(1, 2)
+    n_pages = b * max_pages + 1
+    pool = _unaligned((n_pages, page, 2, f), torch.int8, 16 + kv_off)
+    scales = torch.ones((n_pages, page, 2, kvh), dtype=torch.bfloat16)
+    table = torch.arange(1, n_pages, dtype=torch.int32).reshape(b, max_pages)
+    return pool, scales, k, v, table, torch.arange(b, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("d,layout,wide", K7_INSTANCES, ids=str)
+def test_kv_append_paged_int8_picks_its_instance(monkeypatch, d, layout,
+                                                 wide):
+    """On CUDA (simulated) P2 runs K7's kernel and takes its instance by
+    K7's rule: the wide one for head_dim 64 or 128 with the pool and every
+    row 16-byte aligned, the narrow one otherwise; the views' row strides
+    and the pool's shape as given; one launch counted."""
+    calls = _recorded(monkeypatch)
+    pool, scales, k, v, table, lengths = _paged_int8_append_args(d=d,
+                                                                 **layout)
+    assert kc.kv_append_int8_wide(d, pool, k.reshape(3, -1),
+                                  v.reshape(3, -1)) == wide
+    before = kc.kv_append_paged_int8.launches
+    kc.kv_append_paged_int8(pool, scales, k, v, table, lengths)
+    (symbol, got), = calls
+    assert symbol == "kv_append_paged_int8"
+    assert got[2:4] == (3 * 2 * d + layout.get("width_pad", 0),) * 2
+    assert got[8:14] == (3, 8, 2, 2, d, int(wide))
+    assert kc.kv_append_paged_int8.launches == before + 1
