@@ -64,8 +64,11 @@ Phases (any failure exits non-zero; nothing is caught):
    (``decode_attn_float``) at path (A)'s f32 and (C)'s bf16 cache (f32 and
    bf16 SDPA), at batch 3 (the reference's fused fallback) and at
    TinyLlama's GQA (B 16, 32 heads over 4 KV heads, capacity 2048); P2
-   (``kv_append_paged_int8``) with and without its all-zero head, one CUDA
-   kernel a call. P3, its grid mode, P3i, G1 (both score modes), G2, K6
+   (``kv_append_paged_int8``) with and without its all-zero head. K5
+   (``kv_append``, on (A)'s f32 and (C)'s bf16 cache), P1
+   (``kv_append_paged``), K7 and P2 run one kernel body
+   (``csrc/kv_append.cuh``) and must launch one CUDA kernel a call
+   (profiler). P3, its grid mode, P3i, G1 (both score modes), G2, K6
    (f32 and bf16), K8 (f32 and bf16) and V1 (both entries, both modes) run
    the KV-group kernel
    (``csrc/decode_attn_kv_group.cuh``): the plan (splits a sequence,
@@ -288,6 +291,8 @@ FLIP_SHARE = 0.99
 FLAT_PATH_LOGIT_TOL = 1e-2
 
 PAGE = 64                          # tokens per page on the paged paths
+# The kernel body of the four decode appends (K5, P1, K7 and P2).
+APPEND_SOURCE = "rten_tpu_torch/csrc/kv_append.cuh"
 
 
 T0 = time.perf_counter()
@@ -590,26 +595,45 @@ def _live_lengths(g, b):
                          dtype=torch.int32)
 
 
-def check_kv_append(timer):
-    """K5 at path (A)'s shapes on an f32 cache (the entry) and path (C)'s
-    bf16 cache (printed): bit-exact against the plain version."""
+def kv_append_inputs():
+    """K5's inputs at path (A)'s shapes (B 256, 12 heads of 64, capacity
+    512): new rows as views of one projection output, lengths 64-175 with
+    one slot past capacity, and a random f32 and bf16 cache, each drawn
+    when the iterator reaches it (so the two are not held at once: later
+    phases' timings depend on what the allocator holds). Returns (k, v,
+    lengths, iterator of (dtype, cache))."""
     b, cap, kvh, d = 256, 512, 12, 64
-    f = kvh * d
     g = torch.Generator(device="cuda").manual_seed(7)
     k, v = _decode_rows(g, b, kvh, d)
     lengths = _live_lengths(g, b) - 1
     lengths[1] = cap + 7           # a finished slot past capacity: clamps
-    entry = None
-    for dtype in (torch.float32, torch.bfloat16):
-        kv = torch.randn((b, cap, 2, f), device="cuda",
-                         generator=g).to(dtype)
+    return k, v, lengths, (
+        (dtype, torch.randn((b, cap, 2, kvh * d), device="cuda",
+                            generator=g).to(dtype))
+        for dtype in (torch.float32, torch.bfloat16))
+
+
+def check_kv_append(timer):
+    """K5 at path (A)'s shapes on an f32 cache (the entry) and path (C)'s
+    bf16 cache (the entry's ``bf16_*`` keys; :func:`kv_append_inputs`):
+    each bit-exact against the plain version, timed beside ``index_put_``,
+    and one CUDA kernel a call (profiler)."""
+    k, v, lengths, caches = kv_append_inputs()
+    b, kvh, _, d = k.shape
+    f = kvh * d
+    entry = dict(name="kv_append", source=APPEND_SOURCE,
+                 replaces="rten_tpu/kernels/cache.py:32")
+    for (dtype, kv), key in zip(caches, ("", "bf16_")):
+        cap = kv.shape[1]
         kv1, kv2 = kv.clone(), kv.clone()
-        kc.kv_append(kv1, k, v, lengths)
+        call = lambda: kc.kv_append(kv1, k, v, lengths)
+        call()
         kc.kv_append_plain(kv2, k, v, lengths)
         torch.cuda.synchronize()
         err = (kv1.float() - kv2.float()).abs().max().item()
+        wide = kc.kv_append_wide(d, kv1, k.reshape(b, f), v.reshape(b, f))
         print(f"kv_append ({dtype}): max_abs_err {err} (bit-exact "
-              f"required)")
+              f"required); {'wide' if wide else 'narrow'} instance")
         check(torch.equal(kv1, kv2), f"K5 not bit-exact on {dtype}")
         item = kv.element_size()
         bms, by = bound_ms(2 * b * f * 4 + b * 2 * f * item + b * 4)
@@ -617,17 +641,19 @@ def check_kv_append(timer):
                            dim=1).to(dtype)
         idx = (torch.arange(b, device="cuda"),
                lengths.clamp(0, cap - 1).long())
-        r = dict(name="kv_append", source="rten_tpu_torch/csrc/kv_append.cu",
-                 replaces="rten_tpu/kernels/cache.py:32", max_abs_err=err,
-                 ms=timer(lambda: kc.kv_append(kv1, k, v, lengths)),
+        r = dict(max_abs_err=err, ms=timer(call),
                  plain_ms=timer(lambda: kc.kv_append_plain(kv2, k, v,
                                                            lengths)),
                  bound_ms=bms, bound_by=by,
                  library_ms=timer(lambda: kv1.index_put_(idx, rows)))
-        print(f"kv_append ({dtype}): kernel_ms {r['ms']:.4f} plain_ms "
-              f"{r['plain_ms']:.4f} bound_ms {bms:.4f} library_ms "
-              f"{r['library_ms']:.4f} (index_put_)")
-        entry = entry or r
+        # The profiler after the timings, as kv_group_launch does.
+        r["device_launches"] = n = device_launches(call)
+        print(f"kv_append ({dtype}): {n} CUDA kernel(s) a call; kernel_ms "
+              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+              f"{bms:.4f} library_ms {r['library_ms']:.4f} (index_put_)")
+        check(n == 1 or n == "not measured",
+              f"K5 launched {n} CUDA kernels a call on {dtype}, not one")
+        entry.update({key + name: x for name, x in r.items()})
     return entry
 
 
@@ -668,7 +694,7 @@ def _kv_append_int8_case(timer, label, b, kvh, d, cap, lives, masked,
     torch.cuda.synchronize()
     err = max((kv1.int() - kv2.int()).abs().max().item(),
               (s1.float() - s2.float()).abs().max().item())
-    wide = kc.kv_append_int8_wide(d, kv1, k.reshape(b, f), v.reshape(b, f))
+    wide = kc.kv_append_wide(d, kv1, k.reshape(b, f), v.reshape(b, f))
     print(f"kv_append_int8 ({label}): max_abs_err {err} (bit-exact "
           f"required); {'wide' if wide else 'narrow'} instance")
     check(torch.equal(kv1, kv2) and torch.equal(s1, s2),
@@ -702,8 +728,7 @@ def check_kv_append_int8(timer):
     for label, shape in (("(B), masked", K7_B_SHAPE),
                          ("(H), masked", K7_H_SHAPE)):
         _kv_append_int8_case(timer, label, *shape, True, 10)
-    return dict(name="kv_append_int8",
-                source="rten_tpu_torch/csrc/kv_append_int8.cu",
+    return dict(name="kv_append_int8", source=APPEND_SOURCE,
                 replaces="rten_tpu/kernels/cache.py:148",
                 shape="B 256, 12 heads of 64, capacity 512", **res,
                 library_ms=None,
@@ -885,9 +910,9 @@ def kv_append_paged_inputs(quantized, zero_head=True):
 
 def check_kv_append_paged(timer, quantized):
     """P1 (f32 pool, path E) or P2 (int8 pool, path D) at B 256
-    (:func:`kv_append_paged_inputs`): bit-exact against the plain version.
-    P2 also without its all-zero head (the entry's ``nz_*`` keys: bit-exact
-    and timed), with one CUDA kernel a call (profiler)."""
+    (:func:`kv_append_paged_inputs`): bit-exact against the plain version
+    and one CUDA kernel a call (profiler). P2 also without its all-zero
+    head (the entry's ``nz_*`` keys: bit-exact and timed)."""
     b, kvh, d = 256, 12, 64
     f = kvh * d
     k, v, lengths, pool, scales, table = kv_append_paged_inputs(quantized)
@@ -935,21 +960,26 @@ def check_kv_append_paged(timer, quantized):
         n_bytes = 2 * b * f * 4 + b * 2 * f * 4 + 2 * b * 4
         ids, offs = kc.paged_slots(table, lengths, PAGE)
         rows = torch.stack([k.reshape(b, f), v.reshape(b, f)], dim=1)
+        call = lambda: kc.kv_append_paged(p1, k, v, table, lengths)
         entry = dict(
             name="kv_append_paged", replaces="rten_tpu/kernels/cache.py:94",
-            max_abs_err=err,
-            ms=timer(lambda: kc.kv_append_paged(p1, k, v, table, lengths)),
+            max_abs_err=err, ms=timer(call),
             plain_ms=timer(lambda: kc.kv_append_paged_plain(
                 p2, k, v, table, lengths)),
             library_ms=timer(lambda: p1.index_put_((ids, offs), rows)))
+        n = entry["device_launches"] = device_launches(call)
+        print(f"kv_append_paged: {n} CUDA kernel(s) a call; kernel_ms "
+              f"{entry['ms']:.4f} plain_ms {entry['plain_ms']:.4f} "
+              f"library_ms {entry['library_ms']:.4f} (index_put_)")
+        check(n == 1 or n == "not measured",
+              f"kv_append_paged launched {n} CUDA kernels a call, not one")
     bms, by = bound_ms(n_bytes)
     if quantized:
         print(f"kv_append_paged_int8: bound_ms {bms:.4f} ({by}); kernel_ms "
               f"{entry['ms']:.4f} with the all-zero head, "
               f"{entry['nz_ms']:.4f} without")
         entry["nz_bound_ms"] = bms
-    return dict(entry, source="rten_tpu_torch/csrc/kv_append_paged.cu",
-                bound_ms=bms, bound_by=by)
+    return dict(entry, source=APPEND_SOURCE, bound_ms=bms, bound_by=by)
 
 
 def check_decode_attn_paged(timer, mode):

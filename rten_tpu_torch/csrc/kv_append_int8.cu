@@ -19,15 +19,14 @@
 // f32 rows and writes 0.4 MB of int8 and 12 KB of scales, under 1 us at
 // 3.35 TB/s; at batch 16, 8 heads of 128 (Mistral-7B) it moves 0.2 MB.
 // Launch and latency dominate: the time is one chain of round trips.
-// Design: kv_append_int8.cuh's kernel (eight lanes a row, four rows a warp,
-// the source loads before the position's) with the Positions addressing;
-// P2 (kv_append_paged.cu) is the same kernel through the page table. The
-// design before ran one warp a row, and its source loads waited behind the
-// branch on the position. The wide instance serves head_dim 64 and 128,
-// every preset's but the small test one's; the narrow one every other
-// head_dim or alignment. The file must not be compiled with
-// -use_fast_math.
-#include "kv_append_int8.cuh"
+// Design: kv_append.cuh's kernel (eight lanes a row, four rows a warp,
+// the source loads before the position's) with the int8 row policy and the
+// Positions addressing; P2 (kv_append_paged.cu) is the same kernel through
+// the page table, K5 and P1 run its float policy. The wide instance
+// serves head_dim 64 and 128, every preset's but the small test one's;
+// the narrow one every other head_dim or alignment. The file must not be
+// compiled with -use_fast_math.
+#include "kv_append.cuh"
 
 // wide: 1 for the wide instance (the wrapper checks d 64 or 128 and every
 // row 16-byte aligned), 0 for the narrow one.
@@ -36,6 +35,7 @@ extern "C" int kv_append_int8(const void* k, const void* v, int k_stride,
                               const void* pos, int batch, int cap, int kvh,
                               int d, int masked, int wide, void* stream) {
   const kvappend::Positions addr{(const int*)pos, cap, masked};
-  return (int)kvappend::launch(k, v, k_stride, v_stride, kv, scales, batch,
-                               kvh, d, wide, addr, (cudaStream_t)stream);
+  const kvappend::Int8Rows rows{(int8_t*)kv, (__nv_bfloat16*)scales};
+  return (int)kvappend::launch(k, v, k_stride, v_stride, rows, batch, kvh,
+                               d, wide, addr, (cudaStream_t)stream);
 }

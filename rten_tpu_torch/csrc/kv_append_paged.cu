@@ -7,7 +7,7 @@
 // per sequence) together with the XLA quantization before it
 // (rten_tpu/generate/kv_cache.py::_quantize_tokens). The reference resolves
 // (page id, offset) in XLA before the call
-// (rten_tpu/generate/paged_cache.py:177-187); here each thread resolves
+// (rten_tpu/generate/paged_cache.py:177-187); here each lane resolves
 // them from the table and the lengths itself, so an append is one launch.
 //
 // Contract: for sequence b with len = max(lengths[b], 0), the page index
@@ -19,64 +19,35 @@
 // (elements). P1: an f32 pool. P2: an int8 pool [n_pages, page, 2, KVH*D]
 // and bf16 scales [n_pages, page, 2, KVH], quantized per (plane, head) by
 // kv_quant.cuh's quantize_row_lanes8, bit for bit with the reference's
-// quantizer. Two sequences
-// that resolve to the same row (dead slots in page 0) race; only garbage
-// is written there.
+// quantizer. Two sequences that resolve to the same row (dead slots in
+// page 0) race; only garbage is written there.
 //
 // Bound on the H100: bytes. At batch 256, KVH*D = 768 it reads 1.6 MB of
 // f32 rows and writes 1.6 MB (P1) or 0.4 MB and 12 KB of scales (P2), about
-// 1 us at 3.35 TB/s; launch latency dominates. Design: P1 is K5's (one
-// thread per element, coalesced) with P2's page addressing
-// (kvappend::PagedSlots). P2 is K7's kernel
-// (kv_append_int8.cuh: eight lanes a row, four rows a warp, an all-zero
-// row not divided) with the PagedSlots addressing: each lane issues its
-// source loads and the length's, then the table load at the length's
-// page, and quantizes the row while that is in flight. It ran one warp a
-// row before, its source loads behind the chain length -> table. The file
-// must not be compiled with -use_fast_math.
-#include "kv_append_int8.cuh"
+// 1 us at 3.35 TB/s; launch latency dominates. Design: kv_append.cuh's
+// kernel (eight lanes a row, four rows a warp) with the PagedSlots
+// addressing: each lane issues its source loads and the length's, then
+// the table load at the length's page, and then stores its values (P1,
+// the float row policy, as K5) or quantizes the row while the table load
+// is in flight (P2, the int8 policy, as K7). The file must not be
+// compiled with -use_fast_math.
+#include "kv_append.cuh"
 
-namespace {
-
-__global__ void kv_append_paged_kernel(const float* __restrict__ k,
-                                       const float* __restrict__ v,
-                                       int k_stride, int v_stride,
-                                       float* __restrict__ pool,
-                                       const int* __restrict__ table,
-                                       const int* __restrict__ lengths,
-                                       int batch, int page, int max_pages,
-                                       int f) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)batch * 2 * f) return;
-  const int c = (int)(i % f);
-  const int plane = (int)((i / f) % 2);
-  const int b = (int)(i / (2LL * f));
-  const kvappend::PagedSlots addr{table, lengths, page, max_pages};
-  const long long r = addr.row(b, addr.locate(b));
-  pool[(r * 2 + plane) * f + c] = plane == 0 ? k[(long long)b * k_stride + c]
-                                             : v[(long long)b * v_stride + c];
-}
-
-}  // namespace
-
+// wide (both entries): 1 for the wide instance (the wrapper checks d 64 or
+// 128 and every row 16-byte aligned), 0 for the narrow one.
 extern "C" int kv_append_paged(const void* k, const void* v, int k_stride,
                                int v_stride, void* pool, const void* table,
                                const void* lengths, int batch, int page,
-                               int max_pages, int f, void* stream) {
-  const long long n = (long long)batch * 2 * f;
-  const int block = 256;
-  const long long grid = (n + block - 1) / block;
-  if (grid > 0) {
-    kv_append_paged_kernel<<<(unsigned)grid, block, 0,
-                             (cudaStream_t)stream>>>(
-        (const float*)k, (const float*)v, k_stride, v_stride, (float*)pool,
-        (const int*)table, (const int*)lengths, batch, page, max_pages, f);
-  }
-  return (int)cudaGetLastError();
+                               int max_pages, int kvh, int d, int wide,
+                               void* stream) {
+  const kvappend::PagedSlots addr{(const int*)table, (const int*)lengths,
+                                  page, max_pages};
+  return (int)kvappend::launch(k, v, k_stride, v_stride,
+                               kvappend::FloatRows<float>{(float*)pool},
+                               batch, kvh, d, wide, addr,
+                               (cudaStream_t)stream);
 }
 
-// wide: 1 for the wide instance (the wrapper checks d 64 or 128 and every
-// row 16-byte aligned), 0 for the narrow one.
 extern "C" int kv_append_paged_int8(const void* k, const void* v,
                                     int k_stride, int v_stride, void* pool,
                                     void* scales, const void* table,
@@ -85,7 +56,7 @@ extern "C" int kv_append_paged_int8(const void* k, const void* v,
                                     void* stream) {
   const kvappend::PagedSlots addr{(const int*)table, (const int*)lengths,
                                   page, max_pages};
-  return (int)kvappend::launch(k, v, k_stride, v_stride, pool, scales,
-                               batch, kvh, d, wide, addr,
-                               (cudaStream_t)stream);
+  const kvappend::Int8Rows rows{(int8_t*)pool, (__nv_bfloat16*)scales};
+  return (int)kvappend::launch(k, v, k_stride, v_stride, rows, batch, kvh,
+                               d, wide, addr, (cudaStream_t)stream);
 }

@@ -1,8 +1,8 @@
 // Per-(token, plane, head) symmetric int8 quantization of one head row:
 // quantize_row (one warp a row of d values) for tail_flush_int8.cu (K3:
 // bf16 window rows), and quantize_row_lanes8 (eight lanes a row, four rows
-// a warp, the values in registers) for kv_append_int8.cuh (K7 and P2: f32
-// decode rows). Both compute
+// a warp, the values in registers) for kv_append.cuh's int8 policy (K7 and
+// P2: f32 decode rows). Both compute
 //
 //   absmax over the row (warp shuffles),
 //   scale = bf16_rn(absmax / 127), or 1.0 where absmax == 0,

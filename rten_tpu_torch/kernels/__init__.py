@@ -23,16 +23,17 @@ kernel, each counting its own launches:
   a kernel of its own in ``decode_attn_grouped_int8.cu``);
 * ``matmul_int4_words`` (Q1) and ``matmul_int4`` (Q2):
   ``csrc/matmul_int4.cu``;
-* ``kv_append_int8`` (K7, ``csrc/kv_append_int8.cu``) and
-  ``kv_append_paged_int8`` (P2, ``csrc/kv_append_paged.cu``): the eight-
-  lanes-a-row kernel of ``csrc/kv_append_int8.cuh``, through a position or
-  through the page table.
+* ``kv_append`` (K5, ``csrc/kv_append.cu``), ``kv_append_int8`` (K7,
+  ``csrc/kv_append_int8.cu``), ``kv_append_paged`` and
+  ``kv_append_paged_int8`` (P1 and P2, ``csrc/kv_append_paged.cu``): the
+  eight-lanes-a-row kernel of ``csrc/kv_append.cuh``, with a float (K5,
+  P1) or an int8 (K7, P2) row policy, through a position or through the
+  page table.
 
-The others have a source each: ``flash_attention`` (F1), ``kv_append``
-(K5), ``kv_append_paged`` (P1, P2's source), ``tail_flush_int8`` (K3),
-``head_argmax_int8`` (K2), ``matmul_int8_wo`` (K4),
-``matmul_int4_words_int8`` (Q1', ``csrc/matmul_int4_int8dot.cu``) and
-``matmul_int8_tiled`` (M1, ``csrc/matmul_int8.cu``). The verify wrappers
+The others have a source each: ``flash_attention`` (F1),
+``tail_flush_int8`` (K3), ``head_argmax_int8`` (K2), ``matmul_int8_wo``
+(K4), ``matmul_int4_words_int8`` (Q1', ``csrc/matmul_int4_int8dot.cu``)
+and ``matmul_int8_tiled`` (M1, ``csrc/matmul_int8.cu``). The verify wrappers
 also count per mode (float or int8 cache) in ``mode_launches``, and
 ``decode_attn_grouped_int8`` per mode (exact q or int8 scores, each with or
 without ``pv_int8``)."""

@@ -14,9 +14,11 @@
   ``csrc/kv_append_paged.cu``) replace ``paged_append`` (:94) and
   ``paged_append_quant`` (:280, with the quantization before it): the
   decode appends into a block-paged pool, page and offset resolved from
-  the page table inside the kernel. ``kv_append_paged_int8`` runs
-  ``kv_append_int8``'s kernel (``csrc/kv_append_int8.cuh``) through the
-  page table.
+  the page table inside the kernel.
+
+The four decode appends run one kernel body (``csrc/kv_append.cuh``: eight
+lanes a row) with a float or an int8 row policy, through a position or the
+page table, in its wide or narrow instance by :func:`kv_append_wide`.
 
 The cache layout is the port's byte-addressable one (int8
 ``[B, cap, 2, KVH*D]``, bf16 scales ``[B, cap, 2, KVH]``; pools
@@ -113,6 +115,21 @@ def _check_append(name, kv, k, v, lengths, dtypes):
 FLOAT_CACHE_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def kv_append_wide(d, kv, kr, vr):
+    """Whether a decode append (K5, P1, K7 and P2: one kernel body) takes
+    its wide instance: head_dim 64 or 128 (every preset's but the small
+    test configuration's 16; D / 8 values a lane: 16-byte loads, and
+    stores of whole 8- or 16-byte words at the cache's element size of 1,
+    2 or 4 bytes), the f32 rows ``kr``/``vr`` and the cache or pool ``kv``
+    16-byte aligned (data pointers, and the rows' strides in whole 16-byte
+    units; the cache's own rows, whole multiples of a lane's D / 8
+    elements, always are). Else its narrow instance (scalar loads and
+    stores) serves the call: every head_dim, any alignment."""
+    return (d in (64, 128) and kv.data_ptr() % 16 == 0
+            and all(x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0
+                    for x in (kr, vr)))
+
+
 def kv_append_plain(kv, k, v, lengths):
     """Plain PyTorch version of the float append (same contract, in
     place)."""
@@ -132,7 +149,8 @@ def kv_append(kv, k, v, lengths):
     kv f32 or bf16 [B, cap, 2, KVH*D]; k, v f32 [B, KVH, 1, D] (strided
     views are fine); lengths int32 [B]. A bf16 cache rounds to nearest
     even, as ``Tensor.to(torch.bfloat16)`` does. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    plain version; CUDA tensors launch the kernel (eight lanes a row; its
+    wide or narrow instance by :func:`kv_append_wide`) or raise."""
     name = "kv_append"
     if _build.on_cpu(name, kv, k, v, lengths):
         return kv_append_plain(kv, k, v, lengths)
@@ -141,10 +159,11 @@ def kv_append(kv, k, v, lengths):
     _build.require(kv.is_contiguous() and lengths.is_contiguous(), name,
                    "kv and lengths must be contiguous")
     kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
-    fn = _build.function(name, name, "ppiippiiiip")
+    fn = _build.function(name, name, "ppiippiiiiiip")
     err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
-             kv.data_ptr(), lengths.data_ptr(), b, cap, kvh * d,
-             int(kv.dtype == torch.bfloat16), _build.stream())
+             kv.data_ptr(), lengths.data_ptr(), b, cap, kvh, d,
+             int(kv.dtype == torch.bfloat16),
+             int(kv_append_wide(d, kv, kr, vr)), _build.stream())
     _build.check(err, name)
     kv_append.launches += 1
 
@@ -175,19 +194,6 @@ def kv_append_int8_plain(kv, scales, k, v, pos, masked=False):
     scales[bidx, p] = s[keep]
 
 
-def kv_append_int8_wide(d, kv, kr, vr):
-    """Whether K7 (and P2, the same kernel) takes its wide instance:
-    head_dim 64 or 128 (every preset's but the small test configuration's
-    16; D / 8 values a lane: 16-byte loads and one 8- or 16-byte store),
-    the f32 rows ``kr``/``vr`` and the int8 cache or pool ``kv`` 16-byte
-    aligned (data pointers, and row strides in whole 16-byte units). Else
-    its narrow instance (scalar loads, byte stores) serves the call: every
-    head_dim, any alignment."""
-    return (d in (64, 128) and kv.data_ptr() % 16 == 0
-            and all(x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0
-                    for x in (kr, vr)))
-
-
 def kv_append_int8(kv, scales, k, v, pos, masked=False):
     """Quantize each sequence's new K/V per (plane, head) and write the
     int8 bytes and bf16 scales into the int8 cache, in place, at
@@ -199,7 +205,7 @@ def kv_append_int8(kv, scales, k, v, pos, masked=False):
     [B, KVH, 1, D] (strided views are fine); pos int32 [B] (the cache
     lengths). CPU tensors take the plain version; CUDA tensors launch the
     kernel (eight lanes a row; its wide or narrow instance by
-    :func:`kv_append_int8_wide`) or raise."""
+    :func:`kv_append_wide`) or raise."""
     name = "kv_append_int8"
     if _build.on_cpu(name, kv, scales, k, v, pos):
         return kv_append_int8_plain(kv, scales, k, v, pos, masked)
@@ -210,7 +216,7 @@ def kv_append_int8(kv, scales, k, v, pos, masked=False):
     fn = _build.function(name, name, "ppiipppiiiiiip")
     err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
              kv.data_ptr(), scales.data_ptr(), pos.data_ptr(), b, cap, kvh,
-             d, int(bool(masked)), int(kv_append_int8_wide(d, kv, kr, vr)),
+             d, int(bool(masked)), int(kv_append_wide(d, kv, kr, vr)),
              _build.stream())
     _build.check(err, name)
     kv_append_int8.launches += 1
@@ -265,7 +271,9 @@ def kv_append_paged(pool, k, v, table, lengths):
     pool f32 [n_pages, page, 2, KVH*D]; k, v f32 [B, KVH, 1, D] (strided
     views are fine); table int32 [B, P] (-1 = unmapped); lengths int32
     [B]. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel (``kv_append``'s, eight lanes a row, the row's page read from
+    the table after the source loads; its wide or narrow instance by
+    :func:`kv_append_wide`) or raise."""
     name = "kv_append_paged"
     if _build.on_cpu(name, pool, k, v, table, lengths):
         return kv_append_paged_plain(pool, k, v, table, lengths)
@@ -274,10 +282,11 @@ def kv_append_paged(pool, k, v, table, lengths):
     _build.require(all(x.is_contiguous() for x in (pool, table, lengths)),
                    name, "pool, table and lengths must be contiguous")
     kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
-    fn = _build.function(name, name, "ppiipppiiiip")
+    fn = _build.function(name, name, "ppiipppiiiiiip")
     err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
              pool.data_ptr(), table.data_ptr(), lengths.data_ptr(), b, page,
-             n_p, kvh * d, _build.stream())
+             n_p, kvh, d, int(kv_append_wide(d, pool, kr, vr)),
+             _build.stream())
     _build.check(err, name)
     kv_append_paged.launches += 1
 
@@ -317,7 +326,7 @@ def kv_append_paged_int8(pool, scales, k, v, table, lengths):
     [B, P]; lengths int32 [B]. CPU tensors take the plain version; CUDA
     tensors launch the kernel (``kv_append_int8``'s, eight lanes a row,
     the row's page read from the table while the row is quantized; its
-    wide or narrow instance by :func:`kv_append_int8_wide`) or raise."""
+    wide or narrow instance by :func:`kv_append_wide`) or raise."""
     name = "kv_append_paged_int8"
     if _build.on_cpu(name, pool, scales, k, v, table, lengths):
         return kv_append_paged_int8_plain(pool, scales, k, v, table, lengths)
@@ -331,7 +340,7 @@ def kv_append_paged_int8(pool, scales, k, v, table, lengths):
     err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
              pool.data_ptr(), scales.data_ptr(), table.data_ptr(),
              lengths.data_ptr(), b, page, n_p, kvh, d,
-             int(kv_append_int8_wide(d, pool, kr, vr)), _build.stream())
+             int(kv_append_wide(d, pool, kr, vr)), _build.stream())
     _build.check(err, name)
     kv_append_paged_int8.launches += 1
 

@@ -1,7 +1,7 @@
 """The KV-group kernel (``csrc/decode_attn_kv_group.cuh``) at its serving
 paths' shapes, against its own launch choices and the designs it replaced,
-and K7, K6 and P2 against variants of their sources, on one card in one
-call.
+and K7, K6, P2, K5 and P1 against variants of their sources, on one card
+in one call.
 
 Float rows:
 
@@ -96,6 +96,19 @@ K6 and P2 (``--skip k6``, ``--skip p2`` leave them out):
   for bit against the plain version;
 * each in two rounds of turns with ``chip_smoke.py``'s timer.
 
+K5 and P1 (``--skip fappend`` leaves them out):
+
+* K5 (``kv_append``) at ``chip_smoke.py``'s (A) and (C) inputs (f32 and
+  bf16 caches) and P1 (``kv_append_paged``) at its (E) inputs (its inputs
+  and timer, imported from it), built from variants of their sources:
+  ``shipped`` (the decode appends' kernel body of ``csrc/kv_append.cuh``
+  with its float row policy, eight lanes a row), ``one_thread_an_element``
+  (the design before, as it was launched: a thread an element in blocks
+  of 256, each loading the position, or the length and the table entry
+  behind it, before its value), ``lanes4`` and ``lanes16`` (four or
+  sixteen lanes a row: twice or half the values a lane); each in two
+  rounds of turns, held bit for bit against the plain version.
+
 Each line: the device time (CUDA events, cold L2, warm median) in two
 rounds, its share of the byte bound, and the error against the plain
 version as a share of its tolerance (1e-5 of max |out|; K8, whose output is
@@ -106,7 +119,7 @@ full of dirty lines that the kernel's reads must first write back), and
 after a read of the same 256 MB (the L2 cold and clean).
 
     python -m rten_tpu_torch.tools.kv_group_variants \
-        [--skip int8|float|verify|append|k7|k6|p2]
+        [--skip int8|float|verify|append|k7|k6|p2|fappend]
 
 Builds go to ``rten_tpu_torch/build/kv_group_variants/``. Needs one NVIDIA
 card and nvcc; without a card it exits non-zero.
@@ -242,15 +255,8 @@ ONE_WARP_A_ROW = """__global__ void one_warp_a_row(
 }
 
 """
-K7_DISPATCH = """  if (!wide)
-    KV_APPEND_INT8(0);
-  else if (d == 64)
-    KV_APPEND_INT8(8);
-  else
-    KV_APPEND_INT8(16);
-"""
-K7_SOURCE = "kv_append_int8.cuh"
-K7_LAUNCH = "template <typename Addr>\ncudaError_t launch("
+K7_SOURCE = "kv_append.cuh"
+K7_ENTRY = "  const kvappend::Positions addr{(const int*)pos, cap, masked};\n"
 K7_LOADS = "  if constexpr (kDpl > 0) {\n    float x[kDpl];\n"
 K7_ZERO_ROW = """  if (amax == 0.0f) {
 #pragma unroll
@@ -261,11 +267,14 @@ K7_ZERO_ROW = """  if (amax == 0.0f) {
 K7_VARIANTS = {
     "shipped": [],
     "one_warp_a_row": [
-        (K7_SOURCE, K7_LAUNCH, ONE_WARP_A_ROW + K7_LAUNCH),
-        (K7_SOURCE, K7_DISPATCH,
-         "  one_warp_a_row<<<(unsigned)((threads * 4 + 255) / 256), 256, 0,"
-         " stream>>>(\n      kf, vf, k_stride, v_stride, kv8, sc, addr.pos,"
-         " batch, addr.cap, kvh, d, addr.masked);\n")],
+        ("kv_append_int8.cu", 'extern "C" int kv_append_int8(',
+         ONE_WARP_A_ROW + 'extern "C" int kv_append_int8('),
+        ("kv_append_int8.cu", K7_ENTRY,
+         "  one_warp_a_row<<<(unsigned)((batch * 2LL * kvh * 32 + 255) / "
+         "256), 256, 0,\n      (cudaStream_t)stream>>>((const float*)k, "
+         "(const float*)v, k_stride,\n      v_stride, (int8_t*)kv, "
+         "(__nv_bfloat16*)scales, (const int*)pos, batch,\n      cap, kvh, "
+         "d, masked);\n  return (int)cudaGetLastError();\n" + K7_ENTRY)],
     "position_first": [
         (K7_SOURCE, K7_LOADS,
          "  if ((on ? addr.locate(b) : 0) < -(1 << 30)) return;\n"
@@ -275,15 +284,6 @@ K7_VARIANTS = {
     "divide_zeros": [("kv_quant.cuh", K7_ZERO_ROW, "")],
     "lanes16": [
         (K7_SOURCE, "constexpr int kLanes = 8;", "constexpr int kLanes = 16;"),
-        (K7_SOURCE, '  static_assert(kDpl == 8 || kDpl == 16, "head_dim 64 or '
-         '128");\n', ""),
-        (K7_SOURCE, "  else\n    *reinterpret_cast<uint2*>(p) = make_uint2("
-         "w[0], w[1]);\n",
-         "  else if constexpr (kDpl == 8)\n    *reinterpret_cast<uint2*>(p) = "
-         "make_uint2(w[0], w[1]);\n  else\n    *reinterpret_cast<uint32_t*>"
-         "(p) = w[0];\n"),
-        (K7_SOURCE, "    KV_APPEND_INT8(8);\n  else\n    KV_APPEND_INT8(16);",
-         "    KV_APPEND_INT8(4);\n  else\n    KV_APPEND_INT8(8);"),
         ("kv_quant.cuh", "  for (int o = 1; o < 8; o <<= 1)",
          "  for (int o = 1; o < 16; o <<= 1)")],
     "select_zeros": [
@@ -372,13 +372,14 @@ P2_ONE_WARP_A_ROW = """__global__ void one_warp_a_row(
                         scales + row * kvh + h, d);
 }
 
-}  // namespace
 """
-P2_ENTRY = "  return (int)kvappend::launch(k, v, k_stride, v_stride, pool, scales,"
+P2_ENTRY = ("  const kvappend::Int8Rows rows{(int8_t*)pool, "
+            "(__nv_bfloat16*)scales};\n")
 P2_VARIANTS = {
     "shipped": [],
     "one_warp_a_row": [
-        (P2_SOURCE, "}  // namespace\n", P2_ONE_WARP_A_ROW),
+        (P2_SOURCE, 'extern "C" int kv_append_paged_int8(',
+         P2_ONE_WARP_A_ROW + 'extern "C" int kv_append_paged_int8('),
         (P2_SOURCE, P2_ENTRY,
          "  one_warp_a_row<<<(unsigned)((batch * 2LL * kvh * 32 + 255) / "
          "256), 256, 0,\n      (cudaStream_t)stream>>>((const float*)k, "
@@ -386,6 +387,112 @@ P2_VARIANTS = {
          "(__nv_bfloat16*)scales, (const int*)table,\n      (const int*)"
          "lengths, batch, page, max_pages, kvh, d);\n  return "
          "(int)cudaGetLastError();\n" + P2_ENTRY)],
+}
+# K5's and P1's design before: one thread an element of the [B, 2, F] rows
+# in blocks of 256, each thread loading the position (P1: the length and
+# the table entry behind it) before its value.
+K5_ONE_THREAD = """namespace {
+
+__device__ inline void store(float* dst, float x) { *dst = x; }
+__device__ inline void store(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__global__ void kv_append_kernel(const float* __restrict__ k,
+                                 const float* __restrict__ v, int k_stride,
+                                 int v_stride, T* __restrict__ cache,
+                                 const int* __restrict__ lengths, int batch,
+                                 int cap, int f) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)batch * 2 * f) return;
+  const int c = (int)(i % f);
+  const int plane = (int)((i / f) % 2);
+  const int b = (int)(i / (2LL * f));
+  const int pos = min(max(lengths[b], 0), cap - 1);
+  const float x = plane == 0 ? k[(long long)b * k_stride + c]
+                             : v[(long long)b * v_stride + c];
+  store(cache + (((long long)b * cap + pos) * 2 + plane) * f + c, x);
+}
+
+int one_thread_an_element(const void* k, const void* v, int k_stride,
+                          int v_stride, void* cache, const void* lengths,
+                          int batch, int cap, int f, int bf16,
+                          void* stream) {
+  const long long grid = ((long long)batch * 2 * f + 255) / 256;
+  if (grid > 0 && bf16)
+    kv_append_kernel<<<(unsigned)grid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)k, (const float*)v, k_stride, v_stride,
+        (__nv_bfloat16*)cache, (const int*)lengths, batch, cap, f);
+  else if (grid > 0)
+    kv_append_kernel<<<(unsigned)grid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)k, (const float*)v, k_stride, v_stride,
+        (float*)cache, (const int*)lengths, batch, cap, f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+"""
+P1_ONE_THREAD = """namespace {
+
+__global__ void kv_append_paged_kernel(const float* __restrict__ k,
+                                       const float* __restrict__ v,
+                                       int k_stride, int v_stride,
+                                       float* __restrict__ pool,
+                                       const int* __restrict__ table,
+                                       const int* __restrict__ lengths,
+                                       int batch, int page, int max_pages,
+                                       int f) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)batch * 2 * f) return;
+  const int c = (int)(i % f);
+  const int plane = (int)((i / f) % 2);
+  const int b = (int)(i / (2LL * f));
+  const kvappend::PagedSlots addr{table, lengths, page, max_pages};
+  const long long r = addr.row(b, addr.locate(b));
+  pool[(r * 2 + plane) * f + c] = plane == 0 ? k[(long long)b * k_stride + c]
+                                             : v[(long long)b * v_stride + c];
+}
+
+int one_thread_an_element(const void* k, const void* v, int k_stride,
+                          int v_stride, void* pool, const void* table,
+                          const void* lengths, int batch, int page,
+                          int max_pages, int f, void* stream) {
+  const long long grid = ((long long)batch * 2 * f + 255) / 256;
+  if (grid > 0)
+    kv_append_paged_kernel<<<(unsigned)grid, 256, 0,
+                             (cudaStream_t)stream>>>(
+        (const float*)k, (const float*)v, k_stride, v_stride, (float*)pool,
+        (const int*)table, (const int*)lengths, batch, page, max_pages, f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+"""
+K5_ENTRY = "  const kvappend::Positions addr{(const int*)lengths, cap, 0};\n"
+P1_ENTRY = ("  return (int)kvappend::launch(k, v, k_stride, v_stride,\n"
+            "                               kvappend::FloatRows<float>{"
+            "(float*)pool},\n")
+FAPPEND_VARIANTS = {
+    "shipped": [],
+    "one_thread_an_element": [
+        ("kv_append.cu", 'extern "C" int kv_append(',
+         K5_ONE_THREAD + 'extern "C" int kv_append('),
+        ("kv_append.cu", K5_ENTRY,
+         "  return one_thread_an_element(k, v, k_stride, v_stride, cache, "
+         "lengths,\n      batch, cap, kvh * d, bf16, stream);\n" + K5_ENTRY),
+        ("kv_append_paged.cu", 'extern "C" int kv_append_paged(',
+         P1_ONE_THREAD + 'extern "C" int kv_append_paged('),
+        ("kv_append_paged.cu", P1_ENTRY,
+         "  return one_thread_an_element(k, v, k_stride, v_stride, pool, "
+         "table,\n      lengths, batch, page, max_pages, kvh * d, stream);\n"
+         + P1_ENTRY)],
+    "lanes4": [(K7_SOURCE, "constexpr int kLanes = 8;",
+                "constexpr int kLanes = 4;")],
+    "lanes16": [(K7_SOURCE, "constexpr int kLanes = 8;",
+                 "constexpr int kLanes = 16;")],
 }
 
 
@@ -1024,11 +1131,41 @@ def p2_section():
     return _turns("kv_append_paged", dirs, "P2", turns, cs.Timer())
 
 
+def fappend_section():
+    """K5 (``kv_append``) at chip_smoke.py's (A) and (C) inputs (f32 and
+    bf16 caches) and P1 (``kv_append_paged``) at its (E) inputs, as
+    shipped, as the design before (``one_thread_an_element``) and at four
+    and sixteen lanes a row (``lanes4``, ``lanes16``), in two rounds of
+    turns with chip_smoke.py's timer, each bit for bit against the plain
+    version; returns 0, or inf if one differs."""
+    dirs = build_patched(FAPPEND_VARIANTS, ("kv_append", "kv_append_paged"))
+    cs = _chip_smoke()
+    timer = cs.Timer()
+    k, v, lengths, caches = cs.kv_append_inputs()
+    turns = []
+    for (dtype, kv), path in zip(caches, ("(A)", "(C)")):
+        want, got = kv.clone(), kv.clone()
+        kc.kv_append_plain(want, k, v, lengths)
+        turns.append((
+            f"chip_smoke.py's {path} ({str(dtype)[6:]} cache)",
+            lambda kv=kv, got=got: got.copy_(kv),
+            lambda got=got: kc.kv_append(got, k, v, lengths),
+            lambda name, got=got, want=want: torch.equal(got, want)))
+    worst = _turns("kv_append", dirs, "K5", turns, timer)
+    pk, pv, plen, pool, _, table = cs.kv_append_paged_inputs(False)
+    want, got = pool.clone(), pool.clone()
+    kc.kv_append_paged_plain(want, pk, pv, table, plen)
+    turns = [("chip_smoke.py's (E)", lambda: got.copy_(pool),
+              lambda: kc.kv_append_paged(got, pk, pv, table, plen),
+              lambda name: torch.equal(got, want))]
+    return max(worst, _turns("kv_append_paged", dirs, "P1", turns, timer))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--skip",
                         choices=("int8", "float", "verify", "append",
-                                 "k7", "k6", "p2"),
+                                 "k7", "k6", "p2", "fappend"),
                         action="append",
                         default=[], help="leave a section out")
     args = parser.parse_args(argv)
@@ -1055,6 +1192,8 @@ def main(argv=None):
         worst = max(worst, k6_section(scrub))
     if "p2" not in args.skip:
         worst = max(worst, p2_section())
+    if "fappend" not in args.skip:
+        worst = max(worst, fappend_section())
     print(f"worst error {worst:.3f} of the tolerance")
     return 0 if worst <= 1.0 else 1
 

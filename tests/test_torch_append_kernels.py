@@ -20,7 +20,12 @@ numpy:
 * P2 (``kv_append_paged_int8``): K7's kernel through the page table (the
   length, then the table entry at its page, then the quantized row stored
   lane by lane), bit for bit against the reference's paged decode append
-  (``_quantize_tokens``, then ``paged_append_quant``).
+  (``_quantize_tokens``, then ``paged_append_quant``);
+* K5 (``kv_append``) and P1 (``kv_append_paged``): the same kernel body
+  with its float row policy (each lane's values packed into 32-bit words,
+  bf16 by pairs, and stored in 16- or 8-byte stores, or value by value in
+  the narrow layout), through a position or the page table, bit for bit
+  against ``cache_append`` and ``paged_append``.
 
 The card tests (tests/test_torch_cuda.py) hold the kernels to their plain
 versions; these hold the kernels' design to the reference."""
@@ -34,6 +39,7 @@ import torch
 
 from rten_tpu.generate.kv_cache import _quantize_tokens
 from rten_tpu.generate.paged_cache import PagedKVCache as JPagedKVCache
+from rten_tpu.kernels.cache import cache_append, paged_append
 from rten_tpu.kernels.attention import (flash_decode_fused,
                                         flash_decode_grouped,
                                         flash_decode_grouped_append,
@@ -367,6 +373,14 @@ def _p2_table(rng):
     return table
 
 
+def _paged_row(b, table, lengths, page):
+    """``PagedSlots``' row of sequence b: page index min(len // page, P -
+    1), id max(entry, 0), offset len % page, len = max(length, 0)."""
+    length = max(int(lengths[b]), 0)
+    pid = max(int(table[b, min(length // page, table.shape[1] - 1)]), 0)
+    return pid * page + length % page
+
+
 def _lanes8_paged_append(pool, scales, k, v, table, lengths, wide):
     """P2 as its kernel runs, in place: each (sequence, plane, KV head) row
     in eight lanes (:func:`_lanes8_quantize`'s layout); the lane's source
@@ -375,15 +389,13 @@ def _lanes8_paged_append(pool, scales, k, v, table, lengths, wide):
     page, len = max(length, 0)), the row quantized, and each lane's bytes
     stored at its values' offsets, the scale by the row's first lane."""
     b, kvh, _, d = k.shape
-    page, max_pages = pool.shape[1], table.shape[1]
+    page = pool.shape[1]
     per = d // 8 if wide else -(-d // 8)
     x = torch.stack([k[:, :, 0], v[:, :, 0]], dim=1).reshape(-1, d)
     q, s = _lanes8_quantize(x, wide)
     for r in range(x.shape[0]):
         bi, plane, h = r // (2 * kvh), (r // kvh) % 2, r % kvh
-        length = max(int(lengths[bi]), 0)
-        pid = max(int(table[bi, min(length // page, max_pages - 1)]), 0)
-        off = length % page
+        pid, off = divmod(_paged_row(bi, table, lengths, page), page)
         for lane in range(8):
             lo, hi = min(d, lane * per), min(d, (lane + 1) * per)
             pool[pid, off, plane, h * d + lo:h * d + hi] = q[r, lo:hi]
@@ -438,3 +450,124 @@ def test_eight_lane_paged_append_bit_exact_against_paged_append_quant(
     kc.kv_append_paged_int8_plain(plain_pool, plain_scales, tk, tv, tt, tl)
     assert torch.equal(plain_pool, want_pool)
     assert torch.equal(plain_scales, want_scales)
+
+
+# -- K5 and P1: the same kernel body with its float row policy ---------------
+
+def _lane_words(vals, dtype):
+    """A lane's values as the float policy packs them into 32-bit words:
+    f32 bits, or bf16 (round to nearest even) by pairs, the first value in
+    the low half."""
+    if dtype == torch.float32:
+        return vals.view(torch.int32)
+    bits = vals.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+    return bits[0::2] | (bits[1::2] << 16)
+
+
+def _lanes8_float_append(kv, k, v, row_of, wide):
+    """K5 and P1 as their kernel runs, in place on ``kv`` (the cache or
+    pool as rows [R, 2, KVH*D], f32 or bf16): each (sequence, plane, KV
+    head) row in eight lanes, each lane's values (wide: D / 8 contiguous
+    ones; narrow: ceil(D / 8), the last lanes fewer or none) stored at the
+    row ``row_of(b)`` gives; wide, as the lane's words (:func:`_lane_words`)
+    in 16-byte stores, or 8-byte ones where the lane has fewer bytes, each
+    aligned to its size; narrow, value by value, bf16 rounded to nearest
+    even."""
+    b, kvh, _, d = k.shape
+    size = kv.element_size()
+    per = d // 8 if wide else -(-d // 8)
+    x = torch.stack([k[:, :, 0], v[:, :, 0]], dim=1).reshape(-1, d)
+    flat = kv.view(torch.uint8)
+    for r in range(x.shape[0]):
+        bi, plane, h = r // (2 * kvh), (r // kvh) % 2, r % kvh
+        row = row_of(bi)
+        for lane in range(8):
+            lo, hi = min(d, lane * per), min(d, (lane + 1) * per)
+            if wide:
+                data = _lane_words(x[r, lo:hi], kv.dtype).view(torch.uint8)
+                store = 16 if len(data) % 16 == 0 else 8
+                at = (((row * 2 + plane) * kvh + h) * d + lo) * size
+                assert len(data) % store == 0 and at % store == 0
+                flat[row, plane, (h * d + lo) * size:(h * d + hi) * size] = (
+                    data)
+            else:
+                kv[row, plane, h * d + lo:h * d + hi] = x[r, lo:hi].to(
+                    kv.dtype)
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+def _float_rows(rng, b, kvh, d):
+    """New K/V [B, KVH, 1, D] at mixed magnitudes, with values at bf16
+    rounding ties (to even: down and up), -0.0 and an f32 subnormal."""
+    k, v = (rng.standard_normal((b, kvh, 1, d)).astype(np.float32)
+            * np.exp(rng.uniform(-3, 3, (b, kvh, 1, 1))).astype(np.float32)
+            for _ in range(2))
+    k[0, 0, 0, :4] = [1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, -0.0, 2.0 ** -140]
+    return k, v
+
+
+# (KV heads, head_dim, layout): the wide layout at head_dim 64 and 128 (the
+# kernel's wide instance), the narrow one there and at 16.
+FLOAT_APPEND_SHAPES = [(2, 128, True), (2, 128, False), (3, 64, True),
+                       (3, 64, False), (3, 16, False)]
+K5_CAP = 24
+# Lengths before the append: empty, mid-cache, the last row, at capacity and
+# a finished slot past it (both clamp to the last row), mid-cache.
+K5_LENGTHS = [0, 5, K5_CAP - 1, K5_CAP, K5_CAP + 9, 17]
+
+
+@pytest.mark.parametrize("kvh,d,wide", FLOAT_APPEND_SHAPES, ids=str)
+@pytest.mark.parametrize("addr,dtype", [("positions", "float32"),
+                                        ("positions", "bfloat16"),
+                                        ("paged", "float32")])
+def test_eight_lane_float_append_bit_exact_against_reference(addr, dtype,
+                                                             kvh, d, wide):
+    """K5 and P1 in their kernel's lane layout (the float row policy, wide
+    and narrow, head_dim 16 to 128) write the reference's rows bit for bit
+    over the whole cache or pool: K5 (``Positions``, f32 and bf16 caches)
+    against ``cache_append`` at min(lengths, cap - 1), a length 0 and
+    finished slots at and past capacity included; P1 (``PagedSlots``, an
+    f32 pool) against ``paged_append`` at the reference's page and offset,
+    with P2's edge rows (a slot past capacity into its last page, an
+    unmapped page and a released slot into page 0). The plain versions
+    too."""
+    rng = np.random.default_rng(900 + d + kvh + wide)
+    jdt, tdt = DTYPES[dtype]
+    b, f = 6, kvh * d
+    k, v = _float_rows(rng, b, kvh, d)
+    packed = np.stack([k.transpose(0, 2, 1, 3).reshape(b, 1, f),
+                       v.transpose(0, 2, 1, 3).reshape(b, 1, f)], axis=2)
+    news = (jnp.asarray(packed).astype(jdt),)
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    if addr == "positions":
+        lengths = np.array(K5_LENGTHS, np.int32)
+        jbuf = jnp.asarray(rng.standard_normal((b, K5_CAP, 2, f)), jdt)
+        (ref,) = cache_append(jnp.minimum(jnp.asarray(lengths), K5_CAP - 1),
+                              (jbuf,), news)
+        row_of = lambda bi: bi * K5_CAP + min(max(int(lengths[bi]), 0),
+                                              K5_CAP - 1)
+        plain = lambda kv: kc.kv_append_plain(kv, tk, tv,
+                                              torch.from_numpy(lengths))
+    else:
+        table, lengths = _p2_table(rng), np.array(P2_LENGTHS, np.int32)
+        b = len(lengths)
+        jbuf = jnp.asarray(rng.standard_normal((N_PAGES, PAGE, 2, f)), jdt)
+        idx = np.minimum(lengths // PAGE, MAX_PAGES - 1)
+        ids = np.maximum(table[np.arange(b), idx], 0).astype(np.int32)
+        (ref,) = paged_append(jnp.asarray(ids),
+                              jnp.asarray(lengths % PAGE), (jbuf,), news)
+        row_of = lambda bi: _paged_row(bi, table, lengths, PAGE)
+        plain = lambda kv: kc.kv_append_paged_plain(
+            kv, tk, tv, torch.from_numpy(table), torch.from_numpy(lengths))
+    before = torch.from_numpy(np.array(jbuf.astype(jnp.float32))).to(tdt)
+    want = torch.from_numpy(np.array(ref.astype(jnp.float32))).to(tdt)
+    got = before.clone()
+    _lanes8_float_append(got.view(-1, 2, f), tk, tv, row_of, wide)
+    assert torch.equal(_bits(got), _bits(want))
+    assert not torch.equal(got, before)
+    got = before.clone()
+    plain(got)
+    assert torch.equal(_bits(got), _bits(want))

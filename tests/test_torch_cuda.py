@@ -312,22 +312,37 @@ def rows_view(x, offset=0):
         b, 1, kvh, d).transpose(1, 2)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("b,kvh", [(6, 3), (1, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kv_append_kernel_bit_exact(gen, dtype):
-    b, cap, kvh, d = 6, 64, 3, 64
+def test_kv_append_kernel_bit_exact(gen, dtype, b, kvh, d, offset):
+    """K5 (K7's kernel body, float rows) against its plain version bit for
+    bit on f32 and bf16 caches: the wide instance (head_dim 64 and 128 on
+    aligned rows) and the narrow one (head_dim 16, and rows_view's offset
+    1: neither the rows nor their stride 16-byte aligned), at batches whose
+    36 or 4 rows do not fill a block of 16, lengths 0 to past capacity; one
+    launch counted and one CUDA kernel a call."""
+    cap = 64
     kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
                      generator=gen).to(dtype)
-    k = rows_view(torch.randn((b, kvh, 1, d), device="cuda", generator=gen))
-    v = rows_view(torch.randn((b, kvh, 1, d), device="cuda", generator=gen))
-    lengths = torch.tensor([0, 1, 17, cap - 1, cap, cap + 9],
+    k = rows_view(torch.randn((b, kvh, 1, d), device="cuda", generator=gen),
+                  offset)
+    v = rows_view(torch.randn((b, kvh, 1, d), device="cuda", generator=gen),
+                  offset)
+    lengths = torch.tensor([0, 1, 17, cap - 1, cap, cap + 9][-b:],
                            dtype=torch.int32, device="cuda")
+    assert kc.kv_append_wide(d, kv, k.reshape(b, -1), v.reshape(b, -1)) == (
+        d in (64, 128) and offset == 0)
     kv1, kv2 = kv.clone(), kv.clone()
     before = kc.kv_append.launches
     kc.kv_append(kv1, k, v, lengths)
     kc.kv_append_plain(kv2, k, v, lengths)
     torch.cuda.synchronize()
     assert kc.kv_append.launches == before + 1
-    assert torch.equal(kv1, kv2)
+    assert torch.equal(kv1, kv2) and not torch.equal(kv1, kv)
+    assert _cuda_kernels_a_call(lambda: kc.kv_append(kv1, k, v,
+                                                     lengths)) == 1
 
 
 # K7's shapes (batch, KV heads, head_dim, row offset): path (B)'s heads at
@@ -586,8 +601,8 @@ PAGED_APPEND_SHAPES = [(3, 64, 0, True), (3, 64, 0, False), (2, 128, 0, True),
 def test_kv_append_paged_kernels_bit_exact(gen, quantized, kvh, d, offset,
                                            zero_head):
     """P1 and P2 against their plain versions bit for bit (P2: bytes and
-    scales, through K7's kernel in its wide or narrow instance); one
-    launch counted, and for P2 one CUDA kernel a call."""
+    scales; both through K7's kernel body in its wide or narrow instance);
+    one launch counted and one CUDA kernel a call."""
     b, n_pages, max_pages = 6, 20, 4
     table = _paged_table(b, max_pages, APPEND_MAPPED, n_pages)
     lengths = torch.tensor(APPEND_LENGTHS, dtype=torch.int32, device="cuda")
@@ -624,6 +639,8 @@ def test_kv_append_paged_kernels_bit_exact(gen, quantized, kvh, d, offset,
         assert torch.equal(p1, p2)
         assert torch.equal(p1[0, 5, 0], k[5].reshape(-1))   # released row
         assert torch.equal(p1[0, 2, 1], v[4].reshape(-1))   # past its pages
+        assert _cuda_kernels_a_call(lambda: kc.kv_append_paged(
+            p1, k, v, table, lengths)) == 1
 
 
 # Rows: one token, a whole page, three pages less one, past its two mapped

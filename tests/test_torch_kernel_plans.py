@@ -10,9 +10,9 @@ group in one block (the KV-group kernel: P3i and P3 with its grid mode,
 S x rep (query, head) rows of a verify chunk) over int8, bf16 and f32
 rows: every live row in one chunk, chunks of whole pages or units, the
 split count, the blocks and no scratch, at batch 1-256 and groups 1-32,
-the paths' splits, and a tiling the kernel builds; and the int8 decode
-appends' (K7's, and P2's on K7's kernel) choice between the wide and
-narrow instances. These run
+the paths' splits, and a tiling the kernel builds; and the decode
+appends' (K5, P1, K7 and P2: one kernel body over f32, bf16 and int8
+caches) choice between the wide and narrow instances. These run
 without a card; the wrappers' refusals are checked with the dispatch
 forced to the kernel path, before any build or launch."""
 
@@ -1081,8 +1081,8 @@ def test_kv_append_int8_picks_its_instance(monkeypatch, d, layout, wide,
     the views' row strides as given; one launch counted."""
     calls = _recorded(monkeypatch)
     kv, scales, k, v, pos = _int8_append_args(d=d, **layout)
-    assert kc.kv_append_int8_wide(d, kv, k.reshape(3, -1),
-                                  v.reshape(3, -1)) == wide
+    assert kc.kv_append_wide(d, kv, k.reshape(3, -1),
+                             v.reshape(3, -1)) == wide
     before = kc.kv_append_int8.launches
     kc.kv_append_int8(kv, scales, k, v, pos, masked=masked)
     (symbol, got), = calls
@@ -1151,8 +1151,8 @@ def test_kv_append_paged_int8_picks_its_instance(monkeypatch, d, layout,
     calls = _recorded(monkeypatch)
     pool, scales, k, v, table, lengths = _paged_int8_append_args(d=d,
                                                                  **layout)
-    assert kc.kv_append_int8_wide(d, pool, k.reshape(3, -1),
-                                  v.reshape(3, -1)) == wide
+    assert kc.kv_append_wide(d, pool, k.reshape(3, -1),
+                             v.reshape(3, -1)) == wide
     before = kc.kv_append_paged_int8.launches
     kc.kv_append_paged_int8(pool, scales, k, v, table, lengths)
     (symbol, got), = calls
@@ -1160,3 +1160,56 @@ def test_kv_append_paged_int8_picks_its_instance(monkeypatch, d, layout,
     assert got[2:4] == (3 * 2 * d + layout.get("width_pad", 0),) * 2
     assert got[8:14] == (3, 8, 2, 2, d, int(wide))
     assert kc.kv_append_paged_int8.launches == before + 1
+
+
+# -- K5 and P1: the float decode appends on K7's kernel body ------------------
+
+def _float_append_args(dtype, d=64, width_pad=0, k_off=0, kv_off=0):
+    """K5's arguments at K7's layouts (:func:`_int8_append_args`) on an f32
+    or bf16 cache ``kv_off`` bytes past a 16-byte boundary."""
+    kv, _, k, v, pos = _int8_append_args(d=d, width_pad=width_pad,
+                                         k_off=k_off)
+    size = torch.empty((), dtype=dtype).element_size()
+    return _unaligned(kv.shape, dtype, (16 + kv_off) // size), k, v, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,layout,wide", K7_INSTANCES, ids=str)
+def test_kv_append_picks_its_instance(monkeypatch, d, layout, wide, dtype):
+    """On CUDA (simulated) K5 runs K7's kernel body and takes its instance
+    by K7's rule on an f32 or a bf16 cache: the wide one for head_dim 64 or
+    128 with the cache and every row 16-byte aligned, the narrow one
+    otherwise; the views' row strides, the heads, head_dim and the cache's
+    dtype as given; one launch counted."""
+    calls = _recorded(monkeypatch)
+    kv, k, v, pos = _float_append_args(dtype, d=d, **layout)
+    assert kc.kv_append_wide(d, kv, k.reshape(3, -1),
+                             v.reshape(3, -1)) == wide
+    before = kc.kv_append.launches
+    kc.kv_append(kv, k, v, pos)
+    (symbol, got), = calls
+    assert symbol == "kv_append"
+    assert got[2:4] == (3 * 2 * d + layout.get("width_pad", 0),) * 2
+    assert got[6:12] == (3, 8, 2, d, int(dtype == torch.bfloat16),
+                         int(wide))
+    assert kc.kv_append.launches == before + 1
+
+
+@pytest.mark.parametrize("d,layout,wide", K7_INSTANCES, ids=str)
+def test_kv_append_paged_picks_its_instance(monkeypatch, d, layout, wide):
+    """On CUDA (simulated) P1 runs K7's kernel body through the page table
+    and takes its instance by K7's rule on its f32 pool; the views' row
+    strides and the pool's shape as given; one launch counted."""
+    calls = _recorded(monkeypatch)
+    pool, _, k, v, table, lengths = _paged_int8_append_args(d=d, **layout)
+    pool = _unaligned(pool.shape, torch.float32,
+                      (16 + layout.get("kv_off", 0)) // 4)
+    assert kc.kv_append_wide(d, pool, k.reshape(3, -1),
+                             v.reshape(3, -1)) == wide
+    before = kc.kv_append_paged.launches
+    kc.kv_append_paged(pool, k, v, table, lengths)
+    (symbol, got), = calls
+    assert symbol == "kv_append_paged"
+    assert got[2:4] == (3 * 2 * d + layout.get("width_pad", 0),) * 2
+    assert got[7:13] == (3, 8, 2, 2, d, int(wide))
+    assert kc.kv_append_paged.launches == before + 1
