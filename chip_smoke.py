@@ -54,8 +54,9 @@ Phases (any failure exits non-zero; nothing is caught):
    ``scaled_dot_product_attention``) and at TinyLlama's (printed); the
    partials mode of K1' (``decode_attn_int8_partials``, q_bf16 on and off)
    at path (B)'s shapes and at TinyLlama's (printed, chunks merged by the
-   second launch); K9 (``decode_attn_split_kv``, separate f32 K and V of
-   S 4096) at path (H)'s head shape (f32 SDPA with ``enable_gqa``);
+   second launch); K9 (``decode_attn_split_kv``, separate f32 and bf16 K
+   and V planes of S 4096) at path (H)'s head shape (f32 and bf16 SDPA
+   with ``enable_gqa``);
    ``decode_attn_native_dots`` at path (C)'s bf16 shapes (bf16 SDPA); G1's
    ``pv_int8`` mode at path (H)'s shapes in both score modes; M1
    (``matmul_int8_tiled``) bit for bit at GPT-2-small's four linears at
@@ -66,11 +67,12 @@ Phases (any failure exits non-zero; nothing is caught):
    TinyLlama's GQA (B 16, 32 heads over 4 KV heads, capacity 2048); P2
    (``kv_append_paged_int8``) with and without its all-zero head. K5
    (``kv_append``, on (A)'s f32 and (C)'s bf16 cache), P1
-   (``kv_append_paged``), K7 and P2 run one kernel body
-   (``csrc/kv_append.cuh``) and must launch one CUDA kernel a call
-   (profiler). P3, its grid mode, P3i, G1 (both score modes), G2, K6
-   (f32 and bf16), K8 (f32 and bf16) and V1 (both entries, both modes) run
-   the KV-group kernel
+   (``kv_append_paged``), K7, P2 and K3 (``tail_flush_int8``, at the
+   burst's t 16 and at an admission's t 5 of its 16-row window) run one
+   kernel body (``csrc/kv_append.cuh``) and must launch one CUDA kernel a
+   call (profiler). P3, its grid mode, P3i, G1 (both score modes), G2, K6
+   (f32 and bf16), K8 (f32 and bf16), K9 (f32 and bf16 planes) and V1
+   (both entries, both modes) run the KV-group kernel
    (``csrc/decode_attn_kv_group.cuh``): the plan (splits a sequence,
    blocks, warps a block, query rows a warp, the ring) is printed and
    their entries add the CUDA kernels a call launches (profiler), which
@@ -103,8 +105,8 @@ Phases (any failure exits non-zero; nothing is caught):
      tokens. (I-bf16): int8 weights on a bf16 cache, 256 requests of 16.
    For int8 + tail, (A), (D), (E) and (I): decode at a full batch, one
    burst timed on the host clock and one traced by torch.profiler (time by
-   kernel, the card's busy share; the device time a step of P3i on (D),
-   P3 on (E) and K8 on (I)); for
+   kernel, the card's busy share; the device time a step of K3 on int8 +
+   tail, P3i on (D), P3 on (E) and K8 on (I)); for
    (B) and (C) the timed burst only;
    for (D) and (E) also the host time of the allocator's pass before a
    burst. Then one line with the int8 + tail and f32 decode tokens/s of
@@ -543,13 +545,16 @@ def check_matmul_wo(timer, w, s, w_dq, n):
     return entry
 
 
-def check_tail_flush(timer, b=256, kvh=12, cap=512, live=(16, 160)):
-    rows, d, t = 16, 64, 16
-    f = kvh * d
+def tail_flush_inputs(b=256, kvh=12, cap=512, live=(16, 160)):
+    """K3's inputs: a bf16 window of 16 rows with an all-zero head, a random
+    int8 cache of capacity ``cap`` with its bf16 scales, and lengths drawn
+    from ``live`` with one finished slot past capacity. Returns (tail, kv,
+    scales, lengths)."""
+    f = kvh * 64
     g = torch.Generator(device="cuda").manual_seed(5)
-    tail = torch.randn((b, rows, 2, f), device="cuda",
+    tail = torch.randn((b, 16, 2, f), device="cuda",
                        generator=g).to(torch.bfloat16)
-    tail[0, 0, 0, :d] = 0          # an all-zero head takes scale 1.0
+    tail[0, 0, 0, :64] = 0         # an all-zero head takes scale 1.0
     kv = torch.randint(-127, 128, (b, cap, 2, f), device="cuda",
                        dtype=torch.int8, generator=g)
     scales = torch.rand((b, cap, 2, kvh), device="cuda",
@@ -557,26 +562,54 @@ def check_tail_flush(timer, b=256, kvh=12, cap=512, live=(16, 160)):
     lengths = torch.randint(live[0], live[1], (b,), device="cuda",
                             generator=g, dtype=torch.int32)
     lengths[1] = cap + 7           # a finished slot past capacity: clamps
-    kv1, s1, kv2, s2 = kv.clone(), scales.clone(), kv.clone(), scales.clone()
-    kc.tail_flush_int8(tail, kv1, s1, lengths, t)
-    kc.tail_flush_int8_plain(tail, kv2, s2, lengths, t)
-    torch.cuda.synchronize()
-    err = max((kv1.int() - kv2.int()).abs().max().item(),
-              (s1.float() - s2.float()).abs().max().item())
-    print(f"tail_flush_int8 (B {b}, KVH {kvh}, cap {cap}): max_abs_err "
-          f"{err} (bit-exact required)")
-    check(torch.equal(kv1, kv2) and torch.equal(s1, s2), "K3 not bit-exact")
-    n_bytes = b * t * 2 * f * 2 + b * t * 2 * f + b * t * 2 * kvh * 2 + b * 4
-    bms, by = bound_ms(n_bytes)
-    return dict(name="tail_flush_int8",
-                source="rten_tpu_torch/csrc/tail_flush_int8.cu",
+    return tail, kv, scales, lengths
+
+
+def check_tail_flush(timer, b=256, kvh=12, cap=512, live=(16, 160)):
+    """K3 (``tail_flush_int8``, the decode appends' kernel body over the
+    window's rows) at the burst's flush (t 16 of an R 16 window) and at an
+    admission's partial flush (t 5): each bit for bit against the plain
+    version and one CUDA kernel a call (profiler), an all-zero head and a
+    finished slot past capacity among the inputs. The entry's numbers are
+    t 16's; t 5's are printed. Bound: the t window rows read, the int8
+    bytes and the scales written and the lengths read, once."""
+    tail, kv, scales, lengths = tail_flush_inputs(b, kvh, cap, live)
+    rows, d = tail.shape[1], 64
+    f = kvh * d
+    wide = kc.tail_flush_wide(d, tail, kv)
+    res = {}
+    for t in (rows, 5):
+        kv1, s1 = kv.clone(), scales.clone()
+        kv2, s2 = kv.clone(), scales.clone()
+        call = lambda: kc.tail_flush_int8(tail, kv1, s1, lengths, t)
+        call()
+        kc.tail_flush_int8_plain(tail, kv2, s2, lengths, t)
+        torch.cuda.synchronize()
+        err = max((kv1.int() - kv2.int()).abs().max().item(),
+                  (s1.float() - s2.float()).abs().max().item())
+        label = (f"tail_flush_int8 (B {b}, KVH {kvh}, cap {cap}, t {t} of "
+                 f"R {rows})")
+        print(f"{label}: max_abs_err {err} (bit-exact required); "
+              f"{'wide' if wide else 'narrow'} instance")
+        check(torch.equal(kv1, kv2) and torch.equal(s1, s2),
+              f"K3 not bit-exact at t {t}")
+        bms, by = bound_ms(b * t * 2 * f * 2 + b * t * 2 * f
+                           + b * t * 2 * kvh * 2 + b * 4)
+        ms = timer(call)
+        plain_ms = timer(lambda: kc.tail_flush_int8_plain(tail, kv2, s2,
+                                                          lengths, t))
+        # The profiler after the timings, as kv_group_launch does.
+        n = device_launches(call)
+        print(f"{label}: {n} CUDA kernel(s) a call; kernel_ms {ms:.4f} "
+              f"plain_ms {plain_ms:.4f} bound_ms {bms:.4f} ({by})")
+        check(n == 1 or n == "not measured",
+              f"K3 launched {n} CUDA kernels a call at t {t}, not one")
+        res[t] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bms, bound_by=by, device_launches=n)
+    return dict(name="tail_flush_int8", source=APPEND_SOURCE,
                 replaces="rten_tpu/kernels/cache.py:370,511",
-                max_abs_err=err,
-                ms=timer(lambda: kc.tail_flush_int8(tail, kv1, s1, lengths,
-                                                    t)),
-                plain_ms=timer(lambda: kc.tail_flush_int8_plain(
-                    tail, kv2, s2, lengths, t)),
-                bound_ms=bms, bound_by=by, library_ms=None)
+                shape=f"B {b}, {kvh} heads of {d}, capacity {cap}, t {rows}",
+                **res[rows], library_ms=None)
 
 
 def _decode_rows(g, b, kvh, d):
@@ -1666,47 +1699,69 @@ def check_partials(timer, b=256, h=12, kvh=12, cap=512, lives=(65, 177),
                    ("max_abs_err", "ms", "plain_ms")})
 
 
-def check_split_kv(timer, b=16, h=H_HEADS, kvh=H_KVH, d=H_D, s=4096,
-                   lives=H_LIVES):
-    """K9 (``decode_attn_split_kv``) against its plain version on separate
-    f32 K and V planes at path (H)'s head shape (the reference's kernel
-    shape: d 128, S a multiple of 256); the library call f32
-    ``scaled_dot_product_attention(enable_gqa=True)`` over S with the
-    length mask. Bound: the live rows of K and V read once."""
+def split_kv_inputs(b=16, h=H_HEADS, kvh=H_KVH, d=H_D, s=4096,
+                    lives=H_LIVES):
+    """K9's inputs at path (H)'s head shape: q, f32 K and V planes
+    [B, KVH, S, D] and lengths drawn from ``lives``."""
     g = torch.Generator(device="cuda").manual_seed(33)
     q = torch.randn((b, h, d), device="cuda", generator=g)
-    k, v = (torch.randn((b, kvh, s, d), device="cuda", generator=g)
-            for _ in range(2))
-    lengths = _decode_lengths(g, b, lives)
+    planes = [torch.randn((b, kvh, s, d), device="cuda", generator=g)
+              for _ in range(2)]
+    return q, planes, _decode_lengths(g, b, lives)
+
+
+def check_split_kv(timer, lives=H_LIVES):
+    """K9 (``decode_attn_split_kv``, the KV-group kernel over separate K and
+    V planes) against its plain version at path (H)'s head shape (the
+    reference's kernel shape: d 128, S a multiple of 256) on f32 planes
+    (the entry) and bf16 planes (its ``bf16_*`` keys): held within
+    K6_REL_TOL of max |out|, timed beside the plain version and
+    ``scaled_dot_product_attention(enable_gqa=True)`` in the planes' dtype
+    (q cast to it) over S with the length mask, the plan and one CUDA
+    kernel a call (``kv_group_launch``). Bound: the live rows of K and V
+    read once."""
+    q, planes, lengths = split_kv_inputs(lives=lives)
+    b, h, d = q.shape
+    kvh, s = planes[0].shape[1:3]
     check(at.split_kv_takes_kernel(s, d), "K9's phase shape is not one the "
           "reference sends to its kernel")
-    out = at.decode_attn_split_kv(q, k, v, lengths)
-    ref = at.decode_attn_split_kv_plain(q, k, v, lengths)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    tol = K6_REL_TOL * ref.abs().max().item()
-    label = (f"decode_attn_split_kv (B {b}, {h} heads over {kvh} of {d}, "
-             f"f32 planes of S {s}, lives {lives[0]}-{lives[1] - 1})")
-    print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})")
-    check(bool(torch.isfinite(out).all()) and err <= tol,
-          f"{label} disagrees")
-    bms, by = _decode_bound(q, lengths, s, 2 * kvh * d * 4)
     mask = _sdpa_mask(lengths, s)
-    lib = timer(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
-    ms = timer(lambda: at.decode_attn_split_kv(q, k, v, lengths))
-    plain_ms = timer(lambda: at.decode_attn_split_kv_plain(q, k, v,
-                                                           lengths))
-    print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-          f"{bms:.4f} ({by}) library_ms {lib:.4f} (f32 "
-          f"scaled_dot_product_attention, enable_gqa)")
-    return dict(name="decode_attn_split_kv",
-                source="rten_tpu_torch/csrc/decode_attn_split.cu",
-                replaces="rten_tpu/kernels/attention.py:2647",
-                shape=(f"B {b}, {h} heads over {kvh} of {d}, f32 K and V of "
-                       f"S {s}, lives {lives[0]}-{lives[1] - 1}"),
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib)
+    entry = dict(name="decode_attn_split_kv",
+                 replaces="rten_tpu/kernels/attention.py:2647",
+                 shape=(f"B {b}, {h} heads over {kvh} of {d}, f32 K and V "
+                        f"of S {s}, lives {lives[0]}-{lives[1] - 1}"))
+    for dtype, key in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
+        k, v = (x.to(dtype) for x in planes)
+        out = at.decode_attn_split_kv(q, k, v, lengths)
+        ref = at.decode_attn_split_kv_plain(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = K6_REL_TOL * ref.abs().max().item()
+        label = (f"decode_attn_split_kv (B {b}, {h} heads over {kvh} of "
+                 f"{d}, {str(dtype)[6:]} planes of S {s}, lives "
+                 f"{lives[0]}-{lives[1] - 1})")
+        print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})")
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              f"{label} disagrees")
+        bms, by = _decode_bound(q, lengths, s,
+                                2 * kvh * d * k.element_size())
+        qd = q.to(dtype)[:, :, None]
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            qd, k, v, attn_mask=mask, enable_gqa=True))
+        call = lambda: at.decode_attn_split_kv(q, k, v, lengths)
+        r = dict(max_abs_err=err, ms=timer(call),
+                 plain_ms=timer(lambda: at.decode_attn_split_kv_plain(
+                     q, k, v, lengths)),
+                 bound_ms=bms, bound_by=by, library_ms=lib)
+        print(f"{label}: kernel_ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {bms:.4f} ({by}) library_ms "
+              f"{lib:.4f} ({str(dtype)[6:]} scaled_dot_product_attention, "
+              f"enable_gqa)")
+        r.update(kv_group_launch(label, at.rows_plan(b, h, kvh, s, d), call,
+                                 r))
+        entry["source"] = r.pop("source")
+        entry.update({key + name: x for name, x in r.items()})
+    return entry
 
 
 # native_dots and pv_int8 round a probability (to bf16, or to an int8 step
@@ -1990,7 +2045,9 @@ PATHS = {
     "int8_tail": dict(weights="int8", engine=dict(quantized_cache=True),
                       tail=16, requests=(320, 48),
                       kernels=("decode_attn_int8_tail", "head_argmax_int8",
-                               "tail_flush_int8", "matmul_int8_wo")),
+                               "tail_flush_int8", "matmul_int8_wo"),
+                      trace_kernel=("K3 (tail_flush_int8)",
+                                    "kvappend::kernel")),
     "f32": dict(weights="f32", engine=dict(), tail=0, requests=(320, 48),
                 kernels=("kv_append", "decode_attn_float")),
     "int8_no_tail": dict(weights="int8",
@@ -2289,8 +2346,10 @@ def steady_decode(model, params, path, steps=16, trace=False):
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
                   f"{e.count:5d}x  {e.key[:90]}")
         if "trace_kernel" in PATHS[path]:
-            # P3i on (D), P3 on (E), K8 on (I), G1 on (H): the KV-group
-            # kernel's device time a step beside the step time.
+            # K3 on int8 + tail (the appends' kernel body: no other
+            # kernel of the path runs it), P3i on (D), P3 on (E), K8 on
+            # (I), G1 on (H): the kernel's device time a step beside the
+            # step time.
             label, symbol = PATHS[path]["trace_kernel"]
             mine = [e for e in on_card if symbol in e.key]
             ms = sum(e.self_device_time_total for e in mine) / 1e3

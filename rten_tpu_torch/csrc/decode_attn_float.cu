@@ -41,11 +41,11 @@
 // Design: K6 and K8 run the KV-group kernel (one block per (sequence, KV
 // head, split) for the whole query group, rows staged in shared memory by
 // cp.async, splits merged in a cluster), at the launch of rows_plan. The
-// kernel K6 ran before (decode_attn.cuh: one block of four warps per
-// (sequence, query head), rows loaded straight from device memory, no
-// staging) read each row once per query head, 8 times at TinyLlama's group
-// of 8 (0.295 ms there against a 0.010 bound), and launched B x H blocks
-// at small batches. native_dots reads K twice (the first pass only for the
+// kernel K6 ran before (one block of four warps per (sequence, query
+// head), rows loaded straight from device memory, no staging) read each
+// row once per query head, 8 times at TinyLlama's group of 8 (0.295 ms
+// there against a 0.010 bound), and launched B x H blocks at small
+// batches. native_dots reads K twice (the first pass only for the
 // block maxima, kept in shared memory: at most kMaxBlocks blocks).
 #include "decode_attn.cuh"
 #include "decode_attn_kv_group.cuh"

@@ -7,9 +7,10 @@
 // int8 scores), of decode_attn_float.cu's K6 and K8 (contiguous f32 or
 // bf16 rows, exact or with flash_decode_flat's roundings), of
 // verify_attn.cu's V1 (S <= 8 verify
-// queries a sequence over contiguous f32, bf16 or int8 rows) and of
+// queries a sequence over contiguous f32, bf16 or int8 rows), of
 // decode_attn_append.cu's A1 (contiguous f32 or bf16 rows, the decode
-// append written by the same launch).
+// append written by the same launch) and of decode_attn_split.cu's K9
+// (separate f32 or bf16 K and V planes).
 //
 // Contract: for sequence b and KV head kh, query heads kh * rep .. kh * rep
 // + rep - 1 (rep = H / KVH) read rows t < n = min(lengths[b], capacity),
@@ -17,7 +18,8 @@
 // [B, cap, 2, KVH*D] cache; Pages: [table[b, t / page], t % page] of a
 // [n_pages, page, 2, KVH*D] pool, an unmapped id (-1) reading pool page
 // 0; MaskedPages: the same, but the rows of an unmapped page take no
-// weight). q f32 [B, H, D], out f32 [B, H, D]. ChunkRows (Rows with S
+// weight; Planes: [b, kh, t] of separate K and V planes [B, KVH, S, D]).
+// q f32 [B, H, D], out f32 [B, H, D]. ChunkRows (Rows with S
 // verify queries, kExact only): q and out [B, S, H, D], lengths count the
 // rows before the chunk, and query i reads rows t < min(max(lengths[b], 0)
 // + i + 1, cap). AppendRows (Rows with the decode append fused, float rows,
@@ -207,9 +209,12 @@ __device__ __forceinline__ void s8x4_to_f32(uint32_t w, float* f) {
   f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.0f;
 }
 
-// Each addressing gives row t of sequence b a row index r into [rows, 2,
-// KVH*D] (and [rows, 2, KVH] for the scales), for t in the block's chunk
-// [c0, c1), or -1 for a masked row, which is neither copied nor weighed.
+// Each addressing gives row t of sequence b a row index r, for t in the
+// block's chunk [c0, c1), or -1 for a masked row, which is neither copied
+// nor weighed; k_at and v_at (below) point at KV head kh's K and V slices
+// of row r, D elements each. Rows, ChunkRows, AppendRows and the page
+// tables index interleaved rows [rows, 2, KVH*D] (and [rows, 2, KVH] for
+// the scales); Planes separate K and V planes.
 
 // Each addressing also gives the query rows of a sequence and KV head: a
 // decode step's are the group's rep query heads, q and out [B, H, D], and
@@ -310,6 +315,54 @@ struct PageTable {
 using Pages = PageTable<false>;
 using MaskedPages = PageTable<true>;
 
+// Separate K and V planes [B, KVH, S, D] (float rows only): row b * KVH *
+// S + t; KV head kh's slices lie kh * S rows further, at the same offset
+// of the K plane (the kernel's kv) and of the V plane v.
+struct Planes {
+  static constexpr int kIds = 1;
+  static constexpr bool kMasks = false;
+  static constexpr bool kChunk = false;
+  static constexpr bool kAppend = false;
+  int cap, kvh;                     // S, KVH
+  const void* v;
+  __host__ __device__ int queries() const { return 1; }
+  __device__ int capacity() const { return cap; }
+  __device__ void stage_ids(int*, int, int, int) const {}
+  __device__ long long row(const int*, int b, int t, int) const {
+    return (long long)b * kvh * cap + t;
+  }
+  __device__ bool live(const int*, int, int) const { return true; }
+};
+
+// KV head kh's K and V slices of row r: in interleaved rows [rows, 2, F]
+// (F = KVH*D) the V slice lies F elements past the K slice; in separate
+// planes both lie at (r + kh * S) * D, of the K plane (kv) and of the V
+// plane.
+template <typename T, typename Addr>
+__device__ __forceinline__ const T* k_at(const Addr&, const T* kv,
+                                         long long r, int kh, long long f,
+                                         int d) {
+  return kv + r * 2 * f + (long long)kh * d;
+}
+template <typename T, typename Addr>
+__device__ __forceinline__ const T* v_at(const Addr& a, const T* kv,
+                                         long long r, int kh, long long f,
+                                         int d) {
+  return k_at(a, kv, r, kh, f, d) + f;
+}
+template <typename T>
+__device__ __forceinline__ const T* k_at(const Planes& a, const T* k,
+                                         long long r, int kh, long long,
+                                         int d) {
+  return k + (r + (long long)kh * a.cap) * d;
+}
+template <typename T>
+__device__ __forceinline__ const T* v_at(const Planes& a, const T*,
+                                         long long r, int kh, long long,
+                                         int d) {
+  return static_cast<const T*>(a.v) + (r + (long long)kh * a.cap) * d;
+}
+
 // kDpl int8 values of shared memory as kDpl / 4 words, in 16-byte loads
 // (kDpl 16 or 32) or 8-byte ones (kDpl 8 or 24).
 template <int kDpl>
@@ -405,6 +458,8 @@ __global__ void __launch_bounds__(32 * kWarps)
                 "a verify chunk has no int8-scores mode");
   static_assert(!Addr::kAppend || (!kInt8 && kMode == kExact),
                 "the fused append writes float rows, exact mode");
+  static_assert(!std::is_same<Addr, Planes>::value || !kInt8,
+                "separate planes carry float rows");
   static_assert(kHG * kRG == kWarps && (!kInt8 || (kDense &&
                                                    kThreads >= 2 * kTile)),
                 "tiling");
@@ -507,10 +562,9 @@ __global__ void __launch_bounds__(32 * kWarps)
           }
         }
         if (!fresh && (!Addr::kMasks || row >= 0)) {
-          const T* src = kv + row * 2 * f + (long long)kh * d +
-                         vq * (16 / (int)sizeof(T));
-          cp_async16(dst, src);
-          cp_async16(dst + kPlane, src + f);
+          const int e = vq * (16 / (int)sizeof(T));
+          cp_async16(dst, k_at(addr, kv, row, kh, f, d) + e);
+          cp_async16(dst + kPlane, v_at(addr, kv, row, kh, f, d) + e);
         }
       }
     }
@@ -840,8 +894,8 @@ cudaError_t launch_one(const float* q, const T* kv,
 // 32), kHG head groups of warps sharing each staged row (a block serves
 // kHpw * kHG heads) and 4 or 8 warps; the ring is tile_rows x ring_stages
 // for T at D. These are the tilings built; D above 128 only for kWide
-// (P3i, P3, K6 and K8: the per-head kernel of decode_attn.cuh took D up
-// to 256 there). The wrapper checks
+// (P3i, P3, K6, K8 and K9: the per-head kernel these replaced took D up
+// to 256). The wrapper checks
 // shapes, contiguity, 16-byte alignment, a paged chunk's page ids and
 // 1 <= splits <= kMaxSplits.
 template <typename T, typename Addr, int kMode, bool kWide>

@@ -35,8 +35,8 @@
 // a tile at a time (int8: a page of 64 rows, 8 KB of K and V at D 64 plus
 // 256 B of scales; f32: tile_rows of the header, a page in several tiles)
 // through a cp.async ring, computing from shared memory on the
-// eight-lanes-a-row layout. The per-head layout of decode_attn.cuh (one
-// block per query head) gave a row to a lane as 8- or 2-byte loads, one
+// eight-lanes-a-row layout. The per-head layout before it (one block per
+// query head) gave a row to a lane as 8- or 2-byte loads, one
 // dependent table read per token, and 4 tokens a warp in flight: P3i
 // 0.189 ms against its 0.015 bound, P3 0.142 against 0.058. At a batch of
 // 256, B x KVH = 3072 blocks fill the card, so one launch with no split
@@ -50,7 +50,7 @@
 // a sequence (and KV head) splits into, each a whole number of pages (1 to
 // 8, one cluster); hpw query heads a warp, hg head groups, warps 4 or 8 a
 // block (kv_group::launch). d 64 to 256 in steps of 64, as the per-head
-// kernel of decode_attn.cuh took. The wrapper checks that a chunk holds at
+// kernel before it took. The wrapper checks that a chunk holds at
 // most 256 pages, shapes, contiguity and 16-byte alignment.
 extern "C" int decode_attn_paged(const void* q, const void* pool,
                                  const void* table, const void* lengths,

@@ -31,13 +31,12 @@ extern "C" int kv_append(const void* k, const void* v, int k_stride,
                          int batch, int cap, int kvh, int d, int bf16,
                          int wide, void* stream) {
   const kvappend::Positions addr{(const int*)lengths, cap, 0};
+  const kvappend::DecodeRows src{(const float*)k, (const float*)v, k_stride,
+                                 v_stride, batch};
   if (bf16)
     return (int)kvappend::launch(
-        k, v, k_stride, v_stride,
-        kvappend::FloatRows<__nv_bfloat16>{(__nv_bfloat16*)cache}, batch,
-        kvh, d, wide, addr, (cudaStream_t)stream);
-  return (int)kvappend::launch(k, v, k_stride, v_stride,
-                               kvappend::FloatRows<float>{(float*)cache},
-                               batch, kvh, d, wide, addr,
-                               (cudaStream_t)stream);
+        src, kvappend::FloatRows<__nv_bfloat16>{(__nv_bfloat16*)cache}, kvh,
+        d, wide, addr, (cudaStream_t)stream);
+  return (int)kvappend::launch(src, kvappend::FloatRows<float>{(float*)cache},
+                               kvh, d, wide, addr, (cudaStream_t)stream);
 }

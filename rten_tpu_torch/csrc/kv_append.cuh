@@ -1,35 +1,39 @@
-// Every decode append's kernel: one body over two row policies and two
-// addressings. K5 (kv_append.cu: a float cache, the row at the sequence's
-// position), P1 (kv_append_paged.cu: a float pool, the row through the
-// page table), K7 (kv_append_int8.cu: an int8 cache) and P2
-// (kv_append_paged.cu: an int8 pool).
+// Every int8 or float KV-cache writer's kernel: one body over two sources,
+// two row policies and three addressings. K5 (kv_append.cu: a float cache,
+// the row at the sequence's position), P1 (kv_append_paged.cu: a float
+// pool, the row through the page table), K7 (kv_append_int8.cu: an int8
+// cache), P2 (kv_append_paged.cu: an int8 pool) and K3 (tail_flush_int8.cu:
+// the tail window's first t rows into an int8 cache).
 //
-// Contract: write each sequence's new K and V rows, per (plane, KV head),
-// into kv[row, plane, h * d ..] of a [rows, 2, KVH*D] cache or pool, at the
-// row the addressing gives (below); a row of -1 writes nothing. k and v are
-// f32 rows [B, KVH*D] with row strides k_stride / v_stride (elements). The
-// float policy (FloatRows: f32 or bf16 caches) stores the values, a bf16
-// cache rounded to nearest even as Tensor.to(torch.bfloat16) does. The
-// int8 policy (Int8Rows) quantizes each row as
-// kvquant::quantize_row_lanes8 does (bit for bit with
+// Contract: write each source row (sequence b, token j, plane, KV head h)
+// into kv[row + j, plane, h * d ..] of a [rows, 2, KVH*D] cache or pool, at
+// the row the addressing gives for sequence b (below); a row of -1 writes
+// nothing. The sources: DecodeRows, each sequence's new K and V rows, f32
+// [B, KVH*D] with row strides k_stride / v_stride (elements), token 0;
+// WindowRows, tokens j < t of each sequence's bf16 tail window
+// [B, R, 2, KVH*D]. The float policy (FloatRows: f32 or bf16 caches)
+// stores the values, a bf16 cache rounded to nearest even as
+// Tensor.to(torch.bfloat16) does. The int8 policy (Int8Rows) quantizes
+// each row as kvquant::quantize_row_lanes8 does (bit for bit with
 // kv_cache.py::_quantize_tokens) and stores the bytes and the bf16 scale
-// into scales[row, plane, h] of its [rows, 2, KVH] scales.
+// into scales[row + j, plane, h] of its [rows, 2, KVH] scales.
 //
-// Design: eight lanes a (sequence, plane, KV head) row, four rows a warp.
-// Each lane first issues its loads of the row's f32 values (D / 8 of them,
-// in 16-byte loads, into registers), then the load that locates the row
-// (the position, or the length), then the dependent load if there is one
-// (the page table's entry at the length's page); nothing before the stores
-// waits for the row's address. The int8 policy quantizes the row while the
-// address is in flight (absmax by three shuffles within the row's lanes,
-// an IEEE division a value, none for an all-zero row) and stores one 8- or
-// 16-byte word a lane and the scale from the row's first lane; the float
-// policy stores the lane's values as they came, in 16-byte stores (f32:
-// two at D 64, four at D 128; bf16 packed by pairs: one at D 64, two at
-// D 128). The wide instance serves head_dim 64 and 128 on 16-byte aligned
-// rows; the narrow one any head_dim and alignment: each lane takes its
-// D / 8 values (rounded up) by scalar loads and stores. A file that
-// includes this must not be compiled with -use_fast_math.
+// Design: eight lanes a source row, four rows a warp. Each lane first
+// issues its loads of the row's values (D / 8 of them, in 16-byte loads:
+// f32 four a load, bf16 eight, converted exactly to f32 in registers),
+// then the load that locates the row (the position, or the length), then
+// the dependent load if there is one (the page table's entry at the
+// length's page); nothing before the stores waits for the row's address.
+// The int8 policy quantizes the row while the address is in flight (absmax
+// by three shuffles within the row's lanes, an IEEE division a value, none
+// for an all-zero row) and stores one 8- or 16-byte word a lane and the
+// scale from the row's first lane; the float policy stores the lane's
+// values as they came, in 16-byte stores (f32: two at D 64, four at D 128;
+// bf16 packed by pairs: one at D 64, two at D 128). The wide instance
+// serves head_dim 64 and 128 on 16-byte aligned rows; the narrow one any
+// head_dim and alignment: each lane takes its D / 8 values (rounded up) by
+// scalar loads and stores. A file that includes this must not be compiled
+// with -use_fast_math.
 #pragma once
 #include "kv_quant.cuh"
 
@@ -41,6 +45,85 @@ constexpr int kLanes = 8;      // lanes a row
 // short chain of round trips, so the size matters little: 64 and 256
 // timed within 0.0001 ms of 128 at both shapes (PERF.md).
 constexpr int kBlock = 128;
+
+// The sources. A source has count(kvh) rows; row r is (sequence b, token
+// j, plane, KV head h) (id), its D values start at ptr(id, kvh, d), and
+// load<kDpl>(p, on, x) reads the lane's kDpl values at p (16-byte aligned)
+// into x as f32, in 16-byte loads.
+struct RowId {
+  int b, j, plane, h;
+};
+
+// K5, P1, K7 and P2: each sequence's new f32 K and V rows, [B, 2, KVH]
+// rows of token 0. A lane past the last row loads nothing: with the loads
+// unguarded, the float policy (whose stores are the first use of x) read
+// 5-6% slower for K5 and P1 at paths (A), (C) and (E) on an H100
+// (PERF.md), as if the loads waited for the row's address.
+struct DecodeRows {
+  using T = float;
+  const float* k;
+  const float* v;
+  int k_stride, v_stride, batch;
+  __host__ __device__ long long count(int kvh) const {
+    return (long long)batch * 2 * kvh;
+  }
+  __device__ RowId id(long long r, int kvh) const {
+    const long long q = r / kvh;
+    return {(int)(q >> 1), 0, (int)(q & 1), (int)(r - q * kvh)};
+  }
+  __device__ const float* ptr(RowId x, int, int d) const {
+    return (x.plane == 0 ? k + (long long)x.b * k_stride
+                         : v + (long long)x.b * v_stride) +
+           (long long)x.h * d;
+  }
+  template <int kDpl>
+  __device__ void load(const float* p, bool on, float* x) const {
+#pragma unroll
+    for (int c = 0; c < kDpl / 4; ++c) {
+      const float4 q = on ? __ldg(reinterpret_cast<const float4*>(p) + c)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      x[4 * c] = q.x;
+      x[4 * c + 1] = q.y;
+      x[4 * c + 2] = q.z;
+      x[4 * c + 3] = q.w;
+    }
+  }
+};
+
+// K3: tokens j < t of each sequence's bf16 tail window [B, R, 2, KVH*D]
+// (R = rows), [B, t, 2, KVH] rows in the window's order. Every lane loads
+// (one past the last row reads row 0): guarded as DecodeRows' loads, K3
+// read 6% slower at the int8 + tail shape (PERF.md).
+struct WindowRows {
+  using T = __nv_bfloat16;
+  const __nv_bfloat16* tail;
+  int rows, t, batch;
+  __host__ __device__ long long count(int kvh) const {
+    return (long long)batch * t * 2 * kvh;
+  }
+  __device__ RowId id(long long r, int kvh) const {
+    const long long q = r / kvh, bj = q >> 1, b = bj / t;
+    return {(int)b, (int)(bj - b * t), (int)(q & 1), (int)(r - q * kvh)};
+  }
+  __device__ const __nv_bfloat16* ptr(RowId x, int kvh, int d) const {
+    return tail + (((long long)x.b * rows + x.j) * 2 + x.plane) * kvh * d +
+           (long long)x.h * d;
+  }
+  template <int kDpl>
+  __device__ void load(const __nv_bfloat16* p, bool, float* x) const {
+#pragma unroll
+    for (int c = 0; c < kDpl / 8; ++c) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p) + c);
+      const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(v[i]);
+        x[8 * c + 2 * i] = f.x;
+        x[8 * c + 2 * i + 1] = f.y;
+      }
+    }
+  }
+};
 
 // The addressings. locate(b) is the load that locates sequence b's row;
 // row(b, x) turns its value x into the row index, or -1 for no write.
@@ -79,6 +162,19 @@ struct PagedSlots {
   }
 };
 
+// K3: a contiguous cache [B, cap, 2, KVH*D]; window token j of sequence b
+// goes to row b * cap + clip(lengths[b] - t, 0, cap - t) + j
+// (kv_cache.py:667): lengths count the t window tokens, a length below t
+// clamps to 0 and a finished slot past capacity to cap - t.
+struct Window {
+  const int* lengths;
+  int cap, t;
+  __device__ int locate(int b) const { return __ldg(lengths + b); }
+  __device__ long long row(int b, int len) const {
+    return (long long)b * cap + min(max(len - t, 0), cap - t);
+  }
+};
+
 // kBytes bytes of the words w to p: 16-byte stores where kBytes allows,
 // else 8- or 4-byte ones; p is aligned to them (D, the head's offset and
 // the lane's, slot * D / 8 values, are multiples of the lane's values).
@@ -107,11 +203,11 @@ __device__ inline void store_words(void* p, const uint32_t* w) {
 //   wide<kDpl>(x, ...): the lane's kDpl values x (the row's values
 //     slot * kDpl ..) in registers. All 32 lanes of the warp call it.
 //   first(src, lo, hi): the narrow instance's work before the address, on
-//     the lane's values [lo, hi) of the row src.
+//     the lane's values [lo, hi) of the source row src (f32 or bf16).
 //   narrow(src, lo, hi, part, ...): the rest, with first's result part.
 //     All 32 lanes of the warp call it.
 
-// K7 and P2: an int8 cache or pool and its bf16 scales.
+// K3, K7 and P2: an int8 cache or pool and its bf16 scales.
 struct Int8Rows {
   int8_t* kv;
   __nv_bfloat16* scales;
@@ -125,12 +221,15 @@ struct Int8Rows {
     if (slot == 0) scales[at * kvh + h] = sb;
   }
   // The lane's absmax.
-  __device__ float first(const float* src, int lo, int hi) const {
+  template <typename In>
+  __device__ float first(const In* src, int lo, int hi) const {
     float amax = 0.0f;
-    for (int i = lo; i < hi; ++i) amax = fmaxf(amax, fabsf(__ldg(src + i)));
+    for (int i = lo; i < hi; ++i)
+      amax = fmaxf(amax, fabsf(kvquant::to_float(__ldg(src + i))));
     return amax;
   }
-  __device__ void narrow(const float* src, int lo, int hi, float amax,
+  template <typename In>
+  __device__ void narrow(const In* src, int lo, int hi, float amax,
                          long long at, int h, int slot, int kvh, int d,
                          bool write) const {
 #pragma unroll
@@ -141,7 +240,8 @@ struct Int8Rows {
     int8_t* dst = kv + at * kvh * d + (long long)h * d;
     const float sf = __bfloat162float(sb);
     for (int i = lo; i < hi; ++i)
-      dst[i] = (int8_t)kvquant::quantize_value(__ldg(src + i), sf);
+      dst[i] = (int8_t)kvquant::quantize_value(
+          kvquant::to_float(__ldg(src + i)), sf);
     if (slot == 0) scales[at * kvh + h] = sb;
   }
 };
@@ -170,40 +270,38 @@ struct FloatRows {
     store_words<kBytes>(kv + at * kvh * d + (long long)h * d + slot * kDpl,
                         w);
   }
-  __device__ float first(const float*, int, int) const { return 0.0f; }
-  __device__ void narrow(const float* src, int lo, int hi, float,
+  template <typename In>
+  __device__ float first(const In*, int, int) const { return 0.0f; }
+  template <typename In>
+  __device__ void narrow(const In* src, int lo, int hi, float,
                          long long at, int h, int, int kvh, int d,
                          bool write) const {
     if (!write) return;
     T* dst = kv + at * kvh * d + (long long)h * d;
     for (int i = lo; i < hi; ++i) {
+      const float x = kvquant::to_float(__ldg(src + i));
       if constexpr (sizeof(T) == 4)
-        dst[i] = __ldg(src + i);
+        dst[i] = x;
       else
-        dst[i] = __float2bfloat16_rn(__ldg(src + i));
+        dst[i] = __float2bfloat16_rn(x);
     }
   }
 };
 
 // kDpl > 0: the wide instance, D = kLanes * kDpl (64 or 128), rows 16-byte
 // aligned; kDpl = 0: the narrow one, any D and alignment.
-template <int kDpl, typename Rows, typename Addr>
+template <int kDpl, typename Src, typename Rows, typename Addr>
 __global__ void __launch_bounds__(kBlock)
-    kernel(const float* __restrict__ k, const float* __restrict__ v,
-           int k_stride, int v_stride, Rows rows, int batch, int kvh, int d,
-           Addr addr) {
-  // Row r = (b, plane, h) of the [B, 2, KVH] rows; a lane past the last
-  // row joins the shuffles and stores nothing.
+    kernel(Src source, Rows rows, int kvh, int d, Addr addr) {
+  // Source row r; a lane past the last row takes row 0's address, joins
+  // the shuffles and stores nothing.
   const long long r =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kLanes;
   const int slot = threadIdx.x % kLanes;
-  const bool on = r < (long long)batch * 2 * kvh;
-  const int h = on ? (int)(r % kvh) : 0;
-  const int plane = on ? (int)((r / kvh) % 2) : 0;
-  const int b = on ? (int)(r / (2 * kvh)) : 0;
-  const float* src = (plane == 0 ? k + (long long)b * k_stride
-                                 : v + (long long)b * v_stride) +
-                     (long long)h * d;
+  const bool on = r < source.count(kvh);
+  const RowId id = source.id(on ? r : 0, kvh);
+  const int b = id.b;
+  const typename Src::T* src = source.ptr(id, kvh, d);
   // The narrow instance's values [lo, hi) of the row, D / 8 rounded up.
   const int per = (d + kLanes - 1) / kLanes;
   const int lo = min(d, slot * per), hi = on ? min(d, lo + per) : lo;
@@ -211,42 +309,30 @@ __global__ void __launch_bounds__(kBlock)
   // the policy's arithmetic and stores.
   if constexpr (kDpl > 0) {
     float x[kDpl];
-#pragma unroll
-    for (int c = 0; c < kDpl / 4; ++c) {
-      const float4 q = on ? __ldg(reinterpret_cast<const float4*>(
-                                      src + slot * kDpl) + c)
-                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      x[4 * c] = q.x;
-      x[4 * c + 1] = q.y;
-      x[4 * c + 2] = q.z;
-      x[4 * c + 3] = q.w;
-    }
+    source.template load<kDpl>(src + slot * kDpl, on, x);
     const long long row = addr.row(b, addr.locate(b));
-    rows.template wide<kDpl>(x, row * 2 + plane, h, slot, kvh, d,
-                             on && row >= 0);
+    rows.template wide<kDpl>(x, (row + id.j) * 2 + id.plane, id.h, slot,
+                             kvh, d, on && row >= 0);
   } else {
     const float part = rows.first(src, lo, hi);
     const long long row = addr.row(b, addr.locate(b));
-    rows.narrow(src, lo, hi, part, row * 2 + plane, h, slot, kvh, d,
-                on && row >= 0);
+    rows.narrow(src, lo, hi, part, (row + id.j) * 2 + id.plane, id.h, slot,
+                kvh, d, on && row >= 0);
   }
 }
 
 // wide: 1 for the wide instance (the wrapper checks d 64 or 128 and every
 // row 16-byte aligned), 0 for the narrow one.
-template <typename Rows, typename Addr>
-cudaError_t launch(const void* k, const void* v, int k_stride, int v_stride,
-                   Rows rows, int batch, int kvh, int d, int wide, Addr addr,
-                   cudaStream_t stream) {
+template <typename Src, typename Rows, typename Addr>
+cudaError_t launch(Src source, Rows rows, int kvh, int d, int wide,
+                   Addr addr, cudaStream_t stream) {
   if (d < 1 || (wide && d != 64 && d != 128)) return cudaErrorInvalidValue;
-  const long long threads = (long long)batch * 2 * kvh * kLanes;
+  const long long threads = source.count(kvh) * kLanes;
   const long long grid = (threads + kBlock - 1) / kBlock;
   if (grid <= 0) return cudaGetLastError();
-  const float* kf = (const float*)k;
-  const float* vf = (const float*)v;
 #define KV_APPEND(DPL)                                                      \
-  kernel<DPL, Rows, Addr><<<(unsigned)grid, kBlock, 0, stream>>>(           \
-      kf, vf, k_stride, v_stride, rows, batch, kvh, d, addr)
+  kernel<DPL, Src, Rows, Addr><<<(unsigned)grid, kBlock, 0, stream>>>(      \
+      source, rows, kvh, d, addr)
   if (!wide)
     KV_APPEND(0);
   else if (d == 64)

@@ -36,6 +36,8 @@ extern "C" int kv_append_int8(const void* k, const void* v, int k_stride,
                               int d, int masked, int wide, void* stream) {
   const kvappend::Positions addr{(const int*)pos, cap, masked};
   const kvappend::Int8Rows rows{(int8_t*)kv, (__nv_bfloat16*)scales};
-  return (int)kvappend::launch(k, v, k_stride, v_stride, rows, batch, kvh,
-                               d, wide, addr, (cudaStream_t)stream);
+  const kvappend::DecodeRows src{(const float*)k, (const float*)v, k_stride,
+                                 v_stride, batch};
+  return (int)kvappend::launch(src, rows, kvh, d, wide, addr,
+                               (cudaStream_t)stream);
 }

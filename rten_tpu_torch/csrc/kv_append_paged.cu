@@ -42,10 +42,10 @@ extern "C" int kv_append_paged(const void* k, const void* v, int k_stride,
                                void* stream) {
   const kvappend::PagedSlots addr{(const int*)table, (const int*)lengths,
                                   page, max_pages};
-  return (int)kvappend::launch(k, v, k_stride, v_stride,
-                               kvappend::FloatRows<float>{(float*)pool},
-                               batch, kvh, d, wide, addr,
-                               (cudaStream_t)stream);
+  const kvappend::DecodeRows src{(const float*)k, (const float*)v, k_stride,
+                                 v_stride, batch};
+  return (int)kvappend::launch(src, kvappend::FloatRows<float>{(float*)pool},
+                               kvh, d, wide, addr, (cudaStream_t)stream);
 }
 
 extern "C" int kv_append_paged_int8(const void* k, const void* v,
@@ -57,6 +57,8 @@ extern "C" int kv_append_paged_int8(const void* k, const void* v,
   const kvappend::PagedSlots addr{(const int*)table, (const int*)lengths,
                                   page, max_pages};
   const kvappend::Int8Rows rows{(int8_t*)pool, (__nv_bfloat16*)scales};
-  return (int)kvappend::launch(k, v, k_stride, v_stride, rows, batch, kvh,
-                               d, wide, addr, (cudaStream_t)stream);
+  const kvappend::DecodeRows src{(const float*)k, (const float*)v, k_stride,
+                                 v_stride, batch};
+  return (int)kvappend::launch(src, rows, kvh, d, wide, addr,
+                               (cudaStream_t)stream);
 }

@@ -1,10 +1,10 @@
-// Per-(token, plane, head) symmetric int8 quantization of one head row:
-// quantize_row (one warp a row of d values) for tail_flush_int8.cu (K3:
-// bf16 window rows), and quantize_row_lanes8 (eight lanes a row, four rows
-// a warp, the values in registers) for kv_append.cuh's int8 policy (K7 and
-// P2: f32 decode rows). Both compute
+// Per-(token, plane, head) symmetric int8 quantization of one head row in
+// eight lanes (four rows a warp, the values in registers):
+// quantize_row_lanes8, the arithmetic of kv_append.cuh's int8 row policy
+// (K3: bf16 window rows, K7 and P2: f32 decode rows), and its helpers
+// row_scale and quantize_value (the policy's narrow instance). They compute
 //
-//   absmax over the row (warp shuffles),
+//   absmax over the row (shuffles within the row's eight lanes),
 //   scale = bf16_rn(absmax / 127), or 1.0 where absmax == 0,
 //   q = clamp(rint(x / f32(scale)), -127, 127)
 //
@@ -23,32 +23,8 @@ __device__ inline float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// All 32 lanes of the warp must call it. Writes dst[0, d) and, from lane
-// 0, *scale.
-template <typename In>
-__device__ inline void quantize_row(const In* __restrict__ src,
-                                    int8_t* __restrict__ dst,
-                                    __nv_bfloat16* __restrict__ scale,
-                                    int d) {
-  const int lane = threadIdx.x & 31;
-  float amax = 0.0f;
-  for (int i = lane; i < d; i += 32)
-    amax = fmaxf(amax, fabsf(to_float(src[i])));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const __nv_bfloat16 sb =
-      __float2bfloat16_rn(amax == 0.0f ? 1.0f : __fdiv_rn(amax, 127.0f));
-  const float sf = __bfloat162float(sb);
-  for (int i = lane; i < d; i += 32) {
-    const float q = rintf(__fdiv_rn(to_float(src[i]), sf));
-    dst[i] = (int8_t)fminf(fmaxf(q, -127.0f), 127.0f);
-  }
-  if (lane == 0) *scale = sb;
-}
-
 // The scale of a row of absmax amax, and value x quantized with the
-// scale's f32 value sf: quantize_row's arithmetic.
+// scale's f32 value sf.
 __device__ inline __nv_bfloat16 row_scale(float amax) {
   return __float2bfloat16_rn(amax == 0.0f ? 1.0f : __fdiv_rn(amax, 127.0f));
 }
@@ -62,7 +38,7 @@ __device__ inline int quantize_value(float x, float sf) {
 // warp must call it, four rows at once. Packs the lane's bytes into
 // w[kDpl / 4] (byte i of word j is value 4j + i) and returns the row's
 // scale. The max is exact in any order, so the scale and the bytes are
-// quantize_row's bit for bit.
+// _quantize_tokens' bit for bit.
 template <int kDpl>
 __device__ inline __nv_bfloat16 quantize_row_lanes8(const float* x,
                                                     uint32_t* w) {

@@ -9,54 +9,40 @@
 // token-packed rows, the carry rows and the shift funnel have no
 // counterpart here.
 //
+// Contract: for sequence b and window token j < t (t <= R, the window's
+// rows; partial flushes before admissions take t < R), off =
+// clip(lengths[b] - t, 0, cap - t) (kv_cache.py:667; lengths count the t
+// window tokens): kv[b, off + j, plane, h * D ..] and scales[b, off + j,
+// plane, h] take tail[b, j, plane, h * D ..] quantized per (token, plane,
+// head) as kv_cache.py::_quantize_tokens does, bit for bit.
+//
 // Bound on the H100: bytes. Per layer at t = 16, batch 256, 12 heads of 64
 // it reads 12.6 MB of bf16 rows and writes 6.3 MB of int8 plus 0.2 MB of
 // scales, about 6 us at 3.35 TB/s; there are no matrix operations. Design:
-// one warp per (sequence, token, plane, head) row of head_dim values, so a
-// warp reads one contiguous bf16 row, reduces its absmax with shuffles and
-// writes one contiguous int8 row; no shared memory, no second pass.
-//
-// Numerics: kv_quant.cuh, bit for bit with kv_cache.py::_quantize_tokens.
-// The file must not be compiled with -use_fast_math.
-#include "kv_quant.cuh"
+// kv_append.cuh's kernel, the body of every decode append, with the
+// WindowRows source, the int8 row policy (K7's and P2's) and the Window
+// addressing: eight lanes a (sequence, token, plane, head) row, four rows a
+// warp; each lane issues its 16-byte loads of the window row (one at
+// D 64, two at D 128), then the length, and quantizes while the length is
+// in flight (no division for an all-zero head), then stores one 8- or
+// 16-byte word and, from the row's first lane, the scale. The design
+// before (one warp a row, 2-byte loads at a stride of 32 lanes twice,
+// single-byte stores, a division for every value of an all-zero head) read
+// 0.0454 ms at that shape (PERF.md). The wide instance serves head_dim 64
+// and 128 on 16-byte aligned rows; the narrow one any other head_dim or
+// alignment. The file must not be compiled with -use_fast_math.
+#include "kv_append.cuh"
 
-__global__ void tail_flush_int8_kernel(
-    const __nv_bfloat16* __restrict__ tail, int8_t* __restrict__ kv,
-    __nv_bfloat16* __restrict__ scales, const int* __restrict__ lengths,
-    int batch, int rows, int cap, int kvh, int d, int t) {
-  const long long warp =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long n_warps = (long long)batch * t * 2 * kvh;
-  if (warp >= n_warps) return;
-  const int h = (int)(warp % kvh);
-  long long rest = warp / kvh;
-  const int plane = (int)(rest % 2);
-  rest /= 2;
-  const int j = (int)(rest % t);
-  const int b = (int)(rest / t);
-  const long long f = (long long)kvh * d;
-
-  const __nv_bfloat16* src =
-      tail + (((long long)b * rows + j) * 2 + plane) * f + (long long)h * d;
-  // Offsets clamp exactly as kv_cache.py:667: clip(lengths - t, 0, cap - t).
-  const int off = min(max(lengths[b] - t, 0), cap - t);
-  const long long row = ((long long)b * cap + off + j) * 2 + plane;
-  kvquant::quantize_row(src, kv + row * f + (long long)h * d,
-                        scales + row * kvh + h, d);
-}
-
+// rows: R of the window [B, R, 2, KVH*D]. wide: 1 for the wide instance
+// (the wrapper checks d 64 or 128 and both tensors 16-byte aligned), 0 for
+// the narrow one.
 extern "C" int tail_flush_int8(const void* tail, void* kv, void* scales,
                                const void* lengths, int batch, int rows,
-                               int cap, int kvh, int d, int t,
+                               int cap, int kvh, int d, int t, int wide,
                                void* stream) {
-  const long long threads = (long long)batch * t * 2 * kvh * 32;
-  const int block = 256;
-  const long long grid = (threads + block - 1) / block;
-  if (grid > 0) {
-    tail_flush_int8_kernel<<<(unsigned)grid, block, 0,
-                             (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)tail, (int8_t*)kv, (__nv_bfloat16*)scales,
-        (const int*)lengths, batch, rows, cap, kvh, d, t);
-  }
-  return (int)cudaGetLastError();
+  const kvappend::WindowRows src{(const __nv_bfloat16*)tail, rows, t, batch};
+  const kvappend::Int8Rows dst{(int8_t*)kv, (__nv_bfloat16*)scales};
+  const kvappend::Window addr{(const int*)lengths, cap, t};
+  return (int)kvappend::launch(src, dst, kvh, d, wide, addr,
+                               (cudaStream_t)stream);
 }

@@ -9,29 +9,31 @@ kernel, each counting its own launches:
   ``csrc/decode_attn_int8_tail.cu``;
 * ``decode_attn_float`` (K6), ``decode_attn_flat_float`` (K8) and
   ``decode_attn_native_dots``: ``csrc/decode_attn_float.cu``;
-  ``decode_attn_split_kv`` (K9, ``csrc/decode_attn_split.cu``) runs the
-  per-head kernel of ``csrc/decode_attn.cuh``, its last user;
 * ``decode_attn_paged``, ``decode_attn_paged_grid`` and
   ``decode_attn_paged_int8`` (P3, its grid mode and P3i,
   ``csrc/decode_attn_paged.cu``), ``decode_attn_grouped_int8`` without
   ``pv_int8`` (G1, both score modes) and ``decode_attn_fused_int8`` (G2,
   both ``csrc/decode_attn_grouped_int8.cu``), K6 and K8,
   ``verify_attn_grouped`` and ``verify_attn_fused`` (V1,
-  ``csrc/verify_attn.cu``) and ``decode_attn_grouped_append`` (A1, the
-  write fused, ``csrc/decode_attn_append.cu``): the KV-group kernel of
+  ``csrc/verify_attn.cu``), ``decode_attn_grouped_append`` (A1, the
+  write fused, ``csrc/decode_attn_append.cu``) and
+  ``decode_attn_split_kv`` (K9, separate K and V planes,
+  ``csrc/decode_attn_split.cu``): the KV-group kernel of
   ``csrc/decode_attn_kv_group.cuh`` (G1's ``pv_int8`` mode walks blocks in
   a kernel of its own in ``decode_attn_grouped_int8.cu``);
 * ``matmul_int4_words`` (Q1) and ``matmul_int4`` (Q2):
   ``csrc/matmul_int4.cu``;
 * ``kv_append`` (K5, ``csrc/kv_append.cu``), ``kv_append_int8`` (K7,
   ``csrc/kv_append_int8.cu``), ``kv_append_paged`` and
-  ``kv_append_paged_int8`` (P1 and P2, ``csrc/kv_append_paged.cu``): the
+  ``kv_append_paged_int8`` (P1 and P2, ``csrc/kv_append_paged.cu``) and
+  ``tail_flush_int8`` (K3, ``csrc/tail_flush_int8.cu``): the
   eight-lanes-a-row kernel of ``csrc/kv_append.cuh``, with a float (K5,
-  P1) or an int8 (K7, P2) row policy, through a position or through the
-  page table.
+  P1) or an int8 (K7, P2, K3) row policy, over the new f32 rows (K3: the
+  bf16 tail window's first t rows), through a position, the page table
+  or the flush's window offset.
 
 The others have a source each: ``flash_attention`` (F1),
-``tail_flush_int8`` (K3), ``head_argmax_int8`` (K2), ``matmul_int8_wo``
+``head_argmax_int8`` (K2), ``matmul_int8_wo``
 (K4), ``matmul_int4_words_int8`` (Q1', ``csrc/matmul_int4_int8dot.cu``)
 and ``matmul_int8_tiled`` (M1, ``csrc/matmul_int8.cu``). The verify wrappers
 also count per mode (float or int8 cache) in ``mode_launches``, and

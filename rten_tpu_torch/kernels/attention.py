@@ -28,8 +28,8 @@
   source) adds the roundings of ``flash_decode_grouped``'s
   ``native_dots``.
 * ``decode_attn_split_kv`` (CUDA, ``csrc/decode_attn_split.cu``, K9, the
-  per-head kernel of ``csrc/decode_attn.cuh`` over separate K and V
-  planes) replaces ``flash_decode`` (:2647).
+  KV-group kernel in its exact mode over separate K and V planes, at
+  :func:`rows_plan`) replaces ``flash_decode`` (:2647).
 * ``decode_attn_paged`` and ``decode_attn_paged_grid`` (P3 and its grid
   mode, f32 pools) and ``decode_attn_paged_int8`` (P3i) (CUDA,
   ``csrc/decode_attn_paged.cu``, on the KV-group kernel of
@@ -711,6 +711,32 @@ def decode_attn_split_kv_plain(q, k_cache, v_cache, lengths, scale=None):
                            _live(lengths, s), scale)
 
 
+def _launch_split_kv(q, k_cache, v_cache, lengths, scale, plan=None):
+    """K9 on CUDA tensors at a kernel shape: the KV-group kernel in its
+    exact mode over the two planes (``csrc/decode_attn_split.cu``) at
+    ``plan`` (default :func:`rows_plan`'s); counts the launch."""
+    name = "decode_attn_split_kv"
+    b, h, d, kvh, s = _check_split(q, k_cache, v_cache, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    _build.require(d in (128, 256), name, f"head_dim {d}: the kernel takes "
+                   f"128 or 256")
+    plan = plan or rows_plan(b, h, kvh, s, d)
+    _check_kv_group(name, (q, k_cache, v_cache, lengths), plan)
+    _build.require(v_cache.data_ptr() % 16 == 0, name,
+                   "v_cache must be 16-byte aligned (16-byte copies)")
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attn_split", name, "pppppiiiiiiiiiiifp")
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, s,
+             int(k_cache.dtype == torch.bfloat16), plan["splits"],
+             plan["unit"], plan["heads_per_warp"], plan["head_groups"],
+             plan["warps"], float(scale), _build.stream())
+    _build.check(err, name)
+    decode_attn_split_kv.launches += 1
+    return out
+
+
 def decode_attn_split_kv(q, k_cache, v_cache, lengths, scale=None):
     """Single-step decode attention over separate caches, the contract of
     the reference's ``flash_decode`` (attention.py:2647): q f32 [B, H, D];
@@ -724,31 +750,19 @@ def decode_attn_split_kv(q, k_cache, v_cache, lengths, scale=None):
     ``_attn_reference`` runs (``attn_reference`` here, on either device,
     no launch): masked scores take -1e30, so lengths 0 gives the mean of
     V over all S rows. CPU tensors take the plain version; CUDA tensors at
-    the kernel's shapes launch the kernel or raise."""
+    the kernel's shapes launch the kernel (the KV-group kernel in its exact
+    mode, a block per KV head for up to 8 query heads of its group,
+    :func:`rows_plan`; head_dim 128 or 256; both planes 16-byte aligned)
+    or raise."""
     name = "decode_attn_split_kv"
     if _build.on_cpu(name, q, k_cache, v_cache, lengths):
         return decode_attn_split_kv_plain(q, k_cache, v_cache, lengths,
                                           scale)
-    b, h, d, kvh, s = _check_split(q, k_cache, v_cache, lengths)
+    _, _, d, _, s = _check_split(q, k_cache, v_cache, lengths)
     if not split_kv_takes_kernel(s, d):
         return decode_attn_split_kv_plain(q, k_cache, v_cache, lengths,
                                           scale)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    _build.require(d <= 256, name, f"head_dim {d}: the kernel takes 128 or "
-                   f"256")
-    tensors = (q, k_cache, v_cache, lengths)
-    _build.require(all(x.is_contiguous() for x in tensors), name,
-                   "tensors must be contiguous")
-    out = torch.empty_like(q)
-    fn = _build.function("decode_attn_split", name, "pppppiiiiiifp")
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, s,
-             int(k_cache.dtype == torch.bfloat16), float(scale),
-             _build.stream())
-    _build.check(err, name)
-    decode_attn_split_kv.launches += 1
-    return out
+    return _launch_split_kv(q, k_cache, v_cache, lengths, scale)
 
 
 decode_attn_split_kv.launches = 0
@@ -820,11 +834,11 @@ def _paged_plain(name, q, pool, scales, table, lengths, scale,
 # ring of stages in shared memory and serves every query row of the KV
 # head's group from it: P3i (int8 pool), P3 and its grid mode (f32 pool), G1
 # and G2 (contiguous int8 rows), K6, K8 and A1 (contiguous f32 or bf16 rows;
-# A1 writes the new row too) and V1 (contiguous f32, bf16 or int8 rows; S x rep
-# query rows a group). A sequence
-# splits into chunks (one thread-block cluster, merged in the same launch)
-# only where B x KVH leaves the card short of this many blocks, and a launch
-# of at most two blocks an SM gives each block 8 warps, not 4.
+# A1 writes the new row too), K9 (separate f32 or bf16 K and V planes) and
+# V1 (contiguous f32, bf16 or int8 rows; S x rep query rows a group). A
+# sequence splits into chunks (one thread-block cluster, merged in the same
+# launch) only where B x KVH leaves the card short of this many blocks, and
+# a launch of at most two blocks an SM gives each block 8 warps, not 4.
 # At path (H)'s G1 (128 pairs) 2 splits of 8 warps took 0.0238 ms against
 # 0.0283-0.0353 for 4 warps at 1-4 splits; at path (D)'s P3i (3072 blocks)
 # 4 warps took 0.0400 against 0.0473 for 8; over f32 and bf16 rows 4 warps
@@ -901,8 +915,9 @@ def paged_plan(batch, heads, kvh, page, max_pages, head_dim=64, splits=None,
 def rows_plan(batch, heads, kvh, cap, head_dim=128, splits=None, warps=None):
     """The launch of the KV-group kernel over a contiguous cache (G1's int8
     rows, exact q or int8 scores, without ``pv_int8``, and G2's; K6's, K8's
-    and A1's f32 or bf16 rows): the plan of :func:`paged_plan` with chunks
-    of whole KV_GROUP_UNIT-row units."""
+    and A1's f32 or bf16 rows; K9's separate f32 or bf16 planes, ``cap``
+    their S): the plan of :func:`paged_plan` with chunks of whole
+    KV_GROUP_UNIT-row units."""
     return _kv_group_plan(batch, heads, kvh, head_dim, KV_GROUP_UNIT,
                           -(-cap // KV_GROUP_UNIT), 1, splits, warps)
 

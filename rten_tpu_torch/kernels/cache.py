@@ -1,7 +1,7 @@
 """KV-cache write kernels.
 
-* ``tail_flush_int8`` (CUDA, ``csrc/tail_flush_int8.cu``) stands in for
-  both ``rten_tpu/kernels/cache.py::cache_flush_rows`` (:511) and
+* ``tail_flush_int8`` (CUDA, ``csrc/tail_flush_int8.cu``, K3) stands in
+  for both ``rten_tpu/kernels/cache.py::cache_flush_rows`` (:511) and
   ``::cache_flush_quant`` (:370) together with the quantization that
   ``rten_tpu/generate/kv_cache.py::flush_tail`` runs in XLA before them.
 * ``kv_append`` (CUDA, ``csrc/kv_append.cu``) replaces ``cache_append``
@@ -16,9 +16,12 @@
   decode appends into a block-paged pool, page and offset resolved from
   the page table inside the kernel.
 
-The four decode appends run one kernel body (``csrc/kv_append.cuh``: eight
-lanes a row) with a float or an int8 row policy, through a position or the
-page table, in its wide or narrow instance by :func:`kv_append_wide`.
+The four decode appends and the flush run one kernel body
+(``csrc/kv_append.cuh``: eight lanes a row) over a source (the new f32
+rows, or the bf16 window's first t rows) with a float or an int8 row
+policy, through a position, the page table or the flush's window offset,
+in its wide or narrow instance by :func:`kv_append_wide` (the flush:
+:func:`tail_flush_wide`).
 
 The cache layout is the port's byte-addressable one (int8
 ``[B, cap, 2, KVH*D]``, bf16 scales ``[B, cap, 2, KVH]``; pools
@@ -73,7 +76,8 @@ def tail_flush_int8(tail, kv, scales, lengths, t):
     tail bf16 [B, R, 2, KVH*D]; kv int8 [B, cap, 2, KVH*D]; scales bf16
     [B, cap, 2, KVH]; lengths int32 [B] (they already count the t tail
     tokens). CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel (the decode appends' eight-lane body over the window's rows,
+    :func:`tail_flush_wide` picks its instance) or raise."""
     t = int(t)
     if _build.on_cpu("tail_flush_int8", tail, kv, scales, lengths):
         return tail_flush_int8_plain(tail, kv, scales, lengths, t)
@@ -82,14 +86,27 @@ def tail_flush_int8(tail, kv, scales, lengths, t):
                                                    lengths)),
                    "tail_flush_int8", "tensors must be contiguous")
     fn = _build.function("tail_flush_int8", "tail_flush_int8",
-                         "ppppiiiiiip")
+                         "ppppiiiiiiip")
     err = fn(tail.data_ptr(), kv.data_ptr(), scales.data_ptr(),
-             lengths.data_ptr(), b, rows, cap, kvh, d, t, _build.stream())
+             lengths.data_ptr(), b, rows, cap, kvh, d, t,
+             int(tail_flush_wide(d, tail, kv)), _build.stream())
     _build.check(err, "tail_flush_int8")
     tail_flush_int8.launches += 1
 
 
 tail_flush_int8.launches = 0
+
+
+def tail_flush_wide(d, tail, kv):
+    """Whether the flush (K3, the decode appends' kernel body over the
+    window's rows) takes its wide instance: head_dim 64 or 128 (D / 8
+    values a lane: one or two 16-byte loads of bf16, one 8- or 16-byte
+    store of int8) and the window and the cache 16-byte aligned (the
+    contiguous rows' strides, whole multiples of D, then are too). Else
+    its narrow instance (scalar loads and stores) serves the call: every
+    head_dim, any alignment."""
+    return (d in (64, 128) and tail.data_ptr() % 16 == 0
+            and kv.data_ptr() % 16 == 0)
 
 
 def _rows(x, b, f):

@@ -1,6 +1,6 @@
 """The KV-group kernel (``csrc/decode_attn_kv_group.cuh``) at its serving
 paths' shapes, against its own launch choices and the designs it replaced,
-and K7, K6, P2, K5 and P1 against variants of their sources, on one card
+and K7, P2, K5, P1 and K3 against variants of their sources, on one card
 in one call.
 
 Float rows:
@@ -71,7 +71,7 @@ K7 (``--skip k7`` leaves it out):
   rows and positions (k and v views of one [B, 1, (H + 2 KVH) D] qkv row,
   positions 64-576), built from variants of its source: ``shipped``,
   ``one_warp_a_row`` (the design before, as it was launched: one warp a
-  row through ``kvquant::quantize_row``, 256 threads a block, the source
+  row through its one-warp quantizer, 256 threads a block, the source
   loads after the branch on the position), ``position_first`` (the shipped
   kernel with its source loads issued after the position has arrived),
   ``no_divide`` (each value multiplied by the scale: wrong bytes, the
@@ -82,19 +82,14 @@ K7 (``--skip k7`` leaves it out):
   values and divisions a lane). Each time in two rounds of turns; each
   variant but ``no_divide`` held bit for bit against the plain version.
 
-K6 and P2 (``--skip k6``, ``--skip p2`` leave them out):
+P2 (``--skip p2`` leaves it out):
 
-* K6 (``decode_attn_float``) at path (A)'s shapes (K8's at (I)), at (C)'s
-  (the same on a bf16 cache), at batch 3 and at TinyLlama's GQA, built as
-  shipped and as the design before (``per_head``: the per-head kernel of
-  ``csrc/decode_attn.cuh`` on contiguous rows), each held to 1e-5 of max
-  |out| against the plain version;
 * P2 (``kv_append_paged_int8``) at ``chip_smoke.py``'s (D) case, with and
   without its all-zero head (its inputs and timer, imported from it),
   built as shipped and as the design before (``one_warp_a_row``: one warp
-  a row through ``kvquant::quantize_row``, 256 threads a block), each bit
-  for bit against the plain version;
-* each in two rounds of turns with ``chip_smoke.py``'s timer.
+  a row through its one-warp quantizer, 256 threads a block), each bit
+  for bit against the plain version, in two rounds of turns with
+  ``chip_smoke.py``'s timer.
 
 K5 and P1 (``--skip fappend`` leaves them out):
 
@@ -106,8 +101,27 @@ K5 and P1 (``--skip fappend`` leaves them out):
   (the design before, as it was launched: a thread an element in blocks
   of 256, each loading the position, or the length and the table entry
   behind it, before its value), ``lanes4`` and ``lanes16`` (four or
-  sixteen lanes a row: twice or half the values a lane); each in two
-  rounds of turns, held bit for bit against the plain version.
+  sixteen lanes a row: twice or half the values a lane) and
+  ``unguarded_loads`` (every lane loads, as K3's window rows do); each in
+  two rounds of turns, held bit for bit against the plain version.
+
+K3 and K9 (``--skip flush``, ``--skip k9`` leave them out):
+
+* K3 (``tail_flush_int8``) at ``chip_smoke.py``'s inputs (its int8 + tail
+  shape, B 256, 12 heads of 64, capacity 512, and TinyLlama's, B 16, 4 KV
+  heads, capacity 2048), each at t 16 and at t 5 of the 16-row window,
+  built as shipped (the decode appends' kernel body over the window's
+  rows), as the design before (``one_warp_a_row``: one warp a row, the
+  one-warp quantizer, 256 threads a block), with the row id of five
+  divisions (``five_divisions``), with its loads guarded by the lane's
+  row as the f32 sources' are (``guarded_loads``) and with each value
+  multiplied by the scale (``no_divide``: wrong bytes, the divisions'
+  cost); two rounds of turns with ``chip_smoke.py``'s timer, each but
+  ``no_divide`` bit for bit against the plain version;
+* K9 (``decode_attn_split_kv``) at ``chip_smoke.py``'s inputs (path (H)'s
+  head shape, f32 and bf16 planes of S 4096, lives 512-576) at 1, 2, 4
+  and 8 splits and blocks of 4 or 8 warps, each held to 1e-5 of max
+  |out| against the plain version.
 
 Each line: the device time (CUDA events, cold L2, warm median) in two
 rounds, its share of the byte bound, and the error against the plain
@@ -119,7 +133,7 @@ full of dirty lines that the kernel's reads must first write back), and
 after a read of the same 256 MB (the L2 cold and clean).
 
     python -m rten_tpu_torch.tools.kv_group_variants \
-        [--skip int8|float|verify|append|k7|k6|p2|fappend]
+        [--skip int8|float|verify|append|k7|p2|fappend|flush|k9]
 
 Builds go to ``rten_tpu_torch/build/kv_group_variants/``. Needs one NVIDIA
 card and nvcc; without a card it exits non-zero.
@@ -155,8 +169,9 @@ FLOAT_TILINGS = [(rows, stages) for stages in (2, 3)
 FLOAT_RING = re.compile(r"constexpr int kF32Rows = \d+, kBf16Rows = \d+, "
                         r"kFloatStages = \d+;")
 TILE = "    const int t0 = c0 + j * kTile, rows = min(kTile, c1 - t0);\n"
-COPIES = ("          cp_async16(dst, src);\n"
-          "          cp_async16(dst + kPlane, src + f);\n")
+COPIES = ("          cp_async16(dst, k_at(addr, kv, row, kh, f, d) + e);\n"
+          "          cp_async16(dst + kPlane, v_at(addr, kv, row, kh, f, d) + "
+          "e);\n")
 WALK_END = ("    if (j + kStages - 1 < tiles) put_scale(j + kStages - 1, "
             "next);\n")
 # The int8 walk before its three passes: a softmax step per row (two
@@ -229,9 +244,32 @@ VARIANTS = {
                      "    auto on = [&](int k) { return true; };\n")],
 }
 HELD = ("shipped", "step_softmax", "dense_steps")
+# The designs before of K7, P2 and K3 quantized a row with one warp: each
+# lane takes every 32nd value for the absmax and again to quantize, and
+# stores single bytes (every value divided, zeros too).
+ONE_WARP_QUANTIZE = """template <typename In>
+__device__ inline void one_warp_quantize(const In* __restrict__ src,
+                                         int8_t* __restrict__ dst,
+                                         __nv_bfloat16* __restrict__ scale,
+                                         int d) {
+  const int lane = threadIdx.x & 31;
+  float amax = 0.0f;
+  for (int i = lane; i < d; i += 32)
+    amax = fmaxf(amax, fabsf(kvquant::to_float(src[i])));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const __nv_bfloat16 sb = kvquant::row_scale(amax);
+  const float sf = __bfloat162float(sb);
+  for (int i = lane; i < d; i += 32)
+    dst[i] = (int8_t)kvquant::quantize_value(kvquant::to_float(src[i]), sf);
+  if (lane == 0) *scale = sb;
+}
+
+"""
 # K7's design before: one warp a (sequence, plane, head) row, the position
 # read first and its branch taken before the source row is loaded.
-ONE_WARP_A_ROW = """__global__ void one_warp_a_row(
+ONE_WARP_A_ROW = ONE_WARP_QUANTIZE + """__global__ void one_warp_a_row(
     const float* __restrict__ k, const float* __restrict__ v, int k_stride,
     int v_stride, int8_t* __restrict__ kv, __nv_bfloat16* __restrict__ scales,
     const int* __restrict__ pos_in, int batch, int cap, int kvh, int d,
@@ -249,9 +287,9 @@ ONE_WARP_A_ROW = """__global__ void one_warp_a_row(
   const float* src = plane == 0 ? k + (long long)b * k_stride
                                 : v + (long long)b * v_stride;
   const long long row = ((long long)b * cap + pos) * 2 + plane;
-  kvquant::quantize_row(src + (long long)h * d,
-                        kv + row * f + (long long)h * d,
-                        scales + row * kvh + h, d);
+  one_warp_quantize(src + (long long)h * d,
+                    kv + row * f + (long long)h * d,
+                    scales + row * kvh + h, d);
 }
 
 """
@@ -294,63 +332,11 @@ K7_VARIANTS = {
 }
 
 
-# K6's design before: the per-head kernel of decode_attn.cuh (a block of
-# four warps per (sequence, query head), rows loaded straight from device
-# memory) on contiguous rows, launched as it was.
-K6_SOURCE = "decode_attn_float.cu"
-K6_PER_HEAD = """// Token rows of a contiguous [B, cap, 2, KVH*D] cache (V = K + KVH*D).
-struct Contiguous {
-  int cap;
-  long long row_stride, head_stride;  // 2 * KVH * D, D
-  __device__ int capacity() const { return cap; }
-  __device__ long long row(int b, int t) const {
-    return (long long)b * cap + t;
-  }
-};
-
-int per_head(const void* q, const void* kv, const void* lengths, void* out,
-             int batch, int heads, int kvh, int d, int cap, int bf16,
-             float scale, void* stream) {
-  using decode_attn::kernel;
-  const long long f = (long long)kvh * d;
-  const Contiguous addr{cap, 2 * f, d};
-  const dim3 grid(heads, batch);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (batch > 0 && bf16) {
-    const __nv_bfloat16* rows = (const __nv_bfloat16*)kv;
-    kernel<__nv_bfloat16, Contiguous><<<grid, decode_attn::kThreads, 0, st>>>(
-        (const float*)q, rows, rows + f, (const int*)lengths, (float*)out,
-        heads, kvh, d, addr, scale);
-  } else if (batch > 0) {
-    const float* rows = (const float*)kv;
-    kernel<float, Contiguous><<<grid, decode_attn::kThreads, 0, st>>>(
-        (const float*)q, rows, rows + f, (const int*)lengths, (float*)out,
-        heads, kvh, d, addr, scale);
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-"""
-K6_ENTRY = "  return launch_rows<kv_group::kExact>("
-K6_VARIANTS = {
-    "shipped": [],
-    "per_head": [
-        (K6_SOURCE, "}  // namespace\n", K6_PER_HEAD),
-        (K6_SOURCE, K6_ENTRY,
-         "  return per_head(q, kv, lengths, out, batch, heads, kvh, d, cap,"
-         " bf16, scale, stream);\n" + K6_ENTRY)],
-}
-# (label, cache dtype, flat_inputs' shape) of K6's cases.
-K6_CASES = (("(A)", torch.float32, {}), ("(C)", torch.bfloat16, {}),
-            ("batch 3", torch.float32, dict(b=3)),
-            ("TinyLlama's GQA", torch.float32,
-             dict(b=16, h=32, kvh=4, cap=2048, lives=(65, 2000))))
-# P2's design before: one warp a (sequence, plane, head) row through
-# kvquant::quantize_row, its source loads behind the chain length -> table,
+# P2's design before: one warp a (sequence, plane, head) row through the
+# one-warp quantizer, its source loads behind the chain length -> table,
 # 256 threads a block.
 P2_SOURCE = "kv_append_paged.cu"
-P2_ONE_WARP_A_ROW = """__global__ void one_warp_a_row(
+P2_ONE_WARP_A_ROW = ONE_WARP_QUANTIZE + """__global__ void one_warp_a_row(
     const float* __restrict__ k, const float* __restrict__ v, int k_stride,
     int v_stride, int8_t* __restrict__ pool,
     __nv_bfloat16* __restrict__ scales, const int* __restrict__ table,
@@ -367,9 +353,9 @@ P2_ONE_WARP_A_ROW = """__global__ void one_warp_a_row(
                                 : v + (long long)b * v_stride;
   const kvappend::PagedSlots addr{table, lengths, page, max_pages};
   const long long row = addr.row(b, addr.locate(b)) * 2 + plane;
-  kvquant::quantize_row(src + (long long)h * d,
-                        pool + row * f + (long long)h * d,
-                        scales + row * kvh + h, d);
+  one_warp_quantize(src + (long long)h * d,
+                    pool + row * f + (long long)h * d,
+                    scales + row * kvh + h, d);
 }
 
 """
@@ -472,8 +458,7 @@ int one_thread_an_element(const void* k, const void* v, int k_stride,
 
 """
 K5_ENTRY = "  const kvappend::Positions addr{(const int*)lengths, cap, 0};\n"
-P1_ENTRY = ("  return (int)kvappend::launch(k, v, k_stride, v_stride,\n"
-            "                               kvappend::FloatRows<float>{"
+P1_ENTRY = ("  return (int)kvappend::launch(src, kvappend::FloatRows<float>{"
             "(float*)pool},\n")
 FAPPEND_VARIANTS = {
     "shipped": [],
@@ -491,8 +476,77 @@ FAPPEND_VARIANTS = {
          + P1_ENTRY)],
     "lanes4": [(K7_SOURCE, "constexpr int kLanes = 8;",
                 "constexpr int kLanes = 4;")],
+    # Every lane loads, as K3's window rows do.
+    "unguarded_loads": [
+        (K7_SOURCE, "      const float4 q = on ? __ldg(reinterpret_cast<const "
+         "float4*>(p) + c)\n                          : make_float4(0.0f, "
+         "0.0f, 0.0f, 0.0f);\n", "      const float4 q = __ldg("
+         "reinterpret_cast<const float4*>(p) + c);\n")],
     "lanes16": [(K7_SOURCE, "constexpr int kLanes = 8;",
                  "constexpr int kLanes = 16;")],
+}
+
+
+# K3's design before: one warp a (sequence, token, plane, head) row of the
+# window through the one-warp quantizer, 256 threads a block.
+FLUSH_ONE_WARP = ONE_WARP_QUANTIZE + """__global__ void one_warp_a_row(
+    const __nv_bfloat16* __restrict__ tail, int8_t* __restrict__ kv,
+    __nv_bfloat16* __restrict__ scales, const int* __restrict__ lengths,
+    int batch, int rows, int cap, int kvh, int d, int t) {
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (warp >= (long long)batch * t * 2 * kvh) return;
+  const int h = (int)(warp % kvh);
+  long long rest = warp / kvh;
+  const int plane = (int)(rest % 2);
+  rest /= 2;
+  const int j = (int)(rest % t);
+  const int b = (int)(rest / t);
+  const long long f = (long long)kvh * d;
+  const __nv_bfloat16* src =
+      tail + (((long long)b * rows + j) * 2 + plane) * f + (long long)h * d;
+  const int off = min(max(lengths[b] - t, 0), cap - t);
+  const long long row = ((long long)b * cap + off + j) * 2 + plane;
+  one_warp_quantize(src, kv + row * f + (long long)h * d,
+                    scales + row * kvh + h, d);
+}
+
+"""
+FLUSH_ENTRY = ("  const kvappend::WindowRows src{(const __nv_bfloat16*)tail, "
+               "rows, t, batch};\n")
+# K3 with the row id of five divisions (as first built), with its loads
+# guarded as the f32 sources' are, and with each value multiplied by the
+# scale (wrong bytes: the divisions' cost).
+FLUSH_ID = ("    const long long q = r / kvh, bj = q >> 1, b = bj / t;\n"
+            "    return {(int)b, (int)(bj - b * t), (int)(q & 1), "
+            "(int)(r - q * kvh)};\n")
+BF16_LOAD = ("      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p) + "
+             "c);\n")
+FLUSH_VARIANTS = {
+    "shipped": [],
+    "five_divisions": [
+        (K7_SOURCE, FLUSH_ID,
+         "    const long long bj = r / (2 * kvh);\n    return {(int)(bj / t), "
+         "(int)(bj % t), (int)((r / kvh) % 2),\n            (int)(r % kvh)};"
+         "\n")],
+    "guarded_loads": [
+        (K7_SOURCE, "  __device__ void load(const __nv_bfloat16* p, bool, "
+         "float* x) const {", "  __device__ void load(const __nv_bfloat16* p, "
+         "bool on, float* x) const {"),
+        (K7_SOURCE, BF16_LOAD, BF16_LOAD.replace(
+            "__ldg(", "on ? __ldg(").replace(
+            ";\n", "\n                      : make_uint4(0, 0, 0, 0);\n"))],
+    "no_divide": [("kv_quant.cuh", "rintf(__fdiv_rn(x, sf))",
+                   "rintf(x * sf)")],
+    "one_warp_a_row": [
+        ("tail_flush_int8.cu", 'extern "C" int tail_flush_int8(',
+         FLUSH_ONE_WARP + 'extern "C" int tail_flush_int8('),
+        ("tail_flush_int8.cu", FLUSH_ENTRY,
+         "  one_warp_a_row<<<(unsigned)((batch * (long long)t * 2 * kvh * "
+         "32 + 255) / 256),\n      256, 0, (cudaStream_t)stream>>>("
+         "(const __nv_bfloat16*)tail, (int8_t*)kv,\n      "
+         "(__nv_bfloat16*)scales, (const int*)lengths, batch, rows, cap, "
+         "kvh, d, t);\n  return (int)cudaGetLastError();\n" + FLUSH_ENTRY)],
 }
 
 
@@ -1079,32 +1133,6 @@ def k7_section():
     return _turns("kv_append_int8", dirs, "K7", turns, timer)
 
 
-def k6_section(scrub):
-    """K6 (``decode_attn_float``) at K6_CASES, as shipped and as the design
-    before (``per_head``), in two rounds of turns with chip_smoke.py's
-    timer, each held to 1e-5 of max |out| against the plain version;
-    returns the worst held error."""
-    dirs = build_patched(K6_VARIANTS, ("decode_attn_float",))
-    g = torch.Generator(device="cuda").manual_seed(20)
-    turns, errors = [], [0.0]
-    for label, dtype, shape in K6_CASES:
-        q, kv, lengths, n_bytes = flat_inputs(g, dtype, **shape)
-        ref = at.decode_attn_float_plain(q, kv, lengths)
-        out = {}
-        turns.append((
-            f"{label} ({str(dtype)[6:]} cache, bound "
-            f"{n_bytes / PEAK_BYTES_S * 1e3:.4f} ms)",
-            out.clear,
-            lambda q=q, kv=kv, lengths=lengths, out=out: out.update(
-                y=at.decode_attn_float(q, kv, lengths)),
-            lambda name, out=out, ref=ref: errors.append(
-                held_error(out["y"], ref, False)) or errors[-1] <= 1.0))
-    worst = _turns("decode_attn_float", dirs, "K6", turns,
-                   _chip_smoke().Timer())
-    print(f"K6: worst error {max(errors):.3f} of the tolerance", flush=True)
-    return max(worst, max(errors))
-
-
 def p2_section():
     """P2 (``kv_append_paged_int8``) at chip_smoke.py's (D) case, with and
     without its all-zero head, as shipped and as the design before
@@ -1161,11 +1189,72 @@ def fappend_section():
     return max(worst, _turns("kv_append_paged", dirs, "P1", turns, timer))
 
 
+def flush_section():
+    """K3 (``tail_flush_int8``) at chip_smoke.py's two shapes, t 16 and t 5
+    of its 16-row window, as shipped, as the design before
+    (``one_warp_a_row``) and at FLUSH_VARIANTS' other variants, in two
+    rounds of turns with chip_smoke.py's timer, each but ``no_divide``
+    bit for bit against the plain version; returns 0, or inf if one
+    differs."""
+    dirs = build_patched(FLUSH_VARIANTS, ("tail_flush_int8",))
+    cs = _chip_smoke()
+    turns = []
+    for label, shape in (("int8 + tail shape", {}),
+                         ("TinyLlama shape", dict(b=16, kvh=4, cap=2048,
+                                                  live=(16, 2000)))):
+        tail, kv, scales, lengths = cs.tail_flush_inputs(**shape)
+        for t in (16, 5):
+            want, want_s = kv.clone(), scales.clone()
+            kc.tail_flush_int8_plain(tail, want, want_s, lengths, t)
+            got, got_s = kv.clone(), scales.clone()
+            turns.append((
+                f"chip_smoke.py's {label}, t {t}",
+                lambda kv=kv, scales=scales, got=got, got_s=got_s: (
+                    got.copy_(kv), got_s.copy_(scales)),
+                lambda tail=tail, n=lengths, t=t, got=got, got_s=got_s:
+                    kc.tail_flush_int8(tail, got, got_s, n, t),
+                lambda name, got=got, got_s=got_s, want=want, want_s=want_s:
+                    None if name == "no_divide" else
+                    torch.equal(got, want) and torch.equal(got_s, want_s)))
+    return _turns("tail_flush_int8", dirs, "K3", turns, cs.Timer())
+
+
+def k9_section(scrub):
+    """K9 (``decode_attn_split_kv``) at chip_smoke.py's inputs on f32 and
+    bf16 planes at 1, 2, 4 and 8 splits and blocks of 4 or 8 warps, each
+    held to 1e-5 of max |out|; returns the worst held error."""
+    q, planes, lengths = _chip_smoke().split_kv_inputs()
+    b, h, d = q.shape
+    kvh, s = planes[0].shape[1:3]
+    rows = lengths.clamp(max=s).double().sum().item()
+    plan = at.rows_plan(b, h, kvh, s, d)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        k, v = (x.to(dtype) for x in planes)
+        ref = at.decode_attn_split_kv_plain(q, k, v, lengths)
+        n_bytes = (rows * 2 * kvh * d * k.element_size()
+                   + 2 * q.numel() * 4 + b * 4)
+        print(f"K9 on {str(dtype)[6:]} planes at path (H)'s head shape "
+              f"(plan: {plan['splits']} splits of {plan['warps']} warps):",
+              flush=True)
+        for splits in (1, 2, 4, 8):
+            for warps in (4, 8):
+                p = at.rows_plan(b, h, kvh, s, d, splits, warps)
+                mine = (splits, warps) == (plan["splits"], plan["warps"])
+                worst = max(worst, report(
+                    scrub, f"  K9 splits {splits}, {warps} warps"
+                    f"{' (plan)' if mine else ''}",
+                    lambda p=p: at._launch_split_kv(q, k, v, lengths, None,
+                                                    p),
+                    ref, n_bytes))
+    return worst
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--skip",
                         choices=("int8", "float", "verify", "append",
-                                 "k7", "k6", "p2", "fappend"),
+                                 "k7", "p2", "fappend", "flush", "k9"),
                         action="append",
                         default=[], help="leave a section out")
     args = parser.parse_args(argv)
@@ -1188,12 +1277,14 @@ def main(argv=None):
         worst = max(worst, append_section(scrub))
     if "k7" not in args.skip:
         worst = max(worst, k7_section())
-    if "k6" not in args.skip:
-        worst = max(worst, k6_section(scrub))
     if "p2" not in args.skip:
         worst = max(worst, p2_section())
     if "fappend" not in args.skip:
         worst = max(worst, fappend_section())
+    if "flush" not in args.skip:
+        worst = max(worst, flush_section())
+    if "k9" not in args.skip:
+        worst = max(worst, k9_section(scrub))
     print(f"worst error {worst:.3f} of the tolerance")
     return 0 if worst <= 1.0 else 1
 

@@ -25,18 +25,27 @@ numpy:
   with its float row policy (each lane's values packed into 32-bit words,
   bf16 by pairs, and stored in 16- or 8-byte stores, or value by value in
   the narrow layout), through a position or the page table, bit for bit
-  against ``cache_append`` and ``paged_append``.
+  against ``cache_append`` and ``paged_append``;
+* K3 (``tail_flush_int8``): the same kernel body over the bf16 tail
+  window's first t rows (16-byte loads of bf16, the length, the int8
+  policy's quantizer, 8- or 16-byte word stores at the window's offset
+  clip(lengths - t, 0, cap - t)), wide and narrow, head_dim 64, 128 and
+  96, bit for bit against the reference's ``flush_tail`` and
+  ``_quantize_tokens``.
 
 The card tests (tests/test_torch_cuda.py) hold the kernels to their plain
 versions; these hold the kernels' design to the reference."""
 
+import dataclasses
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from rten_tpu.generate.kv_cache import KVCache as JKVCache
 from rten_tpu.generate.kv_cache import _quantize_tokens
 from rten_tpu.generate.paged_cache import PagedKVCache as JPagedKVCache
 from rten_tpu.kernels.cache import cache_append, paged_append
@@ -46,6 +55,7 @@ from rten_tpu.kernels.attention import (flash_decode_fused,
                                         flash_decode_stream)
 from rten_tpu_torch.kernels import attention as at
 from rten_tpu_torch.kernels import cache as kc
+from test_torch_kernels import port_layout
 from test_torch_paged import _pools, _with
 from test_torch_spec_kernels import _merge, _tile_rows, _warp_walk
 
@@ -571,3 +581,174 @@ def test_eight_lane_float_append_bit_exact_against_reference(addr, dtype,
     got = before.clone()
     plain(got)
     assert torch.equal(_bits(got), _bits(want))
+
+
+# -- K3: the flush on the same kernel body ------------------------------------
+
+FLUSH_B, FLUSH_KVH, FLUSH_R, FLUSH_CAP = 5, 2, 16, 32
+# (head_dim, the window a view 2 bytes past a 16-byte boundary, the
+# instance): the wide instance at head_dim 64 and 128, the narrow one at
+# 96 and on the misaligned window.
+FLUSH_LAYOUTS = [(64, False, True), (128, False, True), (96, False, False),
+                 (64, True, False)]
+
+
+def _flush_lengths(t):
+    """Lengths counting the t window tokens: below t (the offset clamps to
+    0), exactly t, mid-cache, at capacity and past it (both clamp to
+    cap - t)."""
+    return np.array([max(t - 1, 0), t, 19, FLUSH_CAP, FLUSH_CAP + 7],
+                    np.int32)
+
+
+def _lanes8_flush(flat, base, shape, kv, scales, lengths, t, wide):
+    """K3 as its kernel runs, in place, byte by byte: source row r of the
+    [B, t, 2, KVH] rows is (b, j, plane, h), its D bf16 values at element
+    base + ((b * R + j) * 2 + plane) * F + h * D of ``flat`` (the window
+    [B, R, 2, F] of ``shape``, ``base`` elements into its buffer); lane
+    slot loads its values (wide: D / 8 of them in 16-byte loads, which
+    must be aligned; narrow: ceil(D / 8), the last lanes fewer or none),
+    the row is quantized as the int8 policy does, and the lane stores its
+    bytes at row b * cap + clip(lengths[b] - t, 0, cap - t) + j (wide: one
+    word of D / 8 bytes, little-endian 32-bit words, aligned; narrow: byte
+    by byte), the scale from lane 0."""
+    b, rows, _, f = shape
+    cap, kvh = kv.shape[1], scales.shape[3]
+    d = f // kvh
+    per = d // 8 if wide else -(-d // 8)
+    out = kv.view(-1)
+    for r in range(b * t * 2 * kvh):
+        h, plane = r % kvh, (r // kvh) % 2
+        bi, j = divmod(r // (2 * kvh), t)
+        src = base + ((bi * rows + j) * 2 + plane) * f + h * d
+        lanes = [(min(d, s * per), min(d, (s + 1) * per)) for s in range(8)]
+        x = torch.zeros(d)
+        for lo, hi in lanes:
+            if wide:
+                assert 2 * (src + lo) % 16 == 0 and (hi - lo) * 2 % 16 == 0
+            x[lo:hi] = flat[src + lo:src + hi].to(torch.float32)
+        q, scale = _lanes8_quantize(x[None], wide)
+        off = min(max(int(lengths[bi]) - t, 0), cap - t)
+        at = ((bi * cap + off + j) * 2 + plane) * kvh + h
+        dst = at * d
+        for lo, hi in lanes:
+            if wide:
+                assert (dst + lo) % (hi - lo) == 0
+                words = q[0, lo:hi].numpy().view(np.uint8).view("<u4")
+                out[dst + lo:dst + hi] = torch.from_numpy(
+                    words.view(np.uint8).view(np.int8).copy())
+            else:
+                out[dst + lo:dst + hi] = q[0, lo:hi]
+        scales.view(-1)[at] = scale[0]
+
+
+def _flush_window(rng, t, d):
+    """A window [B, R, 2, F] (f32, bf16 values) of rows at mixed
+    magnitudes, with an all-zero head and a head of tiny absmax among the
+    flushed rows."""
+    f = FLUSH_KVH * d
+    tail = (rng.standard_normal((FLUSH_B, FLUSH_R, 2, f))
+            * np.exp(rng.uniform(-4, 4, (FLUSH_B, FLUSH_R, 2, 1))))
+    tail[0, 0, 1, :d] = 0.0                # all-zero head: scale 1.0
+    tail[1, t - 1, 0, d:] = 0.0            # tiny absmax
+    tail[1, t - 1, 0, d + 3] = 1e-30
+    return _bf16(tail.astype(np.float32))
+
+
+def _flush_view(tail, misaligned):
+    """The window as a bf16 torch view of its own buffer, ``base`` elements
+    (1 if misaligned, else 0) into it: (flat buffer, base, view)."""
+    base = int(misaligned)
+    flat = torch.zeros(tail.size + 8, dtype=torch.bfloat16)
+    flat[base:base + tail.size] = torch.from_numpy(tail.reshape(-1))
+    return flat, base, flat[base:base + tail.size].view(tail.shape)
+
+
+def _window_rows(lengths, t):
+    """bool [B, cap]: the rows the flush writes."""
+    off = np.clip(lengths - t, 0, FLUSH_CAP - t)
+    rows = np.arange(FLUSH_CAP)[None, :]
+    return torch.from_numpy((rows >= off[:, None])
+                            & (rows < off[:, None] + t))
+
+
+@pytest.mark.parametrize("d,misaligned,wide", FLUSH_LAYOUTS)
+@pytest.mark.parametrize("t", [1, 5, 16])
+def test_eight_lane_flush_bit_exact_against_flush_tail(t, d, misaligned,
+                                                       wide):
+    """K3's design (the appends' eight-lane body over the bf16 window's
+    first t rows, wide at head_dim 64 and 128 on aligned rows, narrow at
+    96 and on a misaligned window) writes the rows of the reference's
+    ``flush_tail(t)`` (jitted, CPU) bit for bit at t 1, 5 (a partial flush
+    of an R 16 window) and 16, with lengths below t, at capacity and past
+    it; it leaves every other row as it was, and the plain version writes
+    the same cache."""
+    rng = np.random.default_rng(1000 + 7 * t + d + misaligned)
+    b, kvh, f = FLUSH_B, FLUSH_KVH, FLUSH_KVH * d
+    lengths = _flush_lengths(t)
+    full = JKVCache.create(b, 1, kvh, FLUSH_CAP, d, quantized=True)
+    full = full.append(0, *(jnp.asarray(
+        rng.standard_normal((b, kvh, FLUSH_CAP, d)).astype(np.float32))
+        for _ in range(2)), position=0)
+    tail = _flush_window(rng, t, d)
+    jc = dataclasses.replace(
+        JKVCache.create(b, 1, kvh, FLUSH_CAP, d, quantized=True,
+                        tail_window=FLUSH_R),
+        kv=full.kv, quant_scales=full.quant_scales,
+        lengths=jnp.asarray(lengths),
+        tail=[jnp.asarray(tail, jnp.bfloat16)],
+        tail_count=jnp.asarray(t, jnp.int32))
+    before, before_s = port_layout(jc, 0)
+    want, want_s = port_layout(jax.jit(lambda c: c.flush_tail(t))(jc), 0)
+    flat, base, view = _flush_view(tail, misaligned)
+    assert kc.tail_flush_wide(d, view, before) == wide
+    got, got_s = before.clone(), before_s.clone()
+    _lanes8_flush(flat, base, view.shape, got, got_s,
+                  torch.from_numpy(lengths), t, wide)
+    rows = _window_rows(lengths, t)
+    assert torch.equal(got[rows], want[rows])
+    assert torch.equal(got_s[rows].view(torch.int16),
+                       want_s[rows].view(torch.int16))
+    assert torch.equal(got[~rows], before[~rows])
+    assert torch.equal(got_s[~rows], before_s[~rows])
+    plain, plain_s = before.clone(), before_s.clone()
+    kc.tail_flush_int8_plain(view, plain, plain_s, torch.from_numpy(lengths),
+                             t)
+    assert torch.equal(plain, got) and torch.equal(plain_s, got_s)
+
+
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("t", range(1, 17))
+def test_eight_lane_flush_quantizer_bit_exact_against_quantize_tokens(t,
+                                                                      wide):
+    """For every t in 1..16 of an R 16 window at head_dim 64, K3's lane
+    layout stores at each sequence's window offset the bytes and scales of
+    the reference's ``_quantize_tokens`` on the window's first t rows, an
+    all-zero head (bytes 0, scale 1.0) and a tiny absmax included."""
+    rng = np.random.default_rng(1100 + t + 50 * wide)
+    d = 64
+    b, kvh, f = FLUSH_B, FLUSH_KVH, FLUSH_KVH * d
+    lengths = _flush_lengths(t)
+    tail = _flush_window(rng, t, d)
+    kv = torch.from_numpy(rng.integers(-127, 128, (b, FLUSH_CAP, 2, f),
+                                       dtype=np.int8))
+    scales = torch.from_numpy(rng.uniform(0.01, 1.0, (b, FLUSH_CAP, 2, kvh))
+                              .astype(np.float32)).to(torch.bfloat16)
+    flat, base, view = _flush_view(tail, False)
+    got, got_s = kv.clone(), scales.clone()
+    _lanes8_flush(flat, base, view.shape, got, got_s,
+                  torch.from_numpy(lengths), t, wide)
+    x = jnp.asarray(tail[:, :t]).reshape(b, t, 2, kvh, d)
+    jq, js = _quantize_tokens(x.reshape(b, t * 2, kvh, d))
+    want = torch.from_numpy(np.asarray(jq).astype(np.int8)).reshape(
+        b, t, 2, f)
+    want_s = torch.from_numpy(np.array(js).view(np.int16)).reshape(
+        b, t, 2, kvh)
+    rows = _window_rows(lengths, t)
+    assert torch.equal(got[rows], want.reshape(-1, 2, f))
+    assert torch.equal(got_s[rows].view(torch.int16),
+                       want_s.reshape(-1, 2, kvh))
+    assert torch.equal(got[~rows], kv[~rows])
+    assert torch.equal(got_s[~rows], scales[~rows])
+    zero = got[0, min(max(int(lengths[0]) - t, 0), FLUSH_CAP - t), 1, :d]
+    assert not zero.any()

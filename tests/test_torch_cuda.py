@@ -76,19 +76,42 @@ def test_decode_attn_kernel_matches_plain(gen, d, tail_count):
     assert (out - ref).abs().max().item() <= tol
 
 
+# (head_dim, the window a misaligned view, the instance): the wide
+# instance at head_dim 64 and 128, the narrow one at 96 and on a window
+# that starts 2 bytes past a 16-byte boundary.
+FLUSH_LAYOUTS = [(64, False, True), (128, False, True), (96, False, False),
+                 (64, True, False)]
+
+
+@pytest.mark.parametrize("d,misaligned,wide", FLUSH_LAYOUTS)
 @pytest.mark.parametrize("t", range(1, 17))
-def test_tail_flush_kernel_bit_exact(gen, t):
-    b, cap, rows, kvh, d = 8, 64, 16, 2, 64
+def test_tail_flush_kernel_bit_exact(gen, t, d, misaligned, wide):
+    """K3 bit for bit against its plain version: every t in 1..16 of an R
+    16 window (t < R: the partial flushes before admissions), an all-zero
+    head, a tiny absmax, lengths below t, at and past capacity, in its
+    wide and narrow instances; one launch counted, and at t 5 and 16 one
+    CUDA kernel a call."""
+    b, cap, rows, kvh = 8, 64, 16, 2
     kv, scales, tail = _cache(gen, b, cap, rows, kvh, d)
+    if misaligned:
+        flat = torch.empty(tail.numel() + 8, dtype=tail.dtype,
+                           device="cuda")
+        tail = flat[1:1 + tail.numel()].view(tail.shape).copy_(tail)
     tail[0, 0, 1, :d] = 0                  # all-zero head: scale 1.0
     tail[1, 0, 0, :d] = 1e-30              # tiny absmax
     lengths = torch.tensor([t, t + 1, 0, 5, 31, cap, cap + 5, 2 * cap],
                            dtype=torch.int32, device="cuda")
+    assert kc.tail_flush_wide(d, tail, kv) == wide
     kv1, s1, kv2, s2 = kv.clone(), scales.clone(), kv.clone(), scales.clone()
+    before = kc.tail_flush_int8.launches
     kc.tail_flush_int8(tail, kv1, s1, lengths, t)
     kc.tail_flush_int8_plain(tail, kv2, s2, lengths, t)
     torch.cuda.synchronize()
+    assert kc.tail_flush_int8.launches == before + 1
     assert torch.equal(kv1, kv2) and torch.equal(s1, s2)
+    if t in (5, 16):
+        assert _cuda_kernels_a_call(
+            lambda: kc.tail_flush_int8(tail, kv1, s1, lengths, t)) == 1
 
 
 def _weights(gen, k, n):
@@ -1500,13 +1523,20 @@ def test_partials_kernel_matches_plain(gen, d, cap, q_bf16):
             and (out[~full, :, d + 1] == 0).all())
 
 
+# (B, H, KVH, head_dim, S): GQA 4:1 at the reference's kernel shapes, and
+# path (H)'s head shape (32 query heads over 8 KV heads of 128).
+SPLIT_KV_SHAPES = [(4, 8, 2, 128, 256), (4, 8, 2, 256, 512),
+                   (4, 32, 8, 128, 1024)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,s", [(128, 256), (256, 512)])
-def test_split_kv_kernel_matches_plain(gen, d, s, dtype):
-    """K9 with GQA 4:1 at the reference's kernel shapes, lengths 0 (zeros)
-    through past S; at a shape the reference sends to its plain path the
-    wrapper launches nothing."""
-    b, h, kvh = 4, 8, 2
+@pytest.mark.parametrize("b,h,kvh,d,s", SPLIT_KV_SHAPES)
+def test_split_kv_kernel_matches_plain(gen, b, h, kvh, d, s, dtype):
+    """K9 (the KV-group kernel over separate planes, split into chunks
+    merged in their cluster) at the reference's kernel shapes, lengths 0
+    (zeros) through past S, one CUDA kernel a call; at a shape the
+    reference sends to its plain path the wrapper launches nothing."""
+    assert at.rows_plan(b, h, kvh, s, d)["splits"] > 1
     q = torch.randn((b, h, d), device="cuda", generator=gen)
     k, v = (torch.randn((b, kvh, s, d), device="cuda", generator=gen)
             .to(dtype) for _ in range(2))
@@ -1518,10 +1548,13 @@ def test_split_kv_kernel_matches_plain(gen, d, s, dtype):
     assert at.decode_attn_split_kv.launches == before + 1
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
     assert (out[0] == 0).all()
+    assert _cuda_kernels_a_call(
+        lambda: at.decode_attn_split_kv(q, k, v, lengths)) == 1
+    before = at.decode_attn_split_kv.launches
     q64 = torch.randn((b, h, 64), device="cuda", generator=gen)
     k64 = k[..., :64].contiguous()
     at.decode_attn_split_kv(q64, k64, k64, lengths)
-    assert at.decode_attn_split_kv.launches == before + 1
+    assert at.decode_attn_split_kv.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -6,13 +6,14 @@ once, every K split is a whole number of groups, the tile follows M, and
 the scratch the wrappers allocate holds what the kernels write, at M from 1
 to 8192; and of the decode attention that serves a KV head's whole query
 group in one block (the KV-group kernel: P3i and P3 with its grid mode,
-``paged_plan``; G1, G2, K6, K8 and A1, ``rows_plan``; V1, ``verify_plan``: the
-S x rep (query, head) rows of a verify chunk) over int8, bf16 and f32
-rows: every live row in one chunk, chunks of whole pages or units, the
-split count, the blocks and no scratch, at batch 1-256 and groups 1-32,
-the paths' splits, and a tiling the kernel builds; and the decode
-appends' (K5, P1, K7 and P2: one kernel body over f32, bf16 and int8
-caches) choice between the wide and narrow instances. These run
+``paged_plan``; G1, G2, K6, K8, A1 and K9 (separate K and V planes),
+``rows_plan``; V1, ``verify_plan``: the S x rep (query, head) rows of a
+verify chunk) over int8, bf16 and f32 rows: every live row in one chunk,
+chunks of whole pages or units, the split count, the blocks and no
+scratch, at batch 1-256 and groups 1-32, the paths' splits, and a tiling
+the kernel builds; and the decode appends' and the flush's (K5, P1, K7,
+P2 and K3: one kernel body over f32, bf16 and int8 caches) choice
+between the wide and narrow instances. These run
 without a card; the wrappers' refusals are checked with the dispatch
 forced to the kernel path, before any build or launch."""
 
@@ -1213,3 +1214,110 @@ def test_kv_append_paged_picks_its_instance(monkeypatch, d, layout, wide):
     assert got[2:4] == (3 * 2 * d + layout.get("width_pad", 0),) * 2
     assert got[7:13] == (3, 8, 2, 2, d, int(wide))
     assert kc.kv_append_paged.launches == before + 1
+
+
+# -- K3: the flush on the appends' kernel body --------------------------------
+
+# (head_dim, window offset in elements, cache offset in bytes, the
+# instance): wide at head_dim 64 and 128 on 16-byte aligned tensors,
+# narrow at any other head_dim or on a window or cache off a 16-byte
+# boundary.
+FLUSH_INSTANCES = [(64, 0, 0, True), (128, 0, 0, True), (96, 0, 0, False),
+                   (32, 0, 0, False), (256, 0, 0, False), (16, 0, 0, False),
+                   (64, 1, 0, False), (64, 4, 0, False), (128, 8, 0, True),
+                   (64, 0, 8, False), (128, 0, 16, True)]
+
+
+@pytest.mark.parametrize("d,tail_off,kv_off,wide", FLUSH_INSTANCES,
+                         ids=str)
+def test_tail_flush_picks_its_instance(monkeypatch, d, tail_off, kv_off,
+                                       wide):
+    """On CUDA (simulated) K3 passes the wide instance (16-byte loads of
+    bf16, 8- or 16-byte stores) for head_dim 64 or 128 with the window and
+    the cache 16-byte aligned, and the narrow one otherwise; R, t and the
+    shapes as given; one launch counted."""
+    calls = _recorded(monkeypatch)
+    b, rows, cap, kvh, t = 3, 16, 32, 2, 5
+    tail = _unaligned((b, rows, 2, kvh * d), torch.bfloat16, 8 + tail_off)
+    kv = _unaligned((b, cap, 2, kvh * d), torch.int8, 16 + kv_off)
+    scales = torch.ones((b, cap, 2, kvh), dtype=torch.bfloat16)
+    lengths = torch.full((b,), 9, dtype=torch.int32)
+    assert kc.tail_flush_wide(d, tail, kv) == wide
+    before = kc.tail_flush_int8.launches
+    kc.tail_flush_int8(tail, kv, scales, lengths, t)
+    (symbol, got), = calls
+    assert symbol == "tail_flush_int8"
+    assert got[4:11] == (b, rows, cap, kvh, d, t, int(wide))
+    assert kc.tail_flush_int8.launches == before + 1
+
+
+# -- K9 on the KV-group kernel over separate planes ---------------------------
+
+# (B, H, KVH, head_dim, S) and K9's plan there (splits, blocks, warps,
+# heads a warp, head groups): path (H)'s head shape at S 4096 (chip_smoke.py)
+# and the card test's shapes (tests/test_torch_cuda.py).
+K9_PLANS = [((16, 32, 8, 128, 4096), (2, 256, 8, 2, 2)),
+            ((4, 8, 2, 128, 256), (8, 64, 8, 2, 2)),
+            ((4, 8, 2, 256, 512), (8, 64, 8, 1, 4)),
+            ((4, 32, 8, 128, 1024), (8, 256, 8, 2, 2))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,want", K9_PLANS, ids=str)
+def test_split_kv_takes_rows_plan_at_its_shapes(monkeypatch, shape, want,
+                                                dtype):
+    """K9 (``decode_attn_split_kv``) launches the KV-group kernel over its
+    two planes at rows_plan's launch (S the capacity): the table's splits,
+    blocks and warps, 16-row units and its tiling of heads; one launch
+    counted."""
+    b, h, kvh, d, s = shape
+    plan = at.rows_plan(b, h, kvh, s, d)
+    assert (plan["splits"], plan["blocks"], plan["warps"],
+            plan["heads_per_warp"], plan["head_groups"]) == want
+    calls = _recorded(monkeypatch)
+    # The planes are never touched here: torch.empty maps them lazily.
+    k, v = (torch.empty((b, kvh, s, d), dtype=dtype) for _ in range(2))
+    before = at.decode_attn_split_kv.launches
+    at.decode_attn_split_kv(torch.zeros((b, h, d)), k, v,
+                            torch.full((b,), 100, dtype=torch.int32))
+    (symbol, got), = calls
+    assert symbol == "decode_attn_split_kv"
+    assert got[1:3] == (k.data_ptr(), v.data_ptr())
+    assert got[5:16] == (b, h, kvh, d, s, int(dtype == torch.bfloat16),
+                         want[0], at.KV_GROUP_UNIT, want[3], want[4],
+                         want[2])
+    assert at.decode_attn_split_kv.launches == before + 1
+
+
+K9_REFUSALS = [
+    ("strided v", dict(v=torch.zeros((2, 2, 256, 256))[..., :128]),
+     "contiguous"),
+    ("unaligned k", dict(k=_unaligned((2, 2, 256, 128), torch.float32)),
+     "16-byte aligned"),
+    ("unaligned v", dict(v=_unaligned((2, 2, 256, 128), torch.float32)),
+     "v_cache must be 16-byte aligned"),
+    ("head_dim 384", dict(q=torch.zeros((2, 4, 384)),
+                          k=torch.zeros((2, 2, 256, 384)),
+                          v=torch.zeros((2, 2, 256, 384))),
+     "head_dim 384"),
+]
+
+
+@pytest.mark.parametrize("what,args,match", K9_REFUSALS,
+                         ids=[c[0] for c in K9_REFUSALS])
+def test_split_kv_refuses_what_its_kernel_does_not_take(monkeypatch, what,
+                                                        args, match):
+    """On CUDA (simulated) K9 at a kernel shape refuses strided planes,
+    planes off a 16-byte boundary and a head_dim other than 128 or 256,
+    before any build or launch."""
+    _kernel_path(monkeypatch)
+    monkeypatch.setattr(_build, "function", _no_build)
+    call = dict(q=torch.zeros((2, 4, 128)),
+                k=torch.zeros((2, 2, 256, 128)),
+                v=torch.zeros((2, 2, 256, 128)))
+    call.update(args)
+    before = at.decode_attn_split_kv.launches
+    with pytest.raises(ValueError, match=match):
+        at.decode_attn_split_kv(call["q"], call["k"], call["v"],
+                                torch.full((2,), 9, dtype=torch.int32))
+    assert at.decode_attn_split_kv.launches == before

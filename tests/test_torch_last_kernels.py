@@ -7,13 +7,18 @@ kernels in interpret mode), on inputs drawn with numpy:
   tests/test_attention.py:780-825;
 * K9 (``decode_attn_split_kv``) against ``flash_decode`` at its kernel's
   shapes and at a shape it sends to ``_attn_reference``, lengths 0
-  included;
+  included; and K9's design, the KV-group kernel's walk over separate K
+  and V planes (the ``Planes`` addressing, the chunks, warps and ring
+  tiles of ``rows_plan``, the splits' merge), redone in torch against
+  ``flash_decode`` on f32 and bf16 planes;
 * ``decode_attn_native_dots`` and ``decode_attn_grouped_int8(pv_int8=True)``
   against ``flash_decode_grouped`` in the same modes, at the reference
   tests' shapes (tests/test_attention.py:440-487) and at a batch where the
   reference falls back to its fused kernel;
 * M1 (``matmul_int8_tiled``) bit for bit against ``matmul_int8_pallas``.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +32,8 @@ from rten_tpu.kernels.attention import (flash_decode, flash_decode_flat,
 from rten_tpu_torch.kernels import attention as at
 from rten_tpu_torch.kernels import gemm as pg
 from test_torch_kernels import port_layout
+from test_torch_spec_kernels import _merge as _merge_states
+from test_torch_spec_kernels import _tile_rows, _warp_walk
 
 # The reference tests' shapes (tests/test_attention.py:440-487, 780-825).
 B, H, KVH, D, CAP = 4, 8, 4, 32, 128
@@ -186,6 +193,86 @@ def test_split_kv_plain_matches_flash_decode(s, d, kernel):
     else:
         mean = v[0].mean(axis=1).repeat(h // kvh, axis=0)
         np.testing.assert_allclose(out[0].numpy(), mean, rtol=0, atol=1e-5)
+
+
+def _planes_walk(q, k, v, lengths, plan):
+    """K9 as the KV-group kernel computes it at ``plan``: the ``Planes``
+    addressing reads row t of sequence b and KV head kh at element (b * KVH
+    * S + t + kh * S) * D of the flat K plane and of the flat V plane;
+    each block of up to 8 (4 above head_dim 128) query heads of a KV head
+    walks its chunks (``kv_group_chunks`` over min(max(lengths, 0), S))
+    a ring tile at a time, each row group of warps taking every n_rg-th
+    step of 4 rows; the warps' and then the splits' (m, l, acc) merge with
+    m = -inf weighing 0, and out = acc / max(l, 1e-30)."""
+    b, h, d = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    rep, per = h // kvh, plan["heads_per_warp"] * plan["head_groups"]
+    n_rg = plan["warps"] // plan["head_groups"]
+    tile = _tile_rows(d, k.element_size())
+    scale = 1.0 / math.sqrt(d)
+    kf, vf = (x.reshape(-1).to(torch.float32) for x in (k, v))
+    cols = torch.arange(d)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), s)
+        for kh in range(kvh):
+            rows = (bi * kvh * s + torch.arange(n) + kh * s) * d
+            kk, vv = kf[rows[:, None] + cols], vf[rows[:, None] + cols]
+            for r0 in range(0, rep, per):
+                heads = range(r0, min(r0 + per, rep))
+                qr = torch.stack([q[bi, kh * rep + r] for r in heads])
+                lim = torch.full((len(heads),), n)
+                states = []
+                for c0, c1 in at.kv_group_chunks(n, plan["splits"],
+                                                 plan["unit"]):
+                    tiles = [range(t0, min(t0 + tile, c1))
+                             for t0 in range(c0, c1, tile)]
+                    states.append(_merge_states([_warp_walk(
+                        qr, kk, vv, None, None,
+                        [[t for t in tr if ((t - tr[0]) // 4) % n_rg == rg]
+                         for tr in tiles], lim, scale, False)
+                        for rg in range(n_rg)]))
+                _, l, acc = _merge_states(states)
+                o = acc / torch.clamp(l, min=1e-30)[:, None]
+                for j, r in enumerate(heads):
+                    out[bi, kh * rep + r] = o[j]
+    return out
+
+
+# (head_dim, S, splits, warps; None: the plan's) of K9's walk. GQA 4:1 at
+# B 4 and S 512: the plan takes 8 splits of 8 warps; also 2 splits of 4
+# warps and one unsplit launch.
+PLANES_CASES = [(128, 512, None, None), (256, 512, None, None),
+                (128, 512, 2, 4), (256, 256, 1, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,s,splits,warps", PLANES_CASES, ids=str)
+def test_split_kv_walk_over_planes_matches_flash_decode(d, s, splits, warps,
+                                                        dtype):
+    """K9's design at rows_plan (and at other splits and warps) over f32
+    and bf16 planes matches flash_decode (block 256, GQA 4:1) within 1e-5
+    of max |out|, lengths 0 (zeros), 1, S/3 and past S; the plain version
+    too."""
+    rng = np.random.default_rng(1200 + d + s + (splits or 0))
+    b, h, kvh = 4, 8, 2
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    jk, jv = (jnp.asarray(rng.standard_normal((b, kvh, s, d)), jdt)
+              for _ in range(2))
+    lengths = np.array([0, 1, s // 3, s + 7], np.int32)
+    assert at.split_kv_takes_kernel(s, d)
+    ref = np.asarray(flash_decode(jnp.asarray(q), jk, jv,
+                                  jnp.asarray(lengths)))
+    k, v = (_t(np.asarray(x.astype(jnp.float32))).to(getattr(torch, dtype))
+            for x in (jk, jv))
+    plan = at.rows_plan(b, h, kvh, s, d, splits, warps)
+    if splits is None:
+        assert (plan["splits"], plan["warps"]) == (8, 8)
+    out = _planes_walk(_t(q), k, v, _t(lengths), plan)
+    _close(out, ref)
+    assert (out[0] == 0).all()
+    _close(at.decode_attn_split_kv(_t(q), k, v, _t(lengths)), ref)
 
 
 # -- native_dots and pv_int8 against flash_decode_grouped ---------------------
