@@ -1064,8 +1064,8 @@ def check_decode_attn_paged(timer, mode):
 
 def kv_group_launch(label, plan, fn, entry):
     """The launch of a kernel on the KV-group kernel (P3, its grid mode,
-    P3i, G1, G2, K6, K8, V1, A1): the plan's splits, blocks, warps and query
-    rows a warp
+    P3i, G1 with pv_int8 or without, G2, K6, K8, native_dots, V1, A1, K9):
+    the plan's splits, blocks, warps and query rows a warp
     (printed: the wrapper's plan at these shapes, not read from the
     launch), and the CUDA kernels one call launches (profiler, kept in the
     entry), which must be one: the splits merge in their cluster."""
@@ -1794,20 +1794,29 @@ def check_flips(out, ref, tol, label, other, other_label):
     return err, share
 
 
-def check_native_dots(timer, b=256, h=12, kvh=12, cap=512, lives=(65, 177)):
+def native_dots_inputs(b=256, h=12, kvh=12, cap=512, lives=(65, 177)):
+    """(q, kv, lengths) of :func:`check_native_dots`: path (C)'s shapes, a
+    bf16 cache."""
+    d = 64
+    g = torch.Generator(device="cuda").manual_seed(34)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    kv = torch.randn((b, cap, 2, kvh * d), device="cuda",
+                     generator=g).to(torch.bfloat16)
+    return q, kv, _decode_lengths(g, b, lives)
+
+
+def check_native_dots(timer, lives=(65, 177)):
     """``decode_attn_native_dots`` against its plain version on a bf16
     cache at path (C)'s shapes (block 64, group 8): FLIP_SHARE of the
     elements within K6's tolerance, none past one bf16 step of one
     probability (NATIVE_STEP x max |V|), and K6 at the same inputs missing
     that share; the library call bf16 ``scaled_dot_product_attention``
-    over the capacity with the length mask. Bound: K6's on bf16 rows."""
-    d = 64
-    f = kvh * d
-    g = torch.Generator(device="cuda").manual_seed(34)
-    q = torch.randn((b, h, d), device="cuda", generator=g)
-    kv = torch.randn((b, cap, 2, f), device="cuda",
-                     generator=g).to(torch.bfloat16)
-    lengths = _decode_lengths(g, b, lives)
+    over the capacity with the length mask; the plan (one split of whole
+    blocks) and one CUDA kernel a call. Bound: K6's on bf16 rows."""
+    q, kv, lengths = native_dots_inputs(lives=lives)
+    b, h, d = q.shape
+    cap, f = kv.shape[1], kv.shape[3]
+    kvh = f // d
     before = at.decode_attn_native_dots.launches
     out = at.decode_attn_native_dots(q, kv, lengths)
     ref = at.decode_attn_native_dots_plain(q, kv, lengths)
@@ -1833,30 +1842,43 @@ def check_native_dots(timer, b=256, h=12, kvh=12, cap=512, lives=(65, 177)):
     print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
           f"{bms:.4f} ({by}) library_ms {lib:.4f} (bf16 "
           f"scaled_dot_product_attention)")
-    return dict(name="decode_attn_native_dots",
-                source="rten_tpu_torch/csrc/decode_attn_float.cu",
-                replaces="rten_tpu/kernels/attention.py:1039",
-                shape=(f"B {b}, {h} heads of {d}, bf16 cache of capacity "
-                       f"{cap}, lives {lives[0]}-{lives[1] - 1}, block 64"),
-                max_abs_err=err, share=share, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=lib)
+    result = dict(name="decode_attn_native_dots",
+                  replaces="rten_tpu/kernels/attention.py:1039",
+                  shape=(f"B {b}, {h} heads of {d}, bf16 cache of capacity "
+                         f"{cap}, lives {lives[0]}-{lives[1] - 1}, block 64"),
+                  max_abs_err=err, share=share, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bms, bound_by=by, library_ms=lib)
+    result.update(kv_group_launch(
+        "decode_attn_native_dots",
+        at.block_plan(b, h, kvh, cap, 64, d, native=True),
+        lambda: at.decode_attn_native_dots(q, kv, lengths), result))
+    return result
 
 
-def check_pv_int8(timer, int8_scores, b=16, cap=4096, lives=H_LIVES,
-                  h=H_HEADS, kvh=H_KVH, d=H_D):
-    """G1's pv_int8 mode (``decode_attn_grouped_int8(pv_int8=True)``,
-    block 64, group 8) against its plain version at path (H)'s shapes,
-    with exact q or int8 scores: FLIP_SHARE of the elements within K6's
-    tolerance, none past one int8 step of one probability (PV_INT8_STEP x
-    max v_scale x 127), and G1 without pv_int8 at the same inputs missing
-    that share. Bound as G1."""
+def pv_int8_inputs(b=16, cap=4096, lives=H_LIVES, h=H_HEADS, kvh=H_KVH,
+                   d=H_D):
+    """(q, kv, scales, lengths) of :func:`check_pv_int8`: path (H)'s
+    shapes, an int8 cache."""
     g = torch.Generator(device="cuda").manual_seed(35)
     kv = torch.randint(-127, 128, (b, cap, 2, kvh * d), device="cuda",
                        dtype=torch.int8, generator=g)
     scales = (0.002 + 0.01 * torch.rand((b, cap, 2, kvh), device="cuda",
                                         generator=g)).to(torch.bfloat16)
     q = torch.randn((b, h, d), device="cuda", generator=g)
-    lengths = _decode_lengths(g, b, lives)
+    return q, kv, scales, _decode_lengths(g, b, lives)
+
+
+def check_pv_int8(timer, int8_scores, lives=H_LIVES):
+    """G1's pv_int8 mode (``decode_attn_grouped_int8(pv_int8=True)``,
+    block 64, group 8) against its plain version at path (H)'s shapes,
+    with exact q or int8 scores: FLIP_SHARE of the elements within K6's
+    tolerance, none past one int8 step of one probability (PV_INT8_STEP x
+    max v_scale x 127), and G1 without pv_int8 at the same inputs missing
+    that share; the plan (chunks of whole blocks) and one CUDA kernel a
+    call. Bound as G1."""
+    q, kv, scales, lengths = pv_int8_inputs(lives=lives)
+    b, h, d = q.shape
+    cap, kvh = kv.shape[1], kv.shape[3] // d
     kw = dict(int8_scores=int8_scores, pv_int8=True)
     args = (q, kv, scales, lengths)
     before = at.decode_attn_grouped_int8.launches
@@ -1878,14 +1900,18 @@ def check_pv_int8(timer, int8_scores, b=16, cap=4096, lives=H_LIVES,
     plain_ms = timer(lambda: at.decode_attn_grouped_int8_plain(*args, **kw))
     print(f"{label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
           f"{bms:.4f} ({by}) library_ms None")
-    return dict(name="decode_attn_grouped_int8", mode=f"pv_int8.{mode}",
-                source="rten_tpu_torch/csrc/decode_attn_grouped_int8.cu",
-                replaces="rten_tpu/kernels/attention.py:1039",
-                shape=(f"B {b}, {h} heads over {kvh} of {d}, int8 cache of "
-                       f"capacity {cap}, lives {lives[0]}-{lives[1] - 1}, "
-                       f"block 64"),
-                max_abs_err=err, share=share, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=None)
+    result = dict(name="decode_attn_grouped_int8", mode=f"pv_int8.{mode}",
+                  replaces="rten_tpu/kernels/attention.py:1039",
+                  shape=(f"B {b}, {h} heads over {kvh} of {d}, int8 cache "
+                         f"of capacity {cap}, lives {lives[0]}-"
+                         f"{lives[1] - 1}, block 64"),
+                  max_abs_err=err, share=share, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bms, bound_by=by, library_ms=None)
+    result.update(kv_group_launch(
+        f"decode_attn_grouped_int8 (pv_int8, {mode})",
+        at.block_plan(b, h, kvh, cap, 64, d),
+        lambda: at.decode_attn_grouped_int8(*args, **kw), result))
+    return result
 
 
 # GPT-2-small's linears (K, N): QKV, O, MLP up, MLP down.

@@ -1,12 +1,10 @@
 // Row layout helpers of the decode attention kernels. The eight-lanes-a-row
-// layout (kLanesPerTok lanes share a token row, each holding D / 8
-// values) serves the int8 kernel (decode_attn_int8_tail.cu), G1's pv_int8
-// walk (decode_attn_grouped_int8.cu) and, through its conventions, the
+// layout (kLanesPerTok lanes share a token row, each holding D / 8 values)
+// serves the int8 kernel (decode_attn_int8_tail.cu: its four-warp block,
+// kWarps and kThreads, and load_row) and, through its conventions, the
 // KV-group kernel (decode_attn_kv_group.cuh: P3i, P3 and its grid mode,
-// G1, G2, K6, K8, V1, A1 and K9). The four-warp block constants, load2
-// (two adjacent values of every 64 a lane) and bf16_round serve
-// decode_attn_float.cu's native_dots kernel (a warp owns every fourth
-// tile of kTok tokens); bf16_round also the KV-group kernel's flat mode.
+// G1 with pv_int8 or without, G2, K6, K8, native_dots, V1, A1 and K9), whose
+// kFlat and kNative modes round with bf16_round.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -16,24 +14,14 @@
 namespace decode_attn {
 
 constexpr int kWarps = 4, kThreads = 32 * kWarps;
-constexpr int kTok = 4;            // tokens per warp tile
-constexpr int kMaxJ = 4;           // head_dim <= 64 * kMaxJ
-constexpr int kMaxD = 64 * kMaxJ;
 
 __device__ inline float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ inline float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ inline float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// The row layout of the int8 kernel (decode_attn_int8_tail.cu) and G1's
-// pv_int8 walk: eight lanes share a token row, each holding kDpl = d / 8
-// values (8 or 16), so one warp load covers four rows.
+// The row layout of the int8 kernel (decode_attn_int8_tail.cu): eight
+// lanes share a token row, each holding kDpl = d / 8 values (8 or 16), so
+// one warp load covers four rows.
 constexpr int kLanesPerTok = 8;
 constexpr int kTokPerLoad = 32 / kLanesPerTok;
 

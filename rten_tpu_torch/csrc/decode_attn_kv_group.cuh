@@ -4,8 +4,9 @@
 // (f32 or bf16): the kernel of decode_attn_paged.cu (P3i on an int8 pool,
 // P3 and its grid mode on an f32 pool: rows through the page table), of
 // decode_attn_grouped_int8.cu's G1 and G2 (contiguous int8 rows, exact q or
-// int8 scores), of decode_attn_float.cu's K6 and K8 (contiguous f32 or
-// bf16 rows, exact or with flash_decode_flat's roundings), of
+// int8 scores, and G1's pv_int8 in both), of decode_attn_float.cu's K6,
+// K8 and native_dots (contiguous f32 or bf16 rows: exact, with
+// flash_decode_flat's roundings, or with native_dots' on bf16 rows), of
 // verify_attn.cu's V1 (S <= 8 verify
 // queries a sequence over contiguous f32, bf16 or int8 rows), of
 // decode_attn_append.cu's A1 (contiguous f32 or bf16 rows, the decode
@@ -44,6 +45,16 @@
 //   as it enters and every K element before the score dot (a bf16 cache's
 //   are already), V is used as stored, and the normalized output is
 //   rounded to bf16.
+// The block modes (Rows only; `unit` = the reference block of R rows,
+// counted from row 0): m_i is the max over rows 0 .. i R + R - 1 of the
+// sequence (the running max after block i) and p_t = exp(s_t - m_i) for
+// the rows of block i; l takes p. kNative (flash_decode_grouped's
+// native_dots on bf16 rows): q is rounded to bf16 as it enters, the dots
+// run in f32, and P V takes bf16(p) (out is not rounded). kPvExact and
+// kPvScores (its pv_int8 with exact q or int8 scores): pm_t = p_t v_scale_t,
+// pq = max(max over the block's live rows of pm, 1e-30) / 127, p8_t =
+// rint(pm_t / pq) (IEEE division, ties to even), and block i adds
+// f32(sum p8_t v8_t) pq, the integer sum exact in f32 (R <= 1024).
 // A sequence with no live row (or, masked, no mapped live row) gets zeros.
 //
 // Bound on the H100: bytes. Each live row's K and V slices of one KV head
@@ -52,7 +63,11 @@
 // (and one exact convert per int8 element), is as long as the int8 bytes
 // at a group of 4 (G1 at path (H)) and a quarter of them at a group of 1
 // (P3i at path (D)); over f32 rows it is 1 flop a byte at a group of 1 (P3
-// at (E), K8 at (I)) against the card's 20 flops a byte.
+// at (E), K8 at (I)) against the card's 20 flops a byte. The block modes
+// read the same bytes where a block fits a ring tile (K once more a pass
+// before the last where it does not) and add, per tile, one or two
+// exchanges between warps and, per row and query head, a bf16 rounding or
+// a division and a rint.
 //
 // Design: one block of 4 or 8 warps per (sequence, KV head, split), so each
 // row crosses from device memory once for a group of up to 8 query rows (4
@@ -99,8 +114,24 @@
 //   first head block (blockIdx.y % chunks == 0) races with nothing, however
 //   many blocks stage the row; it goes through the addressing's own
 //   pointer, so the read pointer's __restrict__ stays sound.
-// - A sequence splits into `splits` chunks of whole units (a page, or 16
-//   rows) only where B x KVH alone leaves the card short of blocks; the
+// - The block modes round p at a step set by the whole reference block,
+//   whose rows lie on every warp of the head group. A block of at most a
+//   tile's rows takes one tile (the stage holds it, partly if it is
+//   shorter); a longer one takes its tiles once a pass: its max, (pv_int8)
+//   its max of p * v_scale, then the walk, each pass scoring its rows again
+//   from K (copied alone before the last pass). After a block's max pass
+//   the group's warps exchange their maxima through shared memory under a
+//   named barrier (bar.sync over the group's warps) and each takes the
+//   same m_i; pv_int8 exchanges its maxima of pm the same way, and each
+//   warp sums p8 * v8 into a block sum that enters acc once, times pq. So
+//   every row of a block is scored before any of its p is rounded, and
+//   every warp rounds under the same m_i and pq. native_dots runs one
+//   split (its rounding depends on m_i, a max from row 0); pv_int8 keeps
+//   the plan's splits of whole blocks (p8 does not depend on which m the
+//   block's rows share).
+// - A sequence splits into `splits` chunks of whole units (a page, 16
+//   rows, or a reference block) only where B x KVH alone leaves the card
+//   short of blocks; the
 //   splits of a (sequence, KV head) form one thread-block cluster and merge
 //   their (m, l, acc) through distributed shared memory after one cluster
 //   barrier: one launch, no scratch. A launch of few blocks takes 8 warps
@@ -141,8 +172,15 @@ constexpr int kMaxSmem = 227 * 1024;
 // patching this line).
 constexpr int kF32Rows = 32, kBf16Rows = 64, kFloatStages = 2;
 
-// kExact and kScores on int8 rows; kExact and kFlat on float rows.
-enum Mode { kExact = 0, kScores = 1, kFlat = 2 };
+// kExact and kScores on int8 rows; kExact and kFlat on float rows. The
+// block modes (Rows only) take one max per reference block of `unit` rows
+// for the whole head group: kNative on bf16 rows (flash_decode_grouped's
+// native_dots), kPvExact and kPvScores on int8 rows (its pv_int8, with exact
+// q or int8 scores).
+enum Mode {
+  kExact = 0, kScores = 1, kFlat = 2, kNative = 3, kPvExact = 4,
+  kPvScores = 5
+};
 
 __host__ __device__ constexpr int pow2_at_least(int n) {
   int p = 1;
@@ -453,8 +491,17 @@ __global__ void __launch_bounds__(32 * kWarps)
   constexpr int kPieces = kTile * kVec;            // of a plane of a stage
   constexpr int kPlane = S::kPlane, kStage = S::kStage;
   constexpr int kHeads = S::kHeads;                // the block's, padded
-  static_assert(kInt8 ? kMode != kFlat : kMode != kScores, "mode");
-  static_assert(!(Addr::kChunk && kMode == kScores),
+  constexpr bool kQ8 = kMode == kScores || kMode == kPvScores;  // int8 q
+  constexpr bool kBlock = kMode >= kNative;        // a max per block
+  constexpr bool kPv = kMode >= kPvExact;          // int8 probabilities
+  static_assert(kInt8 ? kMode != kFlat && kMode != kNative
+                      : kMode == kExact || kMode == kFlat ||
+                            (kMode == kNative &&
+                             std::is_same<T, __nv_bfloat16>::value),
+                "mode");
+  static_assert(!kBlock || std::is_same<Addr, Rows>::value,
+                "the block modes walk contiguous rows");
+  static_assert(!(Addr::kChunk && kQ8),
                 "a verify chunk has no int8-scores mode");
   static_assert(!Addr::kAppend || (!kInt8 && kMode == kExact),
                 "the fused append writes float rows, exact mode");
@@ -468,6 +515,9 @@ __global__ void __launch_bounds__(32 * kWarps)
                 "the merge state fits in the ring, the ring in the SM");
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ int ids[Addr::kIds];
+  // The block modes' exchanges: each warp's block max, then (kPv) its max
+  // of p * v_scale, per query row.
+  __shared__ float xch[kBlock ? 2 * kWarps * kHpw : 1];
 
   // The block serves kHeads query rows of KV head kh's group from row h0
   // of the group on (a group of more rows takes more blocks, each reading
@@ -507,8 +557,8 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
     for (int i = 0; i < kDpl; ++i) {
       qv[j][i] = qr[elem<T, kDpl>(slot, i)];
-      if constexpr (kMode == kFlat) qv[j][i] = decode_attn::bf16_round(
-          qv[j][i]);
+      if constexpr (kMode == kFlat || kMode == kNative)
+        qv[j][i] = decode_attn::bf16_round(qv[j][i]);
     }
   }
   if (splits == 1) addr.stage_ids(ids, b, 0, addr.capacity());
@@ -518,7 +568,15 @@ __global__ void __launch_bounds__(32 * kWarps)
   const int per = (n + splits - 1) / splits;
   const int chunk = (per + unit - 1) / unit * unit;
   const int c0 = min(n, split * chunk), c1 = min(n, c0 + chunk);
-  const int tiles = (c1 - c0 + kTile - 1) / kTile;
+  // The block modes' unit is the reference block (counted from row 0, so a
+  // chunk holds whole blocks). A block of at most kTile rows takes one tile;
+  // a longer one takes nseg tiles a pass, each pass over its rows again:
+  // its max, (kPv) its max of p * v_scale, then the walk (K only but in the
+  // last).
+  const int nseg = kBlock ? (unit + kTile - 1) / kTile : 1;
+  const int passes = nseg == 1 ? 1 : kPv ? 3 : 2;
+  const int tiles = kBlock ? (c1 - c0 + unit - 1) / unit * passes * nseg
+                           : (c1 - c0 + kTile - 1) / kTile;
   if (splits > 1) addr.stage_ids(ids, b, c0, c1);
 
   uint32_t qw[kHpw][kWords];
@@ -526,7 +584,7 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
   for (int j = 0; j < kHpw; ++j) {
     qscale[j] = scale;
-    if constexpr (kMode == kScores)
+    if constexpr (kQ8)
       qscale[j] = verify_rows::quantize_q<kDpl>(qv[j], (int*)qw[j]) * scale;
   }
   float m[kHpw], l[kHpw], acc[kHpw][kDpl];
@@ -537,7 +595,56 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
     for (int i = 0; i < kDpl; ++i) acc[j][i] = 0.0f;
   }
+  // The block modes' state per query row: the block's max so far over the
+  // warp's rows, its max of p * v_scale, the block's step pq and its exact
+  // integer sum of p8 * v8 (kPv).
+  float bmax[kHpw], pmax[kHpw], pq[kHpw], pacc[kPv ? kHpw : 1][kDpl];
+  if constexpr (kBlock) {
+#pragma unroll
+    for (int j = 0; j < kHpw; ++j) {
+      bmax[j] = -INFINITY;
+      pmax[j] = 0.0f;
+      pq[j] = 1.0f;
+#pragma unroll
+      for (int i = 0; i < kDpl; ++i) pacc[kPv ? j : 0][i] = 0.0f;
+    }
+  }
   __syncthreads();  // the page ids
+
+  // Tile j's rows [t0, t0 + rows) (rows may be <= 0 past the chunk's last
+  // block), its pass and whether it is the block's last tile of the pass.
+  struct Span {
+    int t0, rows, pass;
+    bool last;
+  };
+  auto span = [&](int j) -> Span {
+    if constexpr (!kBlock) return Span{c0 + j * kTile, kTile, 0, true};
+    const int i = j % (passes * nseg), seg = i % nseg;
+    const int t0 = c0 + j / (passes * nseg) * unit + seg * kTile;
+    return Span{t0, min(kTile, min(unit - seg * kTile, c1 - t0)), i / nseg,
+                seg == nseg - 1};
+  };
+  // Every warp of head group hg takes the group's max of v (kHpw values a
+  // warp) through x: one named barrier over the group's kRG warps. The
+  // next write to x follows a block-wide barrier of the ring.
+  auto exchange = [&](float* x, float* v) {
+    if constexpr (kRG > 1) {
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < kHpw; ++j) x[warp * kHpw + j] = v[j];
+      }
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + hg), "r"(32 * kRG)
+                   : "memory");
+#pragma unroll
+      for (int j = 0; j < kHpw; ++j) {
+        float r = -INFINITY;
+#pragma unroll
+        for (int x2 = 0; x2 < kRG; ++x2)
+          r = fmaxf(r, x[(hg + kHG * x2) * kHpw + j]);
+        v[j] = r;
+      }
+    }
+  };
 
   // Tile j's K and V slices into stage j % kStages (one commit group per
   // tile and thread, empty past the chunk); for int8 returns this thread's
@@ -545,11 +652,13 @@ __global__ void __launch_bounds__(32 * kWarps)
   // x kTile take none), stored by put_scale.
   auto stage = [&](int j) -> float {
     unsigned char* buf = ring + (j % kStages) * kStage;
-    const int t0 = c0 + j * kTile;
+    const Span sp = span(j);
+    const int t0 = sp.t0;
 #pragma unroll
     for (int p = 0; p < (kPieces + kThreads - 1) / kThreads; ++p) {
       const int e = tid + p * kThreads, r = e / kVec, vq = e % kVec;
-      if ((kPieces % kThreads == 0 || e < kPieces) && t0 + r < c1) {
+      if ((kPieces % kThreads == 0 || e < kPieces) && t0 + r < c1 &&
+          (!kBlock || r < sp.rows)) {
         const long long row = addr.row(ids, b, t0 + r, c0);
         unsigned char* dst = buf + r * d * (int)sizeof(T) + 16 * vq;
         bool fresh = false;  // row n - 1 of a fused append: the new row
@@ -564,14 +673,15 @@ __global__ void __launch_bounds__(32 * kWarps)
         if (!fresh && (!Addr::kMasks || row >= 0)) {
           const int e = vq * (16 / (int)sizeof(T));
           cp_async16(dst, k_at(addr, kv, row, kh, f, d) + e);
-          cp_async16(dst + kPlane, v_at(addr, kv, row, kh, f, d) + e);
+          if (!kBlock || sp.pass == passes - 1)
+            cp_async16(dst + kPlane, v_at(addr, kv, row, kh, f, d) + e);
         }
       }
     }
     cp_async_commit();
     if constexpr (kInt8) {
       const int t = t0 + tid % kTile, plane = tid / kTile;
-      return t < c1 && plane < 2
+      return t < c1 && plane < 2 && (!kBlock || tid % kTile < sp.rows)
                  ? __bfloat162float(
                        scales[(addr.row(ids, b, t, c0) * 2 + plane) * kvh +
                               kh])
@@ -585,10 +695,12 @@ __global__ void __launch_bounds__(32 * kWarps)
                                2 * kPlane)[tid] = s;
   };
 
-  // One tile's walk over stage buf (rows live rows from row t0): a full
-  // tile unrolls without a branch; a partial one skips the steps past its
-  // rows (warp-uniform).
-  auto walk = [&](auto full, const unsigned char* buf, int rows, int t0) {
+  // One tile's walk over stage buf (rows live rows from row t0; in the
+  // block modes pass `pass` of its block, `last` on the block's last tile
+  // of the pass): a full tile unrolls without a branch; a partial one skips
+  // the steps past its rows (warp-uniform).
+  auto walk = [&](auto full, const unsigned char* buf, int rows, int t0,
+                  int pass, bool last) {
     constexpr bool kFull = decltype(full)::value && kDense;
     auto on = [&](int k) { return kFull || (k * kRG + rg) * 4 < rows; };
     const T* ks = reinterpret_cast<const T*>(buf);
@@ -611,7 +723,7 @@ __global__ void __launch_bounds__(32 * kWarps)
         for (int j2 = 0; j2 < kHpw; ++j2) sc[k][j2] = -INFINITY;
         continue;
       }
-      if constexpr (kMode == kScores) {
+      if constexpr (kQ8) {
         uint32_t kw[kWords];
         words<kDpl>(reinterpret_cast<const int8_t*>(ks) + r * d +
                         slot * kDpl,
@@ -659,6 +771,131 @@ __global__ void __launch_bounds__(32 * kWarps)
         sc[k][j2] = dead[k] || (Addr::kChunk && t0 + r >= lim[j2])
                         ? -INFINITY
                         : sc[k][j2];
+    }
+    if constexpr (kBlock) {
+      // Pass 0: the block's max over the warp's rows (-inf where it has
+      // none); after the block's last tile of the pass the head group's
+      // warps exchange it and each takes m_i = max(m, block max), one
+      // rescale where it grew. So every row of the block is scored before
+      // any p is rounded, and every warp rounds under the same m_i.
+      if (pass == 0) {
+#pragma unroll
+        for (int j2 = 0; j2 < kHpw; ++j2) {
+          float mx = sc[0][j2];
+#pragma unroll
+          for (int k = 1; k < kSteps; ++k) mx = fmaxf(mx, sc[k][j2]);
+#pragma unroll
+          for (int o = kLanes; o < 32; o <<= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          bmax[j2] = fmaxf(bmax[j2], mx);
+        }
+        if (last) {
+          exchange(xch, bmax);
+#pragma unroll
+          for (int j2 = 0; j2 < kHpw; ++j2) {
+            if (bmax[j2] > m[j2]) {
+              const float alpha = expf(m[j2] - bmax[j2]);
+              l[j2] *= alpha;
+#pragma unroll
+              for (int i = 0; i < kDpl; ++i) acc[j2][i] *= alpha;
+              m[j2] = bmax[j2];
+            }
+            bmax[j2] = -INFINITY;
+          }
+        }
+      }
+      // p = exp(s - m_i) in place (a dead row's is 0: the block's first
+      // row is live, so m_i is finite). The walk's pass adds p to l and
+      // keeps bf16(p) (kNative) or pm = p * v_scale (kPv); kPv's pq pass
+      // (the walk's own where the block takes one tile) takes the block's
+      // max of pm, exchanged like m_i: pq = max(that, 1e-30) / 127.
+      const bool walk_pass = pass == passes - 1;
+      const bool pq_pass = kPv && (passes == 1 || pass == 1);
+      if (!walk_pass && !pq_pass) return;
+#pragma unroll
+      for (int j2 = 0; j2 < kHpw; ++j2) {
+        float pm_max = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kSteps; ++k) {
+          if (!on(k)) continue;
+          const float p = expf(sc[k][j2] - m[j2]);
+          if (walk_pass) l[j2] += p;
+          if constexpr (kPv) {
+            sc[k][j2] = p * vsc[(k * kRG + rg) * 4 + grp];
+            pm_max = fmaxf(pm_max, sc[k][j2]);
+          } else {
+            sc[k][j2] = decode_attn::bf16_round(p);
+          }
+        }
+        if constexpr (kPv) {
+          if (pq_pass) {
+#pragma unroll
+            for (int o = kLanes; o < 32; o <<= 1)
+              pm_max =
+                  fmaxf(pm_max, __shfl_xor_sync(0xffffffffu, pm_max, o));
+            pmax[j2] = fmaxf(pmax[j2], pm_max);
+          }
+        }
+      }
+      if constexpr (kPv) {
+        if (pq_pass && last) {
+          exchange(xch + kWarps * kHpw, pmax);
+#pragma unroll
+          for (int j2 = 0; j2 < kHpw; ++j2) {
+            pq[j2] = fmaxf(pmax[j2], 1e-30f) / 127.0f;
+            pmax[j2] = 0.0f;
+          }
+        }
+      }
+      if (!walk_pass) return;
+      // P V: bf16(p) v summed in f32 into acc (kNative); p8 = rint(pm / pq)
+      // (IEEE division) times v8 summed exactly into the block's integer
+      // sum, which enters acc once, times pq, after its last tile (kPv).
+#pragma unroll
+      for (int k = 0; k < kSteps; ++k) {
+        if (!on(k)) continue;
+        const int r = (k * kRG + rg) * 4 + grp;
+        if constexpr (kPv) {
+#pragma unroll
+          for (int j2 = 0; j2 < kHpw; ++j2)
+            sc[k][j2] = rintf(sc[k][j2] / pq[j2]);
+          uint32_t vw[kWords];
+          words<kDpl>(reinterpret_cast<const int8_t*>(vs) + r * d +
+                          slot * kDpl,
+                      vw);
+#pragma unroll
+          for (int w = 0; w < kWords; ++w) {
+            float vf[4];
+            s8x4_to_f32(vw[w], vf);
+#pragma unroll
+            for (int j2 = 0; j2 < kHpw; ++j2)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                pacc[j2][4 * w + i] += sc[k][j2] * vf[i];
+          }
+        } else {
+          float vf[kDpl];
+          row_vals<kDpl>(vs + r * d, slot, vf);
+#pragma unroll
+          for (int i = 0; i < kDpl; ++i) vf[i] = dead[k] ? 0.0f : vf[i];
+#pragma unroll
+          for (int j2 = 0; j2 < kHpw; ++j2)
+#pragma unroll
+            for (int i = 0; i < kDpl; ++i) acc[j2][i] += sc[k][j2] * vf[i];
+        }
+      }
+      if constexpr (kPv) {
+        if (last) {
+#pragma unroll
+          for (int j2 = 0; j2 < kHpw; ++j2)
+#pragma unroll
+            for (int i = 0; i < kDpl; ++i) {
+              acc[j2][i] += pacc[j2][i] * pq[j2];
+              pacc[j2][i] = 0.0f;
+            }
+        }
+      }
+      return;
     }
     // Rows are a prefix of the tile: the warp has a row here iff its first
     // one is (warp-uniform). Then per query row the tile's max over the
@@ -753,11 +990,20 @@ __global__ void __launch_bounds__(32 * kWarps)
     __syncthreads();  // tile j's rows and scales; tile j - 1's stage free
     const float next = stage(j + kStages - 1);
     const unsigned char* buf = ring + (j % kStages) * kStage;
+    if constexpr (kBlock) {
+      const Span sp = span(j);
+      if (sp.rows == kTile)
+        walk(std::true_type(), buf, sp.rows, sp.t0, sp.pass, sp.last);
+      else
+        walk(std::false_type(), buf, sp.rows, sp.t0, sp.pass, sp.last);
+      if (j + kStages <= tiles) put_scale(j + kStages - 1, next);
+      continue;
+    }
     const int t0 = c0 + j * kTile, rows = min(kTile, c1 - t0);
     if (rows == kTile)
-      walk(std::true_type(), buf, rows, t0);
+      walk(std::true_type(), buf, rows, t0, 0, true);
     else
-      walk(std::false_type(), buf, rows, t0);
+      walk(std::false_type(), buf, rows, t0, 0, true);
     if (j + kStages - 1 < tiles) put_scale(j + kStages - 1, next);
   }
   cp_async_wait<0>();

@@ -1,36 +1,13 @@
-// Helpers of the int8 decode walks, eight lanes a row (the row layout of
-// decode_attn.cuh): the score modes, quantize_q (kScores: q row-quantized in
-// the kernel) and load_words, used by the KV-group kernel
-// (decode_attn_kv_group.cuh) and decode_attn_grouped_int8.cu's pv_int8 walk.
-// The file kept its name from V1's first kernel; V1, G1, G2 and A1 now run
-// on the KV-group kernel.
+// quantize_q: the KV-group kernel's row quantization of q in its
+// int8-scores modes (decode_attn_kv_group.cuh: G1 with int8 scores, with
+// pv_int8 or without), on the eight-lanes-a-row layout of decode_attn.cuh. The file kept its name from V1's first kernel; V1, G1,
+// G2 and A1 now run on the KV-group kernel.
 #pragma once
 #include "decode_attn.cuh"
 
 namespace verify_rows {
 
 using decode_attn::kLanesPerTok;
-
-// The score modes of the int8 walks: exact q, or q row-quantized
-// (quantize_q) with int32 dots.
-enum Mode { kExact = 1, kScores = 2 };
-
-// kDpl int8 values as kDpl / 4 packed words (byte i of word w = value
-// 4w + i), in one 8- or 16-byte load.
-template <int kDpl>
-__device__ inline void load_words(const int8_t* p, int* w) {
-  if constexpr (kDpl == 8) {
-    const int2 raw = *reinterpret_cast<const int2*>(p);
-    w[0] = raw.x;
-    w[1] = raw.y;
-  } else {
-    const int4 raw = *reinterpret_cast<const int4*>(p);
-    w[0] = raw.x;
-    w[1] = raw.y;
-    w[2] = raw.z;
-    w[3] = raw.w;
-  }
-}
 
 // kScores: the row quantization of q, the eight lanes of a row each
 // holding kDpl of its values: qs = absmax / 127 (1 where the row is 0), q8 =

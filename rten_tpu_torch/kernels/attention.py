@@ -588,9 +588,6 @@ def decode_attn_flat_float(q, kv, lengths, scale=None):
 decode_attn_flat_float.launches = 0
 
 
-NATIVE_MAX_BLOCKS = 512           # the kernel keeps a max per block
-
-
 def _native_block(b, cap, block_k, group):
     """The block of ``flash_decode_grouped`` (min(block_k, cap)), or 0 where
     its own fallback (attention.py:1062-1065) drops ``native_dots`` for the
@@ -632,7 +629,9 @@ def decode_attn_native_dots(q, kv, lengths, block_k=64, group=8, scale=None):
     ``decode_attn_float`` (K6, counted there).
 
     Arguments as ``decode_attn_float``. CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel (on a bf16 cache the KV-group kernel in
+    its native mode at :func:`block_plan`'s one-split launch, on an f32
+    cache K6's launch; head_dim 64 to 256 in steps of 64) or raise."""
     name = "decode_attn_native_dots"
     if _build.on_cpu(name, q, kv, lengths):
         return decode_attn_native_dots_plain(q, kv, lengths, block_k, group,
@@ -640,21 +639,32 @@ def decode_attn_native_dots(q, kv, lengths, block_k=64, group=8, scale=None):
     blk = _native_block(q.shape[0], kv.shape[1], block_k, group)
     if not blk:
         return decode_attn_float(q, kv, lengths, scale)
-    _build.require(blk % 4 == 0 and -(-kv.shape[1] // blk)
-                   <= NATIVE_MAX_BLOCKS, name,
-                   f"block {blk} must divide by 4 and the capacity hold at "
-                   f"most {NATIVE_MAX_BLOCKS} blocks")
+    return _launch_native_dots(q, kv, lengths, blk, scale)
+
+
+def _launch_native_dots(q, kv, lengths, blk, scale, plan=None):
+    """native_dots over reference blocks of ``blk`` rows on CUDA tensors, at
+    ``plan`` (default: :func:`block_plan`'s one split on a bf16 cache,
+    :func:`rows_plan`'s on an f32 one); counts the launch."""
+    name = "decode_attn_native_dots"
     b, h, d, kvh, cap = _check_float(q, kv, lengths, name)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    _build.require(d % 64 == 0 and d <= 256, name,
-                   f"head_dim {d} must be a multiple of 64 up to 256")
-    _build.require(all(x.is_contiguous() for x in (q, kv, lengths)), name,
-                   "tensors must be contiguous")
+    _kv_group_head_dim(name, d)
+    bf16 = kv.dtype == torch.bfloat16
+    plan = plan or (block_plan(b, h, kvh, cap, blk, d, native=True)
+                    if bf16 else rows_plan(b, h, kvh, cap, d))
+    _check_kv_group(name, (q, kv, lengths), plan)
+    _build.require(not bf16 or (plan["splits"], plan["unit"]) == (1, blk),
+                   name, f"native_dots takes one split of whole blocks of "
+                   f"{blk} rows (its rounding of p depends on the max from "
+                   f"row 0), got {plan['splits']} split(s) of "
+                   f"{plan['unit']}-row units")
     out = torch.empty_like(q)
-    fn = _build.function("decode_attn_float", name, "ppppiiiiiiifp")
+    fn = _build.function("decode_attn_float", name, "ppppiiiiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             b, h, kvh, d, cap, int(kv.dtype == torch.bfloat16), blk,
+             b, h, kvh, d, cap, int(bf16), plan["splits"], plan["unit"],
+             plan["heads_per_warp"], plan["head_groups"], plan["warps"],
              float(scale), _build.stream())
     _build.check(err, name)
     decode_attn_native_dots.launches += 1
@@ -833,9 +843,10 @@ def _paged_plain(name, q, pool, scales, table, lengths, scale,
 # csrc/decode_attn_kv_group.cuh moves its rows a tile at a time through a
 # ring of stages in shared memory and serves every query row of the KV
 # head's group from it: P3i (int8 pool), P3 and its grid mode (f32 pool), G1
-# and G2 (contiguous int8 rows), K6, K8 and A1 (contiguous f32 or bf16 rows;
-# A1 writes the new row too), K9 (separate f32 or bf16 K and V planes) and
-# V1 (contiguous f32, bf16 or int8 rows; S x rep query rows a group). A
+# with pv_int8 or without and G2 (contiguous int8 rows), K6, K8, A1 and
+# native_dots (contiguous f32 or bf16 rows; A1 writes the new row too), K9
+# (separate f32 or bf16 K and V planes) and V1 (contiguous f32, bf16 or
+# int8 rows; S x rep query rows a group). A
 # sequence splits into chunks (one thread-block cluster, merged in the same
 # launch) only where B x KVH leaves the card short of this many blocks, and
 # a launch of at most two blocks an SM gives each block 8 warps, not 4.
@@ -881,18 +892,22 @@ def kv_group_chunks(n, splits, unit):
 
 
 def _kv_group_plan(batch, heads, kvh, head_dim, unit, most_units, fewest,
-                   splits, warps):
+                   splits, warps, per_sm=2):
+    """The plan's choice with ``per_sm`` 8-warp blocks an SM (2, or 1 where
+    a block's registers allow one): splits up to per_sm / 2 x
+    KV_GROUP_TARGET_BLOCKS blocks, 8 warps up to per_sm / 2 x
+    KV_GROUP_WIDE_BLOCKS."""
     rep = heads // kvh
     w, groups = kv_group_heads(rep, head_dim)
     pairs = batch * kvh * -(-rep // (w * groups))
     most = max(1, min(KV_GROUP_MAX_SPLITS, most_units))
     if splits is None:
-        splits = max(fewest, min(most, -(-KV_GROUP_TARGET_BLOCKS
-                                          // max(pairs, 1))))
+        target = KV_GROUP_TARGET_BLOCKS * per_sm // 2
+        splits = max(fewest, min(most, -(-target // max(pairs, 1))))
+    wide = KV_GROUP_WIDE_BLOCKS * per_sm // 2
     return dict(splits=splits, unit=unit, fewest=fewest, most=most,
                 blocks=pairs * splits, heads_per_warp=w, head_groups=groups,
-                warps=warps or (8 if pairs * splits <= KV_GROUP_WIDE_BLOCKS
-                                else 4))
+                warps=warps or (8 if pairs * splits <= wide else 4))
 
 
 def paged_plan(batch, heads, kvh, page, max_pages, head_dim=64, splits=None,
@@ -920,6 +935,25 @@ def rows_plan(batch, heads, kvh, cap, head_dim=128, splits=None, warps=None):
     KV_GROUP_UNIT-row units."""
     return _kv_group_plan(batch, heads, kvh, head_dim, KV_GROUP_UNIT,
                           -(-cap // KV_GROUP_UNIT), 1, splits, warps)
+
+
+def block_plan(batch, heads, kvh, cap, block, head_dim=128, splits=None,
+               warps=None, native=False):
+    """The launch of the KV-group kernel in a block mode (``native_dots`` on
+    a bf16 cache, ``pv_int8``: one max per reference block of ``block``
+    rows, counted from row 0, for the whole head group): :func:`rows_plan`'s
+    plan with chunks of whole blocks, so no block crosses a split.
+    ``native`` (``native_dots``: its bf16 rounding of p depends on the
+    prefix max from row 0, which a later split cannot know) allows one
+    split only. ``pv_int8`` at a tiling whose warps hold 32 values a lane
+    per array (q, the accumulators and the block's integer sums) takes
+    over 128 registers a thread, so one 8-warp block fits an SM, not two:
+    its targets of blocks halve."""
+    w, _ = kv_group_heads(heads // kvh, head_dim)
+    per_sm = 1 if not native and w * head_dim // 8 == 32 else 2
+    most = 1 if native else -(-cap // block)
+    return _kv_group_plan(batch, heads, kvh, head_dim, block, most, 1,
+                          splits, warps, per_sm)
 
 
 def verify_plan(batch, s, heads, kvh, cap, head_dim=64, splits=None,
@@ -1432,38 +1466,36 @@ def _attend_blocks(s, v, lengths, block_k, v_scale=None, p_dtype=None):
     return (acc / torch.clamp(l, min=1e-30)).reshape(b, kvh * rep, -1)
 
 
-def _launch_pv_int8(q, kv, scales, lengths, int8_scores, scale, pv_block):
-    """G1's ``pv_int8`` walk over blocks of ``pv_block`` rows (either score
-    mode) on CUDA tensors; counts the launch in its mode."""
+# The block of pv_int8: its integer sum of p8 * v8 (|p8| <= 127, |v8| <=
+# 128) stays below 2^24, exact in f32, as the reference's int32 dot.
+PV_INT8_MAX_BLOCK = 1024
+
+
+def _launch_pv_int8(q, kv, scales, lengths, int8_scores, scale, pv_block,
+                    plan=None):
+    """G1's ``pv_int8`` mode over blocks of ``pv_block`` rows (either score
+    mode) on CUDA tensors: the KV-group kernel at ``plan`` (default
+    :func:`block_plan`'s); counts the launch in its mode."""
     name = "decode_attn_grouped_int8"
+    _build.require(pv_block <= PV_INT8_MAX_BLOCK, name,
+                   f"pv_int8 block {pv_block}: the kernel takes <= "
+                   f"{PV_INT8_MAX_BLOCK} (an exact f32 sum of p8 * v8)")
     b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    _build.require(d in (64, 128), name, f"head_dim {d} must be 64 or 128")
-    _build.require(all(x.is_contiguous() for x in (q, kv, scales, lengths)),
-                   name, "tensors must be contiguous")
-    _build.require(pv_block <= 256, name,
-                   f"pv_int8 block {pv_block}: the kernel takes <= 256")
-    out = torch.empty_like(q)
-    fn = _build.function("decode_attn_grouped_int8", "decode_attn_pv_int8",
-                         "pppppiiiiiiifp")
-    err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, cap,
-             int(bool(int8_scores)), pv_block, float(scale), _build.stream())
-    _build.check(err, name)
-    decode_attn_grouped_int8.launches += 1
-    decode_attn_grouped_int8.mode_launches[
-        "pv_int8." + ("int8_scores" if int8_scores else "exact")] += 1
-    return out
+    plan = plan or block_plan(b, h, kvh, cap, pv_block, d)
+    return _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores,
+                                     scale, plan=plan, pv_block=pv_block)
 
 
 def _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores, scale,
-                              dots=None, plan=None, wrapper=None):
-    """G1 without ``pv_int8`` (both score modes) or, with ``wrapper``
-    ``decode_attn_fused_int8``, G2 (exact q) on CUDA tensors: the KV-group
-    kernel at ``plan`` (default :func:`rows_plan`'s); counts the launch on
-    the wrapper and, for G1, in its mode. ``dots`` (int32 [B, H, cap],
-    tests only) receives the integer score dots of ``int8_scores``."""
+                              dots=None, plan=None, wrapper=None,
+                              pv_block=0):
+    """G1 (both score modes; with ``pv_block`` its ``pv_int8`` mode over
+    blocks of that many rows, at a :func:`block_plan` whose unit is the
+    block) or, with ``wrapper`` ``decode_attn_fused_int8``, G2 (exact q) on
+    CUDA tensors: the KV-group kernel at ``plan`` (default
+    :func:`rows_plan`'s); counts the launch on the wrapper and, for G1, in
+    its mode. ``dots`` (int32 [B, H, cap], tests only) receives the
+    integer score dots of ``int8_scores`` without ``pv_int8``."""
     wrapper = wrapper or decode_attn_grouped_int8
     name = wrapper.__name__
     b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
@@ -1473,11 +1505,16 @@ def _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores, scale,
                    f"head_dim {d} must be one of (64, 128)")
     plan = plan or rows_plan(b, h, kvh, cap, d)
     _check_kv_group(name, (q, kv, scales, lengths), plan)
+    _build.require(not pv_block or plan["unit"] == pv_block, name,
+                   f"pv_int8's chunks are whole blocks of {pv_block} rows, "
+                   f"got a unit of {plan['unit']}")
     if dots is not None:
-        _build.require(int8_scores and dots.shape == (b, h, cap)
+        _build.require(int8_scores and not pv_block
+                       and dots.shape == (b, h, cap)
                        and dots.dtype == torch.int32
                        and dots.is_contiguous(), name,
-                       "dots must be int32 [B, H, cap], int8_scores only")
+                       "dots must be int32 [B, H, cap], int8_scores "
+                       "without pv_int8 only")
     out = torch.empty_like(q)
     fn = _build.function("decode_attn_grouped_int8",
                          "decode_attn_grouped_int8_rows",
@@ -1485,14 +1522,16 @@ def _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores, scale,
     err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
              lengths.data_ptr(), out.data_ptr(),
              None if dots is None else dots.data_ptr(), b, h, kvh, d, cap,
-             int(bool(int8_scores)), plan["splits"], plan["unit"],
-             plan["heads_per_warp"], plan["head_groups"], plan["warps"],
-             float(scale), _build.stream())
+             int(bool(int8_scores)) | (2 if pv_block else 0),
+             plan["splits"], plan["unit"], plan["heads_per_warp"],
+             plan["head_groups"], plan["warps"], float(scale),
+             _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
     if wrapper is decode_attn_grouped_int8:
-        wrapper.mode_launches[
-            "int8_scores" if int8_scores else "exact"] += 1
+        wrapper.mode_launches[("pv_int8." if pv_block else "")
+                              + ("int8_scores" if int8_scores
+                                 else "exact")] += 1
     return out
 
 
@@ -1546,10 +1585,12 @@ def decode_attn_grouped_int8(q, kv, scales, lengths, int8_scores=False,
     the block or the block by 4, the reference drops ``pv_int8`` and
     ``int8_scores`` for the exact fused kernel, and this returns
     ``decode_attn_fused_int8`` (counted there). Without ``pv_int8`` the
-    caller has made that choice (:func:`int8_decode_kernel`). Without
-    ``pv_int8`` a block serves up to 8 query heads of a KV head's group
-    (:func:`rows_plan`). head_dim 64 or 128. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise. Launches count in ``launches`` and per mode in
+    caller has made that choice (:func:`int8_decode_kernel`). A block
+    serves up to 8 query heads of a KV head's group (:func:`rows_plan`;
+    with ``pv_int8`` :func:`block_plan`, blocks of at most
+    PV_INT8_MAX_BLOCK rows). head_dim 64 or 128. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise. Launches count
+    in ``launches`` and per mode in
     ``mode_launches`` ("exact", "int8_scores", "pv_int8.exact",
     "pv_int8.int8_scores")."""
     name = "decode_attn_grouped_int8"

@@ -123,6 +123,22 @@ K3 and K9 (``--skip flush``, ``--skip k9`` leave them out):
   and 8 splits and blocks of 4 or 8 warps, each held to 1e-5 of max
   |out| against the plain version.
 
+native_dots and pv_int8 (``--skip native``, ``--skip pv8`` leave them
+out):
+
+* native_dots (``decode_attn_native_dots``: the KV-group kernel's native
+  mode, one split of whole 64-row blocks) at ``chip_smoke.py``'s inputs
+  (path (C)'s shapes on a bf16 cache) and pv_int8
+  (``decode_attn_grouped_int8(pv_int8=True)``, exact q and int8 scores:
+  its pv_int8 modes at ``block_plan``) at its (H) inputs, with its timer;
+  with ``--parent CHECKOUT`` each in turns (parent, change, change,
+  parent) with the checkout's kernel, built from its sources (the design
+  before: ``decode_attn_native_dots`` and ``decode_attn_pv_int8`` of its
+  own signatures, where its source has them); native_dots at 4 and 8
+  warps and pv_int8 at 1-8 splits x 4/8 warps. Each held to
+  ``chip_smoke.py``'s flip criterion (no element past one flipped
+  rounding, 99% within 1e-5 of max |out|).
+
 Each line: the device time (CUDA events, cold L2, warm median) in two
 rounds, its share of the byte bound, and the error against the plain
 version as a share of its tolerance (1e-5 of max |out|; K8, whose output is
@@ -133,7 +149,8 @@ full of dirty lines that the kernel's reads must first write back), and
 after a read of the same 256 MB (the L2 cold and clean).
 
     python -m rten_tpu_torch.tools.kv_group_variants \
-        [--skip int8|float|verify|append|k7|p2|fappend|flush|k9]
+        [--skip int8|float|verify|append|k7|p2|fappend|flush|k9|native|pv8]
+        [--parent CHECKOUT]
 
 Builds go to ``rten_tpu_torch/build/kv_group_variants/``. Needs one NVIDIA
 card and nvcc; without a card it exits non-zero.
@@ -148,6 +165,7 @@ import re
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -170,8 +188,9 @@ FLOAT_RING = re.compile(r"constexpr int kF32Rows = \d+, kBf16Rows = \d+, "
                         r"kFloatStages = \d+;")
 TILE = "    const int t0 = c0 + j * kTile, rows = min(kTile, c1 - t0);\n"
 COPIES = ("          cp_async16(dst, k_at(addr, kv, row, kh, f, d) + e);\n"
-          "          cp_async16(dst + kPlane, v_at(addr, kv, row, kh, f, d) + "
-          "e);\n")
+          "          if (!kBlock || sp.pass == passes - 1)\n"
+          "            cp_async16(dst + kPlane, v_at(addr, kv, row, kh, f, d)"
+          " + e);\n")
 WALK_END = ("    if (j + kStages - 1 < tiles) put_scale(j + kStages - 1, "
             "next);\n")
 # The int8 walk before its three passes: a softmax step per row (two
@@ -1250,13 +1269,153 @@ def k9_section(scrub):
     return worst
 
 
+FLIP_SHARE = 0.99
+
+
+def flip_error(out, ref, step):
+    """A rounding mode's error as a share of its tolerance (<= 1 passes):
+    chip_smoke.py's criterion, no element past one flipped rounding
+    (``step``) and FLIP_SHARE of the elements within 1e-5 of max |out|."""
+    err = (out - ref).abs()
+    share = err.le(REL_TOL * ref.abs().max()).float().mean().item()
+    return max(err.max().item() / step,
+               (1.0 - share) / (1.0 - FLIP_SHARE))
+
+
+def _parent_entry(parent, lib, symbol, argtypes, marker):
+    """The C entry ``symbol`` of ``lib`` built from the checkout
+    ``parent``'s sources, or None where that source lacks ``marker`` (the
+    design before's kernel)."""
+    src = parent / "rten_tpu_torch" / "csrc"
+    if marker not in (src / f"{lib}.cu").read_text():
+        return None
+    out = OUT / "parent"
+    _wait({lib: _nvcc(src, lib, out)})
+    return _entry(ctypes.CDLL(str(out / f"lib{lib}.so")), symbol, argtypes)
+
+
+def _in_turns(label, calls, timer):
+    """Each call ({name: (call, held)}) timed in turns: for a parent and
+    this tree, parent, change, change, parent; returns the worst held
+    error."""
+    names = list(calls)
+    order = names + names[::-1]
+    times, worst = {name: [] for name in names}, 0.0
+    for name in order:
+        call, held = calls[name]
+        out = call()
+        torch.cuda.synchronize()
+        worst = max(worst, held(out))
+        times[name].append(timer(call))
+    print(f"{label}: " + ", ".join(
+        f"{name} " + " / ".join(f"{t:.4f}" for t in ts)
+        for name, ts in times.items()) + " ms; held error "
+        f"{worst:.3f} of the tolerance", flush=True)
+    return worst
+
+
+def native_section(parent):
+    """native_dots at chip_smoke.py's inputs ((C)'s shapes, bf16 cache,
+    block 64) and timer: this tree's kernel and, with ``parent``, the
+    parent's in turns (parent, change, change, parent); then this tree's
+    at 4 and 8 warps (one split). Each held to chip_smoke.py's criterion;
+    returns the worst held error."""
+    cs = _chip_smoke()
+    timer = cs.Timer()
+    q, kv, lengths = cs.native_dots_inputs()
+    b, h, d = q.shape
+    cap, kvh = kv.shape[1], kv.shape[3] // d
+    ref = at.decode_attn_native_dots_plain(q, kv, lengths)
+    step = cs.NATIVE_STEP * kv[:, :, 1].abs().max().item()
+    held = lambda out: flip_error(out, ref, step)
+    calls = {}
+    old = parent and _parent_entry(parent, "decode_attn_float",
+                                   "decode_attn_native_dots",
+                                   "ppppiiiiiiifp", "native_dots_kernel")
+    if old:
+        def before():
+            out = torch.empty_like(q)
+            _build.check(old(q.data_ptr(), kv.data_ptr(), lengths.data_ptr(),
+                             out.data_ptr(), b, h, kvh, d, cap, 1, 64,
+                             1.0 / d ** 0.5, _build.stream()),
+                         "the parent's native_dots")
+            return out
+        calls["parent"] = (before, held)
+    calls["change"] = (lambda: at.decode_attn_native_dots(q, kv, lengths),
+                       held)
+    worst = _in_turns("native_dots at (C)'s shape", calls, timer)
+    for warps in (4, 8):
+        plan = at.block_plan(b, h, kvh, cap, 64, d, warps=warps,
+                             native=True)
+        worst = max(worst, _in_turns(
+            f"  native_dots, 1 split, {warps} warps", {"change": (
+                lambda p=plan: at._launch_native_dots(q, kv, lengths, 64,
+                                                      None, p), held)},
+            timer))
+    return worst
+
+
+def pv8_section(parent):
+    """G1's pv_int8 at chip_smoke.py's inputs ((H)'s shapes, block 64) and
+    timer, exact q and int8 scores: this tree's kernel and, with
+    ``parent``, the parent's in turns (parent, change, change, parent);
+    then this tree's at 1, 2, 4 and 8 splits and 4 or 8 warps. Each held
+    to chip_smoke.py's criterion; returns the worst held error."""
+    cs = _chip_smoke()
+    timer = cs.Timer()
+    q, kv, scales, lengths = cs.pv_int8_inputs()
+    b, h, d = q.shape
+    cap, kvh = kv.shape[1], kv.shape[3] // d
+    step = cs.PV_INT8_STEP * scales[:, :, 1].float().max().item() * 127
+    old = parent and _parent_entry(parent, "decode_attn_grouped_int8",
+                                   "decode_attn_pv_int8", "pppppiiiiiiifp",
+                                   "pv_int8_kernel")
+    worst = 0.0
+    for scores in (False, True):
+        kw = dict(int8_scores=scores, pv_int8=True)
+        ref = at.decode_attn_grouped_int8_plain(q, kv, scales, lengths, **kw)
+        held = lambda out, ref=ref: flip_error(out, ref, step)
+        calls = {}
+        if old:
+            def before(scores=scores):
+                out = torch.empty_like(q)
+                _build.check(old(q.data_ptr(), kv.data_ptr(),
+                                 scales.data_ptr(), lengths.data_ptr(),
+                                 out.data_ptr(), b, h, kvh, d, cap,
+                                 int(scores), 64, 1.0 / d ** 0.5,
+                                 _build.stream()), "the parent's pv_int8")
+                return out
+            calls["parent"] = (before, held)
+        calls["change"] = (lambda kw=kw: at.decode_attn_grouped_int8(
+            q, kv, scales, lengths, **kw), held)
+        mode = "int8 scores" if scores else "exact q"
+        worst = max(worst, _in_turns(f"pv_int8 ({mode}) at (H)'s shape",
+                                     calls, timer))
+        plan = at.block_plan(b, h, kvh, cap, 64, d)
+        for splits in (1, 2, 4, 8):
+            for warps in (4, 8):
+                p = at.block_plan(b, h, kvh, cap, 64, d, splits, warps)
+                mine = (splits, warps) == (plan["splits"], plan["warps"])
+                worst = max(worst, _in_turns(
+                    f"  pv_int8 ({mode}), {splits} splits, {warps} warps"
+                    f"{' (plan)' if mine else ''}", {"change": (
+                        lambda p=p, scores=scores: at._launch_pv_int8(
+                            q, kv, scales, lengths, scores, None, 64, p),
+                        held)}, timer))
+    return worst
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--skip",
                         choices=("int8", "float", "verify", "append",
-                                 "k7", "p2", "fappend", "flush", "k9"),
+                                 "k7", "p2", "fappend", "flush", "k9",
+                                 "native", "pv8"),
                         action="append",
                         default=[], help="leave a section out")
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="a checkout whose native_dots and pv_int8 "
+                        "kernels the native and pv8 sections time in turns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kv_group_variants: no CUDA device", file=sys.stderr)
@@ -1285,6 +1444,10 @@ def main(argv=None):
         worst = max(worst, flush_section())
     if "k9" not in args.skip:
         worst = max(worst, k9_section(scrub))
+    if "native" not in args.skip:
+        worst = max(worst, native_section(args.parent))
+    if "pv8" not in args.skip:
+        worst = max(worst, pv8_section(args.parent))
     print(f"worst error {worst:.3f} of the tolerance")
     return 0 if worst <= 1.0 else 1
 

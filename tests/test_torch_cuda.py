@@ -1605,6 +1605,85 @@ def test_pv_int8_kernel_matches_plain(gen, d, block_k, int8_scores):
     _assert_flips(out, ref, scales[:, :, 1].float().max().item(), g1)
 
 
+# The block modes on the KV-group kernel (native_dots on a bf16 cache,
+# pv_int8): (head_dim, block, heads, KV heads) at capacity 384. A block
+# shorter than a ring tile (32, 48: the tile holds one block, partly), one
+# as long (64 at head_dim 64), blocks spanning two or more tiles (128 at
+# head_dim 64; 64, 96 and 128 at head_dim 128, whose bf16 tile is 32 rows;
+# 128 of int8) and one that is not a power of two (48, 96); GQA groups of
+# 1, 4 and 8.
+BLOCK_CASES = [(64, 32, 4, 4), (64, 48, 8, 2), (64, 64, 8, 1),
+               (64, 128, 8, 2), (128, 64, 4, 4), (128, 96, 8, 1),
+               (128, 128, 8, 2)]
+BLOCK_CAP = 384
+
+
+def _block_lengths(block, b):
+    """Lengths 0, 1, one row into the second and into the third block (a
+    last block with one live row), 200 and the capacity, repeated."""
+    return _lengths([0, 1, block + 1, 2 * block + 1, 200, BLOCK_CAP], b)
+
+
+@pytest.mark.parametrize("d,block,h,kvh", BLOCK_CASES, ids=str)
+def test_native_dots_kernel_block_cases(gen, d, block, h, kvh):
+    """native_dots on a bf16 cache at BLOCK_CASES: one split (the plan
+    refuses two), the flip criterion against the plain version with K6
+    missing its share, and one CUDA kernel a call."""
+    b = 96
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    kv = _float_kv(gen, b, BLOCK_CAP, kvh, d, torch.bfloat16)
+    lengths = _block_lengths(block, b)
+    kw = dict(block_k=block, group=2)
+    plan = at.block_plan(b, h, kvh, BLOCK_CAP, block, d, native=True)
+    assert plan["splits"] == 1 and plan["unit"] == block
+    before = at.decode_attn_native_dots.launches
+    out = at.decode_attn_native_dots(q, kv, lengths, **kw)
+    ref = at.decode_attn_native_dots_plain(q, kv, lengths, **kw)
+    assert at.decode_attn_native_dots.launches == before + 1
+    _assert_flips(out, ref, 2.0 ** -7 * kv[:, :, 1].abs().max().item(),
+                  at.decode_attn_float(q, kv, lengths))
+    assert (out[0::6] == 0).all()
+    assert _cuda_kernels_a_call(
+        lambda: at.decode_attn_native_dots(q, kv, lengths, **kw)) == 1
+    with pytest.raises(ValueError, match="native_dots takes one split"):
+        at._launch_native_dots(q, kv, lengths, block, None, at.block_plan(
+            b, h, kvh, BLOCK_CAP, block, d, splits=2))
+
+
+@pytest.mark.parametrize("int8_scores", [False, True])
+@pytest.mark.parametrize("splits", [None, 2])
+@pytest.mark.parametrize("d,block,h,kvh", BLOCK_CASES, ids=str)
+def test_pv_int8_kernel_block_cases(gen, d, block, h, kvh, splits,
+                                    int8_scores):
+    """pv_int8 at BLOCK_CASES, at the plan's splits and at two (lengths 200
+    and the capacity cross the split; every chunk whole blocks): the flip
+    criterion against the plain version with G1 without pv_int8 missing
+    its share, the launch counted in its mode, one CUDA kernel a call."""
+    b = 96
+    kv, scales, _ = _cache(gen, b, BLOCK_CAP, 1, kvh, d)
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    lengths = _block_lengths(block, b)
+    plan = at.block_plan(b, h, kvh, BLOCK_CAP, block, d, splits)
+    assert plan["unit"] == block
+    if splits:
+        (_, c), (c0, c1) = at.kv_group_chunks(200, splits, block)
+        assert c == c0 and c0 % block == 0 and 0 < c0 < c1
+    mode = "pv_int8." + ("int8_scores" if int8_scores else "exact")
+    call = lambda: at._launch_pv_int8(q, kv, scales, lengths, int8_scores,
+                                      None, block, plan)
+    before = at.decode_attn_grouped_int8.mode_launches[mode]
+    out = call()
+    ref = at.decode_attn_grouped_int8_plain(
+        q, kv, scales, lengths, int8_scores=int8_scores, pv_int8=True,
+        block_k=block, group=2)
+    assert at.decode_attn_grouped_int8.mode_launches[mode] == before + 1
+    g1 = at.decode_attn_grouped_int8(q, kv, scales, lengths,
+                                     int8_scores=int8_scores)
+    _assert_flips(out, ref, scales[:, :, 1].float().max().item(), g1)
+    assert (out[0::6] == 0).all()
+    assert _cuda_kernels_a_call(call) == 1
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (17, 33, 65), (64, 768, 768),
                                    (300, 1100, 520), (96, 40, 130)])
 def test_matmul_int8_tiled_kernel_bit_exact(gen, m, k, n):

@@ -1321,3 +1321,198 @@ def test_split_kv_refuses_what_its_kernel_does_not_take(monkeypatch, what,
         at.decode_attn_split_kv(call["q"], call["k"], call["v"],
                                 torch.full((2,), 9, dtype=torch.int32))
     assert at.decode_attn_split_kv.launches == before
+
+
+# -- the block modes: native_dots and pv_int8 on the KV-group kernel ---------
+
+# (batch, heads, KV heads, capacity, block, head_dim): chip_smoke.py's (C)
+# (native_dots) and (H) (pv_int8) shapes, the card tests' capacity 384 with
+# blocks shorter than, as long as and longer than a ring tile (one not a
+# power of two), a block of 4 and a block of the whole capacity.
+BLOCK_PLANS = [(256, 12, 12, 512, 64, 64), (16, 32, 8, 4096, 64, 128),
+               (16, 32, 8, 4096, 128, 128), (96, 8, 2, 384, 48, 64),
+               (96, 8, 1, 384, 96, 128), (96, 4, 4, 384, 32, 64),
+               (4, 8, 2, 256, 4, 64), (2, 4, 1, 256, 256, 128),
+               (3, 32, 8, 1024, 256, 128)]
+
+
+@pytest.mark.parametrize("native", [False, True])
+@pytest.mark.parametrize("shape", BLOCK_PLANS, ids=str)
+def test_block_plans_put_no_block_across_a_split(shape, native):
+    """block_plan's chunks are whole reference blocks counted from row 0 at
+    every live length (the last one short), cover [0, n) once, and take at
+    most as many splits as the capacity holds blocks (8 at most); with
+    ``native`` (native_dots) one split, and a forced second one is
+    refused."""
+    b, h, kvh, cap, block, d = shape
+    plan = at.block_plan(b, h, kvh, cap, block, d, native=native)
+    assert plan["unit"] == block and plan["fewest"] == 1
+    assert plan["most"] == (1 if native else
+                            min(at.KV_GROUP_MAX_SPLITS, cap // block))
+    assert 1 <= plan["splits"] <= plan["most"]
+    if native:
+        assert plan["splits"] == 1
+    for n in [x for x in ROWS if x <= cap] + [0, cap]:
+        chunks = at.kv_group_chunks(n, plan["splits"], block)
+        assert chunks[0][0] == 0 and chunks[-1][1] == n
+        for (c0, c1), (nxt, _) in zip(chunks, chunks[1:] + [(n, n)]):
+            assert c0 % block == 0 or c0 == n
+            assert c1 == nxt and (c1 % block == 0 or c1 == n)
+    wide = at.block_plan(b, h, kvh, cap, block, d, splits=2,
+                         native=native)
+    if native or cap // block < 2:
+        with pytest.raises(ValueError, match="splits must lie in"):
+            at._check_kv_group("block", (torch.zeros(4), torch.zeros(4)),
+                               wide)
+    else:
+        at._check_kv_group("block", (torch.zeros(4), torch.zeros(4)), wide)
+
+
+# (batch, heads, KV heads, capacity, head_dim, native) and block_plan's
+# (splits, blocks, warps) at block 64: chip_smoke.py's (C) and (H) shapes;
+# pv_int8 at a tiling of 32 values a lane (two heads a warp at head_dim
+# 128, four at 64: over 128 registers at 8 warps) with halved targets, at
+# one of 16 values with rows_plan's.
+BLOCK_CHOICES = [((256, 12, 12, 512, 64, True), (1, 3072, 4)),
+                 ((16, 32, 8, 4096, 128, False), (1, 128, 8)),
+                 ((4, 32, 8, 4096, 128, False), (4, 128, 8)),
+                 ((16, 32, 4, 4096, 64, False), (2, 128, 8)),
+                 ((16, 8, 8, 4096, 128, False), (2, 256, 8)),
+                 ((16, 32, 8, 4096, 128, True), (1, 128, 8))]
+
+
+@pytest.mark.parametrize("shape,want", BLOCK_CHOICES, ids=str)
+def test_block_plan_choices(shape, want):
+    """block_plan's splits and warps: native_dots one split by rows_plan's
+    warp rule; pv_int8 at the tilings whose 8-warp blocks fit one an SM
+    halves rows_plan's targets of blocks (so (H) takes one split of 8
+    warps), elsewhere takes rows_plan's choice."""
+    b, h, kvh, cap, d, native = shape
+    plan = at.block_plan(b, h, kvh, cap, 64, d, native=native)
+    assert (plan["splits"], plan["blocks"], plan["warps"]) == want
+    w = plan["heads_per_warp"]
+    if not native and w * d // 8 < 32:
+        rows = at.rows_plan(b, h, kvh, cap, d)
+        assert (plan["splits"], plan["warps"]) == (rows["splits"],
+                                                   rows["warps"])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block,cap", [(64, 512), (4, 2048), (12, 96),
+                                       (96, 384), (2048, 2048)], ids=str)
+def test_native_dots_takes_one_split_of_whole_blocks(monkeypatch, block, cap,
+                                                     dtype):
+    """On CUDA (simulated) native_dots passes block_plan's one split of
+    whole blocks (unit = the block) on a bf16 cache, and K6's rows_plan on
+    an f32 one, to its one C entry; every block the kernel before took
+    (a multiple of 4, at most 512 a capacity) and more launch, one count
+    a call."""
+    b, h, kvh, d = 8, 8, 2, 64
+    calls = _recorded(monkeypatch)
+    q = torch.zeros((b, h, d))
+    kv = torch.zeros((b, cap, 2, kvh * d), dtype=dtype)
+    before = at.decode_attn_native_dots.launches
+    at.decode_attn_native_dots(q, kv, torch.full((b,), 9, dtype=torch.int32),
+                               block_k=block, group=2)
+    (symbol, got), = calls
+    bf16 = dtype == torch.bfloat16
+    plan = (at.block_plan(b, h, kvh, cap, block, d, native=True) if bf16
+            else at.rows_plan(b, h, kvh, cap, d))
+    assert symbol == "decode_attn_native_dots"
+    assert got[4:16] == (b, h, kvh, d, cap, int(bf16), plan["splits"],
+                         plan["unit"], plan["heads_per_warp"],
+                         plan["head_groups"], plan["warps"], 0.125)
+    assert plan["unit"] == (block if bf16 else at.KV_GROUP_UNIT)
+    assert plan["splits"] == 1 or not bf16
+    assert at.decode_attn_native_dots.launches == before + 1
+
+
+@pytest.mark.parametrize("int8_scores", [False, True])
+@pytest.mark.parametrize("shape", BLOCK_PLANS[1:6], ids=str)
+def test_pv_int8_takes_block_plan(monkeypatch, shape, int8_scores):
+    """On CUDA (simulated) pv_int8 passes block_plan's launch (chunks of
+    whole blocks) to G1's C entry with mode bit 1 set, and counts the
+    launch in its mode."""
+    b, h, kvh, cap, block, d = shape
+    calls = _recorded(monkeypatch)
+    kv = torch.zeros((b, cap, 2, kvh * d), dtype=torch.int8)
+    scales = torch.ones((b, cap, 2, kvh), dtype=torch.bfloat16)
+    mode = "pv_int8." + ("int8_scores" if int8_scores else "exact")
+    before = at.decode_attn_grouped_int8.mode_launches[mode]
+    at.decode_attn_grouped_int8(torch.zeros((b, h, d)), kv, scales,
+                                torch.full((b,), 9, dtype=torch.int32),
+                                int8_scores=int8_scores, pv_int8=True,
+                                block_k=block, group=b // 2 or 1)
+    (symbol, got), = calls
+    plan = at.block_plan(b, h, kvh, cap, block, d)
+    assert symbol == "decode_attn_grouped_int8_rows"
+    assert got[5] is None
+    assert got[6:18] == (b, h, kvh, d, cap, 2 + int8_scores, plan["splits"],
+                         block, plan["heads_per_warp"], plan["head_groups"],
+                         plan["warps"], 1.0 / math.sqrt(d))
+    assert at.decode_attn_grouped_int8.mode_launches[mode] == before + 1
+
+
+# (what, native_dots or pv_int8, arguments, the refusal's words or None
+# where the wrapper must launch): outside the kernels' range each raises
+# before any build, naming the limit; every block the kernels before took
+# launches.
+BLOCK_REFUSALS = [
+    ("native head_dim 96", "native", dict(d=96), "head_dim 96"),
+    ("native unaligned cache", "native", dict(unaligned=True),
+     "16-byte aligned"),
+    ("native block 4 at 2048", "native", dict(block=4, cap=2048), None),
+    ("native block 2048", "native", dict(block=2048, cap=2048), None),
+    ("native two splits", "native", dict(splits=2),
+     "native_dots takes one split of whole blocks of 64 rows"),
+    ("pv_int8 head_dim 256", "pv", dict(d=256), "head_dim 256"),
+    ("pv_int8 block 2048", "pv", dict(block=2048, cap=2048),
+     "pv_int8 block 2048: the kernel takes <= 1024"),
+    ("pv_int8 unaligned cache", "pv", dict(unaligned=True),
+     "16-byte aligned"),
+    ("pv_int8 forced unit", "pv", dict(unit=16),
+     "whole blocks of 64 rows, got a unit of 16"),
+    ("pv_int8 block 4", "pv", dict(block=4, cap=64), None),
+    ("pv_int8 block 256", "pv", dict(block=256, cap=1024), None),
+    ("pv_int8 block 1024", "pv", dict(block=1024, cap=1024), None),
+]
+
+
+@pytest.mark.parametrize("what,kind,args,match", BLOCK_REFUSALS,
+                         ids=[c[0] for c in BLOCK_REFUSALS])
+def test_block_modes_refuse_only_outside_their_range(monkeypatch, what,
+                                                     kind, args, match):
+    b, h, kvh = 4, 8, 2
+    d, block, cap = args.get("d", 64), args.get("block", 64), \
+        args.get("cap", 256)
+    calls = _recorded(monkeypatch)
+    if match is not None:
+        monkeypatch.setattr(_build, "function", _no_build)
+    q = torch.zeros((b, h, d))
+    lengths = torch.full((b,), 9, dtype=torch.int32)
+    shape, elts = (b, cap, 2, kvh * d), 1 if args.get("unaligned") else 0
+    if kind == "native":
+        kv = _unaligned(shape, torch.bfloat16, elts)
+        wrapper = at.decode_attn_native_dots
+        call = lambda: at.decode_attn_native_dots(q, kv, lengths,
+                                                  block_k=block, group=2)
+        if "splits" in args:
+            call = lambda: at._launch_native_dots(
+                q, kv, lengths, block, None,
+                at.block_plan(b, h, kvh, cap, block, d, args["splits"]))
+    else:
+        kv = _unaligned(shape, torch.int8, elts)
+        scales = torch.ones((b, cap, 2, kvh), dtype=torch.bfloat16)
+        wrapper = at.decode_attn_grouped_int8
+        plan = (at.rows_plan(b, h, kvh, cap, d) if "unit" in args
+                else None)
+        call = lambda: at._launch_pv_int8(q, kv, scales, lengths, False,
+                                          None, block, plan)
+    before = wrapper.launches
+    if match is None:
+        call()
+        assert len(calls) == 1 and wrapper.launches == before + 1
+    else:
+        with pytest.raises(ValueError, match=match):
+            call()
+        assert wrapper.launches == before
