@@ -1,6 +1,7 @@
 // Single-query decode attention over an int8 KV cache (G1 with or without
-// pv_int8, and G2 through a wrapper of its own), q and the output in f32:
-// the KV-group kernel of decode_attn_kv_group.cuh on contiguous rows.
+// pv_int8, G2 through a wrapper of its own, and the partials mode of
+// flash_decode_flat), q and the output in f32: the KV-group kernel of
+// decode_attn_kv_group.cuh on contiguous rows.
 //
 // Replaces: rten_tpu/kernels/attention.py::flash_decode_grouped in its int8
 // modes (kernel _decode_grouped_quant_kernel: exact q and int8_scores, each
@@ -8,6 +9,11 @@
 // (_decode_fused_kernel with scales). The two differ only in how the TPU
 // grid batches sequences; the block-diagonal q rows, the one-hot scale
 // selectors and the token-packed int32 rows exist for the MXU and Mosaic.
+// The partials entry replaces flash_decode_flat(partials=True) (the mode
+// at attention.py:1745-1751, its emit at :1628-1656, the f32 output at
+// :1897-1913): the unnormalized state of a capacity shard for the
+// seq-shard merge, q exact or rounded to bf16 (q_bf16, the acc rounded to
+// bf16 too); the one-hot E-matrix head expansion exists for the MXU.
 //
 // Contract: decode_attn_kv_group.cuh over contiguous rows (lengths count
 // the query), modes kExact and kScores, and with pv_int8 kPvExact and
@@ -51,11 +57,24 @@
 // query head), each owning every fourth block, rows read straight from
 // device memory by every query head of the group) took 0.0931 ms exact
 // and 0.0622 with int8 scores at path (H)'s shape.
+// The partials modes (kPartExact, kPartBf16) are G1's exact walk with
+// another emit: after the splits' cluster merge each (sequence, head)
+// writes (acc, m, l) against the merged global m, so a merge across
+// capacity shards outside the kernel weighs each shard by exp(m - M). At
+// B 256, 12 heads of 64 (group 1) rows_plan gives 3,072 unsplit blocks of 4
+// warps; at TinyLlama's 32 query heads over 4 (B 16, capacity 2048) 64
+// (sequence, KV head) pairs of 8 heads take 4 splits of 8 warps. The
+// design before ran the per-query-head kernel of K1 and K1'
+// (decode_attn_int8_tail.cu): every query head of a group read the KV
+// head's rows again with plain loads, and a split sequence took a second
+// launch to merge through f32 scratch.
 #include "decode_attn_kv_group.cuh"
 
 // G1 and G2 at the launch of rows_plan, or G1's pv_int8 at block_plan's:
 // mode bit 0 row-quantized q (int8 scores; `dots` int32 [B, H, cap] or null
 // without pv_int8), bit 1 pv_int8 over reference blocks of `unit` rows;
+// mode 4 and 5 the partials emit at rows_plan's launch, q exact (4) or
+// rounded to bf16 (5), out f32 [B, H, D + 2];
 // `splits` chunks a sequence (1 to 8, one cluster) of whole `unit`-row
 // units; hpw query heads a warp, hg head groups, warps 4 or 8 a block
 // (kv_group::launch). d 64 or 128, as the design before took. The wrapper
@@ -84,6 +103,14 @@ extern "C" int decode_attn_grouped_int8_rows(
           splits, unit, hpw, hg, warps, scale, st);
     case 3:
       return (int)launch<int8_t, Rows, kv_group::kPvScores, false>(
+          q, kv, scales, lengths, out, nullptr, batch, heads, kvh, d, addr,
+          splits, unit, hpw, hg, warps, scale, st);
+    case 4:
+      return (int)launch<int8_t, Rows, kv_group::kPartExact, false>(
+          q, kv, scales, lengths, out, nullptr, batch, heads, kvh, d, addr,
+          splits, unit, hpw, hg, warps, scale, st);
+    case 5:
+      return (int)launch<int8_t, Rows, kv_group::kPartBf16, false>(
           q, kv, scales, lengths, out, nullptr, batch, heads, kvh, d, addr,
           splits, unit, hpw, hg, warps, scale, st);
   }

@@ -5,9 +5,9 @@
 // modes (body _decode_flat_quant_kernel, tail round at
 // attention.py:1600-1626): int8 + tail, and int8 without a tail
 // (tail = nullptr, rows = tail_count = 0; the tail pointer is then never
-// read), both with q_bf16; and its partials mode (no tail, q_bf16 on or
-// off), which emits the unnormalized state for a merge across capacity
-// shards. The TPU kernel's one-hot E-matrix head expansion, token-packed
+// read), both with q_bf16 (its partials mode runs on the KV-group kernel,
+// decode_attn_grouped_int8.cu). The TPU kernel's one-hot E-matrix head
+// expansion, token-packed
 // int32 rows and packed scale rows exist for the TPU's matrix unit and DMA
 // rules; here each block simply indexes its head's bytes.
 //
@@ -18,12 +18,6 @@
 //   score = (bf16(q) . k) * scale * k_scale, softmax in f32 (l sums the
 //   unscaled p, V is weighted by p * v_scale),
 //   out = bf16(sum p * v_scale * v / sum p), returned as f32.
-// partials: out [B, H, D + 2] f32 holds acc = sum p * v_scale * v (rounded
-//   to bf16 when q_bf16, the cast before the reference's bf16 one-hot
-//   compaction dot), m (lane D) and l = sum p (lane D + 1), exact f32,
-//   against the sequence's global max m. Without q_bf16, q is exact and
-//   acc is not rounded. A sequence with no token emits acc 0, m = -1e30
-//   (the reference's initial m) and l 0, so it weighs nothing in a merge.
 //
 // Bound on the H100: bytes. At batch 256, 12 heads of 64 and a live length
 // L it reads B*L*(2*768 + 48) bytes of int8 rows and scales plus the
@@ -55,21 +49,10 @@ using decode_attn::load_row;
 constexpr int kUnroll = 4;                        // loads per warp pass
 constexpr int kWarpTok = kTokPerLoad * kUnroll;   // tokens per warp pass
 
-constexpr float kNegInf = -1e30f;  // the reference's masked value
-
-// The (acc, m, l) state of one (sequence, head) written out: normalized
-// and rounded to bf16, or (partials) the unnormalized row of D + 2 lanes.
-__device__ inline void emit(float* out, int d, int i, float o, float mx,
-                            float sum, int partials, int q_bf16) {
-  if (!partials) {
-    out[i] = bf16_round(o / fmaxf(sum, 1e-30f));
-    return;
-  }
-  out[i] = q_bf16 ? bf16_round(o) : o;
-  if (i == 0) {
-    out[d] = mx == -INFINITY ? kNegInf : mx;
-    out[d + 1] = sum;
-  }
+// The (acc, l) state of one (sequence, head), normalized and rounded to
+// bf16.
+__device__ inline float emit(float o, float sum) {
+  return bf16_round(o / fmaxf(sum, 1e-30f));
 }
 
 template <int kDpl>
@@ -78,7 +61,7 @@ __global__ void decode_attn_int8_tail_kernel(
     const __nv_bfloat16* __restrict__ scales, const int* __restrict__ lengths,
     const __nv_bfloat16* __restrict__ tail, float* __restrict__ out,
     float* __restrict__ part, int heads, int kvh, int cap, int rows,
-    int tail_count, float scale, int chunk, int partials, int q_bf16) {
+    int tail_count, float scale, int chunk) {
   constexpr int d = kLanesPerTok * kDpl;
   __shared__ float m_s[kWarps], l_s[kWarps];
   __shared__ float acc_s[kWarps][d];
@@ -96,7 +79,7 @@ __global__ void decode_attn_int8_tail_kernel(
   const float* qrow = q + ((long long)b * heads + h) * d + col;
 #pragma unroll
   for (int i = 0; i < kDpl; ++i) {
-    qv[i] = q_bf16 ? bf16_round(qrow[i]) : qrow[i];
+    qv[i] = bf16_round(qrow[i]);
     acc[i] = 0.0f;
   }
   float m = -INFINITY, l = 0.0f;
@@ -193,8 +176,7 @@ __global__ void decode_attn_int8_tail_kernel(
     if (mx != -INFINITY)
       for (int w = 0; w < kWarps; ++w) o += acc_s[w][i] * expf(m_s[w] - mx);
     if (splits == 1) {
-      emit(out + ((long long)b * heads + h) * (d + 2 * partials), d, i, o,
-           mx, sum, partials, q_bf16);
+      out[((long long)b * heads + h) * d + i] = emit(o, sum);
     } else {
       float* pr = part + (((long long)b * heads + h) * splits + sp) * (d + 2);
       pr[i] = o;
@@ -209,8 +191,7 @@ __global__ void decode_attn_int8_tail_kernel(
 // Merges the chunks' states of one (head, sequence) and emits them.
 __global__ void merge_chunks_kernel(const float* __restrict__ part,
                                     float* __restrict__ out, int heads,
-                                    int d, int splits, int partials,
-                                    int q_bf16) {
+                                    int d, int splits) {
   const int h = blockIdx.x, b = blockIdx.y;
   const float* pr = part + ((long long)b * heads + h) * splits * (d + 2);
   float mx = -INFINITY;
@@ -225,24 +206,21 @@ __global__ void merge_chunks_kernel(const float* __restrict__ part,
         o += pc[i] * w;
       }
     }
-    emit(out + ((long long)b * heads + h) * (d + 2 * partials), d, i, o,
-         mx, sum, partials, q_bf16);
+    out[((long long)b * heads + h) * d + i] = emit(o, sum);
   }
 }
 
 }  // namespace
 
 // ``part``: f32 scratch [B, H, splits, D + 2] when splits > 1 (else
-// unused); ``chunk``: tokens per split; ``partials``: out is [B, H, D + 2]
-// (no tail); ``q_bf16``: 1 rounds q (and the output) to bf16, 0 keeps q
-// exact (partials only). The wrapper checks d in {64, 128}.
+// unused); ``chunk``: tokens per split. The wrapper checks d in {64, 128}.
 extern "C" int decode_attn_int8_tail(const void* q, const void* kv,
                                      const void* scales, const void* lengths,
                                      const void* tail, void* out, void* part,
                                      int batch, int heads, int kvh, int d,
                                      int cap, int rows, int tail_count,
-                                     int chunk, int splits, int partials,
-                                     int q_bf16, float scale, void* stream) {
+                                     int chunk, int splits, float scale,
+                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (batch > 0) {
     const dim3 grid(heads, batch, splits);
@@ -250,21 +228,18 @@ extern "C" int decode_attn_int8_tail(const void* q, const void* kv,
       decode_attn_int8_tail_kernel<8><<<grid, kThreads, 0, st>>>(
           (const float*)q, (const int8_t*)kv, (const __nv_bfloat16*)scales,
           (const int*)lengths, (const __nv_bfloat16*)tail, (float*)out,
-          (float*)part, heads, kvh, cap, rows, tail_count, scale, chunk,
-          partials, q_bf16);
+          (float*)part, heads, kvh, cap, rows, tail_count, scale, chunk);
     } else {
       decode_attn_int8_tail_kernel<16><<<grid, kThreads, 0, st>>>(
           (const float*)q, (const int8_t*)kv, (const __nv_bfloat16*)scales,
           (const int*)lengths, (const __nv_bfloat16*)tail, (float*)out,
-          (float*)part, heads, kvh, cap, rows, tail_count, scale, chunk,
-          partials, q_bf16);
+          (float*)part, heads, kvh, cap, rows, tail_count, scale, chunk);
     }
     if (splits > 1) {
       const int err = (int)cudaGetLastError();
       if (err) return err;
       merge_chunks_kernel<<<dim3(heads, batch), d, 0, st>>>(
-          (const float*)part, (float*)out, heads, d, splits, partials,
-          q_bf16);
+          (const float*)part, (float*)out, heads, d, splits);
     }
   }
   return (int)cudaGetLastError();

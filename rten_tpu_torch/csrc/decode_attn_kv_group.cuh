@@ -10,8 +10,9 @@
 // verify_attn.cu's V1 (S <= 8 verify
 // queries a sequence over contiguous f32, bf16 or int8 rows), of
 // decode_attn_append.cu's A1 (contiguous f32 or bf16 rows, the decode
-// append written by the same launch) and of decode_attn_split.cu's K9
-// (separate f32 or bf16 K and V planes).
+// append written by the same launch), of decode_attn_split.cu's K9
+// (separate f32 or bf16 K and V planes) and of decode_attn_grouped_int8.cu's
+// partials entry (flash_decode_flat's seq-shard mode on int8 rows).
 //
 // Contract: for sequence b and KV head kh, query heads kh * rep .. kh * rep
 // + rep - 1 (rep = H / KVH) read rows t < n = min(lengths[b], capacity),
@@ -56,6 +57,13 @@
 // rint(pm_t / pq) (IEEE division, ties to even), and block i adds
 // f32(sum p8_t v8_t) pq, the integer sum exact in f32 (R <= 1024).
 // A sequence with no live row (or, masked, no mapped live row) gets zeros.
+// The partials modes (int8 rows, Rows only; flash_decode_flat(partials=
+// True)): kPartExact's scores as kExact's, kPartBf16's with q rounded to
+// bf16 as it enters; out f32 [B, H, D + 2] holds the unnormalized acc =
+// sum_t p_t v_scale_t v8_t (rounded to bf16 in kPartBf16), m = max_t s_t
+// (lane D) and l = sum_t p_t (lane D + 1), p_t = exp(s_t - m) against that
+// global m after the splits' merge; a sequence with no live row emits acc
+// 0, m = -1e30 and l 0.
 //
 // Bound on the H100: bytes. Each live row's K and V slices of one KV head
 // (2 x D elements) and, for int8, its two bf16 scales are read once for the
@@ -177,9 +185,11 @@ constexpr int kF32Rows = 32, kBf16Rows = 64, kFloatStages = 2;
 // for the whole head group: kNative on bf16 rows (flash_decode_grouped's
 // native_dots), kPvExact and kPvScores on int8 rows (its pv_int8, with exact
 // q or int8 scores).
+// kPartExact and kPartBf16 (int8 rows, Rows only) emit the unnormalized
+// state of flash_decode_flat's partials mode, q exact or rounded to bf16.
 enum Mode {
   kExact = 0, kScores = 1, kFlat = 2, kNative = 3, kPvExact = 4,
-  kPvScores = 5
+  kPvScores = 5, kPartExact = 6, kPartBf16 = 7
 };
 
 __host__ __device__ constexpr int pow2_at_least(int n) {
@@ -492,8 +502,11 @@ __global__ void __launch_bounds__(32 * kWarps)
   constexpr int kPlane = S::kPlane, kStage = S::kStage;
   constexpr int kHeads = S::kHeads;                // the block's, padded
   constexpr bool kQ8 = kMode == kScores || kMode == kPvScores;  // int8 q
-  constexpr bool kBlock = kMode >= kNative;        // a max per block
-  constexpr bool kPv = kMode >= kPvExact;          // int8 probabilities
+  constexpr bool kPv = kMode == kPvExact || kMode == kPvScores;  // int8 p
+  constexpr bool kBlock = kMode == kNative || kPv;  // a max per block
+  constexpr bool kPart = kMode == kPartExact || kMode == kPartBf16;
+  constexpr bool kRoundQ =                          // q rounded to bf16
+      kMode == kFlat || kMode == kNative || kMode == kPartBf16;
   static_assert(kInt8 ? kMode != kFlat && kMode != kNative
                       : kMode == kExact || kMode == kFlat ||
                             (kMode == kNative &&
@@ -501,6 +514,8 @@ __global__ void __launch_bounds__(32 * kWarps)
                 "mode");
   static_assert(!kBlock || std::is_same<Addr, Rows>::value,
                 "the block modes walk contiguous rows");
+  static_assert(!kPart || (kInt8 && std::is_same<Addr, Rows>::value),
+                "the partials modes walk contiguous int8 rows");
   static_assert(!(Addr::kChunk && kQ8),
                 "a verify chunk has no int8-scores mode");
   static_assert(!Addr::kAppend || (!kInt8 && kMode == kExact),
@@ -557,8 +572,7 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
     for (int i = 0; i < kDpl; ++i) {
       qv[j][i] = qr[elem<T, kDpl>(slot, i)];
-      if constexpr (kMode == kFlat || kMode == kNative)
-        qv[j][i] = decode_attn::bf16_round(qv[j][i]);
+      if constexpr (kRoundQ) qv[j][i] = decode_attn::bf16_round(qv[j][i]);
     }
   }
   if (splits == 1) addr.stage_ids(ids, b, 0, addr.capacity());
@@ -1040,10 +1054,21 @@ __global__ void __launch_bounds__(32 * kWarps)
     }
   }
   __syncthreads();
-  // The normalized output, rounded to bf16 in kFlat.
+  // The normalized output, rounded to bf16 in kFlat; in the partials modes
+  // the state of query row r against the global max mx: acc (rounded to
+  // bf16 in kPartBf16) at column c, and with c 0 lanes D and D + 1, m
+  // (-1e30, the reference's initial m, where no row was live) and l.
   auto result = [](float o, float sum) {
     const float y = o / fmaxf(sum, 1e-30f);
     return kMode == kFlat ? decode_attn::bf16_round(y) : y;
+  };
+  auto state = [&](long long r, int c, float o, float mx, float sum) {
+    float* row = out + r * (d + 2);
+    row[c] = kMode == kPartBf16 ? decode_attn::bf16_round(o) : o;
+    if (c == 0) {
+      row[d] = mx == -INFINITY ? -1e30f : mx;
+      row[d + 1] = sum;
+    }
   };
   // A warp (or a block) that saw no live row has m = -inf and weighs
   // exp(-inf) = 0; a head with no live row at all gets zeros.
@@ -1064,7 +1089,11 @@ __global__ void __launch_bounds__(32 * kWarps)
       }
     }
     if (splits == 1) {
-      if (hl < nh) out[qrow(hl) * d + c] = result(o, sum);
+      if constexpr (kPart) {
+        if (hl < nh) state(qrow(hl), c, o, mx, sum);
+      } else {
+        if (hl < nh) out[qrow(hl) * d + c] = result(o, sum);
+      }
     } else {
       bacc[hl * d + c] = o;
       if (c == 0) {
@@ -1095,7 +1124,10 @@ __global__ void __launch_bounds__(32 * kWarps)
         o += cluster.map_shared_rank(bacc, s)[hl * d + c] * cw;
       }
     }
-    out[qrow(hl) * d + c] = result(o, sum);
+    if constexpr (kPart)
+      state(qrow(hl), c, o, mx, sum);
+    else
+      out[qrow(hl) * d + c] = result(o, sum);
   }
   cluster.sync();  // no block leaves while another reads its state
 }

@@ -68,16 +68,12 @@
 // which wgmma.m64n256k16 reads for all 128 rows. Q1's correction is added
 // in the epilogue from the block's xsum rows.
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <map>
-#include <tuple>
-
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -178,54 +174,6 @@ constexpr int CHUNK = 64;           // x values per partial sum
 // bytes.
 constexpr int STAGE = 64 * 128;
 constexpr int BARRIERS = 1 + 2 * MAX_RING;  // x, full[ring], empty[ring]
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// bytes (a multiple of 16) from global to shared memory, completing on bar.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// The tensor map's box at (c0 inner, c1 outer) into shared memory.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map,
-                                        int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
 
 // The weight-loader policies. A stage holds word rows a = 0..15 (K rows
 // 4a .. 4a + 3 of the stage); in k16 step 2p + e of the stage lane tig
@@ -873,50 +821,15 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int (&done)[MAX_DEVICES],
 
 // The weights' tensor map (words: uint32 [K/4, N/2], boxes of 32 words x
 // 16 rows; bytes: uint8 [K, N/2], boxes of 128 bytes x 64 rows; 128-byte
-// swizzle), encoded once per weight: it depends only on the address and
-// the shape, so a map found under the same key is the right one.
+// swizzle), encoded once per weight (tensor_map_2d's cache).
 cudaError_t weight_map(const void* w, int K, int N, int layout,
                        CUtensorMap* map) {
-  struct Key {
-    const void* w;
-    int k, n, layout;
-    bool operator<(const Key& o) const {
-      return std::tie(w, k, n, layout) < std::tie(o.w, o.k, o.n, o.layout);
-    }
-  };
-  static std::map<Key, CUtensorMap> cache;
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  const Key key{w, K, N, layout};
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *map = hit->second;
-    return cudaSuccess;
-  }
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-        cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || encode == nullptr)
-      return cudaErrorNotSupported;
-  }
   const bool words = layout == WORDS;
-  const cuuint64_t dims[2] = {(cuuint64_t)N / 2,
-                              (cuuint64_t)(words ? K / 4 : K)};
-  const cuuint64_t strides[1] = {(cuuint64_t)N / 2 * (words ? 4 : 1)};
-  const cuuint32_t box[2] = {words ? 32u : 128u, words ? 16u : 64u};
-  const cuuint32_t elem[2] = {1, 1};
-  if (encode(map,
-             words ? CU_TENSOR_MAP_DATA_TYPE_UINT32
-                   : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-             2, const_cast<void*>(w), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  cache.emplace(key, *map);
-  return cudaSuccess;
+  return tensor_map_2d(
+      w, words ? CU_TENSOR_MAP_DATA_TYPE_UINT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      (uint64_t)N / 2, (uint64_t)(words ? K / 4 : K),
+      (uint64_t)N / 2 * (words ? 4 : 1), words ? 32u : 128u,
+      words ? 16u : 64u, CU_TENSOR_MAP_SWIZZLE_128B, map);
 }
 
 template <int LAYOUT, bool CORR, int MS>

@@ -4,23 +4,23 @@ version of the same contract (``<name>_plain``): CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise. Wrappers that share a
 kernel, each counting its own launches:
 
-* ``decode_attn_int8_tail`` (K1), ``decode_attn_int8`` (K1', no tail
-  window) and ``decode_attn_int8_partials`` (the partials mode):
-  ``csrc/decode_attn_int8_tail.cu``;
+* ``decode_attn_int8_tail`` (K1) and ``decode_attn_int8`` (K1', no tail
+  window): ``csrc/decode_attn_int8_tail.cu``;
 * ``decode_attn_float`` (K6), ``decode_attn_flat_float`` (K8) and
   ``decode_attn_native_dots``: ``csrc/decode_attn_float.cu``;
 * ``decode_attn_paged``, ``decode_attn_paged_grid`` and
   ``decode_attn_paged_int8`` (P3, its grid mode and P3i,
   ``csrc/decode_attn_paged.cu``), ``decode_attn_grouped_int8`` without
   ``pv_int8`` (G1, both score modes) and ``decode_attn_fused_int8`` (G2,
-  both ``csrc/decode_attn_grouped_int8.cu``), K6 and K8,
+  both ``csrc/decode_attn_grouped_int8.cu``, which also serves
+  ``decode_attn_int8_partials``, the partials mode), K6 and K8,
   ``verify_attn_grouped`` and ``verify_attn_fused`` (V1,
   ``csrc/verify_attn.cu``), ``decode_attn_grouped_append`` (A1, the
   write fused, ``csrc/decode_attn_append.cu``) and
   ``decode_attn_split_kv`` (K9, separate K and V planes,
   ``csrc/decode_attn_split.cu``): the KV-group kernel of
-  ``csrc/decode_attn_kv_group.cuh`` (G1's ``pv_int8`` mode walks blocks in
-  a kernel of its own in ``decode_attn_grouped_int8.cu``);
+  ``csrc/decode_attn_kv_group.cuh`` (G1's ``pv_int8`` mode and
+  ``decode_attn_native_dots`` in its block modes);
 * ``matmul_int4_words`` (Q1) and ``matmul_int4`` (Q2):
   ``csrc/matmul_int4.cu``;
 * ``kv_append`` (K5, ``csrc/kv_append.cu``), ``kv_append_int8`` (K7,

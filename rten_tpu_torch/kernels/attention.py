@@ -14,9 +14,10 @@
 * ``decode_attn_int8`` launches the same kernel without a tail: it
   replaces ``flash_decode_flat`` in its int8 mode without a tail
   (``tail=None, q_bf16=True``). It has a launch count of its own.
-* ``decode_attn_int8_partials`` launches the same kernel in its partials
-  mode: ``flash_decode_flat(partials=True)``, the unnormalized state for a
-  merge across capacity shards, with q rounded to bf16 or exact.
+* ``decode_attn_int8_partials`` (CUDA, ``csrc/decode_attn_grouped_int8.cu``
+  on the KV-group kernel in its partials modes, at :func:`rows_plan`)
+  replaces ``flash_decode_flat(partials=True)``: the unnormalized state for
+  a merge across capacity shards, with q rounded to bf16 or exact.
 * ``decode_attn_float`` (CUDA, ``csrc/decode_attn_float.cu``, K6, on the
   KV-group kernel of ``csrc/decode_attn_kv_group.cuh`` in its exact mode)
   replaces ``flash_decode_grouped`` (:1039), ``flash_decode_fused`` (:318)
@@ -311,10 +312,9 @@ def decode_attn_int8_tail_plain(q, kv, scales, lengths, tail=None,
     return _bf16(acc / torch.clamp(l, min=1e-30))
 
 
-def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale,
-                 partials=False, q_bf16=True):
-    """The int8 kernel on CUDA tensors for every mode; counts the launch
-    on ``wrapper``."""
+def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale):
+    """The int8 kernel on CUDA tensors, with or without the tail; counts
+    the launch on ``wrapper``."""
     name = wrapper.__name__
     b, h, d, kvh, cap, rows = _check(name, q, kv, scales, lengths, tail,
                                      tail_count)
@@ -324,18 +324,17 @@ def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale,
     tensors = (q, kv, scales, lengths) + (() if tail is None else (tail,))
     _build.require(all(x.is_contiguous() for x in tensors), name,
                    "tensors must be contiguous")
-    out = torch.empty((b, h, d + 2 * partials), dtype=torch.float32,
-                      device=q.device)
+    out = torch.empty_like(q)
     chunk, splits = int8_chunks(b, h, cap + rows)
     part = (torch.empty((b, h, splits, d + 2), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
     fn = _build.function("decode_attn_int8_tail", "decode_attn_int8_tail",
-                         "pppppppiiiiiiiiiiifp")
+                         "pppppppiiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
              lengths.data_ptr(), None if tail is None else tail.data_ptr(),
              out.data_ptr(), None if part is None else part.data_ptr(), b,
-             h, kvh, d, cap, rows, tail_count, chunk, splits, int(partials),
-             int(q_bf16), float(scale), _build.stream())
+             h, kvh, d, cap, rows, tail_count, chunk, splits, float(scale),
+             _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
     return out
@@ -432,16 +431,19 @@ def decode_attn_int8_partials(q, kv, scales, lengths, q_bf16=True,
     out = sum acc exp(m - M) / sum l exp(m - M) (the reference returns
     other acc and l there, which its merge weighs by 0 as well). Raises at
     the shapes where the reference raises (:func:`int8_partials_check`).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    The kernel: the KV-group kernel in its partials mode at
+    :func:`rows_plan` (one CUDA kernel a call: the splits merge in their
+    cluster; head_dim 64 or 128). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     name = "decode_attn_int8_partials"
     if _build.on_cpu(name, q, kv, scales, lengths):
         return decode_attn_int8_partials_plain(q, kv, scales, lengths,
                                                q_bf16, scale)
     b, h, d = q.shape
     int8_partials_check(b, h, d, kv.shape[3] // d, kv.shape[1], q_bf16)
-    return _launch_int8(decode_attn_int8_partials, q, kv, scales, lengths,
-                        None, 0, scale, partials=True, q_bf16=q_bf16)
+    return _launch_grouped_int8_rows(q, kv, scales, lengths, False, scale,
+                                     wrapper=decode_attn_int8_partials,
+                                     q_bf16=q_bf16)
 
 
 decode_attn_int8_partials.launches = 0
@@ -1488,16 +1490,19 @@ def _launch_pv_int8(q, kv, scales, lengths, int8_scores, scale, pv_block,
 
 def _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores, scale,
                               dots=None, plan=None, wrapper=None,
-                              pv_block=0):
+                              pv_block=0, q_bf16=False):
     """G1 (both score modes; with ``pv_block`` its ``pv_int8`` mode over
     blocks of that many rows, at a :func:`block_plan` whose unit is the
-    block) or, with ``wrapper`` ``decode_attn_fused_int8``, G2 (exact q) on
+    block) or, with ``wrapper`` ``decode_attn_fused_int8``, G2 (exact q),
+    or with ``wrapper`` ``decode_attn_int8_partials`` the partials mode
+    (exact q, rounded to bf16 with ``q_bf16``; out f32 [B, H, D + 2]) on
     CUDA tensors: the KV-group kernel at ``plan`` (default
     :func:`rows_plan`'s); counts the launch on the wrapper and, for G1, in
     its mode. ``dots`` (int32 [B, H, cap], tests only) receives the
     integer score dots of ``int8_scores`` without ``pv_int8``."""
     wrapper = wrapper or decode_attn_grouped_int8
     name = wrapper.__name__
+    partials = wrapper is decode_attn_int8_partials
     b, h, d, kvh, cap = _check_int8_decode(name, q, kv, scales, lengths)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -1515,15 +1520,17 @@ def _launch_grouped_int8_rows(q, kv, scales, lengths, int8_scores, scale,
                        and dots.is_contiguous(), name,
                        "dots must be int32 [B, H, cap], int8_scores "
                        "without pv_int8 only")
-    out = torch.empty_like(q)
+    out = (torch.empty((b, h, d + 2), dtype=torch.float32, device=q.device)
+           if partials else torch.empty_like(q))
+    mode = ((5 if q_bf16 else 4) if partials
+            else int(bool(int8_scores)) | (2 if pv_block else 0))
     fn = _build.function("decode_attn_grouped_int8",
                          "decode_attn_grouped_int8_rows",
                          "ppppppiiiiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
              lengths.data_ptr(), out.data_ptr(),
              None if dots is None else dots.data_ptr(), b, h, kvh, d, cap,
-             int(bool(int8_scores)) | (2 if pv_block else 0),
-             plan["splits"], plan["unit"], plan["heads_per_warp"],
+             mode, plan["splits"], plan["unit"], plan["heads_per_warp"],
              plan["head_groups"], plan["warps"], float(scale),
              _build.stream())
     _build.check(err, name)

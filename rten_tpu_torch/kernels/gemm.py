@@ -4,7 +4,8 @@
   which the JAX package leaves to an XLA dot outside any Pallas kernel:
   here ``torch._int_mm`` (exact int32 accumulation) and the same f32
   epilogue, x_scale * w_scale[col].
-* ``matmul_int8_tiled`` (CUDA, ``csrc/matmul_int8.cu``, M1) replaces
+* ``matmul_int8_tiled`` (CUDA, ``csrc/matmul_int8.cu``, M1: ``wgmma`` s8
+  over a TMA-fed ring, tiled by :func:`matmul_int8_plan`) replaces
   ``matmul_int8_pallas`` (:93), the Pallas twin of ``matmul_int8`` with
   the epilogue (f32(acc) * x_scale) * w_scale[col]. No path calls it (the
   model keeps ``matmul_int8``, whose epilogue order differs).
@@ -87,6 +88,52 @@ def matmul_int8_tiled_plain(x, w, x_scale, w_scales):
     return acc.to(torch.float32) * xs * ws[None, :]
 
 
+# M1's tiles (csrc/matmul_int8.cu): a block owns M1_ROWS rows (two
+# consumer warpgroups of 64) and 128 or 64 columns, and walks its K split
+# M1_DEPTH at a time; the K splits of a tile form one cluster. A split
+# keeps at least M1_MIN_SPLIT_TILES K tiles (shorter walks lose to the
+# merge what they gain: GPT-2's O at M 256, 6 K tiles, reads no faster in
+# 2 or 4 splits), and splits come in powers of two (an earlier plan's 5
+# split clusters read slower than 4 at M 256); see PERF.md §6, measured by
+# python -m rten_tpu_torch.tools.kv_group_variants, its m1 section.
+M1_ROWS = 128
+M1_DEPTH = 128
+M1_MAX_SPLITS = 8
+M1_MIN_SPLIT_TILES = 4
+H100_SMS = 132
+
+
+def matmul_int8_plan(m, k, n, sm_count=H100_SMS, splits=None):
+    """M1's launch: output tiles of M1_ROWS x ``bn`` (128 columns where the
+    tiles fill the card's SMs, else 64). Where the tiles leave SMs idle, the
+    K tiles (M1_DEPTH deep) of each output tile split over a power of two
+    of blocks of one cluster, up to M1_MAX_SPLITS, at least
+    M1_MIN_SPLIT_TILES K tiles each, as many as fit in one wave of one block
+    an SM: one tile a block, summed exactly through distributed shared
+    memory before the one f32 epilogue. Unsplit, ``workers`` blocks (one an
+    SM at most) take the tiles in turn. ``loader``: "tma" (tensor-map
+    copies; K and N multiples of 16, which the tensor map's row stride
+    needs; the wrapper also needs 16-byte aligned x and w) or "regs"
+    (masked loads into the same layouts, any shape). ``splits`` overrides
+    the choice (tests)."""
+    m_tiles = -(-m // M1_ROWS)
+    bn = 128 if m_tiles * -(-n // 128) >= sm_count else 64
+    n_tiles = -(-n // bn)
+    k_tiles = -(-k // M1_DEPTH)
+    tiles = m_tiles * n_tiles
+    most = max(1, min(M1_MAX_SPLITS, k_tiles))
+    if splits is None:
+        fit = min(M1_MAX_SPLITS, k_tiles // M1_MIN_SPLIT_TILES,
+                  sm_count // max(tiles, 1))
+        splits = 1 << max(fit, 1).bit_length() - 1
+    workers = tiles if splits > 1 else min(tiles, sm_count)
+    return dict(bn=bn, splits=splits, most=most, m_tiles=m_tiles,
+                n_tiles=n_tiles, k_tiles=k_tiles, tiles=tiles,
+                workers=workers, blocks=workers * splits,
+                loader="tma" if k > 0 and k % 16 == 0 and n % 16 == 0
+                else "regs")
+
+
 def matmul_int8_tiled(x, w, x_scale, w_scales):
     """int8 ``x`` [M, K] × int8 ``w`` [K, N] → f32 [M, N], the contract of
     ``matmul_int8_pallas`` (gemm.py:93-135): int32 accumulation, then
@@ -94,21 +141,43 @@ def matmul_int8_tiled(x, w, x_scale, w_scales):
     (``matmul_int8`` multiplies by ``x_scale * w_scales`` instead). Any M,
     N and K: the reference pads M to 32 and N and K to 128 with zeros,
     which changes no sum. ``x_scale`` a Python float or a one-element
-    tensor; ``w_scales`` [N]. Bit-exact by construction. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    tensor; ``w_scales`` [N]. Bit-exact by construction. The kernel at
+    :func:`matmul_int8_plan`'s launch streams x and W by tensor-map copies
+    where K and N are multiples of 16 and both start 16-byte aligned, and
+    loads them with masked register loads otherwise (one kernel template,
+    the loader chosen by shape). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     name = "matmul_int8_tiled"
     if _build.on_cpu(name, x, w, w_scales):
         return matmul_int8_tiled_plain(x, w, x_scale, w_scales)
+    return _launch_int8_tiled(x, w, x_scale, w_scales)
+
+
+def _launch_int8_tiled(x, w, x_scale, w_scales, plan=None):
+    """M1 on CUDA tensors at ``plan`` (default :func:`matmul_int8_plan`'s
+    for the device; its loader dropped to "regs" where x or w is not
+    16-byte aligned); counts the launch."""
+    name = "matmul_int8_tiled"
     xs, ws = _check_int8_tiled(x, w, x_scale, w_scales)
     _build.require(x.is_contiguous() and w.is_contiguous(), name,
                    "x and w must be contiguous")
     m, k = x.shape
     n = w.shape[1]
+    if plan is not None:
+        _build.require(1 <= plan["splits"] <= plan["most"], name,
+                       f"splits must lie in [1, {plan['most']}], got "
+                       f"{plan['splits']}")
+    fn = _build.function("matmul_int8", "matmul_int8", "pppppiiiiiiip")
+    plan = plan or matmul_int8_plan(m, k, n, _sm_count(x.device))
     ws = ws.contiguous()
+    if ws.data_ptr() % 16:
+        ws = ws.clone()
+    tma = (plan["loader"] == "tma" and x.data_ptr() % 16 == 0
+           and w.data_ptr() % 16 == 0)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = _build.function("matmul_int8", "matmul_int8", "pppppiiip")
     _build.check(fn(x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-                    out.data_ptr(), m, n, k, _build.stream()), name)
+                    out.data_ptr(), m, n, k, plan["bn"], plan["splits"],
+                    plan["workers"], int(tma), _build.stream()), name)
     matmul_int8_tiled.launches += 1
     return out
 

@@ -139,6 +139,28 @@ out):
   ``chip_smoke.py``'s flip criterion (no element past one flipped
   rounding, 99% within 1e-5 of max |out|).
 
+The partials mode and M1 (``--skip partials``, ``--skip m1`` leave them
+out):
+
+* the partials mode (``decode_attn_int8_partials``: the KV-group kernel in
+  its partials modes at ``rows_plan``) at ``chip_smoke.py``'s inputs and
+  timer (path (B)'s shape, q_bf16 on and off, and TinyLlama's), with
+  ``--parent`` in turns with the checkout's kernel (the design before: the
+  kernel of K1 and K1' in its partials mode, through its own C entry); K1
+  and K1' at path (B)'s shape against the checkout's (their source lost
+  the partials mode); the partials at TinyLlama's shape at 1-8 splits x
+  4/8 warps.
+  Held to ``chip_smoke.py``'s criterion;
+* M1 (``matmul_int8_tiled``: ``wgmma`` s8 over a TMA-fed ring) at
+  GPT-2-small's four linears at M 256 and 4096, with ``--parent`` in turns
+  with the checkout's kernel (the design before: ``mma.sync``), beside
+  ``torch._int_mm`` and the epilogue; at M 256 also with 64- and
+  128-column tiles and 1-8 K splits, at M 4096 with a block a tile
+  (not persistent); held bit for bit; then variants of its source
+  (``M1_VARIANTS``: three stages, a thread's two transpose units in turn,
+  one stage's products kept in flight, and, with wrong results, no
+  transpose or no wgmma) in two rounds of turns.
+
 Each line: the device time (CUDA events, cold L2, warm median) in two
 rounds, its share of the byte bound, and the error against the plain
 version as a share of its tolerance (1e-5 of max |out|; K8, whose output is
@@ -149,7 +171,8 @@ full of dirty lines that the kernel's reads must first write back), and
 after a read of the same 256 MB (the L2 cold and clean).
 
     python -m rten_tpu_torch.tools.kv_group_variants \
-        [--skip int8|float|verify|append|k7|p2|fappend|flush|k9|native|pv8]
+        [--skip int8|float|verify|append|k7|p2|fappend|flush|k9|native|pv8|
+                partials|m1]
         [--parent CHECKOUT]
 
 Builds go to ``rten_tpu_torch/build/kv_group_variants/``. Needs one NVIDIA
@@ -1405,17 +1428,309 @@ def pv8_section(parent):
     return worst
 
 
+def partials_error(out, ref, d, q_bf16):
+    """The partials mode's error as a share of chip_smoke.py's tolerance
+    (<= 1 passes): m and l within 1e-5 of their largest, acc within 1e-5 of
+    max |acc| (exact q) or, rounded to bf16, every element within one bf16
+    step of its value plus 1e-5 of max |acc| and 99.9% within 2e-5."""
+    def rel(sl):
+        return ((out[..., sl] - ref[..., sl]).abs().max().item()
+                / ref[..., sl].abs().max().item() / REL_TOL)
+    worst = max(rel(d), rel(d + 1))
+    acc, racc = out[..., :d], ref[..., :d]
+    if not q_bf16:
+        return max(worst, rel(slice(0, d)))
+    top = racc.abs().max().item()
+    err = (acc - racc).abs()
+    over = (err - 2.0 ** -7 * racc.abs()).max().item() / (REL_TOL * top)
+    share = err.le(2e-5 * top).float().mean().item()
+    return max(worst, over, (1.0 - share) / 0.001)
+
+
+def partials_section(parent):
+    """The partials mode at chip_smoke.py's inputs and timer (path (B)'s
+    shape with q_bf16 on and off, TinyLlama's with q_bf16): this tree's
+    kernel (the KV-group kernel at rows_plan) and, with ``parent``, the
+    parent's in turns (parent, change, change, parent: the design before,
+    the kernel of K1 and K1' in its partials mode through its own C entry,
+    with its scratch and second launch where it splits); then K1 (window
+    fill 9 of 16) and K1' at path (B)'s shape, whose source lost the
+    partials mode, against the parent's the same way, and K1' at V1's
+    decode shapes (B 8 and 3, capacity 2048); and the partials at
+    TinyLlama's shape at 1-8 splits x 4/8 warps. Returns the worst held
+    error."""
+    cs = _chip_smoke()
+    timer = cs.Timer()
+    old = parent and _parent_entry(parent, "decode_attn_int8_tail",
+                                   "decode_attn_int8_tail",
+                                   "pppppppiiiiiiiiiiifp", "int partials")
+    worst = 0.0
+    for shape, q_bf16 in (("b", True), ("b", False), ("gqa", True)):
+        q, kv, scales, lengths = cs.partials_inputs(
+            **cs.PARTIALS_SHAPES[shape])
+        b, h, d = q.shape
+        cap, kvh = kv.shape[1], kv.shape[3] // d
+        ref = at.decode_attn_int8_partials_plain(q, kv, scales, lengths,
+                                                 q_bf16)
+        held = lambda out, ref=ref, q_bf16=q_bf16: partials_error(
+            out, ref, d, q_bf16)
+        calls = {}
+        if old:
+            def before(q=q, kv=kv, scales=scales, lengths=lengths,
+                       q_bf16=q_bf16):
+                b, h, d = q.shape
+                chunk, splits = at.int8_chunks(b, h, kv.shape[1])
+                out = torch.empty((b, h, d + 2), device="cuda")
+                part = (torch.empty((b, h, splits, d + 2), device="cuda")
+                        if splits > 1 else None)
+                _build.check(old(
+                    q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
+                    lengths.data_ptr(), None, out.data_ptr(),
+                    None if part is None else part.data_ptr(), b, h,
+                    kv.shape[3] // d, d, kv.shape[1], 0, 0, chunk, splits, 1,
+                    int(q_bf16), 1.0 / d ** 0.5, _build.stream()),
+                    "the parent's partials")
+                return out
+            calls["parent"] = (before, held)
+        calls["change"] = (
+            lambda q=q, kv=kv, scales=scales, lengths=lengths, q_bf16=q_bf16:
+            at.decode_attn_int8_partials(q, kv, scales, lengths, q_bf16),
+            held)
+        worst = max(worst, _in_turns(
+            f"partials (q_bf16 {q_bf16}) at B {b}, H {h} over {kvh}, "
+            f"capacity {cap}", calls, timer))
+    # K1 and K1' against the parent's source: at path (B)'s shape, and K1'
+    # at V1's decode shapes (chip_smoke.py's decode_ms: B 8 and B 3, a split
+    # launch and the merge), two rounds of turns each.
+    g = torch.Generator(device="cuda").manual_seed(33)
+    k1_cases = [("K1", cs.PARTIALS_SHAPES["b"], True),
+                ("K1'", cs.PARTIALS_SHAPES["b"], False)]
+    k1_cases += [("K1'", dict(b=b, h=12, kvh=12, cap=2048, lives=(65, 322)),
+                  False) for b in (8, 3)]
+    for name, shape, with_tail in k1_cases:
+        q, kv, scales, lengths = cs.partials_inputs(**shape)
+        b, h, d = q.shape
+        cap, kvh = kv.shape[1], kv.shape[3] // d
+        window = (torch.randn((b, 16, 2, kvh * d), device="cuda",
+                              generator=g).to(torch.bfloat16)
+                  if with_tail else None)
+        count, rows = (9, 16) if with_tail else (0, 0)
+        ref = at.decode_attn_int8_tail_plain(q, kv, scales, lengths, window,
+                                             count)
+        held = lambda out, ref=ref: ((out - ref).abs().max().item()
+                                     / ref.abs().max().item()
+                                     / cs.K1_REL_TOL)
+        calls = {}
+        if old:
+            def before(q=q, kv=kv, scales=scales, lengths=lengths,
+                       window=window, count=count, rows=rows):
+                b, h, d = q.shape
+                cap, kvh = kv.shape[1], kv.shape[3] // d
+                chunk, splits = at.int8_chunks(b, h, cap + rows)
+                out = torch.empty_like(q)
+                part = (torch.empty((b, h, splits, d + 2), device="cuda")
+                        if splits > 1 else None)
+                _build.check(old(
+                    q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
+                    lengths.data_ptr(),
+                    None if window is None else window.data_ptr(),
+                    out.data_ptr(), None if part is None else part.data_ptr(),
+                    b, h, kvh, d, cap, rows, count, chunk, splits, 0, 1,
+                    1.0 / d ** 0.5, _build.stream()), f"the parent's {name}")
+                return out
+            calls["parent"] = (before, held)
+        calls["change"] = (
+            (lambda q=q, kv=kv, scales=scales, lengths=lengths, w=window:
+             at.decode_attn_int8_tail(q, kv, scales, lengths, w, 9))
+            if with_tail else
+            (lambda q=q, kv=kv, scales=scales, lengths=lengths:
+             at.decode_attn_int8(q, kv, scales, lengths)), held)
+        for _ in range(2):
+            worst = max(worst, _in_turns(
+                f"{name} at B {b}, H {h}, capacity {cap}", calls, timer))
+    q, kv, scales, lengths = cs.partials_inputs(**cs.PARTIALS_SHAPES["gqa"])
+    b, h, d = q.shape
+    cap, kvh = kv.shape[1], kv.shape[3] // d
+    ref = at.decode_attn_int8_partials_plain(q, kv, scales, lengths, True)
+    held = lambda out: partials_error(out, ref, d, True)
+    plan = at.rows_plan(b, h, kvh, cap, d)
+    for splits in (1, 2, 4, 8):
+        for warps in (4, 8):
+            p = at.rows_plan(b, h, kvh, cap, d, splits, warps)
+            mine = (splits, warps) == (plan["splits"], plan["warps"])
+            worst = max(worst, _in_turns(
+                f"  partials at TinyLlama's shape, {splits} splits, {warps} "
+                f"warps{' (plan)' if mine else ''}", {"change": (
+                    lambda p=p: at._launch_grouped_int8_rows(
+                        q, kv, scales, lengths, False, None, plan=p,
+                        wrapper=at.decode_attn_int8_partials, q_bf16=True),
+                    held)},
+                timer))
+    return worst
+
+
+# M1's variants (csrc/matmul_int8.cu), each a patch of the shipped source:
+# where the steady state's time goes at M 4096.
+M1_SRC = "matmul_int8.cu"
+M1_UNITS = ("        for (int it = 0; it < (BK / 16) * QUADS / TRANSPOSERS; "
+            "++it) {\n")
+M1_RELEASE = ("        wgmma_wait<0>();\n"
+              "        if (lane == 0) mbar_arrive(empty(s));\n      }\n")
+M1_VARIANTS = {
+    "shipped": [],
+    # Three stages, not four.
+    "stages3": [(M1_SRC, "constexpr int STAGES = 4;",
+                 "constexpr int STAGES = 3;")],
+    # A thread's units of a stage one after the other (the first design).
+    "units_in_turn": [(M1_SRC, "#pragma unroll\n" + M1_UNITS,
+                       "#pragma unroll 1\n" + M1_UNITS)],
+    # One stage's products in flight: the stage before released once the
+    # next stage's are issued.
+    "group_in_flight": [(M1_SRC, M1_RELEASE,
+                         "        wgmma_wait<1>();\n"
+                         "        if (i > 0 && lane == 0) "
+                         "mbar_arrive(empty((g - 1) % STAGES));\n      }\n"
+                         "      wgmma_wait<0>();\n"
+                         "      if (nt > 0 && lane == 0) "
+                         "mbar_arrive(empty((g - 1) % STAGES));\n")],
+    # No transpose (wrong results): the copies, the barriers and wgmma.
+    "no_transpose": [(M1_SRC, M1_UNITS,
+                      "        for (int it = 0; it < 0; ++it) {\n")],
+    # No wgmma (wrong results): the copies, the transpose and the epilogue.
+    "no_wgmma": [(M1_SRC, "for (int kk = 0; kk < BK / 32; ++kk) {",
+                  "for (int kk = 0; kk < 0; ++kk) {")],
+}
+
+
+def m1_variants(timer):
+    """M1's source variants (M1_VARIANTS) at GPT-2's up and down linears at
+    M 4096 and at M 256, two rounds of turns with chip_smoke.py's timer;
+    each but no_transpose and no_wgmma held bit for bit. Returns 0, or inf
+    if a held variant's result differs."""
+    from rten_tpu_torch.kernels import gemm
+    dirs = build_patched(M1_VARIANTS, ["matmul_int8"])
+    g = torch.Generator(device="cuda").manual_seed(37)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = []
+    for m, k, n in ((4096, 768, 3072), (4096, 3072, 768), (256, 768, 2304),
+                    (256, 3072, 768)):
+        x = torch.randint(-127, 128, (m, k), device="cuda",
+                          dtype=torch.int8, generator=g)
+        w = torch.randint(-127, 128, (k, n), device="cuda",
+                          dtype=torch.int8, generator=g)
+        ws = 0.001 + 0.01 * torch.rand(n, device="cuda", generator=g)
+        xs = torch.tensor([0.0173], device="cuda")
+        ref = gemm.matmul_int8_tiled_plain(x, w, xs, ws)
+        plan = gemm.matmul_int8_plan(m, k, n, sms)
+        got = {}
+
+        def call(x=x, w=w, ws=ws, plan=plan, got=got):
+            got["out"] = gemm._launch_int8_tiled(x, w, xs, ws, plan)
+
+        def held(name, ref=ref, got=got):
+            if name in ("no_transpose", "no_wgmma"):
+                return None
+            torch.cuda.synchronize()
+            return torch.equal(got["out"], ref)
+
+        cases.append((f"M {m}, K {k}, N {n}", lambda: None, call, held))
+    # Each variant once on each case, named before it runs: a fault is
+    # reported at the next synchronize, and ends the process.
+    for name, src in dirs.items():
+        print(f"M1's variant {name}: checking", flush=True)
+        with library("matmul_int8", src / "libmatmul_int8.so"):
+            for case, _, call, held in cases:
+                call()
+                torch.cuda.synchronize()
+                if held(name) is False:
+                    print(f"  {name} at {case}: not held to the plain "
+                          f"version", flush=True)
+    return _turns("matmul_int8", dirs, "M1's variants", cases, timer)
+
+
+def m1_section(parent):
+    """M1 (``matmul_int8_tiled``) at chip_smoke.py's GPT-2 linears (M 256
+    and 4096) and timer, bit for bit: this tree's kernel and, with
+    ``parent``, the parent's (the design before, mma.sync through its own C
+    entry) in turns (parent, change, change, parent), beside the library
+    call (``torch._int_mm`` and the epilogue); then this tree's at M 256
+    with 64- and 128-column tiles and 1-8 K splits, and at M 4096 with a
+    block a tile instead of one an SM walking the tiles; then the source's
+    variants (:func:`m1_variants`). Returns 0, or inf if a result is not
+    the plain version's bits."""
+    from rten_tpu_torch.kernels import gemm
+    cs = _chip_smoke()
+    timer = cs.Timer()
+    old = parent and _parent_entry(parent, "matmul_int8", "matmul_int8",
+                                   "pppppiiip", "mma.sync.aligned.m16n8k32")
+    g = torch.Generator(device="cuda").manual_seed(36)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0.0
+    for m in (256, 4096):
+        for k, n in cs.GPT2_LINEARS:
+            x = torch.randint(-127, 128, (m, k), device="cuda",
+                              dtype=torch.int8, generator=g)
+            w = torch.randint(-127, 128, (k, n), device="cuda",
+                              dtype=torch.int8, generator=g)
+            ws = 0.001 + 0.01 * torch.rand(n, device="cuda", generator=g)
+            xs = torch.tensor([0.0173], device="cuda")
+            ref = gemm.matmul_int8_tiled_plain(x, w, xs, ws)
+            held = lambda out, ref=ref: 0.0 if torch.equal(out, ref)                 else float("inf")
+            calls = {}
+            if old:
+                def before(x=x, w=w, ws=ws, m=m, k=k, n=n):
+                    out = torch.empty((m, n), device="cuda")
+                    _build.check(old(x.data_ptr(), w.data_ptr(),
+                                     xs.data_ptr(), ws.data_ptr(),
+                                     out.data_ptr(), m, n, k,
+                                     _build.stream()), "the parent's M1")
+                    return out
+                calls["parent"] = (before, held)
+            calls["change"] = (lambda x=x, w=w, ws=ws: gemm.matmul_int8_tiled(
+                x, w, xs, ws), held)
+            calls["library"] = (lambda x=x, w=w, ws=ws: torch._int_mm(x, w).to(
+                torch.float32) * xs * ws[None, :], lambda out: 0.0)
+            plan = gemm.matmul_int8_plan(m, k, n, sms)
+            worst = max(worst, _in_turns(
+                f"M1 at M {m}, K {k}, N {n} ({plan['bn']}-column tiles, "
+                f"{plan['splits']} split(s), {plan['blocks']} blocks)", calls,
+                timer))
+            if m != 256:
+                worst = max(worst, _in_turns(
+                    f"  M1 at M {m}, K {k}, N {n}, a block a tile ("
+                    f"{plan['tiles']} blocks, not {plan['workers']} in turn)",
+                    {"change": (lambda x=x, w=w, ws=ws, p=dict(
+                        plan, workers=plan["tiles"]): gemm._launch_int8_tiled(
+                            x, w, xs, ws, p), held)}, timer))
+                continue
+            for bn in (64, 128):
+                for splits in (1, 2, 4, 8):
+                    p = gemm.matmul_int8_plan(m, k, n, sms, splits)
+                    if splits > p["most"]:
+                        continue
+                    p = dict(p, bn=bn)
+                    mine = (bn, splits) == (plan["bn"], plan["splits"])
+                    worst = max(worst, _in_turns(
+                        f"  M1 at M {m}, K {k}, N {n}, {bn}-column tiles, "
+                        f"{splits} split(s){' (plan)' if mine else ''}",
+                        {"change": (lambda x=x, w=w, ws=ws, p=p:
+                                    gemm._launch_int8_tiled(x, w, xs, ws, p),
+                                    held)}, timer))
+    return max(worst, m1_variants(timer))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--skip",
                         choices=("int8", "float", "verify", "append",
                                  "k7", "p2", "fappend", "flush", "k9",
-                                 "native", "pv8"),
+                                 "native", "pv8", "partials", "m1"),
                         action="append",
                         default=[], help="leave a section out")
     parser.add_argument("--parent", type=Path, default=None,
-                        help="a checkout whose native_dots and pv_int8 "
-                        "kernels the native and pv8 sections time in turns")
+                        help="a checkout whose native_dots, pv_int8, "
+                        "partials, K1, K1' and M1 kernels the native, pv8, "
+                        "partials and m1 sections time in turns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kv_group_variants: no CUDA device", file=sys.stderr)
@@ -1448,6 +1763,10 @@ def main(argv=None):
         worst = max(worst, native_section(args.parent))
     if "pv8" not in args.skip:
         worst = max(worst, pv8_section(args.parent))
+    if "partials" not in args.skip:
+        worst = max(worst, partials_section(args.parent))
+    if "m1" not in args.skip:
+        worst = max(worst, m1_section(args.parent))
     print(f"worst error {worst:.3f} of the tolerance")
     return 0 if worst <= 1.0 else 1
 

@@ -10,12 +10,14 @@ every source that includes ``decode_attn_kv_group.cuh``). Both checkouts'
 sources are built with the port's nvcc flags, one ``nvcc`` a library, all
 started together, into ``rten_tpu_torch/build/sass_diff/``; the SASS comes
 from ``cuobjdump -sass``. ``--all`` also prints every kernel of this
-checkout with its registers and spills. Needs nvcc and cuobjdump, no card.
-Exits non-zero if a kernel of both checkouts changed.
+checkout with its registers and spills. For the first changed kernel of a
+source it prints the first lines that differ. Needs nvcc and cuobjdump, no
+card. Exits non-zero if a kernel of both checkouts changed.
 """
 
 from __future__ import annotations
 
+import difflib
 import re
 import shutil
 import subprocess
@@ -115,6 +117,12 @@ def main(argv=None):
         for k in diff:
             print(f"  changed {k}: this {ra.get(k)} other {rb.get(k)} "
                   f"(registers, spill stores, spill loads)")
+        if diff:
+            lines = [x for x in difflib.unified_diff(
+                b[diff[0]].splitlines(), a[diff[0]].splitlines(),
+                "other", "this", n=1, lineterm="")][:24]
+            print("  first difference, " + diff[0] + ":\n    "
+                  + "\n    ".join(lines))
         for k in sorted(a.keys() - b.keys()):
             print(f"  new {k}: {ra.get(k)}")
         for k in sorted(b.keys() - a.keys()):

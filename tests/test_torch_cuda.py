@@ -1497,13 +1497,16 @@ def test_kv_group_float_kernels_are_one_launch(gen):
 
 
 @pytest.mark.parametrize("q_bf16", [True, False])
-@pytest.mark.parametrize("d,cap", [(64, 128), (128, 4096)])
-def test_partials_kernel_matches_plain(gen, d, cap, q_bf16):
-    """The partials mode at one block a sequence (capacity 128) and split
-    into chunks merged by the second launch (capacity 4096), lengths 0
-    (acc 0, m -1e30, l 0) through capacity; acc with q_bf16 held as K8's
-    output."""
-    b, h, kvh = 16, 4, 2
+@pytest.mark.parametrize("h,kvh,d,cap", [(4, 2, 64, 128), (4, 2, 128, 4096),
+                                         (32, 4, 64, 2048)])
+def test_partials_kernel_matches_plain(gen, h, kvh, d, cap, q_bf16):
+    """The partials mode (the KV-group kernel at rows_plan, its sequences
+    split into chunks merged in their cluster; at TinyLlama's 32 query
+    heads over 4 KV heads, capacity 2048, 4 splits of 8 heads a block),
+    lengths 0 (acc 0, m -1e30, l 0) through capacity, one CUDA kernel a
+    call; acc with q_bf16 held as K8's output."""
+    b = 16
+    assert at.rows_plan(b, h, kvh, cap, d)["splits"] > 1
     kv, scales, _ = _cache(gen, b, cap, 1, kvh, d)
     q = torch.randn((b, h, d), device="cuda", generator=gen)
     lengths = _lengths([0, 1, cap // 3, cap], b)
@@ -1520,7 +1523,10 @@ def test_partials_kernel_matches_plain(gen, d, cap, q_bf16):
         assert ((out[full, :, lane] - live).abs().max()
                 <= 1e-5 * live.abs().max())
     assert ((out[~full, :, d] == -1e30).all()
-            and (out[~full, :, d + 1] == 0).all())
+            and (out[~full, :, d + 1] == 0).all()
+            and (out[~full, :, :d] == 0).all())
+    assert _cuda_kernels_a_call(lambda: at.decode_attn_int8_partials(
+        q, kv, scales, lengths, q_bf16)) == 1
 
 
 # (B, H, KVH, head_dim, S): GQA 4:1 at the reference's kernel shapes, and
@@ -1684,19 +1690,37 @@ def test_pv_int8_kernel_block_cases(gen, d, block, h, kvh, splits,
     assert _cuda_kernels_a_call(call) == 1
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (17, 33, 65), (64, 768, 768),
-                                   (300, 1100, 520), (96, 40, 130)])
-def test_matmul_int8_tiled_kernel_bit_exact(gen, m, k, n):
-    """M1 bit for bit against its plain version at ragged and tile-sized
-    shapes, with the scale as a float and as a one-element tensor."""
+# GPT-2-small's linears (K, N): QKV, O, MLP up, MLP down.
+M1_GPT2 = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+
+
+@pytest.mark.parametrize("m,k,n,splits", [
+    (1, 1, 1, None), (17, 33, 65, None), (64, 768, 768, None),
+    (300, 1100, 520, None), (96, 40, 130, None), (300, 1100, 520, 8),
+    (200, 768, 768, 6), (4096, 1100, 520, None), (4096, 768, 768, 2)]
+    + [(m, k, n, None) for m in (256, 4096) for k, n in M1_GPT2])
+def test_matmul_int8_tiled_kernel_bit_exact(gen, m, k, n, splits):
+    """M1 bit for bit against its plain version at ragged shapes (the
+    masked loader, 64- and 128-column tiles) and at GPT-2's linears at M
+    256 and 4096 (tensor-map copies; at M 256 O and down split K over a
+    cluster), and with K split over 8 (ragged), 6 or 2 (128-column tiles)
+    blocks, with the scale as a float and as a one-element tensor; two
+    calls give the same bits."""
     x = torch.randint(-127, 128, (m, k), device="cuda", dtype=torch.int8,
                       generator=gen)
     w = torch.randint(-127, 128, (k, n), device="cuda", dtype=torch.int8,
                       generator=gen)
     ws = 0.001 + torch.rand(n, device="cuda", generator=gen)
+    plan = pg.matmul_int8_plan(m, k, n, pg._sm_count(x.device), splits)
+    assert plan["loader"] == ("tma" if k % 16 == 0 and n % 16 == 0
+                              else "regs")
     for xs in (0.07, torch.tensor(0.0173, device="cuda")):
-        out = pg.matmul_int8_tiled(x, w, xs, ws)
+        out = pg._launch_int8_tiled(x, w, xs, ws, plan)
         assert torch.equal(out, pg.matmul_int8_tiled_plain(x, w, xs, ws))
+        assert torch.equal(out, pg._launch_int8_tiled(x, w, xs, ws, plan))
+    if splits is None:
+        assert torch.equal(pg.matmul_int8_tiled(x, w, 0.07, ws),
+                           pg.matmul_int8_tiled_plain(x, w, 0.07, ws))
 
 
 # -- IEEE division on the card ----------------------------------------------

@@ -1516,3 +1516,220 @@ def test_block_modes_refuse_only_outside_their_range(monkeypatch, what,
         with pytest.raises(ValueError, match=match):
             call()
         assert wrapper.launches == before
+
+
+# -- the partials mode on the KV-group kernel ---------------------------------
+
+@pytest.mark.parametrize("q_bf16", [False, True])
+@pytest.mark.parametrize("b,h,kvh,cap,want", [
+    (256, 12, 12, 512, (1, 4, 1, 1)), (16, 32, 4, 2048, (4, 8, 4, 2))])
+def test_partials_launch_rows_plan_on_the_kv_group_entry(monkeypatch, b, h,
+                                                          kvh, cap, want,
+                                                          q_bf16):
+    """On CUDA (simulated) decode_attn_int8_partials launches G1's C entry
+    once, in partials mode (4 exact q, 5 q_bf16), at rows_plan's splits,
+    unit, tiling and warps, with an output of D + 2 lanes a head and no
+    scratch: at path (B)'s shape one unsplit block of 4 warps per
+    (sequence, head), at TinyLlama's 4 splits of 8 warps, 8 heads a
+    block."""
+    calls = _recorded(monkeypatch)
+    d = 64
+    q = torch.zeros((b, h, d))
+    kv = torch.zeros((b, cap, 2, kvh * d), dtype=torch.int8)
+    scales = torch.ones((b, cap, 2, kvh), dtype=torch.bfloat16)
+    lengths = torch.full((b,), 9, dtype=torch.int32)
+    before = at.decode_attn_int8_partials.launches
+    out = at.decode_attn_int8_partials(q, kv, scales, lengths, q_bf16)
+    assert out.shape == (b, h, d + 2)
+    plan = at.rows_plan(b, h, kvh, cap, d)
+    assert (plan["splits"], plan["warps"], plan["heads_per_warp"],
+            plan["head_groups"]) == want
+    (symbol, args), = calls
+    assert symbol == "decode_attn_grouped_int8_rows" and args[5] is None
+    assert args[6:17] == (b, h, kvh, d, cap, 5 if q_bf16 else 4,
+                          plan["splits"], plan["unit"],
+                          plan["heads_per_warp"], plan["head_groups"],
+                          plan["warps"])
+    assert at.decode_attn_int8_partials.launches == before + 1
+
+
+# -- M1: the wgmma int8 GEMM ---------------------------------------------------
+
+# GPT-2-small's linears (K, N): QKV, O, MLP up, MLP down; ragged shapes
+# (the masked loader); a K of one tile and one short of two.
+M1_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768),
+             (33, 65), (1100, 520), (40, 130), (128, 16), (255, 64))
+M1_ROWS = ROWS + (2047, 2048, 4095, 4096)
+
+
+@pytest.mark.parametrize("k,n", M1_SHAPES)
+@pytest.mark.parametrize("m", M1_ROWS)
+def test_matmul_int8_plan_covers_once(m, k, n):
+    """M1's output tiles cover every row and column once, its K splits
+    every K tile once, each a nonempty range of whole 128-deep tiles, at
+    most 8 a cluster, a power of two of them, each of at least 4 K tiles;
+    a split launch (a block a tile) fits one wave of one block an SM, an
+    unsplit one takes at most a block an SM, each walking tiles in turn;
+    the loader is TMA exactly where K and N are multiples of 16."""
+    plan = pg.matmul_int8_plan(m, k, n)
+    bn, splits = plan["bn"], plan["splits"]
+    assert bn in (64, 128)
+    assert (plan["m_tiles"] - 1) * pg.M1_ROWS < m <= plan["m_tiles"] * 128
+    assert (plan["n_tiles"] - 1) * bn < n <= plan["n_tiles"] * bn
+    assert (plan["k_tiles"] - 1) * pg.M1_DEPTH < k <= plan["k_tiles"] * 128
+    # The K tiles [t0, t1) of each split, as matmul_int8.cu computes them.
+    ranges = [(z * plan["k_tiles"] // splits,
+               (z + 1) * plan["k_tiles"] // splits) for z in range(splits)]
+    assert 1 <= splits <= min(8, plan["k_tiles"])
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan["k_tiles"]
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(splits - 1))
+    assert splits & (splits - 1) == 0
+    assert splits == 1 or min(b - a for a, b in ranges) >= 4
+    tiles = plan["m_tiles"] * plan["n_tiles"]
+    assert plan["tiles"] == tiles
+    assert plan["workers"] == (tiles if splits > 1
+                               else min(tiles, pg.H100_SMS))
+    assert plan["blocks"] == plan["workers"] * splits
+    assert plan["blocks"] <= pg.H100_SMS or splits == 1
+    assert bn == 64 or tiles >= pg.H100_SMS
+    assert plan["loader"] == ("tma" if k % 16 == 0 and n % 16 == 0
+                              else "regs")
+
+
+def test_matmul_int8_plan_at_gpt2_linears():
+    """At M 256 (a decode step at batch 256) GPT-2's linears take 64-column
+    tiles, a block a tile; down (24 K tiles) splits K over 4 blocks of a
+    cluster (96 blocks), the others run unsplit (O's 6 K tiles are too few
+    to split); at M 4096 every linear takes 128-column tiles, unsplit, on
+    132 blocks that walk the tiles in turn."""
+    got = [(p["bn"], p["splits"], p["blocks"]) for p in
+           (pg.matmul_int8_plan(256, k, n) for k, n in M1_SHAPES[:4])]
+    assert got == [(64, 1, 72), (64, 1, 24), (64, 1, 96), (64, 4, 96)]
+    for k, n in M1_SHAPES[:4]:
+        plan = pg.matmul_int8_plan(4096, k, n)
+        assert (plan["bn"], plan["splits"], plan["loader"],
+                plan["blocks"]) == (128, 1, "tma", 132)
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm: byte i of the result is byte (nibble i of s) & 7
+    of the 8-byte value y:x."""
+    v = (y << 32) | x
+    return sum(((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+               for i in range(4))
+
+
+def _swz(r, c):
+    """wgmma.cuh's swz: the 16-byte chunk c of row r of a 128-byte
+    swizzled tile."""
+    return (r >> 3) * 1024 + (r & 7) * 128 + ((c ^ (r & 7)) << 4)
+
+
+def _raw_off(bn, r, n):
+    """matmul_int8.cu's raw_off: element (k row r, column n) of the raw W
+    tile as the tensor map writes it."""
+    if bn == 128:
+        return r * 128 + (((n >> 4) ^ (r & 7)) << 4) + (n & 15)
+    return r * bn + n
+
+
+def _transposed_tile(tile, bn):
+    """The W tile [128 k][bn n] through matmul_int8.cu's transposer: the
+    raw tile at raw_off, each unit (16 k rows x 4 columns) loaded as 16
+    words, rotated by (quad / 2) % 4 bytes, 4 x 4-transposed by the
+    kernel's byte permutes and stored at swz(column, chunk). Returns the
+    B tile's bytes, how often each byte was written, and the 16-byte slot
+    (address bits 4-6) of every store and the 4-byte bank of every load,
+    per warp instruction."""
+    raw = bytearray(128 * bn)
+    for r in range(128):
+        for n in range(bn):
+            raw[_raw_off(bn, r, n)] = tile[r][n]
+    out = bytearray(bn * 128)
+    written = [0] * (bn * 128)
+    quads, stores, loads = bn // 4, {}, {}
+    for u in range((128 // 16) * quads):
+        t, it = u % 128, u // 128
+        c, q = u // quads, u % quads
+        rot = (q >> 1) & 3
+        sel = (0x32103210 >> (4 * rot)) & 0xFFFF
+        r = []
+        for j in range(16):
+            off = _raw_off(bn, 16 * c + j, 4 * q)
+            loads.setdefault((t // 32, it, j), []).append(off // 4 % 32)
+            r.append(_byte_perm(int.from_bytes(raw[off:off + 4], "little"),
+                                0, sel))
+        col = [[0] * 4 for _ in range(4)]
+        for g in range(4):
+            t0 = _byte_perm(r[4 * g], r[4 * g + 1], 0x5140)
+            t1 = _byte_perm(r[4 * g + 2], r[4 * g + 3], 0x5140)
+            t2 = _byte_perm(r[4 * g], r[4 * g + 1], 0x7362)
+            t3 = _byte_perm(r[4 * g + 2], r[4 * g + 3], 0x7362)
+            col[0][g] = _byte_perm(t0, t1, 0x5410)
+            col[1][g] = _byte_perm(t0, t1, 0x7632)
+            col[2][g] = _byte_perm(t2, t3, 0x5410)
+            col[3][g] = _byte_perm(t2, t3, 0x7632)
+        for j in range(4):
+            n = 4 * q + ((j + rot) & 3)
+            off = _swz(n, c)
+            stores.setdefault((t // 8, it, j), []).append((off >> 4) & 7)
+            for g in range(4):
+                out[off + 4 * g:off + 4 * g + 4] = col[j][g].to_bytes(
+                    4, "little")
+                for i in range(4):
+                    written[off + 4 * g + i] += 1
+    return out, written, stores, loads
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+def test_matmul_int8_transpose_gives_back_w_transposed(bn):
+    """A Python mirror of M1's W-tile transpose and swizzle address maps:
+    read at wgmma's K-major 128-byte swizzled map (element (n, k) at
+    swz(n, k / 16) + k % 16), the B tile is Wᵀ byte for byte, every byte
+    written once; the 8 lanes of each quarter-warp store into 8 distinct
+    16-byte slots, and at bn 128 each warp's loads hit 32 distinct
+    banks."""
+    rng = torch.Generator().manual_seed(bn)
+    tile = torch.randint(0, 256, (128, bn), generator=rng).tolist()
+    out, written, stores, loads = _transposed_tile(tile, bn)
+    assert written == [1] * (bn * 128)
+    for n in range(bn):
+        for k in range(128):
+            assert out[_swz(n, k // 16) + k % 16] == tile[k][n]
+    assert all(sorted(v) == list(range(8)) for v in stores.values())
+    if bn == 128:
+        assert all(len(set(v)) == 32 for v in loads.values())
+
+
+@pytest.mark.parametrize("m,k,n,splits,match", [
+    (256, 768, 768, None, None), (256, 768, 768, 6, None),
+    (17, 33, 65, None, None), (256, 768, 768, 0, "splits"),
+    (256, 768, 768, 7, "splits"), (64, 200, 64, 3, "splits")])
+def test_matmul_int8_tiled_launches_its_plan(monkeypatch, m, k, n, splits,
+                                             match):
+    """On CUDA (simulated) M1 passes the plan's tile width, splits and
+    loader to its C entry and counts one launch; a split count outside 1
+    to min(8, K tiles) raises before any build."""
+    calls = _recorded(monkeypatch)
+    monkeypatch.setattr(pg, "_sm_count", lambda device: pg.H100_SMS)
+    x = torch.zeros((m, k), dtype=torch.int8)
+    w = torch.zeros((k, n), dtype=torch.int8)
+    ws = torch.ones(n)
+    plan = pg.matmul_int8_plan(m, k, n, splits=splits)
+    before = pg.matmul_int8_tiled.launches
+    if match:
+        with pytest.raises(ValueError, match=match):
+            pg._launch_int8_tiled(x, w, 0.5, ws, plan)
+        assert not calls and pg.matmul_int8_tiled.launches == before
+        return
+    if splits is None:
+        pg.matmul_int8_tiled(x, w, 0.5, ws)
+    else:
+        pg._launch_int8_tiled(x, w, 0.5, ws, plan)
+    (symbol, args), = calls
+    tma = int(plan["loader"] == "tma")
+    assert symbol == "matmul_int8"
+    assert args[5:12] == (m, n, k, plan["bn"], plan["splits"],
+                          plan["workers"], tma)
+    assert pg.matmul_int8_tiled.launches == before + 1

@@ -4,7 +4,10 @@ kernels in interpret mode), on inputs drawn with numpy:
 
 * ``decode_attn_int8_partials`` against ``flash_decode_flat(partials=True)``
   with ``q_bf16`` on and off, and the two-shard merge of
-  tests/test_attention.py:780-825;
+  tests/test_attention.py:780-825; and its design, the KV-group kernel's
+  walk in its partials modes at ``rows_plan``'s launch of both timed
+  shapes (chunks, warps, ring tiles, the splits' merge, the unnormalized
+  emit), redone in torch against the same reference;
 * K9 (``decode_attn_split_kv``) against ``flash_decode`` at its kernel's
   shapes and at a shape it sends to ``_attn_reference``, lengths 0
   included; and K9's design, the KV-group kernel's walk over separate K
@@ -153,6 +156,115 @@ def test_partials_plain_matches_flash_decode_flat(q_bf16):
             group=2, kv_scales=jc.quant_scales[0]))
         np.testing.assert_allclose(got, full, rtol=MERGE_RTOL,
                                    atol=1e-6 * np.abs(full).max())
+
+
+def _partials_walk(q, kv, scales, lengths, plan, q_bf16):
+    """decode_attn_int8_partials as the KV-group kernel computes it at
+    ``plan`` (its partials modes): q rounded to bf16 as it enters with
+    ``q_bf16``; each block of up to 8 query heads of a KV head walks its
+    chunks (``kv_group_chunks`` over min(max(lengths, 0), cap), whole
+    16-row units) a 64-row int8 ring tile at a time, each row group of
+    warps taking every n_rg-th step of 4 rows, scores ((q . k8) * scale) *
+    k_scale and p * v_scale weighing V; the warps' and then the splits'
+    (m, l, acc) merge as the cluster merges them (m = -inf weighs 0), and
+    the emit writes the unnormalized acc (rounded to bf16 with ``q_bf16``),
+    m (-1e30 where no row was live) and l."""
+    b, h, d = q.shape
+    cap, kvh = kv.shape[1], kv.shape[3] // d
+    rep, per = h // kvh, plan["heads_per_warp"] * plan["head_groups"]
+    n_rg = plan["warps"] // plan["head_groups"]
+    tile = _tile_rows(d, 1)
+    scale = 1.0 / math.sqrt(d)
+    x = kv.reshape(b, cap, 2, kvh, d).to(torch.float32)
+    sf = scales.to(torch.float32)
+    qq = q.to(torch.bfloat16).to(torch.float32) if q_bf16 else q
+    out = torch.zeros((b, h, d + 2))
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), cap)
+        for kh in range(kvh):
+            k, v = x[bi, :, 0, kh], x[bi, :, 1, kh]
+            ks, vs = sf[bi, :, 0, kh], sf[bi, :, 1, kh]
+            for r0 in range(0, rep, per):
+                heads = range(r0, min(r0 + per, rep))
+                qr = torch.stack([qq[bi, kh * rep + r] for r in heads])
+                lim = torch.full((len(heads),), n)
+                states = []
+                for c0, c1 in at.kv_group_chunks(n, plan["splits"],
+                                                 plan["unit"]):
+                    tiles = [range(t0, min(t0 + tile, c1))
+                             for t0 in range(c0, c1, tile)]
+                    states.append(_merge_states([_warp_walk(
+                        qr, k, v, ks, vs,
+                        [[t for t in tr if ((t - tr[0]) // 4) % n_rg == rg]
+                         for tr in tiles], lim, scale, False)
+                        for rg in range(n_rg)]))
+                m, l, acc = _merge_states(states)
+                if q_bf16:
+                    acc = acc.to(torch.bfloat16).to(torch.float32)
+                m = torch.where(m == -math.inf, torch.full_like(m, -1e30), m)
+                for j, r in enumerate(heads):
+                    out[bi, kh * rep + r] = torch.cat(
+                        [acc[j], m[j:j + 1], l[j:j + 1]])
+    return out
+
+
+# (heads, KV heads, capacity; the timed shape whose rows_plan the walk
+# takes: B, capacity) at head_dim 64: GPT-2's 12 heads (path (B)'s plan at
+# B 256, capacity 512: one split of 4 warps, one head a warp) and
+# TinyLlama's 32 over 4 (its plan at B 16, capacity 2048: 4 splits of 8
+# warps, 8 heads a block).
+PARTIALS_WALKS = [(12, 12, 128, 256, 512), (32, 4, 256, 16, 2048)]
+
+
+@pytest.mark.parametrize("q_bf16", [False, True])
+@pytest.mark.parametrize("h,kvh,cap,plan_b,plan_cap", PARTIALS_WALKS,
+                         ids=str)
+def test_partials_walk_on_the_kv_group_kernel_matches_flash_decode_flat(
+        h, kvh, cap, plan_b, plan_cap, q_bf16):
+    """The partials mode's design, the KV-group walk at rows_plan's launch
+    of each timed shape (chunks of whole units, the splits merged as the
+    cluster merges them, the unnormalized state emitted), redone in torch
+    against flash_decode_flat(partials=True, group 2, block 64) on one
+    int8 cache: m within 1e-6 of its own size plus 1e-6 of the largest
+    |m| (a score of 0.05 sums terms of order 1 in another order at head_dim
+    64), l within 1e-5 relative, acc within 1e-5 of max |acc|
+    (q_bf16 off) or one bf16 step of each element (on), on every
+    (sequence, head) with a row; a sequence of length 0 emits acc 0, m
+    -1e30 (the reference's m there too) and l 0. The plain version at the
+    same inputs agrees with the walk the same way."""
+    b, d = 4, 64
+    plan = at.rows_plan(plan_b, h, kvh, plan_cap, d)
+    want = ((1, 4, 1, 1) if h == kvh else (4, 8, 4, 2))
+    assert (plan["splits"], plan["warps"], plan["heads_per_warp"],
+            plan["head_groups"]) == want
+    rng = np.random.default_rng(h + cap)
+    jc = JKVCache.create(b, 1, kvh, cap, d, quantized=True)
+    rows = [(rng.standard_normal((b, kvh, cap, d))
+             * np.exp(rng.uniform(-1, 1, (b, kvh, 1, 1)))).astype(np.float32)
+            for _ in range(2)]
+    jc = jc.append(0, jnp.asarray(rows[0]), jnp.asarray(rows[1]), position=0)
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kv, scales = port_layout(jc, 0)
+    lens = np.array([0, 1, cap // 3 + 5, cap], np.int32)
+    ref = np.asarray(flash_decode_flat(
+        jnp.asarray(q), jc.kv[0], jnp.asarray(lens), kvh, block_k=64,
+        group=2, kv_scales=jc.quant_scales[0], q_bf16=q_bf16, partials=True))
+    walk = _partials_walk(_t(q), kv, scales, _t(lens), plan, q_bf16)
+    plain = at.decode_attn_int8_partials(_t(q), kv, scales, _t(lens),
+                                         q_bf16=q_bf16)
+    for out in (walk.numpy(), plain.numpy()):
+        assert out.shape == (b, h, d + 2)
+        assert (out[0, :, :d] == 0).all() and (out[0, :, d + 1] == 0).all()
+        assert (out[0, :, d] == -1e30).all() and (ref[0, :, d] == -1e30).all()
+        o, r = out[1:], ref[1:]
+        np.testing.assert_allclose(o[..., d], r[..., d], rtol=1e-6,
+                                   atol=1e-6 * np.abs(r[..., d]).max())
+        np.testing.assert_allclose(o[..., d + 1], r[..., d + 1], rtol=1e-5)
+        err = np.abs(o[..., :d] - r[..., :d])
+        if q_bf16:
+            assert (err <= BF16_STEP * np.abs(r[..., :d])).all()
+        else:
+            assert err.max() <= REL_TOL * np.abs(r[..., :d]).max()
 
 
 @pytest.mark.parametrize("b,cap", [(3, 128), (4, 96)])
