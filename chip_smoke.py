@@ -16,7 +16,9 @@ Phases (any failure exits non-zero; nothing is caught):
    window 16, live lengths 65-176), with CUDA-event timings (cold L2, warm
    median) of the kernel, the plain version and, where one PyTorch call
    computes the same function, that call; plus each kernel's lower bound
-   from its bytes and operations. K2 (``head_argmax_int8``) also at M 1,
+   from its bytes and operations; K1 and K1' also in their exact-q mode
+   (``q_bf16=False``, the reference's ``RTEN_FLAT_QBF16=0``), held to
+   K6's tolerance. K2 (``head_argmax_int8``) also at M 1,
    16 and 64 (printed, with TFLOP/s and the share of the bound); K4
    (``matmul_int8_wo``, K2's tiles with a store epilogue) at M 64 and
    also at M 1, 16 and 32 (extra keys, with TFLOP/s and the share of the
@@ -102,6 +104,9 @@ Phases (any failure exits non-zero; nothing is caught):
      int8 page pool; 320 requests of 48 new tokens.
    - (E) paged f32: f32 weights, ``paged=True, page_size=64`` with an f32
      page pool; 320 requests of 48 new tokens.
+   - int8 + tail and (B) with ``RTEN_FLAT_QBF16=0``: 256 requests of 16
+     new tokens each; K1's (K1''s) exact-q mode must launch and its
+     rounded mode never.
    - (I) flat f32: f32 weights and cache with ``decode_attn="flat"``: K8
      once per layer and decode step, K6 never; 320 requests of 48 new
      tokens. (I-bf16): int8 weights on a bf16 cache, 256 requests of 16.
@@ -167,6 +172,19 @@ Phases (any failure exits non-zero; nothing is caught):
    9 new tokens (G1 each decode step), logits + argmax; (H-fused) the same
    with 3 requests (G2 each decode step).
 
+6. Path (J), the `.rten` graph runtime: ResNet-50 (224 x 224, 1000
+   classes, the reference's random weights) built as ``tools/
+   bench_vision.py`` builds it (``build_rten``, ``quantize_graph_weights``)
+   and run through ``rten_tpu_torch.runtime.Model`` in f32 and INT8 (every
+   Conv optimized to DynamicQuantizeLinear → ConvInteger → Cast → Mul) at
+   batch 32: images/s over 5 runs and the ops' share of a timed run
+   (``RunTiming``, CUDA events); each against the CPU at batch 2 (f32
+   within 1e-3 of max |logit|, TF32 off; INT8 within 1e-2 and the same
+   top-1 except after a near-tie); the first three ConvInteger
+   accumulators card against CPU bit for bit; and a FusedSDPA graph at
+   S 512, D 128 that must launch F1 once (its launches counted from 0 in
+   that run) and meet the CPU within K6's tolerance.
+
 Prints a ``{"kernels": [...]}`` JSON line (V1 with one entry per entry
 point and mode, G1 per mode), then as the last line ``{"ok": true,
 "device": {...}}``.
@@ -185,16 +203,23 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
 
 from rten_tpu_torch import kernels
+from rten_tpu_torch.fmt import container as fmt_container
+from rten_tpu_torch.fmt.model_builder import ModelBuilder
+from rten_tpu_torch.fmt.serialize import graph_to_bytes
 from rten_tpu_torch.generate import ArgMaxSampler, ServingEngine
+from rten_tpu_torch.ir.graph import graph_from_model_file
+from rten_tpu_torch.ir.quantize_graph import quantize_graph_weights
 from rten_tpu_torch.kernels import _build
 from rten_tpu_torch.kernels import attention as at
 from rten_tpu_torch.kernels import cache as kc
 from rten_tpu_torch.kernels import gemm
 from rten_tpu_torch.kernels import quant as qt
 from rten_tpu_torch.kernels.quant import abs_max_quantize_int8
-from rten_tpu_torch.models import (QuantWeight, TransformerConfig,
+from rten_tpu_torch.models import (QuantWeight, ResNet, ResNetConfig,
+                                   TransformerConfig,
                                    TransformerLM, quantize_weights)
 from rten_tpu_torch.models.transformer import int4_takes_kernel
+from rten_tpu_torch.runtime import Model, RunOptions
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the lower bounds.
 PEAK_BYTES_S = 3.35e12
@@ -377,9 +402,29 @@ class Timer:
         return sorted(times)[len(times) // 2]
 
 
-def check_decode_attn(timer, b=256, h=12, kvh=12, cap=512, live=(64, 160)):
+def _k1_held(out, ref, q_bf16, label):
+    """K1 / K1' against the plain version: two bf16 steps of max |out|
+    (K1_REL_TOL) with q_bf16, K6's 1e-5 in the exact-q mode (nothing is
+    rounded to bf16 there). Returns the max abs error."""
+    err = (out - ref).abs().max().item()
+    tol = (K1_REL_TOL if q_bf16 else K6_REL_TOL) * ref.abs().max().item()
+    print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e})")
+    check(bool(torch.isfinite(out).all()) and err <= tol,
+          f"{label} disagrees")
+    return err
+
+
+def _exact_q(entry, q_bf16):
+    """The entry in its exact-q mode (RTEN_FLAT_QBF16=0) keyed "exact"."""
+    if not q_bf16:
+        entry["mode"] = "exact"
+    return entry
+
+
+def check_decode_attn(timer, b=256, h=12, kvh=12, cap=512, live=(64, 160),
+                      q_bf16=True):
     """K1 with the window at 9 of 16 rows and packed lives ``live``; GQA
-    when ``kvh`` < ``h``."""
+    when ``kvh`` < ``h``; ``q_bf16=False`` its exact-q mode."""
     d, rows, tc = 64, 16, 9
     f = kvh * d
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -395,27 +440,24 @@ def check_decode_attn(timer, b=256, h=12, kvh=12, cap=512, live=(64, 160)):
     lengths = torch.randint(live[0] + tc, live[1] + tc, (b,), device="cuda",
                             generator=g, dtype=torch.int32)
     args = (q, kv, scales, lengths, tail, tc)
-    out = at.decode_attn_int8_tail(*args)
-    ref = at.decode_attn_int8_tail_plain(*args)
+    kw = dict(q_bf16=q_bf16)
+    out = at.decode_attn_int8_tail(*args, **kw)
+    ref = at.decode_attn_int8_tail_plain(*args, **kw)
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    tol = K1_REL_TOL * ref.abs().max().item()
-    print(f"decode_attn_int8_tail (B {b}, H {h} over {kvh}, cap {cap}): "
-          f"max_abs_err {err:.3e} (tol {tol:.3e})")
-    check(bool(torch.isfinite(out).all()) and err <= tol, "K1 disagrees")
+    err = _k1_held(out, ref, q_bf16, f"decode_attn_int8_tail (B {b}, H {h} "
+                   f"over {kvh}, cap {cap}{'' if q_bf16 else ', exact q'})")
     n_packed = (lengths - tc).clamp(0, cap).to(torch.float64).sum().item()
     n_bytes = (n_packed * (2 * f + 2 * kvh * 2) + b * tc * 2 * f * 2
                + 2 * q.numel() * 4 + b * 4)
     flops = 4.0 * (n_packed + b * tc) * h * d
     bms, by = bound_ms(n_bytes, flops)
-    return dict(name="decode_attn_int8_tail",
-                source="rten_tpu_torch/csrc/decode_attn_int8_tail.cu",
-                replaces="rten_tpu/kernels/attention.py:1715",
-                max_abs_err=err, ms=timer(lambda: at.decode_attn_int8_tail(
-                    *args)),
-                plain_ms=timer(lambda: at.decode_attn_int8_tail_plain(
-                    *args)),
-                bound_ms=bms, bound_by=by, library_ms=None)
+    return _exact_q(dict(
+        name="decode_attn_int8_tail",
+        source="rten_tpu_torch/csrc/decode_attn_int8_tail.cu",
+        replaces="rten_tpu/kernels/attention.py:1715", max_abs_err=err,
+        ms=timer(lambda: at.decode_attn_int8_tail(*args, **kw)),
+        plain_ms=timer(lambda: at.decode_attn_int8_tail_plain(*args, **kw)),
+        bound_ms=bms, bound_by=by, library_ms=None), q_bf16)
 
 
 def check_int8_matmul():
@@ -862,9 +904,10 @@ def check_decode_attn_float(timer):
 
 
 def check_decode_attn_int8(timer, b=256, h=12, kvh=12, cap=512,
-                           live=(65, 177)):
+                           live=(65, 177), q_bf16=True):
     """K1' (the no-tail mode of K1) at path (B)'s shapes, attention
-    lengths ``live``; GQA when ``kvh`` < ``h``."""
+    lengths ``live``; GQA when ``kvh`` < ``h``; ``q_bf16=False`` its
+    exact-q mode."""
     d = 64
     f = kvh * d
     g = torch.Generator(device="cuda").manual_seed(10)
@@ -876,24 +919,22 @@ def check_decode_attn_int8(timer, b=256, h=12, kvh=12, cap=512,
     lengths = torch.randint(live[0], live[1], (b,), device="cuda",
                             generator=g, dtype=torch.int32)
     args = (q, kv, scales, lengths)
-    out = at.decode_attn_int8(*args)
-    ref = at.decode_attn_int8_plain(*args)
+    kw = dict(q_bf16=q_bf16)
+    out = at.decode_attn_int8(*args, **kw)
+    ref = at.decode_attn_int8_plain(*args, **kw)
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    tol = K1_REL_TOL * ref.abs().max().item()
-    print(f"decode_attn_int8 (B {b}, H {h} over {kvh}, cap {cap}): "
-          f"max_abs_err {err:.3e} (tol {tol:.3e})")
-    check(bool(torch.isfinite(out).all()) and err <= tol, "K1' disagrees")
+    err = _k1_held(out, ref, q_bf16, f"decode_attn_int8 (B {b}, H {h} over "
+                   f"{kvh}, cap {cap}{'' if q_bf16 else ', exact q'})")
     live = lengths.clamp(max=cap).to(torch.float64).sum().item()
     n_bytes = live * (2 * f + 2 * kvh * 2) + 2 * q.numel() * 4 + b * 4
     bms, by = bound_ms(n_bytes, 4.0 * live * h * d)
-    return dict(name="decode_attn_int8",
-                source="rten_tpu_torch/csrc/decode_attn_int8_tail.cu",
-                replaces="rten_tpu/kernels/attention.py:1715",
-                max_abs_err=err,
-                ms=timer(lambda: at.decode_attn_int8(*args)),
-                plain_ms=timer(lambda: at.decode_attn_int8_plain(*args)),
-                bound_ms=bms, bound_by=by, library_ms=None)
+    return _exact_q(dict(
+        name="decode_attn_int8",
+        source="rten_tpu_torch/csrc/decode_attn_int8_tail.cu",
+        replaces="rten_tpu/kernels/attention.py:1715", max_abs_err=err,
+        ms=timer(lambda: at.decode_attn_int8(*args, **kw)),
+        plain_ms=timer(lambda: at.decode_attn_int8_plain(*args, **kw)),
+        bound_ms=bms, bound_by=by, library_ms=None), q_bf16)
 
 
 def _paged_pool(g, b, lengths, dtype):
@@ -2018,6 +2059,184 @@ def mistral_model(path, n_layers):
         n_experts=0, n_layers=n_layers, **PATHS[path].get("config", {})))
 
 
+# -- path (J): the .rten graph runtime ----------------------------------------
+
+RESNET_BATCH = 32                  # images a run on the card
+RESNET_CPU_BATCH = 2               # the card against the CPU
+RESNET_RUNS = 5                    # timed runs a precision
+# Card against CPU at batch 2 through ResNet-50: f32 with TF32 off differs
+# only in f32 summation order: 1e-3 of max |logit|. INT8 (per-tensor
+# dynamic activation quantization before every conv): a rounding that
+# flips between the devices' f32 sums moves one activation by a step, so
+# 1e-2 of max |logit| (the CPU tests' tolerance against the JAX package),
+# and the same top-1 except where the CPU's top-2 margin is below it.
+RESNET_F32_TOL = 1e-3
+RESNET_INT8_TOL = 1e-2
+
+
+def resnet50_bytes():
+    """ResNet-50 (224 x 224, 1000 classes, the reference's random weights
+    from ``init_params``) as f32 and INT8 `.rten` bytes, built the way
+    tools/bench_vision.py builds them: ``build_rten``, then
+    ``quantize_graph_weights``."""
+    net = ResNet(ResNetConfig(depth=50))
+    f32 = net.build_rten(net.init_params()).to_bytes()
+    graph = graph_from_model_file(fmt_container.load_bytes(f32))
+    n = quantize_graph_weights(graph)
+    return f32, graph_to_bytes(graph), n
+
+
+def conv_integer_nodes(model, n=3):
+    """The first ``n`` ConvInteger operators of the model's plan."""
+    ops = (model.graph.nodes[i].data for i in model.graph.plan())
+    return [op for op in ops if op.op_type == "ConvInteger"][:n]
+
+
+def check_conv_integer_accumulators(card, cpu, x):
+    """The int32 accumulators of the first three ConvInteger nodes, card
+    against CPU: each conv's lowering on the card given the CPU's inputs to
+    it (the quantized activations and their zero point) must give the
+    CPU's accumulator bit for bit; the first conv's accumulator, whose
+    input chain is the image alone, through the whole model too."""
+    from rten_tpu_torch.ops.registry import get_op
+    from rten_tpu_torch.runtime.executor import _Ctx
+    nodes = conv_integer_nodes(cpu)
+    in_id = cpu.input_ids()[0]
+    ids = [i for op in nodes for i in (op.inputs[0], op.inputs[2],
+                                        op.outputs[0])]
+    values = cpu.run({in_id: x}, outputs=ids)
+    fn = get_op("ConvInteger").fn
+    for k, op in enumerate(nodes):
+        xq, zp, acc = values[3 * k: 3 * k + 3]
+        w = card.executor._device_value(card.graph, op.inputs[1],
+                                        card.graph.nodes[op.inputs[1]]
+                                        .data.array)
+        got = fn(_Ctx(1), op.attrs, xq.cuda(), w, zp.cuda(), None)
+        same = torch.equal(got.cpu(), acc)
+        print(f"ConvInteger {k} ({tuple(w.shape)}): card == cpu {same}; "
+              f"max |acc| {acc.abs().max().item()}")
+        check(same, f"ConvInteger {k}: the card's accumulator differs")
+    first = card.run({in_id: x.cuda()}, outputs=[nodes[0].outputs[0]])[0]
+    same = torch.equal(first.cpu(), values[2])
+    print(f"ConvInteger 0 through the whole model: card == cpu {same}")
+    check(same, "ConvInteger 0 through the model differs")
+
+
+def attention_graph_bytes(b, h, s, d):
+    """softmax(q @ kt * d^-0.5) @ v as a `.rten` graph (the optimizer fuses
+    it to FusedSDPA)."""
+    mb = ModelBuilder()
+    g = mb.graph
+    q = g.add_value("q", shape=[b, h, s, d])
+    kt = g.add_value("kt", shape=[b, h, d, s])
+    v = g.add_value("v", shape=[b, h, s, d])
+    c = g.add_constant("scale", np.float32(1.0 / np.sqrt(d)))
+    qk = g.add_operator("MatMul", [q, kt], name="qk")
+    scaled = g.add_operator("Mul", [qk, c], name="scaled")
+    probs = g.add_operator("Softmax", [scaled], attrs={"axis": -1},
+                           name="probs")
+    out = g.add_operator("MatMul", [probs, v], name="out")
+    g.inputs, g.outputs = [q, kt, v], [out]
+    return mb.to_bytes()
+
+
+def check_attention_graph(b=2, h=8, s=512, d=128):
+    """A FusedSDPA graph at S 512, D 128 on the card: F1 must launch (the
+    launch counts are set to 0 just before the run and read after), and
+    the output meets the CPU's within K6's tolerance. Returns the
+    counts."""
+    data = attention_graph_bytes(b, h, s, d)
+    card = Model.load(data, device="cuda")
+    ops = [card.graph.nodes[i].data.op_type for i in card.graph.plan()]
+    check(ops == ["FusedSDPA"], f"attention graph optimized to {ops}")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    q, k, v = (torch.randn((b, h, s, d), device="cuda", generator=g)
+               for _ in range(3))
+    inputs = {"q": q, "kt": k.transpose(-1, -2).contiguous(), "v": v}
+    kernels.reset_launch_counts()
+    out = card.run(inputs)[0]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    ref = Model.load(data, device="cpu").run(
+        {n: t.cpu() for n, t in inputs.items()})[0]
+    err = (out.cpu() - ref).abs().max().item()
+    tol = K6_REL_TOL * ref.abs().max().item()
+    print(f"FusedSDPA graph (B {b}, {h} heads of {d}, S {s}): launches "
+          f"{nonzero(counts)}; card against CPU max_abs_err {err:.3e} (tol "
+          f"{tol:.3e})")
+    check(counts["flash_attention"] == 1,
+          "the FusedSDPA graph did not launch F1 once")
+    check(bool(torch.isfinite(out).all()) and err <= tol,
+          "FusedSDPA graph: card against CPU disagrees")
+    return counts
+
+
+def graph_runtime_path(launches):
+    """Path (J): ResNet-50 at full width through the `.rten` runtime
+    (``rten_tpu_torch.runtime.Model``) in f32 and INT8 at batch 32 on the
+    card, images/s and the ops' share of a timed run (RunTiming, CUDA
+    events), card against CPU at batch 2, the first three ConvInteger
+    accumulators bit for bit, and a FusedSDPA graph that must launch F1."""
+    t0 = time.perf_counter()
+    f32, int8, n_quant = resnet50_bytes()
+    print(f"ResNet-50 .rten: f32 {len(f32) / 2**20:.1f} MiB, INT8 "
+          f"{len(int8) / 2**20:.1f} MiB ({n_quant} weights quantized), "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(30)
+    x = torch.rand((RESNET_BATCH, 3, 224, 224), device="cuda", generator=g)
+    rates = {}
+    for kind, data in (("f32", f32), ("int8", int8)):
+        t0 = time.perf_counter()
+        card = Model.load(data, device="cuda")
+        load_s = time.perf_counter() - t0
+        in_id = card.input_ids()[0]
+        out = card.run({in_id: x})[0]            # warm-up
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == (RESNET_BATCH, 1000)
+              and bool(torch.isfinite(out).all()),
+              f"ResNet-50 {kind}: output {tuple(out.shape)} not finite")
+        t0 = time.perf_counter()
+        for _ in range(RESNET_RUNS):
+            out = card.run({in_id: x})[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates[kind] = RESNET_BATCH * RESNET_RUNS / wall
+        card.run({in_id: x}, options=RunOptions(timing=True))
+        timing = card.executor.last_timing
+        share = timing.op_seconds() / timing.total
+        print(f"path (J) ResNet-50 {kind}, batch {RESNET_BATCH} on the "
+              f"card: load {load_s:.2f} s; {1e3 * wall / RESNET_RUNS:.2f} ms "
+              f"a run, {rates[kind]:.1f} images/s; under timing the ops' "
+              f"device time {1e3 * timing.op_seconds():.2f} ms of "
+              f"{1e3 * timing.total:.2f} ms wall ({100 * share:.1f}%), "
+              f"{len(timing.records)} ops")
+        cpu = Model.load(data, device="cpu")
+        xs = x[:RESNET_CPU_BATCH]
+        ref = cpu.run({in_id: xs.cpu()})[0]
+        got = card.run({in_id: xs})[0].cpu()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        tol = (RESNET_F32_TOL if kind == "f32" else RESNET_INT8_TOL) * scale
+        top2 = ref.topk(2, dim=1).values
+        margin = (top2[:, 0] - top2[:, 1]).min().item()
+        same = bool((got.argmax(1) == ref.argmax(1)).all())
+        print(f"path (J) ResNet-50 {kind} card against CPU (batch "
+              f"{RESNET_CPU_BATCH}): max_abs_err {err:.4e} of max |logit| "
+              f"{scale:.4e} (tol {tol:.4e}); top-1 same {same} (CPU top-2 "
+              f"margin {margin:.4e})")
+        check(err <= tol and (same or margin < tol),
+              f"ResNet-50 {kind}: card against CPU disagrees")
+        if kind == "int8":
+            check_conv_integer_accumulators(card, cpu, xs.cpu())
+        del card, cpu
+        torch.cuda.empty_cache()
+    print(f"path (J) ResNet-50 images/s at batch {RESNET_BATCH}: f32 "
+          f"{rates['f32']:.1f}, INT8 {rates['int8']:.1f}")
+    launches["graph_sdpa"] = check_attention_graph()
+    return rates
+
+
+
 def mistral_paths(launches, rates, steady):
     """Path (H) at full width and depth, its three variants at 4 layers,
     and (H), (H-fused) and (H-append) card against CPU at 1 layer; fills
@@ -2126,6 +2345,21 @@ PATHS = {
                          tail=0, requests=(320, 48),
                          kernels=("kv_append_int8", "decode_attn_int8",
                                   "head_argmax_int8", "matmul_int8_wo")),
+    # RTEN_FLAT_QBF16=0: the reference's flat kernel with exact q, K1's and
+    # K1''s exact-q mode, and never the rounded one.
+    "int8_tail_exact_q": dict(weights="int8",
+                              engine=dict(quantized_cache=True), tail=16,
+                              requests=(256, 16), steady=False,
+                              env={"RTEN_FLAT_QBF16": "0"},
+                              kernels=("decode_attn_int8_tail.exact",),
+                              absent=("decode_attn_int8_tail.bf16",)),
+    "int8_no_tail_exact_q": dict(weights="int8",
+                                 engine=dict(quantized_cache=True,
+                                             tail_window=0),
+                                 tail=0, requests=(256, 16), steady=False,
+                                 env={"RTEN_FLAT_QBF16": "0"},
+                                 kernels=("decode_attn_int8.exact",),
+                                 absent=("decode_attn_int8.bf16",)),
     "bf16": dict(weights="int8", engine=dict(cache_dtype="bfloat16"),
                  tail=0, requests=(288, 24),
                  kernels=("kv_append", "decode_attn_float",
@@ -2781,6 +3015,8 @@ def main():
                check_decode_attn_float(timer),
                check_kv_append_int8(timer),
                check_decode_attn_int8(timer),
+               check_decode_attn(timer, q_bf16=False),
+               check_decode_attn_int8(timer, q_bf16=False),
                check_kv_append_paged(timer, quantized=False),
                check_kv_append_paged(timer, quantized=True),
                check_decode_attn_paged(timer, "grouped"),
@@ -2951,6 +3187,8 @@ def main():
     stamp("TinyLlama paths")
     mistral_paths(launches, rates, steady)
     stamp("Mistral paths")
+    graph_runtime_path(launches)
+    stamp("graph runtime (J)")
 
     # Each kernel reports its launches on the path it was ported for; V1's
     # entries per mode: path (G) for the grouped entry (float on the bf16
@@ -2965,6 +3203,8 @@ def main():
                  ("verify_attn_fused", "float"): "spec_batch3_float",
                  ("verify_attn_fused", "int8"): "spec_batch3_int8",
                  ("decode_attn_grouped_int8", "exact"): "mistral_int8",
+                 ("decode_attn_int8_tail", "exact"): "int8_tail_exact_q",
+                 ("decode_attn_int8", "exact"): "int8_no_tail_exact_q",
                  ("decode_attn_grouped_int8", "int8_scores"):
                      "mistral_scores"}
     for r in results:
@@ -2980,6 +3220,9 @@ def main():
         else:
             r["path"] = home[r["name"]]
             r["launches"] = launches[r["path"]][key]
+        if r["name"] == "flash_attention":
+            # F1 also serves path (J)'s FusedSDPA graph: its launches there.
+            r["graph_launches"] = launches["graph_sdpa"]["flash_attention"]
         if r["name"] == "kv_append_int8":
             # K7 runs on path (H) too: its launches there beside (B)'s.
             r["h_launches"] = launches["mistral_int8"][key]
@@ -3005,7 +3248,7 @@ def main():
              "gqa_device_launches", "nz_max_abs_err", "nz_ms",
              "nz_plain_ms", "nz_bound_ms", "nz_device_launches",
              "exact_q_max_abs_err", "exact_q_ms", "exact_q_plain_ms",
-             "m4096")
+             "m4096", "graph_launches")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results]}))

@@ -5,10 +5,12 @@
 // modes (body _decode_flat_quant_kernel, tail round at
 // attention.py:1600-1626): int8 + tail, and int8 without a tail
 // (tail = nullptr, rows = tail_count = 0; the tail pointer is then never
-// read), both with q_bf16 (its partials mode runs on the KV-group kernel,
-// decode_attn_grouped_int8.cu). The TPU kernel's one-hot E-matrix head
-// expansion, token-packed
-// int32 rows and packed scale rows exist for the TPU's matrix unit and DMA
+// read), each with q_bf16 (q and the output rounded to bf16, the
+// reference's default) or with exact q (RTEN_FLAT_QBF16=0: q, the dots and
+// the output stay f32, as the reference's f32 E matrix at HIGHEST precision
+// keeps them). Its partials mode runs on the KV-group kernel
+// (decode_attn_grouped_int8.cu). The TPU kernel's one-hot E-matrix head
+// expansion, token-packed int32 rows and packed scale rows exist for the TPU's matrix unit and DMA
 // rules; here each block simply indexes its head's bytes.
 //
 // Contract: for sequence b and query head h (kv head h / (H / KVH)):
@@ -17,7 +19,8 @@
 //   rows [0, tail_count) from the bf16 window;
 //   score = (bf16(q) . k) * scale * k_scale, softmax in f32 (l sums the
 //   unscaled p, V is weighted by p * v_scale),
-//   out = bf16(sum p * v_scale * v / sum p), returned as f32.
+//   out = bf16(sum p * v_scale * v / sum p), returned as f32;
+//   with q_bf16 = 0, q enters exact and out = sum p * v_scale * v / sum p.
 //
 // Bound on the H100: bytes. At batch 256, 12 heads of 64 and a live length
 // L it reads B*L*(2*768 + 48) bytes of int8 rows and scales plus the
@@ -49,10 +52,11 @@ using decode_attn::load_row;
 constexpr int kUnroll = 4;                        // loads per warp pass
 constexpr int kWarpTok = kTokPerLoad * kUnroll;   // tokens per warp pass
 
-// The (acc, l) state of one (sequence, head), normalized and rounded to
-// bf16.
-__device__ inline float emit(float o, float sum) {
-  return bf16_round(o / fmaxf(sum, 1e-30f));
+// The (acc, l) state of one (sequence, head), normalized, and rounded to
+// bf16 with q_bf16.
+__device__ inline float emit(float o, float sum, int q_bf16) {
+  const float x = o / fmaxf(sum, 1e-30f);
+  return q_bf16 ? bf16_round(x) : x;
 }
 
 template <int kDpl>
@@ -61,7 +65,7 @@ __global__ void decode_attn_int8_tail_kernel(
     const __nv_bfloat16* __restrict__ scales, const int* __restrict__ lengths,
     const __nv_bfloat16* __restrict__ tail, float* __restrict__ out,
     float* __restrict__ part, int heads, int kvh, int cap, int rows,
-    int tail_count, float scale, int chunk) {
+    int tail_count, float scale, int chunk, int q_bf16) {
   constexpr int d = kLanesPerTok * kDpl;
   __shared__ float m_s[kWarps], l_s[kWarps];
   __shared__ float acc_s[kWarps][d];
@@ -79,7 +83,7 @@ __global__ void decode_attn_int8_tail_kernel(
   const float* qrow = q + ((long long)b * heads + h) * d + col;
 #pragma unroll
   for (int i = 0; i < kDpl; ++i) {
-    qv[i] = bf16_round(qrow[i]);
+    qv[i] = q_bf16 ? bf16_round(qrow[i]) : qrow[i];
     acc[i] = 0.0f;
   }
   float m = -INFINITY, l = 0.0f;
@@ -176,7 +180,7 @@ __global__ void decode_attn_int8_tail_kernel(
     if (mx != -INFINITY)
       for (int w = 0; w < kWarps; ++w) o += acc_s[w][i] * expf(m_s[w] - mx);
     if (splits == 1) {
-      out[((long long)b * heads + h) * d + i] = emit(o, sum);
+      out[((long long)b * heads + h) * d + i] = emit(o, sum, q_bf16);
     } else {
       float* pr = part + (((long long)b * heads + h) * splits + sp) * (d + 2);
       pr[i] = o;
@@ -191,7 +195,7 @@ __global__ void decode_attn_int8_tail_kernel(
 // Merges the chunks' states of one (head, sequence) and emits them.
 __global__ void merge_chunks_kernel(const float* __restrict__ part,
                                     float* __restrict__ out, int heads,
-                                    int d, int splits) {
+                                    int d, int splits, int q_bf16) {
   const int h = blockIdx.x, b = blockIdx.y;
   const float* pr = part + ((long long)b * heads + h) * splits * (d + 2);
   float mx = -INFINITY;
@@ -206,21 +210,22 @@ __global__ void merge_chunks_kernel(const float* __restrict__ part,
         o += pc[i] * w;
       }
     }
-    out[((long long)b * heads + h) * d + i] = emit(o, sum);
+    out[((long long)b * heads + h) * d + i] = emit(o, sum, q_bf16);
   }
 }
 
 }  // namespace
 
 // ``part``: f32 scratch [B, H, splits, D + 2] when splits > 1 (else
-// unused); ``chunk``: tokens per split. The wrapper checks d in {64, 128}.
+// unused); ``chunk``: tokens per split; ``q_bf16``: 1 rounds q and the
+// output to bf16, 0 keeps both exact. The wrapper checks d in {64, 128}.
 extern "C" int decode_attn_int8_tail(const void* q, const void* kv,
                                      const void* scales, const void* lengths,
                                      const void* tail, void* out, void* part,
                                      int batch, int heads, int kvh, int d,
                                      int cap, int rows, int tail_count,
-                                     int chunk, int splits, float scale,
-                                     void* stream) {
+                                     int chunk, int splits, int q_bf16,
+                                     float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (batch > 0) {
     const dim3 grid(heads, batch, splits);
@@ -228,18 +233,20 @@ extern "C" int decode_attn_int8_tail(const void* q, const void* kv,
       decode_attn_int8_tail_kernel<8><<<grid, kThreads, 0, st>>>(
           (const float*)q, (const int8_t*)kv, (const __nv_bfloat16*)scales,
           (const int*)lengths, (const __nv_bfloat16*)tail, (float*)out,
-          (float*)part, heads, kvh, cap, rows, tail_count, scale, chunk);
+          (float*)part, heads, kvh, cap, rows, tail_count, scale, chunk,
+          q_bf16);
     } else {
       decode_attn_int8_tail_kernel<16><<<grid, kThreads, 0, st>>>(
           (const float*)q, (const int8_t*)kv, (const __nv_bfloat16*)scales,
           (const int*)lengths, (const __nv_bfloat16*)tail, (float*)out,
-          (float*)part, heads, kvh, cap, rows, tail_count, scale, chunk);
+          (float*)part, heads, kvh, cap, rows, tail_count, scale, chunk,
+          q_bf16);
     }
     if (splits > 1) {
       const int err = (int)cudaGetLastError();
       if (err) return err;
       merge_chunks_kernel<<<dim3(heads, batch), d, 0, st>>>(
-          (const float*)part, (float*)out, heads, d, splits);
+          (const float*)part, (float*)out, heads, d, splits, q_bf16);
     }
   }
   return (int)cudaGetLastError();

@@ -47,7 +47,8 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.attention import (E_MATRIX_BUDGET, FLAT_VMEM_BUDGET,
-                                 flat_group_for, flat_vmem_bytes)
+                                 flat_group_for, flat_long_ctx, flat_q_bf16,
+                                 flat_vmem_bytes)
 from .metrics import Metrics
 from .paged_cache import PagedKVCache
 from .sampler import ArgMaxSampler, Sampler
@@ -141,7 +142,10 @@ class ServingEngine:
             if capacity >= 2048:
                 if max_batch % 8 == 0 and max_batch >= 16:
                     group = 8
-                if (capacity % 128
+                # The flat long-capacity dispatch needs both knobs on,
+                # read at call time as the reference reads them.
+                if (capacity % 128 or not flat_q_bf16()
+                        or not flat_long_ctx()
                         or flat_vmem_bytes(h, d, kvh, group, 128, window)
                         > FLAT_VMEM_BUDGET):
                     return False

@@ -8,12 +8,14 @@
   ``flash_attention`` (:118): blockwise attention with an online softmax
   at f32 accuracy (split-TF32 tensor-core products), at head_dim 128.
 * ``decode_attn_int8_tail`` (CUDA, ``csrc/decode_attn_int8_tail.cu``)
-  replaces ``flash_decode_flat`` (:1715) in its int8 + tail mode with
-  ``q_bf16=True``: packed int8 tokens dequantized by per-(token, head)
-  bf16 scales, then the bf16 tail window, q and the output rounded to bf16.
+  replaces ``flash_decode_flat`` (:1715) in its int8 + tail mode:
+  packed int8 tokens dequantized by per-(token, head) bf16 scales, then
+  the bf16 tail window; with ``q_bf16`` (the default) q and the output
+  rounded to bf16, without it (``RTEN_FLAT_QBF16=0``) both exact.
 * ``decode_attn_int8`` launches the same kernel without a tail: it
   replaces ``flash_decode_flat`` in its int8 mode without a tail
-  (``tail=None, q_bf16=True``). It has a launch count of its own.
+  (``tail=None``). It has a launch count of its own; both count per
+  ``q_bf16`` mode too ("bf16", "exact").
 * ``decode_attn_int8_partials`` (CUDA, ``csrc/decode_attn_grouped_int8.cu``
   on the KV-group kernel in its partials modes, at :func:`rows_plan`)
   replaces ``flash_decode_flat(partials=True)``: the unnormalized state for
@@ -66,6 +68,7 @@ choice between K8 and K6 for a float cache.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -130,6 +133,26 @@ FLAT_VMEM_BUDGET = 13 * 1024 * 1024
 E_MATRIX_BUDGET = 4 * 1024 * 1024
 
 
+def flat_q_bf16():
+    """``RTEN_FLAT_QBF16`` as the reference reads it, at call time
+    (transformer.py:394, :411-413, :441; engine.py:266-268): q rounded to
+    bf16 in every ``flash_decode_flat`` call unless it is "0"."""
+    return os.environ.get("RTEN_FLAT_QBF16", "1") != "0"
+
+
+def flat_long_ctx():
+    """``RTEN_FLAT_LONGCTX`` as the reference reads it, at call time
+    (transformer.py:411-413, engine.py:268): long-capacity int8 caches go
+    to the flat kernel unless it is "0" (they need ``flat_q_bf16`` too).
+
+    The reference's other flat knobs stay unread: ``RTEN_FLAT_DYNQ`` and
+    ``RTEN_FLAT_QSTREAM`` choose how the TPU kernel moves q into its
+    VMEM, ``RTEN_FLUSH_CARRY`` how its window flush carries rows, and
+    ``RTEN_ABLATE_TAIL_ROUND`` is a profiling ablation whose output is
+    wrong by design."""
+    return os.environ.get("RTEN_FLAT_LONGCTX", "1") != "0"
+
+
 def flat_vmem_bytes(heads, head_dim, kvh, group, block_k, window):
     """The reference's ``flat_vmem_bytes`` with ``q_bf16``
     (transformer.py:339-352)."""
@@ -158,39 +181,47 @@ def int8_decode_kernel(batch, heads, head_dim, kvh, cap, decode_attn="auto",
     """The kernel that the reference's decode dispatch runs for one query
     per sequence over an int8 cache without a tail window, and its group:
     ("flat", g) → K1' (``flash_decode_flat``, q rounded to bf16);
+    ("flat_exact", g) → K1' with exact q (``RTEN_FLAT_QBF16=0``);
     ("grouped", g) → G1 with exact q and ("grouped_scores", g) → G1 with
     ``int8_scores`` (``flash_decode_grouped``); ("fused", 0) → G2
     (``flash_decode_fused``). The port's kernels have no group: it is
-    returned so tests can hold the choice to the reference's."""
+    returned so tests can hold the choice to the reference's.
+    ``RTEN_FLAT_QBF16`` and ``RTEN_FLAT_LONGCTX`` are read at call time,
+    as the reference reads them."""
     kind = decode_attn
     if kind == "stream":
         kind = "fused"                  # transformer.py:379-380
     long_ctx = cap >= 2048              # :381
     group = flat_group_for(batch)       # :382
     blk = 128 if long_ctx else 64       # :383
+    q_bf16 = flat_q_bf16()
     if kind == "auto":
-        # :396-417, at the defaults of RTEN_FLAT_LONGCTX / RTEN_FLAT_QBF16.
-        flat_long = long_ctx and cap % blk == 0
+        # :396-417: long capacities take the flat kernel only with both
+        # knobs on.
+        flat_long = (long_ctx and flat_long_ctx() and q_bf16
+                     and cap % blk == 0)
         kind = ("flat" if group and (not long_ctx or flat_long)
                 else "grouped" if group else "fused")
     if kind == "flat" and long_ctx and batch % 8 == 0 and batch >= 16:
         group = 8                       # :418-425
     if kind == "flat" and group:
-        # :440-451: widen to 32 where the modeled buffers fit (no window).
-        if batch % 32 == 0 and batch >= 64 and group < 32 and \
+        # :440-451: with q_bf16, widen to 32 where the modeled buffers fit
+        # (no window).
+        if q_bf16 and batch % 32 == 0 and batch >= 64 and group < 32 and \
                 flat_vmem_bytes(heads, head_dim, kvh, 32, blk, 0) \
                 <= FLAT_VMEM_BUDGET:
             group = 32
-        # flash_decode_flat (attention.py:1752-1773) with q_bf16: the bf16
-        # E matrix round8(H)·D·KVH·D·2 bytes must fit 4 MB, the batch divide
-        # by the group, the capacity by the block and the block by 4;
-        # otherwise grouped with exact q (int8_scores off), whose own
-        # fallback is fused.
+        # flash_decode_flat (attention.py:1752-1773): the E matrix
+        # round8(H)·D·KVH·D (bf16 with q_bf16, else f32) must fit 4 MB,
+        # the batch divide by the group, the capacity by the block and the
+        # block by 4; otherwise grouped with exact q (int8_scores off),
+        # whose own fallback is fused.
         block_k = min(blk, cap)
-        e_bytes = -(-heads // 8) * 8 * head_dim * kvh * head_dim * 2
+        e_bytes = (-(-heads // 8) * 8 * head_dim * kvh * head_dim
+                   * (2 if q_bf16 else 4))
         if (batch % group == 0 and cap % block_k == 0 and block_k % 4 == 0
                 and e_bytes <= E_MATRIX_BUDGET):
-            return "flat", group
+            return ("flat" if q_bf16 else "flat_exact"), group
         return _grouped_or_fused(batch, group, cap, block_k, False)
     if kind in ("grouped", "flat"):
         # :480-486: int8_scores below group 16 at short capacities.
@@ -203,26 +234,29 @@ def int8_decode_kernel(batch, heads, head_dim, kvh, cap, decode_attn="auto",
 def float_decode_kernel(batch, heads, head_dim, kvh, cap, decode_attn="auto"):
     """The kernel that the reference's decode dispatch runs for one query
     per sequence over a float (f32 or bf16) cache, and its group
-    (``_pallas_decode_attn``, transformer.py:366-492, at the default
-    ``RTEN_FLAT_QBF16``): ("flat", g) → K8 (``flash_decode_flat``'s float
-    mode, q rounded to bf16); ("grouped", g), ("fused", 0) and ("stream",
-    0) → K6, which has the numerics of all three. The float path has no
-    group widening and no long-capacity group 8 (:418-425 and :440-451 are
-    for int8 caches)."""
+    (``_pallas_decode_attn``, transformer.py:366-492, reading
+    ``RTEN_FLAT_QBF16`` at call time): ("flat", g) → K8
+    (``flash_decode_flat``'s float mode, q rounded to bf16); ("flat_exact",
+    g) → that mode with exact q (``RTEN_FLAT_QBF16=0``), whose arithmetic
+    is K6's; ("grouped", g), ("fused", 0) and ("stream", 0) → K6, which has
+    the numerics of all three. The float path has no group widening and no
+    long-capacity group 8 (:418-425 and :440-451 are for int8 caches)."""
     group = group_for(batch)            # :382, float groups
     blk = 128 if cap >= 2048 else 64    # :381-383
     kind = decode_attn
     if kind == "auto":                  # :415-417: float caches stay grouped
         kind = "grouped" if group else "fused"
     if kind == "flat" and group:
-        # flash_decode_flat (attention.py:1752-1773) with q_bf16: the bf16
-        # E matrix round8(H)·D·KVH·D·2 bytes must fit 4 MB and the capacity
-        # divide by the block; otherwise grouped, whose own fallback is
-        # fused.
+        # flash_decode_flat (attention.py:1752-1773): the E matrix
+        # round8(H)·D·KVH·D (bf16 with q_bf16, else f32) must fit 4 MB and
+        # the capacity divide by the block; otherwise grouped, whose own
+        # fallback is fused.
+        q_bf16 = flat_q_bf16()
         block_k = min(blk, cap)
-        e_bytes = -(-heads // 8) * 8 * head_dim * kvh * head_dim * 2
+        e_bytes = (-(-heads // 8) * 8 * head_dim * kvh * head_dim
+                   * (2 if q_bf16 else 4))
         if cap % block_k == 0 and e_bytes <= E_MATRIX_BUDGET:
-            return "flat", group
+            return ("flat" if q_bf16 else "flat_exact"), group
         return _grouped_or_fused(batch, group, cap, block_k, False, False)
     if kind in ("grouped", "flat"):     # :480-486
         return _grouped_or_fused(batch, group or 8, cap, blk, False, False)
@@ -304,17 +338,20 @@ def _bf16(x):
 
 
 def decode_attn_int8_tail_plain(q, kv, scales, lengths, tail=None,
-                                tail_count=0, scale=None):
+                                tail_count=0, scale=None, q_bf16=True):
     """Plain PyTorch version of the kernel (same contract); ``tail`` None
     is the no-tail mode of ``decode_attn_int8``."""
     acc, _, l = _int8_flat_state(q, kv, scales, lengths, tail, tail_count,
-                                 scale, True)
-    return _bf16(acc / torch.clamp(l, min=1e-30))
+                                 scale, q_bf16)
+    out = acc / torch.clamp(l, min=1e-30)
+    return _bf16(out) if q_bf16 else out
 
 
-def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale):
-    """The int8 kernel on CUDA tensors, with or without the tail; counts
-    the launch on ``wrapper``."""
+def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale,
+                 q_bf16):
+    """The int8 kernel on CUDA tensors, with or without the tail, q rounded
+    to bf16 or exact; counts the launch on ``wrapper``, and per mode
+    ("bf16", "exact") in its ``mode_launches``."""
     name = wrapper.__name__
     b, h, d, kvh, cap, rows = _check(name, q, kv, scales, lengths, tail,
                                      tail_count)
@@ -329,19 +366,20 @@ def _launch_int8(wrapper, q, kv, scales, lengths, tail, tail_count, scale):
     part = (torch.empty((b, h, splits, d + 2), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
     fn = _build.function("decode_attn_int8_tail", "decode_attn_int8_tail",
-                         "pppppppiiiiiiiiifp")
+                         "pppppppiiiiiiiiiifp")
     err = fn(q.data_ptr(), kv.data_ptr(), scales.data_ptr(),
              lengths.data_ptr(), None if tail is None else tail.data_ptr(),
              out.data_ptr(), None if part is None else part.data_ptr(), b,
-             h, kvh, d, cap, rows, tail_count, chunk, splits, float(scale),
-             _build.stream())
+             h, kvh, d, cap, rows, tail_count, chunk, splits, int(q_bf16),
+             float(scale), _build.stream())
     _build.check(err, name)
     wrapper.launches += 1
+    wrapper.mode_launches["bf16" if q_bf16 else "exact"] += 1
     return out
 
 
 def decode_attn_int8_tail(q, kv, scales, lengths, tail, tail_count,
-                          scale=None):
+                          scale=None, q_bf16=True):
     """Decode attention for one query per sequence.
 
     q f32 [B, H, D]; kv int8 [B, cap, 2, KVH*D] (plane 0 K, plane 1 V);
@@ -350,38 +388,43 @@ def decode_attn_int8_tail(q, kv, scales, lengths, tail, tail_count,
     host int in 1..R (the window fill including the current token, the
     same for every sequence). Reads packed tokens
     ``[0, lengths - tail_count)`` then tail rows ``[0, tail_count)``.
-    Returns f32 [B, H, D] holding bf16 values. CPU tensors take the plain
+    Returns f32 [B, H, D] holding bf16 values; with ``q_bf16=False``
+    (``flash_decode_flat(q_bf16=False)``, ``RTEN_FLAT_QBF16=0``) q enters
+    exact and the output is not rounded. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""
     tail_count = int(tail_count)
     if _build.on_cpu("decode_attn_int8_tail", q, kv, scales, lengths, tail):
         return decode_attn_int8_tail_plain(q, kv, scales, lengths, tail,
-                                           tail_count, scale)
+                                           tail_count, scale, q_bf16)
     return _launch_int8(decode_attn_int8_tail, q, kv, scales, lengths, tail,
-                        tail_count, scale)
+                        tail_count, scale, q_bf16)
 
 
 decode_attn_int8_tail.launches = 0
+decode_attn_int8_tail.mode_launches = {"bf16": 0, "exact": 0}
 
 
-def decode_attn_int8_plain(q, kv, scales, lengths, scale=None):
+def decode_attn_int8_plain(q, kv, scales, lengths, scale=None, q_bf16=True):
     """Plain PyTorch version of ``decode_attn_int8`` (same contract)."""
     return decode_attn_int8_tail_plain(q, kv, scales, lengths, None, 0,
-                                       scale)
+                                       scale, q_bf16)
 
 
-def decode_attn_int8(q, kv, scales, lengths, scale=None):
+def decode_attn_int8(q, kv, scales, lengths, scale=None, q_bf16=True):
     """Decode attention over an int8 cache without a tail window: the
     tail kernel's contract with no window rows. Reads tokens
-    ``[0, min(lengths, cap))``; q and the output are rounded to bf16.
-    Returns f32 [B, H, D]. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    ``[0, min(lengths, cap))``; q and the output are rounded to bf16, or
+    with ``q_bf16=False`` both stay exact. Returns f32 [B, H, D]. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if _build.on_cpu("decode_attn_int8", q, kv, scales, lengths):
-        return decode_attn_int8_plain(q, kv, scales, lengths, scale)
+        return decode_attn_int8_plain(q, kv, scales, lengths, scale, q_bf16)
     return _launch_int8(decode_attn_int8, q, kv, scales, lengths, None, 0,
-                        scale)
+                        scale, q_bf16)
 
 
 decode_attn_int8.launches = 0
+decode_attn_int8.mode_launches = {"bf16": 0, "exact": 0}
 
 
 def int8_partials_check(batch, heads, head_dim, kvh, cap, q_bf16=True):

@@ -59,3 +59,12 @@ def params_from_numpy(tree, device="cuda"):
         return obj
 
     return walk(tree)
+
+
+def resnet_params_from_numpy(params, device="cuda"):
+    """A ResNet weights dict (name → numpy array, as the reference's
+    ``ResNet.init_params`` gives it) as f32 tensors on ``device`` for
+    :meth:`~rten_tpu_torch.models.resnet.ResNet.forward`."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+            for k, v in params.items()}

@@ -54,7 +54,8 @@ from ..kernels.attention import (attn_reference, decode_attn_flat_float,
                                  decode_attn_int8_tail, decode_attn_paged,
                                  decode_attn_paged_grid,
                                  decode_attn_paged_int8, flash_attention,
-                                 flash_attention_takes, float_decode_kernel,
+                                 flash_attention_takes, flat_q_bf16,
+                                 float_decode_kernel,
                                  group_for, int8_decode_kernel,
                                  verify_attn_fused,
                                  verify_attn_grouped)
@@ -434,7 +435,7 @@ class TransformerLM:
             return decode_attn_int8_tail(
                 q3, cache.kv[layer_idx], cache.scales[layer_idx],
                 cache.lengths + 1, cache.tail[layer_idx],
-                cache.tail_count + 1)
+                cache.tail_count + 1, q_bf16=flat_q_bf16())
         return _cache_decode_attn(self.config, q3, cache, layer_idx)
 
     def _attention(self, layer_params, x, cache, layer_idx, rope=None,
@@ -695,6 +696,7 @@ def _cache_decode_attn(cfg, q3, cache, layer_idx):
         kind, _ = float_decode_kernel(b, q3.shape[1], cache.head_dim,
                                       cache.kv_heads, cache.capacity,
                                       cfg.decode_attn)
+        # "flat_exact" (RTEN_FLAT_QBF16=0) is K6's arithmetic.
         attend = decode_attn_flat_float if kind == "flat" else \
             decode_attn_float
         return attend(q3, cache.kv[layer_idx], lengths)
@@ -702,8 +704,9 @@ def _cache_decode_attn(cfg, q3, cache, layer_idx):
                                  cache.kv_heads, cache.capacity,
                                  cfg.decode_attn, cfg.quant_int8_scores)
     kv, scales = cache.kv[layer_idx], cache.scales[layer_idx]
-    if kind == "flat":
-        return decode_attn_int8(q3, kv, scales, lengths)
+    if kind in ("flat", "flat_exact"):
+        return decode_attn_int8(q3, kv, scales, lengths,
+                                q_bf16=kind == "flat")
     if kind == "fused":
         return decode_attn_fused_int8(q3, kv, scales, lengths)
     return decode_attn_grouped_int8(q3, kv, scales, lengths,

@@ -76,6 +76,38 @@ def test_decode_attn_kernel_matches_plain(gen, d, tail_count):
     assert (out - ref).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tail_count", [0, 1, 5])
+def test_decode_attn_exact_q_kernel_matches_plain(gen, d, tail_count):
+    """K1's and K1''s exact-q mode (``RTEN_FLAT_QBF16=0``): q, the sums and
+    the output stay f32, so the kernel meets its plain version within
+    1e-5 of max |out|, with the window (fills 1 and 5) and without it (0),
+    one chunk and several (capacity 4096)."""
+    for b, cap, lens in ((6, 64, [0, 1, 17, 40, 64 + tail_count, 94]),
+                         (2, 4096, [4000, 4096 + tail_count])):
+        kv, scales, tail = _cache(gen, b, cap, 8, 2, d)
+        q = torch.randn((b, 4, d), device="cuda", generator=gen)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        if tail_count:
+            wrapper, args = at.decode_attn_int8_tail, (q, kv, scales, lengths,
+                                                       tail, tail_count)
+            plain = at.decode_attn_int8_tail_plain
+        else:
+            wrapper, args = at.decode_attn_int8, (q, kv, scales, lengths)
+            plain = at.decode_attn_int8_plain
+        before = wrapper.mode_launches["exact"]
+        out = wrapper(*args, q_bf16=False)
+        ref = plain(*args, q_bf16=False)
+        torch.cuda.synchronize()
+        assert wrapper.mode_launches["exact"] == before + 1
+        assert torch.isfinite(out).all()
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item()
+        # Exact: the rounded mode's output is not within that.
+        rounded = wrapper(*args)
+        assert (rounded - ref).abs().max().item() > err
+
+
 # (head_dim, the window a misaligned view, the instance): the wide
 # instance at head_dim 64 and 128, the narrow one at 96 and on a window
 # that starts 2 bytes past a 16-byte boundary.

@@ -167,3 +167,56 @@ def test_kernel_wrapper_on_cuda_raises_without_card(kernel, no_card,
     with pytest.raises(RuntimeError, match="CUDA device"):
         kernel(*_kernel_args()[kernel.__name__])
     assert kernel.launches == before
+
+
+def test_graph_runtime_defaults_to_cuda_and_raises_without_card(
+        no_card, tmp_path):
+    """Model.load / load_file / Model(graph) / GraphExecutor and the CLI
+    put a graph on the card unless asked for the CPU: without a card they
+    raise (the CLI exits non-zero naming CUDA), and device="cpu" runs."""
+    from rten_tpu_torch.fmt.model_builder import ModelBuilder
+    from rten_tpu_torch.ir.graph import graph_from_model_file
+    from rten_tpu_torch.fmt import container
+    from rten_tpu_torch.runtime import GraphExecutor, Model, ModelOptions
+
+    mb = ModelBuilder()
+    g = mb.graph
+    x = g.add_value("x", shape=[2, 3])
+    out = g.add_operator("Relu", [x], name="relu")
+    g.inputs, g.outputs = [x], [out]
+    data = mb.to_bytes()
+    path = tmp_path / "relu.rten"
+    path.write_bytes(data)
+    graph = graph_from_model_file(container.load_bytes(data))
+    for call in (lambda: Model.load(data),
+                 lambda: Model.load_file(str(path)),
+                 lambda: Model.load(data, ModelOptions(device="cuda")),
+                 lambda: Model(graph),
+                 lambda: GraphExecutor(graph)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    model = Model.load(data, device="cpu")
+    got = model.run_one(np.float32([[1, -2, 3], [-4, 5, -6]]))
+    assert got.device.type == "cpu"
+    assert got.tolist() == [[1, 0, 3], [0, 5, 0]]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-m", "rten_tpu_torch.cli",
+                          str(path)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and "CUDA" in res.stderr
+
+
+def test_no_source_of_the_port_imports_jax_or_rten_tpu():
+    """A grep over every Python file of the package and chip_smoke.py: no
+    import line names jax, jaxlib or rten_tpu (rten_tpu_torch is the
+    port itself)."""
+    import re
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|rten_tpu)\b",
+                         re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "rten_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    assert len(files) > 40
+    bad = [f for f in files if pattern.search(open(f).read())]
+    assert not bad, bad
