@@ -185,15 +185,46 @@ Phases (any failure exits non-zero; nothing is caught):
    S 512, D 128 that must launch F1 once (its launches counted from 0 in
    that run) and meet the CPU within K6's tolerance.
 
+7. Path (K), the HTTP server (``rten_tpu_torch.serve``) in-process over
+   ``build_engine(--demo --quantize int8 --max-batch 64 --capacity 1024)``
+   with bursts of 8: GPT-2-small, ``cache="auto"`` (int8 + the 16-token
+   tail), the per-request sampler (no fused head). After a warm-up
+   completion and with the launch counts set to 0: a 48-token prefix
+   registered (``POST /v1/prefixes``) and 96 concurrent completions of
+   64-token prompts x 48 new tokens (32 greedy, 32 streamed at temperature
+   0.8, top-k 40, top-p 0.95, 32 under the prefix); every completion's ids
+   (streamed deltas concatenated) in the vocabulary and equal to its
+   engine request's tokens; ``/stats`` counts 32 prefix hits; K1 once per
+   layer and decode step, K4 at least once a step (the LM head), K3 on
+   every flush, V1's fused int8 entry 12 layers x 8 slices a prefix hit,
+   K2 never. The wall time, requests/s, decode tokens/s and ``/stats``'s
+   p50 TTFT are printed. Then one greedy completion alone against
+   ``engine.generate`` of the same configuration, a chat completion
+   (plain and streamed) through a char-level stub tokenizer, a
+   ``--logprobs`` server (4 requests served alone, each logprob <= 0 and
+   within 1e-4 of a teacher-forced replay of the request through the same
+   engine steps on the card); then the server's engine card against CPU
+   (the prefix registered, a hit and a cold prefill admitted together, 4
+   greedy decode steps at batch 64: logits within PATH_LOGIT_TOL, K1, K3,
+   K4 and V1 launched on the card), one admission of the same 64-token
+   prompt cold and as a prefix hit timed in turns, the sampler's top-64
+   against a stable sort with ties and its device time; and the CLI
+   (``python -m rten_tpu_torch.serve --demo --quantize int8``) as a
+   subprocess: /health, one completion, SIGINT. K1 and K3 at B 64,
+   capacity 1024 and V1's fused entry at B 1, S 8, capacity 1024 are held
+   against their plain versions with the kernel phases (printed).
+
 Prints a ``{"kernels": [...]}`` JSON line (V1 with one entry per entry
-point and mode, G1 per mode), then as the last line ``{"ok": true,
-"device": {...}}``.
+point and mode, G1 per mode; K1, K3, K4 and V1's fused int8 entry carry
+their path (K) launches as ``k_launches``), then as the last line ``{"ok":
+true, "device": {...}}``.
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -207,6 +238,7 @@ from rten_tpu_torch.fmt import container as fmt_container
 from rten_tpu_torch.fmt.model_builder import ModelBuilder
 from rten_tpu_torch.fmt.serialize import graph_to_bytes
 from rten_tpu_torch.generate import ArgMaxSampler, ServingEngine
+from rten_tpu_torch.generate.sampler import PerRequestSampler, _top_k
 from rten_tpu_torch.ir.graph import graph_from_model_file
 from rten_tpu_torch.ir.quantize_graph import quantize_graph_weights
 from rten_tpu_torch.kernels import _build
@@ -2237,6 +2269,524 @@ def graph_runtime_path(launches):
 
 
 
+# Path (K): the HTTP server on GPT-2-small int8 (serve.py's --demo
+# --quantize int8 --max-batch 64 --capacity 1024 --burst 8).
+HTTP_ARGS = dict(weights=None, demo=True, quantize="int8", tokenizer=None,
+                 fixed_greedy=False, spec_draft=0, kv_cache=None, mesh=None,
+                 max_batch=64, capacity=1024, paged=False, page_size=64,
+                 logprobs=False, overlap=False, device="cuda")
+HTTP_BURST = 8
+HTTP_PREFIX = 48                   # tokens of the registered system prefix
+HTTP_PROMPT = 64                   # tokens of every completion's prompt
+HTTP_NEW = 48                      # new tokens a completion
+HTTP_KIND = 32                     # requests of each of the three kinds
+HTTP_HOT = dict(temperature=0.8, top_k=40, top_p=0.95)
+HTTP_LOGPROB_TOL = 1e-4
+HTTP_LOGPROB_REQUESTS = 4
+HTTP_LOGPROB_NEW = 16
+HTTP_CPU_NEW, HTTP_CPU_BURST = 5, 2    # the card-against-CPU run of (K)
+HTTP_ADMIT_REPS = 10
+
+
+def _http(base, path, payload=None, timeout=600):
+    """POST ``payload`` (GET when None); returns the parsed JSON body, or
+    for a streamed request the list of SSE chunk choices (an "error" chunk
+    fails the run)."""
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        if not (payload or {}).get("stream"):
+            return json.load(resp)
+        chunks = []
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            body = line[len("data: "):]
+            if body == "[DONE]":
+                return chunks
+            evt = json.loads(body)
+            check("error" not in evt, f"path (K): streamed error {evt}")
+            chunks.append(evt["choices"][0])
+    check(False, "path (K): a stream ended without [DONE]")
+
+
+class _CharTok:
+    """Char-level stub tokenizer (no tokenizer.json is read on the card:
+    the BPE and Whitespace pre-tokenizers import ``regex``)."""
+
+    def encode(self, text, add_special=False):
+        return [ord(c) % 50257 for c in text]
+
+    def decode(self, ids):
+        return "".join(chr(i) for i in ids)
+
+
+def _start_server(engine, **kw):
+    import threading
+    from rten_tpu_torch.serve import serve
+    srv, driver = serve(engine, port=0, burst=HTTP_BURST, **kw)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+
+    def stop():
+        srv.shutdown()
+        driver.stop()
+        srv.server_close()
+
+    return f"http://127.0.0.1:{srv.server_address[1]}", stop
+
+
+class _ForcedTokens:
+    """A sampler that emits the given tokens for slot 0 and records slot
+    0's log-softmax at each: a teacher-forced replay of one request on the
+    card through the engine's own steps."""
+
+    def __init__(self, tokens):
+        self.tokens, self.logprobs = list(tokens), []
+
+    def sample(self, logits, generator=None):
+        i = len(self.logprobs)
+        tok = self.tokens[i] if i < len(self.tokens) else 0
+        self.logprobs.append(
+            torch.log_softmax(logits[0].float(), dim=-1)[tok].item())
+        out = torch.zeros(logits.shape[0], dtype=torch.int32,
+                          device=logits.device)
+        out[0] = tok
+        return out
+
+
+class _RecordingSampler(PerRequestSampler):
+    """The per-request sampler, keeping every call's logits rows."""
+
+    def __init__(self):
+        super().__init__()
+        self.logits = []
+
+    def sample(self, logits, temps, top_ks, top_ps, generator=None):
+        self.logits.append(logits.float().cpu().numpy())
+        return super().sample(logits, temps, top_ks, top_ps, generator)
+
+
+def _http_prompts(vocab, seed):
+    """The 48-token system prefix, a 64-token prompt under it and a 64-token
+    prompt without it."""
+    rng = np.random.RandomState(seed)
+    system = [int(t) for t in rng.randint(0, vocab, HTTP_PREFIX)]
+    hit = system + [int(t) for t in rng.randint(0, vocab,
+                                                 HTTP_PROMPT - HTTP_PREFIX)]
+    return system, hit, [int(t) for t in rng.randint(0, vocab, HTTP_PROMPT)]
+
+
+def _http_engine(model, params, sampler, device="cuda"):
+    """Path (K)'s engine as ``build_engine`` makes it (max_batch 64,
+    capacity 1024, cache="auto") with ``sampler``."""
+    eng = ServingEngine(model, params, max_batch=HTTP_ARGS["max_batch"],
+                        capacity=HTTP_ARGS["capacity"], sampler=sampler,
+                        cache="auto", device=device)
+    check(eng._tail_flush == 16 and eng.quantized_cache,
+          f"path (K) on {device}: cache='auto' gave quantized="
+          f"{eng.quantized_cache}, tail window {eng._tail_flush}")
+    return eng
+
+
+def http_card_against_cpu(model, params_gpu):
+    """Path (K)'s engine on the card and on the CPU with the same weights:
+    the 48-token prefix registered, one 64-token prompt under it (a hit: 12
+    layers x 8 V1 slices over its 64-token suffix bucket) and one without
+    (a cold prefill) admitted together, then ``HTTP_CPU_NEW - 1`` greedy
+    decode steps at batch 64 in bursts of ``HTTP_CPU_BURST`` (a window
+    flush, K3, between them). Every sampler call's live rows are held at
+    PATH_LOGIT_TOL while the two devices' tokens agree; a differing token
+    must follow a CPU top-2 margin below twice that. The card run must
+    launch K1, K3, K4 and V1's fused int8 entry."""
+    system, hit, miss = _http_prompts(model.config.vocab_size, 3)
+
+    def run(params, dev):
+        rec = _RecordingSampler()
+        eng = _http_engine(model, params, rec, dev)
+        eng.register_prefix(system)
+        toks = eng.generate([hit, miss], max_new_tokens=HTTP_CPU_NEW,
+                            burst=HTTP_CPU_BURST)
+        check(eng.stats()["prefix_hits"] == 1
+              and all(len(t) == HTTP_CPU_NEW for t in toks),
+              f"path (K) on {dev}: {eng.stats()['prefix_hits']} prefix "
+              f"hits, {[len(t) for t in toks]} tokens")
+        # The hit's admission, the miss's, then one call a decode step.
+        check(len(rec.logits) == 1 + HTTP_CPU_NEW,
+              f"path (K) on {dev}: {len(rec.logits)} sampler calls")
+        return toks, rec.logits
+
+    kernels.reset_launch_counts()
+    card, rec_card = run(params_gpu, "cuda")
+    counts = kernels.launch_counts()
+    cpu, rec_cpu = run(to_device(params_gpu, "cpu"), "cpu")
+
+    def row(rec, i, c):
+        """The logits row that produced request i's token c."""
+        return rec[i][0] if c == 0 else rec[1 + c][i]
+
+    worst, diverged = 0.0, 0
+    for i, what in enumerate(("prefix hit", "cold prefill")):
+        first = next((c for c in range(HTTP_CPU_NEW)
+                      if card[i][c] != cpu[i][c]), HTTP_CPU_NEW)
+        for c in range(min(first + 1, HTTP_CPU_NEW)):
+            worst = max(worst, float(np.abs(row(rec_card, i, c)
+                                            - row(rec_cpu, i, c)).max()))
+        if first < HTTP_CPU_NEW:
+            diverged += 1
+            top = np.sort(row(rec_cpu, i, first))[-2:]
+            margin = float(top[1] - top[0])
+            print(f"path (K) card vs cpu: the {what} first differs at token "
+                  f"{first}, top-2 margin {margin:.3e} (tol "
+                  f"{2 * PATH_LOGIT_TOL:.1e})")
+            check(margin < 2 * PATH_LOGIT_TOL,
+                  f"path (K) card vs cpu: the {what} differs above the "
+                  f"tolerance")
+    steps = HTTP_CPU_NEW - 1
+    n_layers = model.config.n_layers
+    print(f"path (K) card vs cpu (max_batch 64, capacity 1024, a prefix hit "
+          f"and a cold prefill, {steps} decode steps in bursts of "
+          f"{HTTP_CPU_BURST}): {2 * HTTP_CPU_NEW} tokens, {diverged} "
+          f"near-tie divergences, max logit difference {worst:.3e} (tol "
+          f"{PATH_LOGIT_TOL:.1e}); card launches {nonzero(counts)}")
+    check(worst < PATH_LOGIT_TOL, "path (K): card and cpu logits disagree")
+    check(counts["decode_attn_int8_tail"] == n_layers * steps
+          and counts["verify_attn_fused.int8"]
+          == n_layers * -(-64 // at.VERIFY_MAX_S)     # suffix bucket 64
+          and counts["tail_flush_int8"] >= n_layers
+          and counts["matmul_int8_wo"] >= steps,
+          "path (K) card vs cpu: the card run missed K1, K3, K4 or V1")
+
+
+def prefix_admission_ms(model, params, reps=HTTP_ADMIT_REPS):
+    """Host ms of one admission on path (K)'s engine (the prompt's KV into
+    its slot, its first token sampled and read back) of the same 64-token
+    prompt: cold (the 64-token bucket prefilled) on an engine without
+    prefixes, and as a prefix hit (the registered 48 tokens reused, the
+    16-token suffix prefilled in its 64-token bucket: 12 layers x 8 V1
+    slices) on one with the prefix. A synchronized ``_admit`` on the host
+    clock, cold and hit in turns; medians of ``reps`` after two warm-ups
+    each. Returns {"cold": ms, "hit": ms}."""
+    system, prompt, _ = _http_prompts(model.config.vocab_size, 5)
+    engines = {"cold": _http_engine(model, params, PerRequestSampler()),
+               "hit": _http_engine(model, params, PerRequestSampler())}
+    engines["hit"].register_prefix(system)
+    times = {kind: [] for kind in engines}
+    for _ in range(reps + 2):
+        for kind, eng in engines.items():
+            req = eng.submit(prompt, max_new_tokens=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._admit()
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+            check(req.done and len(req.tokens) == 1,
+                  f"path (K): the {kind} admission gave no first token")
+    check(engines["hit"].stats()["prefix_hits"] == reps + 2
+          and engines["cold"].stats()["prefix_hits"] == 0,
+          "path (K): the timed admissions hit the prefix wrongly")
+    return {kind: sorted(t[2:])[reps // 2] for kind, t in times.items()}
+
+
+def check_sampler(timer, vocab):
+    """The per-request sampler at path (K)'s decode shape (64 rows of the
+    vocabulary, greedy and hot rows mixed): ``_top_k``'s candidates equal
+    the first 64 of a stable descending sort on logits with planted ties,
+    and the device ms of a whole ``sample`` and of ``_top_k`` beside the
+    stable sort's. Returns the three times."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    logits = torch.randn((64, vocab), device="cuda", generator=g)
+    # Many equal values at the 64th place; + 0.0 leaves no -0.0, which
+    # lax.top_k ranks below +0.0 and a stable sort ties with it.
+    tied = (logits * 4).round() / 4 + 0.0
+    values, indices = _top_k(tied, 64)
+    ref = torch.sort(tied, dim=-1, descending=True, stable=True)
+    check(torch.equal(indices, ref.indices[:, :64])
+          and torch.equal(values, ref.values[:, :64]),
+          "path (K): the sampler's top-64 differs from a stable sort's")
+    hot = torch.arange(64, device="cuda") % 2 == 1
+    temps = torch.where(hot, HTTP_HOT["temperature"], 0.0)
+    top_ks = torch.where(hot, float(HTTP_HOT["top_k"]), 0.0)
+    top_ps = torch.where(hot, HTTP_HOT["top_p"], 1.0)
+    sampler = PerRequestSampler()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return {"sample": timer(lambda: sampler.sample(logits, temps, top_ks,
+                                                   top_ps, generator=gen)),
+            "top_k": timer(lambda: _top_k(logits, 64)),
+            "stable_sort": timer(lambda: torch.sort(
+                logits, dim=-1, descending=True, stable=True))}
+
+
+def http_serve_path(launches, smi, timer):
+    """Path (K): the port's HTTP server in-process over GPT-2-small int8
+    (``build_engine``: cache="auto" → int8 + the 16-token tail, the
+    per-request sampler), 96 concurrent completions (greedy, streamed hot,
+    and under a registered 48-token prefix), a chat completion through a
+    char-level stub tokenizer, a --logprobs server held against a
+    teacher-forced replay, and the CLI as a subprocess."""
+    import argparse
+    import socket
+    import threading
+
+    from rten_tpu_torch.serve import build_engine
+
+    t_path = time.perf_counter()
+    engine, _ = build_engine(argparse.Namespace(**HTTP_ARGS))
+    vocab = engine.model.config.vocab_size
+    check(engine._tail_flush == 16 and engine.quantized_cache,
+          f"path (K): cache='auto' gave quantized={engine.quantized_cache}, "
+          f"tail window {engine._tail_flush}")
+    check(isinstance(engine.sampler, PerRequestSampler)
+          and not engine._fused_head,
+          "path (K): the server's default is the per-request sampler "
+          "without the fused head")
+    submitted = {}
+    plain_submit = engine.submit
+
+    def recording_submit(prompt_ids, *args, **kw):
+        req = plain_submit(prompt_ids, *args, **kw)
+        submitted[tuple(req.prompt_ids)] = req
+        return req
+
+    engine.submit = recording_submit
+    rng = np.random.RandomState(7)
+
+    def prompt(n=HTTP_PROMPT):
+        return [int(t) for t in rng.randint(0, vocab, n)]
+
+    base, stop = _start_server(engine)
+    try:
+        warm = _http(base, "/v1/completions", {"prompt": prompt(),
+                                               "max_tokens": 8})
+        check(len(warm["choices"][0]["token_ids"]) == 8,
+              "path (K): the warm-up completion failed")
+        system = prompt(HTTP_PREFIX)
+        before = _http(base, "/stats")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        reg = _http(base, "/v1/prefixes", {"prompt": system})
+        check(reg.get("registered") == HTTP_PREFIX,
+              f"path (K): prefix registration answered {reg}")
+        bodies = ([{"prompt": prompt(), "max_tokens": HTTP_NEW}
+                   for _ in range(HTTP_KIND)]
+                  + [{"prompt": prompt(), "max_tokens": HTTP_NEW,
+                      "stream": True, **HTTP_HOT} for _ in range(HTTP_KIND)]
+                  + [{"prompt": system + prompt(HTTP_PROMPT - HTTP_PREFIX),
+                      "max_tokens": HTTP_NEW} for _ in range(HTTP_KIND)])
+        results = [None] * len(bodies)
+        errors = []
+
+        def fetch(i):
+            try:
+                results[i] = _http(base, "/v1/completions", bodies[i])
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(f"request {i}: {exc!r}")
+
+        threads = [threading.Thread(target=fetch, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        after = _http(base, "/stats")
+        counts = kernels.launch_counts()
+        check(not errors, f"path (K): failed requests: {errors[:4]}")
+        for body, res in zip(bodies, results):
+            if body.get("stream"):
+                ids = [t for c in res for t in c["token_ids"]]
+                finish = [c["finish_reason"] for c in res
+                          if c.get("finish_reason")]
+            else:
+                ids = res["choices"][0]["token_ids"]
+                finish = [res["choices"][0]["finish_reason"]]
+            req = submitted[tuple(body["prompt"])]
+            check(len(ids) == HTTP_NEW and finish == ["length"]
+                  and all(0 <= t < vocab for t in ids),
+                  f"path (K): a completion gave {len(ids)} ids, finish "
+                  f"{finish}")
+            check(ids == req.tokens, "path (K): the ids sent (streamed "
+                  "deltas concatenated) differ from the request's tokens")
+        hits = after["prefix_hits"] - before["prefix_hits"]
+        steps = after["decode_steps"] - before["decode_steps"]
+        tokens = after["tokens"] - before["tokens"]
+        check(hits == HTTP_KIND, f"path (K): /stats counts {hits} prefix "
+              f"hits, not {HTTP_KIND}")
+        n_layers = engine.model.config.n_layers
+        v1 = counts["verify_attn_fused.int8"]
+        slices = -(-64 // at.VERIFY_MAX_S)     # suffix bucket 64
+        print(f"path (K): {len(bodies)} HTTP completions ({HTTP_KIND} "
+              f"greedy, {HTTP_KIND} streamed at {HTTP_HOT}, {HTTP_KIND} "
+              f"under the {HTTP_PREFIX}-token prefix) of {HTTP_PROMPT}-token "
+              f"prompts x {HTTP_NEW} new tokens at max_batch 64, burst "
+              f"{HTTP_BURST}: wall {wall:.3f} s, {len(bodies) / wall:.2f} "
+              f"requests/s, {tokens / wall:.1f} decode tokens/s ({tokens} "
+              f"tokens, {steps} decode steps); /stats: tokens_per_s "
+              f"{after['tokens_per_s']} (since the engine started), p50 "
+              f"TTFT {after.get('ttft_p50_ms')} ms, p99 TTFT "
+              f"{after.get('ttft_p99_ms')} ms (with the warm-up request), "
+              f"prefix_hits {hits}; {smi}")
+        print(f"path (K) launches: {nonzero(counts)}")
+        check(counts["decode_attn_int8_tail"] == n_layers * steps,
+              f"path (K): K1 launched {counts['decode_attn_int8_tail']} "
+              f"times, not once per layer and decode step ({n_layers} x "
+              f"{steps})")
+        check(counts["matmul_int8_wo"] >= steps,
+              f"path (K): K4 launched {counts['matmul_int8_wo']} times over "
+              f"{steps} decode steps (the lm_head takes it every step)")
+        check(counts["tail_flush_int8"] >= n_layers * (steps // 16)
+              and counts["tail_flush_int8"] % n_layers == 0,
+              f"path (K): K3 launched {counts['tail_flush_int8']} times "
+              f"over {steps} decode steps")
+        check(v1 == n_layers * slices * hits,
+              f"path (K): V1's fused int8 entry launched {v1} times, not "
+              f"{n_layers} layers x {slices} slices x {hits} prefix hits")
+        check(counts["head_argmax_int8"] == 0,
+              "path (K): K2 launched under the per-request sampler")
+        launches["http_serve"] = counts
+
+        # One greedy request alone against engine.generate of the same
+        # configuration on the same weights.
+        alone = prompt()
+        got = _http(base, "/v1/completions", {
+            "prompt": alone, "max_tokens": HTTP_NEW})["choices"][0]
+        stop()
+        stop = None
+        offline = ServingEngine(engine.model, engine.params,
+                                max_batch=HTTP_ARGS["max_batch"],
+                                capacity=HTTP_ARGS["capacity"],
+                                sampler=PerRequestSampler(), cache="auto")
+        want = offline.generate([alone], max_new_tokens=HTTP_NEW,
+                                burst=HTTP_BURST)[0]
+        check(got["token_ids"] == want, "path (K): a greedy HTTP completion "
+              "alone differs from engine.generate")
+        del offline
+        print("path (K): one greedy HTTP completion alone equals "
+              "engine.generate of the same configuration (48 tokens)")
+
+        # Chat completions through the char-level stub tokenizer.
+        base, stop = _start_server(engine, tokenizer=_CharTok())
+        chat = {"messages": [{"role": "system", "content": "Be brief."},
+                             {"role": "user", "content": "Hello, card."}],
+                "max_tokens": 12}
+        full = _http(base, "/v1/chat/completions", chat)
+        chunks = _http(base, "/v1/chat/completions", {**chat,
+                                                       "stream": True})
+        text = "".join(c.get("delta", {}).get("content", "")
+                       for c in chunks)
+        content = full["choices"][0]["message"]["content"]
+        check(full["usage"]["completion_tokens"] == 12 and text == content,
+              "path (K): the streamed chat completion differs from the "
+              "plain one")
+        print(f"path (K): chat completion, plain and streamed: "
+              f"{len(content)} characters, the same")
+    finally:
+        if stop is not None:
+            stop()
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+
+    # A --logprobs server: each logprob of a request served alone against
+    # the log-softmax of a teacher-forced replay of it on the card.
+    lp_engine, _ = build_engine(argparse.Namespace(**{**HTTP_ARGS,
+                                                      "logprobs": True}))
+    base, stop = _start_server(lp_engine)
+    try:
+        served = []
+        for i in range(HTTP_LOGPROB_REQUESTS):
+            body = {"prompt": prompt(), "max_tokens": HTTP_LOGPROB_NEW,
+                    "logprobs": True, **(HTTP_HOT if i % 2 else {})}
+            served.append((body, _http(base, "/v1/completions",
+                                       body)["choices"][0]))
+    finally:
+        stop()
+    worst = 0.0
+    for body, choice in served:
+        lps = choice["logprobs"]["token_logprobs"]
+        check(len(lps) == HTTP_LOGPROB_NEW and all(v <= 0.0 for v in lps),
+              f"path (K): logprobs {lps[:4]}... not all <= 0")
+        forced = _ForcedTokens(choice["token_ids"])
+        replay = ServingEngine(lp_engine.model, params,
+                               max_batch=HTTP_ARGS["max_batch"],
+                               capacity=HTTP_ARGS["capacity"],
+                               sampler=forced, cache="auto",
+                               fused_head=False)
+        replay.generate([body["prompt"]], max_new_tokens=HTTP_LOGPROB_NEW,
+                        burst=HTTP_BURST)
+        ref = forced.logprobs[:HTTP_LOGPROB_NEW]
+        err = max(abs(a - b) for a, b in zip(lps, ref))
+        worst = max(worst, err)
+        check(err <= HTTP_LOGPROB_TOL, f"path (K): a logprob is {err:.3e} "
+              f"from the teacher-forced replay's (tol {HTTP_LOGPROB_TOL})")
+        del replay
+    print(f"path (K) --logprobs: {len(served)} requests x "
+          f"{HTTP_LOGPROB_NEW} tokens, every logprob <= 0, max |logprob - "
+          f"replay| {worst:.3e} (tol {HTTP_LOGPROB_TOL})")
+    model = lp_engine.model
+    del lp_engine
+    torch.cuda.empty_cache()
+
+    http_card_against_cpu(model, params)
+    admit = prefix_admission_ms(model, params)
+    print(f"path (K) admission of one 64-token prompt (host ms, median of "
+          f"{HTTP_ADMIT_REPS}, in turns): cold {admit['cold']:.3f}, prefix "
+          f"hit {admit['hit']:.3f} (hit / cold "
+          f"{admit['hit'] / admit['cold']:.3f}); {smi}")
+    samp = check_sampler(timer, vocab)
+    print(f"path (K) sampler at 64 x {vocab} (device ms): sample "
+          f"{samp['sample']:.4f}, its top-64 {samp['top_k']:.4f}, a stable "
+          f"full sort {samp['stable_sort']:.4f}; {smi}")
+    del params
+    torch.cuda.empty_cache()
+
+    # The CLI as a subprocess: wait for /health, one completion, stop it.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    log = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rten_tpu_torch.serve", "--demo",
+         "--quantize", "int8", "--port", str(port)], cwd=root, stdout=log,
+        stderr=subprocess.STDOUT, text=True)
+    cli_base = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            if proc.poll() is not None:
+                log.seek(0)
+                check(False, f"path (K): the CLI exited with "
+                      f"{proc.returncode}: {log.read()[-2000:]}")
+            check(time.perf_counter() - t0 < 240,
+                  "path (K): the CLI did not answer /health in 240 s")
+            try:
+                if _http(cli_base, "/health", timeout=5)["status"] == "ok":
+                    break
+            except OSError:
+                time.sleep(0.5)
+        up = time.perf_counter() - t0
+        out = _http(cli_base, "/v1/completions", {"prompt": prompt(),
+                                                  "max_tokens": 8})
+        ids = out["choices"][0]["token_ids"]
+        check(len(ids) == 8 and all(0 <= t < vocab for t in ids),
+              f"path (K): the CLI's completion gave {ids}")
+    finally:
+        proc.send_signal(2)                      # SIGINT: a clean shutdown
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+    print(f"path (K) CLI: python -m rten_tpu_torch.serve --demo --quantize "
+          f"int8 answered /health {up:.1f} s after start and served 8 "
+          f"tokens; exit code {proc.returncode}")
+    print(f"path (K) took {time.perf_counter() - t_path:.1f} s")
+
+
 def mistral_paths(launches, rates, steady):
     """Path (H) at full width and depth, its three variants at 4 layers,
     and (H), (H-fused) and (H-append) card against CPU at 1 layer; fills
@@ -2684,7 +3234,7 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
         def __init__(self):
             self.logits = []
 
-        def sample(self, logits):
+        def sample(self, logits, generator=None):
             self.logits.append(logits.cpu().numpy())
             return super().sample(logits)
 
@@ -3059,16 +3609,24 @@ def main():
                check_decode_attn(timer, b=4, cap=16384,
                                  live=(12100, 16369)),
                check_decode_attn_int8(timer, b=4, cap=12288,
-                                      live=(12100, 12289))]
+                                      live=(12100, 12289)),
+               check_decode_attn(timer, b=64, cap=1024, live=(64, 112)),
+               check_tail_flush(timer, b=64, cap=1024, live=(64, 112))]
+    # V1's fused int8 entry at path (K)'s prefix hit: one sequence, slices
+    # of 8 queries at depths 48-104 (its float mode is printed too).
+    printed += check_verify_attn(timer, "fused", b=1, s=8, cap=1024,
+                                 live=(48, 105))
     for r in results + printed:
         print(f"{r['name']}{' (' + r['mode'] + ')' if 'mode' in r else ''}: "
               f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) library_ms "
               f"{r['library_ms']}")
-    print("(the last five lines: K1, K3 and K1' at TinyLlama shapes, B 16, "
+    print("(the last nine lines: K1, K3 and K1' at TinyLlama shapes, B 16, "
           "32 heads over 4 KV heads, capacity 2048; K1 at B 4, capacity "
           "16384, lives 12100-16368; K1' at B 4, capacity 12288, lives "
-          "12100-12288)")
+          "12100-12288; K1 and K3 at path (K)'s B 64, capacity 1024; V1 "
+          "fused, float and int8, at path (K)'s prefix hit, B 1, S 8, "
+          "capacity 1024)")
     stamp("kernel phases")
 
     model = gpt2_model("f32")
@@ -3189,6 +3747,8 @@ def main():
     stamp("Mistral paths")
     graph_runtime_path(launches)
     stamp("graph runtime (J)")
+    http_serve_path(launches, smi, timer)
+    stamp("HTTP server (K)")
 
     # Each kernel reports its launches on the path it was ported for; V1's
     # entries per mode: path (G) for the grouped entry (float on the bf16
@@ -3226,6 +3786,10 @@ def main():
         if r["name"] == "kv_append_int8":
             # K7 runs on path (H) too: its launches there beside (B)'s.
             r["h_launches"] = launches["mistral_int8"][key]
+        if key in ("decode_attn_int8_tail", "tail_flush_int8",
+                   "matmul_int8_wo", "verify_attn_fused.int8"):
+            # K1, K3, K4 and V1's fused int8 entry serve path (K) too.
+            r["k_launches"] = launches["http_serve"][key]
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3248,7 +3812,7 @@ def main():
              "gqa_device_launches", "nz_max_abs_err", "nz_ms",
              "nz_plain_ms", "nz_bound_ms", "nz_device_launches",
              "exact_q_max_abs_err", "exact_q_ms", "exact_q_plain_ms",
-             "m4096", "graph_launches")
+             "m4096", "graph_launches", "k_launches")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results]}))

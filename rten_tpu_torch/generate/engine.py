@@ -29,6 +29,21 @@ verifies them in one chunked forward, and commits the agreeing prefix plus
 the model's next token, so greedy output is plain decoding's with fewer
 steps. Only ``spec_adaptive=False`` (always draft) is ported.
 
+Sampling: the default :class:`ArgMaxSampler` takes the fused int8 head +
+argmax kernel where the weights allow it. A :class:`PerRequestSampler`
+carries each slot's temperature, top-k and top-p as per-row tensors,
+uploaded once per admission, so greedy and stochastic requests share one
+decode step. Every draw comes from the engine's ``torch.Generator``
+(``seed``). ``logprobs=True`` records each emitted token's log-probability
+(at admission and at every decode step) and, like a non-greedy sampler,
+turns the fused head off (it forms no logits).
+
+Prefix cache (:meth:`register_prefix`): a registered prompt prefix is
+prefilled once into a fragment cache of full capacity; an admitted prompt
+that strictly extends it runs one chunked forward over its suffix at the
+fragment's depth (``forward(chunk=True)``, whose attention is the verify
+kernel) and is scattered into its slot like any admission.
+
 PyTorch runs eagerly, so a burst is a Python loop of decode steps whose
 tokens stay on the device until the burst ends (one host sync per burst).
 Slot bookkeeping is the reference's Python path; the ``native/scheduler``
@@ -37,6 +52,8 @@ bridge and CUDA-graph bursts are later work (ROADMAP.md).
 
 from __future__ import annotations
 
+import json
+import sys
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -51,7 +68,8 @@ from ..kernels.attention import (E_MATRIX_BUDGET, FLAT_VMEM_BUDGET,
                                  flat_vmem_bytes)
 from .metrics import Metrics
 from .paged_cache import PagedKVCache
-from .sampler import ArgMaxSampler, Sampler
+from .sampler import (ArgMaxSampler, PerRequestSampler, Sampler,
+                      SamplingParams)
 from .speculative import make_spec_burst
 
 
@@ -67,9 +85,14 @@ class Request:
     prompt_ids: list
     max_new_tokens: int = 128
     stop_ids: tuple = ()
+    # per-request sampling (used when the engine's sampler is a
+    # PerRequestSampler; None = greedy)
+    sampling: Optional[SamplingParams] = None
     # filled by the engine:
     request_id: int = -1
     tokens: list = field(default_factory=list)
+    logprobs: list = field(default_factory=list)  # per emitted token,
+    # filled when the engine runs with logprobs=True
     done: bool = False
     metrics: Metrics = field(default_factory=Metrics)
 
@@ -81,8 +104,19 @@ class ServingEngine:
                  cache_dtype=None, fused_head=None, tail_window=None,
                  device="cuda", mesh=None, paged=False, page_size=64,
                  pool_pages=None, spec_draft=0, spec_ngram=3,
-                 spec_adaptive="auto", spec_k_adaptive=True):
-        """``tail_window``: None picks the window by the reference's gate
+                 spec_adaptive="auto", spec_k_adaptive=True, seed=0,
+                 cache=None, logprobs=False, log_stats_every=None):
+        """``cache``: a storage policy ("auto" | "int8" | "bf16" | "f32")
+        instead of ``quantized_cache``/``cache_dtype``; "auto" resolves as
+        the reference's (engine.py:88-114): int8 where the config uses the
+        decode kernels (``use_pallas``, no ``scan_layers``), the capacity
+        is a multiple of 4 and there are at most 64 KV heads, bf16
+        otherwise. ``seed`` seeds the engine's ``torch.Generator``.
+        ``logprobs``: record each emitted token's log-probability in
+        ``Request.logprobs``. ``log_stats_every=N``: one JSON line of
+        :meth:`stats` to stderr every N bursts or steps.
+
+        ``tail_window``: None picks the window by the reference's gate
         (16 for an int8 cache where it applies), 0 disables it, n > 0
         forces depth n (int8 caches only). ``paged``: a block-paged cache
         of ``page_size``-token pages, ``pool_pages`` of them (default one
@@ -101,12 +135,30 @@ class ServingEngine:
         if mesh:
             raise NotImplementedError(
                 "meshes are not ported yet (ROADMAP.md Queue 1, parallel/)")
+        if cache is not None:
+            if cache not in ("auto", "int8", "bf16", "f32"):
+                raise ValueError(f"cache={cache!r}: expected 'auto', "
+                                 f"'int8', 'bf16' or 'f32'")
+            if cache_dtype is not None or quantized_cache:
+                raise ValueError("pass either cache= or "
+                                 "quantized_cache/cache_dtype")
+            if cache == "auto":
+                cfg_c = model.config
+                int8_ok = (cfg_c.use_pallas and not cfg_c.scan_layers
+                           and capacity % 4 == 0
+                           and cfg_c.n_kv_heads <= 64)
+                cache = "int8" if int8_ok else "bf16"
+            quantized_cache = cache == "int8"
+            cache_dtype = {"bf16": "bfloat16", "f32": "float32"}.get(cache)
         self.sampler = sampler or ArgMaxSampler()
-        if not isinstance(self.sampler, ArgMaxSampler):
-            raise NotImplementedError(
-                "only greedy sampling is ported (ROADMAP.md Queue 1, serving "
-                "breadth: samplers)")
+        self._per_request = isinstance(self.sampler, PerRequestSampler)
+        self.logprobs = bool(logprobs)
         if spec_draft:
+            if not isinstance(self.sampler, ArgMaxSampler):
+                raise ValueError("speculative decoding is greedy-only")
+            if self.logprobs:
+                raise ValueError("speculative decoding does not emit "
+                                 "logprobs")
             if spec_adaptive is not False:
                 raise NotImplementedError(
                     f"spec_adaptive={spec_adaptive!r}: the speculation gate "
@@ -120,6 +172,13 @@ class ServingEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"engine on {self.device}")
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        # Per-slot temperature, top-k and top-p rows (PerRequestSampler),
+        # and their device copy, uploaded again after an admission changes
+        # them.
+        self._samp = np.zeros((3, max_batch), np.float32)
+        self._samp_dev = None
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -182,8 +241,15 @@ class ServingEngine:
         # Host mirror of cache.tail_count (+1 per decode step, 0 after a
         # flush).
         self._tail_fill = 0
+        # The fused head forms no logits: only for a greedy sampler and
+        # without logprobs (engine.py:420-426).
+        greedy = (isinstance(self.sampler, ArgMaxSampler)
+                  or getattr(self.sampler, "temperature", None) == 0.0)
         self._fused_head = (fused_head if fused_head is not None
-                            else hasattr(model, "decode_step_argmax"))
+                            else greedy
+                            and hasattr(model, "decode_step_argmax"))
+        if self.logprobs:
+            self._fused_head = False
 
         self.slot_request: list[Optional[Request]] = [None] * max_batch
         self.queue: list[Request] = []
@@ -195,9 +261,13 @@ class ServingEngine:
         # Device-resident last tokens: consecutive bursts chain on the
         # device without a host round trip.
         self._device_tokens = None
-        self.counters = {"submitted": 0, "completed": 0, "cancelled": 0,
-                         "tokens": 0, "bursts": 0, "decode_steps": 0}
+        self.counters = {"submitted": 0, "completed": 0, "tokens": 0,
+                         "bursts": 0, "decode_steps": 0, "prefix_hits": 0,
+                         "cancelled": 0}
         self._t_start = time.perf_counter()
+        self._log_every = log_stats_every
+        # Prefix cache: (token tuple, fragment cache), longest first.
+        self._prefixes: list = []
         self._ttfts = deque(maxlen=2048)
         self._itls = deque(maxlen=8192)
         self._admit_stalls = deque(maxlen=2048)
@@ -242,30 +312,73 @@ class ServingEngine:
                                               lens.to(torch.int64) - 1)
         return last, cache.with_lengths(lens)
 
-    def _decode_one(self, tokens):
-        """One decode step for every slot; returns next tokens int32 [B]
-        on the device."""
+    def _suffix_prefill(self, tokens, frag, plen, slens):
+        """The prefix cache's admission (engine.py:526-537): a chunked
+        forward over the suffixes ``tokens`` [G, bucket] (numpy) at depth
+        ``plen`` of the fragment cache ``frag``; ``slens`` [G] the true
+        suffix lengths. Returns (last-suffix-token logits [G, V], the
+        fragment's buffers with lengths ``plen + slens``). The chunk writes
+        rows from ``plen`` on, which the next hit writes again before it
+        reads them, so the fragment's prefix rows stay as registered."""
+        tok = torch.from_numpy(tokens).to(self.device)
+        cache = frag.with_lengths(np.full(len(slens), plen, np.int32))
+        logits, cache = self.model.forward(self.params, tok, cache,
+                                           chunk=True)
+        rows = torch.arange(tok.shape[0], device=self.device)
+        last = logits[rows, torch.from_numpy(slens.astype(np.int64) - 1).to(
+            self.device)]
+        return last, cache.with_lengths(plen + slens)
+
+    def _samp_args(self):
+        """The per-slot sampling rows as device tensors (temperature, top-k,
+        top-p), uploaded once after each admission; None unless the sampler
+        is per-request."""
+        if not self._per_request:
+            return None
+        if self._samp_dev is None:
+            self._samp_dev = torch.from_numpy(self._samp).to(self.device)
+        return tuple(self._samp_dev)
+
+    def _sample(self, logits, samp):
+        if self._per_request:
+            return self.sampler.sample(logits, *samp, generator=self._gen)
+        return self.sampler.sample(logits, generator=self._gen)
+
+    def _decode_one(self, tokens, samp):
+        """One decode step for every slot; returns (next tokens int32 [B],
+        their log-probabilities f32 [B] or None) on the device."""
         if self._fused_head:
             nxt, self.cache = self.model.decode_step_argmax(
                 self.params, tokens, self.cache)
-            return nxt
+            return nxt, None
         logits, self.cache = self.model.decode_step(self.params, tokens,
                                                     self.cache)
-        return self.sampler.sample(logits)
+        nxt = self._sample(logits, samp)
+        lp = None
+        if self.logprobs:
+            lp = (logits.gather(1, nxt[:, None].to(torch.int64))[:, 0]
+                  - torch.logsumexp(logits, dim=-1))
+        return nxt, lp
 
     # -- request lifecycle --------------------------------------------------
 
-    def submit(self, prompt_ids, max_new_tokens=128,
-               stop_ids=()) -> Request:
+    def submit(self, prompt_ids, max_new_tokens=128, stop_ids=(),
+               sampling: Optional[SamplingParams] = None) -> Request:
         req = Request(list(map(int, prompt_ids)), max_new_tokens,
-                      tuple(stop_ids))
+                      tuple(stop_ids), sampling=sampling)
         if len(req.prompt_ids) >= self.capacity:
             raise ValueError(f"prompt length {len(req.prompt_ids)} exceeds "
                              f"cache capacity")
-        if len(req.prompt_ids) > max(self.prefill_buckets):
+        # The prompt (or its suffix after a prefix-cache hit) must fit a
+        # prefill bucket (engine.py:710-720).
+        hit = self._match_prefix(req.prompt_ids) if self._prefixes else None
+        effective = (len(req.prompt_ids) - len(hit[0]) if hit
+                     else len(req.prompt_ids))
+        if effective > max(self.prefill_buckets):
             raise ValueError(
                 f"prompt length {len(req.prompt_ids)} exceeds the largest "
-                f"prefill bucket ({max(self.prefill_buckets)})")
+                f"prefill bucket ({max(self.prefill_buckets)}); raise "
+                f"prefill_buckets or register a covering prefix")
         req.request_id = self._next_id
         self._next_id += 1
         self.counters["submitted"] += 1
@@ -302,8 +415,11 @@ class ServingEngine:
             return
         batch_reqs = self.queue[:len(free)]
         del self.queue[:len(batch_reqs)]
+        pairs = list(zip(batch_reqs, free))
+        if self._prefixes:
+            pairs = self._admit_prefix_hits(pairs)
         by_bucket: dict = {}
-        for req, slot in zip(batch_reqs, free):
+        for req, slot in pairs:
             by_bucket.setdefault(_bucket(len(req.prompt_ids),
                                          self.prefill_buckets),
                                  []).append((req, slot))
@@ -324,6 +440,65 @@ class ServingEngine:
                 tokens, lengths, min(bucket, self.capacity))
             self._finish_admission(group_pairs, lengths, last_logits,
                                    prefilled)
+
+    def _admit_prefix_hits(self, pairs):
+        """Admit each request whose prompt strictly extends a registered
+        prefix through the suffix prefill, one at a time as the reference
+        does (engine.py:778-806); returns the pairs left for a cold
+        prefill (misses, and hits whose suffix bucket would not fit)."""
+        rest = []
+        for req, slot in pairs:
+            hit = self._match_prefix(req.prompt_ids)
+            if hit is None:
+                rest.append((req, slot))
+                continue
+            ptoks, frag = hit
+            suffix = req.prompt_ids[len(ptoks):]
+            sbucket = _bucket(len(suffix), self.prefill_buckets)
+            if len(ptoks) + sbucket >= self.capacity:
+                rest.append((req, slot))   # no room for the chunk
+                continue
+            tok = np.zeros((1, sbucket), np.int64)
+            tok[0, :len(suffix)] = suffix
+            last_logits, filled = self._suffix_prefill(
+                tok, frag, len(ptoks), np.asarray([len(suffix)], np.int32))
+            self.counters["prefix_hits"] += 1
+            self._finish_admission([(req, slot)],
+                                   np.asarray([len(req.prompt_ids)],
+                                              np.int32),
+                                   last_logits, filled)
+        return rest
+
+    def register_prefix(self, tokens) -> int:
+        """Prefill and pin the KV of a shared prompt prefix (e.g. a system
+        prompt). Submissions whose prompt strictly extends it skip
+        prefilling those tokens: admission runs one chunked forward over
+        just the suffix (counted in ``stats()['prefix_hits']``). Returns
+        the prefix length. Memory: one full-capacity cache row per
+        registered prefix."""
+        if self.paged:
+            raise ValueError("the prefix cache is unpaged (the reference's "
+                             "is too)")
+        toks = tuple(int(t) for t in tokens)
+        if not toks or len(toks) >= self.capacity:
+            raise ValueError("prefix must be non-empty and below capacity")
+        bucket = _bucket(len(toks), self.prefill_buckets)
+        arr = np.zeros((1, bucket), np.int64)
+        arr[0, :len(toks)] = toks
+        _, frag = self._prefill(arr, np.asarray([len(toks)], np.int32),
+                                self.capacity)
+        self._prefixes.append((toks, frag))
+        self._prefixes.sort(key=lambda kv: -len(kv[0]))
+        return len(toks)
+
+    def _match_prefix(self, prompt):
+        """Longest registered prefix that the prompt STRICTLY extends (at
+        least one suffix token must remain to prefill)."""
+        for toks, frag in self._prefixes:
+            if len(toks) < len(prompt) \
+                    and tuple(prompt[:len(toks)]) == toks:
+                return toks, frag
+        return None
 
     def _map_admission(self, group_pairs, bucket):
         """Map the pages an admitted slot's insert copies
@@ -348,10 +523,23 @@ class ServingEngine:
     def _finish_admission(self, group_pairs, lengths, last_logits,
                           prefilled):
         """Sample each admitted request's first token and scatter the
-        group's prefilled KV rows into its slots."""
+        group's prefilled KV rows into its slots (engine.py:849-914)."""
         g_n = len(group_pairs)
-        firsts = self.sampler.sample(last_logits[:g_n])
+        last_logits = last_logits[:g_n]
         slots = [slot for _, slot in group_pairs]
+        samp = None
+        if self._per_request:
+            for req, slot in group_pairs:
+                sp = req.sampling or SamplingParams.GREEDY
+                self._samp[:, slot] = (sp.temperature, sp.top_k, sp.top_p)
+            self._samp_dev = None
+            rows = torch.from_numpy(self._samp[:, slots]).to(self.device)
+            samp = tuple(rows)
+        firsts = self._sample(last_logits, samp)
+        first_lps = None
+        if self.logprobs:
+            first_lps = torch.log_softmax(last_logits, dim=-1).gather(
+                1, firsts[:, None].to(torch.int64))[:, 0].cpu().numpy()
         self.cache = self.cache.insert_group(prefilled, slots,
                                              lengths[:g_n])
         if self._device_tokens is not None:
@@ -371,6 +559,8 @@ class ServingEngine:
         for gi, (req, slot) in enumerate(group_pairs):
             first = int(firsts_np[gi])
             req.tokens.append(first)
+            if first_lps is not None:
+                req.logprobs.append(float(first_lps[gi]))
             req.metrics.step()
             self.current_tokens[slot] = first
             self._host_lengths[slot] = int(lengths[gi])
@@ -416,9 +606,11 @@ class ServingEngine:
             req.done = True
             self._free_slot(slot)
 
-    def _commit_tokens(self, toks_np, lengths_np, snapshot) -> int:
-        """Deliver a [n, B] burst of tokens to the requests that were
-        active at dispatch (``snapshot``), honouring stop conditions."""
+    def _commit_tokens(self, toks_np, lengths_np, snapshot,
+                       lps_np=None) -> int:
+        """Deliver a [n, B] burst of tokens (and their [n, B] logprobs) to
+        the requests that were active at dispatch (``snapshot``), honouring
+        stop conditions."""
         emitted = 0
         for slot, req in snapshot:
             if self.slot_request[slot] is not req:
@@ -426,6 +618,8 @@ class ServingEngine:
             for i in range(toks_np.shape[0]):
                 token = int(toks_np[i, slot])
                 req.tokens.append(token)
+                if lps_np is not None:
+                    req.logprobs.append(float(lps_np[i, slot]))
                 req.metrics.step()
                 emitted += 1
                 self.current_tokens[slot] = token
@@ -449,8 +643,8 @@ class ServingEngine:
         lengths_np = self._host_lengths.copy()
         if self.paged:
             self._map_decode(active, lengths_np, 2)
-        nxt = self._decode_one(torch.from_numpy(self.current_tokens).to(
-            self.device))
+        nxt, lp = self._decode_one(torch.from_numpy(self.current_tokens).to(
+            self.device), self._samp_args())
         self._host_lengths += 1
         if self._tail_flush:
             self._tail_fill += 1
@@ -459,18 +653,18 @@ class ServingEngine:
         self._device_tokens = None
         if self.spec_draft:
             self._hist_write(nxt[None, :], lengths_np)
-        emitted = self._commit_tokens(nxt.cpu().numpy()[None, :],
-                                      lengths_np,
-                                      [(s, self.slot_request[s])
-                                       for s in active])
+        emitted = self._commit_tokens(
+            nxt.cpu().numpy()[None, :], lengths_np,
+            [(s, self.slot_request[s]) for s in active],
+            None if lp is None else lp.cpu().numpy()[None, :])
         self._count(emitted, 1)
         return len(active)
 
     def _dispatch_burst(self, n):
         """Run ``n`` decode steps with the tokens chained on the device and
         the window flushed after every ``_tail_flush`` steps. Returns
-        (tokens [n, B] on the device, slot snapshot, pre-burst lengths, n),
-        or None when no slot is active."""
+        (tokens [n, B] on the device, their logprobs [n, B] or None, slot
+        snapshot, pre-burst lengths, n), or None when no slot is active."""
         active = self._active()
         if not active:
             return None
@@ -485,22 +679,25 @@ class ServingEngine:
         if self._device_tokens is None:
             self._device_tokens = torch.from_numpy(
                 self.current_tokens).to(self.device)
-        tokens, outs = self._device_tokens, []
+        tokens, outs, lps = self._device_tokens, [], []
+        samp = self._samp_args()
         fl = self._tail_flush
         for i in range(n):
-            tokens = self._decode_one(tokens)
+            tokens, lp = self._decode_one(tokens, samp)
             outs.append(tokens)
+            lps.append(lp)
             if fl and (i + 1) % fl == 0:
                 self.cache = self.cache.flush_tail(fl)
         self._device_tokens = tokens
         outs = torch.stack(outs)
+        lps = torch.stack(lps) if self.logprobs else None
         if self.spec_draft:
             self._hist_write(outs, lengths_np)
         self._host_lengths += n
         if fl:
             self._tail_fill = n % fl
         snapshot = [(s, self.slot_request[s]) for s in active]
-        return outs, snapshot, lengths_np, n
+        return outs, lps, snapshot, lengths_np, n
 
     def _hist_write(self, toks, lengths_np):
         """Write a plain step's or burst's tokens [n, B] into the
@@ -521,9 +718,10 @@ class ServingEngine:
         inflight = self._dispatch_burst(n)
         if inflight is None:
             return 0
-        toks, snapshot, lengths_np, n = inflight
-        emitted = self._commit_tokens(toks.cpu().numpy(), lengths_np,
-                                      snapshot)
+        toks, lps, snapshot, lengths_np, n = inflight
+        emitted = self._commit_tokens(
+            toks.cpu().numpy(), lengths_np, snapshot,
+            None if lps is None else lps.cpu().numpy())
         self._count(emitted, n)
         return emitted
 
@@ -614,6 +812,9 @@ class ServingEngine:
         c["tokens"] += emitted
         c["decode_steps"] += steps
         c["bursts"] += 1
+        if self._log_every and c["bursts"] % self._log_every == 0:
+            print(json.dumps({"engine_stats": self.stats()}),
+                  file=sys.stderr, flush=True)
 
     @staticmethod
     def _pctl(samples, q):

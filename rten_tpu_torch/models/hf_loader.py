@@ -1,0 +1,164 @@
+"""Hugging Face checkpoint loaders: map GPT-2 / Llama-family state dicts
+onto the port's parameter trees.
+
+A copy of ``rten_tpu/models/hf_loader.py``'s GPT-2 and Llama loaders. They
+return numpy trees, as the reference's do, which
+:func:`rten_tpu_torch.models.convert.params_from_numpy` puts on a device.
+Sources accepted: a mapping of tensors or arrays, a module with
+``state_dict()``, or a ``.safetensors`` / torch ``.bin`` file path. The
+Mixtral, Whisper and BERT loaders raise naming their ROADMAP.md items.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .transformer import TransformerConfig
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy().astype(np.float32)
+    return np.asarray(t, np.float32)
+
+
+def load_state_dict(source) -> dict:
+    """Accepts a path (.safetensors / torch .bin) or a mapping/torch
+    module; returns {name: numpy array}."""
+    if hasattr(source, "state_dict"):
+        source = source.state_dict()
+    if isinstance(source, dict):
+        return {k: _np(v) for k, v in source.items()}
+    path = str(source)
+    if path.endswith(".safetensors"):
+        from safetensors.numpy import load_file
+        return {k: np.asarray(v, np.float32)
+                for k, v in load_file(path).items()}
+    return {k: _np(v) for k, v in
+            torch.load(path, map_location="cpu").items()}
+
+
+def _strip_prefix(sd, prefixes=("transformer.", "model.", "bert.")):
+    for prefix in prefixes:
+        if any(k.startswith(prefix) for k in sd):
+            return {k[len(prefix):] if k.startswith(prefix) else k: v
+                    for k, v in sd.items()}
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# GPT-2
+# ---------------------------------------------------------------------------
+
+def gpt2_config_from_hf(hf_config) -> TransformerConfig:
+    return TransformerConfig(
+        vocab_size=hf_config.vocab_size, n_layers=hf_config.n_layer,
+        n_heads=hf_config.n_head, d_model=hf_config.n_embd,
+        d_ff=4 * hf_config.n_embd, max_seq_len=hf_config.n_positions,
+        pos="learned", norm="layernorm", act="gelu", tie_embeddings=True,
+        layer_norm_eps=hf_config.layer_norm_epsilon)
+
+
+def load_gpt2(source, config: TransformerConfig) -> dict:
+    """HF GPT-2 state dict → TransformerLM params. Note GPT-2's Conv1D
+    stores weights [in, out] — exactly our layout, no transpose."""
+    sd = _strip_prefix(load_state_dict(source))
+    d = config.d_model
+    params = {
+        "embed": sd["wte.weight"],
+        "pos_embed": sd["wpe.weight"],
+        "ln_f_scale": sd["ln_f.weight"],
+        "ln_f_bias": sd["ln_f.bias"],
+        "layers": [],
+    }
+    for i in range(config.n_layers):
+        p = f"h.{i}."
+        params["layers"].append({
+            "ln1_scale": sd[p + "ln_1.weight"],
+            "ln1_bias": sd[p + "ln_1.bias"],
+            # GPT-2's c_attn is already the fused [q|k|v] layout.
+            "wqkv": sd[p + "attn.c_attn.weight"],
+            "bqkv": sd[p + "attn.c_attn.bias"],
+            "wo": sd[p + "attn.c_proj.weight"],
+            "bo": sd[p + "attn.c_proj.bias"],
+            "ln2_scale": sd[p + "ln_2.weight"],
+            "ln2_bias": sd[p + "ln_2.bias"],
+            "w_up": sd[p + "mlp.c_fc.weight"],
+            "b_up": sd[p + "mlp.c_fc.bias"],
+            "w_down": sd[p + "mlp.c_proj.weight"],
+            "b_down": sd[p + "mlp.c_proj.bias"],
+        })
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Llama family (TinyLlama, Qwen2-without-bias, ...)
+# ---------------------------------------------------------------------------
+
+def llama_config_from_hf(hf_config) -> TransformerConfig:
+    return TransformerConfig(
+        vocab_size=hf_config.vocab_size,
+        n_layers=hf_config.num_hidden_layers,
+        n_heads=hf_config.num_attention_heads,
+        kv_heads=hf_config.num_key_value_heads,
+        d_model=hf_config.hidden_size, d_ff=hf_config.intermediate_size,
+        max_seq_len=hf_config.max_position_embeddings, pos="rope",
+        norm="rmsnorm", act="swiglu",
+        tie_embeddings=getattr(hf_config, "tie_word_embeddings", False),
+        rope_theta=getattr(hf_config, "rope_theta", 10000.0),
+        layer_norm_eps=hf_config.rms_norm_eps)
+
+
+def load_llama(source, config: TransformerConfig) -> dict:
+    """HF Llama state dict → TransformerLM params (nn.Linear stores
+    [out, in] — transpose into our [in, out])."""
+    sd = _strip_prefix(load_state_dict(source))
+    params = {
+        "embed": sd["embed_tokens.weight"],
+        "ln_f_scale": sd["norm.weight"],
+        "layers": [],
+    }
+    if not config.tie_embeddings:
+        lm = sd.get("lm_head.weight")
+        if lm is None:
+            raise KeyError("lm_head.weight missing for untied model")
+        params["lm_head"] = lm.T
+    for i in range(config.n_layers):
+        p = f"layers.{i}."
+        params["layers"].append({
+            "ln1_scale": sd[p + "input_layernorm.weight"],
+            "wqkv": np.concatenate(
+                [sd[p + "self_attn.q_proj.weight"].T,
+                 sd[p + "self_attn.k_proj.weight"].T,
+                 sd[p + "self_attn.v_proj.weight"].T], axis=1),
+            "wo": sd[p + "self_attn.o_proj.weight"].T,
+            "ln2_scale": sd[p + "post_attention_layernorm.weight"],
+            "w_gate": sd[p + "mlp.gate_proj.weight"].T,
+            "w_up": sd[p + "mlp.up_proj.weight"].T,
+            "w_down": sd[p + "mlp.down_proj.weight"].T,
+        })
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Not ported yet
+# ---------------------------------------------------------------------------
+
+def _not_ported(what, item):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
+                                  f"Queue 1, {item})")
+    fn.__name__ = what
+    return fn
+
+
+mixtral_config_from_hf = _not_ported("mixtral_config_from_hf",
+                                     "serving breadth: MoE")
+load_mixtral = _not_ported("load_mixtral", "serving breadth: MoE")
+whisper_config_from_hf = _not_ported("whisper_config_from_hf",
+                                     "other model families")
+load_whisper = _not_ported("load_whisper", "other model families")
+bert_config_from_hf = _not_ported("bert_config_from_hf",
+                                  "other model families")
+load_bert = _not_ported("load_bert", "other model families")

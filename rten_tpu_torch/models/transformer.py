@@ -57,7 +57,7 @@ from ..kernels.attention import (attn_reference, decode_attn_flat_float,
                                  flash_attention_takes, flat_q_bf16,
                                  float_decode_kernel,
                                  group_for, int8_decode_kernel,
-                                 verify_attn_fused,
+                                 VERIFY_MAX_S, verify_attn_fused,
                                  verify_attn_grouped)
 from ..kernels.gemm import (head_argmax_int8, matmul_int4, matmul_int4_words,
                             matmul_int4_words_int8, matmul_int8,
@@ -721,7 +721,13 @@ def _verify_attn(cfg, q, cache, layer_idx):
     int8 mode. q [B, H, S, D] → [B, H, S, D]. A paged cache raises from
     its append before this runs; a tail cache raises here (its newest
     tokens live in the window, which no verify kernel reads; the
-    reference's engine never builds one for speculation)."""
+    reference's engine never builds one for speculation).
+
+    A chunk longer than the verify kernel's ``VERIFY_MAX_S`` queries (the
+    prefix cache's suffix prefill: a whole prefill bucket) runs as slices
+    of at most that many queries, slice j at depth ``lengths + j``: query
+    i's causal limit ``lengths + i + 1`` is the same either way, so the
+    output is that of one call over the chunk."""
     if cache.tail is not None:
         raise ValueError("chunked verify on a cache with a tail window: "
                          "the verify kernels do not read the window")
@@ -729,6 +735,8 @@ def _verify_attn(cfg, q, cache, layer_idx):
                and cfg.decode_attn in ("auto", "grouped"))
     attend = verify_attn_grouped if grouped else verify_attn_fused
     scales = cache.scales[layer_idx] if cache.quantized else None
-    out = attend(q.transpose(1, 2).contiguous(), cache.kv[layer_idx],
-                 cache.lengths, scales)
-    return out.transpose(1, 2)
+    q = q.transpose(1, 2)                               # [B, S, H, D]
+    outs = [attend(q[:, j:j + VERIFY_MAX_S].contiguous(),
+                   cache.kv[layer_idx], cache.lengths + j, scales)
+            for j in range(0, q.shape[1], VERIFY_MAX_S)]
+    return torch.cat(outs, dim=1).transpose(1, 2)
