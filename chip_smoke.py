@@ -214,10 +214,44 @@ Phases (any failure exits non-zero; nothing is caught):
    capacity 1024 and V1's fused entry at B 1, S 8, capacity 1024 are held
    against their plain versions with the kernel phases (printed).
 
+8. The last configurations of the model (bf16 compute, ``scan_layers``,
+   MoE). After the GPT-2 card-against-CPU phases: (L-scan), GPT-2-small
+   with ``scan_layers=True`` over its int8 layers stacked by
+   ``stack_layer_params`` and a stacked bf16 cache (``cache="bf16"``) at
+   batch 64, 64 requests x 16 new tokens, K5 and K6 once per layer and
+   decode step on each layer's view, its tokens equal to the same
+   engine's without ``scan_layers``; (L-bf16), GPT-2-small int8 + tail
+   with ``dtype="bfloat16"`` card against CPU at batch 64 (64 requests of
+   8 tokens x 20 new tokens, capacity 128: K1, K3, K2 and K4 on bf16
+   activations). After path (H): path (L), Mixtral-8x7B
+   (``TransformerConfig.mixtral(dtype="bfloat16")``: 32 layers, d_model
+   4096, d_ff 14336, 8 experts, top 2, 32 query heads over 8 KV heads of
+   128, vocabulary 32000) with random int8 weights and expert stacks
+   drawn on the card expert by expert
+   (``init_int8_params``, ~47 GB), through ``ServingEngine(max_batch=16,
+   capacity=1024, cache="auto")`` (an int8 cache without a tail): 16
+   requests of 64-token prompts x 32 new tokens, decode tokens/s, p50
+   TTFT, G1 with exact q and K7 once per layer and decode step, K4 and K2,
+   F1 never (64 keys: the reference's XLA attention), the expert MLP on
+   its dense path; a timed and a traced steady burst (ms a step) and the
+   card's peak memory beside the weights' bytes. (L-ragged): its first 2
+   layers with float (dequantized) expert stacks: an admission prefill of
+   16 x 64 tokens takes the ragged path in both layers and a decode step
+   the dense one (``moe.impl_counts``), its logits within
+   MIXTRAL_PATH_LOGIT_TOL of the same prefill forced dense, then 16
+   requests x 8 tokens served. (L) card against CPU at 1 layer: 2 requests
+   of 128 tokens x 6 new tokens, logits + argmax; its prefill runs F1 once
+   under bf16 compute. With the kernel phases: K4 at (L)'s wqkv (4096 x
+   6144), wo (4096 x 4096) and LM head (4096 x 32000) and K2 at its head,
+   M 16, and G1 with exact q at B 16, capacity 1024, lives 64-96, each on
+   bf16-valued inputs against its plain version (extra keys
+   ``m16_l_<weight>_*`` of K4's and K2's entries, ``l_*`` of G1's).
+
 Prints a ``{"kernels": [...]}`` JSON line (V1 with one entry per entry
 point and mode, G1 per mode; K1, K3, K4 and V1's fused int8 entry carry
-their path (K) launches as ``k_launches``), then as the last line ``{"ok":
-true, "device": {...}}``.
+their path (K) launches as ``k_launches``, every entry its path (L)
+launches as ``l_launches``), then as the last line ``{"ok": true,
+"device": {...}}``.
 """
 
 import json
@@ -238,7 +272,7 @@ from rten_tpu_torch.fmt import container as fmt_container
 from rten_tpu_torch.fmt.model_builder import ModelBuilder
 from rten_tpu_torch.fmt.serialize import graph_to_bytes
 from rten_tpu_torch.generate import ArgMaxSampler, ServingEngine
-from rten_tpu_torch.generate.sampler import PerRequestSampler, _top_k
+from rten_tpu_torch.generate.sampler import PerRequestSampler
 from rten_tpu_torch.ir.graph import graph_from_model_file
 from rten_tpu_torch.ir.quantize_graph import quantize_graph_weights
 from rten_tpu_torch.kernels import _build
@@ -249,9 +283,12 @@ from rten_tpu_torch.kernels import quant as qt
 from rten_tpu_torch.kernels.quant import abs_max_quantize_int8
 from rten_tpu_torch.models import (QuantWeight, ResNet, ResNetConfig,
                                    TransformerConfig,
-                                   TransformerLM, quantize_weights)
+                                   TransformerLM, quantize_weights,
+                                   stack_layer_params)
+from rten_tpu_torch.models import moe
 from rten_tpu_torch.models.transformer import int4_takes_kernel
 from rten_tpu_torch.runtime import Model, RunOptions
+from rten_tpu_torch.utils.topk import ordered_top_k
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the lower bounds.
 PEAK_BYTES_S = 3.35e12
@@ -350,6 +387,24 @@ FLIP_SHARE = 0.99
 # layers; an H100 measured 1.595e-3 against max |logit| 2.989. Tolerance
 # 1e-2, 6x that reading and 5x tighter than the int8 paths'.
 FLAT_PATH_LOGIT_TOL = 1e-2
+# Path (L) card against CPU (Mixtral-8x7B's width at one layer, int8
+# weights and experts, bf16 compute): every activation is bf16, so an f32
+# sum in another order flips a bf16 rounding (one step, 2^-8 relative) now
+# and then, the bf16 attention scores and softmax of the 128-token prompts
+# carry it on, and the LM head's output is itself rounded to bf16 (a step
+# of 2^-7 at |logit| 2-4); tolerance (H)'s 0.2, the same width.
+MIXTRAL_PATH_LOGIT_TOL = MISTRAL_PATH_LOGIT_TOL
+# Path (L-bf16) card against CPU (GPT-2-small int8 + tail under bf16
+# compute, batch 64 x 8-token prompts, capacity 128): the prefill's M 512
+# linears quantize their activations per tensor, so an f32 sum in another
+# order that carries one activation across an int8 rounding moves it by a
+# whole step. On an H100 (tools/bf16_gap_witness.py) the gap is 7.10e-2
+# with the kernels and the same with their plain versions in their place,
+# 7.60e-2 under f32 compute, and 0.48-0.86 with a planted K1, K3 or K4
+# fault (max |logit| 3.04); the CPU port against the JAX package gives
+# 8.98e-2. Tolerance 0.15: about twice the gap without a fault, under a
+# third of the smallest planted one.
+BF16_PATH_LOGIT_TOL = 0.15
 
 PAGE = 64                          # tokens per page on the paged paths
 # The kernel body of the four decode appends (K5, P1, K7 and P2).
@@ -392,6 +447,12 @@ def check_rounded(out, ref, label):
           and over <= K6_REL_TOL * ref.abs().max().item()
           and share >= ROUND_SHARE, f"{label} disagrees")
     return err.max().item(), share
+
+
+def entry_of(results, name, mode=None):
+    """The kernel entry of ``name`` (and ``mode``) in ``results``."""
+    return next(r for r in results
+                if r["name"] == name and r.get("mode") == mode)
 
 
 def nonzero(counts):
@@ -519,15 +580,24 @@ def _head_weights(k, n):
     return q, s, w_dq
 
 
-def check_head_argmax(timer, w, s, w_dq, n):
-    """K2 at the main path's M 256 (the entry) and at M 1, 16 and 64
-    (printed: bytes-bound), each against its plain version, with its
-    TFLOP/s and share of the bound beside the library call's time."""
+def _rows(g, m, k, bf16_x):
+    """Random f32 rows [m, k]; bf16-valued with ``bf16_x`` (what the model
+    passes a kernel under bf16 compute)."""
+    x = torch.randn((m, k), device="cuda", generator=g)
+    return x.to(torch.bfloat16).to(torch.float32) if bf16_x else x
+
+
+def check_head_argmax(timer, w, s, w_dq, n, ms=(256, 1, 16, 64),
+                      bf16_x=False):
+    """K2 at the main path's M 256 (the entry: the first of ``ms``) and at
+    M 1, 16 and 64 (printed: bytes-bound), each against its plain version,
+    with its TFLOP/s and share of the bound beside the library call's
+    time."""
     k = w.shape[0]
     g = torch.Generator(device="cuda").manual_seed(3)
     entry = None
-    for m in (256, 1, 16, 64):
-        x = torch.randn((m, k), device="cuda", generator=g)
+    for m in ms:
+        x = _rows(g, m, k, bf16_x)
         idx = gemm.head_argmax_int8(x, w, s, n_valid=n)
         logits = gemm.matmul_int8_wo_plain(x, w, s)[:, :n]
         ref = gemm.head_argmax_int8_plain(x, w, s, n_valid=n)
@@ -538,7 +608,8 @@ def check_head_argmax(timer, w, s, w_dq, n):
         regret = (logits[rows, ref.long()] - logits[rows, idx.long()]).abs()
         bad = (idx != ref) & (margin >= K2_MARGIN_TOL)
         near = int(((idx != ref) & ~bad).sum().item())
-        print(f"head_argmax_int8 (M {m}): {int((idx != ref).sum())} of {m} "
+        print(f"head_argmax_int8 (M {m}, K {k}, N {n}): "
+              f"{int((idx != ref).sum())} of {m} "
               f"indices differ, {near} of them at a margin below "
               f"{K2_MARGIN_TOL}")
         check(not bad.any(), "K2 disagrees above the margin tolerance")
@@ -563,24 +634,25 @@ def check_head_argmax(timer, w, s, w_dq, n):
     return entry
 
 
-def check_matmul_wo(timer, w, s, w_dq, n):
+def check_matmul_wo(timer, w, s, w_dq, n, ms=(64, 1, 16, 32), bf16_x=False):
     """K4 (K2's tiles with a store epilogue) against its plain version at
-    the main path's M 64 (the entry: the largest admission group) and at M
-    1, 16 and 32 ((G)'s verify head), each with its TFLOP/s and share of
-    the bound beside the library call (the bf16 ``matmul`` on the
-    dequantized weight); and the CUDA kernels one call launches."""
+    the main path's M 64 (the entry, the first of ``ms``: the largest
+    admission group) and at M 1, 16 and 32 ((G)'s verify head), each with
+    its TFLOP/s and share of the bound beside the library call (the bf16
+    ``matmul`` on the dequantized weight); and the CUDA kernels one call
+    launches."""
     k = w.shape[0]
     g = torch.Generator(device="cuda").manual_seed(4)
     entry = None
-    for m in (64, 1, 16, 32):
-        x = torch.randn((m, k), device="cuda", generator=g)
+    for m in ms:
+        x = _rows(g, m, k, bf16_x)
         out = gemm.matmul_int8_wo(x, w, s)[:, :n]
         ref = gemm.matmul_int8_wo_plain(x, w, s)[:, :n]
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = K4_REL_TOL * ref.abs().max().item()
-        print(f"matmul_int8_wo (M {m}): max_abs_err {err:.3e} (tol "
-              f"{tol:.3e})")
+        print(f"matmul_int8_wo (M {m}, K {k}, N {n}): max_abs_err "
+              f"{err:.3e} (tol {tol:.3e})")
         check(err <= tol, f"K4 disagrees at M {m}")
         flops = 2.0 * m * k * w.shape[1]
         n_bytes = k * w.shape[1] + 4 * w.shape[1] + 4 * m * k \
@@ -619,6 +691,39 @@ def check_matmul_wo(timer, w, s, w_dq, n):
             entry.update({f"m{m}_ms": ms, f"m{m}_bound_ms": bms,
                           f"m{m}_library_ms": lib})
     return entry
+
+
+# Path (L)'s int8 weight-only products, K 4096: each layer's wqkv and wo
+# (K4, 64 a decode step at M 16) and the LM head (K2 every step, K4 at an
+# admission of 16 prompts).
+L_GEMMS = (("wqkv", 6144), ("wo", 4096), ("head", 32000))
+ENTRY_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+
+
+def prefixed(entry, prefix):
+    """An entry's measured keys under ``prefix``: the extra keys of the
+    kernel's entry for another shape."""
+    return {prefix + k: entry[k] for k in ENTRY_KEYS}
+
+
+def check_mixtral_gemms(timer):
+    """K4 at path (L)'s wqkv, wo and LM head and K2 at its head, at a
+    decode step's M 16 with bf16-valued rows, each against its plain
+    version with its bound and library call. Returns the extra keys of
+    K4's and K2's entries (``m16_l_<weight>_*``)."""
+    k4, k2 = {}, {}
+    for label, n in L_GEMMS:
+        w, s, w_dq = _head_weights(4096, n)
+        k4.update(prefixed(check_matmul_wo(timer, w, s, w_dq, n, ms=(16,),
+                                           bf16_x=True),
+                           f"m16_l_{label}_"))
+        if label == "head":
+            k2.update(prefixed(check_head_argmax(timer, w, s, w_dq, n,
+                                                 ms=(16,), bf16_x=True),
+                               "m16_l_head_"))
+        del w, s, w_dq
+    return k4, k2
 
 
 def tail_flush_inputs(b=256, kvh=12, cap=512, live=(16, 160)):
@@ -1520,17 +1625,21 @@ def _decode_bound(q, lengths, cap, row_bytes, extra_bytes=0):
 
 
 def check_int8_decode(timer, entry, b, cap, lives=H_LIVES, h=H_HEADS,
-                      kvh=H_KVH, d=H_D):
+                      kvh=H_KVH, d=H_D, bf16_q=False):
     """G1 (``entry`` "exact" or "int8_scores") or G2 ("fused") against its
     plain version on an int8 cache at path (H)'s shapes; with int8 scores
-    the kernel's int32 dots must equal the plain ones bit for bit. Bound:
-    the live rows' int8 bytes and bf16 scales, each read once."""
+    the kernel's int32 dots must equal the plain ones bit for bit;
+    ``bf16_q`` makes q bf16-valued (what the model passes under bf16
+    compute). Bound: the live rows' int8 bytes and bf16 scales, each read
+    once."""
     g = torch.Generator(device="cuda").manual_seed(22)
     kv = torch.randint(-127, 128, (b, cap, 2, kvh * d), device="cuda",
                        dtype=torch.int8, generator=g)
     scales = (0.002 + 0.01 * torch.rand((b, cap, 2, kvh), device="cuda",
                                         generator=g)).to(torch.bfloat16)
     q = torch.randn((b, h, d), device="cuda", generator=g)
+    if bf16_q:
+        q = q.to(torch.bfloat16).to(torch.float32)
     lengths = _decode_lengths(g, b, lives)
     scores = entry == "int8_scores"
     if entry == "fused":
@@ -1548,7 +1657,8 @@ def check_int8_decode(timer, entry, b, cap, lives=H_LIVES, h=H_HEADS,
     err = (out - ref).abs().max().item()
     tol = K6_REL_TOL * ref.abs().max().item()
     label = (f"{wrapper.__name__} ({entry}, B {b}, {h} heads over {kvh} of "
-             f"{d}, capacity {cap}, lives {lives[0]}-{lives[1] - 1})")
+             f"{d}, capacity {cap}, lives {lives[0]}-{lives[1] - 1}"
+             f"{', bf16-valued q' if bf16_q else ''})")
     exact = ""
     if scores:
         same = torch.equal(dots, at.int8_score_dots_plain(q, kv, lengths))
@@ -2492,16 +2602,16 @@ def prefix_admission_ms(model, params, reps=HTTP_ADMIT_REPS):
 
 def check_sampler(timer, vocab):
     """The per-request sampler at path (K)'s decode shape (64 rows of the
-    vocabulary, greedy and hot rows mixed): ``_top_k``'s candidates equal
-    the first 64 of a stable descending sort on logits with planted ties,
-    and the device ms of a whole ``sample`` and of ``_top_k`` beside the
-    stable sort's. Returns the three times."""
+    vocabulary, greedy and hot rows mixed): ``ordered_top_k``'s candidates
+    equal the first 64 of a stable descending sort on logits with planted
+    ties, and the device ms of a whole ``sample`` and of ``ordered_top_k``
+    beside the stable sort's. Returns the three times."""
     g = torch.Generator(device="cuda").manual_seed(9)
     logits = torch.randn((64, vocab), device="cuda", generator=g)
     # Many equal values at the 64th place; + 0.0 leaves no -0.0, which
     # lax.top_k ranks below +0.0 and a stable sort ties with it.
     tied = (logits * 4).round() / 4 + 0.0
-    values, indices = _top_k(tied, 64)
+    values, indices = ordered_top_k(tied, 64)
     ref = torch.sort(tied, dim=-1, descending=True, stable=True)
     check(torch.equal(indices, ref.indices[:, :64])
           and torch.equal(values, ref.values[:, :64]),
@@ -2514,7 +2624,7 @@ def check_sampler(timer, vocab):
     gen = torch.Generator(device="cuda").manual_seed(0)
     return {"sample": timer(lambda: sampler.sample(logits, temps, top_ks,
                                                    top_ps, generator=gen)),
-            "top_k": timer(lambda: _top_k(logits, 64)),
+            "top_k": timer(lambda: ordered_top_k(logits, 64)),
             "stable_sort": timer(lambda: torch.sort(
                 logits, dim=-1, descending=True, stable=True))}
 
@@ -2854,6 +2964,182 @@ def mistral_paths(launches, rates, steady):
     torch.cuda.empty_cache()
 
 
+def mixtral_model(path, n_layers=32):
+    return TransformerLM(TransformerConfig.mixtral(
+        n_layers=n_layers, **PATHS[path].get("config", {})))
+
+
+def param_bytes(tree):
+    """Bytes of every tensor of a parameter tree (a QuantWeight's data
+    and scales)."""
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_bytes(v) for v in tree)
+    if isinstance(tree, QuantWeight):
+        return param_bytes(tree.data) + param_bytes(tree.scales)
+    return tree.numel() * tree.element_size()
+
+
+def float_experts(layer):
+    """The layer with its int8 expert stacks dequantized to f32 stacks
+    (data x scales, exact in f32): (L-ragged)'s float experts."""
+    out = dict(layer)
+    for key in ("w_gate", "w_up", "w_down"):
+        w = layer[key]
+        out[key] = w.data[..., :w.n].float() * w.scales[:, None, :w.n]
+    return out
+
+
+def mixtral_paths(launches, rates, steady):
+    """Path (L) at full width and depth (weights drawn on the card, served,
+    a steady burst timed and traced, peak memory beside the weights'
+    bytes), (L-ragged) at 2 layers with float expert stacks (the ragged
+    and the dense path each where the reference takes it, ragged logits
+    against dense ones) and (L) card against CPU at 1 layer; fills
+    ``launches``, ``rates`` and ``steady``."""
+    path = "mixtral_int8"
+    model = mixtral_model(path)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_int8_params(0, device="cuda")
+    torch.cuda.synchronize()
+    weights_gb = param_bytes(params) / 1e9
+    print(f"Mixtral-8x7B int8 weights drawn and quantized on the card, "
+          f"expert by expert: {time.perf_counter() - t0:.1f} s; "
+          f"{weights_gb:.2f} GB of weights; card memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    check(45 < weights_gb < 50, "path (L): the int8 weights are not ~47.9 "
+          "GB")
+    moe.impl_counts.clear()
+    rates[path], launches[path] = serve_path(model, params, path)
+    check(set(moe.impl_counts) == {"dense"},
+          f"path (L): int8 experts took {dict(moe.impl_counts)}")
+    steady[path] = steady_decode(model, params, path, steps=8, trace=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"path (L): card peak memory {peak:.2f} GB "
+          f"(torch.cuda.max_memory_allocated) beside {weights_gb:.2f} GB of "
+          f"weights")
+    stamp("path (L)")
+    head = {k: params[k] for k in ("embed", "ln_f_scale", "lm_head")}
+    params1 = {**head, "layers": params["layers"][:1]}
+    params2 = {**head, "layers": [float_experts(layer)
+                                  for layer in params["layers"][:2]]}
+    del params
+    torch.cuda.empty_cache()
+    mixtral_ragged(params2, launches)
+    del params2
+    torch.cuda.empty_cache()
+    stamp("path (L-ragged)")
+    mixtral_card_against_cpu(params1)
+    del params1
+    torch.cuda.empty_cache()
+
+
+def mixtral_card_against_cpu(params1):
+    """(L) card against CPU at 1 layer (``params1``): 2 requests of 128
+    tokens, so that the prefill reaches F1 under bf16 compute."""
+    path = "mixtral_int8"
+    counts = card_against_cpu(mixtral_model(path, 1), params1, path,
+                              MIXTRAL_PATH_LOGIT_TOL, max_batch=2,
+                              fused=False, prompt=128, new_tokens=6)
+    print(f"{path} (1 layer) card against CPU, card runs: launches "
+          f"{nonzero(counts)}")
+    check(counts["kv_append_int8"] > 0 and counts["matmul_int8_wo"] > 0
+          and counts["flash_attention"] == 1,
+          f"{path} card against CPU: K7 or K4 never launched, or F1 not "
+          f"once (the 2 x 128-token prefill of its layer)")
+
+
+def mixtral_ragged(params, launches):
+    """(L-ragged): one admission prefill of 16 x 64 tokens takes the
+    ragged path in both layers and one decode step the dense one; the
+    ragged prefill's logits against the same prefill forced dense; then
+    the path's serve with its launches."""
+    path = "mixtral_ragged"
+    model = mixtral_model(path, 2)
+    dense = TransformerLM(TransformerConfig.mixtral(
+        n_layers=2, moe_impl="dense", **PATHS[path]["config"]))
+    rng = np.random.RandomState(4)
+    tokens = torch.from_numpy(rng.randint(0, 32000, (16, 64))).cuda()
+    last = torch.full((16,), 63, dtype=torch.int64, device="cuda")
+    out = {}
+    for name, mdl in (("ragged", model), ("dense", dense)):
+        moe.impl_counts.clear()
+        cache = mdl.new_cache(16, 1024, quantized=True, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name], cache = mdl.prefill_last(params, tokens, cache, last)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        prefill_impl = dict(moe.impl_counts)
+        moe.impl_counts.clear()
+        mdl.decode_step_argmax(params, out[name].argmax(-1), cache)
+        print(f"path (L-ragged), moe_impl {mdl.config.moe_impl!r}: prefill "
+              f"of 16 x 64 tokens {ms:.1f} ms took {prefill_impl}, a decode "
+              f"step took {dict(moe.impl_counts)}")
+        want = "ragged" if name == "ragged" else "dense"
+        check(prefill_impl == {want: 2},
+              f"path (L-ragged): the prefill took {prefill_impl}")
+        check(dict(moe.impl_counts) == {"dense": 2},
+              "path (L-ragged): decode did not take the dense path")
+        del cache
+    err = float((out["ragged"] - out["dense"]).abs().max())
+    print(f"path (L-ragged): ragged against dense prefill logits: max "
+          f"difference {err:.3e} (tol {MIXTRAL_PATH_LOGIT_TOL}; max |logit| "
+          f"{float(out['dense'].abs().max()):.3f})")
+    check(err < MIXTRAL_PATH_LOGIT_TOL,
+          "path (L-ragged): ragged and dense logits disagree")
+    n_requests, new_tokens = PATHS[path]["requests"]
+    moe.impl_counts.clear()
+    kernels.reset_launch_counts()
+    engine, reqs, wall = main_path(model, params, path, n_requests,
+                                   new_tokens)
+    launches[path] = kernels.launch_counts()
+    st = engine.stats()
+    check(all(len(r.tokens) == new_tokens and r.done for r in reqs),
+          f"{path}: a request did not complete")
+    print(f"path {path} (2 layers): {len(reqs)} requests x {new_tokens} "
+          f"tokens, {st['decode_steps']} decode steps in {wall:.3f} s; MoE "
+          f"paths {dict(moe.impl_counts)}; launches "
+          f"{nonzero(launches[path])}")
+    check_launches(path, launches[path], 2, st["decode_steps"],
+                   engine.model.prefills)
+    check(moe.impl_counts["ragged"] == 2 * engine.model.prefills,
+          f"{path}: the admission prefills did not take the ragged path")
+    del engine
+
+
+def scan_path(params, launches):
+    """(L-scan): GPT-2-small with scan_layers over its stacked int8 layers
+    and a stacked bf16 cache, then the same engine without scan_layers on
+    the layer list: the same tokens, token for token."""
+    path = "scan_bf16"
+    n_requests, new_tokens = PATHS[path]["requests"]
+    stacked = {**params, "layers": stack_layer_params(params["layers"])}
+    kernels.reset_launch_counts()
+    engine, reqs, wall = main_path(gpt2_model(path), stacked, path,
+                                   n_requests, new_tokens)
+    launches[path] = kernels.launch_counts()
+    st = engine.stats()
+    check(engine.cache.stacked and engine.cache.kv.dtype == torch.bfloat16,
+          f"{path}: the engine's cache is not a stacked bf16 cache")
+    check_launches(path, launches[path], 12, st["decode_steps"],
+                   engine.model.prefills)
+    scan_tokens = [r.tokens for r in reqs]
+    del engine
+    engine, reqs, wall_loop = main_path(TransformerLM(
+        TransformerConfig.gpt2()), params, path, n_requests, new_tokens)
+    same = scan_tokens == [r.tokens for r in reqs]
+    print(f"path (L-scan): {n_requests} requests x {new_tokens} tokens at "
+          f"batch {batch_of(path)}, scan {wall:.3f} s, loop "
+          f"{wall_loop:.3f} s; tokens equal {same}; launches "
+          f"{nonzero(launches[path])}")
+    check(all(len(t) == new_tokens for t in scan_tokens) and same,
+          "path (L-scan): scan_layers tokens differ from the loop's")
+    del engine
+
+
 def to_device(params, device):
     """The parameter tree (tensors and int8 QuantWeights) on ``device``."""
     if isinstance(params, dict):
@@ -2997,9 +3283,57 @@ PATHS = {
                            kernels=("flash_attention",
                                     "decode_attn_grouped_append"),
                            absent=("kv_append", "decode_attn_float")),
+    # (L): Mixtral-8x7B at full width and depth, int8 weights and expert
+    # stacks drawn on the card, bf16 compute, cache="auto" (int8; the tail
+    # gate refuses the E matrix of 32 heads over 8 KV heads of 128). The
+    # 64-token prompts stay below flash_attention's 128-key block, so the
+    # reference's prefill is its XLA attention and F1 does not run here.
+    "mixtral_int8": dict(weights="mixtral", engine=dict(cache="auto"),
+                         config=dict(dtype="bfloat16"), tail=0,
+                         requests=(16, 32), own_phase=True, batch=16,
+                         capacity=1024, prompt=64,
+                         kernels=("decode_attn_grouped_int8.exact",
+                                  "kv_append_int8", "matmul_int8_wo",
+                                  "head_argmax_int8"),
+                         per_step=("decode_attn_grouped_int8.exact",
+                                   "kv_append_int8"),
+                         trace_kernel=("G1 (decode_attn_grouped_int8, exact "
+                                       "q)", "kv_group::kernel"),
+                         absent=("flash_attention", "decode_attn_int8",
+                                 "decode_attn_int8_tail", "tail_flush_int8",
+                                 "decode_attn_fused_int8",
+                                 "decode_attn_grouped_int8.int8_scores")),
+    # (L-ragged): (L) at 2 layers with float (dequantized) expert stacks:
+    # the prefill's 1024 tokens take the ragged path, decode the dense one.
+    "mixtral_ragged": dict(weights="mixtral_float",
+                           engine=dict(cache="auto"),
+                           config=dict(dtype="bfloat16"), tail=0,
+                           requests=(16, 8), own_phase=True, batch=16,
+                           capacity=1024, prompt=64,
+                           kernels=("decode_attn_grouped_int8.exact",
+                                    "kv_append_int8", "head_argmax_int8")),
+    # (L-scan): GPT-2-small with scan_layers (stacked int8 weights, a
+    # stacked bf16 cache: K5 and K6 on each layer's view) against the same
+    # engine without it, token for token.
+    "scan_bf16": dict(weights="int8", engine=dict(cache="bf16"),
+                      config=dict(scan_layers=True), tail=0,
+                      requests=(64, 16), own_phase=True, batch=64,
+                      kernels=("kv_append", "decode_attn_float",
+                               "head_argmax_int8", "matmul_int8_wo"),
+                      per_step=("kv_append", "decode_attn_float")),
+    # (L-bf16): GPT-2-small int8 + tail under bf16 compute, card against
+    # CPU at batch 64 (capacity 128, so that the CPU's plain K1 reads a
+    # quarter of 512's rows): K1, K3, K2 and K4 on bf16 activations.
+    "int8_tail_bf16": dict(weights="int8", engine=dict(quantized_cache=True),
+                           config=dict(dtype="bfloat16"), tail=16,
+                           requests=(64, 20), own_phase=True, batch=64,
+                           kernels=("decode_attn_int8_tail",
+                                    "tail_flush_int8", "head_argmax_int8",
+                                    "matmul_int8_wo")),
 }
 GPT2_PATHS = [p for p in PATHS
-              if not (PATHS[p].get("llama") or PATHS[p].get("mistral"))]
+              if not (PATHS[p].get("llama") or PATHS[p].get("mistral")
+                      or PATHS[p].get("own_phase"))]
 # Kernels that no serving path reaches (``name`` or ``name.mode``).
 KERNEL_LEVEL = ("decode_attn_int8_partials", "decode_attn_split_kv",
                 "decode_attn_native_dots", "matmul_int8_tiled",
@@ -3219,14 +3553,16 @@ def steady_decode(model, params, path, steps=16, trace=False):
 
 def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
                      max_batch=8, fused=True, prompt=8, new_tokens=16,
-                     capacity=512):
+                     capacity=512, reading=None):
     """Greedy tokens of ``max_batch`` requests of ``prompt`` tokens x
     ``new_tokens`` of ``path`` on the card and on the CPU, each with the
     fused argmax head (unless ``fused`` is False: an int4 head has none)
     and with logits + argmax (recording the logits), compared step by step:
     logits within ``logit_tol``, tokens identical except after a CPU top-2
     margin below twice that. Returns the launch counts of the card's
-    runs."""
+    runs; a ``reading`` dict receives the largest logit difference
+    (``dev``), that of the prefill's logits (``prefill_dev``), the
+    divergences and max |logit|."""
 
     class Recorder(ArgMaxSampler):
         """Greedy, keeping every call's logits rows."""
@@ -3296,11 +3632,17 @@ def card_against_cpu(model, params_gpu, path, logit_tol, device="cuda",
                     .max())
               for i in range(len(card))
               for c in range(min(first[i] + 1, new_tokens)))
+    prefill_dev = float(np.abs(rec_card.logits[0]
+                               - rec_cpu.logits[0]).max())
     scale = max(float(np.abs(x).max()) for x in rec_cpu.logits)
+    n_diverged = sum(f < new_tokens for f in first)
     print(f"{path}: card vs cpu: {sum(len(t) for t in card)} tokens, "
-          f"{sum(f < new_tokens for f in first)} near-tie divergences, max "
-          f"logit difference {dev:.3e} (tol {logit_tol:.1e}; max |logit| "
-          f"{scale:.3f})")
+          f"{n_diverged} near-tie divergences, max logit difference "
+          f"{dev:.3e} (prefill {prefill_dev:.3e}; tol {logit_tol:.1e}; max "
+          f"|logit| {scale:.3f})")
+    if reading is not None:
+        reading.update(dev=dev, prefill_dev=prefill_dev,
+                       divergences=n_diverged, scale=scale)
     check(dev < logit_tol, f"{path}: card and cpu logits disagree")
     return kernels.launch_counts()
 
@@ -3616,6 +3958,14 @@ def main():
     # of 8 queries at depths 48-104 (its float mode is printed too).
     printed += check_verify_attn(timer, "fused", b=1, s=8, cap=1024,
                                  live=(48, 105))
+    # K4, K2 and G1 (exact q) at path (L)'s shapes on bf16-valued inputs:
+    # extra keys of their entries.
+    l_k4, l_k2 = check_mixtral_gemms(timer)
+    entry_of(results, "matmul_int8_wo").update(l_k4)
+    entry_of(results, "head_argmax_int8").update(l_k2)
+    entry_of(results, "decode_attn_grouped_int8", "exact").update(prefixed(
+        check_int8_decode(timer, "exact", b=16, cap=1024, lives=(64, 97),
+                          bf16_q=True), "l_"))
     for r in results + printed:
         print(f"{r['name']}{' (' + r['mode'] + ')' if 'mode' in r else ''}: "
               f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
@@ -3691,9 +4041,20 @@ def main():
     check(counts["decode_attn_flat_float"] > 0
           and counts["decode_attn_float"] == 0,
           "flat_f32 card against CPU: decode did not run through K8")
+    stamp("speculative paths and card against CPU")
+    scan_path(weights["int8"], launches)
+    path = "int8_tail_bf16"
+    launches[path] = card_against_cpu(
+        gpt2_model(path), weights["int8"], path, BF16_PATH_LOGIT_TOL,
+        max_batch=batch_of(path), new_tokens=PATHS[path]["requests"][1],
+        capacity=128)
+    print(f"path (L-bf16) card against CPU at batch {batch_of(path)}, card "
+          f"runs: launches {nonzero(launches[path])}")
+    missing = [k for k in PATHS[path]["kernels"] if launches[path][k] == 0]
+    check(not missing, f"path (L-bf16): never launched {missing}")
     del weights
     torch.cuda.empty_cache()
-    stamp("speculative paths and card against CPU")
+    stamp("(L-scan) and (L-bf16)")
 
     # Path (F): TinyLlama-1.1B at full width with int4 weights, drawn on
     # the host in the reference's order; the f32 weights are freed once
@@ -3745,6 +4106,8 @@ def main():
     stamp("TinyLlama paths")
     mistral_paths(launches, rates, steady)
     stamp("Mistral paths")
+    mixtral_paths(launches, rates, steady)
+    stamp("Mixtral paths (L)")
     graph_runtime_path(launches)
     stamp("graph runtime (J)")
     http_serve_path(launches, smi, timer)
@@ -3790,6 +4153,9 @@ def main():
                    "matmul_int8_wo", "verify_attn_fused.int8"):
             # K1, K3, K4 and V1's fused int8 entry serve path (K) too.
             r["k_launches"] = launches["http_serve"][key]
+        # Every kernel's launches on path (L), Mixtral-8x7B (0 where the
+        # reference's dispatch does not take it there).
+        r["l_launches"] = launches["mixtral_int8"].get(key, 0)
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3812,7 +4178,9 @@ def main():
              "gqa_device_launches", "nz_max_abs_err", "nz_ms",
              "nz_plain_ms", "nz_bound_ms", "nz_device_launches",
              "exact_q_max_abs_err", "exact_q_ms", "exact_q_plain_ms",
-             "m4096", "graph_launches", "k_launches")
+             "m4096", "graph_launches", "k_launches", "l_launches") \
+        + tuple(f"m16_l_{w}_{k}" for w, _ in L_GEMMS for k in ENTRY_KEYS) \
+        + tuple(f"l_{k}" for k in ENTRY_KEYS)
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in results]}))

@@ -11,13 +11,15 @@
 // page ids from the table, so the pool is never gathered into a
 // contiguous copy.
 //
-// Contract: pool f32 or int8 [n_pages, page, 2, KVH*D], int8 with bf16
+// Contract: pool f32, bf16 or int8 [n_pages, page, 2, KVH*D], int8 with bf16
 // scales [n_pages, page, 2, KVH]; table int32 [B, max_pages] (-1 =
 // unmapped); tokens [0, min(lengths[b], page * max_pages)) are read. An
 // unmapped page inside the length is read from pool page 0 (mask_unmapped
 // = 0, the grouped kernels, which clamp the id to >= 0) or masked
-// (mask_unmapped = 1, the grid kernel; float pools only). Float pools: q,
-// the pool and the output f32, nothing rounded, score = (q . k) * scale,
+// (mask_unmapped = 1, the grid kernel; float pools only). Float pools: q
+// and the output f32, nothing rounded (a bf16 pool's values widened
+// exactly, as the reference's kblk.astype(q.dtype) reads them under bf16
+// compute), score = (q . k) * scale,
 // out = sum p v / max(sum p, 1e-30). The reference's int8 numerics: q and
 // the output f32 without bf16 rounding, score = ((q . k_int8) * scale) *
 // k_scale, l sums the unscaled p, and V is weighted by p * v_scale. A
@@ -45,8 +47,18 @@
 // thread-block cluster, still one launch.
 #include "decode_attn_kv_group.cuh"
 
-// P3 and its grid mode (mask_unmapped 1) on an f32 pool, and P3i on an
-// int8 one (with scales), at the launch of paged_plan: splits, the chunks
+template <typename T, typename Addr>
+static int paged_float(const void* q, const void* pool, const void* lengths,
+                       void* out, int batch, int heads, int kvh, int d,
+                       const Addr& addr, int splits, int page, int hpw,
+                       int hg, int warps, float scale, cudaStream_t st) {
+  return (int)kv_group::launch<T, Addr, kv_group::kExact, true>(
+      q, pool, nullptr, lengths, out, nullptr, batch, heads, kvh, d, addr,
+      splits, page, hpw, hg, warps, scale, st);
+}
+
+// P3 and its grid mode (mask_unmapped 1) on an f32 pool (bf16 0) or a bf16
+// one (bf16 1), and P3i on an int8 one (with scales), at the launch of paged_plan: splits, the chunks
 // a sequence (and KV head) splits into, each a whole number of pages (1 to
 // 8, one cluster); hpw query heads a warp, hg head groups, warps 4 or 8 a
 // block (kv_group::launch). d 64 to 256 in steps of 64, as the per-head
@@ -56,22 +68,26 @@ extern "C" int decode_attn_paged(const void* q, const void* pool,
                                  const void* table, const void* lengths,
                                  void* out, int batch, int heads, int kvh,
                                  int d, int page, int max_pages,
-                                 int mask_unmapped, int splits, int hpw,
-                                 int hg, int warps, float scale,
+                                 int mask_unmapped, int bf16, int splits,
+                                 int hpw, int hg, int warps, float scale,
                                  void* stream) {
-  using kv_group::launch;
   cudaStream_t st = (cudaStream_t)stream;
   if (mask_unmapped) {
     const kv_group::MaskedPages addr{(const int*)table, page, max_pages};
-    return (int)launch<float, kv_group::MaskedPages, kv_group::kExact,
-                       true>(q, pool, nullptr, lengths, out, nullptr, batch,
-                             heads, kvh, d, addr, splits, page, hpw, hg,
-                             warps, scale, st);
+    return bf16 ? paged_float<__nv_bfloat16>(q, pool, lengths, out, batch,
+                                             heads, kvh, d, addr, splits,
+                                             page, hpw, hg, warps, scale, st)
+                : paged_float<float>(q, pool, lengths, out, batch, heads,
+                                     kvh, d, addr, splits, page, hpw, hg,
+                                     warps, scale, st);
   }
   const kv_group::Pages addr{(const int*)table, page, max_pages};
-  return (int)launch<float, kv_group::Pages, kv_group::kExact, true>(
-      q, pool, nullptr, lengths, out, nullptr, batch, heads, kvh, d, addr,
-      splits, page, hpw, hg, warps, scale, st);
+  return bf16 ? paged_float<__nv_bfloat16>(q, pool, lengths, out, batch,
+                                           heads, kvh, d, addr, splits, page,
+                                           hpw, hg, warps, scale, st)
+              : paged_float<float>(q, pool, lengths, out, batch, heads, kvh,
+                                   d, addr, splits, page, hpw, hg, warps,
+                                   scale, st);
 }
 
 extern "C" int decode_attn_paged_int8(const void* q, const void* pool,

@@ -16,7 +16,8 @@
 // into page 0, the allocator's reserved garbage page) and offset
 // len % page: pool[id, off, 0, :] = k[b, :], pool[id, off, 1, :] = v[b, :].
 // k and v are f32 rows [B, KVH*D] with row strides k_stride / v_stride
-// (elements). P1: an f32 pool. P2: an int8 pool [n_pages, page, 2, KVH*D]
+// (elements). P1: an f32 pool, or a bf16 one (bf16 compute: each value
+// rounded to nearest even, as K5 rounds). P2: an int8 pool [n_pages, page, 2, KVH*D]
 // and bf16 scales [n_pages, page, 2, KVH], quantized per (plane, head) by
 // kv_quant.cuh's quantize_row_lanes8, bit for bit with the reference's
 // quantizer. Two sequences that resolve to the same row (dead slots in
@@ -34,16 +35,21 @@
 #include "kv_append.cuh"
 
 // wide (both entries): 1 for the wide instance (the wrapper checks d 64 or
-// 128 and every row 16-byte aligned), 0 for the narrow one.
+// 128 and every row 16-byte aligned), 0 for the narrow one. bf16 (P1): 1
+// for a bf16 pool, 0 for an f32 one.
 extern "C" int kv_append_paged(const void* k, const void* v, int k_stride,
                                int v_stride, void* pool, const void* table,
                                const void* lengths, int batch, int page,
-                               int max_pages, int kvh, int d, int wide,
-                               void* stream) {
+                               int max_pages, int kvh, int d, int bf16,
+                               int wide, void* stream) {
   const kvappend::PagedSlots addr{(const int*)table, (const int*)lengths,
                                   page, max_pages};
   const kvappend::DecodeRows src{(const float*)k, (const float*)v, k_stride,
                                  v_stride, batch};
+  if (bf16)
+    return (int)kvappend::launch(
+        src, kvappend::FloatRows<__nv_bfloat16>{(__nv_bfloat16*)pool}, kvh,
+        d, wide, addr, (cudaStream_t)stream);
   return (int)kvappend::launch(src, kvappend::FloatRows<float>{(float*)pool},
                                kvh, d, wide, addr, (cudaStream_t)stream);
 }

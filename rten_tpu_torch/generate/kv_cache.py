@@ -5,7 +5,10 @@ the reference's token-packed int32 rows, bf16 pair-packed scale rows and
 carry rows have no counterpart):
 
 * float cache: ``kv`` [B, cap, 2, KVH*D] in the compute dtype (plane 0 K,
-  plane 1 V; a token's K/V for all heads is one contiguous row);
+  plane 1 V; a token's K/V for all heads is one contiguous row); stacked
+  (``scan_layers``): one tensor [L, B, cap, 2, KVH*D], whose ``kv[l]`` is
+  layer l's buffer as a view, so every reader and writer of a layer serves
+  both layouts (float caches only, as the reference asserts);
 * int8 cache: ``kv`` int8 [B, cap, 2, KVH*D] and ``scales`` bf16
   [B, cap, 2, KVH], one symmetric scale per (token, plane, head);
 * tail window (int8 caches, serving decode): ``tail`` bf16 [B, R, 2, KVH*D]
@@ -33,7 +36,8 @@ from ..kernels.quant import quantize_tokens
 
 @dataclass
 class KVCache:
-    kv: list                 # per layer [B, cap, 2, KVH*D]
+    kv: list                 # per layer [B, cap, 2, KVH*D]; or a stacked
+    #                          tensor [L, B, cap, 2, KVH*D]
     lengths: torch.Tensor    # [B] int32, on the cache's device
     scales: list = None      # per layer bf16 [B, cap, 2, KVH], or None
     kv_heads: int = 1
@@ -44,17 +48,26 @@ class KVCache:
     @staticmethod
     def create(batch, n_layers, kv_heads, capacity, head_dim,
                dtype=torch.float32, quantized=False, tail_window=0,
-               device="cuda"):
+               stacked=False, device="cuda"):
         """The cache's buffers on ``device``: the card by default, the CPU
-        only when asked (``resolve_device`` raises without a card)."""
+        only when asked (``resolve_device`` raises without a card).
+        ``stacked``: all layers in one [L, B, cap, 2, KVH*D] tensor (float
+        caches; ``scan_layers``)."""
         device = resolve_device(device)
         f = kv_heads * head_dim
         lengths = torch.zeros(batch, dtype=torch.int32, device=device)
+        if stacked and quantized:
+            raise ValueError("a stacked cache must be float (quantized + "
+                             "stacked is not supported, as in the "
+                             "reference)")
         if not quantized:
             if tail_window:
                 raise ValueError("tail buffer requires a quantized cache")
-            kv = [torch.zeros((batch, capacity, 2, f), dtype=dtype,
-                              device=device) for _ in range(n_layers)]
+            shape = (batch, capacity, 2, f)
+            kv = (torch.zeros((n_layers, *shape), dtype=dtype, device=device)
+                  if stacked else
+                  [torch.zeros(shape, dtype=dtype, device=device)
+                   for _ in range(n_layers)])
             return KVCache(kv, lengths, None, kv_heads, head_dim)
         kv = [torch.zeros((batch, capacity, 2, f), dtype=torch.int8,
                           device=device) for _ in range(n_layers)]
@@ -79,6 +92,10 @@ class KVCache:
     @property
     def quantized(self):
         return self.scales is not None
+
+    @property
+    def stacked(self):
+        return isinstance(self.kv, torch.Tensor)
 
     def with_lengths(self, lengths):
         """The same buffers with new lengths (the buffers are shared)."""

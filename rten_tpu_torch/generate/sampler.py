@@ -9,10 +9,11 @@ device's default generator). Categorical draws are Gumbel-max, as
 reference's; the random streams are not, and sampled ids are never
 compared across the two packages. Greedy rows take ``torch.argmax``, which
 returns the lowest index among equal maxima, as ``lax.top_k``'s first
-index does. Top-k candidates come from ``torch.topk`` over keys that no
-two entries share (:func:`_top_k`), so equal logits keep ``lax.top_k``'s
-order, lowest index first, also at the k-th place (``torch.topk`` over the
-logits themselves orders equal values arbitrarily on CUDA).
+index does. Top-k candidates come from
+:func:`~rten_tpu_torch.utils.topk.ordered_top_k`, so equal logits keep
+``lax.top_k``'s order, lowest index first, also at the k-th place
+(``torch.topk`` over the logits themselves orders equal values arbitrarily
+on CUDA).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from ..utils.topk import ordered_top_k
 
 
 def _gumbel_argmax(logits, generator):
@@ -30,21 +33,6 @@ def _gumbel_argmax(logits, generator):
     tiny = torch.finfo(torch.float32).tiny
     g = -torch.log(-torch.log(u.clamp(min=tiny, max=1.0 - 2 ** -24)))
     return torch.argmax(logits.to(torch.float32) + g, dim=-1)
-
-
-def _top_k(logits, k):
-    """(values, indices) of the ``k`` largest entries of each row, in
-    descending order, equal values by ascending index (``lax.top_k``'s
-    order, in which -0.0 ranks below +0.0). ``torch.topk`` runs over int64
-    keys: the f32 value's bits made to order as a signed int32 in the high
-    half, the reversed index in the low half."""
-    bits = logits.to(torch.float32).view(torch.int32)
-    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-    n = logits.shape[-1]
-    rev = (n - 1) - torch.arange(n, device=logits.device, dtype=torch.int64)
-    _, indices = torch.topk((ordered.to(torch.int64) << 32) | rev, k,
-                            dim=-1)
-    return torch.gather(logits, -1, indices), indices
 
 
 class Sampler:
@@ -67,7 +55,7 @@ class TopKSampler(Sampler):
     def sample(self, logits, generator=None):
         if self.temperature == 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
-        values, indices = _top_k(logits, self.k)
+        values, indices = ordered_top_k(logits, self.k)
         choice = _gumbel_argmax(values / self.temperature, generator)
         return torch.gather(indices, -1, choice[..., None])[..., 0].to(
             torch.int32)
@@ -127,7 +115,7 @@ class PerRequestSampler(Sampler):
         → int32 tokens [B]."""
         k_eff = torch.where(top_ks <= 0, float(self.max_k),
                             torch.clamp(top_ks, max=float(self.max_k)))
-        values, indices = _top_k(logits, self.max_k)
+        values, indices = ordered_top_k(logits, self.max_k)
         ranks = torch.arange(self.max_k, device=logits.device)[None, :]
         mask_k = ranks < k_eff[:, None]
         scaled = values / torch.clamp(temps, min=1e-6)[:, None]

@@ -80,7 +80,10 @@ NEG_INF = -1e30
 
 def attn_reference(q, k, v, causal, scale, lengths=None):
     """q [B, H, Sq, D], k/v [B, H, Sk, D] → [B, H, Sq, D]. Masked scores
-    take -1e30 as in the reference (a fully masked row stays finite)."""
+    take -1e30 as in the reference (a fully masked row stays finite).
+    Inputs below f32 (bf16 compute) take the softmax as ``jax.nn.softmax``
+    computes it in their dtype: exp(s - max) rounded, then divided by its
+    sum (``torch.softmax`` would round only its f32 result)."""
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     s_q, s_k = q.shape[2], k.shape[2]
     if causal:
@@ -91,7 +94,11 @@ def attn_reference(q, k, v, causal, scale, lengths=None):
         kmask = (torch.arange(s_k, device=q.device)[None, :]
                  < lengths.to(q.device)[:, None])
         scores = scores.masked_fill(~kmask[:, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    if scores.dtype == torch.float32:
+        probs = torch.softmax(scores, dim=-1)
+    else:
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        probs = e / e.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
@@ -834,13 +841,13 @@ def group_for(batch):
 
 def _check_paged(name, q, pool, scales, table, lengths):
     """Shapes of the paged kernels' arguments; ``scales`` None is a float
-    pool."""
+    pool (f32, or bf16 under bf16 compute)."""
     b, h, d = q.shape
     _build.require(q.dtype == torch.float32, name, "q must be f32 [B, H, D]")
-    dtype = torch.float32 if scales is None else torch.int8
+    dtypes = FLOAT_CACHE_DTYPES if scales is None else (torch.int8,)
     _build.require(pool.dim() == 4 and pool.shape[2] == 2
-                   and pool.dtype == dtype, name,
-                   f"pool must be {dtype} [n_pages, page, 2, KVH*D]")
+                   and pool.dtype in dtypes, name,
+                   f"pool must be {dtypes} [n_pages, page, 2, KVH*D]")
     n_pages, page, _, f = pool.shape
     _build.require(f % d == 0 and h % (f // d) == 0, name,
                    "pool row width must be KVH*D with H a multiple of KVH")
@@ -1034,7 +1041,7 @@ def _kv_group_head_dim(name, d):
 def _launch_paged(wrapper, q, pool, table, lengths, scale, mask_unmapped,
                   plan=None):
     """P3 (``mask_unmapped`` False) or its grid mode (True) on CUDA tensors:
-    the KV-group kernel over an f32 pool at ``plan`` (default
+    the KV-group kernel over an f32 or bf16 pool at ``plan`` (default
     :func:`paged_plan`'s); counts the launch on ``wrapper``."""
     name = wrapper.__name__
     b, h, d, kvh, page, n_p = _check_paged(name, q, pool, None, table,
@@ -1046,10 +1053,11 @@ def _launch_paged(wrapper, q, pool, table, lengths, scale, mask_unmapped,
     _check_kv_group(name, (q, pool, table, lengths), plan)
     out = torch.empty_like(q)
     fn = _build.function("decode_attn_paged", "decode_attn_paged",
-                         "pppppiiiiiiiiiiifp")
+                         "pppppiiiiiiiiiiiifp")
     err = fn(q.data_ptr(), pool.data_ptr(), table.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), b, h, kvh, d, page, n_p,
-             int(mask_unmapped), plan["splits"], plan["heads_per_warp"],
+             int(mask_unmapped), int(pool.dtype == torch.bfloat16),
+             plan["splits"], plan["heads_per_warp"],
              plan["head_groups"], plan["warps"], float(scale),
              _build.stream())
     _build.check(err, name)
@@ -1088,10 +1096,11 @@ def decode_attn_paged_plain(q, pool, table, lengths, scale=None):
 
 
 def decode_attn_paged(q, pool, table, lengths, scale=None):
-    """Decode attention for one query per sequence over an f32 block-paged
+    """Decode attention for one query per sequence over a float block-paged
     pool — the contract of ``flash_decode_paged_grouped``'s float mode.
 
-    q f32 [B, H, D]; pool f32 [n_pages, page, 2, KVH*D]; table int32
+    q f32 [B, H, D]; pool f32 or bf16 (its values widened exactly)
+    [n_pages, page, 2, KVH*D]; table int32
     [B, P] page ids; lengths int32 [B]. Token t of sequence b is read at
     ``pool[table[b, t // page], t % page]`` for t < min(lengths, P*page);
     like the reference's grouped kernel, an unmapped (-1) page inside the

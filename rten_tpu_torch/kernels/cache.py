@@ -255,14 +255,14 @@ def paged_slots(table, lengths, page):
     return ids, lens % page
 
 
-def _check_paged(name, pool, k, v, table, lengths, dtype):
+def _check_paged(name, pool, k, v, table, lengths, dtypes):
     b, kvh, t, d = k.shape
     _build.require(t == 1 and v.shape == k.shape
                    and k.dtype == v.dtype == torch.float32, name,
                    "k and v must be f32 [B, KVH, 1, D]")
     _build.require(pool.dim() == 4 and pool.shape[2] == 2
-                   and pool.shape[3] == kvh * d and pool.dtype == dtype,
-                   name, f"pool must be {dtype} [n_pages, page, 2, KVH*D]")
+                   and pool.shape[3] == kvh * d and pool.dtype in dtypes,
+                   name, f"pool must be {dtypes} [n_pages, page, 2, KVH*D]")
     _build.require(table.dim() == 2 and table.shape[0] == b
                    and table.dtype == torch.int32, name,
                    "table must be int32 [B, max_pages]")
@@ -275,17 +275,19 @@ def kv_append_paged_plain(pool, k, v, table, lengths):
     """Plain PyTorch version of the paged float append (same contract, in
     place)."""
     b, page, _, kvh, d = _check_paged("kv_append_paged", pool, k, v, table,
-                                      lengths, torch.float32)
+                                      lengths, FLOAT_CACHE_DTYPES)
     ids, offs = paged_slots(table, lengths, page)
     pool[ids, offs] = torch.stack([k.reshape(b, kvh * d),
-                                   v.reshape(b, kvh * d)], dim=1)
+                                   v.reshape(b, kvh * d)],
+                                  dim=1).to(pool.dtype)
 
 
 def kv_append_paged(pool, k, v, table, lengths):
-    """Write each sequence's new K/V as one token row into an f32 block-
+    """Write each sequence's new K/V as one token row into a float block-
     paged pool, in place, at the page and offset of :func:`paged_slots`.
 
-    pool f32 [n_pages, page, 2, KVH*D]; k, v f32 [B, KVH, 1, D] (strided
+    pool f32 or bf16 (rounded to nearest even, as ``kv_append``)
+    [n_pages, page, 2, KVH*D]; k, v f32 [B, KVH, 1, D] (strided
     views are fine); table int32 [B, P] (-1 = unmapped); lengths int32
     [B]. CPU tensors take the plain version; CUDA tensors launch the
     kernel (``kv_append``'s, eight lanes a row, the row's page read from
@@ -295,15 +297,15 @@ def kv_append_paged(pool, k, v, table, lengths):
     if _build.on_cpu(name, pool, k, v, table, lengths):
         return kv_append_paged_plain(pool, k, v, table, lengths)
     b, page, n_p, kvh, d = _check_paged(name, pool, k, v, table, lengths,
-                                        torch.float32)
+                                        FLOAT_CACHE_DTYPES)
     _build.require(all(x.is_contiguous() for x in (pool, table, lengths)),
                    name, "pool, table and lengths must be contiguous")
     kr, vr = _rows(k, b, kvh * d), _rows(v, b, kvh * d)
-    fn = _build.function(name, name, "ppiipppiiiiiip")
+    fn = _build.function(name, name, "ppiipppiiiiiiip")
     err = fn(kr.data_ptr(), vr.data_ptr(), kr.stride(0), vr.stride(0),
              pool.data_ptr(), table.data_ptr(), lengths.data_ptr(), b, page,
-             n_p, kvh, d, int(kv_append_wide(d, pool, kr, vr)),
-             _build.stream())
+             n_p, kvh, d, int(pool.dtype == torch.bfloat16),
+             int(kv_append_wide(d, pool, kr, vr)), _build.stream())
     _build.check(err, name)
     kv_append_paged.launches += 1
 
@@ -314,7 +316,7 @@ kv_append_paged.launches = 0
 def _check_paged_int8(pool, scales, k, v, table, lengths):
     name = "kv_append_paged_int8"
     b, page, n_p, kvh, d = _check_paged(name, pool, k, v, table, lengths,
-                                        torch.int8)
+                                        (torch.int8,))
     _build.require(scales.shape == (pool.shape[0], page, 2, kvh)
                    and scales.dtype == torch.bfloat16, name,
                    "scales must be bf16 [n_pages, page, 2, KVH]")

@@ -4,9 +4,12 @@ The port never imports the JAX ``QuantWeight``: a quantized entry is any
 object with ``kind``, ``data``, ``scales`` and ``n`` attributes (duck
 typing) and becomes the port's
 :class:`~rten_tpu_torch.models.transformer.QuantWeight`: int8 data with
-its columns padded to a multiple of 8 as the port's kernels require, or
-group-wise int4 (int32 words or uint8 bytes, f32 scales, ``group``) as it
-is, its N already a multiple of 256.
+its columns (last axis) padded to a multiple of 8 as the port's kernels
+require, or group-wise int4 (int32 words or uint8 bytes, f32 scales,
+``group``) as it is, its N already a multiple of 256. Leading axes carry
+across unchanged: an MoE expert stack (float [E, K, N], or int8 data
+[E, K, N] with scales [E, N]) and a stacked layer tree
+(``stack_layer_params``: every leaf with a leading layer axis).
 """
 
 from __future__ import annotations
@@ -46,14 +49,14 @@ def params_from_numpy(tree, device="cuda"):
                 return QuantWeight(
                     "int4", tensor(data),
                     tensor(np.asarray(obj.scales, dtype=np.float32)),
-                    int(obj.n) or 2 * data.shape[1], int(obj.group))
+                    int(obj.n) or 2 * data.shape[-1], int(obj.group))
             if obj.kind != "int8":
                 raise ValueError(f"unknown quantized kind {obj.kind!r}")
             data = tensor(np.asarray(obj.data, dtype=np.int8))
             scales = tensor(np.asarray(obj.scales, dtype=np.float32))
             data, scales = pad_cols(data, scales)
             return QuantWeight("int8", data, scales,
-                               int(obj.n) or data.shape[1])
+                               int(obj.n) or data.shape[-1])
         if isinstance(obj, np.ndarray):
             return tensor(obj)
         return obj

@@ -1,12 +1,12 @@
 """Hugging Face checkpoint loaders: map GPT-2 / Llama-family state dicts
 onto the port's parameter trees.
 
-A copy of ``rten_tpu/models/hf_loader.py``'s GPT-2 and Llama loaders. They
-return numpy trees, as the reference's do, which
+A copy of ``rten_tpu/models/hf_loader.py``'s GPT-2, Llama and Mixtral
+loaders. They return numpy trees, as the reference's do, which
 :func:`rten_tpu_torch.models.convert.params_from_numpy` puts on a device.
 Sources accepted: a mapping of tensors or arrays, a module with
 ``state_dict()``, or a ``.safetensors`` / torch ``.bin`` file path. The
-Mixtral, Whisper and BERT loaders raise naming their ROADMAP.md items.
+Whisper and BERT loaders raise naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -142,6 +142,62 @@ def load_llama(source, config: TransformerConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Mixtral (Llama attention + sparse MoE MLP)
+# ---------------------------------------------------------------------------
+
+def mixtral_config_from_hf(hf_config) -> TransformerConfig:
+    return TransformerConfig(
+        vocab_size=hf_config.vocab_size,
+        n_layers=hf_config.num_hidden_layers,
+        n_heads=hf_config.num_attention_heads,
+        kv_heads=hf_config.num_key_value_heads,
+        d_model=hf_config.hidden_size, d_ff=hf_config.intermediate_size,
+        max_seq_len=hf_config.max_position_embeddings, pos="rope",
+        norm="rmsnorm", act="swiglu",
+        tie_embeddings=getattr(hf_config, "tie_word_embeddings", False),
+        rope_theta=getattr(hf_config, "rope_theta", 1e6),
+        layer_norm_eps=hf_config.rms_norm_eps,
+        n_experts=hf_config.num_local_experts,
+        experts_per_token=hf_config.num_experts_per_tok)
+
+
+def load_mixtral(source, config: TransformerConfig) -> dict:
+    """HF Mixtral state dict → TransformerLM params. Experts stack into
+    [E, in, out] arrays (HF w1 = gate, w3 = up, w2 = down, each
+    [out, in])."""
+    sd = _strip_prefix(load_state_dict(source))
+    params = {
+        "embed": sd["embed_tokens.weight"],
+        "ln_f_scale": sd["norm.weight"],
+        "layers": [],
+    }
+    if not config.tie_embeddings:
+        params["lm_head"] = sd["lm_head.weight"].T
+
+    def experts(m, w):
+        return np.stack([sd[m + f"experts.{j}.{w}.weight"].T
+                         for j in range(config.n_experts)])
+
+    for i in range(config.n_layers):
+        p = f"layers.{i}."
+        m = p + "block_sparse_moe."
+        params["layers"].append({
+            "ln1_scale": sd[p + "input_layernorm.weight"],
+            "wqkv": np.concatenate(
+                [sd[p + "self_attn.q_proj.weight"].T,
+                 sd[p + "self_attn.k_proj.weight"].T,
+                 sd[p + "self_attn.v_proj.weight"].T], axis=1),
+            "wo": sd[p + "self_attn.o_proj.weight"].T,
+            "ln2_scale": sd[p + "post_attention_layernorm.weight"],
+            "router": sd[m + "gate.weight"].T,
+            "w_gate": experts(m, "w1"),
+            "w_up": experts(m, "w3"),
+            "w_down": experts(m, "w2"),
+        })
+    return params
+
+
+# ---------------------------------------------------------------------------
 # Not ported yet
 # ---------------------------------------------------------------------------
 
@@ -153,9 +209,6 @@ def _not_ported(what, item):
     return fn
 
 
-mixtral_config_from_hf = _not_ported("mixtral_config_from_hf",
-                                     "serving breadth: MoE")
-load_mixtral = _not_ported("load_mixtral", "serving breadth: MoE")
 whisper_config_from_hf = _not_ported("whisper_config_from_hf",
                                      "other model families")
 load_whisper = _not_ported("load_whisper", "other model families")

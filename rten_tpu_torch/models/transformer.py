@@ -31,8 +31,15 @@ block-paged cache (:meth:`TransformerLM.new_paged_cache`) follows
 verify_step`, speculative decoding) follows transformer.py:741-772: see
 :func:`_verify_attn`.
 
-Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP.md
-item: bf16 compute, ``scan_layers`` and MoE.
+A layer with a ``"router"`` takes the Mixture-of-Experts feed-forward block
+(:mod:`rten_tpu_torch.models.moe`). ``dtype="bfloat16"`` computes as the
+reference does under bf16: activations in bf16 after the embedding, float
+linears promoted to f32 and rounded back, the int8 activation quantization
+in bf16 (:func:`linear`), the kernels fed widened (exact) f32 inputs with
+their outputs rounded where the reference's kernel bodies write
+``o_ref.dtype``, caches in the compute dtype, logits in f32.
+``scan_layers`` walks a stacked parameter tree (:func:`stack_layer_params`)
+over a stacked cache, one layer's views at a time.
 """
 
 from __future__ import annotations
@@ -65,13 +72,13 @@ from ..kernels.gemm import (head_argmax_int8, matmul_int4, matmul_int4_words,
 from ..kernels.quant import (INT4_GROUP, abs_max_quantize_int8,
                              dequantize_int4_groupwise, dequantize_int4_words,
                              quantize_int4_groupwise, quantize_int4_words)
+from .moe import moe_mlp
 
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's config fields that the port reads, so a config
-    builds identically in both packages; the features that are not ported
-    raise when a model is built."""
+    """The reference's config fields, so a config builds identically in
+    both packages."""
     vocab_size: int = 50257
     n_layers: int = 12
     n_heads: int = 12
@@ -88,7 +95,9 @@ class TransformerConfig:
     dtype: str = "float32"
     use_pallas: bool = True        # the tail gate, fused_append
     scan_layers: bool = False
-    n_experts: int = 0
+    n_experts: int = 0             # > 0: MoE feed-forward (models/moe.py)
+    experts_per_token: int = 2
+    moe_impl: str = "auto"         # "auto" | "dense" | "ragged"
     decode_attn: str = "auto"      # the tail gate and decode dispatch
     fused_append: bool = False
     quant_int8_scores: bool = True
@@ -118,14 +127,24 @@ class TransformerConfig:
 
     @staticmethod
     def mixtral(**kw):
-        """Mixtral-8x7B's shape; with ``n_experts=0`` it is
-        Mistral-7B-v0.2's (head_dim 128, 32 query heads over 8 KV
-        heads). MoE raises: it is not ported."""
+        """Mixtral-8x7B's shape (8 experts, top 2); with ``n_experts=0``
+        it is Mistral-7B-v0.2's (head_dim 128, 32 query heads over 8 KV
+        heads)."""
         return TransformerConfig(**{**dict(
             vocab_size=32000, n_layers=32, n_heads=32, kv_heads=8,
             d_model=4096, d_ff=14336, max_seq_len=4096, pos="rope",
             norm="rmsnorm", act="swiglu", tie_embeddings=False,
-            rope_theta=1e6, n_experts=8), **kw})
+            rope_theta=1e6, n_experts=8, experts_per_token=2), **kw})
+
+    @staticmethod
+    def tiny_moe(**kw):
+        """Small MoE config for tests (Mixtral family: GQA, RoPE,
+        SwiGLU)."""
+        return TransformerConfig(**{**dict(
+            vocab_size=128, n_layers=2, n_heads=4, kv_heads=2, d_model=64,
+            d_ff=96, max_seq_len=128, pos="rope", norm="rmsnorm",
+            act="swiglu", tie_embeddings=False, n_experts=4,
+            experts_per_token=2), **kw})
 
     @staticmethod
     def tiny_test(**kw):
@@ -136,18 +155,10 @@ class TransformerConfig:
             **kw})
 
 
-def _check_supported(cfg: TransformerConfig):
-    unported = [
-        (cfg.n_experts > 0, "MoE", "Queue 1, serving breadth: MoE"),
-        (cfg.scan_layers, "scan_layers",
-         "Queue 1, serving breadth: bf16 compute and scan_layers"),
-        (cfg.dtype != "float32", "bf16 compute",
-         "Queue 1, serving breadth: bf16 compute and scan_layers"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md {item})")
+def compute_dtype(cfg: TransformerConfig):
+    """The activations' dtype: bf16 for ``dtype="bfloat16"``, else f32
+    (the reference's rule, transformer.py:1192)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
 @dataclass
@@ -157,7 +168,9 @@ class QuantWeight:
     :func:`rten_tpu_torch.kernels.gemm.pad_cols`), ``scales`` f32 [N_pad].
     ``kind`` "int4": group-wise, ``data`` int32 words [K/4, N_pad/2] or
     uint8 tile-planar bytes [K, N_pad/2] (N padded to 256), ``scales`` f32
-    [K / group, N_pad]. ``n`` is the logical N."""
+    [K / group, N_pad]. ``n`` is the logical N. An MoE expert stack (int8
+    only) is [E, K, N_pad] with scales [E, N_pad]; a stacked layer tree
+    (:func:`stack_layer_params`) adds a leading layer axis to both."""
     kind: str
     data: torch.Tensor
     scales: torch.Tensor
@@ -180,13 +193,18 @@ def _bf16_dot(x2, w):
 
 
 def _linear_int8(x2, w):
+    """x2 [M, K] in the compute dtype. At M <= 64 the weight-only forms
+    (they round x to bf16 themselves); above it per-tensor dynamic
+    activation quantization over the whole (padded) group IN x's dtype, as
+    the reference computes absmax, ``absmax / 127`` and ``x / x_scale``
+    (transformer.py:184-190: in bf16 under bf16 compute, each op rounded),
+    then the int8 x int8 product."""
     m = x2.shape[0]
     if m <= 64 and w.data.shape[0] * w.n < WO_KERNEL_MIN_ELEMENTS:
-        return _bf16_dot(x2, w.data) * w.scales[None, :]
+        return _bf16_dot(x2.to(torch.float32), w.data) * w.scales[None, :]
     if m <= 64:
-        return matmul_int8_wo(x2.contiguous(), w.data, w.scales)
-    # Per-tensor dynamic activation quantization over the whole (padded)
-    # group, then the int8 x int8 product.
+        return matmul_int8_wo(x2.to(torch.float32).contiguous(), w.data,
+                              w.scales)
     absmax = x2.abs().amax()
     x_scale = torch.where(absmax == 0, torch.ones_like(absmax),
                           absmax / torch.full_like(absmax, 127.0))
@@ -229,27 +247,35 @@ def _linear_int4(x2, w):
 
 def linear(x, w, bias=None):
     """x @ w (+ bias), dispatching on weight storage like
-    ``rten_tpu.models.transformer.linear`` (:165-230)."""
+    ``rten_tpu.models.transformer.linear`` (:165-230). The result has x's
+    dtype; a float weight multiplies in f32 (the reference's ``matmul(x,
+    w, preferred_element_type=f32)`` promotes a bf16 x against an f32
+    weight, and widening bf16 operands is exact). A bias adds in the
+    promoted dtype, as in the reference (bf16 + f32 bias is f32)."""
     if isinstance(w, QuantWeight):
         lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
         if w.kind == "int8":
             out = _linear_int8(x2, w)
         elif w.kind == "int4":
-            out = _linear_int4(x2, w)
+            out = _linear_int4(x2.to(torch.float32), w)
         else:
             raise ValueError(w.kind)
         out = out[:, :w.n].reshape(*lead, -1).to(x.dtype)
     else:
-        out = torch.matmul(x, w).to(x.dtype)
+        out = torch.matmul(x.to(torch.float32),
+                           w.to(torch.float32)).to(x.dtype)
     if bias is not None:
         out = out + bias
     return out
 
 
 def _quant_int8(w):
-    q, scales = abs_max_quantize_int8(w, axis=0)
-    n = q.shape[1]
+    """int8 per output channel of a weight [K, N], or per expert and output
+    channel of an expert stack [E, K, N] (the reference quantizes each
+    expert's [K, N] alone, transformer.py:248-260: the same arithmetic)."""
+    q, scales = abs_max_quantize_int8(w, axis=w.dim() - 2)
+    n = q.shape[-1]
     q, scales = pad_cols(q, scales)
     return QuantWeight("int8", q, scales, n)
 
@@ -258,9 +284,12 @@ def quantize_weights(params, kind="int8", group=INT4_GROUP,
                      int4_packing="words"):
     """Convert every 2-D projection weight to quantized storage
     (transformer.py:233-296): int8 per channel, or group-wise int4 in the
-    word (default) or byte layout. Embeddings and norms stay float. A tied
-    model gets a separate int8 ``lm_head`` built from ``embed.T``, whatever
-    ``kind`` (transformer.py:290-296)."""
+    word (default) or byte layout. Embeddings, norms and the MoE router
+    stay float. MoE expert stacks (3-D ``w_gate``/``w_up``/``w_down``)
+    quantize to int8 per expert and output channel; under int4 they stay
+    float, as in the reference. A tied model gets a separate int8
+    ``lm_head`` built from ``embed.T``, whatever ``kind``
+    (transformer.py:290-296)."""
     if kind not in ("int8", "int4"):
         raise ValueError(f"kind must be 'int8' or 'int4', got {kind!r}")
     if int4_packing not in ("words", "bytes"):
@@ -280,8 +309,11 @@ def quantize_weights(params, kind="int8", group=INT4_GROUP,
             return {k: walk(v, k) for k, v in obj.items()}
         if isinstance(obj, list):
             return [walk(v, str(i)) for i, v in enumerate(obj)]
-        if (isinstance(obj, torch.Tensor) and obj.dim() == 2
-                and "embed" not in name and "pos" not in name
+        if not isinstance(obj, torch.Tensor):
+            return obj
+        if obj.dim() == 3 and name in ("w_gate", "w_up", "w_down"):
+            return _quant_int8(obj) if kind == "int8" else obj
+        if (obj.dim() == 2 and "embed" not in name and "pos" not in name
                 and name != "router"):
             return convert(obj)
         return obj
@@ -290,6 +322,46 @@ def quantize_weights(params, kind="int8", group=INT4_GROUP,
     if "embed" in out and "lm_head" not in out:
         out["lm_head"] = _quant_int8(out["embed"].T)
     return out
+
+
+def silu(x):
+    """x * sigmoid(x). Below f32 (bf16 compute) as ``jax.nn.silu``
+    computes it in x's dtype: the sigmoid rounded, then the product
+    (``torch.nn.functional.silu`` would round only its f32 result)."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.silu(x)
+    return x * torch.sigmoid(x)
+
+
+def stack_layer_params(layers: list) -> dict:
+    """Per-layer parameter dicts → one dict of stacks with a leading layer
+    axis (the reference's ``stack_layer_params``, transformer.py:299-302,
+    for ``scan_layers``); a ``QuantWeight`` stacks its data and scales."""
+    out = {}
+    for key, first in layers[0].items():
+        vals = [layer[key] for layer in layers]
+        if isinstance(first, QuantWeight):
+            out[key] = QuantWeight(first.kind,
+                                   torch.stack([v.data for v in vals]),
+                                   torch.stack([v.scales for v in vals]),
+                                   first.n, first.group)
+        else:
+            out[key] = torch.stack(vals)
+    return out
+
+
+def _layer_views(layers):
+    """The layers of a parameter tree in order: a list as it is, a stacked
+    dict (:func:`stack_layer_params`) as views of each layer's slice."""
+    if isinstance(layers, list):
+        yield from layers
+        return
+    n = next(iter(layers.values()))
+    n = (n.data if isinstance(n, QuantWeight) else n).shape[0]
+    for i in range(n):
+        yield {k: (QuantWeight(v.kind, v.data[i], v.scales[i], v.n, v.group)
+                   if isinstance(v, QuantWeight) else v[i])
+               for k, v in layers.items()}
 
 
 def _norm(cfg, x, scale, bias):
@@ -336,7 +408,6 @@ def _rope(x, cos, sin):
 
 class TransformerLM:
     def __init__(self, config: TransformerConfig):
-        _check_supported(config)
         self.config = config
 
     # -- parameters --------------------------------------------------------
@@ -376,7 +447,19 @@ class TransformerLM:
                 layer.update(ln1_bias=const(0.0, d), ln2_bias=const(0.0, d),
                              bqkv=const(0.0, (h + 2 * kvh) * hd),
                              bo=const(0.0, d))
-            if cfg.act == "swiglu":
+            if cfg.n_experts > 0:
+                e = cfg.n_experts
+                layer["router"] = dense((d, e))
+                if cfg.act == "swiglu":
+                    layer.update(w_gate=dense((e, d, dff)),
+                                 w_up=dense((e, d, dff)),
+                                 w_down=dense((e, dff, d)))
+                else:
+                    layer.update(w_up=dense((e, d, dff)),
+                                 b_up=torch.zeros((e, dff), device=dev),
+                                 w_down=dense((e, dff, d)),
+                                 b_down=torch.zeros((e, d), device=dev))
+            elif cfg.act == "swiglu":
                 layer.update(w_gate=dense((d, dff)), w_up=dense((d, dff)),
                              w_down=dense((dff, d)))
             else:
@@ -393,35 +476,67 @@ class TransformerLM:
         f32 matrix exists at a time (a 7B model draws in seconds on the
         card). Not the reference's numpy order: seed s does not give
         :meth:`init_params`'s weights."""
+        if self.config.n_experts:
+            raise ValueError("int4 expert stacks stay float (as in the "
+                             "reference): draw an MoE model with "
+                             "init_int8_params")
+
+        def int4(w):
+            packed, scales = quantize_int4_words(w)
+            return QuantWeight("int4", packed, scales, w.shape[1],
+                               INT4_GROUP)
+
+        return self._draw_quantized(seed, device, int4)
+
+    def init_int8_params(self, seed=0, device="cuda") -> dict:
+        """:meth:`init_int4_params` with every projection, the LM head and
+        every MoE expert stack in int8 per output channel (the router
+        stays f32): an expert stack is drawn and quantized one expert at a
+        time, so Mixtral-8x7B (47 G parameters, 47.1 GB in int8) draws on
+        one 80 GB card without an f32 copy of a stack. Not the reference's
+        numpy order."""
+        return self._draw_quantized(seed, device, _quant_int8)
+
+    def _draw_quantized(self, seed, device, quant):
         cfg = self.config
         if not (cfg.norm == "rmsnorm" and cfg.act == "swiglu"
                 and cfg.pos == "rope" and not cfg.tie_embeddings):
-            raise ValueError("init_int4_params draws Llama-family weights "
-                             "(rmsnorm, swiglu, rope, untied lm_head)")
+            raise ValueError("the quantized draws are of Llama-family "
+                             "weights (rmsnorm, swiglu, rope, untied "
+                             "lm_head)")
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(seed)
-        d, hd = cfg.d_model, cfg.head_dim
+        d, hd, e = cfg.d_model, cfg.head_dim, cfg.n_experts
 
         def dense(k, n):
             return 0.02 * torch.randn((k, n), device=dev, generator=g)
 
-        def int4(k, n):
-            packed, scales = quantize_int4_words(dense(k, n))
-            return QuantWeight("int4", packed, scales, n, INT4_GROUP)
+        def proj(k, n):
+            return quant(dense(k, n))
+
+        def stack(k, n):
+            parts = [proj(k, n) for _ in range(e)]
+            return QuantWeight(parts[0].kind,
+                               torch.stack([p.data for p in parts]),
+                               torch.stack([p.scales for p in parts]),
+                               parts[0].n, parts[0].group)
 
         def ones():
             return torch.ones(d, device=dev)
 
+        ffn = stack if e else proj
         params = {"embed": dense(cfg.vocab_size, d), "ln_f_scale": ones(),
                   "layers": []}
         for _ in range(cfg.n_layers):
-            params["layers"].append({
-                "ln1_scale": ones(),
-                "wqkv": int4(d, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
-                "wo": int4(cfg.n_heads * hd, d), "ln2_scale": ones(),
-                "w_gate": int4(d, cfg.d_ff), "w_up": int4(d, cfg.d_ff),
-                "w_down": int4(cfg.d_ff, d)})
-        params["lm_head"] = int4(d, cfg.vocab_size)
+            layer = {"ln1_scale": ones(),
+                     "wqkv": proj(d, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
+                     "wo": proj(cfg.n_heads * hd, d), "ln2_scale": ones()}
+            if e:
+                layer["router"] = dense(d, e)
+            layer.update(w_gate=ffn(d, cfg.d_ff), w_up=ffn(d, cfg.d_ff),
+                         w_down=ffn(cfg.d_ff, d))
+            params["layers"].append(layer)
+        params["lm_head"] = proj(d, cfg.vocab_size)
         return params
 
     # -- forward -----------------------------------------------------------
@@ -444,7 +559,13 @@ class TransformerLM:
         to q and k after the QKV split (transformer.py:626-628). ``chunk``:
         the S tokens are a verify chunk appended at each sequence's depth
         and attending to the whole cache (transformer.py:664-671,741-772);
-        a one-token chunk is a decode step, as in the reference."""
+        a one-token chunk is a decode step, as in the reference.
+
+        Under bf16 compute q, k and v are bf16 (f32 where a bias promoted
+        them, as in the reference); the kernels and the cache writers take
+        them widened to f32, which is exact, and each attention output is
+        rounded to the dtype the reference's kernel writes: q's (its
+        ``o_ref.dtype``), x's after a verify chunk (transformer.py:772)."""
         cfg = self.config
         b, s, _ = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -456,19 +577,24 @@ class TransformerLM:
         if rope is not None:
             q, k = _rope(q, *rope), _rope(k, *rope)
         fuse_app = _fused_append_takes(cfg, cache, b, s, chunk)
+        out_dtype = q.dtype
+        f32 = torch.float32
         if cache is not None and not fuse_app:
-            cache = cache.append(layer_idx, k, v,
+            cache = cache.append(layer_idx, k.to(f32), v.to(f32),
                                  position=None if chunk or s == 1 else 0)
         if fuse_app:
             # The kernel writes the new row itself (transformer.py:714-725).
             out = decode_attn_grouped_append(
-                q[:, :, 0].contiguous(), cache.kv[layer_idx], k, v,
-                cache.lengths + 1)[:, :, None]
+                q[:, :, 0].to(f32).contiguous(), cache.kv[layer_idx],
+                k.to(f32), v.to(f32), cache.lengths + 1)[:, :, None]
         elif s == 1 and cache is not None:
-            out = self._decode_attn(q[:, :, 0].contiguous(), cache,
+            out = self._decode_attn(q[:, :, 0].to(f32).contiguous(), cache,
                                     layer_idx)[:, :, None]
+            if _paged_gather_takes(cfg, cache, b):
+                out_dtype = f32     # the reference's f32 einsum result
         elif chunk and cache is not None:
-            out = _verify_attn(cfg, q, cache, layer_idx)
+            out = _verify_attn(cfg, q.to(f32), cache, layer_idx)
+            out_dtype = x.dtype
         else:
             if kvh != h:
                 k = k.repeat_interleave(h // kvh, dim=1)
@@ -476,20 +602,23 @@ class TransformerLM:
             # transformer.py:792-800: flash_attention, whose own fallback
             # sends the shapes it does not take to the plain reference.
             if flash_attention_takes(s, k.shape[2], hd):
-                out = flash_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), True,
+                out = flash_attention(q.to(f32).contiguous(),
+                                      k.to(f32).contiguous(),
+                                      v.to(f32).contiguous(), True,
                                       1.0 / math.sqrt(hd))
             else:
+                # The reference's XLA fallback, in the inputs' dtype.
                 out = attn_reference(q, k, v, True, 1.0 / math.sqrt(hd))
-        out = out.transpose(1, 2).reshape(b, s, h * hd)
+        out = out.to(out_dtype).transpose(1, 2).reshape(b, s, h * hd)
         return linear(out, layer_params["wo"], layer_params.get("bo")), cache
 
     def _mlp(self, layer_params, x):
+        if "router" in layer_params:
+            return moe_mlp(x, layer_params, self.config)
         if self.config.act == "swiglu":
             gate = linear(x, layer_params["w_gate"])
             up = linear(x, layer_params["w_up"])
-            return linear(torch.nn.functional.silu(gate) * up,
-                          layer_params["w_down"])
+            return linear(silu(gate) * up, layer_params["w_down"])
         hidden = linear(x, layer_params["w_up"], layer_params.get("b_up"))
         hidden = torch.nn.functional.gelu(hidden, approximate="none")
         return linear(hidden, layer_params["w_down"],
@@ -517,8 +646,12 @@ class TransformerLM:
             # RoPE takes the positions unclamped, as the reference does.
             rope = _rope_tables(positions.expand(b, s), cfg.head_dim,
                                 cfg.rope_theta)
-        x = x.to(torch.float32)
-        for i, layer in enumerate(params["layers"]):
+        x = x.to(compute_dtype(cfg))
+        if (cfg.scan_layers and cache is not None
+                and not getattr(cache, "stacked", False)):
+            raise ValueError("scan_layers requires a stacked KV cache "
+                             "(new_cache builds one automatically)")
+        for i, layer in enumerate(_layer_views(params["layers"])):
             attn_in = _norm(cfg, x, layer["ln1_scale"], layer.get("ln1_bias"))
             attn_out, cache = self._attention(layer, attn_in, cache, i, rope,
                                               chunk)
@@ -532,7 +665,9 @@ class TransformerLM:
 
     def _head(self, params, x):
         if self.config.tie_embeddings and "lm_head" not in params:
-            logits = x @ params["embed"].T.to(x.dtype)
+            # The embedding rounded to x's dtype, the product in f32.
+            logits = x.to(torch.float32) @ params["embed"].T.to(
+                x.dtype).to(torch.float32)
         else:
             logits = linear(x, params["lm_head"])
         return logits.to(torch.float32)
@@ -588,13 +723,17 @@ class TransformerLM:
 
     def new_cache(self, batch, capacity=None, quantized=False,
                   cache_dtype=None, tail_window=0, device="cuda"):
-        """A cache for ``batch`` sequences; ``tail_window`` > 0 adds the
-        bf16 decode window (int8 caches only)."""
+        """A cache for ``batch`` sequences in ``cache_dtype`` (default: the
+        compute dtype, transformer.py:1330-1331); ``tail_window`` > 0 adds
+        the bf16 decode window (int8 caches only). Under ``scan_layers``
+        the cache is stacked (one [L, B, cap, 2, KVH*D] buffer)."""
         cfg = self.config
-        dtype = getattr(torch, cache_dtype) if cache_dtype else torch.float32
+        dtype = (getattr(torch, cache_dtype) if cache_dtype
+                 else compute_dtype(cfg))
         return KVCache.create(batch, cfg.n_layers, cfg.n_kv_heads,
                               capacity or cfg.max_seq_len, cfg.head_dim,
                               dtype=dtype, quantized=quantized,
+                              stacked=cfg.scan_layers,
                               tail_window=tail_window,
                               device=resolve_device(device))
 
@@ -603,8 +742,8 @@ class TransformerLM:
                         device="cuda"):
         """A block-paged cache (``generate/paged_cache.py``) of ``n_pages``
         pages for ``batch`` sequences of up to ``capacity`` tokens. The
-        float pool's dtype follows ``config.dtype`` (f32; the reference
-        never reads ``cache_dtype`` for a paged cache). With
+        float pool's dtype is the compute dtype (transformer.py:1352; the
+        reference never reads ``cache_dtype`` for a paged cache). With
         ``identity_table`` the table maps pages ``0..B*P-1`` in order — the
         prefill group caches, where every sequence owns its pages."""
         cfg = self.config
@@ -612,7 +751,7 @@ class TransformerLM:
         max_pages = -(-capacity // page_size)
         cache = PagedKVCache.create(cfg.n_layers, n_pages, page_size,
                                     cfg.n_kv_heads, cfg.head_dim, batch,
-                                    max_pages, dtype=torch.float32,
+                                    max_pages, dtype=compute_dtype(cfg),
                                     quantized=quantized, device=dev)
         if identity_table:
             if n_pages < batch * max_pages:
@@ -636,13 +775,7 @@ def _paged_decode_attn(cfg, q3, cache, layer_idx):
     (``decode_attn_paged_grid``)."""
     lengths = cache.lengths + 1
     pool, table = cache.fused_layer(layer_idx), cache.page_table
-    if (group_for(q3.shape[0])
-            and cfg.decode_attn in ("auto", "grouped")):
-        if cache.quantized:
-            return decode_attn_paged_int8(q3, pool, cache.scales[layer_idx],
-                                          table, lengths)
-        return decode_attn_paged(q3, pool, table, lengths)
-    if cache.quantized:
+    if _paged_gather_takes(cfg, cache, q3.shape[0]):
         h, kvh = q3.shape[1], cache.kv_heads
         kc, vc = cache.layer_kv(layer_idx)
         if kvh != h:
@@ -651,19 +784,35 @@ def _paged_decode_attn(cfg, q3, cache, layer_idx):
         return attn_reference(q3[:, :, None, :], kc, vc, False,
                               1.0 / math.sqrt(cache.head_dim),
                               lengths)[:, :, 0]
+    if group_for(q3.shape[0]) and cfg.decode_attn in ("auto", "grouped"):
+        if cache.quantized:
+            return decode_attn_paged_int8(q3, pool, cache.scales[layer_idx],
+                                          table, lengths)
+        return decode_attn_paged(q3, pool, table, lengths)
     return decode_attn_paged_grid(q3, pool, table, lengths)
+
+
+def _paged_gather_takes(cfg, cache, batch):
+    """Whether decode attention on ``cache`` is the reference's gather of a
+    quantized paged pool and its XLA attention (a batch without a group or
+    ``decode_attn`` other than "auto"/"grouped"; transformer.py:509-521),
+    whose output stays f32 under any compute dtype."""
+    return bool(getattr(cache, "paged", False) and cache.quantized
+                and not (group_for(batch)
+                         and cfg.decode_attn in ("auto", "grouped")))
 
 
 def _fused_append_takes(cfg, cache, b, s, chunk):
     """The reference's fused-append eligibility, to the letter
-    (transformer.py:650-663): a single-token decode step on a contiguous
-    float cache with ``fused_append`` and Pallas on, ``decode_attn`` "auto"
-    or "grouped", a batch with a group in (8, 4, 2), rows of a multiple of
-    128 values and a capacity that divides by the grouped block."""
+    (transformer.py:650-663): a single-token decode step on a contiguous,
+    unstacked float cache with ``fused_append`` and Pallas on,
+    ``decode_attn`` "auto" or "grouped", a batch with a group in (8, 4, 2),
+    rows of a multiple of 128 values and a capacity that divides by the
+    grouped block."""
     if not (cfg.fused_append and s == 1 and cache is not None and not chunk
             and cfg.use_pallas):
         return False
-    if getattr(cache, "paged", False) or cache.quantized:
+    if getattr(cache, "paged", False) or cache.quantized or cache.stacked:
         return False
     cap = cache.capacity
     return bool(cfg.decode_attn in ("auto", "grouped") and group_for(b)

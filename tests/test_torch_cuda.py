@@ -2015,3 +2015,164 @@ def test_int4_bf16_k_order_of_a_and_b_agree(gen, layout, m):
     assert torch.equal(out, ref)
     expect = 7.0 * (rows[:, None] == hot[None, :]).float()
     assert torch.equal(out, expect)
+
+
+# -- bf16 compute, bf16 paged pools and the MoE block ------------------------
+
+def _bf16_valued(shape, gen):
+    """f32 tensors on the card holding bf16 values: the model's bf16
+    activations as the kernels take them, widened (exactly) to f32."""
+    return torch.randn(shape, device="cuda", generator=gen).to(
+        torch.bfloat16).float()
+
+
+def _within_a_bf16_step(out, ref):
+    """Outputs the model rounds to bf16 (the reference's kernels write
+    bf16 under bf16 compute): within one bf16 step of the largest."""
+    got = out.to(torch.bfloat16).float()
+    want = ref.to(torch.bfloat16).float()
+    assert (got - want).abs().max().item() <= 2.0 ** -8 * want.abs().max(
+        ).item()
+
+
+@pytest.mark.parametrize("kernel", ["F1", "G1", "K7", "K4", "K2"])
+def test_kernels_on_bf16_compute_inputs_match_plain(gen, kernel):
+    """F1, G1, K7, K4 and K2 at Mixtral's head shape (32 query heads over 8
+    KV heads of 128) and width, on bf16-valued inputs: F1 and G1 within a
+    bf16 step of their plain versions once rounded as the model rounds
+    them, K7's bytes and scales and K2's argmax bit for bit, K4 within
+    1e-5 of its largest output."""
+    if kernel == "F1":
+        q, k, v = (_bf16_valued((2, 32, 128, 128), gen) for _ in range(3))
+        _within_a_bf16_step(at.flash_attention(q, k, v, causal=True),
+                            at.flash_attention_plain(q, k, v, causal=True))
+    elif kernel == "G1":
+        b, cap = 16, 1024
+        kv, scales, _ = _cache(gen, b, cap, 1, 8, 128)
+        q = _bf16_valued((b, 32, 128), gen)
+        lengths = torch.randint(1, cap + 1, (b,), device="cuda",
+                                dtype=torch.int32, generator=gen)
+        _within_a_bf16_step(
+            at.decode_attn_grouped_int8(q, kv, scales, lengths),
+            at.decode_attn_grouped_int8_plain(q, kv, scales, lengths))
+    elif kernel == "K7":
+        b, cap = 16, 64
+        x = _bf16_valued((b, 8, 1, 128), gen)
+        kv = torch.zeros((b, cap, 2, 1024), dtype=torch.int8, device="cuda")
+        scales = torch.ones((b, cap, 2, 8), dtype=torch.bfloat16,
+                            device="cuda")
+        pos = torch.arange(b, dtype=torch.int32, device="cuda") * 3
+        k1, s1, k2, s2 = kv.clone(), scales.clone(), kv.clone(), \
+            scales.clone()
+        kc.kv_append_int8(k1, s1, x, x.flip(0), pos)
+        kc.kv_append_int8_plain(k2, s2, x, x.flip(0), pos)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, k2) and torch.equal(s1, s2)
+    else:
+        w, s = abs_max_quantize_int8(0.02 * torch.randn(
+            (4096, 6144), device="cuda", generator=gen), axis=0)
+        x = _bf16_valued((16, 4096), gen)
+        if kernel == "K4":
+            out = pg.matmul_int8_wo(x, w, s)
+            ref = pg.matmul_int8_wo_plain(x, w, s)
+            torch.cuda.synchronize()
+            assert (out - ref).abs().max().item() <= (
+                1e-5 * ref.abs().max().item())
+        else:
+            assert torch.equal(pg.head_argmax_int8(x, w, s),
+                               pg.head_argmax_int8_plain(x, w, s))
+
+
+@pytest.mark.parametrize("mode", ["append", "grouped", "grid"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_paged_pools_match_plain(gen, mode, d):
+    """A bf16 paged pool (bf16 compute): P1 writes rows rounded to bf16
+    bit for bit as its plain version; P3 and its grid mode read the pool's
+    values widened, within 1e-5 of the plain version's largest output."""
+    append = mode == "append"
+    lens, mapped = ((APPEND_LENGTHS, APPEND_MAPPED) if append
+                    else (ATTN_LENGTHS, ATTN_MAPPED))
+    b, kvh, n_pages, max_pages = len(lens), 2, 48, 4
+    table = _paged_table(b, max_pages, mapped, n_pages, seed=1)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pool = torch.randn((n_pages, PAGE, 2, kvh * d), device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    if append:
+        # APPEND_LENGTHS: no two sequences write the same row (rows that
+        # resolve to one row of page 0 race, as the kernel's contract says).
+        x = torch.randn((b, kvh, 1, d), device="cuda", generator=gen)
+        p1, p2 = pool.clone(), pool.clone()
+        kc.kv_append_paged(p1, x, x.flip(0), table, lengths)
+        kc.kv_append_paged_plain(p2, x, x.flip(0), table, lengths)
+        torch.cuda.synchronize()
+        assert torch.equal(p1, p2)
+        return
+    wrapper = {"grouped": at.decode_attn_paged,
+               "grid": at.decode_attn_paged_grid}[mode]
+    q = torch.randn((b, 8, d), device="cuda", generator=gen)
+    before = wrapper.launches
+    out = wrapper(q, pool, table, lengths)
+    ref = getattr(at, wrapper.__name__ + "_plain")(q, pool, table, lengths)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("experts,t", [("int8", 16), ("float", 128)])
+def test_moe_mlp_on_the_card_matches_the_cpu(gen, experts, t):
+    """moe_mlp at Mixtral's width (d 4096, d_ff 14336, 8 experts, top 2)
+    for one layer under bf16 compute: int8 stacks at decode size (the
+    dense path) and float stacks at 128 tokens (the ragged path), the same
+    weights and input on the card and the CPU, outputs within two bf16
+    steps of the largest (f32 sums in other orders, then the bf16
+    rounding)."""
+    from rten_tpu_torch.models import moe
+    cfg = TransformerConfig.mixtral(n_layers=1, dtype="bfloat16")
+    layer = TransformerLM(cfg).init_int8_params(0, device="cuda")[
+        "layers"][0]
+    if experts == "float":
+        for key in ("w_gate", "w_up", "w_down"):
+            w = layer[key]
+            layer[key] = w.data.float() * w.scales[:, None, :]
+    layer = {k: layer[k] for k in ("router", "w_gate", "w_up", "w_down")}
+    x = torch.randn((t, 4096), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    moe.impl_counts.clear()
+    out = moe.moe_mlp(x, layer, cfg)
+    cpu_layer = {k: (v.cpu() if isinstance(v, torch.Tensor) else QuantWeight(
+        v.kind, v.data.cpu(), v.scales.cpu(), v.n, v.group))
+                 for k, v in layer.items()}
+    ref = moe.moe_mlp(x.cpu(), cpu_layer, cfg)
+    assert moe.impl_counts == {
+        "dense" if experts == "int8" else "ragged": 2}
+    assert out.dtype == torch.bfloat16
+    err = (out.cpu().float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * ref.float().abs().max().item(), err
+
+
+def test_bf16_int8_activations_on_the_card_match_the_cpu(gen, monkeypatch):
+    """Under bf16 compute the int8 x int8 linear (M > 64) quantizes its
+    bf16 activations in bf16 (absmax / 127 and x / x_scale each rounded):
+    the card's int8 activations, their scale and the linear's bf16 output
+    equal the CPU's bit for bit."""
+    seen = {}
+    real = ptr.matmul_int8
+
+    def spy(xq, w, x_scale, w_scales):
+        seen[xq.device.type] = (xq.cpu(), x_scale.cpu())
+        return real(xq, w, x_scale, w_scales)
+
+    monkeypatch.setattr(ptr, "matmul_int8", spy)
+    w = torch.from_numpy((0.02 * np.random.default_rng(12).standard_normal(
+        (256, 128))).astype(np.float32))
+    qw = QuantWeight("int8", *pg.pad_cols(*abs_max_quantize_int8(w)), 128)
+    gpu_w = QuantWeight("int8", qw.data.cuda(), qw.scales.cuda(), 128)
+    for seed in range(4):
+        x = torch.from_numpy(np.random.default_rng(20 + seed).standard_normal(
+            (80, 256)).astype(np.float32)).to(torch.bfloat16)
+        out = linear(x.cuda(), gpu_w)
+        ref = linear(x, qw)
+        assert out.dtype == torch.bfloat16
+        assert _same_bits(seen["cuda"][0], seen["cpu"][0])
+        assert _same_bits(seen["cuda"][1], seen["cpu"][1])
+        assert _same_bits(out, ref)

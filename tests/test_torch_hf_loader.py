@@ -1,9 +1,12 @@
 """The port's Hugging Face loaders (``rten_tpu_torch/models/hf_loader.py``)
-against the JAX package's on the CPU: synthetic HF-named GPT-2 and Llama
-state dicts, given as a dict, a ``torch.save`` file and a ``.safetensors``
-file, give the reference's numpy trees bit for bit; the configs from an HF
-config equal the reference's; ``serve --weights`` serves such a file; the
-loaders not ported raise naming their ROADMAP.md items."""
+against the JAX package's on the CPU: synthetic HF-named GPT-2, Llama and
+Mixtral state dicts, given as a dict, a ``torch.save`` file and a
+``.safetensors`` file, give the reference's numpy trees bit for bit (a
+Mixtral tree also the reference's logits); the configs from an HF config
+equal the reference's; ``serve --weights`` serves such a file; the
+loaders not ported raise naming their ROADMAP.md items; with
+``transformers`` installed, a Mixtral model's logits equal
+``MixtralForCausalLM``'s."""
 
 import argparse
 import dataclasses
@@ -16,7 +19,7 @@ import torch
 
 from rten_tpu.models import hf_loader as ref_loader
 from rten_tpu.models import transformer as jtr
-from rten_tpu_torch.models import hf_loader
+from rten_tpu_torch.models import hf_loader, params_from_numpy
 from rten_tpu_torch.models import transformer as ptr
 
 GPT2 = dict(vocab_size=96, n_layers=2, n_heads=4, d_model=64, d_ff=256,
@@ -179,7 +182,6 @@ def test_configs_from_hf_equal_reference():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("load_mixtral", "MoE"), ("mixtral_config_from_hf", "MoE"),
     ("load_whisper", "other model families"),
     ("whisper_config_from_hf", "other model families"),
     ("load_bert", "other model families"),
@@ -213,3 +215,110 @@ def test_serve_weights_flag_serves_a_state_dict_file(tmp_path, monkeypatch):
     prompts = [[1, 2, 3], [50, 7]]
     assert engine.generate(prompts, max_new_tokens=5) == ref.generate(
         prompts, max_new_tokens=5)
+
+
+# -- Mixtral ------------------------------------------------------------------
+
+MIXTRAL = dict(vocab_size=72, n_layers=2, n_heads=4, kv_heads=2, d_model=48,
+               d_ff=64, max_seq_len=64, pos="rope", norm="rmsnorm",
+               act="swiglu", tie_embeddings=False, n_experts=4,
+               experts_per_token=2)
+
+
+def _mixtral_state_dict(seed):
+    """HF Mixtral names under ``model.``: Llama attention, a router
+    (``block_sparse_moe.gate``) and experts w1 (gate), w3 (up), w2 (down),
+    each nn.Linear [out, in]."""
+    g = torch.Generator().manual_seed(seed)
+    d, f, e = MIXTRAL["d_model"], MIXTRAL["d_ff"], MIXTRAL["n_experts"]
+    kv = MIXTRAL["kv_heads"] * d // MIXTRAL["n_heads"]
+
+    def t(*shape):
+        return 0.2 * torch.randn(*shape, generator=g)
+
+    sd = {"model.embed_tokens.weight": t(MIXTRAL["vocab_size"], d),
+          "model.norm.weight": 1 + t(d),
+          "lm_head.weight": t(MIXTRAL["vocab_size"], d)}
+    for i in range(MIXTRAL["n_layers"]):
+        p = f"model.layers.{i}."
+        m = p + "block_sparse_moe."
+        sd.update({p + "input_layernorm.weight": 1 + t(d),
+                   p + "self_attn.q_proj.weight": t(d, d),
+                   p + "self_attn.k_proj.weight": t(kv, d),
+                   p + "self_attn.v_proj.weight": t(kv, d),
+                   p + "self_attn.o_proj.weight": t(d, d),
+                   p + "post_attention_layernorm.weight": 1 + t(d),
+                   m + "gate.weight": t(e, d)})
+        for j in range(e):
+            sd.update({m + f"experts.{j}.w1.weight": t(f, d),
+                       m + f"experts.{j}.w3.weight": t(f, d),
+                       m + f"experts.{j}.w2.weight": t(d, f)})
+    return sd
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_load_mixtral_equals_reference(source, tmp_path):
+    """load_mixtral gives the reference's numpy tree bit for bit: expert
+    stacks [E, in, out] (w1 gate, w3 up, w2 down), the router [d, E]."""
+    src = _source(_mixtral_state_dict(6), source, tmp_path)
+    got = hf_loader.load_mixtral(src, ptr.TransformerConfig(**MIXTRAL))
+    want = ref_loader.load_mixtral(src, jtr.TransformerConfig(**MIXTRAL))
+    _assert_same_tree(got, want)
+    layer = got["layers"][0]
+    assert layer["w_gate"].shape == (4, 48, 64)
+    assert layer["w_down"].shape == (4, 64, 48)
+    assert layer["router"].shape == (48, 4)
+
+
+@pytest.mark.parametrize("moe_impl", ["auto", "ragged"])
+def test_load_mixtral_logits_match_reference(moe_impl):
+    """The loaded tree through both packages' models: the same logits
+    (f32 sums in other orders, |logits| ~ 3: within 1e-5)."""
+    sd = _mixtral_state_dict(7)
+    cfg = dict(MIXTRAL, moe_impl=moe_impl)
+    tree = hf_loader.load_mixtral(sd, ptr.TransformerConfig(**cfg))
+    ids = np.random.default_rng(1).integers(0, 72, (2, 10))
+    want, _ = jtr.TransformerLM(jtr.TransformerConfig(**cfg)).forward(
+        jax.tree_util.tree_map(jax.numpy.asarray, tree),
+        jax.numpy.asarray(ids, jax.numpy.int32))
+    got, _ = ptr.TransformerLM(ptr.TransformerConfig(**cfg)).forward(
+        params_from_numpy(tree, device="cpu"), torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+def test_mixtral_config_from_hf_equals_reference():
+    hf = types.SimpleNamespace(
+        vocab_size=32000, num_hidden_layers=32, num_attention_heads=32,
+        num_key_value_heads=8, hidden_size=4096, intermediate_size=14336,
+        max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=1e6,
+        tie_word_embeddings=False, num_local_experts=8,
+        num_experts_per_tok=2)
+    got = hf_loader.mixtral_config_from_hf(hf)
+    _same_config(got, ref_loader.mixtral_config_from_hf(hf))
+    assert got == ptr.TransformerConfig.mixtral(layer_norm_eps=1e-5)
+
+
+def test_mixtral_hf_parity(tmp_path):
+    """tests/test_moe.py's HF parity on the port: the port's Mixtral
+    logits against MixtralForCausalLM's, dense and ragged experts (needs
+    ``transformers``; the port never imports it)."""
+    transformers = pytest.importorskip("transformers")
+    hf_cfg = transformers.MixtralConfig(
+        vocab_size=96, hidden_size=48, intermediate_size=64,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        num_local_experts=4, num_experts_per_tok=2,
+        max_position_embeddings=64, rope_theta=10000.0,
+        attention_dropout=0.0)
+    torch.manual_seed(0)
+    hf = transformers.MixtralForCausalLM(hf_cfg).eval()
+    cfg = hf_loader.mixtral_config_from_hf(hf_cfg)
+    assert cfg.n_experts == 4 and cfg.experts_per_token == 2
+    params = params_from_numpy(hf_loader.load_mixtral(hf, cfg), device="cpu")
+    ids = np.random.RandomState(7).randint(0, 96, (2, 10))
+    with torch.no_grad():
+        want = hf(torch.tensor(ids)).logits.numpy()
+    for impl in ("auto", "ragged"):
+        model = ptr.TransformerLM(dataclasses.replace(cfg, moe_impl=impl))
+        got, _ = model.forward(params, torch.from_numpy(ids))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=2e-3)

@@ -1199,8 +1199,9 @@ def test_kv_append_picks_its_instance(monkeypatch, d, layout, wide, dtype):
 @pytest.mark.parametrize("d,layout,wide", K7_INSTANCES, ids=str)
 def test_kv_append_paged_picks_its_instance(monkeypatch, d, layout, wide):
     """On CUDA (simulated) P1 runs K7's kernel body through the page table
-    and takes its instance by K7's rule on its f32 pool; the views' row
-    strides and the pool's shape as given; one launch counted."""
+    and takes its instance by K7's rule on its f32 pool (the entry's bf16
+    flag 0); the views' row strides and the pool's shape as given; one
+    launch counted."""
     calls = _recorded(monkeypatch)
     pool, _, k, v, table, lengths = _paged_int8_append_args(d=d, **layout)
     pool = _unaligned(pool.shape, torch.float32,
@@ -1212,7 +1213,7 @@ def test_kv_append_paged_picks_its_instance(monkeypatch, d, layout, wide):
     (symbol, got), = calls
     assert symbol == "kv_append_paged"
     assert got[2:4] == (3 * 2 * d + layout.get("width_pad", 0),) * 2
-    assert got[7:13] == (3, 8, 2, 2, d, int(wide))
+    assert got[7:14] == (3, 8, 2, 2, d, 0, int(wide))
     assert kc.kv_append_paged.launches == before + 1
 
 

@@ -346,12 +346,11 @@ def test_engine_tail_gate_long_capacity_and_e_matrix(case):
 
 def test_unported_features_raise(models):
     _, _, pm, pp = models
-    for kw in (dict(n_experts=4), dict(scan_layers=True),
+    # Ported since: the fused append, the exact-q grouped int8 mode, MoE,
+    # scan_layers and bf16 compute.
+    for kw in (dict(fused_append=True), dict(quant_int8_scores=False),
+               dict(n_experts=4), dict(scan_layers=True),
                dict(dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransformerLM(TransformerConfig.tiny_test(**kw))
-    # Ported since: the fused append and the exact-q grouped int8 mode.
-    for kw in (dict(fused_append=True), dict(quant_int8_scores=False)):
         TransformerLM(TransformerConfig.tiny_test(**kw))
     for kw in (dict(mesh=object()), dict(spec_draft=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

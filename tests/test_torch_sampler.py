@@ -14,6 +14,7 @@ import torch
 
 from rten_tpu.generate import sampler as js
 from rten_tpu_torch.generate import sampler as ps
+from rten_tpu_torch.utils.topk import ordered_top_k
 
 V = 32
 DRAWS = 20_000
@@ -119,16 +120,16 @@ def test_top_k_candidates_keep_lax_top_k_order():
     x[1, ::3] = 2.0
     for k in (1, 2, 4, 11):
         want = jax.lax.top_k(jnp.asarray(x), k)
-        got = ps._top_k(torch.from_numpy(x), k)
+        got = ordered_top_k(torch.from_numpy(x), k)
         assert got[1].tolist() == np.asarray(want[1]).tolist()
         assert got[0].tolist() == np.asarray(want[0]).tolist()
 
 
 @pytest.mark.parametrize("case", ["signed_zeros_and_inf", "gpt2_vocab_ties"])
 def test_top_k_matches_lax_top_k(case):
-    """``_top_k`` gives lax.top_k's values and indices: +0.0 above -0.0 and
-    -inf last, and at GPT-2's vocabulary with many equal logits around the
-    64th place (path (K)'s candidate count)."""
+    """``ordered_top_k`` gives lax.top_k's values and indices: +0.0 above
+    -0.0 and -inf last, and at GPT-2's vocabulary with many equal logits
+    around the 64th place (path (K)'s candidate count)."""
     if case == "signed_zeros_and_inf":
         x = np.array([[0.0, -0.0, 1.0, -np.inf, 0.0, -0.0, -np.inf, -1.0]],
                      np.float32)
@@ -140,7 +141,7 @@ def test_top_k_matches_lax_top_k(case):
         ks = (64,)
     for k in ks:
         want = jax.lax.top_k(jnp.asarray(x), k)
-        got = ps._top_k(torch.from_numpy(x), k)
+        got = ordered_top_k(torch.from_numpy(x), k)
         assert got[1].tolist() == np.asarray(want[1]).tolist()
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
         assert np.array_equal(np.signbit(got[0].numpy()),
