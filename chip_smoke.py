@@ -247,11 +247,35 @@ Phases (any failure exits non-zero; nothing is caught):
    bf16-valued inputs against its plain version (extra keys
    ``m16_l_<weight>_*`` of K4's and K2's entries, ``l_*`` of G1's).
 
+9. The other model families, after path (K), random weights drawn in the
+   reference's numpy order. Path (M): Whisper-small
+   (``EncoderDecoderConfig.whisper_small()``, ``tools/bench_whisper.py``'s
+   configuration: 12 + 12 layers, 12 heads of 64, vocabulary 51865) over
+   8 x 3000 frames, ``generate(start_token=1, max_tokens=64, burst=16)``
+   on an f32 cache and on an int8 cache (``quantized_cache=True``):
+   encode ms, the generate's tokens/s, a timed decode burst (ms a step,
+   tokens/s) and peak memory; each decode step launches K5 and K6 (f32)
+   or K7 and G2 (int8, capacity 448) 12 times and no other kernel of the
+   repository (no F1 at head_dim 64, no G1). (M-512): 17 decode steps on
+   an int8 cache of capacity 512: K7 and G1 with int8 scores, 12 a step.
+   (M) card against CPU at 2 + 2 layers of full width, batch 2, 400
+   frames, 8 steps (K6 and G2 in their fused forms). Path (N): BERT-base
+   (``BertConfig()``) at 32 x 128 tokens with right padding, ``pooled``,
+   ``qa_spans`` and ``mean_embedding`` in f32 and dynamic int8
+   (``quantize_weights``), sequences/s, and card against CPU at 2 layers.
+   Path (O): ViT-S/16 ``classify`` and ``DepthEstimator`` at 32 x 224²,
+   SAM at batch 4 with 3 points, the ASPP segmenter on ResNet-50 at batch
+   8, TTS at batch 8 x 64 phonemes: a timed forward each, and card against
+   CPU at reduced depth. With the kernel phases: K5, K6, K7, G1 (int8
+   scores) and G2 at (M)'s decode shape (B 8, 12 heads of 64, lives 1-64,
+   capacity 448; 512 for G1), the ``w_*`` keys of their entries.
+
 Prints a ``{"kernels": [...]}`` JSON line (V1 with one entry per entry
 point and mode, G1 per mode; K1, K3, K4 and V1's fused int8 entry carry
 their path (K) launches as ``k_launches``, every entry its path (L)
-launches as ``l_launches``), then as the last line ``{"ok": true,
-"device": {...}}``.
+launches as ``l_launches``, K5, K6, K7, G1 (int8 scores) and G2 their
+(M) / (M-512) launches as ``m_launches``), then as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -281,10 +305,14 @@ from rten_tpu_torch.kernels import cache as kc
 from rten_tpu_torch.kernels import gemm
 from rten_tpu_torch.kernels import quant as qt
 from rten_tpu_torch.kernels.quant import abs_max_quantize_int8
-from rten_tpu_torch.models import (QuantWeight, ResNet, ResNetConfig,
-                                   TransformerConfig,
-                                   TransformerLM, quantize_weights,
-                                   stack_layer_params)
+from rten_tpu_torch.models import (SAM, Bert, BertConfig, DepthConfig,
+                                   DepthEstimator, EncoderDecoderConfig,
+                                   EncoderDecoderLM, QuantWeight, ResNet,
+                                   ResNetConfig, SAMConfig,
+                                   SegmentationConfig, Segmenter, TTSConfig,
+                                   TextToSpeech, TransformerConfig,
+                                   TransformerLM, ViT, ViTConfig,
+                                   quantize_weights, stack_layer_params)
 from rten_tpu_torch.models import moe
 from rten_tpu_torch.models.transformer import int4_takes_kernel
 from rten_tpu_torch.runtime import Model, RunOptions
@@ -827,46 +855,50 @@ def kv_append_inputs():
         for dtype in (torch.float32, torch.bfloat16))
 
 
+def _kv_append_case(timer, label, k, v, lengths, kv):
+    """K5 on one float cache ``kv``: bit-exact against the plain version,
+    timed beside ``index_put_``, and one CUDA kernel a call (profiler).
+    Bound: the f32 rows read, the cache rows and the lengths once."""
+    b, kvh, _, d = k.shape
+    f, cap = kvh * d, kv.shape[1]
+    kv1, kv2 = kv.clone(), kv.clone()
+    call = lambda: kc.kv_append(kv1, k, v, lengths)
+    call()
+    kc.kv_append_plain(kv2, k, v, lengths)
+    torch.cuda.synchronize()
+    err = (kv1.float() - kv2.float()).abs().max().item()
+    wide = kc.kv_append_wide(d, kv1, k.reshape(b, f), v.reshape(b, f))
+    print(f"kv_append ({label}): max_abs_err {err} (bit-exact required); "
+          f"{'wide' if wide else 'narrow'} instance")
+    check(torch.equal(kv1, kv2), f"K5 not bit-exact at {label}")
+    bms, by = bound_ms(2 * b * f * 4 + b * 2 * f * kv.element_size() + b * 4)
+    rows = torch.stack([k.reshape(b, f), v.reshape(b, f)],
+                       dim=1).to(kv.dtype)
+    idx = (torch.arange(b, device="cuda"), lengths.clamp(0, cap - 1).long())
+    r = dict(max_abs_err=err, ms=timer(call),
+             plain_ms=timer(lambda: kc.kv_append_plain(kv2, k, v, lengths)),
+             bound_ms=bms, bound_by=by,
+             library_ms=timer(lambda: kv1.index_put_(idx, rows)))
+    # The profiler after the timings, as kv_group_launch does.
+    r["device_launches"] = n = device_launches(call)
+    print(f"kv_append ({label}): {n} CUDA kernel(s) a call; kernel_ms "
+          f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms {bms:.4f} "
+          f"library_ms {r['library_ms']:.4f} (index_put_)")
+    check(n == 1 or n == "not measured",
+          f"K5 launched {n} CUDA kernels a call at {label}, not one")
+    return r
+
+
 def check_kv_append(timer):
     """K5 at path (A)'s shapes on an f32 cache (the entry) and path (C)'s
     bf16 cache (the entry's ``bf16_*`` keys; :func:`kv_append_inputs`):
     each bit-exact against the plain version, timed beside ``index_put_``,
     and one CUDA kernel a call (profiler)."""
     k, v, lengths, caches = kv_append_inputs()
-    b, kvh, _, d = k.shape
-    f = kvh * d
     entry = dict(name="kv_append", source=APPEND_SOURCE,
                  replaces="rten_tpu/kernels/cache.py:32")
     for (dtype, kv), key in zip(caches, ("", "bf16_")):
-        cap = kv.shape[1]
-        kv1, kv2 = kv.clone(), kv.clone()
-        call = lambda: kc.kv_append(kv1, k, v, lengths)
-        call()
-        kc.kv_append_plain(kv2, k, v, lengths)
-        torch.cuda.synchronize()
-        err = (kv1.float() - kv2.float()).abs().max().item()
-        wide = kc.kv_append_wide(d, kv1, k.reshape(b, f), v.reshape(b, f))
-        print(f"kv_append ({dtype}): max_abs_err {err} (bit-exact "
-              f"required); {'wide' if wide else 'narrow'} instance")
-        check(torch.equal(kv1, kv2), f"K5 not bit-exact on {dtype}")
-        item = kv.element_size()
-        bms, by = bound_ms(2 * b * f * 4 + b * 2 * f * item + b * 4)
-        rows = torch.stack([k.reshape(b, f), v.reshape(b, f)],
-                           dim=1).to(dtype)
-        idx = (torch.arange(b, device="cuda"),
-               lengths.clamp(0, cap - 1).long())
-        r = dict(max_abs_err=err, ms=timer(call),
-                 plain_ms=timer(lambda: kc.kv_append_plain(kv2, k, v,
-                                                           lengths)),
-                 bound_ms=bms, bound_by=by,
-                 library_ms=timer(lambda: kv1.index_put_(idx, rows)))
-        # The profiler after the timings, as kv_group_launch does.
-        r["device_launches"] = n = device_launches(call)
-        print(f"kv_append ({dtype}): {n} CUDA kernel(s) a call; kernel_ms "
-              f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
-              f"{bms:.4f} library_ms {r['library_ms']:.4f} (index_put_)")
-        check(n == 1 or n == "not measured",
-              f"K5 launched {n} CUDA kernels a call on {dtype}, not one")
+        r = _kv_append_case(timer, str(dtype), k, v, lengths, kv)
         entry.update({key + name: x for name, x in r.items()})
     return entry
 
@@ -3876,6 +3908,442 @@ def spec_card_against_cpu(model, weights):
     return launches
 
 
+# -- the other model families: (M) Whisper-small, (N) BERT-base, (O) -----------
+
+# Path (M), tools/bench_whisper.py's configuration: Whisper-small at batch 8
+# over 30 s of log-mel frames (3000, 1500 positions after the conv), 64
+# greedy tokens in bursts of 16. generate's first step and four whole
+# bursts: 65 decode steps (the last burst's overshoot is dropped).
+WHISPER_BATCH = 8
+WHISPER_FRAMES = 3000
+WHISPER_TOKENS = 64
+WHISPER_BURST = 16
+WHISPER_STEPS = 1 + -(-(WHISPER_TOKENS - 1) // WHISPER_BURST) * WHISPER_BURST
+WHISPER_TIMED_STEPS = 16           # the timed decode burst
+# (M) card against CPU: full width at 2 encoder and 2 decoder layers,
+# batch 2 (no group: K6 and G2 in their fused forms), 400 frames, 8 tokens.
+# The f32 cache: f32 throughout with TF32 off, so (A)'s F32_PATH_LOGIT_TOL.
+# The int8 cache: an f32 sum in another order that carries a K or V value
+# across an int8 rounding moves it by a step of its head's scale, as the
+# int8 GPT-2 paths' caches: their PATH_LOGIT_TOL. A token may differ only
+# after a step whose CPU top-2 margin is below twice the tolerance.
+WHISPER_CPU = dict(layers=2, batch=2, frames=400, tokens=8)
+# (N) BERT-base: batch 32 x 128 tokens with right padding; card against CPU
+# at 2 layers, batch 4. f32: (A)'s tolerance. Dynamic int8 at M 512 rows:
+# a flipped int8 rounding of an activation under the per-tensor scale, as
+# on the int8 paths: PATH_LOGIT_TOL.
+BERT_BATCH, BERT_SEQ = 32, 128
+# (O): f32 throughout with TF32 off, card against CPU at reduced depth:
+# within F32_PATH_LOGIT_TOL of max |out| (each output's own scale).
+VISION_REL_TOL = F32_PATH_LOGIT_TOL
+# K5, K6, K7, G1 (int8 scores) and G2 at Whisper's decode shape: B 8, 12
+# heads of 64, lives 1-64 (64 tokens decoded), capacity 448 (512 for G1).
+W_LIVES = (1, 65)
+W_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+          "library_ms", "device_launches")
+
+
+def whisper_features(b, frames, seed=0):
+    """Random log-mel-like features [B, frames, 80] on the CPU (both
+    devices' runs take the same values)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((b, frames, 80), generator=g)
+
+
+def whisper_greedy(model, params, feats, cross, quantized, steps,
+                   capacity=None, forced=None):
+    """``steps`` one-token decode steps from the start token (1) over a new
+    cache: greedy, or teacher-forced by ``forced`` [steps, B]. Returns
+    (the last-position logits of each step on the CPU [B, steps, V], the
+    tokens fed after each step)."""
+    dev = feats.device
+    cache = model.new_cache(feats.shape[0], capacity, quantized=quantized,
+                            device=dev)
+    cur = torch.ones((feats.shape[0],), dtype=torch.int64, device=dev)
+    rows, fed = [], []
+    for i in range(steps):
+        logits, cache = model.decode(params, cur[:, None], cross, cache)
+        rows.append(logits[:, -1].cpu())
+        cur = (forced[i].to(dev) if forced is not None
+               else torch.argmax(logits[:, -1], dim=-1))
+        fed.append(cur.cpu())
+    return torch.stack(rows, 1), torch.stack(fed)
+
+
+def whisper_decode_ms(model, params, cross, quantized, capacity=None,
+                      steps=WHISPER_TIMED_STEPS):
+    """Device time a greedy decode step (CUDA events around ``steps``
+    steps after the first, the host's enqueue included: eager PyTorch)."""
+    b, dev = cross[0][0].shape[0], cross[0][0].device
+    cache = model.new_cache(b, capacity, quantized=quantized, device=dev)
+    cur = torch.ones((b, 1), dtype=torch.int64, device=dev)
+    logits, cache = model.decode(params, cur, cross, cache)
+    cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        logits, cache = model.decode(params, cur, cross, cache)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def event_ms(fn):
+    """Device time of one call of ``fn`` (CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def whisper_paths(launches, timer):
+    """Path (M): Whisper-small (``EncoderDecoderConfig.whisper_small()``,
+    random ``init_params(0)``: no checkpoint is in the repository) through
+    ``generate(start_token=1, max_tokens=64, burst=16)`` at batch 8 over
+    3000 frames, on an f32 cache and on an int8 cache: encode ms, the
+    generate's wall time and tokens/s, a timed decode burst (ms a step,
+    tokens/s) and the card's peak memory; each decode step must launch K5
+    and K6 (f32) or K7 and G2 (int8, capacity 448) once a layer and no
+    other kernel of the repository (no F1 at head_dim 64, no G1). Then
+    (M-512): decode steps on ``new_cache(8, capacity=512,
+    quantized=True)``: K7 and G1 with int8 scores once a layer."""
+    model = EncoderDecoderLM(EncoderDecoderConfig.whisper_small())
+    cfg = model.config
+    t0 = time.perf_counter()
+    params = model.init_params(0, device="cuda")
+    print(f"Whisper-small weights ({param_bytes(params) / 2**20:.1f} MiB "
+          f"f32): {time.perf_counter() - t0:.1f} s")
+    feats = whisper_features(WHISPER_BATCH, WHISPER_FRAMES).cuda()
+    model.generate(params, feats, 1, max_tokens=2)   # warm-up, encode too
+    enc_ms, cross = event_ms(lambda: model.cross_kv(
+        params, model.encode(params, feats)))
+    print(f"path (M) encode + cross K/V, B {WHISPER_BATCH} x "
+          f"{WHISPER_FRAMES} frames ({cross[0][0].shape[2]} positions): "
+          f"{enc_ms:.3f} ms")
+    n = cfg.n_dec_layers
+    kinds = {"whisper_f32": (False, None, {"kv_append": n,
+                                           "decode_attn_float": n}),
+             "whisper_int8": (True, None, {"kv_append_int8": n,
+                                           "decode_attn_fused_int8": n}),
+             "whisper_int8_512": (True, 512, {
+                 "kv_append_int8": n, "decode_attn_grouped_int8": n,
+                 "decode_attn_grouped_int8.int8_scores": n})}
+    for path, (quantized, capacity, per_step) in kinds.items():
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        if capacity is None:
+            t0 = time.perf_counter()
+            tokens = model.generate(params, feats, 1,
+                                    max_tokens=WHISPER_TOKENS,
+                                    quantized_cache=quantized,
+                                    burst=WHISPER_BURST)
+            wall = time.perf_counter() - t0
+            steps = WHISPER_STEPS
+            check(tokens.shape == (WHISPER_BATCH, WHISPER_TOKENS)
+                  and tokens.min() >= 0 and tokens.max() < cfg.vocab_size,
+                  f"path {path}: generate gave tokens of shape "
+                  f"{tokens.shape} outside the vocabulary")
+            print(f"path {path}: generate of {WHISPER_TOKENS} tokens x "
+                  f"{WHISPER_BATCH} in {wall:.3f} s (encode included): "
+                  f"{WHISPER_BATCH * WHISPER_TOKENS / wall:.1f} tokens/s; "
+                  f"first tokens {tokens[0, :8].tolist()}")
+        else:
+            logits, _ = whisper_greedy(model, params, feats, cross, True,
+                                       WHISPER_TIMED_STEPS + 1, capacity)
+            steps = WHISPER_TIMED_STEPS + 1
+            check(bool(torch.isfinite(logits).all()),
+                  f"path {path}: logits not finite")
+        counts = launches[path] = kernels.launch_counts()
+        want = {k: c * steps for k, c in per_step.items()}
+        print(f"path {path}: launches over {steps} decode steps "
+              f"{nonzero(counts)}")
+        check(nonzero(counts) == want, f"path {path}: launches "
+              f"{nonzero(counts)}, expected {want}")
+        ms = whisper_decode_ms(model, params, cross, quantized, capacity)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"path {path}: decode {ms:.3f} ms a step at batch "
+              f"{WHISPER_BATCH} ({WHISPER_BATCH * 1e3 / ms:.1f} tokens/s); "
+              f"peak memory {peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f}"
+              f" above the {held / 2**30:.2f} held before it (the weights, "
+              f"the timed cross K/V, earlier phases' tensors)")
+    del params, cross
+    torch.cuda.empty_cache()
+    whisper_card_against_cpu()
+
+
+def whisper_card_against_cpu():
+    """(M) card against CPU: Whisper-small's width at 2 + 2 layers, batch 2,
+    400 frames, 8 decode steps on an f32 and an int8 cache, the card
+    greedy and the CPU (plain kernels) teacher-forced by the card's
+    tokens; logits within WHISPER_CPU's tolerances, tokens equal except
+    after a near-tie, and the card's launches K5 + K6 (f32) or K7 + G2
+    (int8) once a layer and step."""
+    c = WHISPER_CPU
+    model = EncoderDecoderLM(EncoderDecoderConfig.whisper_small(
+        n_enc_layers=c["layers"], n_dec_layers=c["layers"]))
+    feats = whisper_features(c["batch"], c["frames"], seed=1)
+    params = {dev: model.init_params(0, device=dev)
+              for dev in ("cuda", "cpu")}
+    for quantized, tol in ((False, F32_PATH_LOGIT_TOL),
+                           (True, PATH_LOGIT_TOL)):
+        out, forced = {}, None
+        for dev in ("cuda", "cpu"):
+            p, f = params[dev], feats.to(dev)
+            kernels.reset_launch_counts()
+            cross = model.cross_kv(p, model.encode(p, f))
+            out[dev] = whisper_greedy(model, p, f, cross, quantized,
+                                      c["tokens"], forced=forced)
+            if forced is None:                 # the card's run, first
+                forced, counts = out[dev][1], nonzero(kernels.launch_counts())
+        label = "int8" if quantized else "f32"
+        steps = c["layers"] * c["tokens"]
+        want = ({"kv_append_int8": steps, "decode_attn_fused_int8": steps}
+                if quantized else {"kv_append": steps,
+                                   "decode_attn_float": steps})
+        check(counts == want, f"(M) {label} card against CPU: card "
+              f"launches {counts}, expected {want}")
+        card, cpu = out["cuda"][0], out["cpu"][0]
+        err = (card - cpu).abs().max().item()
+        top2 = cpu.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+        same = (cpu.argmax(-1) == forced.T) | ~clear
+        print(f"(M) {label} cache card against CPU ({c['layers']} + "
+              f"{c['layers']} layers, B {c['batch']}, {c['frames']} frames, "
+              f"{c['tokens']} steps): max |logit diff| {err:.3e} (tol "
+              f"{tol:.0e}, max |logit| {cpu.abs().max().item():.3f}); "
+              f"tokens {forced.T.tolist()}; card launches {counts}")
+        check(bool(torch.isfinite(card).all()) and err <= tol,
+              f"(M) {label} card against CPU: logits differ by {err:.3e}")
+        check(bool(same.all()), f"(M) {label} card against CPU: a token "
+              f"differs where the CPU's top-2 margin exceeds {2 * tol}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def bert_inputs(b, s, vocab, seed=0):
+    """Token ids with right padding (lengths s/4..s, row 0 whole; id 0 past
+    each length), the mask and segment ids (question 0, context 1 from
+    s/4), on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(s // 4, s + 1, (b,), generator=g)
+    lengths[0] = s
+    mask = (torch.arange(s)[None] < lengths[:, None]).to(torch.int32)
+    ids = torch.randint(1, vocab, (b, s), generator=g) * mask
+    types = (torch.arange(s)[None] >= s // 4).to(torch.int32).expand(b, s)
+    return ids, mask, types
+
+
+def bert_heads(model, params, ids, mask, types):
+    return (model.pooled(params, ids, mask),
+            *model.qa_spans(params, ids, mask, token_type_ids=types),
+            model.mean_embedding(params, ids, mask))
+
+
+def bert_path(launches, timer):
+    """Path (N): BERT-base (``BertConfig()``, bert-base-uncased's shape,
+    random ``init_params(0)``) at batch 32 x 128 tokens with right
+    padding, in f32 and dynamic int8 (``quantize_weights(params,
+    "int8")``): ``pooled``, ``qa_spans`` and ``mean_embedding`` finite and
+    of their shapes, sequences/s of ``pooled`` (median of 5 timed
+    forwards), then card against CPU at 2 layers, batch 4."""
+    model = Bert(BertConfig())
+    t0 = time.perf_counter()
+    weights = {"f32": model.init_params(0, device="cuda")}
+    weights["int8"] = quantize_weights(weights["f32"], "int8")
+    print(f"BERT-base f32 and int8 weights: {time.perf_counter() - t0:.1f} "
+          f"s")
+    ids, mask, types = (t.cuda() for t in bert_inputs(
+        BERT_BATCH, BERT_SEQ, model.config.vocab_size))
+    for kind, params in weights.items():
+        kernels.reset_launch_counts()
+        outs = bert_heads(model, params, ids, mask, types)
+        launches[f"bert_{kind}"] = kernels.launch_counts()
+        shapes = [tuple(o.shape) for o in outs]
+        check(shapes == [(BERT_BATCH, 768), (BERT_BATCH, BERT_SEQ),
+                         (BERT_BATCH, BERT_SEQ), (BERT_BATCH, 768)]
+              and all(bool(torch.isfinite(o).all()) for o in outs),
+              f"path (N) {kind}: heads of shapes {shapes} or not finite")
+        ms = timer(lambda: model.pooled(params, ids, mask), reps=5)
+        print(f"path (N) BERT-base {kind}, B {BERT_BATCH} x {BERT_SEQ}: "
+              f"pooled {ms:.3f} ms, {BERT_BATCH * 1e3 / ms:.1f} "
+              f"sequences/s; launches of the repository's kernels "
+              f"{nonzero(launches[f'bert_{kind}'])}")
+    del weights
+    torch.cuda.empty_cache()
+    small = Bert(BertConfig(n_layers=2))
+    f32 = {dev: small.init_params(0, device=dev) for dev in ("cuda", "cpu")}
+    inputs = bert_inputs(4, BERT_SEQ, small.config.vocab_size, seed=1)
+    for kind, tol in (("f32", F32_PATH_LOGIT_TOL), ("int8", PATH_LOGIT_TOL)):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            p = (f32[dev] if kind == "f32"
+                 else quantize_weights(f32[dev], "int8"))
+            outs[dev] = [o.cpu() for o in bert_heads(
+                small, p, *(t.to(dev) for t in inputs))]
+        errs = [(a - b).abs().max().item()
+                for a, b in zip(outs["cuda"], outs["cpu"])]
+        print(f"(N) {kind} card against CPU (2 layers, B 4 x {BERT_SEQ}): "
+              f"max |diff| pooled {errs[0]:.3e}, start {errs[1]:.3e}, end "
+              f"{errs[2]:.3e}, mean embedding {errs[3]:.3e} (tol {tol:.0e})")
+        check(max(errs) <= tol, f"(N) {kind} card against CPU: {errs}")
+
+
+def held(label, card, cpu):
+    """Card output against the CPU's within VISION_REL_TOL of max |out|."""
+    card, cpu = card.cpu(), cpu.cpu()
+    err = (card - cpu).abs().max().item()
+    tol = VISION_REL_TOL * max(cpu.abs().max().item(), 1e-30)
+    print(f"(O) {label} card against CPU: max |diff| {err:.3e} (tol "
+          f"{tol:.3e})")
+    check(card.shape == cpu.shape and bool(torch.isfinite(card).all())
+          and err <= tol, f"(O) {label} card against CPU differs")
+
+
+def family_forward(label, timer, fn, shape):
+    """One forward of a family on the card: its shape, finite, timed
+    (median of 5)."""
+    out = fn()
+    first = out[0] if isinstance(out, tuple) else out
+    check(tuple(first.shape) == shape and bool(torch.isfinite(first).all()),
+          f"(O) {label}: output of shape {tuple(first.shape)}, expected "
+          f"{shape}, or not finite")
+    ms = timer(fn, reps=5)
+    print(f"path (O) {label}: {ms:.3f} ms a forward")
+    return ms
+
+
+def vision_tts_paths(launches, timer):
+    """Path (O): one forward each at the reference's default configs with
+    random weights: ViT-S/16 ``classify`` and ``DepthEstimator.predict``
+    at batch 32, 224 x 224; SAM (ViT-S/16 encoder) at batch 4 with 3 of 8
+    points; the ASPP segmenter on ResNet-50 at batch 8, 224 x 224;
+    ``TextToSpeech.synthesize`` at batch 8 x 64 phonemes. Each also card
+    against CPU at reduced depth (ViTs of 2 layers, ResNet-50 at batch 1,
+    TTS of 2 layers: TTS stage by stage at the card's durations)."""
+    g = torch.Generator().manual_seed(2)
+    images = torch.randn((32, 3, 224, 224), generator=g)
+    kernels.reset_launch_counts()
+    vit = ViT(ViTConfig())
+    p = vit.init_params(0, device="cuda")
+    x = images.cuda()
+    family_forward("ViT-S/16 classify, B 32", timer,
+                   lambda: vit.classify(p, x), (32, 1000))
+    depth = DepthEstimator(DepthConfig())
+    p = depth.init_params(0, device="cuda")
+    family_forward("DepthEstimator, B 32", timer,
+                   lambda: depth.predict(p, x), (32, 224, 224))
+    sam = SAM(SAMConfig())
+    p = sam.init_params(0, device="cuda")
+    pts = torch.rand((4, 8, 2), generator=g)
+    labels = torch.randint(0, 2, (4, 8), generator=g)
+    n_pts = torch.full((4,), 3)
+    prompt = [t.cuda() for t in (images[:4], pts, labels, n_pts)]
+    family_forward("SAM, B 4, 3 points", timer,
+                   lambda: sam.predict(p, *prompt), (4, 224, 224))
+    seg = Segmenter(SegmentationConfig())
+    p = seg.init_params(0, device="cuda")
+    family_forward("segmenter (ResNet-50 + ASPP), B 8", timer,
+                   lambda: seg.forward(p, x[:8]), (8, 21, 224, 224))
+    tts = TextToSpeech(TTSConfig())
+    p = tts.init_params(0, device="cuda")
+    phonemes = torch.randint(0, 256, (8, 64), generator=g)
+    lengths = torch.randint(16, 65, (8,), generator=g)
+    ph, ln = phonemes.cuda(), lengths.cuda()
+    family_forward("TTS synthesize, B 8 x 64 phonemes", timer,
+                   lambda: tts.synthesize(p, ph, ln), (8, 512 * 64))
+    launches["families"] = kernels.launch_counts()
+    print(f"path (O): launches of the repository's kernels "
+          f"{nonzero(launches['families'])}")
+    del p, x
+    torch.cuda.empty_cache()
+
+    def both(model):
+        return {dev: model.init_params(0, device=dev)
+                for dev in ("cuda", "cpu")}
+
+    small = ViTConfig(n_layers=2)
+    vit = ViT(small)
+    ps = both(vit)
+    held("ViT-S/16 at 2 layers, B 2",
+         *(vit.classify(ps[d], images[:2].to(d)) for d in ("cuda", "cpu")))
+    depth = DepthEstimator(DepthConfig(vit=ViTConfig(n_layers=2,
+                                                     use_cls_token=False)))
+    ps = both(depth)
+    held("DepthEstimator at 2 layers, B 2",
+         *(depth.predict(ps[d], images[:2].to(d)) for d in ("cuda", "cpu")))
+    sam = SAM(SAMConfig(vit=ViTConfig(n_layers=2, use_cls_token=False)))
+    ps = both(sam)
+    outs = [sam.predict(ps[d], *(t[:1].to(d) for t in (images, pts, labels,
+                                                         n_pts)))
+            for d in ("cuda", "cpu")]
+    held("SAM masks at 2 encoder layers, B 1", outs[0][0], outs[1][0])
+    held("SAM IoU at 2 encoder layers, B 1", outs[0][1], outs[1][1])
+    ps = both(seg)
+    held("segmenter logits (ResNet-50), B 1",
+         *(seg.forward(ps[d], images[:1].to(d)) for d in ("cuda", "cpu")))
+    tts = TextToSpeech(TTSConfig(n_layers=2))
+    ps = both(tts)
+    hidden = {d: tts.encode(ps[d], phonemes[:2].to(d), lengths[:2].to(d))
+              for d in ("cuda", "cpu")}
+    held("TTS encoder at 2 layers, B 2", hidden["cuda"], hidden["cpu"])
+    dur = {d: tts.durations(ps[d], hidden[d]).cpu() for d in hidden}
+    print(f"(O) TTS durations equal on both devices: "
+          f"{torch.equal(dur['cuda'], dur['cpu'])}")
+    mel = {}
+    for d in hidden:
+        frames, fmask, _ = tts.length_regulate(hidden[d], dur["cuda"].to(d),
+                                               lengths[:2].to(d))
+        mel[d] = tts.mel(ps[d], frames, fmask)
+    held("TTS mel at the card's durations", mel["cuda"], mel["cpu"])
+    held("TTS waveform at the card's durations",
+         *(tts.vocode(ps[d], mel[d]) for d in ("cuda", "cpu")))
+
+
+def whisper_kernel_rows(timer):
+    """K5, K6, K7, G1 (int8 scores) and G2 at Whisper's decode shape (B 8,
+    12 heads of 64, lives 1-64; capacity 448, and 512 for G1), each against
+    its plain version and timed as at its home shape: the ``w_*`` keys of
+    its entry, by (name, mode)."""
+    b, h, d = WHISPER_BATCH, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(31)
+    q = torch.randn((b, h, d), device="cuda", generator=g)
+    lengths = _decode_lengths(g, b, W_LIVES)
+    kv = torch.randn((b, 448, 2, h * d), device="cuda", generator=g)
+    shape = "(M): B 8, 12 heads of 64, capacity 448, lives 1-64"
+    rows = {("decode_attn_float", None): _k6_case(
+        timer, f"decode_attn_float {shape}, f32 cache", q, kv, lengths)}
+    k, v = _decode_rows(g, b, h, d)
+    rows[("kv_append", None)] = _kv_append_case(timer, shape, k, v,
+                                                lengths - 1, kv)
+    del kv
+    rows[("kv_append_int8", None)] = _kv_append_int8_case(
+        timer, shape, b, h, d, 448, W_LIVES, False, 32)
+    rows[("decode_attn_fused_int8", None)] = check_int8_decode(
+        timer, "fused", b=b, cap=448, lives=W_LIVES, h=h, kvh=h, d=d)
+    rows[("decode_attn_grouped_int8", "int8_scores")] = check_int8_decode(
+        timer, "int8_scores", b=b, cap=512, lives=W_LIVES, h=h, kvh=h, d=d)
+    return {key: {f"w_{k}": r[k] for k in W_KEYS if k in r}
+            for key, r in rows.items()}
+
+
+# Each (name, mode) row's launches on path (M): the path that runs it.
+M_HOME = {("kv_append", None): "whisper_f32",
+          ("decode_attn_float", None): "whisper_f32",
+          ("kv_append_int8", None): "whisper_int8",
+          ("decode_attn_fused_int8", None): "whisper_int8",
+          ("decode_attn_grouped_int8", "int8_scores"): "whisper_int8_512"}
+
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3966,6 +4434,10 @@ def main():
     entry_of(results, "decode_attn_grouped_int8", "exact").update(prefixed(
         check_int8_decode(timer, "exact", b=16, cap=1024, lives=(64, 97),
                           bf16_q=True), "l_"))
+    # K5, K6, K7, G1 (int8 scores) and G2 at path (M)'s decode shape: the
+    # ``w_*`` keys of their entries.
+    for (name, mode), row in whisper_kernel_rows(timer).items():
+        entry_of(results, name, mode).update(row)
     for r in results + printed:
         print(f"{r['name']}{' (' + r['mode'] + ')' if 'mode' in r else ''}: "
               f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
@@ -4112,6 +4584,12 @@ def main():
     stamp("graph runtime (J)")
     http_serve_path(launches, smi, timer)
     stamp("HTTP server (K)")
+    whisper_paths(launches, timer)
+    stamp("Whisper-small (M), (M-512), (M) card against CPU")
+    bert_path(launches, timer)
+    stamp("BERT-base (N)")
+    vision_tts_paths(launches, timer)
+    stamp("ViT, depth, SAM, segmenter and TTS (O)")
 
     # Each kernel reports its launches on the path it was ported for; V1's
     # entries per mode: path (G) for the grouped entry (float on the bf16
@@ -4156,6 +4634,9 @@ def main():
         # Every kernel's launches on path (L), Mixtral-8x7B (0 where the
         # reference's dispatch does not take it there).
         r["l_launches"] = launches["mixtral_int8"].get(key, 0)
+        if (r["name"], r.get("mode")) in M_HOME:
+            # K5, K6, K7, G1 (int8 scores) and G2 on path (M) / (M-512).
+            r["m_launches"] = launches[M_HOME[r["name"], r.get("mode")]][key]
     keys = ("name", "route", "source", "replaces", "launches", "path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -4178,7 +4659,8 @@ def main():
              "gqa_device_launches", "nz_max_abs_err", "nz_ms",
              "nz_plain_ms", "nz_bound_ms", "nz_device_launches",
              "exact_q_max_abs_err", "exact_q_ms", "exact_q_plain_ms",
-             "m4096", "graph_launches", "k_launches", "l_launches") \
+             "m4096", "graph_launches", "k_launches", "l_launches",
+             "m_launches") + tuple(f"w_{k}" for k in W_KEYS) \
         + tuple(f"m16_l_{w}_{k}" for w, _ in L_GEMMS for k in ENTRY_KEYS) \
         + tuple(f"l_{k}" for k in ENTRY_KEYS)
     print(json.dumps({"kernels": [

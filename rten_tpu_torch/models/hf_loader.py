@@ -1,12 +1,11 @@
-"""Hugging Face checkpoint loaders: map GPT-2 / Llama-family state dicts
-onto the port's parameter trees.
+"""Hugging Face checkpoint loaders: map GPT-2, Llama-family, Mixtral,
+Whisper and BERT state dicts onto the port's parameter trees.
 
-A copy of ``rten_tpu/models/hf_loader.py``'s GPT-2, Llama and Mixtral
-loaders. They return numpy trees, as the reference's do, which
+A copy of ``rten_tpu/models/hf_loader.py``. The loaders return numpy
+trees, as the reference's do, which
 :func:`rten_tpu_torch.models.convert.params_from_numpy` puts on a device.
 Sources accepted: a mapping of tensors or arrays, a module with
-``state_dict()``, or a ``.safetensors`` / torch ``.bin`` file path. The
-Whisper and BERT loaders raise naming their ROADMAP.md items.
+``state_dict()``, or a ``.safetensors`` / torch ``.bin`` file path.
 """
 
 from __future__ import annotations
@@ -14,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .bert import BertConfig
+from .encoder_decoder import EncoderDecoderConfig
 from .transformer import TransformerConfig
 
 
@@ -198,20 +199,137 @@ def load_mixtral(source, config: TransformerConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Not ported yet
+# Whisper (encoder-decoder)
 # ---------------------------------------------------------------------------
 
-def _not_ported(what, item):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                                  f"Queue 1, {item})")
-    fn.__name__ = what
-    return fn
+def whisper_config_from_hf(hf_config) -> EncoderDecoderConfig:
+    return EncoderDecoderConfig(
+        vocab_size=hf_config.vocab_size,
+        n_enc_layers=hf_config.encoder_layers,
+        n_dec_layers=hf_config.decoder_layers,
+        n_heads=hf_config.encoder_attention_heads,
+        d_model=hf_config.d_model,
+        d_ff=hf_config.encoder_ffn_dim,
+        n_mels=hf_config.num_mel_bins,
+        max_source_len=hf_config.max_source_positions,
+        max_target_len=hf_config.max_target_positions,
+        conv_frontend=True)
 
 
-whisper_config_from_hf = _not_ported("whisper_config_from_hf",
-                                     "other model families")
-load_whisper = _not_ported("load_whisper", "other model families")
-bert_config_from_hf = _not_ported("bert_config_from_hf",
-                                  "other model families")
-load_bert = _not_ported("load_bert", "other model families")
+def load_whisper(source, config: EncoderDecoderConfig) -> dict:
+    """HF ``WhisperForConditionalGeneration`` state dict →
+    :class:`~rten_tpu_torch.models.encoder_decoder.EncoderDecoderLM`
+    params. torch Conv1d weights [out, in, k] transpose to [k, in, out],
+    nn.Linear [out, in] to [in, out]; Whisper's k_proj has no bias (the
+    model reads bq/bv/bo where present); proj_out is tied to the decoder
+    embedding (the logits head is ``tgt_embed.T``)."""
+    sd = _strip_prefix(load_state_dict(source))
+
+    def attn(p, cross=False):
+        name = "encoder_attn" if cross else "self_attn"
+        return {
+            "wq": sd[f"{p}{name}.q_proj.weight"].T,
+            "bq": sd[f"{p}{name}.q_proj.bias"],
+            "wk": sd[f"{p}{name}.k_proj.weight"].T,
+            "wv": sd[f"{p}{name}.v_proj.weight"].T,
+            "bv": sd[f"{p}{name}.v_proj.bias"],
+            "wo": sd[f"{p}{name}.out_proj.weight"].T,
+            "bo": sd[f"{p}{name}.out_proj.bias"],
+            "ln_scale": sd[f"{p}{name}_layer_norm.weight"],
+            "ln_bias": sd[f"{p}{name}_layer_norm.bias"],
+        }
+
+    def mlp(p):
+        return {
+            "ln_scale": sd[p + "final_layer_norm.weight"],
+            "ln_bias": sd[p + "final_layer_norm.bias"],
+            "w_up": sd[p + "fc1.weight"].T,
+            "b_up": sd[p + "fc1.bias"],
+            "w_down": sd[p + "fc2.weight"].T,
+            "b_down": sd[p + "fc2.bias"],
+        }
+
+    params = {
+        "conv1_w": sd["encoder.conv1.weight"].transpose(2, 1, 0),
+        "conv1_b": sd["encoder.conv1.bias"],
+        "conv2_w": sd["encoder.conv2.weight"].transpose(2, 1, 0),
+        "conv2_b": sd["encoder.conv2.bias"],
+        "src_proj": np.zeros((config.n_mels, config.d_model), np.float32),
+        "src_pos": sd["encoder.embed_positions.weight"],
+        "tgt_embed": sd["decoder.embed_tokens.weight"],
+        "tgt_pos": sd["decoder.embed_positions.weight"],
+        "enc_ln_scale": sd["encoder.layer_norm.weight"],
+        "enc_ln_bias": sd["encoder.layer_norm.bias"],
+        "dec_ln_scale": sd["decoder.layer_norm.weight"],
+        "dec_ln_bias": sd["decoder.layer_norm.bias"],
+        "encoder": [], "decoder": [],
+    }
+    for i in range(config.n_enc_layers):
+        p = f"encoder.layers.{i}."
+        params["encoder"].append({"attn": attn(p), "mlp": mlp(p)})
+    for i in range(config.n_dec_layers):
+        p = f"decoder.layers.{i}."
+        params["decoder"].append({"self_attn": attn(p),
+                                  "cross_attn": attn(p, cross=True),
+                                  "mlp": mlp(p)})
+    return params
+
+
+# ---------------------------------------------------------------------------
+# BERT
+# ---------------------------------------------------------------------------
+
+def bert_config_from_hf(hf_config) -> BertConfig:
+    return BertConfig(
+        vocab_size=hf_config.vocab_size,
+        n_layers=hf_config.num_hidden_layers,
+        n_heads=hf_config.num_attention_heads,
+        d_model=hf_config.hidden_size,
+        d_ff=hf_config.intermediate_size,
+        max_seq_len=hf_config.max_position_embeddings,
+        type_vocab_size=hf_config.type_vocab_size,
+        layer_norm_eps=hf_config.layer_norm_eps)
+
+
+def load_bert(source, config: BertConfig) -> dict:
+    """HF BERT state dict (``BertModel``, ``BertForQuestionAnswering``)
+    → :class:`~rten_tpu_torch.models.bert.Bert` params; a missing pooler
+    becomes the identity, a missing QA head zeros."""
+    sd = _strip_prefix(load_state_dict(source))
+    params = {
+        "tok_embed": sd["embeddings.word_embeddings.weight"],
+        "pos_embed": sd["embeddings.position_embeddings.weight"],
+        "type_embed": sd["embeddings.token_type_embeddings.weight"],
+        "embed_ln_scale": sd["embeddings.LayerNorm.weight"],
+        "embed_ln_bias": sd["embeddings.LayerNorm.bias"],
+        "pooler_w": sd["pooler.dense.weight"].T
+        if "pooler.dense.weight" in sd else np.eye(config.d_model,
+                                                   dtype=np.float32),
+        "pooler_b": sd.get("pooler.dense.bias",
+                           np.zeros(config.d_model, np.float32)),
+        "qa_w": sd.get("qa_outputs.weight",
+                       np.zeros((2, config.d_model), np.float32)).T,
+        "qa_b": sd.get("qa_outputs.bias", np.zeros(2, np.float32)),
+        "layers": [],
+    }
+    for i in range(config.n_layers):
+        p = f"encoder.layer.{i}."
+        params["layers"].append({
+            "wq": sd[p + "attention.self.query.weight"].T,
+            "bq": sd[p + "attention.self.query.bias"],
+            "wk": sd[p + "attention.self.key.weight"].T,
+            "bk": sd[p + "attention.self.key.bias"],
+            "wv": sd[p + "attention.self.value.weight"].T,
+            "bv": sd[p + "attention.self.value.bias"],
+            "wo": sd[p + "attention.output.dense.weight"].T,
+            "bo": sd[p + "attention.output.dense.bias"],
+            "attn_ln_scale": sd[p + "attention.output.LayerNorm.weight"],
+            "attn_ln_bias": sd[p + "attention.output.LayerNorm.bias"],
+            "w_up": sd[p + "intermediate.dense.weight"].T,
+            "b_up": sd[p + "intermediate.dense.bias"],
+            "w_down": sd[p + "output.dense.weight"].T,
+            "b_down": sd[p + "output.dense.bias"],
+            "mlp_ln_scale": sd[p + "output.LayerNorm.weight"],
+            "mlp_ln_bias": sd[p + "output.LayerNorm.bias"],
+        })
+    return params

@@ -2176,3 +2176,82 @@ def test_bf16_int8_activations_on_the_card_match_the_cpu(gen, monkeypatch):
         assert _same_bits(seen["cuda"][0], seen["cpu"][0])
         assert _same_bits(seen["cuda"][1], seen["cpu"][1])
         assert _same_bits(out, ref)
+
+
+# -- Whisper's decode (encoder_decoder.py's dispatch) -------------------------
+
+WHISPER_CASES = [("fused", 448, True), ("grouped_scores", 512, True),
+                 ("grouped", 448, False)]
+
+
+@pytest.mark.parametrize("kind,cap,quantized", WHISPER_CASES, ids=str)
+def test_whisper_shape_decode_kernels_match_plain(gen, kind, cap, quantized):
+    """G2, G1 with int8 scores and K6 at Whisper-small's decode shape (B 8,
+    12 heads of 64, lives 1-64 of capacity 448 or 512), each as the model's
+    dispatch names it, one launch a call, within 1e-5 of max |out| of its
+    plain version (f32 sums in other orders)."""
+    from rten_tpu_torch.models.encoder_decoder import decode_attn_choice
+    b, h, d = 8, 12, 64
+    assert decode_attn_choice(b, cap, quantized)[0] == kind
+    q = torch.randn((b, h, d), device="cuda", generator=gen)
+    lengths = torch.randint(1, 65, (b,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+    if quantized:
+        kv, scales, _ = _cache(gen, b, cap, 1, h, d)
+        wrapper = (at.decode_attn_fused_int8 if kind == "fused"
+                   else at.decode_attn_grouped_int8)
+        plain = (at.decode_attn_fused_int8_plain if kind == "fused"
+                 else at.decode_attn_grouped_int8_plain)
+        args = (q, kv, scales, lengths)
+        kw = {} if kind == "fused" else dict(int8_scores=True)
+    else:
+        kv = torch.randn((b, cap, 2, h * d), device="cuda", generator=gen)
+        wrapper, plain = at.decode_attn_float, at.decode_attn_float_plain
+        args, kw = (q, kv, lengths), {}
+    before = wrapper.launches
+    out = wrapper(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def _whisper_decode_step(model, dev, quantized):
+    """One decode step of ``model`` at batch 8 on ``dev`` after encoding
+    seeded features: (logits on the CPU, the kernels it launched)."""
+    from rten_tpu_torch import kernels
+    params = model.init_params(0, device=dev)
+    feats = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (8, 12, 16)).astype(np.float32)).to(dev)
+    cross = model.cross_kv(params, model.encode(params, feats))
+    cache = model.new_cache(8, quantized=quantized, device=dev)
+    kernels.reset_launch_counts()
+    logits, _ = model.decode(params, torch.ones((8, 1), dtype=torch.int64,
+                                                device=dev), cross, cache)
+    return logits.cpu(), {k: n for k, n in kernels.launch_counts().items()
+                          if n}
+
+
+@pytest.mark.parametrize("kind,cap,quantized", WHISPER_CASES, ids=str)
+def test_whisper_decode_step_launches_its_kernels(gen, kind, cap, quantized):
+    """One decode step of a 2-layer encoder-decoder with 2 heads of 64 at
+    batch 8 launches the append (K5 or K7) and the attention kernel that
+    the dispatch names once a layer, and no other kernel; its logits are
+    within 1e-4 of the same step on the CPU (plain versions)."""
+    from rten_tpu_torch.models import (EncoderDecoderConfig,
+                                       EncoderDecoderLM)
+    model = EncoderDecoderLM(EncoderDecoderConfig.tiny_test(
+        n_heads=2, d_model=128, max_target_len=cap))
+    card, counts = _whisper_decode_step(model, "cuda", quantized)
+    cpu, none = _whisper_decode_step(model, "cpu", quantized)
+    assert none == {}
+    attend = {"fused": "decode_attn_fused_int8",
+              "grouped_scores": "decode_attn_grouped_int8",
+              "grouped": "decode_attn_float"}[kind]
+    modes = ({attend + ".int8_scores": 2} if kind == "grouped_scores"
+             else {})
+    append = "kv_append_int8" if quantized else "kv_append"
+    assert counts == {append: 2, attend: 2, **modes}
+    err = (card - cpu).abs().max().item()
+    assert err <= 1e-4, err

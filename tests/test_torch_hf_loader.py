@@ -3,10 +3,11 @@ against the JAX package's on the CPU: synthetic HF-named GPT-2, Llama and
 Mixtral state dicts, given as a dict, a ``torch.save`` file and a
 ``.safetensors`` file, give the reference's numpy trees bit for bit (a
 Mixtral tree also the reference's logits); the configs from an HF config
-equal the reference's; ``serve --weights`` serves such a file; the
-loaders not ported raise naming their ROADMAP.md items; with
+equal the reference's; ``serve --weights`` serves such a file; with
 ``transformers`` installed, a Mixtral model's logits equal
-``MixtralForCausalLM``'s."""
+``MixtralForCausalLM``'s. Whisper and BERT state dicts (dict, ``torch.save``
+and ``.safetensors``) give the reference's trees bit for bit, and the
+loaded trees the reference's logits and hidden states."""
 
 import argparse
 import dataclasses
@@ -181,16 +182,6 @@ def test_configs_from_hf_equal_reference():
         ptr.TransformerConfig.tiny_llama()
 
 
-@pytest.mark.parametrize("name,item", [
-    ("load_whisper", "other model families"),
-    ("whisper_config_from_hf", "other model families"),
-    ("load_bert", "other model families"),
-    ("bert_config_from_hf", "other model families")])
-def test_unported_loaders_raise_naming_their_item(name, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1, .*{item}"):
-        getattr(hf_loader, name)({})
-
-
 def test_serve_weights_flag_serves_a_state_dict_file(tmp_path, monkeypatch):
     """``serve --weights FILE`` (build_engine) loads an HF GPT-2 file into
     the engine: with the GPT-2 config cut to the synthetic dict's size, its
@@ -322,3 +313,204 @@ def test_mixtral_hf_parity(tmp_path):
         model = ptr.TransformerLM(dataclasses.replace(cfg, moe_impl=impl))
         got, _ = model.forward(params, torch.from_numpy(ids))
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=2e-3)
+
+
+# -- Whisper and BERT ---------------------------------------------------------
+
+WHISPER = dict(vocab_size=56, n_enc_layers=2, n_dec_layers=2, n_heads=4,
+               d_model=32, d_ff=48, n_mels=8, max_source_len=12,
+               max_target_len=16, conv_frontend=True)
+BERT = dict(vocab_size=60, n_layers=2, n_heads=4, d_model=32, d_ff=48,
+            max_seq_len=20)
+
+
+def _whisper_state_dict(seed):
+    """HF ``WhisperForConditionalGeneration`` names under ``model.``
+    (Conv1d [out, in, k], nn.Linear [out, in], k_proj without a bias) and
+    the tied ``proj_out``."""
+    g = torch.Generator().manual_seed(seed)
+    d, f = WHISPER["d_model"], WHISPER["d_ff"]
+
+    def t(*shape):
+        return 0.2 * torch.randn(*shape, generator=g)
+
+    def attn(p, name):
+        out = {f"{p}{name}.{w}_proj.weight": t(d, d) for w in "qkv"}
+        out[f"{p}{name}.out_proj.weight"] = t(d, d)
+        out.update({f"{p}{name}.q_proj.bias": t(d),
+                    f"{p}{name}.v_proj.bias": t(d),
+                    f"{p}{name}.out_proj.bias": t(d),
+                    f"{p}{name}_layer_norm.weight": 1 + t(d),
+                    f"{p}{name}_layer_norm.bias": t(d)})
+        return out
+
+    def mlp(p):
+        return {p + "final_layer_norm.weight": 1 + t(d),
+                p + "final_layer_norm.bias": t(d),
+                p + "fc1.weight": t(f, d), p + "fc1.bias": t(f),
+                p + "fc2.weight": t(d, f), p + "fc2.bias": t(d)}
+
+    m = "model."
+    sd = {m + "encoder.conv1.weight": t(d, WHISPER["n_mels"], 3),
+          m + "encoder.conv1.bias": t(d),
+          m + "encoder.conv2.weight": t(d, d, 3),
+          m + "encoder.conv2.bias": t(d),
+          m + "encoder.embed_positions.weight": t(WHISPER["max_source_len"],
+                                                  d),
+          m + "encoder.layer_norm.weight": 1 + t(d),
+          m + "encoder.layer_norm.bias": t(d),
+          m + "decoder.embed_tokens.weight": t(WHISPER["vocab_size"], d),
+          m + "decoder.embed_positions.weight": t(WHISPER["max_target_len"],
+                                                  d),
+          m + "decoder.layer_norm.weight": 1 + t(d),
+          m + "decoder.layer_norm.bias": t(d)}
+    for i in range(WHISPER["n_enc_layers"]):
+        p = f"{m}encoder.layers.{i}."
+        sd.update({**attn(p, "self_attn"), **mlp(p)})
+    for i in range(WHISPER["n_dec_layers"]):
+        p = f"{m}decoder.layers.{i}."
+        sd.update({**attn(p, "self_attn"), **attn(p, "encoder_attn"),
+                   **mlp(p)})
+    sd["proj_out.weight"] = sd[m + "decoder.embed_tokens.weight"].clone()
+    return sd
+
+
+def _bert_state_dict(seed, heads=True):
+    """HF BERT names under ``bert.`` (nn.Linear [out, in]); with ``heads``
+    the pooler and a QA head (``qa_outputs``, outside the prefix)."""
+    g = torch.Generator().manual_seed(seed)
+    d, f = BERT["d_model"], BERT["d_ff"]
+
+    def t(*shape):
+        return 0.2 * torch.randn(*shape, generator=g)
+
+    b = "bert."
+    sd = {b + "embeddings.word_embeddings.weight": t(BERT["vocab_size"], d),
+          b + "embeddings.position_embeddings.weight": t(BERT["max_seq_len"],
+                                                         d),
+          b + "embeddings.token_type_embeddings.weight": t(2, d),
+          b + "embeddings.LayerNorm.weight": 1 + t(d),
+          b + "embeddings.LayerNorm.bias": t(d)}
+    for i in range(BERT["n_layers"]):
+        p = f"{b}encoder.layer.{i}."
+        for w in ("query", "key", "value"):
+            sd[f"{p}attention.self.{w}.weight"] = t(d, d)
+            sd[f"{p}attention.self.{w}.bias"] = t(d)
+        sd.update({p + "attention.output.dense.weight": t(d, d),
+                   p + "attention.output.dense.bias": t(d),
+                   p + "attention.output.LayerNorm.weight": 1 + t(d),
+                   p + "attention.output.LayerNorm.bias": t(d),
+                   p + "intermediate.dense.weight": t(f, d),
+                   p + "intermediate.dense.bias": t(f),
+                   p + "output.dense.weight": t(d, f),
+                   p + "output.dense.bias": t(d),
+                   p + "output.LayerNorm.weight": 1 + t(d),
+                   p + "output.LayerNorm.bias": t(d)})
+    if heads:
+        sd.update({b + "pooler.dense.weight": t(d, d),
+                   b + "pooler.dense.bias": t(d),
+                   "qa_outputs.weight": t(2, d), "qa_outputs.bias": t(2)})
+    return sd
+
+
+FILE_SOURCES = ["dict", "torch_save", "safetensors"]
+
+
+@pytest.mark.parametrize("source", FILE_SOURCES)
+def test_load_whisper_equals_reference(source, tmp_path):
+    from rten_tpu.models.encoder_decoder import EncoderDecoderConfig as JCfg
+    from rten_tpu_torch.models import EncoderDecoderConfig
+    src = _source(_whisper_state_dict(8), source, tmp_path)
+    got = hf_loader.load_whisper(src, EncoderDecoderConfig(**WHISPER))
+    want = ref_loader.load_whisper(src, JCfg(**WHISPER))
+    _assert_same_tree(got, want)
+    assert got["conv1_w"].shape == (3, 8, 32)
+
+
+@pytest.mark.parametrize("source", FILE_SOURCES)
+def test_load_bert_equals_reference(source, tmp_path):
+    from rten_tpu.models.bert import BertConfig as JCfg
+    from rten_tpu_torch.models import BertConfig
+    src = _source(_bert_state_dict(9), source, tmp_path)
+    got = hf_loader.load_bert(src, BertConfig(**BERT))
+    want = ref_loader.load_bert(src, JCfg(**BERT))
+    _assert_same_tree(got, want)
+
+
+def test_load_bert_without_heads_equals_reference():
+    """A bare ``BertModel`` dict without pooler or QA head: the identity
+    pooler and a zero QA head, as in the reference."""
+    from rten_tpu.models.bert import BertConfig as JCfg
+    from rten_tpu_torch.models import BertConfig
+    sd = _bert_state_dict(10, heads=False)
+    got = hf_loader.load_bert(sd, BertConfig(**BERT))
+    _assert_same_tree(got, ref_loader.load_bert(sd, JCfg(**BERT)))
+    assert np.array_equal(got["pooler_w"], np.eye(32, dtype=np.float32))
+
+
+def test_whisper_and_bert_configs_from_hf_equal_reference():
+    whisper = types.SimpleNamespace(
+        vocab_size=51865, encoder_layers=12, decoder_layers=12,
+        encoder_attention_heads=12, d_model=768, encoder_ffn_dim=3072,
+        num_mel_bins=80, max_source_positions=1500,
+        max_target_positions=448)
+    got = hf_loader.whisper_config_from_hf(whisper)
+    _same_config(got, ref_loader.whisper_config_from_hf(whisper))
+    from rten_tpu_torch.models import EncoderDecoderConfig
+    assert got == EncoderDecoderConfig.whisper_small()
+    bert = types.SimpleNamespace(
+        vocab_size=30522, num_hidden_layers=12, num_attention_heads=12,
+        hidden_size=768, intermediate_size=3072, max_position_embeddings=512,
+        type_vocab_size=2, layer_norm_eps=1e-12)
+    got = hf_loader.bert_config_from_hf(bert)
+    _same_config(got, ref_loader.bert_config_from_hf(bert))
+    from rten_tpu_torch.models import BertConfig
+    assert got == BertConfig()
+
+
+def test_loaded_whisper_logits_match_reference():
+    """The loaded tree through both packages: encoder memory and the
+    logits of a 3-token decode with an f32 cache (biases on q, v and out;
+    none on k), within 1e-5."""
+    from rten_tpu.models import encoder_decoder as jed
+    from rten_tpu_torch.models import EncoderDecoderConfig, EncoderDecoderLM
+    sd = _whisper_state_dict(11)
+    pcfg = EncoderDecoderConfig(**WHISPER)
+    tree = hf_loader.load_whisper(sd, pcfg)
+    jm = jed.EncoderDecoderLM(jed.EncoderDecoderConfig(**WHISPER))
+    pm = EncoderDecoderLM(pcfg)
+    jp = jax.tree_util.tree_map(jax.numpy.asarray, tree)
+    pp = params_from_numpy(tree, device="cpu")
+    rng = np.random.default_rng(2)
+    feats = rng.standard_normal((2, 24, 8)).astype(np.float32)
+    tokens = rng.integers(0, 56, (2, 3))
+    jmem = jm.encode(jp, jax.numpy.asarray(feats))
+    pmem = pm.encode(pp, torch.from_numpy(feats))
+    np.testing.assert_allclose(pmem.numpy(), np.asarray(jmem), rtol=0,
+                               atol=1e-5)
+    want, _ = jm.decode(jp, jax.numpy.asarray(tokens, jax.numpy.int32),
+                        jm.cross_kv(jp, jmem), jm.new_cache(2))
+    got, _ = pm.decode(pp, torch.from_numpy(tokens), pm.cross_kv(pp, pmem),
+                       pm.new_cache(2, device="cpu"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+def test_loaded_bert_hidden_states_match_reference():
+    """The loaded BERT tree (with its QA head) through both packages:
+    hidden states and span logits with a padding mask, within 1e-5."""
+    from rten_tpu.models import bert as jb
+    from rten_tpu_torch.models import Bert, BertConfig
+    tree = hf_loader.load_bert(_bert_state_dict(12), BertConfig(**BERT))
+    jm, pm = jb.Bert(jb.BertConfig(**BERT)), Bert(BertConfig(**BERT))
+    jp = jax.tree_util.tree_map(jax.numpy.asarray, tree)
+    pp = params_from_numpy(tree, device="cpu")
+    ids = np.random.default_rng(3).integers(0, 60, (2, 10))
+    mask = np.ones((2, 10), np.int32)
+    mask[1, 6:] = 0
+    for got, want in zip(
+            pm.qa_spans(pp, torch.from_numpy(ids), torch.from_numpy(mask)),
+            jm.qa_spans(jp, jax.numpy.asarray(ids),
+                        jax.numpy.asarray(mask))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
